@@ -1,0 +1,113 @@
+"""The part of the typed data model the page-OCR path uses.
+
+Copied from ocr_inference_tpu/core/data.py (reference: BDRC/data.py), field
+for field, so configs and results read the same in both packages.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from enum import Enum
+from typing import Optional
+from uuid import UUID, uuid1
+
+import numpy as np
+
+
+class OpStatus(Enum):
+    """Per-stage operation status (reference: BDRC/data.py:17)."""
+
+    SUCCESS = 0
+    FAILED = 1
+
+
+class Encoding(Enum):
+    """Output text encoding (reference: BDRC/data.py:24)."""
+
+    UNICODE = 0
+    WYLIE = 1
+
+
+class CharsetEncoder(Enum):
+    """Charset unit convention of a recognizer (reference: BDRC/data.py:31)."""
+
+    WYLIE = 0
+    STACK = 1
+
+
+def generate_guid(clock_seq: int) -> UUID:
+    """UUID with fixed clock sequence (reference: BDRC/line_detection.py:20)."""
+    return uuid1(clock_seq=clock_seq)
+
+
+@dataclass
+class BBox:
+    """Axis-aligned box, x/y/w/h ints (reference: BDRC/data.py:104)."""
+
+    x: int
+    y: int
+    w: int
+    h: int
+
+    def as_tuple(self) -> tuple[int, int, int, int]:
+        return (self.x, self.y, self.w, self.h)
+
+
+@dataclass
+class Line:
+    """A detected text line (reference: BDRC/data.py:121)."""
+
+    guid: UUID
+    contour: np.ndarray  # (N, 1, 2) int32, cv2 convention
+    bbox: BBox
+    center: tuple[int, int]
+
+
+@dataclass
+class OCRLine:
+    """A recognized text line (reference: BDRC/data.py:131)."""
+
+    guid: UUID
+    text: str
+    encoding: str
+    ctc_conf: Optional[float] = None
+    logits: Optional[list[float]] = None
+    lm_scores: Optional[list[float]] = None
+
+
+@dataclass
+class LineDetectionConfig:
+    """Line segmentation model config (reference: BDRC/data.py:184)."""
+
+    checkpoint: str
+    onnx_file: str
+    architecture: str
+    patch_size: int
+    classes: list[str]
+
+
+@dataclass
+class OCRModelConfig:
+    """Recognizer model config (reference: BDRC/data.py:203)."""
+
+    model_file: str
+    architecture: str
+    input_width: int
+    input_height: int
+    input_layer: str
+    output_layer: str
+    squeeze_channel: bool
+    swap_hw: bool
+    encoder: CharsetEncoder
+    charset: list[str]
+    add_blank: bool
+    version: str
+
+
+@dataclass
+class BatchConfig:
+    """Recognition batching knobs (copy of the JAX BatchConfig): lines are
+    padded into static width buckets and run as batches."""
+
+    width_buckets: tuple[int, ...] = (512, 1024, 2000, 2500, 3000)
+    max_lines_per_batch: int = 64

@@ -1,0 +1,255 @@
+"""Native (C++) geometry library, counterpart of ocr_inference_tpu/native.
+
+``geometry.cpp`` is the port's own copy of the JAX package's library plus
+``ocr_fill_contour`` (the filled-contour rasterizer that replaces
+cv2.drawContours). It builds with g++ at first use into
+``ocr_inference_tpu_torch/_build/`` (named by the source's hash) and loads
+through ctypes. There is no fallback: if the build fails, this raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+_DIR = Path(__file__).resolve().parent
+BUILD_DIR = _DIR.parent / "_build"
+GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+
+_LIB: ctypes.CDLL | None = None
+BUILD_SECONDS: float | None = None
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_F64P = ctypes.POINTER(ctypes.c_double)
+
+
+def build_library() -> Path:
+    """Compile geometry.cpp into _build/libocr_geometry-<hash>.so once per
+    source content and return its path; raises if g++ fails."""
+    global BUILD_SECONDS
+    src = _DIR / "geometry.cpp"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
+    so_path = BUILD_DIR / f"libocr_geometry-{digest.hexdigest()[:16]}.so"
+    if so_path.is_file():
+        return so_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["g++", *GXX_FLAGS, str(src), "-o", tmp], capture_output=True,
+        text=True,
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ failed on geometry.cpp:\n{proc.stderr}")
+    os.replace(tmp, so_path)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return so_path
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(str(build_library()))
+    sig = {
+        "ocr_find_contours": (ctypes.c_int, [
+            _U8P, ctypes.c_int, ctypes.c_int, _I32P, ctypes.c_int64, _I64P,
+            ctypes.c_int]),
+        "ocr_contour_area": (ctypes.c_double, [_I32P, ctypes.c_int]),
+        "ocr_bounding_rect": (None, [_I32P, ctypes.c_int, _I32P]),
+        "ocr_convex_hull": (ctypes.c_int, [_I32P, ctypes.c_int, _I32P]),
+        "ocr_arc_length": (ctypes.c_double, [_I32P, ctypes.c_int,
+                                             ctypes.c_int]),
+        "ocr_approx_poly_dp": (ctypes.c_int, [
+            _I32P, ctypes.c_int, ctypes.c_double, ctypes.c_int, _I32P]),
+        "ocr_min_area_rect": (None, [_I32P, ctypes.c_int, _F64P]),
+        "ocr_line_threshold": (ctypes.c_double, [
+            _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int]),
+        "ocr_pack_line_bits": (None, [
+            _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _U8P,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U64P,
+            _U64P]),
+        "ocr_attempt_height": (ctypes.c_int, [
+            _U64P, _U64P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int]),
+        "ocr_masked_crop": (None, [
+            _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _U64P, _U64P,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _U8P, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]),
+        "ocr_fill_contour": (None, [
+            _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _I32P,
+            ctypes.c_int, ctypes.c_uint8]),
+    }
+    for name, (restype, argtypes) in sig.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    _LIB = lib
+    return lib
+
+
+def _points(contour: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(contour).reshape(-1, 2),
+                                dtype=np.int32)
+
+
+def find_contours(mask: np.ndarray) -> list[np.ndarray]:
+    """One outer contour per 8-connected component, top-down scan order,
+    points as (N, 1, 2) int32 (cv2 convention)."""
+    lib = _lib()
+    if mask.dtype != np.uint8:
+        mask = (mask != 0).astype(np.uint8)
+    mask = np.ascontiguousarray(mask)
+    h, w = mask.shape
+    max_points = int(4 * h * w + 64)
+    max_contours = 65536
+    points = np.empty(max_points * 2, np.int32)
+    offsets = np.empty(max_contours + 1, np.int64)
+    n = lib.ocr_find_contours(
+        mask.ctypes.data_as(_U8P), h, w, points.ctypes.data_as(_I32P),
+        max_points * 2, offsets.ctypes.data_as(_I64P), max_contours,
+    )
+    if n < 0:
+        raise RuntimeError(f"ocr_find_contours overflow (code {n})")
+    return [
+        points[2 * offsets[i]: 2 * offsets[i + 1]].reshape(-1, 1, 2).copy()
+        for i in range(n)
+    ]
+
+
+def line_threshold(mask: np.ndarray, slice_width: int = 20) -> float:
+    """Slice-vote row-grouping threshold (geometry/lines.py
+    get_line_threshold; reference line_detection.py:362-421)."""
+    if mask.dtype != np.uint8:
+        mask = (mask != 0).astype(np.uint8)
+    if mask.ndim != 2:
+        raise ValueError("line_threshold expects a 2-D mask")
+    if mask.strides[1] != 1:
+        mask = np.ascontiguousarray(mask)
+    h, w = mask.shape
+    return float(_lib().ocr_line_threshold(
+        mask.ctypes.data_as(_U8P), h, w, mask.strides[0], slice_width
+    ))
+
+
+def contour_area(contour: np.ndarray) -> float:
+    pts = _points(contour)
+    return float(_lib().ocr_contour_area(pts.ctypes.data_as(_I32P), len(pts)))
+
+
+def bounding_rect(contour: np.ndarray) -> tuple[int, int, int, int]:
+    pts = _points(contour)
+    out = np.empty(4, np.int32)
+    _lib().ocr_bounding_rect(pts.ctypes.data_as(_I32P), len(pts),
+                             out.ctypes.data_as(_I32P))
+    return tuple(int(v) for v in out)
+
+
+def convex_hull(contour: np.ndarray) -> np.ndarray:
+    pts = _points(contour)
+    out = np.empty((len(pts) + 1) * 2, np.int32)
+    n = _lib().ocr_convex_hull(pts.ctypes.data_as(_I32P), len(pts),
+                               out.ctypes.data_as(_I32P))
+    return out[: 2 * n].reshape(-1, 1, 2).copy()
+
+
+def min_area_rect(contour: np.ndarray):
+    """((cx, cy), (w, h), angle_deg) like cv2 5.x minAreaRect."""
+    pts = _points(contour)
+    out = np.empty(5, np.float64)
+    _lib().ocr_min_area_rect(pts.ctypes.data_as(_I32P), len(pts),
+                             out.ctypes.data_as(_F64P))
+    return ((float(out[0]), float(out[1])), (float(out[2]), float(out[3])),
+            float(out[4]))
+
+
+def arc_length(contour: np.ndarray, closed: bool = True) -> float:
+    pts = _points(contour)
+    return float(_lib().ocr_arc_length(pts.ctypes.data_as(_I32P), len(pts),
+                                       1 if closed else 0))
+
+
+def approx_poly_dp(contour: np.ndarray, epsilon: float,
+                   closed: bool = True) -> np.ndarray:
+    """Douglas-Peucker simplification, cv2.approxPolyDP-shaped (N, 1, 2)."""
+    pts = _points(contour)
+    out = np.empty(pts.size, np.int32)
+    n = _lib().ocr_approx_poly_dp(pts.ctypes.data_as(_I32P), len(pts),
+                                  float(epsilon), 1 if closed else 0,
+                                  out.ctypes.data_as(_I32P))
+    return out[: 2 * n].reshape(-1, 1, 2).copy()
+
+
+def fill_contour(mask: np.ndarray, contour: np.ndarray, value: int = 255) -> None:
+    """In place: cv2.drawContours(mask, [contour], -1, value, -1) on a 2-D
+    uint8 mask."""
+    if mask.dtype != np.uint8 or mask.ndim != 2 or mask.strides[1] != 1:
+        raise ValueError("fill_contour needs a 2-D uint8 row-contiguous mask")
+    pts = _points(contour)
+    h, w = mask.shape
+    _lib().ocr_fill_contour(mask.ctypes.data_as(_U8P), h, w, mask.strides[0],
+                            pts.ctypes.data_as(_I32P), len(pts), value)
+
+
+class PackedLineRoi:
+    """Packed-bit state for one line's adaptive-k strip extraction
+    (geometry/lines.py _LineRoi; reference line_detection.py:267-327). Bit
+    rows are LSB-first u64 words; the accepted attempt's masked crop
+    materializes in one fused pass."""
+
+    def __init__(self, roi: np.ndarray, mask: np.ndarray):
+        lib = _lib()
+        if roi.ndim == 2:
+            roi = roi[..., None]
+        h, w, c = roi.shape
+        if roi.dtype != np.uint8 or (c > 1 and roi.strides[2] != 1) \
+                or roi.strides[1] < 0 or roi.strides[0] < 0:
+            raise ValueError("PackedLineRoi needs interleaved uint8")
+        mask = np.ascontiguousarray(mask)
+        self._lib = lib
+        self._roi = roi
+        self.h, self.w, self.c = h, w, c
+        self.nw = (w + 63) // 64
+        self.mask_bits = np.zeros(h * self.nw, np.uint64)
+        self.nz_bits = np.zeros(c * h * self.nw, np.uint64)
+        lib.ocr_pack_line_bits(
+            roi.ctypes.data_as(_U8P), roi.strides[0], roi.strides[1], c,
+            mask.ctypes.data_as(_U8P), mask.strides[0], h, w, self.nw,
+            self.mask_bits.ctypes.data_as(_U64P),
+            self.nz_bits.ctypes.data_as(_U64P),
+        )
+
+    def attempt_height(self, kw: int, kh: int) -> int:
+        return int(self._lib.ocr_attempt_height(
+            self.mask_bits.ctypes.data_as(_U64P),
+            self.nz_bits.ctypes.data_as(_U64P), self.c, self.h, self.nw, kw,
+            kh,
+        ))
+
+    def masked_crop(self, kw: int, kh: int) -> np.ndarray:
+        out = np.empty(self.h * self.w * self.c, np.uint8)
+        oh, ow = ctypes.c_int(0), ctypes.c_int(0)
+        self._lib.ocr_masked_crop(
+            self._roi.ctypes.data_as(_U8P), self._roi.strides[0],
+            self._roi.strides[1], self.c,
+            self.mask_bits.ctypes.data_as(_U64P),
+            self.nz_bits.ctypes.data_as(_U64P), self.h, self.w, self.nw, kw,
+            kh, out.ctypes.data_as(_U8P), ctypes.byref(oh), ctypes.byref(ow),
+        )
+        h2, w2 = oh.value, ow.value
+        if h2 == 0:
+            return np.zeros((0, self.w, self.c), np.uint8)
+        return out[: h2 * w2 * self.c].reshape(h2, w2, self.c).copy()

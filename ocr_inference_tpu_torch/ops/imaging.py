@@ -1,0 +1,254 @@
+"""Dense image ops as plain PyTorch functions on tensors.
+
+Counterpart of ocr_inference_tpu/ops/imaging.py plus the cv2 pixel calls the
+JAX package makes on the host (geometry/lines.py:54-55 warpAffine,
+ops_host.py:58 resize). Every function takes tensors on any device and
+returns tensors on the same device:
+
+- ``rgb_to_gray``: cv2 5.x RGB2GRAY, 15-bit fixed point (imaging.py:42-51);
+- ``gaussian_kernel_1d``: cv2.getGaussianKernel taps;
+- ``adaptive_threshold_gaussian``: the plain version of the binarize kernel
+  (ops/kernels.py), cv2.adaptiveThreshold GAUSSIAN_C 51/13;
+- ``resize_bilinear``: the JAX float resize (imaging.py:138-176) used on
+  page tensors and the detection post chain;
+- ``resize_linear_u8``: cv2.resize INTER_LINEAR on uint8 in cv2's own
+  integer arithmetic (what pad_ocr_line needs, ops_host.py:58);
+- ``warp_affine`` / ``rotate_from_angle``: cv2 5.x warpAffine INTER_LINEAR
+  with a constant border (geometry/lines.py:54-55).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ocr_inference_tpu_torch.core.config import BINARIZE_BLOCK as BLOCK
+from ocr_inference_tpu_torch.core.config import BINARIZE_C
+
+C = float(BINARIZE_C)
+HALF = BLOCK // 2
+
+
+def rgb_to_gray(image: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (...) uint8 gray:
+    ``(R*9798 + G*19235 + B*3735 + 16384) >> 15`` (cv2 5.x, bit-exact)."""
+    img = image.to(torch.int32)
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    return ((r * 9798 + g * 19235 + b * 3735 + 16384) >> 15).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def gaussian_kernel_1d(ksize: int = BLOCK, sigma: float = 0.0) -> np.ndarray:
+    """cv2.getGaussianKernel: sigma<=0 -> 0.3*((ksize-1)*0.5 - 1) + 0.8;
+    float32 taps, as the JAX package computes them."""
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) * 0.5
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+def blur_taps(device: torch.device) -> torch.Tensor:
+    """The 51 float32 taps widened to float64 — the kernel's and the plain
+    version's shared coefficients."""
+    return torch.from_numpy(gaussian_kernel_1d(BLOCK).astype(np.float64)).to(
+        device
+    )
+
+
+def adaptive_threshold_gaussian(gray: torch.Tensor) -> torch.Tensor:
+    """Plain version of the binarize kernel: (..., H, W) uint8 gray ->
+    (..., H, W) uint8 0/255 with cv2.adaptiveThreshold(GAUSSIAN_C, 51, 13)
+    semantics, each image blurred with its own replicate border.
+
+    Arithmetic, step for step as csrc/binarize.cu does it: a 51-tap blur
+    over rows (the vertical pass, ``L @ gray``), then over columns
+    (``@ R``), each tap added in order t = 0..50 as a separately rounded
+    float64 product and sum (no fused multiply-add); then round half to
+    even, clip to 0..255, and 255 where gray > mean - 13. float64 keeps
+    the knife-edge pixels that flip under float32 or TF32 (152 of 640k on
+    the TPU at reduced precision) on cv2's side: the vertical pass is
+    exact in float64 and the horizontal one is off by < 1e-12.
+    """
+    shape = gray.shape
+    h, w = shape[-2], shape[-1]
+    g = gray.reshape(-1, h, w).to(torch.float64)
+    taps = blur_taps(g.device)
+    rows = torch.arange(h, device=g.device)
+    cols = torch.arange(w, device=g.device)
+    acc = None
+    for t in range(BLOCK):
+        idx = (rows + (t - HALF)).clamp(0, h - 1)
+        term = g[:, idx, :] * taps[t]
+        acc = term if acc is None else acc + term
+    vert = acc
+    acc = None
+    for t in range(BLOCK):
+        idx = (cols + (t - HALF)).clamp(0, w - 1)
+        term = vert[:, :, idx] * taps[t]
+        acc = term if acc is None else acc + term
+    mean = torch.round(acc).clamp(0.0, 255.0)
+    out = torch.where(g > mean - C, 255, 0).to(torch.uint8)
+    return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Resize
+# ---------------------------------------------------------------------------
+
+def resize_bilinear(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(H, W[, C]) bilinear resize with the JAX package's float arithmetic
+    (imaging.py:138-176: half-pixel centers, clamped borders, float32,
+    round for integer outputs). Identity at scale 1."""
+    h, w = image.shape[0], image.shape[1]
+    if (h, w) == (height, width):
+        return image
+    dev = image.device
+    img = image.to(torch.float32)
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) * (
+        h / height) - 0.5
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) * (
+        w / width) - 0.5
+    y0f, x0f = torch.floor(ys), torch.floor(xs)
+    wy = torch.where(y0f < 0, 0.0, ys - y0f)
+    wx = torch.where(x0f < 0, 0.0, xs - x0f)
+    y0 = y0f.to(torch.int64).clamp(0, h - 1)
+    y1 = (y0 + 1).clamp(0, h - 1)
+    x0 = x0f.to(torch.int64).clamp(0, w - 1)
+    x1 = (x0 + 1).clamp(0, w - 1)
+    if img.ndim == 3:
+        wx_, wy_ = wx[None, :, None], wy[:, None, None]
+    else:
+        wx_, wy_ = wx[None, :], wy[:, None]
+    top = img[y0][:, x0] * (1 - wx_) + img[y0][:, x1] * wx_
+    bot = img[y1][:, x0] * (1 - wx_) + img[y1][:, x1] * wx_
+    out = top * (1 - wy_) + bot * wy_
+    if not image.dtype.is_floating_point:
+        info = torch.iinfo(image.dtype)
+        out = torch.round(out).clamp(info.min, info.max)
+    return out.to(image.dtype)
+
+
+def _linear_coeffs(dst: int, src: int, clamp_weights: bool, device):
+    """cv2 resize INTER_LINEAR tap indices and 11-bit weights along one axis:
+    ``f = float32((d + 0.5) * src/dst - 0.5)``, ``s = floor(f)``,
+    weights ``rint((1 - f) * 2048)`` and ``rint(f * 2048)`` in float32.
+    cv2 zeroes the fraction at the borders of the horizontal pass only; the
+    vertical pass clamps the row indices and keeps its fraction."""
+    f = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp_weights:
+        lo = s < 0
+        f[lo], s[lo] = 0.0, 0
+        hi = s >= src - 1
+        f[hi], s[hi] = 0.0, src - 1
+    c0 = np.rint((np.float32(1.0) - f) * np.float32(2048.0)).astype(np.int64)
+    c1 = np.rint(f * np.float32(2048.0)).astype(np.int64)
+    s0 = np.clip(s, 0, src - 1)
+    s1 = np.clip(s + 1, 0, src - 1)
+    return [torch.from_numpy(a).to(device) for a in (s0, s1, c0, c1)]
+
+
+def resize_linear_u8(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """cv2.resize(INTER_LINEAR) on a (H, W[, C]) uint8 tensor, in cv2's own
+    integer arithmetic: a horizontal pass with 11-bit weights into int32
+    rows, then the vertical pass as cv2's SIMD path rounds it,
+    ``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16) + 2 >> 2``."""
+    h, w = image.shape[0], image.shape[1]
+    if (h, w) == (height, width):
+        return image.clone()
+    dev = image.device
+    src = image.to(torch.int64)
+    if src.ndim == 2:
+        src = src[..., None]
+    xs0, xs1, a0, a1 = _linear_coeffs(width, w, True, dev)
+    ys0, ys1, b0, b1 = _linear_coeffs(height, h, False, dev)
+    rows = src[:, xs0] * a0[None, :, None] + src[:, xs1] * a1[None, :, None]
+    r0, r1 = rows[ys0], rows[ys1]
+    out = (((r0 >> 4) * b0[:, None, None]) >> 16) + (
+        ((r1 >> 4) * b1[:, None, None]) >> 16)
+    out = ((out + 2) >> 2).clamp(0, 255).to(torch.uint8)
+    return out if image.ndim == 3 else out[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# Affine rotate (cv2.getRotationMatrix2D + warpAffine)
+# ---------------------------------------------------------------------------
+
+def rotation_matrix(center: tuple[float, float], angle_deg: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D with scale 1 (2x3, forward map)."""
+    a = math.radians(angle_deg)
+    alpha, beta = math.cos(a), math.sin(a)
+    cx, cy = center
+    return np.array(
+        [
+            [alpha, beta, (1 - alpha) * cx - beta * cy],
+            [-beta, alpha, beta * cx + (1 - alpha) * cy],
+        ],
+        dtype=np.float64,
+    )
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    """cv2.invertAffineTransform, in float64."""
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[1, 1] * d, m[0, 0] * d
+    a12, a21 = -m[0, 1] * d, -m[1, 0] * d
+    return np.array([
+        [a11, a12, -a11 * m[0, 2] - a12 * m[1, 2]],
+        [a21, a22, -a21 * m[0, 2] - a22 * m[1, 2]],
+    ])
+
+
+def warp_affine(
+    image: torch.Tensor,
+    m: np.ndarray,
+    out_h: int,
+    out_w: int,
+    border_value: float = 0.0,
+) -> torch.Tensor:
+    """cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT) of a (H, W[, C]) uint8
+    tensor; ``m`` is the forward 2x3 map as cv2 takes it. Source
+    coordinates and the bilinear blend run in float32 as cv2 5.x computes
+    them; the result agrees with cv2 to 1 grey level on all pixels and
+    exactly on >= 99.8% of them (tests/test_torch_ops.py)."""
+    dev = image.device
+    inv = torch.from_numpy(
+        _invert_affine(np.asarray(m, np.float64)).astype(np.float32)
+    ).to(dev)
+    h, w = image.shape[0], image.shape[1]
+    src = image if image.ndim == 3 else image[..., None]
+    src = src.to(torch.float32)
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    sx = inv[0, 0] * xs + (inv[0, 1] * ys + inv[0, 2])
+    sy = inv[1, 0] * xs + (inv[1, 1] * ys + inv[1, 2])
+    ix, iy = torch.floor(sx), torch.floor(sy)
+    a = (sx - ix)[..., None]
+    b = (sy - iy)[..., None]
+    ix, iy = ix.to(torch.int64), iy.to(torch.int64)
+
+    def tap(yy, xx):
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        v = src[yy.clamp(0, h - 1), xx.clamp(0, w - 1)]
+        return torch.where(ok[..., None], v, float(border_value))
+
+    p00, p01 = tap(iy, ix), tap(iy, ix + 1)
+    p10, p11 = tap(iy + 1, ix), tap(iy + 1, ix + 1)
+    v0 = p00 + a * (p01 - p00)
+    v1 = p10 + a * (p11 - p10)
+    out = torch.round(v0 + b * (v1 - v0)).clamp(0, 255).to(image.dtype)
+    return out if image.ndim == 3 else out[..., 0]
+
+
+def rotate_from_angle(image: torch.Tensor, angle: float) -> torch.Tensor:
+    """Rotate about (cols/2, rows/2), keeping the canvas, black border
+    (reference: BDRC/line_detection.py:62-76)."""
+    rows, cols = image.shape[0], image.shape[1]
+    m = rotation_matrix((cols / 2, rows / 2), angle)
+    return warp_affine(image, m, rows, cols, border_value=0.0)
