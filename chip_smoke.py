@@ -6,11 +6,18 @@ Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
 geometry library, started together), then runs four phases and prints one
 JSON line for each:
 
-1. build   — seconds of each compiler;
+1. build   — seconds of each compiler; registers and spills of each
+             kernel as ptxas reports them;
 2. kernels — each kernel wrapper against its plain PyTorch version on the
-             card: binarize_tiles on (24, 512, 512, 3) random and page-like
-             tiles, binarize_lines on (64, 80, W) for every width bucket;
-             mismatching pixels (must be 0), kernel and plain times;
+             card: binarize_tiles on (24, 512, 512, 3) random, page-like and
+             knife-edge tiles, binarize_lines on the main path's
+             (8, 80, 1024), on (64, 80, W) for every width bucket and on
+             knife-edge canvases (64, 80, 3000); per case mismatching
+             pixels (must be 0), pixels the exact tier rechecked (must be
+             > 0 on the knife-edge inputs), the kernel's device time (a
+             CUDA graph of calls) and its time per call from Python, the
+             plain version's time, the bound and the share of it reached,
+             GFLOP/s;
 3. f32     — page OCR with the full77f weights in float32, TF32 off, on the
              three fixture pages of tests/data/torch_port, held against the
              JAX package's recorded float32 texts (same line count, CER
@@ -19,11 +26,12 @@ JSON line for each:
              run_ocr on the fixture pages (CER against the ground truth
              <= 2%) and on a 1600x2640 page made as bench.py makes one
              (24 tiles, full-width buckets); pages/s, lines/s, peak memory.
-             Kernel launch counts are zeroed just before this phase and
-             read just after it.
+             Kernel launch and recheck counts are zeroed just before this
+             phase and read just after it.
 
-Then a ``kernels`` JSON line (per kernel: launches in phase 4, time, plain
-time, bound), the card's name and power limit, and as the last line
+Then a ``kernels`` JSON line (per kernel: launches and rechecked pixels in
+phase 4, time, plain time, bound, share of the bound), the card's name and
+power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase ends the script with a
 non-zero code and without that line. Without CUDA it exits non-zero at once.
 Imports torch, numpy and the port; nothing of JAX.
@@ -92,8 +100,9 @@ def gpu_name_and_limit() -> str:
 
 
 def cuda_ms(fn, x, iters: int = 20) -> float:
-    """Mean device time of one call, CUDA events around ``iters`` calls
-    after warm-up."""
+    """Mean time of one call on the card's clock, CUDA events around
+    ``iters`` calls after warm-up; a call whose host side is slower than
+    its device work is timed at the host's pace."""
     for _ in range(3):
         fn(x)
     start = torch.cuda.Event(enable_timing=True)
@@ -106,13 +115,51 @@ def cuda_ms(fn, x, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, x, iters: int = 50) -> float:
+    """Mean device time of one kernel call: ``iters`` calls captured in a
+    CUDA graph and replayed between CUDA events, so the wrapper's host
+    time does not count."""
+    for _ in range(3):
+        fn(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn(x)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ptxas_report(text: str) -> dict:
+    """nvcc -Xptxas -v output -> {kernel: "N registers, ... spill ..."}."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("spill" in line or "registers" in line):
+            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1]
+                         .strip()).strip()
+    return out
+
+
+def binarize_flops(shape) -> int:
+    """Operations of the binarize function on this input: 204 a pixel."""
+    return int(np.prod(shape[:3])) * BINARIZE_FLOP_PER_PX
+
+
 def binarize_bound_ms(shape, channels: int) -> tuple[float, str]:
     """Least time for the binarize function on this input: each input byte
     read once and the mask written once over HBM bandwidth, against
     204 flop/pixel at the float32 peak; the larger one bounds it."""
     pixels = int(np.prod(shape[:3]))
     t_bytes = pixels * (channels + 1) / PEAK_HBM_BYTES
-    t_ops = pixels * BINARIZE_FLOP_PER_PX / PEAK_F32_FLOPS
+    t_ops = binarize_flops(shape) / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -198,7 +245,8 @@ def build():
         t.join()
     if errors:
         raise errors[0]
-    return {"nvcc_s": kernels.BUILD_SECONDS, "gxx_s": native.BUILD_SECONDS}
+    return {"nvcc_s": kernels.BUILD_SECONDS, "gxx_s": native.BUILD_SECONDS,
+            "ptxas": ptxas_report(kernels.BUILD_REPORT)}
 
 
 @phase("kernels")
@@ -210,35 +258,48 @@ def check_kernels(results: dict):
     gen = torch.Generator().manual_seed(0)
     page = torch.from_numpy(bench_page(7)).to(dev)
     page_tiles = tile_page(preprocess_page(page, plan_page(1600, 2640)))
+    knife_tiles = np.repeat(kernels.knife_edge_gray(24, 512, 512)[..., None],
+                            3, axis=-1)
+    tiles = (kernels.binarize_tiles, kernels.binarize_tiles_plain, 3)
+    lines = (kernels.binarize_lines, kernels.binarize_lines_plain, 1)
     cases = {
-        "tiles_random": (kernels.binarize_tiles, kernels.binarize_tiles_plain,
-                         torch.randint(0, 256, (24, 512, 512, 3),
-                                       dtype=torch.uint8, generator=gen)),
-        "tiles_page": (kernels.binarize_tiles, kernels.binarize_tiles_plain,
-                       page_tiles.contiguous()),
+        "tiles_random": (*tiles, torch.randint(
+            0, 256, (24, 512, 512, 3), dtype=torch.uint8, generator=gen)),
+        "tiles_page": (*tiles, page_tiles.contiguous()),
+        "tiles_knife_edge": (*tiles, torch.from_numpy(knife_tiles)),
+        "lines_main_path_8x1024": (*lines, torch.randint(
+            0, 256, (8, 80, 1024), dtype=torch.uint8, generator=gen)),
     }
     for w in BUCKETS:
-        cases[f"lines_{w}"] = (
-            kernels.binarize_lines, kernels.binarize_lines_plain,
-            torch.randint(0, 256, (64, 80, w), dtype=torch.uint8,
-                          generator=gen),
-        )
+        cases[f"lines_{w}"] = (*lines, torch.randint(
+            0, 256, (64, 80, w), dtype=torch.uint8, generator=gen))
+    cases["lines_knife_edge_3000"] = (
+        *lines, torch.from_numpy(kernels.knife_edge_gray(64, 80, 3000)))
     out = {}
-    total_bad = 0
-    for name, (fn, plain, x) in cases.items():
+    ok = True
+    for name, (fn, plain, channels, x) in cases.items():
         x = x.to(dev)
-        got, want = fn(x), plain(x)
+        kernels.reset_rechecked()
+        got = fn(x)
+        rechecked = sum(kernels.rechecked().values())
+        want = plain(x)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
-        err = int((got.int() - want.int()).abs().max())
-        total_bad += bad
+        ok &= bad == 0 and ("knife" not in name or rechecked > 0)
+        ms = kernel_ms(fn, x)
+        bound_ms, bound_by = binarize_bound_ms(x.shape, channels)
         out[name] = {
-            "shape": list(x.shape), "mismatches": bad, "max_abs_err": err,
-            "kernel_ms": round(cuda_ms(fn, x), 4),
-            "plain_ms": round(cuda_ms(plain, x, iters=3), 4),
+            "shape": list(x.shape), "mismatches": bad,
+            "max_abs_err": int((got.int() - want.int()).abs().max()),
+            "rechecked": rechecked, "kernel_ms": ms,
+            "call_ms": cuda_ms(fn, x),
+            "plain_ms": cuda_ms(plain, x, iters=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "gflops": binarize_flops(x.shape) / ms / 1e6,
         }
     results.update(out)
-    return {"_ok": total_bad == 0, "cases": out}
+    return {"_ok": ok, "cases": out, "gpu": gpu_name_and_limit()}
 
 
 def fixture():
@@ -305,6 +366,7 @@ def page_ocr_bf16(results: dict):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
+        kernels.reset_rechecked()
         preds, refs = [], []
         for name, img, gt in pages:
             texts, _, _ = run_page(pipe, img)
@@ -320,6 +382,7 @@ def page_ocr_bf16(results: dict):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
+        rechecked = kernels.rechecked()
         stages = stage_ms(pipe, big)
     finally:
         for name, fn in wrapped.items():
@@ -327,6 +390,7 @@ def page_ocr_bf16(results: dict):
     n_pages = len(pages) + n_big
     fixture_cer = cer(preds, refs)
     results["launches"] = launches
+    results["rechecked"] = rechecked
     results["n_pages"] = n_pages
     results["shapes"] = {k: sorted(v) for k, v in shapes.items()}
     ok = fixture_cer <= 0.02 and all(v > 0 for v in launches.values())
@@ -337,7 +401,7 @@ def page_ocr_bf16(results: dict):
                        "pages_per_s": n_big / dt, "lines_per_s": lines / dt,
                        "repeats": n_big, "stage_ms": stages},
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches, "pages_run": n_pages,
+        "launches": launches, "rechecked": rechecked, "pages_run": n_pages,
         "kernel_shapes": results["shapes"],
         "gpu": gpu_name_and_limit(),
     }
@@ -369,8 +433,9 @@ def stage_ms(pipe, img) -> dict:
 
 
 def kernels_line(results: dict) -> dict:
-    """The per-kernel summary: launches from the main path (phase 4); time,
-    plain time and bound at the main path's largest shape for the kernel."""
+    """The per-kernel summary: launches and rechecked pixels from the main
+    path (phase 4); time, plain time and bound at the main path's largest
+    shape for the kernel."""
     from ocr_inference_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
@@ -391,15 +456,18 @@ def kernels_line(results: dict) -> dict:
         got, want = fn(x), plain(x)
         torch.cuda.synchronize()
         bound_ms, bound_by = binarize_bound_ms(shape, channels)
+        ms = kernel_ms(fn, x)
         entries.append({
             "name": name, "route": "cuda",
             "source": "ocr_inference_tpu_torch/csrc/binarize.cu",
             "replaces": replaces,
             "launches": results["launches"][name],
             "max_abs_err": int((got.int() - want.int()).abs().max()),
-            "ms": cuda_ms(fn, x), "plain_ms": cuda_ms(plain, x, iters=3),
+            "ms": ms, "plain_ms": cuda_ms(plain, x, iters=3),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": list(shape),
+            "shape": list(shape), "bound_share": bound_ms / ms,
+            "call_ms": cuda_ms(fn, x),
+            "rechecked": results["rechecked"][name],
         })
     return {"kernels": entries}
 

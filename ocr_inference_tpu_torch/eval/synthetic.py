@@ -122,8 +122,8 @@ def unpack_glyphs(npz) -> dict[str, np.ndarray]:
 def fixture_pages(path: str | Path) -> list[tuple[str, np.ndarray, list[str]]]:
     """Rebuild the pages of ``tests/data/torch_port/pages.npz`` ->
     [(name, RGB page, ground-truth line texts)]. A rotated page is the
-    port's rotation of its clean page plus the stored int8 residual to the
-    cv2 rotation the fixture was made with, so the bytes are cv2's."""
+    port's rotation of its clean page, which is byte-equal with the cv2
+    rotation the fixture was made with."""
     with np.load(path) as npz:
         glyphs = unpack_glyphs(npz)
         charset = [str(t) for t in npz["charset"]]
@@ -133,8 +133,6 @@ def fixture_pages(path: str | Path) -> list[tuple[str, np.ndarray, list[str]]]:
             img, texts = render_page(rng, glyphs, charset)
             deg = float(npz["rotations"][i])
             if deg != 0.0:
-                residual = npz[f"residual_{i}"].astype(np.int16)
-                img = (rotate_page(img, deg).astype(np.int16) + residual
-                       ).astype(np.uint8)
+                img = rotate_page(img, deg)
             pages.append((str(name), img, texts))
     return pages

@@ -7,14 +7,15 @@ returns tensors on the same device:
 
 - ``rgb_to_gray``: cv2 5.x RGB2GRAY, 15-bit fixed point (imaging.py:42-51);
 - ``gaussian_kernel_1d``: cv2.getGaussianKernel taps;
-- ``adaptive_threshold_gaussian``: the plain version of the binarize kernel
-  (ops/kernels.py), cv2.adaptiveThreshold GAUSSIAN_C 51/13;
+- ``adaptive_threshold_gaussian``: the plain version of the binarize kernels
+  (ops/kernels.py), cv2.adaptiveThreshold GAUSSIAN_C 51/13, on
+  ``blur_in_order``;
 - ``resize_bilinear``: the JAX float resize (imaging.py:138-176) used on
   page tensors and the detection post chain;
 - ``resize_linear_u8``: cv2.resize INTER_LINEAR on uint8 in cv2's own
   integer arithmetic (what pad_ocr_line needs, ops_host.py:58);
 - ``warp_affine`` / ``rotate_from_angle``: cv2 5.x warpAffine INTER_LINEAR
-  with a constant border (geometry/lines.py:54-55).
+  with a constant border, byte for byte (geometry/lines.py:54-55).
 """
 
 from __future__ import annotations
@@ -59,24 +60,14 @@ def blur_taps(device: torch.device) -> torch.Tensor:
     )
 
 
-def adaptive_threshold_gaussian(gray: torch.Tensor) -> torch.Tensor:
-    """Plain version of the binarize kernel: (..., H, W) uint8 gray ->
-    (..., H, W) uint8 0/255 with cv2.adaptiveThreshold(GAUSSIAN_C, 51, 13)
-    semantics, each image blurred with its own replicate border.
-
-    Arithmetic, step for step as csrc/binarize.cu does it: a 51-tap blur
-    over rows (the vertical pass, ``L @ gray``), then over columns
-    (``@ R``), each tap added in order t = 0..50 as a separately rounded
-    float64 product and sum (no fused multiply-add); then round half to
-    even, clip to 0..255, and 255 where gray > mean - 13. float64 keeps
-    the knife-edge pixels that flip under float32 or TF32 (152 of 640k on
-    the TPU at reduced precision) on cv2's side: the vertical pass is
-    exact in float64 and the horizontal one is off by < 1e-12.
-    """
-    shape = gray.shape
-    h, w = shape[-2], shape[-1]
-    g = gray.reshape(-1, h, w).to(torch.float64)
-    taps = blur_taps(g.device)
+def blur_in_order(gray: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, W) gray -> (B, H, W) 51-tap Gaussian blur in ``dtype`` with a
+    replicate border: over rows (the vertical pass, ``L @ gray``), then over
+    columns (``@ R``), each tap added in order t = 0..50 as a separately
+    rounded product and sum (no fused multiply-add)."""
+    h, w = gray.shape[-2], gray.shape[-1]
+    g = gray.to(dtype)
+    taps = blur_taps(g.device).to(dtype)
     rows = torch.arange(h, device=g.device)
     cols = torch.arange(w, device=g.device)
     acc = None
@@ -90,8 +81,29 @@ def adaptive_threshold_gaussian(gray: torch.Tensor) -> torch.Tensor:
         idx = (cols + (t - HALF)).clamp(0, w - 1)
         term = vert[:, :, idx] * taps[t]
         acc = term if acc is None else acc + term
+    return acc
+
+
+def adaptive_threshold_gaussian(gray: torch.Tensor) -> torch.Tensor:
+    """Plain version of the binarize kernels: (..., H, W) uint8 gray ->
+    (..., H, W) uint8 0/255 with cv2.adaptiveThreshold(GAUSSIAN_C, 51, 13)
+    semantics, each image blurred with its own replicate border.
+
+    Arithmetic: ``blur_in_order`` in float64, then round half to even, clip
+    to 0..255, and 255 where gray > mean - 13. The kernels
+    (csrc/binarize.cu) blur in float32 and recompute, in exactly this
+    arithmetic, every pixel whose float32 sum is near its threshold, so
+    they equal this bit for bit. float64 keeps the knife-edge pixels that
+    flip under float32 or TF32 (152 of 640k on the TPU at reduced
+    precision) on cv2's side: the vertical pass is exact in float64 and
+    the horizontal one is off by < 1e-12.
+    """
+    shape = gray.shape
+    h, w = shape[-2], shape[-1]
+    g = gray.reshape(-1, h, w)
+    acc = blur_in_order(g, torch.float64)
     mean = torch.round(acc).clamp(0.0, 255.0)
-    out = torch.where(g > mean - C, 255, 0).to(torch.uint8)
+    out = torch.where(g.to(torch.float64) > mean - C, 255, 0).to(torch.uint8)
     return out.reshape(shape)
 
 
@@ -205,6 +217,37 @@ def _invert_affine(m: np.ndarray) -> np.ndarray:
     ])
 
 
+# cv2 5.x's warpAffine runs its vector loop over 16 output pixels at a time
+# and computes the rest of each row in scalar code with other roundings
+WARP_VECTOR_PIXELS = 16
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 fused multiply-add ``a * b + c`` with one rounding, on
+    tensors of any device.
+
+    The product of two float32 values is exact in float64, so only the
+    float64 sum rounds before the final rounding to float32. That double
+    rounding can differ from one rounding only where the float64 sum lands
+    exactly on a float32 midpoint while the exact sum does not; the sum's
+    error, found exactly with TwoSum, then moves it one float64 step
+    toward the exact value. The midpoint test reads the low 29 bits of the
+    float64, which is right for normal float32 results; every call here
+    has one float32 factor that is an integer, so the exact sum is a
+    multiple of 2**-149 and, below the normal range, exact in float64."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    cd = c.to(torch.float64)
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    low = s.view(torch.int64) & ((1 << 29) - 1)
+    fix = (low == (1 << 28)) & (err != 0)
+    if bool(fix.any()):
+        toward = torch.where(err > 0, math.inf, -math.inf).to(s)
+        s = torch.where(fix, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def warp_affine(
     image: torch.Tensor,
     m: np.ndarray,
@@ -213,21 +256,32 @@ def warp_affine(
     border_value: float = 0.0,
 ) -> torch.Tensor:
     """cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT) of a (H, W[, C]) uint8
-    tensor; ``m`` is the forward 2x3 map as cv2 takes it. Source
-    coordinates and the bilinear blend run in float32 as cv2 5.x computes
-    them; the result agrees with cv2 to 1 grey level on all pixels and
-    exactly on >= 99.8% of them (tests/test_torch_ops.py)."""
+    tensor, byte for byte; ``m`` is the forward 2x3 map as cv2 takes it.
+
+    cv2 5.x's arithmetic: the inverse map in float64, cast to float32. In
+    the vector loop the source x is ``fma(x, i00, i01*y + i02)``, the row
+    term rounded without FMA; in the scalar rest of each row (x past the
+    last whole group of ``WARP_VECTOR_PIXELS``) it is
+    ``fma(x, i00, i01*y) + i02``; y likewise. The blend is
+    ``v0 = fma(a, p01 - p00, p00)``, ``v1 = fma(a, p11 - p10, p10)``,
+    ``fma(b, v1 - v0, v0)``, rounded half to even."""
     dev = image.device
-    inv = torch.from_numpy(
-        _invert_affine(np.asarray(m, np.float64)).astype(np.float32)
-    ).to(dev)
+    inv = _invert_affine(np.asarray(m, np.float64)).astype(np.float32)
     h, w = image.shape[0], image.shape[1]
     src = image if image.ndim == 3 else image[..., None]
     src = src.to(torch.float32)
     xs = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
     ys = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
-    sx = inv[0, 0] * xs + (inv[0, 1] * ys + inv[0, 2])
-    sy = inv[1, 0] * xs + (inv[1, 1] * ys + inv[1, 2])
+    vector = xs < (out_w // WARP_VECTOR_PIXELS) * WARP_VECTOR_PIXELS
+
+    def source(i0, i1, i2):
+        i0 = torch.tensor(i0, device=dev)
+        row = ys * float(i1)
+        in_loop = fma32(xs, i0, row + float(i2))
+        in_tail = fma32(xs, i0, row) + float(i2)
+        return torch.where(vector, in_loop, in_tail)
+
+    sx, sy = source(*inv[0]), source(*inv[1])
     ix, iy = torch.floor(sx), torch.floor(sy)
     a = (sx - ix)[..., None]
     b = (sy - iy)[..., None]
@@ -240,9 +294,9 @@ def warp_affine(
 
     p00, p01 = tap(iy, ix), tap(iy, ix + 1)
     p10, p11 = tap(iy + 1, ix), tap(iy + 1, ix + 1)
-    v0 = p00 + a * (p01 - p00)
-    v1 = p10 + a * (p11 - p10)
-    out = torch.round(v0 + b * (v1 - v0)).clamp(0, 255).to(image.dtype)
+    v0 = fma32(a, p01 - p00, p00)
+    v1 = fma32(a, p11 - p10, p10)
+    out = torch.round(fma32(b, v1 - v0, v0)).clamp(0, 255).to(image.dtype)
     return out if image.ndim == 3 else out[..., 0]
 
 

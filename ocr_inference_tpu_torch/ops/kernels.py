@@ -1,19 +1,28 @@
 """Wrappers of the hand-written Hopper kernels, with their plain versions.
 
 Counterpart of ocr_inference_tpu/ops/pallas_kernels.py. Both Pallas kernels
-there binarize with the adaptive Gaussian 51/13 rule; here one CUDA kernel
-(csrc/binarize.cu, entry point ``ocr_binarize``) serves both wrappers:
+there binarize with the adaptive Gaussian 51/13 rule; here one CUDA source
+(csrc/binarize.cu, entry point ``ocr_binarize``) holds two specialisations
+of one kernel:
 
-- ``binarize_tiles``: (N, 512, 512, 3) RGB u8 page tiles -> (N, 512, 512)
-  u8 masks, gray conversion fused in (replaces ``_binarize_kernel`` via
-  ``binarize_tile_pallas`` / ``binarize_tiles_pallas``);
+- ``binarize_tiles``: (N, H, W, 3) RGB u8 page tiles -> (N, H, W) u8
+  masks, gray conversion fused in, 64 x 128 outputs a block (replaces
+  ``_binarize_kernel`` via ``binarize_tile_pallas`` /
+  ``binarize_tiles_pallas``);
 - ``binarize_lines``: (B, H, W) gray u8 line canvases -> (B, H, W) u8
-  masks, any W (replaces ``_line_window_kernel`` via
+  masks, any H and W; a block owns 80 rows (a whole canvas of the
+  recognizer's height) and a column strip whose width
+  ``line_strip_width`` picks (replaces ``_line_window_kernel`` via
   ``binarize_lines_pallas``; no window stack, no divisor gate).
+
+Both blur in float32 and recheck every pixel within ``RECHECK_EPS`` of its
+threshold in the plain version's float64 arithmetic, so they equal it bit
+for bit; ``binarize_two_tier`` renders that decision in plain PyTorch.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (ops/imaging.py ``adaptive_threshold_gaussian``). Each wrapper
-counts its launches in ``LAUNCHES``.
+counts its launches in ``LAUNCHES``, and its kernel counts the pixels it
+rechecked on the card (``rechecked``).
 
 The kernel library builds at first use with ``nvcc`` into a plain-C shared
 library under ``ocr_inference_tpu_torch/_build/`` (named by the source's
@@ -23,6 +32,7 @@ hash, so a stale build is never loaded) and is bound with ctypes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,11 +41,16 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ocr_inference_tpu_torch.ops.imaging import (
+    BLOCK,
+    C,
+    HALF,
     adaptive_threshold_gaussian,
-    blur_taps,
+    blur_in_order,
+    gaussian_kernel_1d,
     rgb_to_gray,
 )
 
@@ -45,20 +60,56 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# A float32 blur of 0..255 gray with these taps is within 1.56e-3 of the
+# plain version's float64 one (csrc/binarize.cu derives the bound); a pixel
+# whose float32 sum lies within this of its threshold is rechecked.
+RECHECK_EPS = 2.0 ** -9
+
+# canvas rows a line block owns, and its column strips, widest first
+LINE_ROWS = 80
+LINE_STRIPS = (128, 64, 32)
 
 # launches of each wrapper's kernel; the CPU path never counts
 LAUNCHES = {"binarize_tiles": 0, "binarize_lines": 0}
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None
-_TAPS: dict = {}
+BUILD_REPORT = ""  # ptxas's registers and spills per kernel
+_READY: set = set()       # devices whose constant taps are set
+_COUNTERS: dict = {}      # (kernel, device) -> uint64 rechecked counter
+_SMS: dict = {}           # device -> SM count
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def rechecked() -> dict[str, int]:
+    """Pixels each kernel has rechecked in float64 since the last
+    ``reset_rechecked`` (reading it waits for the card)."""
+    out = {k: 0 for k in LAUNCHES}
+    for (name, _), counter in _COUNTERS.items():
+        out[name] += int(counter.item())
+    return out
+
+
+def reset_rechecked() -> None:
+    for counter in _COUNTERS.values():
+        counter.zero_()
+
+
+def line_strip_width(b: int, h: int, w: int, sms: int) -> int:
+    """The widest column strip whose grid covers at least one wave of
+    ``sms`` blocks; the narrowest where none does."""
+    rows = -(-h // LINE_ROWS)
+    for strip in LINE_STRIPS:
+        if b * rows * -(-w // strip) >= sms:
+            return strip
+    return LINE_STRIPS[-1]
 
 
 def _nvcc() -> str:
@@ -74,7 +125,7 @@ def _nvcc() -> str:
 def build_library() -> Path:
     """Compile csrc/*.cu into _build/libocr_kernels-<hash>.so (once per
     source content) and return its path. Raises if nvcc fails."""
-    global BUILD_SECONDS
+    global BUILD_SECONDS, BUILD_REPORT
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256()
     for src in sources:
@@ -98,6 +149,7 @@ def build_library() -> Path:
         raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
     os.replace(tmp, so_path)
     BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_REPORT = proc.stderr
     return so_path
 
 
@@ -105,37 +157,51 @@ def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build_library()))
+        lib.ocr_binarize_init.argtypes = [ctypes.c_void_p]
+        lib.ocr_binarize_init.restype = ctypes.c_int
         lib.ocr_binarize.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ]
         lib.ocr_binarize.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _taps_on(device: torch.device) -> torch.Tensor:
-    key = str(device)
-    taps = _TAPS.get(key)
-    if taps is None:
-        taps = blur_taps(device).contiguous()
-        _TAPS[key] = taps
-    return taps
+def _ready(device: torch.device) -> ctypes.CDLL:
+    """The library, with this device's constant taps and shared-memory
+    limits set (once per device)."""
+    lib = _library()
+    if device.index not in _READY:
+        taps = np.ascontiguousarray(gaussian_kernel_1d(BLOCK), np.float32)
+        err = lib.ocr_binarize_init(taps.ctypes.data)
+        if err != 0:
+            raise RuntimeError(f"ocr_binarize_init failed: CUDA error {err}")
+        _READY.add(device.index)
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return lib
 
 
-def _launch(src: torch.Tensor, channels: int) -> torch.Tensor:
+def _launch(name: str, src: torch.Tensor, channels: int) -> torch.Tensor:
     if src.dtype != torch.uint8:
         raise TypeError(f"binarize kernel takes uint8, got {src.dtype}")
     src = src.contiguous()
     n, h, w = src.shape[0], src.shape[1], src.shape[2]
     out = torch.empty((n, h, w), dtype=torch.uint8, device=src.device)
-    taps = _taps_on(src.device)
     with torch.cuda.device(src.device):
+        lib = _ready(src.device)
+        key = (name, src.device.index)
+        counter = _COUNTERS.get(key)
+        if counter is None:
+            counter = _COUNTERS[key] = torch.zeros(
+                1, dtype=torch.int64, device=src.device)
+        strip = line_strip_width(n, h, w, _SMS[src.device.index])
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = _library().ocr_binarize(
-            src.data_ptr(), out.data_ptr(), taps.data_ptr(), n, h, w,
-            channels, stream,
+        err = lib.ocr_binarize(
+            src.data_ptr(), out.data_ptr(), counter.data_ptr(), n, h, w,
+            channels, strip, RECHECK_EPS, stream,
         )
     if err != 0:
         raise RuntimeError(f"ocr_binarize launch failed: CUDA error {err}")
@@ -156,7 +222,7 @@ def binarize_tiles(tiles: torch.Tensor) -> torch.Tensor:
         return binarize_tiles_plain(tiles)
     if tiles.device.type != "cuda":
         raise ValueError(f"unsupported device {tiles.device}")
-    out = _launch(tiles, 3)
+    out = _launch("binarize_tiles", tiles, 3)
     LAUNCHES["binarize_tiles"] += 1
     return out
 
@@ -174,6 +240,94 @@ def binarize_lines(gray: torch.Tensor) -> torch.Tensor:
         return binarize_lines_plain(gray)
     if gray.device.type != "cuda":
         raise ValueError(f"unsupported device {gray.device}")
-    out = _launch(gray, 1)
+    out = _launch("binarize_lines", gray, 1)
     LAUNCHES["binarize_lines"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The kernels' decision in plain PyTorch, and inputs that reach its exact
+# tier; used by the tests and chip_smoke.py
+# ---------------------------------------------------------------------------
+
+def binarize_two_tier(gray: torch.Tensor) -> tuple[torch.Tensor, int, float]:
+    """(..., H, W) uint8 gray -> (mask, rechecked pixels, max |acc32 -
+    acc64|): the kernels' two tiers. ``g > clip(rint(acc)) - 13`` holds for
+    every g >= 243, and otherwise depends on acc against g + 12.5 alone; a
+    float32 blur decides every pixel whose sum lies more than
+    ``RECHECK_EPS`` from it, and the rest take the plain version's float64
+    rule."""
+    shape = gray.shape
+    g = gray.reshape(-1, shape[-2], shape[-1])
+    acc32 = blur_in_order(g, torch.float32)
+    acc64 = blur_in_order(g, torch.float64)
+    gf = g.to(torch.float32)
+    thr = gf + (C - 0.5)
+    white = (gf >= 256 - C) | (acc32 < thr - RECHECK_EPS)
+    need = ~white & (acc32 <= thr + RECHECK_EPS)
+    exact = g.to(torch.float64) > torch.round(acc64).clamp(0.0, 255.0) - C
+    out = torch.where(need, exact, white)
+    err = float((acc32.to(torch.float64) - acc64).abs().max())
+    return (torch.where(out, 255, 0).to(torch.uint8).reshape(shape),
+            int(need.sum()), err)
+
+
+def _centre_acc(win: np.ndarray, taps: np.ndarray) -> float:
+    """The plain version's float64 sum at the centre of a (51, 51) window."""
+    vert = win[0] * taps[0]
+    for t in range(1, BLOCK):
+        vert = vert + win[t] * taps[t]
+    acc = vert[0] * taps[0]
+    for j in range(1, BLOCK):
+        acc = acc + vert[j] * taps[j]
+    return float(acc)
+
+
+@functools.lru_cache(maxsize=None)
+def knife_edge_windows(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 51, 51) uint8 gray windows whose blurred centre lies within
+    1e-4 of centre + 12.5 (by the plain version's float64 formula), on
+    either side: a flat background 13 above the centre value, the residual
+    cancelled greedily by nudging the other pixels, largest weight first."""
+    rng = np.random.default_rng(seed)
+    taps = gaussian_kernel_1d(BLOCK).astype(np.float64)
+    weights = np.outer(taps, taps)
+    order = [(int(k) // BLOCK, int(k) % BLOCK, float(weights.flat[k]))
+             for k in np.argsort(-weights, axis=None)
+             if int(k) != HALF * BLOCK + HALF]
+    out = []
+    while len(out) < n:
+        c = int(rng.integers(30, 200))
+        win = np.full((BLOCK, BLOCK), c + 13, np.float64)
+        win[HALF, HALF] = c
+        target = c + (C - 0.5) + float(rng.choice([-5e-5, 5e-5]))
+        for _ in range(3):
+            r = target - _centre_acc(win, taps)
+            for y, x, wt in order:
+                if abs(r) < 1e-6:
+                    break
+                v = float(win[y, x])
+                step = min(max(round(r / wt), -20, -v), 20, 255 - v)
+                if step:
+                    win[y, x] = v + step
+                    r -= step * wt
+        if abs(_centre_acc(win, taps) - (c + C - 0.5)) < 1e-4:
+            out.append(win.astype(np.uint8))
+    out = np.stack(out)
+    out.flags.writeable = False
+    return out
+
+
+def knife_edge_gray(b: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+    """(b, h, w) uint8 gray with knife-edge windows (a pool of 64, in
+    turn) tiled 52 px apart, so that their 51-px blur windows are disjoint
+    and inside the image; the one column and row between windows is 128."""
+    step = BLOCK + 1
+    wins = knife_edge_windows(64, seed)
+    out = np.full((b, h, w), 128, np.uint8)
+    centres = [(y, x) for y in range(HALF + 1, h - HALF, step)
+               for x in range(HALF + 1, w - HALF, step)]
+    for i, (y, x) in enumerate(centres):
+        out[:, y - HALF: y + HALF + 1, x - HALF: x + HALF + 1] = \
+            wins[i % len(wins)]
     return out

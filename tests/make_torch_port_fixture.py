@@ -6,11 +6,11 @@ set (two clean, one rotated by 2 degrees as ``distort_page`` does for the
 rotation runs), and the JAX package's ``build_pipeline(...).run_ocr`` texts
 for them with the full77f weights in float32:
 
-    tests/data/torch_port/pages.npz   glyph bitmaps, page seeds, rotations,
-                                      and the int8 residual of the rotated
-                                      page (the pages are rebuilt from these
-                                      by ocr_inference_tpu_torch.eval.synthetic
-                                      .fixture_pages, byte for byte)
+    tests/data/torch_port/pages.npz   glyph bitmaps, page seeds and
+                                      rotations (the pages are rebuilt from
+                                      these by ocr_inference_tpu_torch.eval
+                                      .synthetic.fixture_pages, byte for byte:
+                                      the port's rotation equals cv2's)
     tests/data/torch_port/texts.json  ground truth + JAX float32 texts and
                                       line boxes, Wylie
 
@@ -88,9 +88,6 @@ def main() -> int:
             deg = shear * (1 if int(np.random.RandomState(seed + 1000)
                                     .randint(2)) else -1)
             img = distort_page(img, dist_rng, shear_deg=shear)
-            rebuilt = port_synth.rotate_page(page.image, deg)
-            residual = img.astype(np.int16) - rebuilt.astype(np.int16)
-            arrays[f"residual_{i}"] = residual.astype(np.int8)
         rotations.append(deg)
         pages.append((name, img, page.texts))
     arrays["rotations"] = np.array(rotations, np.float64)

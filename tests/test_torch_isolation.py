@@ -81,3 +81,11 @@ def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok": true' not in proc.stdout
+
+
+def test_phase_probe_imports_nothing_forbidden():
+    imports = (
+        "import probe_binarize_phases\n"
+        "from ocr_inference_tpu_torch.ops import kernels\n"
+    )
+    assert _imported(imports) == "FORBIDDEN []"

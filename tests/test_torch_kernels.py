@@ -4,8 +4,11 @@ cv2.
 On the CPU the wrappers run their plain PyTorch versions, which must be
 bit-exact with ``binarize_tiles_pallas`` / ``binarize_lines_pallas`` (run
 in interpret mode, as tests/test_pallas_engines.py runs them) and with
-cv2.adaptiveThreshold. The CUDA kernel itself is held against the plain
-version on the card (the ``cuda``-marked test; chip_smoke.py phase 2).
+cv2.adaptiveThreshold. The kernels' two-tier decision (float32 blur, exact
+float64 recheck near the threshold) is held here in its plain rendering,
+``binarize_two_tier``; the CUDA kernels themselves are held against the
+plain version on the card (the ``cuda``-marked test; chip_smoke.py
+phase 2).
 """
 
 import cv2
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from ocr_inference_tpu.ops import pallas_kernels as pk
-from ocr_inference_tpu_torch.ops import kernels
+from ocr_inference_tpu_torch.ops import imaging, kernels
 
 
 def _page_like(rng, shape):
@@ -84,25 +87,109 @@ def test_cpu_path_counts_no_launch_and_checks_shapes():
         kernels.binarize_lines(torch.zeros((80, 64), dtype=torch.uint8))
 
 
+def _inputs(kind, shape, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if kind == "page":
+        return _page_like(rng, shape)
+    return kernels.knife_edge_gray(*shape, seed=seed)
+
+
+TWO_TIER_CASES = [(kind, shape) for kind in ("random", "page", "knife")
+                  for shape in ((2, 256, 256), (3, 80, 777))]
+
+
+@pytest.mark.parametrize("kind,shape", TWO_TIER_CASES)
+def test_float32_blur_within_recheck_eps(kind, shape):
+    """The float32 blur stays within RECHECK_EPS (2**-9) of the plain
+    version's float64 one; the derived bound is 1.56e-3 and the measured
+    error sits far below both (about 1.2e-4, a margin of 16x)."""
+    g = torch.from_numpy(_inputs(kind, shape, 3))
+    _, _, err = kernels.binarize_two_tier(g)
+    assert err < 1.56e-3
+    assert err < kernels.RECHECK_EPS / 8, err
+
+
+@pytest.mark.parametrize("kind,shape", TWO_TIER_CASES)
+def test_two_tier_decision_equals_plain_version(kind, shape):
+    g = torch.from_numpy(_inputs(kind, shape, 4))
+    got, rechecked, _ = kernels.binarize_two_tier(g)
+    np.testing.assert_array_equal(
+        got.numpy(), kernels.binarize_lines_plain(g).numpy())
+    if kind == "knife":  # every window centre goes through the recheck
+        b, h, w = shape
+        centres = b * len(range(26, h - 25, 52)) * len(range(26, w - 25, 52))
+        assert rechecked >= centres
+
+
+def test_knife_edge_windows_sit_on_the_threshold():
+    """Every window's blurred centre is within 1e-4 of centre + 12.5, on
+    both sides, by the plain version's float64 formula."""
+    wins = kernels.knife_edge_windows(64, 0)
+    g = torch.from_numpy(wins.copy())
+    acc = imaging.blur_in_order(g, torch.float64)[:, 25, 25].numpy()
+    d = acc - (wins[:, 25, 25].astype(np.float64) + 12.5)
+    assert np.abs(d).max() < 1e-4
+    assert (d > 0).any() and (d < 0).any()
+    assert (wins[:, 25, 25] < 243).all()
+    tiled = kernels.knife_edge_gray(1, 512, 512)
+    np.testing.assert_array_equal(tiled[0, 1:52, 1:52], wins[0])
+    np.testing.assert_array_equal(tiled[0, 1:52, 53:104], wins[1])
+    np.testing.assert_array_equal(tiled[0, 53:104, 1:52], wins[9])
+
+
+def test_line_strip_width_covers_a_wave():
+    assert kernels.line_strip_width(64, 80, 3000, 132) == 128
+    assert kernels.line_strip_width(8, 80, 1024, 132) == 32
+    assert kernels.line_strip_width(12, 80, 1024, 132) == 64
+    assert kernels.line_strip_width(1, 80, 100, 132) == 32
+    assert kernels.line_strip_width(2, 200, 4000, 132) == 128
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
+    """Both specialisations against the plain version: random tiles and
+    canvases at every width bucket, an odd width (1601), a canvas lower
+    than 80 rows and a tile shape off the 512 grid; on the knife-edge
+    inputs the exact tier must run."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernel has no CPU mode)")
     rng = np.random.default_rng(2)
     dev = torch.device("cuda")
-    tiles = torch.from_numpy(
-        rng.integers(0, 256, (4, 512, 512, 3), dtype=np.uint8)).to(dev)
+    knife = kernels.knife_edge_gray(4, 512, 512)
+    tile_inputs = [
+        (rng.integers(0, 256, (4, 512, 512, 3), dtype=np.uint8), False),
+        (np.repeat(knife[..., None], 3, axis=-1), True),
+        (rng.integers(0, 256, (2, 300, 333, 3), dtype=np.uint8), False),
+    ]
+    line_inputs = [(rng.integers(0, 256, (8, 80, w), dtype=np.uint8), False)
+                   for w in (512, 1024, 2000, 2500, 3000, 1601)]
+    line_inputs += [(rng.integers(0, 256, (3, 57, 999), dtype=np.uint8), False),
+                    (kernels.knife_edge_gray(8, 80, 1601), True)]
     before = dict(kernels.LAUNCHES)
-    np.testing.assert_array_equal(
-        kernels.binarize_tiles(tiles).cpu().numpy(),
-        kernels.binarize_tiles_plain(tiles).cpu().numpy(),
-    )
-    for w in (512, 1024, 2000, 2500, 3000):
-        g = torch.from_numpy(
-            rng.integers(0, 256, (8, 80, w), dtype=np.uint8)).to(dev)
-        np.testing.assert_array_equal(
-            kernels.binarize_lines(g).cpu().numpy(),
-            kernels.binarize_lines_plain(g).cpu().numpy(),
-        )
-    assert kernels.LAUNCHES["binarize_tiles"] == before["binarize_tiles"] + 1
-    assert kernels.LAUNCHES["binarize_lines"] == before["binarize_lines"] + 5
+    for fn, plain, inputs in (
+        (kernels.binarize_tiles, kernels.binarize_tiles_plain, tile_inputs),
+        (kernels.binarize_lines, kernels.binarize_lines_plain, line_inputs),
+    ):
+        for x, knife_edge in inputs:
+            x = torch.from_numpy(x).to(dev)
+            kernels.reset_rechecked()
+            got = fn(x)
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          plain(x).cpu().numpy())
+            if knife_edge:
+                assert sum(kernels.rechecked().values()) > 0
+    assert kernels.LAUNCHES["binarize_tiles"] == before["binarize_tiles"] + 3
+    assert kernels.LAUNCHES["binarize_lines"] == before["binarize_lines"] + 8
+
+
+def test_phase_probe_stamps_the_kernel_source():
+    """probe_binarize_phases.py finds each of its anchors once in the
+    kernel source, so it times the kernel that ships."""
+    import probe_binarize_phases as probe
+
+    out = probe.instrumented((kernels.CSRC_DIR / "binarize.cu").read_text())
+    assert out.count("const unsigned long long t") == 3
+    assert "g_stamp[bid][3] = stamp();" in out
+    assert "int stamps_read(void* host)" in out

@@ -98,9 +98,7 @@ def test_bucket_for_width_matches_jax():
 
 @pytest.mark.parametrize("angle", [-1.985, 2.0, 0.7, -4.4])
 def test_rotate_from_angle_against_cv2_warp_affine(angle):
-    """cv2 5.x warpAffine: within 1 grey level everywhere, exact on at
-    least 99.8% of the pixels (cv2's float coordinate rounding is not
-    reproduced to the last bit)."""
+    """cv2 5.x warpAffine, byte for byte."""
     rng = np.random.default_rng(int(abs(angle) * 10))
     for img in (rng.integers(0, 256, (350, 510, 3), dtype=np.uint8),
                 np.where(rng.random((350, 510)) > 0.6, 255, 0).astype(np.uint8)):
@@ -108,9 +106,53 @@ def test_rotate_from_angle_against_cv2_warp_affine(angle):
         m = cv2.getRotationMatrix2D((w / 2, h / 2), angle, 1)
         want = cv2.warpAffine(img, m, (w, h), borderValue=(0, 0, 0))
         got = imaging.rotate_from_angle(torch.from_numpy(img), angle).numpy()
-        diff = np.abs(got.astype(int) - want.astype(int))
-        assert diff.max() <= 1
-        assert (diff > 0).mean() <= 0.002
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("width", [333, 1024, 1601])
+def test_warp_affine_row_tail_against_cv2(width):
+    """Widths whose rows end after cv2's vector loop in 13, 0 and 1
+    scalar pixels; a paper-coloured border, as rotate_page uses."""
+    rng = np.random.default_rng(width)
+    for angle, channels in ((1.3, 3), (-2.7, 1), (7.9, 3)):
+        shape = (200, width, 3) if channels == 3 else (200, width)
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        m = cv2.getRotationMatrix2D((width / 2, 100), angle, 1)
+        want = cv2.warpAffine(img, m, (width, 200),
+                              borderValue=(235, 235, 235))
+        got = imaging.warp_affine(torch.from_numpy(img), m, 200, width, 235)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fma32_rounds_once():
+    """fma32 against the exact a*b + c rounded once to float32, on random
+    operands and on sums built to fall on a float32 midpoint."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(9)
+    a = rng.uniform(-1, 1, 400).astype(np.float32)
+    b = rng.integers(-255, 256, 400).astype(np.float32)
+    c = rng.uniform(-300, 300, 400).astype(np.float32)
+    # exact sums of a few ulps
+    c[:100] = -(a[:100].astype(np.float64) * b[:100]).astype(np.float32)
+    # 1 + 2**-24 + 2**-54: float64 rounds it onto the float32 midpoint
+    # 1 + 2**-24, from where a second rounding would give 1.0
+    a[100:102] = np.float32(5237765 * 2.0**-54)
+    b[100:102] = (205, -205)
+    c[100:102] = (1.0, -1.0)
+    got = imaging.fma32(*map(torch.from_numpy, (a, b, c))).numpy()
+    for x, y, z, g in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        lo = np.float32(float(exact))
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo,
+                 np.nextafter(lo, np.float32(np.inf))]
+        dist = [abs(Fraction(float(v)) - exact) for v in cands]
+        best = min(dist)
+        nearest = [v for v, d in zip(cands, dist) if d == best]
+        if len(nearest) > 1:  # a tie: the even one
+            nearest = [v for v in nearest
+                       if int(np.float32(v).view(np.int32)) % 2 == 0]
+        assert g == nearest[0], (x, y, z)
 
 
 def _polygons(rng, n):
