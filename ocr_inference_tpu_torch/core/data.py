@@ -1,4 +1,4 @@
-"""The part of the typed data model the page-OCR path uses.
+"""The part of the typed data model the page and volume OCR paths use.
 
 Copied from ocr_inference_tpu/core/data.py (reference: BDRC/data.py), field
 for field, so configs and results read the same in both packages.
@@ -35,6 +35,13 @@ class CharsetEncoder(Enum):
     STACK = 1
 
 
+class LineSorting(Enum):
+    """Reading-order sorting algorithm (reference: BDRC/data.py:60)."""
+
+    THRESHOLD = 0
+    PEAKS = 1
+
+
 def generate_guid(clock_seq: int) -> UUID:
     """UUID with fixed clock sequence (reference: BDRC/line_detection.py:20)."""
     return uuid1(clock_seq=clock_seq)
@@ -51,6 +58,17 @@ class BBox:
 
     def as_tuple(self) -> tuple[int, int, int, int]:
         return (self.x, self.y, self.w, self.h)
+
+
+@dataclass
+class RotatedBBox:
+    """Min-area rotated box (reference: BDRC/data.py:112)."""
+
+    center: tuple[float, float]
+    width: float
+    height: float
+    angle: float
+    points: np.ndarray  # (4, 2) int32
 
 
 @dataclass
@@ -73,6 +91,20 @@ class OCRLine:
     ctc_conf: Optional[float] = None
     logits: Optional[list[float]] = None
     lm_scores: Optional[list[float]] = None
+
+
+@dataclass
+class DewarpingResult:
+    """Stage-3 result (reference: BDRC/data.py:171)."""
+
+    work_img: np.ndarray
+    work_mask: np.ndarray
+    filtered_contours: list
+    page_angle: float
+    applied: bool
+    tps_ratio: Optional[float] = None
+    dewarped_img: Optional[np.ndarray] = None
+    dewarped_mask: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -102,6 +134,16 @@ class OCRModelConfig:
     charset: list[str]
     add_blank: bool
     version: str
+
+
+@dataclass
+class ArtifactConfig:
+    """Artifact saving behavior (reference: BDRC/data.py:290)."""
+
+    enabled: bool = True
+    granularity: str = "standard"  # "minimal" | "standard"
+    save_detection: bool = True
+    save_dewarping: bool = True
 
 
 @dataclass

@@ -44,6 +44,24 @@ def min_area_rect(points: np.ndarray):
     return native.min_area_rect(points)
 
 
+def box_points(rect) -> np.ndarray:
+    """Corner points of a ((cx, cy), (w, h), angle) rect (cv2.boxPoints
+    order; the JAX backend's native branch, backend.py:160-177)."""
+    (cx, cy), (w, h), angle = rect
+    a = np.deg2rad(angle)
+    ux = np.array([np.cos(a), np.sin(a)])
+    uy = np.array([-np.sin(a), np.cos(a)])
+    c = np.array([cx, cy])
+    half_w, half_h = w / 2.0, h / 2.0
+    corners = np.stack([
+        c - ux * half_w - uy * half_h,
+        c + ux * half_w - uy * half_h,
+        c + ux * half_w + uy * half_h,
+        c - ux * half_w + uy * half_h,
+    ])
+    return corners.astype(np.float32)
+
+
 def arc_length(contour: np.ndarray, closed: bool = True) -> float:
     return native.arc_length(contour, closed)
 

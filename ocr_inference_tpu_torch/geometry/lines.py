@@ -1,14 +1,17 @@
 """Line geometry on the host: skew, contours, reading order, line strips.
 
-The part of ocr_inference_tpu/geometry/lines.py that ``build_lines`` and
-``extract_lines`` reach (reference: BDRC/line_detection.py), with its cv2
-pixel calls replaced:
+The part of ocr_inference_tpu/geometry/lines.py that the pipeline stages
+(both reading orders) and the exporters reach (reference:
+BDRC/line_detection.py, BDRC/utils.py), with its cv2 pixel calls
+replaced:
 
 - cv2.warpAffine (lines.py:54-55) by ops/imaging.py ``rotate_from_angle``;
 - cv2.drawContours(..., -1) (lines.py:227) by the native filled-contour
   rasterizer (byte-equal with cv2);
-- cv2.cvtColor of a 3-channel mask is not needed: the detection engine
-  returns the mask 2-D.
+- cv2.cvtColor(BGR2GRAY) of a 3-channel mask (lines.py:559) by
+  ops/imaging.py ``rgb_to_gray`` on the reversed channels (cv2's
+  fixed-point weights, byte-equal); the detection engine itself returns
+  the mask 2-D.
 
 Topology runs in the native library (geometry/backend.py).
 """
@@ -20,7 +23,12 @@ import sys
 import numpy as np
 import torch
 
-from ocr_inference_tpu_torch.core.data import BBox, Line, generate_guid
+from ocr_inference_tpu_torch.core.data import (
+    BBox,
+    Line,
+    RotatedBBox,
+    generate_guid,
+)
 from ocr_inference_tpu_torch.geometry import backend as geo
 from ocr_inference_tpu_torch.native import PackedLineRoi
 from ocr_inference_tpu_torch.ops import imaging
@@ -289,3 +297,146 @@ def sort_lines_by_threshold(
             if line.center == c
         ]
     return new_lines, threshold
+
+
+def bgr_to_gray(image: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(image, COLOR_BGR2GRAY) for (H, W, 3) uint8, byte-equal:
+    the RGB weights on the reversed channels."""
+    if image.dtype != np.uint8:
+        raise TypeError(f"bgr_to_gray takes uint8, got {image.dtype}")
+    rgb = np.ascontiguousarray(image[..., ::-1])
+    return imaging.rgb_to_gray(torch.from_numpy(rgb)).numpy()
+
+
+def sort_lines_by_peaks(
+    line_mask: np.ndarray,
+    lines: list[Line],
+    group_lines: bool = True,
+) -> tuple[list[Line], float]:
+    """Reading order via horizontal projection-profile peaks, the
+    LineSorting.PEAKS algorithm (geometry/lines.py:550-610): lines join
+    their nearest row-sum peak, rows read top to bottom, chunks left to
+    right. Returns (lines, min peak gap)."""
+    if line_mask.ndim == 3:
+        line_mask = bgr_to_gray(line_mask)
+    if not lines:
+        return [], 0.0
+
+    profile = (line_mask > 0).sum(axis=1).astype(np.float64)
+    heights = [line.bbox.h for line in lines]
+    min_gap = max(int(np.median(heights) * 0.75), 4)
+    k = max(min_gap // 2 * 2 + 1, 3)
+    kernel = np.ones(k) / k
+    smooth = np.convolve(profile, kernel, mode="same")
+
+    floor = smooth.max() * 0.2
+    peaks: list[int] = []
+    for y in range(1, len(smooth) - 1):
+        if smooth[y] < floor:
+            continue
+        if smooth[y] >= smooth[y - 1] and smooth[y] > smooth[y + 1]:
+            if peaks and y - peaks[-1] < min_gap:
+                if smooth[y] > smooth[peaks[-1]]:
+                    peaks[-1] = y
+                continue
+            peaks.append(y)
+    if not peaks:  # degenerate mask: single row
+        peaks = [int(np.argmax(smooth))]
+
+    rows: dict[int, list[tuple[int, int]]] = {i: [] for i in range(len(peaks))}
+    arr = np.asarray(peaks)
+    for line in lines:
+        idx = int(np.argmin(np.abs(arr - line.center[1])))
+        rows[idx].append(line.center)
+    sorted_centers = [
+        sorted(rows[i], key=lambda c: c[0])
+        for i in range(len(peaks))
+        if rows[i]
+    ]
+    if group_lines:
+        new_lines = group_line_chunks(sorted_centers, lines)
+    else:
+        new_lines = [
+            line
+            for row in sorted_centers
+            for c in row
+            for line in lines
+            if line.center == c
+        ]
+    return new_lines, float(min_gap)
+
+
+# ---------------------------------------------------------------------------
+# Misc geometry used by exporters
+# ---------------------------------------------------------------------------
+
+def rotate_contour(
+    cnt: np.ndarray, center: tuple[int, int], angle: float
+) -> np.ndarray:
+    """Rotate contour points about a center by angle degrees, polar form
+    (geometry/lines.py:615-637; reference: BDRC/utils.py:636-658). Each
+    rotated coordinate is truncated toward zero relative to the center, as
+    the reference's assignment into its int array does."""
+    cx, cy = center
+    cnt_norm = cnt - [cx, cy]
+    coords = cnt_norm[:, 0, :].astype(np.float64)
+    thetas = np.rad2deg(np.arctan2(coords[:, 1], coords[:, 0]))
+    rhos = np.hypot(coords[:, 0], coords[:, 1])
+    thetas = np.deg2rad((thetas + angle) % 360)
+    xs = rhos * np.cos(thetas)
+    ys = rhos * np.sin(thetas)
+    out = cnt_norm.copy()
+    out[:, 0, 0] = xs.astype(out.dtype)
+    out[:, 0, 1] = ys.astype(out.dtype)
+    return (out + [cx, cy]).astype(np.int32)
+
+
+def get_text_bbox(lines: list[Line]) -> BBox:
+    """Text-area bbox from line bboxes (geometry/lines.py:640-648),
+    with the reference's max-w / last-line-h semantics."""
+    all_bboxes = [line.bbox for line in lines]
+    min_x = min(b.x for b in all_bboxes)
+    min_y = min(b.y for b in all_bboxes)
+    max_w = max(b.w for b in all_bboxes)
+    max_h = all_bboxes[-1].y + all_bboxes[-1].h
+    return BBox(min_x, min_y, max_w, max_h)
+
+
+def get_union_bbox(contours: list[np.ndarray]):
+    """Union axis-aligned + rotated bbox over contours
+    (geometry/lines.py:651-664)."""
+    if len(contours) == 0:
+        return None, None
+    all_points = np.vstack(contours)
+    x, y, w, h = geo.bounding_rect(all_points)
+    bbox = BBox(x, y, w, h)
+    (cx, cy), (width, height), angle = geo.min_area_rect(all_points)
+    points = geo.box_points(((cx, cy), (width, height), angle)).astype(np.int32)
+    return bbox, RotatedBBox((float(cx), float(cy)), width, height, angle,
+                             points)
+
+
+def contour_to_cv(contour) -> np.ndarray:
+    """[(x, y), ...] -> cv2-shaped (N, 1, 2) int32 contour
+    (geometry/lines.py:673-677)."""
+    return np.asarray(contour, dtype=np.int32).reshape(-1, 1, 2)
+
+
+def contour_to_original(contour, scale_x: float, scale_y: float):
+    """Rescale [(x, y), ...] from detection to original resolution
+    (geometry/lines.py:680-686)."""
+    return [
+        (int(round(x / scale_x)), int(round(y / scale_y))) for x, y in contour
+    ]
+
+
+def bbox_to_original(bbox, scale_x: float, scale_y: float):
+    """Rescale an (x, y, w, h) rect from detection to original resolution
+    (geometry/lines.py:689-700)."""
+    x, y, w, h = bbox
+    return (
+        int(round(x / scale_x)),
+        int(round(y / scale_y)),
+        int(round(w / scale_x)),
+        int(round(h / scale_y)),
+    )

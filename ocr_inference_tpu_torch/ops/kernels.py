@@ -38,12 +38,14 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ocr_inference_tpu_torch.device import DeviceFault
 from ocr_inference_tpu_torch.ops.imaging import (
     BLOCK,
     C,
@@ -81,6 +83,9 @@ BUILD_REPORT = ""  # ptxas's registers and spills per kernel
 _READY: set = set()       # devices whose constant taps are set
 _COUNTERS: dict = {}      # (kernel, device) -> uint64 rechecked counter
 _SMS: dict = {}           # device -> SM count
+# guards the first-use set-up above and the launch counts: detection and
+# recognition launch from different threads in a volume run
+_SETUP_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -154,6 +159,7 @@ def build_library() -> Path:
 
 
 def _library() -> ctypes.CDLL:
+    """The built library, loaded and bound (callers hold _SETUP_LOCK)."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build_library()))
@@ -170,17 +176,26 @@ def _library() -> ctypes.CDLL:
 
 
 def _ready(device: torch.device) -> ctypes.CDLL:
-    """The library, with this device's constant taps and shared-memory
-    limits set (once per device)."""
-    lib = _library()
-    if device.index not in _READY:
-        taps = np.ascontiguousarray(gaussian_kernel_1d(BLOCK), np.float32)
-        err = lib.ocr_binarize_init(taps.ctypes.data)
-        if err != 0:
-            raise RuntimeError(f"ocr_binarize_init failed: CUDA error {err}")
-        _READY.add(device.index)
-        _SMS[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
+    """The library, with this device's constant taps, shared-memory limits,
+    SM count and recheck counters set up (once per device). The volume
+    runner launches from two threads, so the first use is serialised."""
+    with _SETUP_LOCK:
+        lib = _library()
+        if device.index not in _READY:
+            taps = np.ascontiguousarray(gaussian_kernel_1d(BLOCK), np.float32)
+            err = lib.ocr_binarize_init(taps.ctypes.data)
+            if err != 0:
+                raise DeviceFault(
+                    f"ocr_binarize_init failed: CUDA error {err}")
+            _SMS[device.index] = torch.cuda.get_device_properties(
+                device).multi_processor_count
+            for name in LAUNCHES:
+                _COUNTERS[(name, device.index)] = torch.zeros(
+                    1, dtype=torch.int64, device=device)
+            # the counters are zeroed on this thread's stream; the other
+            # thread's stream may launch next
+            torch.cuda.synchronize(device)
+            _READY.add(device.index)
     return lib
 
 
@@ -192,11 +207,7 @@ def _launch(name: str, src: torch.Tensor, channels: int) -> torch.Tensor:
     out = torch.empty((n, h, w), dtype=torch.uint8, device=src.device)
     with torch.cuda.device(src.device):
         lib = _ready(src.device)
-        key = (name, src.device.index)
-        counter = _COUNTERS.get(key)
-        if counter is None:
-            counter = _COUNTERS[key] = torch.zeros(
-                1, dtype=torch.int64, device=src.device)
+        counter = _COUNTERS[(name, src.device.index)]
         strip = line_strip_width(n, h, w, _SMS[src.device.index])
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = lib.ocr_binarize(
@@ -204,7 +215,9 @@ def _launch(name: str, src: torch.Tensor, channels: int) -> torch.Tensor:
             channels, strip, RECHECK_EPS, stream,
         )
     if err != 0:
-        raise RuntimeError(f"ocr_binarize launch failed: CUDA error {err}")
+        raise DeviceFault(f"ocr_binarize launch failed: CUDA error {err}")
+    with _SETUP_LOCK:
+        LAUNCHES[name] += 1
     return out
 
 
@@ -222,9 +235,7 @@ def binarize_tiles(tiles: torch.Tensor) -> torch.Tensor:
         return binarize_tiles_plain(tiles)
     if tiles.device.type != "cuda":
         raise ValueError(f"unsupported device {tiles.device}")
-    out = _launch("binarize_tiles", tiles, 3)
-    LAUNCHES["binarize_tiles"] += 1
-    return out
+    return _launch("binarize_tiles", tiles, 3)
 
 
 def binarize_lines_plain(gray: torch.Tensor) -> torch.Tensor:
@@ -240,9 +251,7 @@ def binarize_lines(gray: torch.Tensor) -> torch.Tensor:
         return binarize_lines_plain(gray)
     if gray.device.type != "cuda":
         raise ValueError(f"unsupported device {gray.device}")
-    out = _launch("binarize_lines", gray, 1)
-    LAUNCHES["binarize_lines"] += 1
-    return out
+    return _launch("binarize_lines", gray, 1)
 
 
 # ---------------------------------------------------------------------------

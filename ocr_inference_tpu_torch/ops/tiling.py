@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ocr_inference_tpu_torch.ops.imaging import resize_bilinear, resize_linear_u8
@@ -113,6 +114,15 @@ def stitch_tiles(tiles: torch.Tensor, y_steps: int) -> torch.Tensor:
 def crop_padding(image: torch.Tensor, pad_x: int, pad_y: int) -> torch.Tensor:
     """Strip the bottom/right padding (BDRC/utils.py:1100-1108)."""
     return image[: image.shape[0] - pad_y, : image.shape[1] - pad_x]
+
+
+def pre_pad_line(img: np.ndarray) -> np.ndarray:
+    """Host-side: add HxH white squares left+right of a line strip
+    (ops/tiling.py:185-192; reference: BDRC/inference.py:349-357)."""
+    h = img.shape[0]
+    c = img.shape[2] if img.ndim == 3 else 1
+    patch = np.full((h, h, c) if img.ndim == 3 else (h, h), 255, dtype=np.uint8)
+    return np.hstack([patch, img, patch])
 
 
 def bucket_for_width(

@@ -96,6 +96,7 @@ def build_pipeline(
     batch_cfg: BatchConfig | None = None,
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device | None = None,
+    use_line_prepadding: bool = False,
 ) -> OCRPipeline:
     """Page pipeline from configs (reference: OCRPipeline ctor,
     inference.py:440-463). ``dtype`` is both engines' compute precision:
@@ -103,4 +104,4 @@ def build_pipeline(
     ``cuda`` and raises without a card unless ``"cpu"`` is given."""
     rec = build_recognition_engine(ocr_config, batch_cfg, dtype, device)
     det = build_detection_engine(line_config, dtype, device)
-    return OCRPipeline(rec, det)
+    return OCRPipeline(rec, det, line_config, use_line_prepadding)

@@ -1,28 +1,43 @@
-"""The page OCR pipeline: detection -> geometry -> recognition.
+"""The page OCR pipeline: detection -> geometry -> dewarp -> recognition.
 
 Counterpart of ocr_inference_tpu/pipeline/ocr_pipeline.py (reference:
-BDRC/inference.py:432-826) with ``use_tps=False``: the same stage methods,
-the same (OpStatus, payload) returns and the same SUCCESS payload
-``[rot_mask, sorted_lines, ocr_lines, page_angle]``. The dewarp stage is a
-pass-through without TPS, so it is not a stage here.
+BDRC/inference.py:432-826): the same stage methods, the same (OpStatus,
+payload) returns and the same SUCCESS payload ``[rot_mask, sorted_lines,
+ocr_lines, page_angle]``, with observer events around each stage. Two
+options are not ported yet and raise ``NotImplementedError``:
+``use_tps=True`` (the TPS dewarp, ROADMAP item 3) and ``eval_mode=True``
+(beams and the LM, ROADMAP item 4).
+
+Differences from the JAX pipeline: a page that is a strided view (such as
+``bgr[..., ::-1]``) is copied to a contiguous array once at the entry
+points, and a CUDA error (``device.is_device_fault``) is raised out of
+``run_ocr`` instead of becoming the page's FAILED status, since every later
+call on the card would fail too.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
 from ocr_inference_tpu_torch.core.data import (
     CharsetEncoder,
+    DewarpingResult,
     Encoding,
     Line,
+    LineDetectionConfig,
+    LineSorting,
     OCRLine,
     OpStatus,
 )
+from ocr_inference_tpu_torch.device import is_device_fault
 from ocr_inference_tpu_torch.geometry.lines import (
     build_line_data,
     build_raw_line_data,
     extract_line_images,
     filter_line_contours,
+    sort_lines_by_peaks,
     sort_lines_by_threshold,
 )
 from ocr_inference_tpu_torch.pipeline.engines import (
@@ -32,40 +47,132 @@ from ocr_inference_tpu_torch.pipeline.engines import (
 from ocr_inference_tpu_torch.text import Converter
 
 
+NO_TPS = ("use_tps=True: the TPS dewarp is not ported yet "
+          "(ROADMAP item 3)")
+NO_EVAL = ("eval_mode=True: beams and the LM are not ported yet "
+           "(ROADMAP item 4)")
+
+
+class PipelineObserver:
+    """Stage-event protocol for observability around ``run_ocr``
+    (ocr_pipeline.py:44-61): subscribers (audit loggers, artifact dumpers)
+    derive what they need from the raw stage payloads."""
+
+    def stage_start(self, stage: str) -> None:  # pragma: no cover - protocol
+        pass
+
+    def stage_end(self, stage: str, payload) -> None:  # pragma: no cover
+        pass
+
+    def stage_failed(self, stage: str, error: str) -> None:  # pragma: no cover
+        pass
+
+
+_NULL_OBSERVER = PipelineObserver()
+
+
 class OCRPipeline:
     """Page OCR over the two device engines."""
 
-    def __init__(self, ocr_engine: RecognitionEngine,
-                 detection_engine: SegmentationEngine):
+    def __init__(
+        self,
+        ocr_engine: RecognitionEngine,
+        detection_engine: SegmentationEngine,
+        line_config: Optional[LineDetectionConfig] = None,
+        use_line_prepadding: bool = False,
+    ):
         self.ocr_inference = ocr_engine
         self.line_inference = detection_engine
+        self.line_config = line_config
         self.encoder = ocr_engine.config.encoder
         self.converter = Converter()
+        self.use_line_prepadding = use_line_prepadding
+        self.ready = detection_engine is not None and ocr_engine is not None
+
+    def update_ocr_model(self, engine: RecognitionEngine):
+        """Swap the recognizer (reference: inference.py:465-467)."""
+        self.ocr_inference = engine
+        self.encoder = engine.config.encoder
+
+    def update_line_detection(self, engine: SegmentationEngine, config=None):
+        """Swap the detector (reference: inference.py:469-482)."""
+        self.line_inference = engine
+        self.line_config = config
+
+    # ==================== Stage methods ====================
+
+    def detect_lines_async(self, image: np.ndarray):
+        """Stage 1, dispatched: the page's work is queued on the card now;
+        the returned zero-arg resolver waits only for the packed mask's
+        copy to the host."""
+        resolver = self.line_inference.predict_async(image)
+        return lambda: (OpStatus.SUCCESS, resolver())
 
     def detect_lines(self, image: np.ndarray):
         """Stage 1: line mask (reference: inference.py:488-506)."""
-        return OpStatus.SUCCESS, self.line_inference.predict(image)
+        return self.detect_lines_async(image)()
 
     def build_lines(self, image: np.ndarray, line_mask: np.ndarray):
         """Stage 2: deskew + contours (reference: inference.py:508-533)."""
+        image = np.ascontiguousarray(image)
         rot_img, rot_mask, line_contours, page_angle = build_raw_line_data(
             image, line_mask
         )
         if len(line_contours) == 0:
             return OpStatus.FAILED, "No lines detected"
-        filtered = filter_line_contours(rot_mask, line_contours)
-        if len(filtered) == 0:
+        filtered_contours = filter_line_contours(rot_mask, line_contours)
+        if len(filtered_contours) == 0:
             return OpStatus.FAILED, "No valid lines after filtering"
-        return OpStatus.SUCCESS, (rot_img, rot_mask, filtered, page_angle)
-
-    def extract_lines(self, work_img, rot_mask, filtered_contours,
-                      merge_lines=True, k_factor=2.5, bbox_tolerance=4.0):
-        """Stage 4: reading order + line strips
-        (reference: inference.py:591-616)."""
-        line_data = [build_line_data(x) for x in filtered_contours]
-        sorted_lines, _ = sort_lines_by_threshold(
-            rot_mask, line_data, group_lines=merge_lines
+        return OpStatus.SUCCESS, (
+            rot_img,
+            rot_mask,
+            line_contours,
+            filtered_contours,
+            page_angle,
         )
+
+    def apply_dewarping(
+        self,
+        rot_img: np.ndarray,
+        rot_mask: np.ndarray,
+        filtered_contours: list,
+        page_angle: float,
+        use_tps: bool = False,
+        tps_threshold: float = 0.25,
+    ):
+        """Stage 3 (reference: inference.py:535-589): without TPS the
+        inputs pass through."""
+        if use_tps:
+            raise NotImplementedError(NO_TPS)
+        return OpStatus.SUCCESS, DewarpingResult(
+            work_img=rot_img,
+            work_mask=rot_mask,
+            filtered_contours=filtered_contours,
+            page_angle=page_angle,
+            applied=False,
+        )
+
+    def extract_lines(
+        self,
+        work_img: np.ndarray,
+        rot_mask: np.ndarray,
+        filtered_contours: list,
+        merge_lines: bool = True,
+        k_factor: float = 2.5,
+        bbox_tolerance: float = 4.0,
+        line_sorting: LineSorting = LineSorting.THRESHOLD,
+    ):
+        """Stage 4: reading order + line strips
+        (reference: inference.py:591-616). ``line_sorting`` picks the
+        slice-vote sort (THRESHOLD) or the projection-profile peaks
+        (PEAKS)."""
+        line_data = [build_line_data(x) for x in filtered_contours]
+        sort_fn = (
+            sort_lines_by_peaks
+            if line_sorting == LineSorting.PEAKS
+            else sort_lines_by_threshold
+        )
+        sorted_lines, _ = sort_fn(rot_mask, line_data, group_lines=merge_lines)
         line_images = extract_line_images(
             work_img, sorted_lines, k_factor, bbox_tolerance
         )
@@ -92,7 +199,9 @@ class OCRPipeline:
         if not keep:
             return OpStatus.SUCCESS, []
         imgs, infos = zip(*keep)
-        raw_texts = self.ocr_inference.run_batch(list(imgs))
+        raw_texts = self.ocr_inference.run_batch(
+            list(imgs), pre_pad=self.use_line_prepadding
+        )
         encoding = (Encoding.WYLIE.name if target_encoding == Encoding.WYLIE
                     else Encoding.UNICODE.name)
         return OpStatus.SUCCESS, [
@@ -106,45 +215,106 @@ class OCRPipeline:
             for text, info in zip(raw_texts, infos)
         ]
 
-    def run_ocr(self, image: np.ndarray, k_factor: float = 2.5,
-                bbox_tolerance: float = 4.0, merge_lines: bool = True,
-                target_encoding: Encoding = Encoding.UNICODE):
-        """Full page OCR (reference: inference.py:732-826) with per-stage
-        failure isolation. SUCCESS payload is
-        [rot_mask, sorted_lines, ocr_lines, page_angle]; a FAILED payload
-        is the error message."""
+    def run_ocr(
+        self,
+        image: np.ndarray,
+        k_factor: float = 2.5,
+        bbox_tolerance: float = 4.0,
+        merge_lines: bool = True,
+        use_tps: bool = False,
+        tps_threshold: float = 0.25,
+        target_encoding: Encoding = Encoding.UNICODE,
+        eval_mode: bool = False,
+        observer: Optional[PipelineObserver] = None,
+        line_sorting: LineSorting = LineSorting.THRESHOLD,
+    ):
+        """Full page OCR (reference: inference.py:732-826): stages 1-5 with
+        per-stage failure isolation; SUCCESS payload is
+        [rot_mask, sorted_lines, ocr_lines, page_angle], a FAILED payload
+        the error message. ``observer`` receives stage start/end/failed
+        events with the raw payloads."""
+        if use_tps:
+            raise NotImplementedError(NO_TPS)
+        if eval_mode:
+            raise NotImplementedError(NO_EVAL)
+        obs = observer or _NULL_OBSERVER
 
-        def run_stage(error_prefix: str, fn, *args, **kwargs):
+        def run_stage(stage: str, error_prefix: str, fn, *args, **kwargs):
+            """One stage with failure isolation + observer events; returns
+            (ok, payload) where payload is the error string when not ok."""
+            obs.stage_start(stage)
             try:
                 status, result = fn(*args, **kwargs)
-            except Exception as e:  # isolate the stage, report its error
-                return False, f"{error_prefix}: {e}"
-            return status != OpStatus.FAILED, result
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+                msg = f"{error_prefix}: {str(e)}"
+                obs.stage_failed(stage, msg)
+                return False, msg
+            if status == OpStatus.FAILED:
+                obs.stage_failed(stage, str(result))
+                return False, result
+            obs.stage_end(stage, result)
+            return True, result
 
-        if image is None:
-            return OpStatus.FAILED, "Input image is None"
-        ok, line_mask = run_stage("Line detection failed", self.detect_lines,
-                                  image)
-        if not ok:
-            return OpStatus.FAILED, line_mask
-        ok, result = run_stage("Line data building failed", self.build_lines,
-                               image, line_mask)
-        if not ok:
-            return OpStatus.FAILED, result
-        rot_img, rot_mask, filtered_contours, page_angle = result
-        ok, result = run_stage(
-            "Line extraction failed", self.extract_lines, rot_img, rot_mask,
-            filtered_contours, merge_lines=merge_lines, k_factor=k_factor,
-            bbox_tolerance=bbox_tolerance,
-        )
-        if not ok:
-            return OpStatus.FAILED, result
-        sorted_lines, line_images = result
-        ok, ocr_lines = run_stage(
-            "OCR processing failed", self.run_text_recognition, line_images,
-            sorted_lines, target_encoding=target_encoding,
-        )
-        if not ok:
-            return OpStatus.FAILED, ocr_lines
-        return OpStatus.SUCCESS, [rot_mask, sorted_lines, ocr_lines,
-                                  float(page_angle)]
+        try:
+            if not self.ready:
+                return OpStatus.FAILED, "OCR pipeline not ready"
+            if image is None:
+                return OpStatus.FAILED, "Input image is None"
+            image = np.ascontiguousarray(image)
+
+            ok, result = run_stage(
+                "line_detection", "Line detection failed",
+                self.detect_lines, image,
+            )
+            if not ok:
+                return OpStatus.FAILED, result
+            line_mask = result
+
+            ok, result = run_stage(
+                "build_line_data", "Line data building failed",
+                self.build_lines, image, line_mask,
+            )
+            if not ok:
+                return OpStatus.FAILED, result
+            rot_img, rot_mask, _, filtered_contours, page_angle = result
+
+            ok, result = run_stage(
+                "dewarping", "Line processing failed",
+                self.apply_dewarping, rot_img, rot_mask, filtered_contours,
+                page_angle, use_tps=use_tps, tps_threshold=tps_threshold,
+            )
+            if not ok:
+                return OpStatus.FAILED, result
+            dewarp_result = result
+
+            ok, result = run_stage(
+                "extract_lines", "Line extraction failed",
+                self.extract_lines, dewarp_result.work_img, rot_mask,
+                dewarp_result.filtered_contours, merge_lines=merge_lines,
+                k_factor=k_factor, bbox_tolerance=bbox_tolerance,
+                line_sorting=line_sorting,
+            )
+            if not ok:
+                return OpStatus.FAILED, result
+            sorted_lines, line_images = result
+
+            ok, ocr_lines = run_stage(
+                "ocr_inference", "OCR processing failed",
+                self.run_text_recognition, line_images, sorted_lines,
+                target_encoding=target_encoding,
+            )
+            if not ok:
+                return OpStatus.FAILED, ocr_lines
+
+            return OpStatus.SUCCESS, [
+                rot_mask,
+                sorted_lines,
+                ocr_lines,
+                float(page_angle),
+            ]
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            return OpStatus.FAILED, f"OCR pipeline failed: {str(e)}"

@@ -89,3 +89,12 @@ def test_phase_probe_imports_nothing_forbidden():
         "from ocr_inference_tpu_torch.ops import kernels\n"
     )
     assert _imported(imports) == "FORBIDDEN []"
+
+
+def test_volume_probe_imports_nothing_forbidden():
+    imports = (
+        "import probe_volume\n"
+        "from ocr_inference_tpu_torch.pipeline import VolumeRunner\n"
+        "from ocr_inference_tpu_torch.io import PageXMLExporter\n"
+    )
+    assert _imported(imports) == "FORBIDDEN []"

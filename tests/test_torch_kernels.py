@@ -21,6 +21,16 @@ from ocr_inference_tpu.ops import pallas_kernels as pk
 from ocr_inference_tpu_torch.ops import imaging, kernels
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The suite runs in several worker processes at once; two intra-op
+    threads each keep them from oversubscribing the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _page_like(rng, shape):
     img = np.full(shape, 235, np.uint8)
     h, w = shape[1], shape[2]
@@ -193,3 +203,52 @@ def test_phase_probe_stamps_the_kernel_source():
     assert out.count("const unsigned long long t") == 3
     assert "g_stamp[bid][3] = stamp();" in out
     assert "int stamps_read(void* host)" in out
+
+
+def test_first_use_setup_runs_once_across_threads(monkeypatch):
+    """A volume run launches the kernels from two threads: the per-device
+    set-up (constant taps, SM count, recheck counters) runs once however
+    many threads reach it together. The library is a stub here."""
+    import sys
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    calls = []
+
+    class StubLibrary:
+        def ocr_binarize_init(self, taps_ptr):
+            calls.append(taps_ptr)
+            time.sleep(0.05)  # widen the window a second caller could use
+            return 0
+
+    monkeypatch.setattr(kernels, "_library", StubLibrary)
+    monkeypatch.setattr(kernels, "_READY", set())
+    monkeypatch.setattr(kernels, "_COUNTERS", {})
+    monkeypatch.setattr(kernels, "_SMS", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
+    dev = torch.device("cpu")  # a stand-in: the stub touches no card
+    barrier = threading.Barrier(8)
+    libs = []
+
+    def worker():
+        barrier.wait(timeout=30)
+        libs.append(kernels._ready(dev))
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert len(calls) == 1 and len(libs) == 8
+    assert kernels._SMS == {None: 132}
+    assert sorted(kernels._COUNTERS) == [("binarize_lines", None),
+                                         ("binarize_tiles", None)]
