@@ -4,7 +4,7 @@ check it.
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
-geometry library, started together), then runs six phases and prints one
+geometry library, started together), then runs nine phases and prints one
 JSON line for each:
 
 1. build        — seconds of each compiler; registers and spills of each
@@ -43,11 +43,43 @@ JSON line for each:
                   most 0.5%, every padded batch is in {1, 2, 4, 8, 16, 32},
                   every PageXML file parses with one TextLine per line, and
                   each kernel ran and equals its plain version on the
-                  largest input the volume gave it.
+                  largest input the volume gave it;
+7. dewarp_f32   — two bench.py config 2 pages (``curved_volume``, 1600x2640,
+                  40 px sine) through run_ocr(use_tps=True) in float32,
+                  TF32 off: each page's bytes, TPS ratio, gate, band ``b``,
+                  ``max_dy``, line counts before and after the warp and
+                  boxes equal to the JAX float32 record of
+                  tests/data/torch_port/eval_suite.json, texts within 0.5%
+                  CER of it; the card's warp against the port's CPU warp on
+                  the same inputs (at most one gray level and under 1e-3 of
+                  the mask pixels differing, the page's border excluded);
+                  LOCAL mode (get_line_images_via_local_tps) on the first
+                  page's line data on the card against the CPU: the same
+                  strips, shape for shape, under 1e-3 of each strip's
+                  values more than one gray level apart (a flipped mask
+                  pixel moves a strip pixel between ink and blank);
+8. dewarp_volume_bf16 — the main path of the dewarp: bench.py config 2's
+                  shape, 24 curved pages through VolumeRunner
+                  (geometry_workers=2, use_tps=True) at its defaults, warmed
+                  on 4 pages and warm_shapes(), exports in the timed run;
+                  the same pages through a run_ocr(use_tps=True) loop;
+                  pages/s, lines/s, stage medians (dewarp among them), the
+                  stage split of one page, the warps that took the exact
+                  path, peak memory. Passes when every page is dewarped and
+                  read in order, the boxes equal run_ocr's, the CER against
+                  run_ocr's texts is at most 0.5%, the PageXML parses and
+                  each kernel ran and equals its plain version on the
+                  largest input the volume gave it;
+9. eval_suite   — the first 12 pages of the six-distribution eval (two of
+                  each) through eval/suite.py run_suite, bf16, canvas width
+                  512 as the eval CLI has it: each page's bytes equal the JAX
+                  page's (sha256 in the record), the texts within 2% CER of
+                  the JAX float32 texts; CER per distribution, the pages the
+                  dewarp was applied to.
 
 Kernel launch and recheck counts are zeroed just before each OCR path is
-driven (phases 3-6) and read just after it. Then a ``kernels`` JSON line
-(per kernel: launches over the main paths, phases 5 and 6, and by path,
+driven (phases 3-9) and read just after it. Then a ``kernels`` JSON line
+(per kernel: launches over the main paths, phases 5, 6 and 8, and by path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -59,6 +91,7 @@ once. Imports torch, numpy and the port; nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import subprocess
 import sys
@@ -225,7 +258,7 @@ def bench_page(seed: int = 42) -> np.ndarray:
     return bench_volume(1, seed)[0]
 
 
-def full77f_pipeline(dtype: torch.dtype):
+def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000):
     from ocr_inference_tpu_torch.core.data import (
         CharsetEncoder, LineDetectionConfig, OCRModelConfig,
     )
@@ -234,7 +267,7 @@ def full77f_pipeline(dtype: torch.dtype):
     meta = json.loads((WEIGHTS / "recognizer.msgpack.json").read_text())
     ocr = OCRModelConfig(
         model_file=str(WEIGHTS / "recognizer.onnx"), architecture="Easter2",
-        input_width=3000, input_height=80, input_layer="input",
+        input_width=input_width, input_height=80, input_layer="input",
         output_layer="output", squeeze_channel=True, swap_hw=False,
         encoder=CharsetEncoder.WYLIE, charset=list(meta["charset"]),
         add_blank=True, version="full77f",
@@ -498,9 +531,10 @@ def page_ocr_bf16(pipe, results: dict):
     }
 
 
-def stage_ms(pipe, img) -> dict:
+def stage_ms(pipe, img, use_tps: bool = False) -> dict:
     """Host-clock time of each run_ocr stage on one page, the card
-    synchronized at every stage boundary."""
+    synchronized at every stage boundary; with ``use_tps`` the dewarping
+    stage too, and its lines go on."""
     times = {}
 
     def timed(name, fn, *args):
@@ -516,7 +550,12 @@ def stage_ms(pipe, img) -> dict:
     mask = timed("detect_lines", pipe.detect_lines, img)
     rot_img, rot_mask, _, contours, angle = timed(
         "build_lines", pipe.build_lines, img, mask)
-    lines, strips = timed("extract_lines", pipe.extract_lines, rot_img,
+    work_img = rot_img
+    if use_tps:
+        dw = timed("dewarping", pipe.apply_dewarping, rot_img, rot_mask,
+                   contours, angle, True)
+        work_img, contours = dw.work_img, dw.filtered_contours
+    lines, strips = timed("extract_lines", pipe.extract_lines, work_img,
                           rot_mask, contours)
     timed("recognize", pipe.run_text_recognition, strips, lines)
     times["page_angle"] = angle
@@ -532,7 +571,7 @@ def _raising_loader():
     raise OSError("unreadable page file")
 
 
-def plain_reads(pipe, entries) -> tuple[dict, float]:
+def plain_reads(pipe, entries, use_tps: bool = False) -> tuple[dict, float]:
     """The volume's pages through run_ocr one by one: name -> (bboxes,
     texts) of the lines whose strips are not empty (the lines VolumeRunner
     keeps, volume.py drops the rest), and the loop's seconds."""
@@ -556,7 +595,7 @@ def plain_reads(pipe, entries) -> tuple[dict, float]:
             continue
         obs = Strips()
         status, payload = pipe.run_ocr(img, target_encoding=Encoding.WYLIE,
-                                       observer=obs)
+                                       observer=obs, use_tps=use_tps)
         if status == OpStatus.SUCCESS:
             out[name] = (obs.kept, [ln.text for ln in payload[2]])
     torch.cuda.synchronize()
@@ -692,12 +731,370 @@ def volume_bf16(pipe, results: dict):
     }
 
 
-MAIN_PATHS = ("page_ocr_bf16", "volume_bf16")
+def sha256(array: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def eval_record() -> dict:
+    return json.loads((FIXTURE / "eval_suite.json").read_text(
+        encoding="utf-8"))
+
+
+@contextlib.contextmanager
+def dewarp_recorder(keep: bool = False):
+    """While open, every warp the pipeline makes (apply_global_tps) records
+    its report (the band ``b``, ``max_dy``, the path taken) and, with
+    ``keep``, its inputs and outputs. Two geometry threads may call it."""
+    from ocr_inference_tpu_torch.pipeline import ocr_pipeline
+
+    calls: list[dict] = []
+    lock = threading.Lock()
+    real = ocr_pipeline.apply_global_tps
+
+    def recorder(image, line_mask, line_data, **kwargs):
+        report: dict = {}
+        out = real(image, line_mask, line_data, report=report, **kwargs)
+        entry = {"report": report}
+        if keep:
+            entry["inputs"], entry["outputs"] = (image, line_mask,
+                                                 line_data), out
+        with lock:
+            calls.append(entry)
+        return out
+
+    ocr_pipeline.apply_global_tps = recorder
+    try:
+        yield calls
+    finally:
+        ocr_pipeline.apply_global_tps = real
+
+
+def warp_agreement(got, want) -> dict:
+    """The card's (gray, mask) warp against the CPU's: the gray levels
+    and mask pixels that differ, over the page and inside its border."""
+    inner = (slice(1, -1), slice(1, -1))
+    diff = np.abs(got[0].astype(int) - want[0].astype(int))
+    flips = (got[1] > 0) != (want[1] > 0)
+    return {"max_gray_diff": int(diff.max()),
+            "max_gray_diff_inner": int(diff[inner].max()),
+            "mask_mismatch_inner": float(flips[inner].mean()),
+            "mask_mismatch": float(flips.mean())}
+
+
+def local_tps_agreement(image, line_mask, line_data) -> dict:
+    """LOCAL mode (a TPS warp per curved line, then its strip) on the card
+    against the same call on the CPU, on a page's own line data: the same
+    strips, shape for shape, at the warp's bar. A strip is the page masked
+    by the line's warped mask, so a mask pixel that the float order flips
+    (the bar allows under 1e-3 of them) moves a strip pixel between ink
+    and blank: under 1e-3 of a strip's values may differ by more than one
+    gray level."""
+    from ocr_inference_tpu_torch.dewarp import get_line_images_via_local_tps
+
+    with no_tf32():
+        t0 = time.perf_counter()
+        card = get_line_images_via_local_tps(image, line_data)
+        card_s = time.perf_counter() - t0
+        cpu = get_line_images_via_local_tps(image, line_data, device="cpu")
+    shapes_equal = [a.shape == b.shape for a, b in zip(card, cpu)]
+    diffs = [np.abs(a.astype(int) - b.astype(int))
+             for a, b in zip(card, cpu) if a.shape == b.shape]
+    above = [float((d > 1).mean()) for d in diffs]
+    return {"lines": len(card), "curved": sum(d["tps"] for d in line_data),
+            "shapes_equal": sum(shapes_equal),
+            "max_gray_diff": max((int(d.max()) for d in diffs), default=0),
+            "values_above_1": sum(int((d > 1).sum()) for d in diffs),
+            "max_share_above_1": max(above, default=0.0),
+            "card_host_ms": card_s * 1e3,
+            "ok": (len(card) == len(cpu) == len(line_data)
+                   and all(shapes_equal) and max(above, default=0.0) < 1e-3)}
+
+
+def stage_capture():
+    from ocr_inference_tpu_torch.pipeline import PipelineObserver
+
+    class Capture(PipelineObserver):
+        """The contours before the dewarp and its result."""
+
+        lines_before = None
+        dewarp = None
+
+        def stage_end(self, stage, payload):
+            if stage == "build_line_data":
+                self.lines_before = len(payload[3])
+            elif stage == "dewarping":
+                self.dewarp = payload
+
+    return Capture()
+
+
+@phase("dewarp_f32")
+def dewarp_f32(pipe, results: dict):
+    from ocr_inference_tpu_torch.core.data import Encoding, OpStatus
+    from ocr_inference_tpu_torch.dewarp import apply_global_tps
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.eval.synthetic import curved_volume
+
+    record = eval_record()["curved"]["pages"]
+    pages = curved_volume(len(record))
+    runs = []
+    with no_tf32(), dewarp_recorder(keep=True) as calls, \
+            counted_path(results, "dewarp_f32"):
+        for img in pages:
+            obs = stage_capture()
+            status, payload = pipe.run_ocr(
+                img, target_encoding=Encoding.WYLIE, use_tps=True,
+                observer=obs)
+            runs.append((status, payload, obs))
+    per_page, ok = [], len(calls) == len(pages)
+    for img, (status, payload, obs), call, want in zip(pages, runs, calls,
+                                                        record):
+        if status != OpStatus.SUCCESS:
+            per_page.append({"status": status.name, "error": payload})
+            ok = False
+            continue
+        _, lines, ocr_lines, angle = payload
+        texts = [ln.text for ln in ocr_lines]
+        report = call["report"]
+        cpu = apply_global_tps(*call["inputs"], device="cpu")
+        agree = warp_agreement(call["outputs"], cpu)
+        got = {
+            "sha256_equal": sha256(img) == want["sha256"],
+            "tps_ratio": obs.dewarp.tps_ratio, "applied": obs.dewarp.applied,
+            "b": report["b"], "max_dy": report["max_dy"],
+            "path": report["path"], "lines_before": obs.lines_before,
+            "lines_after": len(obs.dewarp.filtered_contours),
+            "lines": len(texts), "angle": angle,
+            "boxes_equal_jax_f32": [list(ln.bbox.as_tuple()) for ln in lines]
+            == want["jax_f32_boxes"],
+            "texts_identical": texts == want["jax_f32_texts"],
+            "cer_vs_jax_f32": cer([" ".join(texts)],
+                                  [" ".join(want["jax_f32_texts"])]),
+            "card_vs_cpu_warp": agree,
+        }
+        ok &= (got["sha256_equal"] and got["boxes_equal_jax_f32"]
+               and got["tps_ratio"] == want["tps_ratio"]
+               and got["applied"] == want["applied"]
+               and got["b"] == want["b"]
+               and abs(got["max_dy"] - want["max_dy"]) < 1e-3
+               and got["lines_before"] == want["lines_before"]
+               and got["lines_after"] == want["lines_after"]
+               and got["cer_vs_jax_f32"] <= 0.005
+               and agree["max_gray_diff_inner"] <= 1
+               and agree["mask_mismatch_inner"] < 1e-3)
+        per_page.append(got)
+    local = local_tps_agreement(*calls[0]["inputs"])
+    ok &= local["ok"]
+    return {"_ok": ok, "pages": per_page, "local_tps": local,
+            "warp_device_ms": warp_device_ms(calls[0]["inputs"]),
+            "jax_f32": [
+        {k: want[k] for k in ("tps_ratio", "applied", "b", "max_dy",
+                              "lines_before", "lines_after")}
+        for want in record],
+        "launches": results["launches"]["dewarp_f32"],
+        "gpu": gpu_name_and_limit()}
+
+
+def warp_device_ms(inputs) -> dict:
+    """Device time of the dewarp's card work on one page's inputs: the
+    vertical gather warp and the exact 2-D warp, each with its map,
+    inputs already on the card (CUDA events over repeated calls)."""
+    from ocr_inference_tpu_torch.dewarp import tps
+    from ocr_inference_tpu_torch.ops.imaging import rgb_to_gray
+
+    image, mask, line_data = inputs
+    h, w = image.shape[:2]
+    gray = rgb_to_gray(torch.from_numpy(np.ascontiguousarray(image))).cuda()
+    mask_t = torch.from_numpy(np.ascontiguousarray(mask)).cuda()
+    fit = tps.global_tps_fit(h, w, line_data)[:3]
+    with torch.inference_mode():
+        return {
+            "shape": [h, w],
+            "vertical": cuda_ms(lambda x: tps._warp_pair_vertical(
+                x, mask_t, *fit), gray, iters=10),
+            "exact": cuda_ms(lambda x: tps._warp_pair(x, mask_t, *fit),
+                             gray, iters=10),
+        }
+
+
+DEWARP_PAGES = 24
+
+
+@phase("dewarp_volume_bf16")
+def dewarp_volume_bf16(pipe, results: dict):
+    from collections import Counter
+
+    from ocr_inference_tpu_torch.core.data import Encoding, OpStatus
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.eval.synthetic import curved_volume
+    from ocr_inference_tpu_torch.io import PageXMLExporter, TextExporter
+    from ocr_inference_tpu_torch.ops import kernels
+    from ocr_inference_tpu_torch.pipeline import VolumeRunner
+
+    t0 = time.perf_counter()
+    pages = curved_volume(DEWARP_PAGES)
+    entries = [(f"curved{i:03d}", img) for i, img in enumerate(pages)]
+    make_s = time.perf_counter() - t0
+    rec_engine = pipe.ocr_inference
+
+    # warm: one run over 4 pages, then every streaming shape
+    VolumeRunner(pipe, geometry_workers=2).run(
+        entries[:4], use_tps=True, target_encoding=Encoding.WYLIE)
+    warmed = rec_engine.warm_shapes()
+    torch.cuda.synchronize()
+
+    runner = VolumeRunner(pipe, geometry_workers=2)
+    exported = []
+    with tempfile.TemporaryDirectory() as out_dir, \
+            dewarp_recorder() as calls:
+        exporters = (PageXMLExporter(out_dir), TextExporter(out_dir))
+
+        def export(rec):  # per page, inside the timed run (bench.py)
+            if rec.mask is not None and rec.ocr_lines:
+                exported.append(exporters[0].export_lines(
+                    rec.mask, rec.name, rec.lines, rec.ocr_lines,
+                    angle=rec.angle))
+                exported.append(exporters[1].export_lines(
+                    None, rec.name, rec.lines, rec.ocr_lines))
+            rec.mask = None
+
+        rec_engine.occupancy.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with counted_path(results, "dewarp_volume_bf16"):
+            t0 = time.perf_counter()
+            records = runner.run(entries, use_tps=True,
+                                 target_encoding=Encoding.WYLIE,
+                                 on_page_done=export)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        occupancy = dict(rec_engine.occupancy)
+        paths = Counter(c["report"]["path"] for c in calls)
+        max_dy = [c["report"]["max_dy"] for c in calls]
+        xml_lines = {}
+        for path in exported:
+            if path.endswith(".xml"):
+                root = ET.parse(path).getroot()
+                xml_lines[Path(path).stem] = sum(
+                    1 for el in root.iter() if el.tag.endswith("TextLine"))
+    plain, plain_s = plain_reads(pipe, entries, use_tps=True)
+    split = stage_ms(pipe, pages[0], use_tps=True)
+
+    ok_pages = [r for r in records if r.status == OpStatus.SUCCESS]
+    checks = {
+        "in_order": [r.name for r in records] == [n for n, _ in entries],
+        "all_pages_read": len(ok_pages) == len(entries),
+        "every_page_dewarped": len(calls) == len(entries),
+        "boxes_equal_run_ocr": all(
+            r.name in plain
+            and [ln.bbox.as_tuple() for ln in r.lines] == plain[r.name][0]
+            for r in ok_pages),
+        "batches_closed": {b for (_, _, b) in occupancy} <= ALLOWED_BATCHES,
+        "pagexml_valid": len(xml_lines) == len(ok_pages) and all(
+            xml_lines.get(r.name) == len(r.lines) for r in ok_pages),
+    }
+    volume_cer = cer(
+        [" ".join(ln.text for ln in r.ocr_lines) for r in ok_pages],
+        [" ".join(plain.get(r.name, ([], []))[1]) for r in ok_pages])
+    checks["cer_vs_run_ocr_le_0.5pct"] = volume_cer <= 0.005
+
+    agree = {}
+    for name, plain_fn in (("binarize_tiles", kernels.binarize_tiles_plain),
+                           ("binarize_lines", kernels.binarize_lines_plain)):
+        x = results["samples"].get(("dewarp_volume_bf16", name))
+        if x is None:
+            agree[name] = None
+            continue
+        got = getattr(kernels, name)(x)
+        agree[name] = {"shape": list(x.shape),
+                       "mismatches": int((got != plain_fn(x)).sum())}
+    launches = results["launches"]["dewarp_volume_bf16"]
+    checks["kernels_ran_and_agree"] = all(
+        launches[k] > 0 and agree[k] is not None
+        and agree[k]["mismatches"] == 0 for k in launches)
+
+    n_lines = sum(len(r.lines) for r in ok_pages)
+    timings = {k: _median([r.timings_ms[k] for r in ok_pages
+                           if k in r.timings_ms])
+               for k in ("detect_dispatch", "detect", "geometry", "dewarp",
+                         "recognize")}
+    return {
+        "_ok": all(checks.values()),
+        "checks": checks,
+        "entries": len(entries), "pages_ok": len(ok_pages),
+        "lines": n_lines,
+        "volume": {"seconds": dt, "pages_per_s": len(ok_pages) / dt,
+                   "lines_per_s": n_lines / dt},
+        "run_ocr_loop": {"seconds": plain_s,
+                         "pages_per_s": len(plain) / plain_s,
+                         "lines_per_s": sum(len(v[1]) for v in
+                                            plain.values()) / plain_s},
+        "cer_vs_run_ocr": volume_cer,
+        "warp_paths": dict(paths),
+        "max_dy_range": [min(max_dy), max(max_dy)] if max_dy else None,
+        "stage_ms_one_page": split,
+        "peak_memory_gib": peak_gib,
+        "occupancy": sorted([*k, v] for k, v in occupancy.items()),
+        "stage_median_ms": timings,
+        "detect_ahead": runner.detect_ahead,
+        "adaptive": runner.adaptive,
+        "files_exported": len(exported),
+        "warm_shapes": warmed,
+        "launches": launches,
+        "rechecked": results["rechecked"]["dewarp_volume_bf16"],
+        "kernel_vs_plain": agree,
+        "make_volume_s": make_s,
+        "errors": {r.name: r.error for r in records if r.error},
+        "gpu": gpu_name_and_limit(),
+    }
+
+
+EVAL_SMOKE_PAGES = 12
+
+
+@phase("eval_suite")
+def eval_suite(pipe, results: dict):
+    from ocr_inference_tpu_torch.eval import suite
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.eval.synthetic import load_glyphs
+
+    record = eval_record()["pages"][:EVAL_SMOKE_PAGES]
+    glyphs, charset = load_glyphs(FIXTURE / "pages.npz")
+    same_bytes = []
+
+    def check(page, _):
+        same_bytes.append(sha256(page.image) == record[page.index]["sha256"])
+
+    t0 = time.perf_counter()
+    with counted_path(results, "eval_suite"):
+        res = suite.run_suite(pipe, EVAL_SMOKE_PAGES, glyphs, charset,
+                              on_page=check)
+    dt = time.perf_counter() - t0
+    cer_vs_jax = cer(res.predictions, [p["jax_f32_text"] for p in record])
+    ok = (len(same_bytes) == EVAL_SMOKE_PAGES and all(same_bytes)
+          and cer_vs_jax <= 0.02)
+    return {
+        "_ok": ok, "pages": EVAL_SMOKE_PAGES,
+        "pages_equal_jax_bytes": sum(same_bytes),
+        "cer_vs_jax_f32": cer_vs_jax,
+        "cer_vs_ground_truth": res.cer,
+        "jax_f32_cer_vs_ground_truth": cer(
+            [p["jax_f32_text"] for p in record], res.references),
+        "per_distribution": res.per_distribution,
+        "tps_applied_pages": res.tps_applied_pages,
+        "failed_pages": res.failed_pages,
+        "lines": res.lines_detected, "suite_s": dt,
+        "launches": results["launches"]["eval_suite"],
+    }
+
+
+MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16")
 
 
 def kernels_line(results: dict) -> dict:
     """The per-kernel summary: launches and rechecked pixels over the main
-    paths (bf16 page OCR and the bf16 volume), with each path's own count;
+    paths (bf16 page OCR, the bf16 volume and the dewarped bf16 volume),
+    with each path's own count;
     time, plain time and bound at the largest shape the main paths gave
     the kernel, and the shapes each path gave it."""
     from ocr_inference_tpu_torch.ops import kernels
@@ -763,9 +1160,15 @@ def main() -> int:
     with kernel_recorder(results):
         page_ocr_f32(f32, results)
         volume_f32(f32, results)
+        dewarp_f32(f32, results)
         del f32
         page_ocr_bf16(bf16, results)
         volume_bf16(bf16, results)
+        dewarp_volume_bf16(bf16, results)
+        del bf16
+        # the eval CLI's recognizer canvas (selftrain_cli.py --canvas-width)
+        eval_suite(full77f_pipeline(torch.bfloat16, input_width=512),
+                   results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1

@@ -11,6 +11,7 @@ from ocr_inference_tpu_torch.geometry.lines import (  # noqa: F401
     filter_line_contours,
     get_contours,
     get_line_image,
+    get_line_image_from_mask,
     get_text_bbox,
     get_union_bbox,
     group_line_chunks,

@@ -202,6 +202,45 @@ def get_line_image(
         return np.zeros((bbox_h, bbox_h * 2, 3), dtype=np.uint8), k_factor
 
 
+def get_line_image_from_mask(
+    image: np.ndarray,
+    mask: np.ndarray,
+    bbox_h: int,
+    bbox_tolerance: float = 2.5,
+    k_factor: float = 1.2,
+) -> tuple[np.ndarray, float]:
+    """Adaptive strip extraction from an explicit full-page mask, for the
+    local-TPS path where the mask has been warped (geometry/lines.py:
+    302-340; reference: line_detection.py:291-327): dilate the mask with a
+    rect of ``int(bbox_h * k)`` by ``int(int(bbox_h * k) * k)``, mask and
+    crop the page, and shrink k by 0.1 (at most 10 times) until the strip
+    is at most ``bbox_h * bbox_tolerance`` tall. A mask pixel counts where
+    it is nonzero. The native packed-bit ROI over the whole page does the
+    dilate + mask_n_crop of the JAX loop."""
+    try:
+        roi = PackedLineRoi(np.ascontiguousarray(image),
+                            np.ascontiguousarray(mask))
+
+        def kernel(k: float) -> tuple[int, int]:
+            k_size = int(bbox_h * k)
+            return max(k_size, 1), max(int(k_size * k), 1)
+
+        tmp_k = kept_k = k_factor
+        height = roi.attempt_height(*kernel(tmp_k))
+        attempts = 0
+        while height > bbox_h * bbox_tolerance and attempts < 10:
+            tmp_k -= 0.1
+            if tmp_k <= 0.1:
+                break
+            kept_k = tmp_k
+            height = roi.attempt_height(*kernel(tmp_k))
+            attempts += 1
+        return roi.masked_crop(*kernel(kept_k)), tmp_k
+    except Exception as e:  # parity: never let one line kill a page
+        print(f"Error in get_line_image_from_mask: {e}", file=sys.stderr)
+        return np.zeros((bbox_h, bbox_h * 2, 3), dtype=np.uint8), k_factor
+
+
 def extract_line_images(
     image: np.ndarray,
     line_data: list[Line],

@@ -15,7 +15,13 @@ returns tensors on the same device:
 - ``resize_linear_u8``: cv2.resize INTER_LINEAR on uint8 in cv2's own
   integer arithmetic (what pad_ocr_line needs, ops_host.py:58);
 - ``warp_affine`` / ``rotate_from_angle``: cv2 5.x warpAffine INTER_LINEAR
-  with a constant border, byte for byte (geometry/lines.py:54-55).
+  with a constant border, byte for byte (geometry/lines.py:54-55);
+- ``bilinear_sample`` / ``remap``: the JAX float sampler with the strict
+  border and its resample (imaging.py:204-257, :343-357), which the TPS
+  dewarp runs on the card;
+- ``remap_linear_u8``: cv2 5.x remap INTER_LINEAR with float32 maps and a
+  constant border on uint8, byte for byte (what the eval pages' curve
+  distortion needs, eval/synthetic.py:228-236).
 """
 
 from __future__ import annotations
@@ -267,7 +273,6 @@ def warp_affine(
     ``fma(b, v1 - v0, v0)``, rounded half to even."""
     dev = image.device
     inv = _invert_affine(np.asarray(m, np.float64)).astype(np.float32)
-    h, w = image.shape[0], image.shape[1]
     src = image if image.ndim == 3 else image[..., None]
     src = src.to(torch.float32)
     xs = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
@@ -281,7 +286,19 @@ def warp_affine(
         in_tail = fma32(xs, i0, row) + float(i2)
         return torch.where(vector, in_loop, in_tail)
 
-    sx, sy = source(*inv[0]), source(*inv[1])
+    out = _blend_linear(src, source(*inv[0]), source(*inv[1]),
+                        float(border_value)).to(image.dtype)
+    return out if image.ndim == 3 else out[..., 0]
+
+
+def _blend_linear(src: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                  border) -> torch.Tensor:
+    """cv2 5.x's bilinear sample of a (H, W, C) float32 image at float32
+    coordinates: taps at ``floor``, a tap outside the image reads
+    ``border``, the blend
+    ``v0 = fma(a, p01 - p00, p00)``, ``v1 = fma(a, p11 - p10, p10)``,
+    ``fma(b, v1 - v0, v0)`` rounded half to even and clipped to uint8."""
+    h, w = src.shape[0], src.shape[1]
     ix, iy = torch.floor(sx), torch.floor(sy)
     a = (sx - ix)[..., None]
     b = (sy - iy)[..., None]
@@ -290,14 +307,13 @@ def warp_affine(
     def tap(yy, xx):
         ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
         v = src[yy.clamp(0, h - 1), xx.clamp(0, w - 1)]
-        return torch.where(ok[..., None], v, float(border_value))
+        return torch.where(ok[..., None], v, border)
 
     p00, p01 = tap(iy, ix), tap(iy, ix + 1)
     p10, p11 = tap(iy + 1, ix), tap(iy + 1, ix + 1)
     v0 = fma32(a, p01 - p00, p00)
     v1 = fma32(a, p11 - p10, p10)
-    out = torch.round(fma32(b, v1 - v0, v0)).clamp(0, 255).to(image.dtype)
-    return out if image.ndim == 3 else out[..., 0]
+    return torch.round(fma32(b, v1 - v0, v0)).clamp(0, 255).to(torch.uint8)
 
 
 def rotate_from_angle(image: torch.Tensor, angle: float) -> torch.Tensor:
@@ -306,3 +322,66 @@ def rotate_from_angle(image: torch.Tensor, angle: float) -> torch.Tensor:
     rows, cols = image.shape[0], image.shape[1]
     m = rotation_matrix((cols / 2, rows / 2), angle)
     return warp_affine(image, m, rows, cols, border_value=0.0)
+
+
+# ---------------------------------------------------------------------------
+# Remap (general float-coordinate resample)
+# ---------------------------------------------------------------------------
+
+def bilinear_sample(image: torch.Tensor, ys: torch.Tensor,
+                    xs: torch.Tensor) -> torch.Tensor:
+    """Sample a (H, W[, C]) image at float32 coordinates (ys, xs) with
+    bilinear interpolation and the strict border -> float32 (..., [C])
+    (imaging.py:204-257 with ``strict_border=True``, border 0): any
+    coordinate outside [0, size-1] gives 0 with no blending, as
+    scipy.ndimage.map_coordinates(order=1, mode='constant') does
+    (reference: BDRC/image_dewarping.py:64-72)."""
+    h, w = image.shape[0], image.shape[1]
+    img = image.to(torch.float32)
+    y0f, x0f = torch.floor(ys), torch.floor(xs)
+    wy, wx = ys - y0f, xs - x0f
+    y0, x0 = y0f.to(torch.int64), x0f.to(torch.int64)
+    y1, x1 = y0 + 1, x0 + 1
+
+    def corner(yi, xi, wgt):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        vals = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        if img.ndim == 3:
+            valid, wgt = valid[..., None], wgt[..., None]
+        return torch.where(valid, vals, 0.0) * wgt
+
+    out = (
+        corner(y0, x0, (1 - wy) * (1 - wx))
+        + corner(y0, x1, (1 - wy) * wx)
+        + corner(y1, x0, wy * (1 - wx))
+        + corner(y1, x1, wy * wx)
+    )
+    inside = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
+    if img.ndim == 3:
+        inside = inside[..., None]
+    return torch.where(inside, out, 0.0)
+
+
+def remap(image: torch.Tensor, map_y: torch.Tensor, map_x: torch.Tensor
+          ) -> torch.Tensor:
+    """Pull-resample ``out[i, j] = image(map_y[i, j], map_x[i, j])`` with the
+    strict border; integer images are rounded half to even and clipped
+    (imaging.py:343-357)."""
+    out = bilinear_sample(image, map_y, map_x)
+    if not image.dtype.is_floating_point:
+        info = torch.iinfo(image.dtype)
+        out = torch.round(out).clamp(info.min, info.max)
+    return out.to(image.dtype)
+
+
+def remap_linear_u8(image: torch.Tensor, map_x: torch.Tensor,
+                    map_y: torch.Tensor, border_value: int = 0
+                    ) -> torch.Tensor:
+    """cv2.remap(image, map_x, map_y, INTER_LINEAR, BORDER_CONSTANT,
+    border_value) for a (H, W[, C]) uint8 image and float32 maps, the same
+    border value in every channel; byte for byte with cv2 5.x, which
+    samples as its warpAffine does (``_blend_linear``)."""
+    src = (image if image.ndim == 3 else image[..., None]).to(torch.float32)
+    out = _blend_linear(src, map_x.to(torch.float32),
+                        map_y.to(torch.float32), float(border_value))
+    return out if image.ndim == 3 else out[..., 0]

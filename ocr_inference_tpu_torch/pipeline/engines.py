@@ -18,13 +18,10 @@ host with cv2 and uploads packed bits; the kernel gives the same bytes.
   cross-window carry the volume runner feeds, batches of ``quantum`` and
   power-of-two tails only (engines.py:1076-1182).
 
-Copies between host and card never wait for other work: uploads are staged
-in pinned memory and copied with ``non_blocking=True``; results come back
-the same way, each with a CUDA event that its reader waits on. PyTorch's
-caching host allocator is the staging pool: it hands a pinned block out
-again only after the copies recorded on it have completed. The recognizer
-runs on its own CUDA stream, so a volume's recognition (flush thread) and
-detection (main thread) overlap on the card.
+Copies between host and card never wait for other work (device.py
+``upload``, ``PendingHost``). The recognizer runs on its own CUDA stream,
+so a volume's recognition (flush thread) and detection (main thread)
+overlap on the card.
 """
 
 from __future__ import annotations
@@ -38,6 +35,7 @@ import torch.nn.functional as F
 
 from ocr_inference_tpu_torch.core.config import LINE_CLASS_THRESHOLD
 from ocr_inference_tpu_torch.core.data import BatchConfig, OCRModelConfig
+from ocr_inference_tpu_torch.device import PendingHost, host_buffer, upload
 from ocr_inference_tpu_torch.decode.ctc import (
     greedy_decode_packed,
     ids_to_tokens,
@@ -45,34 +43,6 @@ from ocr_inference_tpu_torch.decode.ctc import (
 )
 from ocr_inference_tpu_torch.ops import kernels, packing, tiling
 from ocr_inference_tpu_torch.ops.imaging import resize_bilinear, rgb_to_gray
-
-
-def host_buffer(shape, device: torch.device) -> torch.Tensor:
-    """An uninitialized uint8 host tensor to stage an upload to ``device``
-    in: pinned when the upload goes to the card."""
-    return torch.empty(shape, dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-
-
-class PendingHost:
-    """A device tensor's copy to the host, queued when this is made;
-    ``get`` waits for that copy alone (an event recorded right after it),
-    not for the work queued later on the card."""
-
-    def __init__(self, t: torch.Tensor):
-        if t.device.type != "cuda":
-            self._host, self._event = t, None
-            return
-        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        self._host.copy_(t, non_blocking=True)
-        # a blocking event yields the waiting thread's core while it waits
-        self._event = torch.cuda.Event(blocking=True)
-        self._event.record(torch.cuda.current_stream(t.device))
-
-    def get(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
 
 
 class SegmentationEngine:
@@ -136,9 +106,7 @@ class SegmentationEngine:
                 f"{image.dtype}")
         h, w = image.shape[:2]
         plan = tiling.plan_page(h, w, self.patch_size)
-        staging = host_buffer(image.shape, self.device)
-        np.copyto(staging.numpy(), image)  # any strides, one host copy
-        page = staging.to(self.device, non_blocking=True)
+        page = upload(image, self.device)
         tiles = tiling.tile_page(tiling.preprocess_page(page, plan),
                                  self.patch_size)
         # binarize per tile, as the reference does (inference.py:132-139)

@@ -3,10 +3,11 @@
 Counterpart of ocr_inference_tpu/pipeline/ocr_pipeline.py (reference:
 BDRC/inference.py:432-826): the same stage methods, the same (OpStatus,
 payload) returns and the same SUCCESS payload ``[rot_mask, sorted_lines,
-ocr_lines, page_angle]``, with observer events around each stage. Two
-options are not ported yet and raise ``NotImplementedError``:
-``use_tps=True`` (the TPS dewarp, ROADMAP item 3) and ``eval_mode=True``
-(beams and the LM, ROADMAP item 4).
+ocr_lines, page_angle]``, with observer events around each stage. The TPS
+dewarp (``use_tps=True``) warps the page on the detection engine's device,
+each warp in flight on a CUDA stream of its own. ``eval_mode=True`` (beams
+and the LM, ROADMAP item 4) is not ported yet and raises
+``NotImplementedError``.
 
 Differences from the JAX pipeline: a page that is a strided view (such as
 ``bgr[..., ::-1]``) is copied to a contiguous array once at the entry
@@ -17,9 +18,12 @@ call on the card would fail too.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ocr_inference_tpu_torch.core.data import (
     CharsetEncoder,
@@ -32,6 +36,7 @@ from ocr_inference_tpu_torch.core.data import (
     OpStatus,
 )
 from ocr_inference_tpu_torch.device import is_device_fault
+from ocr_inference_tpu_torch.dewarp import apply_global_tps, check_for_tps
 from ocr_inference_tpu_torch.geometry.lines import (
     build_line_data,
     build_raw_line_data,
@@ -47,8 +52,6 @@ from ocr_inference_tpu_torch.pipeline.engines import (
 from ocr_inference_tpu_torch.text import Converter
 
 
-NO_TPS = ("use_tps=True: the TPS dewarp is not ported yet "
-          "(ROADMAP item 3)")
 NO_EVAL = ("eval_mode=True: beams and the LM are not ported yet "
            "(ROADMAP item 4)")
 
@@ -88,6 +91,27 @@ class OCRPipeline:
         self.converter = Converter()
         self.use_line_prepadding = use_line_prepadding
         self.ready = detection_engine is not None and ocr_engine is not None
+        # CUDA streams for the dewarp's card work, one per warp in flight:
+        # two geometry threads' warps queue behind neither each other nor
+        # the detection work queued ahead on the default stream. A stream
+        # goes back to the list once its warp has waited for its copies,
+        # so the streams (and the memory cached on them) are reused.
+        self._warp_streams: list = []
+        self._warp_streams_lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def _warp_stream(self, device: torch.device):
+        if device.type != "cuda":
+            yield None
+            return
+        with self._warp_streams_lock:
+            stream = (self._warp_streams.pop() if self._warp_streams
+                      else torch.cuda.Stream(device))
+        try:
+            yield stream
+        finally:
+            with self._warp_streams_lock:
+                self._warp_streams.append(stream)
 
     def update_ocr_model(self, engine: RecognitionEngine):
         """Swap the recognizer (reference: inference.py:465-467)."""
@@ -140,16 +164,51 @@ class OCRPipeline:
         use_tps: bool = False,
         tps_threshold: float = 0.25,
     ):
-        """Stage 3 (reference: inference.py:535-589): without TPS the
-        inputs pass through."""
-        if use_tps:
-            raise NotImplementedError(NO_TPS)
+        """Stage 3: optional TPS dewarp (reference: inference.py:535-589;
+        ocr_pipeline.py:152-194). Without TPS, or when at most
+        ``tps_threshold`` of the lines are curved, the inputs pass through;
+        otherwise the page and mask are warped on the card (gray page,
+        mask in {0, 255}) and deskewed and cut into contours again."""
+        if not use_tps:
+            return OpStatus.SUCCESS, DewarpingResult(
+                work_img=rot_img,
+                work_mask=rot_mask,
+                filtered_contours=filtered_contours,
+                page_angle=page_angle,
+                applied=False,
+            )
+
+        ratio, tps_line_data = check_for_tps(rot_img, filtered_contours)
+        if ratio <= tps_threshold:
+            return OpStatus.SUCCESS, DewarpingResult(
+                work_img=rot_img,
+                work_mask=rot_mask,
+                filtered_contours=filtered_contours,
+                page_angle=page_angle,
+                applied=False,
+                tps_ratio=ratio,
+            )
+
+        device = self.line_inference.device
+        with self._warp_stream(device) as stream:
+            dewarped_img, dewarped_mask = apply_global_tps(
+                rot_img, rot_mask, tps_line_data, device=device,
+                stream=stream,
+            )
+        dew_rot_img, dew_rot_mask, line_contours, new_page_angle = (
+            build_raw_line_data(dewarped_img, dewarped_mask)
+        )
+        new_filtered = filter_line_contours(dew_rot_mask, line_contours)
+
         return OpStatus.SUCCESS, DewarpingResult(
-            work_img=rot_img,
-            work_mask=rot_mask,
-            filtered_contours=filtered_contours,
-            page_angle=page_angle,
-            applied=False,
+            work_img=dew_rot_img,
+            work_mask=dew_rot_mask,
+            filtered_contours=new_filtered,
+            page_angle=new_page_angle,
+            applied=True,
+            tps_ratio=ratio,
+            dewarped_img=dewarped_img,
+            dewarped_mask=dewarped_mask,
         )
 
     def extract_lines(
@@ -232,9 +291,8 @@ class OCRPipeline:
         per-stage failure isolation; SUCCESS payload is
         [rot_mask, sorted_lines, ocr_lines, page_angle], a FAILED payload
         the error message. ``observer`` receives stage start/end/failed
-        events with the raw payloads."""
-        if use_tps:
-            raise NotImplementedError(NO_TPS)
+        events with the raw payloads. As in the JAX pipeline, the lines of a
+        dewarped page are sorted against the mask from before the warp."""
         if eval_mode:
             raise NotImplementedError(NO_EVAL)
         obs = observer or _NULL_OBSERVER

@@ -40,7 +40,7 @@ import numpy as np
 
 from ocr_inference_tpu_torch.core.data import Encoding, Line, OCRLine, OpStatus
 from ocr_inference_tpu_torch.device import is_device_fault
-from ocr_inference_tpu_torch.pipeline.ocr_pipeline import NO_TPS, OCRPipeline
+from ocr_inference_tpu_torch.pipeline.ocr_pipeline import OCRPipeline
 
 
 class _PendingPage:
@@ -242,9 +242,14 @@ class VolumeRunner:
         return rec, resolver
 
     def _page_to_strips(self, rec: PageRecord, image: np.ndarray, resolver, *,
+                        use_tps: bool, tps_threshold: float,
                         merge_lines: bool, k_factor: float,
                         bbox_tolerance: float):
-        """Wait for a queued detection and run the host geometry chain.
+        """Wait for a queued detection and run the host geometry chain, with
+        the TPS dewarp when asked (its warp runs on the card, on a stream
+        that this thread holds from the pipeline's pool of warp streams for
+        the warp's duration; ``timings_ms["dewarp"]`` is its share of the
+        geometry time).
 
         While this host work runs, the next pages' detection is already
         queued on the card (see run())."""
@@ -267,9 +272,12 @@ class VolumeRunner:
                 rec.status, rec.error = status, str(result)
                 return rec, []
             rot_img, rot_mask, _, filtered, angle = result
+            t_dw = time.perf_counter()
             status, dewarp = p.apply_dewarping(
                 rot_img, rot_mask, filtered, angle,
+                use_tps=use_tps, tps_threshold=tps_threshold,
             )
+            rec.timings_ms["dewarp"] = (time.perf_counter() - t_dw) * 1000
             if status == OpStatus.FAILED:
                 rec.status, rec.error = status, str(dewarp)
                 return rec, []
@@ -323,10 +331,9 @@ class VolumeRunner:
         """Process the volume; ``images`` yields (name, array) or
         (name, loader_callable) pairs — callables let disk decode overlap
         device work. Results come back in input order; ``on_page_done``
-        fires as each window completes. ``use_tps=True`` raises
-        NotImplementedError (the TPS dewarp is not ported yet)."""
-        if use_tps:
-            raise NotImplementedError(NO_TPS)
+        fires as each window completes. ``use_tps=True`` dewarps the pages
+        whose share of curved lines exceeds ``tps_threshold`` on the
+        geometry threads, as run_ocr does."""
         results: list[PageRecord] = []
 
         def materialize(item):
@@ -443,6 +450,7 @@ class VolumeRunner:
                         rec, resolver = self._start_detect(name, img)
                         fut = geo_pool.submit(
                             self._page_to_strips, rec, img, resolver,
+                            use_tps=use_tps, tps_threshold=tps_threshold,
                             merge_lines=merge_lines, k_factor=k_factor,
                             bbox_tolerance=bbox_tolerance,
                         )

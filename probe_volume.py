@@ -1,6 +1,7 @@
 """Where the port's volume path differs from page OCR, on one NVIDIA card.
 
     python3 probe_volume.py
+    python3 probe_volume.py --curved
 
 Makes chip_smoke.py's bench.py volume (1600x2640 pages, seed 42) and
 prints one JSON line per probe:
@@ -27,12 +28,17 @@ prints one JSON line per probe:
                card's busy time against the run's wall time, and the top
                CUDA kernels and CPU ops by time.
 
+With ``--curved`` it runs the profile alone, over a dewarped volume:
+12 pages of bench.py config 2 (``curved_volume``) with use_tps=True and
+two geometry threads, after a warm-up run of 2.
+
 Imports torch, numpy, chip_smoke and the port; nothing of JAX. Exits
 non-zero without CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -274,18 +280,23 @@ def probe_host(pipe, pages, entries) -> dict:
             "flush_thread_recognition_ms": busy["stream_run"]}
 
 
-def probe_profile(pipe, entries) -> dict:
+def probe_profile(pipe, entries, use_tps: bool = False, warm: int = 8,
+                  geometry_workers=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.pipeline import VolumeRunner
 
-    VolumeRunner(pipe).run(entries[:8], target_encoding=Encoding.WYLIE)
+    def run(pages):
+        VolumeRunner(pipe, geometry_workers=geometry_workers).run(
+            pages, target_encoding=Encoding.WYLIE, use_tps=use_tps)
+
+    run(entries[:warm])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        VolumeRunner(pipe).run(entries, target_encoding=Encoding.WYLIE)
+        run(entries)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -309,12 +320,25 @@ def probe_profile(pipe, entries) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--curved", action="store_true")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_volume: CUDA is not available", file=sys.stderr)
         return 2
     cs.build()
     if cs.FAILED:
         return 1
+    if args.curved:
+        from ocr_inference_tpu_torch.eval.synthetic import curved_volume
+
+        entries = [(f"curved{i:03d}", img)
+                   for i, img in enumerate(curved_volume(12))]
+        emit({"probe": "profile_curved", **probe_profile(
+            cs.full77f_pipeline(torch.bfloat16), entries, use_tps=True,
+            warm=2, geometry_workers=2)})
+        print(cs.gpu_name_and_limit(), flush=True)
+        return 0
     pages = cs.bench_volume(cs.VOLUME_PAGES)
     entries = [(f"page{i:03d}", img) for i, img in enumerate(pages)]
     bf16 = cs.full77f_pipeline(torch.bfloat16)

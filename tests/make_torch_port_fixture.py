@@ -17,11 +17,32 @@ for them with the full77f weights in float32:
 Run from the repository root with JAX on the CPU (a few minutes):
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py
+
+With the argument ``eval_suite`` it writes instead the JAX float32 record
+the port's dewarp and eval suite are held against (about five minutes):
+
+    tests/data/torch_port/eval_suite.json
+        ``pages``: the 150 seed-5 pages of the six-distribution eval
+        (cli/selftrain_cli.py:470-552, greedy decode, canvas width 512 as
+        that CLI defaults): each page's distribution, the sha256 of its
+        bytes and of its ground truth, and the JAX texts, line count and
+        TPS gate;
+        ``curved``: two bench.py config 2 pages (``make_curved_volume``)
+        through ``run_ocr(use_tps=True)``: the TPS ratio, whether the warp
+        ran, its band ``b`` and ``max_dy``, the line counts before and
+        after the warp, and the line boxes and texts.
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py eval_suite
+
+The JAX warp is pinned to its device path (``OCR_TPS_HOST=0``): the port
+has no host warp.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -32,15 +53,34 @@ OUT = REPO / "tests" / "data" / "torch_port"
 WEIGHTS = REPO / "artifacts" / "full77f"
 PAGES = [("clean_a", 101, 0.0), ("clean_b", 202, 0.0), ("skew_2deg", 303, 2.0)]
 INPUT_WIDTH = 3000
+# the eval suite of cli/selftrain_cli.py:484-491:
+# (name, degrade level, shear degrees, curve amplitude px, use_tps)
+EVAL_SUITE = (
+    ("clean", 0.0, 0.0, 0.0, False),
+    ("degrade_03", 0.3, 0.0, 0.0, False),
+    ("degrade_06", 0.6, 0.0, 0.0, False),
+    ("shear_05", 0.0, 0.5, 0.0, False),
+    ("skew_2deg", 0.0, 2.0, 0.0, False),
+    ("curve_tps", 0.0, 0.0, 10.0, True),
+)
+EVAL_SEED, EVAL_PAGES, EVAL_CANVAS = 5, 150, 512
+CURVED_PAGES = 2
 
 
-def full77f_configs(ocr_cls, line_cls, encoder):
+def sha256(data) -> str:
+    """Hex sha256 of an array's bytes or of a UTF-8 string."""
+    raw = data.encode() if isinstance(data, str) else \
+        np.ascontiguousarray(data).tobytes()
+    return hashlib.sha256(raw).hexdigest()
+
+
+def full77f_configs(ocr_cls, line_cls, encoder, input_width=INPUT_WIDTH):
     """(OCRModelConfig, LineDetectionConfig) for the full77f weights; the
     charset comes from the recognizer's sidecar."""
     meta = json.loads((WEIGHTS / "recognizer.msgpack.json").read_text())
     ocr = ocr_cls(
         model_file=str(WEIGHTS / "recognizer.onnx"), architecture="Easter2",
-        input_width=INPUT_WIDTH, input_height=80, input_layer="input",
+        input_width=input_width, input_height=80, input_layer="input",
         output_layer="output", squeeze_channel=True, swap_hw=False,
         encoder=encoder, charset=list(meta["charset"]), add_blank=True,
         version="full77f",
@@ -52,8 +92,12 @@ def full77f_configs(ocr_cls, line_cls, encoder):
     return ocr, line
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     sys.path.insert(0, str(REPO))
+    if argv == ["eval_suite"]:
+        return eval_suite()
+    if argv:
+        raise SystemExit(f"unknown arguments {argv}; expected eval_suite")
     import jax
     import jax.numpy as jnp
 
@@ -128,5 +172,125 @@ def main() -> int:
     return 0
 
 
+def eval_suite() -> int:
+    """Write tests/data/torch_port/eval_suite.json (see the module doc)."""
+    os.environ["OCR_TPS_HOST"] = "0"
+    import cv2
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
+
+    import bench
+    from ocr_inference_tpu.core.data import (
+        CharsetEncoder, Encoding, LineDetectionConfig, OCRModelConfig,
+        OpStatus,
+    )
+    from ocr_inference_tpu.dewarp import tps as T
+    from ocr_inference_tpu.eval.cer import cer
+    from ocr_inference_tpu.eval.synthetic import (
+        WYLIE_CHARSET_FULL, GlyphSet, degrade_page, distort_page,
+        render_page,
+    )
+    from ocr_inference_tpu.ops.packing import pack_bits_host
+    from ocr_inference_tpu.pipeline.builder import build_pipeline
+    from ocr_inference_tpu.pipeline.ocr_pipeline import PipelineObserver
+
+    class Dewarp(PipelineObserver):
+        def __init__(self):
+            self.result = None
+
+        def stage_end(self, stage, payload):
+            if stage == "dewarping":
+                self.result = payload
+
+    def pipeline(width):
+        return build_pipeline(
+            *full77f_configs(OCRModelConfig, LineDetectionConfig,
+                             CharsetEncoder.WYLIE, input_width=width),
+            dtype=jnp.float32)
+
+    record = {
+        "weights": "artifacts/full77f", "dtype": "float32", "backend": "cpu",
+        "seed": EVAL_SEED, "canvas_width": EVAL_CANVAS,
+        "suite": [list(row) for row in EVAL_SUITE], "pages": [],
+    }
+    pipe = pipeline(EVAL_CANVAS)
+    glyphs = GlyphSet(charset=WYLIE_CHARSET_FULL, height=40, seed=7)
+    rng = np.random.RandomState(EVAL_SEED + 10_000)
+    for p in range(EVAL_PAGES):
+        page = render_page(rng, glyphs, WYLIE_CHARSET_FULL)
+        name, level, shear, curve, use_tps = EVAL_SUITE[p % len(EVAL_SUITE)]
+        img = page.image
+        if shear or curve:
+            img = distort_page(img, rng, shear_deg=shear, curve_amp=curve)
+        img = degrade_page(img, rng, level)
+        obs = Dewarp()
+        status, payload = pipe.run_ocr(img, target_encoding=Encoding.WYLIE,
+                                       observer=obs, use_tps=use_tps)
+        ok = status == OpStatus.SUCCESS
+        text = " ".join(ln.text for ln in payload[2]) if ok else ""
+        gt = " ".join(page.texts)
+        dw = obs.result
+        record["pages"].append({
+            "dist": name, "shape": list(img.shape), "sha256": sha256(img),
+            "gt_sha256": sha256(gt), "status": status.name,
+            "lines": len(payload[2]) if ok else 0, "jax_f32_text": text,
+            "jax_f32_cer": cer([text], [gt]),
+            "tps_ratio": None if dw is None else dw.tps_ratio,
+            "tps_applied": bool(dw is not None and dw.applied),
+        })
+        print(p, name, record["pages"][-1]["jax_f32_cer"], file=sys.stderr)
+
+    curved = []
+    pipe = pipeline(INPUT_WIDTH)
+    for img in bench.make_curved_volume(CURVED_PAGES):
+        _, built = pipe.build_lines(img, pipe.detect_lines(img)[1])
+        rot_img, rot_mask, _, filtered, _ = built
+        _, line_data = T.check_for_tps(rot_img, filtered)
+        best = line_data[T.get_global_tps_line(line_data)]
+        h, w = rot_img.shape[:2]
+        corners = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]],
+                           np.float64) * [h, w]
+        src = np.concatenate([np.asarray(best["output_pts"], np.float64),
+                              corners])
+        dst = np.concatenate([np.asarray(best["input_pts"], np.float64),
+                              corners])
+        control, weights, affine = T.fit_tps(src, dst)
+        dy_bound = float(np.max(np.abs(src[:, 0] - dst[:, 0])))
+        b = max(32, -int(-(1.5 * dy_bound + 16) // 32) * 32)
+        gray = cv2.cvtColor(rot_img, cv2.COLOR_RGB2GRAY)
+        _, _, max_dy = T._warp_pair_vertical(
+            jnp.asarray(gray), jnp.asarray(pack_bits_host(rot_mask > 0)),
+            jnp.asarray(control, jnp.float32),
+            jnp.asarray(weights, jnp.float32),
+            jnp.asarray(affine, jnp.float32), b=b)
+        obs = Dewarp()
+        status, payload = pipe.run_ocr(img, target_encoding=Encoding.WYLIE,
+                                       observer=obs, use_tps=True)
+        if status != OpStatus.SUCCESS:
+            raise RuntimeError(f"curved page: JAX pipeline failed: {payload}")
+        _, lines, ocr_lines, angle = payload
+        curved.append({
+            "shape": list(img.shape), "sha256": sha256(img),
+            "tps_ratio": obs.result.tps_ratio,
+            "applied": bool(obs.result.applied), "b": b,
+            "max_dy": float(max_dy),
+            "lines_before": len(filtered),
+            "lines_after": len(obs.result.filtered_contours),
+            "jax_f32_boxes": [list(ln.bbox.as_tuple()) for ln in lines],
+            "jax_f32_texts": [ln.text for ln in ocr_lines],
+            "angle": angle,
+        })
+        print("curved", curved[-1]["tps_ratio"], b, float(max_dy),
+              file=sys.stderr)
+    record["curved"] = {"input_width": INPUT_WIDTH, "pages": curved}
+    (OUT / "eval_suite.json").write_text(
+        json.dumps(record, indent=0, ensure_ascii=False) + "\n",
+        encoding="utf-8",
+    )
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

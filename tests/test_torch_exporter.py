@@ -277,3 +277,60 @@ def test_bgr_to_gray_is_cv2_on_random_pixels():
     np.testing.assert_array_equal(geo.lines.bgr_to_gray(img[:, ::-1]),
                                   cv2.cvtColor(np.ascontiguousarray(
                                       img[:, ::-1]), cv2.COLOR_BGR2GRAY))
+
+
+def test_run_ocr_with_artifacts_dewarped_page_writes_what_jax_writes(
+        tmp_path, fixed_time, monkeypatch):
+    """use_tps=True on a page the dewarp warps (three lines of a bench.py
+    config 2 page): the same files as the JAX runner, the tps_analysis and
+    dewarping records equal, the audit log, exports and metrics equal, and
+    the images within the warp's bar (tests/test_torch_dewarp.py): one
+    gray level, under 1e-3 of the mask pixels, the border excluded."""
+    from ocr_inference_tpu_torch.eval.synthetic import curved_volume
+    from tests.make_torch_port_fixture import full77f_configs
+
+    monkeypatch.setenv("OCR_TPS_HOST", "0")
+    page = np.ascontiguousarray(curved_volume(1)[0][:600])
+    pipes = (
+        (data, artifacts, run_ocr_with_artifacts, build_pipeline(
+            *full77f_configs(data.OCRModelConfig, data.LineDetectionConfig,
+                             data.CharsetEncoder.WYLIE),
+            dtype=torch.float32, device="cpu")),
+        (jdata, jartifacts, jax_run_with_artifacts, jax_build(
+            *full77f_configs(jdata.OCRModelConfig, jdata.LineDetectionConfig,
+                             jdata.CharsetEncoder.WYLIE),
+            dtype=jnp.float32)),
+    )
+    trees = []
+    for mod, am_mod, run, pipe in pipes:
+        root = tmp_path / mod.__name__.split(".")[0]
+        manager = am_mod.ArtifactManager(str(root), job_id="job")
+        manager.set_current_page("page")
+        audit = am_mod.AuditLogger("job", root / "job" / "audit.log")
+        status, result = run(
+            pipe, page, "page", artifact_manager=manager, audit_logger=audit,
+            artifact_config=mod.ArtifactConfig(), use_tps=True,
+            target_encoding=mod.Encoding.WYLIE,
+        )
+        assert status.name == "SUCCESS", result
+        manager.save_aggregate_metrics()
+        manager.generate_manifest()
+        for handler in audit.logger.handlers:
+            handler.close()
+        trees.append(_tree(root / "job"))
+    got, want = trees
+    assert sorted(got) == sorted(want)
+    tps = [rel for rel in want if "tps_analysis" in rel]
+    assert tps and all(got[rel] == want[rel] for rel in tps)
+    assert any("dewarped_mask" in rel for rel in want)
+    for rel in want:
+        if not rel.endswith(".png"):
+            assert got[rel] == want[rel], rel
+            continue
+        a, b = np.asarray(got[rel]), np.asarray(want[rel])
+        assert a.shape == b.shape, rel
+        inner = (slice(1, -1), slice(1, -1))
+        if "mask" in rel:
+            assert np.mean(a[inner] != b[inner]) < 1e-3, rel
+        else:
+            assert np.abs(a.astype(int) - b.astype(int))[inner].max() <= 1

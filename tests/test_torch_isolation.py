@@ -98,3 +98,27 @@ def test_volume_probe_imports_nothing_forbidden():
         "from ocr_inference_tpu_torch.io import PageXMLExporter\n"
     )
     assert _imported(imports) == "FORBIDDEN []"
+
+
+def test_eval_probe_and_dewarp_import_nothing_forbidden():
+    """probe_eval.py, the dewarp, the eval suite and the sampler ops, with
+    the paths chip_smoke.py's dewarp phases take."""
+    imports = (
+        "import probe_eval\n"
+        "from ocr_inference_tpu_torch import dewarp\n"
+        "from ocr_inference_tpu_torch.dewarp import tps\n"
+        "from ocr_inference_tpu_torch.eval import suite, synthetic\n"
+        "from ocr_inference_tpu_torch.ops.imaging import remap, "
+        "remap_linear_u8\n"
+        "from ocr_inference_tpu_torch.geometry import "
+        "get_line_image_from_mask\n"
+    )
+    assert _imported(imports) == "FORBIDDEN []"
+
+
+def test_probe_eval_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, "probe_eval.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2 and '"ok": true' not in proc.stdout

@@ -228,16 +228,29 @@ def test_stage_payloads_match_jax_stages(refpipes, deg):
 
 
 def test_tps_and_eval_mode_raise_until_ported(refpipes):
-    ours, _, pages = refpipes
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        ours.apply_dewarping(pages[0], pages[0][..., 0], [], 0.0,
-                             use_tps=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        ours.run_ocr(pages[0], use_tps=True)
+    """eval_mode=True still raises (ROADMAP item 4); use_tps=True runs in
+    every entry point and gives the JAX results on straight pages, where
+    the gate keeps the page as it is."""
+    ours, theirs, pages = refpipes
+    st, dw = ours.apply_dewarping(pages[0], pages[0][..., 0], [], 0.0,
+                                  use_tps=True)
+    jst, jdw = theirs.apply_dewarping(pages[0], pages[0][..., 0], [], 0.0,
+                                      use_tps=True)
+    assert st.name == jst.name == "SUCCESS"
+    assert (dw.applied, dw.tps_ratio) == (jdw.applied, jdw.tps_ratio) == \
+        (False, 0.0)
+    st, got = ours.run_ocr(pages[0], use_tps=True,
+                           target_encoding=data.Encoding.WYLIE)
+    jst, want = theirs.run_ocr(pages[0], use_tps=True,
+                               target_encoding=jdata.Encoding.WYLIE)
+    assert st.name == jst.name == "SUCCESS"
+    assert [ln.text for ln in got[2]] == [ln.text for ln in want[2]]
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         ours.run_ocr(pages[0], eval_mode=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        VolumeRunner(ours).run([("p", pages[0])], use_tps=True)
+    (rec,) = VolumeRunner(ours).run([("p", pages[0])], use_tps=True,
+                                    target_encoding=data.Encoding.WYLIE)
+    assert rec.status == data.OpStatus.SUCCESS, rec.error
+    assert [ln.text for ln in rec.ocr_lines] == [ln.text for ln in got[2]]
 
 
 @pytest.mark.parametrize("prepad", [False, True])
@@ -257,6 +270,131 @@ def test_line_prepadding_matches_jax(refpipes, prepad):
         assert [ln.text for ln in got[2]] == [ln.text for ln in want[2]]
     # run_batch's (bucket, real lines, padded batch) calls, as JAX counts them
     assert ours.ocr_inference.occupancy == theirs.ocr_inference.occupancy
+
+
+def _curved_line_mask(shape, amp=50.0):
+    """Four bands bent by a sine of ``amp`` px, so the TPS gate trips."""
+    h, w = shape[:2]
+    mask = np.zeros((h, w), np.uint8)
+    for i in range(4):
+        y0 = 80 + i * (h - 200) // 4
+        for x in range(40, w - 40):
+            y = int(y0 + amp * np.sin((x - 40) / (w - 80) * np.pi))
+            mask[y: y + 28, x] = 255
+    return mask
+
+
+def test_dewarp_stage_matches_jax_stage(refpipes, monkeypatch):
+    """apply_dewarping(use_tps=True) on a page whose lines curve: the JAX
+    ratio and gate, the warp at the tests/test_dewarp.py bar (page border
+    excluded, see tests/test_torch_dewarp.py), and the JAX deskew and
+    contours of the warped page."""
+    monkeypatch.setenv("OCR_TPS_HOST", "0")
+    ours, theirs, _ = refpipes
+    img = _fixture_page("clean_b")
+    mask = _curved_line_mask(img.shape)
+    _, got = ours.build_lines(img, mask)
+    _, want = theirs.build_lines(img, mask)
+    st, dw = ours.apply_dewarping(*got[:2], got[3], got[4], use_tps=True)
+    jst, jdw = theirs.apply_dewarping(*want[:2], want[3], want[4],
+                                      use_tps=True)
+    assert st.name == jst.name == "SUCCESS"
+    assert dw.applied and jdw.applied
+    assert dw.tps_ratio == jdw.tps_ratio == 1.0
+    inner = (slice(1, -1), slice(1, -1))
+    for a, b in ((dw.dewarped_img, jdw.dewarped_img),
+                 (dw.work_img, jdw.work_img)):
+        assert a.shape == b.shape == img.shape[:2]
+        assert np.abs(a.astype(int) - b.astype(int))[inner].max() <= 1
+    for a, b in ((dw.dewarped_mask, jdw.dewarped_mask),
+                 (dw.work_mask, jdw.work_mask)):
+        assert np.mean(a[inner] != b[inner]) < 1e-3
+    assert dw.page_angle == pytest.approx(jdw.page_angle, abs=1e-6)
+    assert [cv2_box(c) for c in dw.filtered_contours] == \
+        [cv2_box(c) for c in jdw.filtered_contours]
+
+
+def test_warp_streams_are_held_by_one_warp_at_a_time(refpipes, monkeypatch):
+    """The pipeline's warp streams under contention (more threads than
+    cores, a short switch interval): no stream serves two warps at once,
+    and no more streams are made than warps ever ran together."""
+    import sys
+    import threading
+
+    ours = OCRPipeline(refpipes[0].ocr_inference, refpipes[0].line_inference)
+    made = []
+    monkeypatch.setattr(torch.cuda, "Stream",
+                        lambda device: made.append(object()) or made[-1])
+    holders: dict = {}
+    lock = threading.Lock()
+    overlap = []
+    device = torch.device("cuda")
+
+    def worker():
+        for _ in range(200):
+            with ours._warp_stream(device) as stream:
+                with lock:
+                    if id(stream) in holders:
+                        overlap.append(stream)
+                    holders[id(stream)] = threading.get_ident()
+                with lock:
+                    del holders[id(stream)]
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert overlap == []
+    assert 1 <= len(made) <= 16
+    assert len(ours._warp_streams) == len(made)
+    with ours._warp_stream(torch.device("cpu")) as stream:
+        assert stream is None
+
+
+def cv2_box(contour):
+    from ocr_inference_tpu_torch.geometry import backend as geo
+
+    return geo.bounding_rect(contour)
+
+
+def test_curved_bench_page_matches_recorded_jax_f32(full77f):
+    """A bench.py config 2 page (curved_volume, 1600x2640) through
+    run_ocr(use_tps=True) in float32: the JAX ratio, gate, line counts,
+    boxes, texts and angle of tests/data/torch_port/eval_suite.json."""
+    from ocr_inference_tpu_torch.eval.synthetic import curved_volume
+    from tests.make_torch_port_fixture import sha256
+
+    record = json.loads((FIXTURE / "eval_suite.json").read_text(
+        encoding="utf-8"))["curved"]["pages"][0]
+    page = curved_volume(1)[0]
+    assert sha256(page) == record["sha256"]
+
+    class Dewarp(PipelineObserver):
+        def stage_end(self, stage, payload):
+            if stage == "build_line_data":
+                self.lines_before = len(payload[3])
+            if stage == "dewarping":
+                self.result = payload
+
+    obs = Dewarp()
+    st, got = full77f.run_ocr(page, target_encoding=data.Encoding.WYLIE,
+                              use_tps=True, observer=obs)
+    assert st == data.OpStatus.SUCCESS, got
+    assert obs.result.tps_ratio == record["tps_ratio"]
+    assert obs.result.applied is record["applied"] is True
+    assert obs.lines_before == record["lines_before"]
+    assert len(obs.result.filtered_contours) == record["lines_after"]
+    assert [list(ln.bbox.as_tuple()) for ln in got[1]] == \
+        record["jax_f32_boxes"]
+    assert [ln.text for ln in got[2]] == record["jax_f32_texts"]
+    assert got[3] == pytest.approx(record["angle"], abs=1e-9)
 
 
 def _recorder(base):

@@ -191,6 +191,36 @@ def test_volume_runner_stress_mixed_failures(pipe, pages):
     assert "expected an (H, W, 3) uint8 page" in gray.error
 
 
+def test_volume_dewarps_a_curved_page_as_jax(pipe, pages):
+    """use_tps=True: a bench.py config 2 page (1600x2640, curved) and a
+    fixture page on two geometry threads, float32. The curved page gives
+    the JAX float32 boxes, texts and angle of
+    tests/data/torch_port/eval_suite.json, the straight page passes the
+    gate and reads as without TPS."""
+    import json
+
+    from ocr_inference_tpu_torch.eval.synthetic import curved_volume
+
+    record = json.loads((OUT / "eval_suite.json").read_text(
+        encoding="utf-8"))["curved"]["pages"][0]
+    straight = pages[0][1]
+    (plain,) = VolumeRunner(pipe).run([("straight", straight)],
+                                      target_encoding=data.Encoding.WYLIE)
+    runner = VolumeRunner(pipe, window_pages=2, geometry_workers=2)
+    got = runner.run([("curved", curved_volume(1)[0]),
+                      ("straight", straight)],
+                     use_tps=True, target_encoding=data.Encoding.WYLIE)
+    assert [r.name for r in got] == ["curved", "straight"]
+    assert all(r.status == OK for r in got), [r.error for r in got]
+    curved, flat = got
+    assert [list(ln.bbox.as_tuple()) for ln in curved.lines] == \
+        record["jax_f32_boxes"]
+    assert [ln.text for ln in curved.ocr_lines] == record["jax_f32_texts"]
+    assert curved.angle == pytest.approx(record["angle"], abs=1e-9)
+    assert _summary([flat]) == _summary([plain])
+    assert curved.timings_ms["dewarp"] > 0
+
+
 @pytest.mark.parametrize("where", ["detect", "recognize"])
 def test_device_fault_ends_the_volume(pipe, pages, monkeypatch, where):
     """A CUDA error is sticky: it ends the run instead of failing pages."""
