@@ -4,8 +4,8 @@ check it.
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
-geometry library, started together), then runs nine phases and prints one
-JSON line for each:
+geometry library and for the ARPA scorer, all started together), then runs
+eleven phases and prints one JSON line for each:
 
 1. build        — seconds of each compiler; registers and spills of each
                   kernel as ptxas reports them;
@@ -75,11 +75,31 @@ JSON line for each:
                   512 as the eval CLI has it: each page's bytes equal the JAX
                   page's (sha256 in the record), the texts within 2% CER of
                   the JAX float32 texts; CER per distribution, the pages the
-                  dewarp was applied to.
+                  dewarp was applied to;
+10. eval_mode_f32 — eval mode with the eval LM, float32, TF32 off: the
+                  ARPA built from the eval CLI's corpus (bytes equal to
+                  artifacts/full77f/lm.arpa), loaded by the C++ scorer;
+                  run_ocr(eval_mode=True) on the three fixture pages (top
+                  beam texts within 0.5% CER of the JAX float32 ones of
+                  tests/data/torch_port/eval_mode.json, the same boxes), the
+                  fused top beams of their strips (within 0.5% CER); per
+                  page the logits forward with its readback (device and
+                  host ms), the plain batched search and the fused search
+                  (host ms); then calibrate_lm on the eval CLI's 16
+                  calibration strips at canvas 512: the same strips and
+                  the same decision as the JAX record, the grid beside the
+                  record's, and its seconds;
+11. eval_mode_bf16 — the eval-mode path: build_pipeline(..., kenlm_config)
+                  in bf16 at canvas 512, calibrated as above, then the
+                  first 12 eval pages through run_suite with the plain and
+                  the fused top beam: each within 2% CER of the JAX float32
+                  beam texts; cer_beam and cer_beam_lm against the ground
+                  truth, the LM columns, peak memory.
 
 Kernel launch and recheck counts are zeroed just before each OCR path is
-driven (phases 3-9) and read just after it. Then a ``kernels`` JSON line
-(per kernel: launches over the main paths, phases 5, 6 and 8, and by path,
+driven (phases 3-11) and read just after it. Then a ``kernels`` JSON line
+(per kernel: launches over the main paths, phases 5, 6, 8 and 11, and by
+path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -258,7 +278,8 @@ def bench_page(seed: int = 42) -> np.ndarray:
     return bench_volume(1, seed)[0]
 
 
-def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000):
+def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000,
+                     kenlm_config=None):
     from ocr_inference_tpu_torch.core.data import (
         CharsetEncoder, LineDetectionConfig, OCRModelConfig,
     )
@@ -276,7 +297,7 @@ def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000):
         checkpoint="", onnx_file=str(WEIGHTS / "lines.onnx"),
         architecture="unet", patch_size=512, classes=["line"],
     )
-    return build_pipeline(ocr, line, dtype=dtype)
+    return build_pipeline(ocr, line, kenlm_config=kenlm_config, dtype=dtype)
 
 
 def run_page(pipe, img):
@@ -302,15 +323,17 @@ def build():
         except BaseException as e:  # re-raised below in the main thread
             errors.append(e)
 
-    threads = [threading.Thread(target=guarded, args=(f,))
-               for f in (kernels.build_library, native.build_library)]
+    builds = (kernels.build_library, native.build_library,
+              lambda: native.build_library("arpa_lm.cpp"))
+    threads = [threading.Thread(target=guarded, args=(f,)) for f in builds]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    return {"nvcc_s": kernels.BUILD_SECONDS, "gxx_s": native.BUILD_SECONDS,
+    return {"nvcc_s": kernels.BUILD_SECONDS,
+            "gxx_s": native.BUILD_SECONDS,
             "ptxas": ptxas_report(kernels.BUILD_REPORT)}
 
 
@@ -1088,13 +1111,220 @@ def eval_suite(pipe, results: dict):
     }
 
 
-MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16")
+LM_ARPA = WEIGHTS / "lm.arpa"
+EVAL_CANVAS = 512  # the eval CLI's recognizer canvas (--canvas-width)
+
+
+def eval_lm_pipeline(dtype: torch.dtype, input_width: int = EVAL_CANVAS):
+    """full77f with the eval LM (alpha 0.5, beta 0, the CLI's defaults);
+    fails unless the C++ scorer serves it."""
+    from ocr_inference_tpu_torch.core.data import KenLMConfig
+    from ocr_inference_tpu_torch.native import NativeArpaLM
+
+    pipe = full77f_pipeline(dtype, input_width,
+                            KenLMConfig(str(LM_ARPA), str(LM_ARPA), None))
+    dec = pipe.ocr_inference.ctc_decoder_lm
+    if not (dec.has_lm and isinstance(dec._lm, NativeArpaLM)):
+        raise RuntimeError("the eval LM did not load into the C++ scorer")
+    return pipe
+
+
+def eval_page_ms(engine, strips) -> dict:
+    """One eval-mode page's recognition, split, through the engine's own
+    steps that run_batch_beams and calibrate_lm run: the canvas padding
+    and batching (``_prepare_batches``, host ms); the logits forward of
+    all its batches with the readback (``_queue_logits``), as host
+    ms until the last logits are on the host and as device ms between
+    CUDA events on the recognizer's stream, the stream held by a spin
+    kernel until all of it is queued (so the host's launch pace does not
+    count); then the plain batched beam search and the fused search of
+    those logits on the host (ms)."""
+    t0 = time.perf_counter()
+    batches = engine._prepare_batches(strips, pre_pad=False)
+    pad_ms = (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode(), engine._on_stream():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = [p.get() for _, p in engine._queue_logits(batches)]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # ~25 ms at 1.98 GHz
+        start.record()
+        pending = engine._queue_logits(batches)
+        end.record()
+        for _, p in pending:
+            p.get()
+    dec, dec_lm = engine.ctc_decoder, engine.ctc_decoder_lm
+    t0 = time.perf_counter()
+    for lg in logits:
+        dec.ctc_beam_decode_batch(lg, use_lm=False, top_k=1)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for lg in logits:
+        dec_lm.ctc_beam_decode_batch(lg, use_lm=True, top_k=1)
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    return {"lines": len(strips), "batches": len(logits),
+            "frames": [int(lg.shape[1]) for lg in logits],
+            "canvas_pad_ms": pad_ms,
+            "logits_device_ms": start.elapsed_time(end),
+            "logits_host_ms": host_ms, "plain_search_ms": plain_ms,
+            "fused_search_ms": fused_ms}
+
+
+def beam_texts(beams) -> list[str]:
+    return [b[0].text.strip().replace("§", " ") if b else "" for b in beams]
+
+
+def calibrate_on_card(pipe, lm_record: dict) -> dict:
+    """calibrate_lm on the eval CLI's calibration strips, beside the JAX
+    float32 record's report."""
+    from ocr_inference_tpu_torch.eval import suite
+    from ocr_inference_tpu_torch.eval.synthetic import load_glyphs
+
+    glyphs, charset = load_glyphs(FIXTURE / "pages.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strips, refs, used, attempts = suite.calibration_strips(pipe, glyphs,
+                                                            charset)
+    t1 = time.perf_counter()
+    report = pipe.ocr_inference.calibrate_lm(strips, refs)
+    t2 = time.perf_counter()
+    want = lm_record["lm_calibration"]
+    return {
+        "same_strips": (used == lm_record["calib_pages"]
+                        and refs == lm_record["calib_refs"]),
+        "enabled": report["enabled"], "jax_enabled": want["enabled"],
+        "same_decision": report["enabled"] == want["enabled"],
+        "report": report, "jax_report": want,
+        "grid_vs_jax": [[a, b, c, wc] for (a, b, c), (_, _, wc)
+                        in zip(report["grid"], want["grid"])],
+        "strip_seconds": t1 - t0, "calibrate_seconds": t2 - t1,
+    }
+
+
+@phase("eval_mode_f32")
+def eval_mode_f32(results: dict):
+    from ocr_inference_tpu_torch.core.data import Encoding, OpStatus
+    from ocr_inference_tpu_torch.eval import suite
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.eval.synthetic import load_glyphs
+
+    _, charset = load_glyphs(FIXTURE / "pages.npz")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        built = suite.build_eval_lm(Path(tmp) / "lm.arpa", charset)
+        lm_equal = built.read_bytes() == LM_ARPA.read_bytes()
+    build_lm_s = time.perf_counter() - t0
+    record = json.loads((FIXTURE / "eval_mode.json").read_text(
+        encoding="utf-8"))
+    ref = {p["name"]: p for p in record["pages"]}
+    pages, _ = fixture()
+    pipe = eval_lm_pipeline(torch.float32, input_width=3000)
+    engine = pipe.ocr_inference
+    per_page, captured, ok = {}, {}, lm_equal
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with no_tf32():
+        with counted_path(results, "eval_mode_f32"):
+            for name, img, _ in pages:
+                cap = suite.StripCapture()
+                status, payload = pipe.run_ocr(
+                    img, eval_mode=True, target_encoding=Encoding.WYLIE,
+                    observer=cap)
+                if status != OpStatus.SUCCESS:
+                    raise RuntimeError(f"{name}: {payload}")
+                _, lines, ocr_lines, _ = payload
+                texts = [ln.text for ln in ocr_lines]
+                want = ref[name]["jax_f32_beam_texts"]
+                fused = beam_texts(engine.run_batch_beams(
+                    cap.strips, use_lm=True, top_k=1))
+                page_cer = cer([" ".join(texts)], [" ".join(want)])
+                fused_cer = cer([" ".join(fused)],
+                                [" ".join(ref[name]["jax_f32_fused_texts"])])
+                boxes = [list(ln.bbox.as_tuple()) for ln in lines]
+                ok &= (len(texts) == len(want) and page_cer <= 0.005
+                       and fused_cer <= 0.005
+                       and boxes == ref[name]["jax_f32_boxes"])
+                captured[name] = cap.strips
+                per_page[name] = {
+                    "lines": len(texts), "cer_vs_jax_f32_beam": page_cer,
+                    "texts_identical": texts == want,
+                    "fused_cer_vs_jax_f32": fused_cer,
+                    "boxes_identical": boxes == ref[name]["jax_f32_boxes"],
+                    "ctc_conf": [ln.ctc_conf for ln in ocr_lines],
+                    "jax_ctc_conf": ref[name]["jax_f32_ctc_conf"],
+                }
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name, strips in captured.items():
+            per_page[name]["ms"] = eval_page_ms(engine, strips)
+        del pipe, engine
+        calib = calibrate_on_card(eval_lm_pipeline(torch.float32),
+                                  eval_record()["lm"])
+    ok &= calib["same_decision"] and calib["same_strips"]
+    launches = results["launches"]["eval_mode_f32"]
+    return {
+        "_ok": ok and all(v > 0 for v in launches.values()),
+        "lm_bytes_equal": lm_equal, "build_lm_s": build_lm_s,
+        "scorer": "NativeArpaLM", "pages": per_page,
+        "peak_memory_gib": peak,
+        "calibration": calib, "launches": launches,
+        "gpu": gpu_name_and_limit(),
+    }
+
+
+@phase("eval_mode_bf16")
+def eval_mode_bf16(results: dict):
+    from ocr_inference_tpu_torch.eval import suite
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.eval.synthetic import load_glyphs
+
+    record = eval_record()
+    pages = record["pages"][:EVAL_SMOKE_PAGES]
+    glyphs, charset = load_glyphs(FIXTURE / "pages.npz")
+    pipe = eval_lm_pipeline(torch.bfloat16)
+    calib = calibrate_on_card(pipe, record["lm"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_path(results, "eval_mode_bf16"):
+        res = suite.run_suite(pipe, EVAL_SMOKE_PAGES, glyphs, charset)
+    dt = time.perf_counter() - t0
+    beam_vs_jax = cer(res.beam_predictions,
+                      [p["jax_f32_beam_text"] for p in pages])
+    fused_vs_jax = cer(res.beam_lm_predictions,
+                       [p["jax_f32_beam_lm_text"] for p in pages])
+    launches = results["launches"]["eval_mode_bf16"]
+    ok = (beam_vs_jax <= 0.02 and fused_vs_jax <= 0.02
+          and not res.failed_pages
+          and all(v > 0 for v in launches.values()))
+    return {
+        "_ok": ok, "pages": EVAL_SMOKE_PAGES,
+        "beam_cer_vs_jax_f32": beam_vs_jax,
+        "fused_cer_vs_jax_f32": fused_vs_jax,
+        "greedy_cer_vs_jax_f32": cer(
+            res.predictions, [p["jax_f32_text"] for p in pages]),
+        "lm_columns": suite.lm_columns(pipe, res),
+        "jax_f32_cer_beam_12_pages": cer(
+            [p["jax_f32_beam_text"] for p in pages], res.references),
+        "cer_vs_ground_truth": res.cer, "calibration": calib,
+        "suite_s": dt, "pages_per_s": EVAL_SMOKE_PAGES / dt,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "rechecked": results["rechecked"][
+            "eval_mode_bf16"],
+        "gpu": gpu_name_and_limit(),
+    }
+
+
+MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16",
+              "eval_mode_bf16")
 
 
 def kernels_line(results: dict) -> dict:
     """The per-kernel summary: launches and rechecked pixels over the main
-    paths (bf16 page OCR, the bf16 volume and the dewarped bf16 volume),
-    with each path's own count;
+    paths (bf16 page OCR, the bf16 volume, the dewarped bf16 volume and
+    bf16 eval mode), with each path's own count;
     time, plain time and bound at the largest shape the main paths gave
     the kernel, and the shapes each path gave it."""
     from ocr_inference_tpu_torch.ops import kernels
@@ -1167,8 +1397,10 @@ def main() -> int:
         dewarp_volume_bf16(bf16, results)
         del bf16
         # the eval CLI's recognizer canvas (selftrain_cli.py --canvas-width)
-        eval_suite(full77f_pipeline(torch.bfloat16, input_width=512),
+        eval_suite(full77f_pipeline(torch.bfloat16, input_width=EVAL_CANVAS),
                    results)
+        eval_mode_f32(results)
+        eval_mode_bf16(results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1

@@ -10,6 +10,7 @@ Entry points::
     from ocr_inference_tpu_torch.pipeline import VolumeRunner, build_pipeline
     pipe = build_pipeline(ocr_config, line_config)          # device="cuda"
     status, payload = pipe.run_ocr(page_rgb_u8)             # one page
+    status, payload = pipe.run_ocr(page_rgb_u8, eval_mode=True)  # beams
     records = VolumeRunner(pipe).run([(name, page_or_loader), ...])
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; a

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
+from pathlib import Path
 from typing import Optional
 from uuid import UUID, uuid1
 
@@ -134,6 +135,19 @@ class OCRModelConfig:
     charset: list[str]
     add_blank: bool
     version: str
+
+
+@dataclass
+class KenLMConfig:
+    """n-gram LM config (reference: BDRC/data.py:283). ``alpha``/``beta``
+    are the shallow-fusion weights: fused score = alpha * ln p_lm + beta per
+    emitted token (core/data.py:274-288)."""
+
+    kenlm_file: str | Path
+    arpa_file: str | Path
+    unigrams: Optional[list[str]]
+    alpha: float = 0.5
+    beta: float = 0.0
 
 
 @dataclass

@@ -1,11 +1,12 @@
-"""Native (C++) geometry library, counterpart of ocr_inference_tpu/native.
+"""Native (C++) libraries, counterpart of ocr_inference_tpu/native: the
+geometry library and the ARPA LM scorer.
 
 ``geometry.cpp`` is the port's own copy of the JAX package's library plus
 ``ocr_fill_contour`` (the filled-contour rasterizer that replaces
-cv2.drawContours). It builds with g++ at first use into
-``ocr_inference_tpu_torch/_build/`` (named by the source's hash) and loads
-through ctypes. There is no fallback: if the build fails, this raises.
-"""
+cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer.
+Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
+(named by the source's hash) and loads through ctypes. There is no
+fallback: if a build fails, this raises."""
 
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ BUILD_DIR = _DIR.parent / "_build"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _LIB: ctypes.CDLL | None = None
-BUILD_SECONDS: float | None = None
+_ARPA_LIB: ctypes.CDLL | None = None
+BUILD_SECONDS: dict[str, float] = {}
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U64P = ctypes.POINTER(ctypes.c_uint64)
@@ -33,13 +35,14 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 _F64P = ctypes.POINTER(ctypes.c_double)
 
 
-def build_library() -> Path:
-    """Compile geometry.cpp into _build/libocr_geometry-<hash>.so once per
-    source content and return its path; raises if g++ fails."""
-    global BUILD_SECONDS
-    src = _DIR / "geometry.cpp"
+def build_library(source: str = "geometry.cpp") -> Path:
+    """Compile ``source`` (geometry.cpp or arpa_lm.cpp) into
+    _build/libocr_<stem>-<hash>.so once per source content and return its
+    path; raises if g++ fails. ``BUILD_SECONDS[source]`` records the
+    compile time of a build this process made."""
+    src = _DIR / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
-    so_path = BUILD_DIR / f"libocr_geometry-{digest.hexdigest()[:16]}.so"
+    so_path = BUILD_DIR / f"libocr_{src.stem}-{digest.hexdigest()[:16]}.so"
     if so_path.is_file():
         return so_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -52,17 +55,33 @@ def build_library() -> Path:
     )
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"g++ failed on geometry.cpp:\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed on {source}:\n{proc.stderr}")
     os.replace(tmp, so_path)
-    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_SECONDS[source] = time.perf_counter() - t0
     return so_path
+
+
+def _load(source: str, sig: dict) -> ctypes.CDLL:
+    """Build ``source`` if needed, load it and declare each function's
+    ``restype`` and ``argtypes`` from ``sig``. Every failure of the build
+    or the load raises RuntimeError: an OSError here (no g++, a build
+    directory it cannot write, a library that does not load) is the
+    program's, and must not pass for an error of a file the caller named."""
+    try:
+        lib = ctypes.CDLL(str(build_library(source)))
+    except OSError as e:
+        raise RuntimeError(f"cannot build or load {source}: {e}") from e
+    for name, (restype, argtypes) in sig.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    lib = ctypes.CDLL(str(build_library()))
     sig = {
         "ocr_find_contours": (ctypes.c_int, [
             _U8P, ctypes.c_int, ctypes.c_int, _I32P, ctypes.c_int64, _I64P,
@@ -93,12 +112,8 @@ def _lib() -> ctypes.CDLL:
             _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _I32P,
             ctypes.c_int, ctypes.c_uint8]),
     }
-    for name, (restype, argtypes) in sig.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
-    _LIB = lib
-    return lib
+    _LIB = _load("geometry.cpp", sig)
+    return _LIB
 
 
 def _points(contour: np.ndarray) -> np.ndarray:
@@ -253,3 +268,79 @@ class PackedLineRoi:
         if h2 == 0:
             return np.zeros((0, self.w, self.c), np.uint8)
         return out[: h2 * w2 * self.c].reshape(h2, w2, self.c).copy()
+
+
+# ---------------------------------------------------------------------------
+# ARPA LM
+# ---------------------------------------------------------------------------
+
+def _arpa_lib() -> ctypes.CDLL:
+    global _ARPA_LIB
+    if _ARPA_LIB is not None:
+        return _ARPA_LIB
+    sig = {
+        "ocr_arpa_load": (ctypes.c_void_p, [ctypes.c_char_p]),
+        "ocr_arpa_free": (None, [ctypes.c_void_p]),
+        "ocr_arpa_order": (ctypes.c_int, [ctypes.c_void_p]),
+        "ocr_arpa_token_id": (ctypes.c_int32, [ctypes.c_void_p,
+                                               ctypes.c_char_p]),
+        "ocr_arpa_score": (ctypes.c_double, [
+            ctypes.c_void_p, _I32P, ctypes.c_int, ctypes.c_int32]),
+    }
+    _ARPA_LIB = _load("arpa_lm.cpp", sig)
+    return _ARPA_LIB
+
+
+class NativeArpaLM:
+    """The C++ ARPA scorer (ocr_inference_tpu/native/__init__.py:296-362):
+    float32 log-prob and backoff tables, Katz backoff, unknown words mapped
+    to ``<unk>``; the same interface as decode.arpa_lm.ArpaLM, whose
+    float64 tables give scores that differ from these at float32 rounding.
+    A missing file raises FileNotFoundError; a failed build or load of
+    the library raises RuntimeError."""
+
+    def __init__(self, arpa_path):
+        lib = _arpa_lib()
+        self._lib = lib
+        self._handle = lib.ocr_arpa_load(str(arpa_path).encode())
+        if not self._handle:
+            raise FileNotFoundError(arpa_path)
+        self.order = lib.ocr_arpa_order(self._handle)
+        self._id_cache: dict[str, int] = {}
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.ocr_arpa_free(self._handle)
+            self._handle = None
+
+    def _tid(self, token: str) -> int:
+        tid = self._id_cache.get(token)
+        if tid is None:
+            tid = self._lib.ocr_arpa_token_id(self._handle, token.encode())
+            self._id_cache[token] = tid
+        return tid
+
+    def score(self, context: tuple[str, ...], token: str) -> float:
+        """log10 P(token | context) with Katz backoff."""
+        ids = (ctypes.c_int32 * len(context))(
+            *[self._tid(t) for t in context]
+        )
+        return self._lib.ocr_arpa_score(
+            self._handle, ids, len(context), self._tid(token)
+        )
+
+    def make_score_fn(self, charset: list[str], add_blank: bool = True):
+        """Adapter (prefix_ids, next_id) -> log10 prob for beam_search, with
+        the +1 blank shift of the vocab ids when ``add_blank``."""
+        tids = [self._tid(c) for c in charset]
+        shift = 1 if add_blank else 0
+
+        def fn(prefix_ids: tuple[int, ...], next_id: int) -> float:
+            ctx = (ctypes.c_int32 * len(prefix_ids))(
+                *[tids[i - shift] for i in prefix_ids]
+            )
+            return self._lib.ocr_arpa_score(
+                self._handle, ctx, len(prefix_ids), tids[next_id - shift]
+            )
+
+        return fn

@@ -4,8 +4,9 @@ Counterpart of ocr_inference_tpu/pipeline/builder.py:40-206 for native
 msgpack weights: ``X.onnx`` configured -> ``X.msgpack`` (or
 ``weights.msgpack``) beside it, architecture geometry from the
 ``.msgpack.json`` sidecar. Stem-2 UNets get the 2% horizontal opening
-(builder.py:110). The ONNX executor and random weights are not part of
-this port.
+(builder.py:110). A ``kenlm_config`` gives the recognizer its n-gram LM
+for eval mode (builder.py:78-127, :200-213). The ONNX executor and random
+weights are not part of this port.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ocr_inference_tpu_torch.core.data import (
     BatchConfig,
+    KenLMConfig,
     LineDetectionConfig,
     OCRModelConfig,
 )
@@ -49,6 +51,7 @@ def _place(model: torch.nn.Module, head: str, dtype: torch.dtype,
 
 def build_recognition_engine(
     config: OCRModelConfig,
+    kenlm_config: KenLMConfig | None = None,
     batch_cfg: BatchConfig | None = None,
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device | None = None,
@@ -67,7 +70,7 @@ def build_recognition_engine(
     )
     load_flax_weights(model, weights)
     return RecognitionEngine(_place(model, "Conv_0", dtype, dev), config, dev,
-                             batch_cfg)
+                             batch_cfg, kenlm_config)
 
 
 def build_detection_engine(
@@ -93,6 +96,7 @@ def build_detection_engine(
 def build_pipeline(
     ocr_config: OCRModelConfig,
     line_config: LineDetectionConfig,
+    kenlm_config: KenLMConfig | None = None,
     batch_cfg: BatchConfig | None = None,
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device | None = None,
@@ -101,7 +105,10 @@ def build_pipeline(
     """Page pipeline from configs (reference: OCRPipeline ctor,
     inference.py:440-463). ``dtype`` is both engines' compute precision:
     bf16 by default, float32 for parity runs. ``device`` defaults to
-    ``cuda`` and raises without a card unless ``"cpu"`` is given."""
-    rec = build_recognition_engine(ocr_config, batch_cfg, dtype, device)
+    ``cuda`` and raises without a card unless ``"cpu"`` is given.
+    ``kenlm_config`` loads the n-gram LM that eval mode's fused beams and
+    ``calibrate_lm`` use."""
+    rec = build_recognition_engine(ocr_config, kenlm_config, batch_cfg,
+                                   dtype, device)
     det = build_detection_engine(line_config, dtype, device)
     return OCRPipeline(rec, det, line_config, use_line_prepadding)

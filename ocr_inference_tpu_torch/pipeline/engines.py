@@ -1,7 +1,7 @@
 """Device engines: tiled line segmentation and bucketed line recognition.
 
 Counterpart of ocr_inference_tpu/pipeline/engines.py (reference:
-BDRC/inference.py:121-429), without jit caches, mesh, beams or the LM.
+BDRC/inference.py:121-429), without jit caches or mesh.
 Binarizing runs on the card through the hand-written kernel
 (ops/kernels.py) in both engines — the JAX default path does it on the
 host with cv2 and uploads packed bits; the kernel gives the same bytes.
@@ -17,6 +17,10 @@ host with cv2 and uploads packed bits; the kernel gives the same bytes.
 - ``RecognitionEngine`` streaming (``stream_add`` / ``stream_run``): the
   cross-window carry the volume runner feeds, batches of ``quantum`` and
   power-of-two tails only (engines.py:1076-1182).
+- ``RecognitionEngine`` eval mode (``run_batch_beams``, ``calibrate_lm``):
+  the same forward up to Easter2, whose float32 logits of the real rows
+  come back to the host, where the CTC prefix beam search runs, with or
+  without shallow fusion of the n-gram LM (engines.py:924-1060).
 
 Copies between host and card never wait for other work (device.py
 ``upload``, ``PendingHost``). The recognizer runs on its own CUDA stream,
@@ -27,6 +31,7 @@ overlap on the card.
 from __future__ import annotations
 
 import contextlib
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
@@ -34,8 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from ocr_inference_tpu_torch.core.config import LINE_CLASS_THRESHOLD
-from ocr_inference_tpu_torch.core.data import BatchConfig, OCRModelConfig
+from ocr_inference_tpu_torch.core.data import (
+    BatchConfig,
+    KenLMConfig,
+    OCRModelConfig,
+)
 from ocr_inference_tpu_torch.device import PendingHost, host_buffer, upload
+from ocr_inference_tpu_torch.decode.decoder import CTCDecoder
 from ocr_inference_tpu_torch.decode.ctc import (
     greedy_decode_packed,
     ids_to_tokens,
@@ -147,7 +157,8 @@ class RecognitionEngine:
     """Batched line recognizer (reference: OCRInference,
     inference.py:279-429): canvases padded into width buckets on the host,
     then per (bucket, batch): line binarize kernel -> [-1, 1] -> Easter2 ->
-    greedy CTC on the card."""
+    greedy CTC on the card, or in eval mode the logits back to the host
+    for the beam search."""
 
     # streaming batches: full batches of this many lines, power-of-two
     # tails (engines.py:1076-1094)
@@ -166,12 +177,23 @@ class RecognitionEngine:
         config: OCRModelConfig,
         device: torch.device,
         batch_cfg: BatchConfig | None = None,
+        kenlm_config: KenLMConfig | None = None,
     ):
         self.model = model
         self.config = config
         self.device = device
         self.batch_cfg = batch_cfg or BatchConfig()
         self.charset = list(config.charset)
+        self.ctc_decoder = CTCDecoder(config.charset, config.add_blank)
+        self.ctc_decoder_lm = (
+            CTCDecoder(config.charset, config.add_blank, kenlm_config)
+            if kenlm_config is not None else None
+        )
+        # Shallow fusion ships guarded: calibrate_lm() clears this when the
+        # LM does not beat the plain beam on labeled strips, and every later
+        # run_batch_beams(use_lm=True) is then a plain beam
+        # (engines.py:718-722).
+        self.lm_fusion_enabled = True
         # (bucket_width, real_lines, padded_batch) -> calls, over every
         # forward run_batch and the streaming path make (engines.py:733)
         self.occupancy: dict[tuple[int, int, int], int] = {}
@@ -210,20 +232,26 @@ class RecognitionEngine:
         """Rows a batch of ``padded_b`` runs: a multiple of MODEL_BATCH."""
         return -(-padded_b // self.MODEL_BATCH) * self.MODEL_BATCH
 
-    def _forward(self, host: torch.Tensor) -> PendingHost:
+    def _logits(self, host: torch.Tensor) -> torch.Tensor:
         """Queue one (B, H, W) uint8 batch, B a multiple of MODEL_BATCH:
-        upload, line binarize kernel, Easter2 in calls of MODEL_BATCH,
-        greedy CTC, and the packed result's copy to the host."""
+        upload, line binarize kernel, Easter2 in calls of MODEL_BATCH ->
+        (B, T, V) float32 logits on the device."""
         gray = host.to(self.device, non_blocking=True)
         bw = kernels.binarize_lines(gray)
         x = bw.to(torch.float32) / 127.5 - 1.0
-        logits = torch.cat([self.model(c) for c in x.split(self.MODEL_BATCH)])
-        return PendingHost(greedy_decode_packed(logits))
+        return torch.cat([self.model(c) for c in x.split(self.MODEL_BATCH)])
+
+    def _forward(self, host: torch.Tensor) -> PendingHost:
+        """``_logits``, greedy CTC, and the packed result's copy to the
+        host."""
+        return PendingHost(greedy_decode_packed(self._logits(host)))
 
     def _dispatch(self, width: int, canvases: list[np.ndarray],
-                  padded_b: int) -> PendingHost:
+                  padded_b: int, want_logits: bool = False) -> PendingHost:
         """One forward of a (padded_b, width) batch, zero rows after the
-        real ones; counted in ``occupancy``."""
+        real ones; counted in ``occupancy``. With ``want_logits`` the
+        float32 logits of the real rows come back instead of the packed
+        greedy ids (engines.py:789-815, ``logits[: len(idxs)]``)."""
         key = (width, len(canvases), padded_b)
         self.occupancy[key] = self.occupancy.get(key, 0) + 1
         host = host_buffer((self._rows(padded_b), self.config.input_height,
@@ -232,6 +260,8 @@ class RecognitionEngine:
         for i, canvas in enumerate(canvases):
             rows[i] = canvas
         rows[len(canvases):] = 0
+        if want_logits:
+            return PendingHost(self._logits(host)[: len(canvases)])
         return self._forward(host)
 
     def _texts(self, tokens, pending: PendingHost) -> dict:
@@ -264,23 +294,176 @@ class RecognitionEngine:
                 yield (width, min(b, bmax), [idx for idx, _ in chunk],
                        [canvas for _, canvas in chunk])
 
-    @torch.inference_mode()
-    def run_batch(self, line_images: Sequence[np.ndarray],
-                  pre_pad: bool = False) -> list[str]:
-        """Recognize many lines; returns texts in input order. Every batch
-        is queued before the first result is read."""
+    def _prepare_batches(self, line_images: Sequence[np.ndarray],
+                         pre_pad: bool) -> list[tuple]:
+        """The non-empty strips' canvases grouped into the batches of
+        ``_batches``, in the order they are queued."""
         prepared = [
             (i, self.prepare_canvas(img, pre_pad))
             for i, img in enumerate(line_images)
             if img.shape[0] > 0 and img.shape[1] > 0
         ]
+        return list(self._batches(prepared))
+
+    @torch.inference_mode()
+    def run_batch(self, line_images: Sequence[np.ndarray],
+                  pre_pad: bool = False) -> list[str]:
+        """Recognize many lines; returns texts in input order. Every batch
+        is queued before the first result is read."""
         with self._on_stream():
             pending = [(idxs, self._dispatch(width, canvases, b))
-                       for width, b, idxs, canvases in self._batches(prepared)]
+                       for width, b, idxs, canvases
+                       in self._prepare_batches(line_images, pre_pad)]
         texts: dict[int, str] = {}
         for idxs, p in pending:
             texts.update(self._texts(idxs, p))
         return [texts.get(i, "") for i in range(len(line_images))]
+
+    # -- eval mode: logits to the host, beam search there --
+
+    def _queue_logits(self, batches: list[tuple]
+                      ) -> list[tuple[list[int], PendingHost]]:
+        """Queue the logits forward of every batch of ``_prepare_batches``;
+        returns (line indices, pending (n, T, V) float32 logits) per
+        batch."""
+        with self._on_stream():
+            return [(idxs, self._dispatch(width, canvases, b,
+                                          want_logits=True))
+                    for width, b, idxs, canvases in batches]
+
+    @torch.inference_mode()
+    def line_logits(self, line_images: Sequence[np.ndarray],
+                    pre_pad: bool = False) -> dict[int, np.ndarray]:
+        """{line index: its (T, V) float32 logits on the host} for every
+        non-empty line."""
+        out: dict[int, np.ndarray] = {}
+        for idxs, p in self._queue_logits(
+                self._prepare_batches(line_images, pre_pad)):
+            logits = p.get()
+            for row, idx in enumerate(idxs):
+                out[idx] = logits[row]
+        return out
+
+    @torch.inference_mode()
+    def run_batch_beams(
+        self,
+        line_images: Sequence[np.ndarray],
+        pre_pad: bool = False,
+        use_lm: bool = False,
+        top_k: int = 10,
+    ):
+        """Eval mode: per-line beam hypotheses in input order (reference
+        run_beam_code, inference.py:400-414; engines.py:924-953). The
+        forwards of all buckets are queued first; each batch is then
+        decoded on the host as its logits arrive. ``use_lm`` fuses the LM
+        only while ``lm_fusion_enabled``."""
+        use_lm = use_lm and self.lm_fusion_enabled
+        decoder = (
+            self.ctc_decoder_lm
+            if (use_lm and self.ctc_decoder_lm is not None)
+            else self.ctc_decoder
+        )
+        beams_by_idx: dict[int, list] = {}
+        for idxs, p in self._queue_logits(
+                self._prepare_batches(line_images, pre_pad)):
+            batch_beams = decoder.ctc_beam_decode_batch(
+                p.get(), use_lm=use_lm, top_k=top_k
+            )
+            for row, idx in enumerate(idxs):
+                beams_by_idx[idx] = batch_beams[row]
+        return [beams_by_idx.get(i, []) for i in range(len(line_images))]
+
+    def run_beam_code(self, line_image: np.ndarray, pre_pad: bool = True):
+        """One line's beams (reference: inference.py:400-414)."""
+        return self.run_batch_beams([line_image], pre_pad=pre_pad)[0]
+
+    def calibrate_lm(
+        self,
+        line_images: Sequence[np.ndarray],
+        refs: Sequence[str],
+        alphas: Sequence[float] = (0.2, 0.4, 0.7, 1.0),
+        betas: Sequence[float] = (-0.5, 0.0, 0.5),
+        pre_pad: bool = False,
+    ) -> dict:
+        """Tune shallow-fusion (alpha, beta) on labeled strips; turn fusion
+        off when no grid point beats the plain beam (engines.py:955-1060).
+
+        The forward runs once; each grid point re-decodes the cached logits
+        of the tuning half (the even lines), and the winner must also beat
+        the plain beam on the held-out odd lines, or ``lm_fusion_enabled``
+        clears. ``refs`` use the pipeline's text convention ("§" already a
+        space). Returns the JAX report: the tuning half's plain-beam CER,
+        the grid [alpha, beta, CER] rounded to 5 digits, the line count,
+        ``enabled`` and, when a point won the tuning half, the holdout
+        CERs, and when it is kept, ``alpha``, ``beta`` and its CER."""
+        from ocr_inference_tpu_torch.eval.cer import cer
+
+        dec = self.ctc_decoder_lm
+        if dec is None or not dec.has_lm:
+            self.lm_fusion_enabled = False
+            return {"enabled": False, "reason": "no LM loaded"}
+        logits_by_idx = self.line_logits(line_images, pre_pad)
+        order = sorted(logits_by_idx)
+        tune = order[0::2]
+        hold = order[1::2] or tune  # degenerate tiny samples: no holdout
+
+        def decode_all(subset, use_lm: bool) -> list[str]:
+            texts = []
+            for i in subset:
+                beams = dec.ctc_beam_decode(
+                    logits_by_idx[i], use_lm=use_lm, top_k=1
+                )
+                texts.append(
+                    beams[0].text.strip().replace("§", " ") if beams else ""
+                )
+            return texts
+
+        def score(subset, use_lm: bool) -> float:
+            return cer(decode_all(subset, use_lm), [refs[i] for i in subset])
+
+        base_tune = score(tune, False)
+        best_a = best_b = None
+        best = base_tune
+        grid = []
+        for a in alphas:
+            for b_ in betas:
+                dec.lm_alpha, dec.lm_beta = a, b_
+                c = score(tune, True)
+                grid.append([a, b_, round(c, 5)])
+                if c < best:
+                    best_a, best_b, best = a, b_, c
+        report = {
+            "cer_beam": round(base_tune, 5),
+            "grid": grid,
+            "lines": len(order),
+        }
+        if best_a is not None:
+            # holdout gate: the chosen point must not lose on unseen lines
+            dec.lm_alpha, dec.lm_beta = best_a, best_b
+            base_hold = score(hold, False)
+            lm_hold = score(hold, True)
+            report.update(
+                cer_beam_holdout=round(base_hold, 5),
+                cer_beam_lm_holdout=round(lm_hold, 5),
+            )
+            if lm_hold > base_hold:
+                best_a = None
+        if best_a is None:
+            self.lm_fusion_enabled = False
+            print(
+                "LM fusion auto-disabled: no (alpha, beta) beat the plain "
+                f"beam on both calibration halves (tune CER {base_tune:.4f})",
+                file=sys.stderr,
+            )
+            report.update(enabled=False)
+        else:
+            self.lm_fusion_enabled = True
+            dec.lm_alpha, dec.lm_beta = best_a, best_b
+            report.update(
+                enabled=True, alpha=best_a, beta=best_b,
+                cer_beam_lm=round(best, 5),
+            )
+        return report
 
     # -- streaming recognition (cross-window carry) --
 

@@ -5,9 +5,8 @@ BDRC/inference.py:432-826): the same stage methods, the same (OpStatus,
 payload) returns and the same SUCCESS payload ``[rot_mask, sorted_lines,
 ocr_lines, page_angle]``, with observer events around each stage. The TPS
 dewarp (``use_tps=True``) warps the page on the detection engine's device,
-each warp in flight on a CUDA stream of its own. ``eval_mode=True`` (beams
-and the LM, ROADMAP item 4) is not ported yet and raises
-``NotImplementedError``.
+each warp in flight on a CUDA stream of its own. ``eval_mode=True`` reads
+the lines with the CTC beam search (``run_text_recognition_eval``).
 
 Differences from the JAX pipeline: a page that is a strided view (such as
 ``bgr[..., ::-1]``) is copied to a contiguous array once at the entry
@@ -19,6 +18,7 @@ call on the card would fail too.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Optional
 
@@ -50,10 +50,6 @@ from ocr_inference_tpu_torch.pipeline.engines import (
     SegmentationEngine,
 )
 from ocr_inference_tpu_torch.text import Converter
-
-
-NO_EVAL = ("eval_mode=True: beams and the LM are not ported yet "
-           "(ROADMAP item 4)")
 
 
 class PipelineObserver:
@@ -274,6 +270,58 @@ class OCRPipeline:
             for text, info in zip(raw_texts, infos)
         ]
 
+    def run_text_recognition_eval(
+        self,
+        line_images: list,
+        sorted_lines: list[Line],
+        target_encoding: Encoding = Encoding.UNICODE,
+        top_k_beams: int = 10,
+        use_lm: bool = False,
+    ):
+        """Stage 5 (eval mode): beams and confidences (reference:
+        inference.py:668-726; ocr_pipeline.py:275-331). The text is the top
+        beam's; ``ctc_conf`` is exp(score / text length); ``logits`` holds
+        the top beams' scores and ``lm_scores`` their LM parts when the LM
+        was fused."""
+        keep = [
+            (img, info)
+            for img, info in zip(line_images, sorted_lines)
+            if img.shape[0] > 0 and img.shape[1] > 0
+        ]
+        if not keep:
+            return OpStatus.SUCCESS, []
+        imgs, infos = zip(*keep)
+        all_beams = self.ocr_inference.run_batch_beams(
+            list(imgs), pre_pad=self.use_line_prepadding, use_lm=use_lm,
+            top_k=top_k_beams,
+        )
+        encoding = (Encoding.WYLIE.name if target_encoding == Encoding.WYLIE
+                    else Encoding.UNICODE.name)
+        ocr_lines = []
+        for beams, info in zip(all_beams, infos):
+            if not beams:
+                continue
+            beams = beams[:top_k_beams]
+            pred = beams[0].text.strip().replace(" ", "")
+            pred = pred.replace("§", " ")
+            # length-normalized confidence (reference: inference.py:707-720)
+            length = max(len(beams[0].text), 1)
+            ocr_lines.append(
+                OCRLine(
+                    guid=info.guid,
+                    text=self._convert_text(pred, target_encoding),
+                    encoding=encoding,
+                    ctc_conf=float(math.exp(beams[0].logit_score / length)),
+                    logits=[float(b.logit_score) for b in beams],
+                    lm_scores=(
+                        [float(b.lm_score) for b in beams]
+                        if beams[0].lm_score is not None
+                        else None
+                    ),
+                )
+            )
+        return OpStatus.SUCCESS, ocr_lines
+
     def run_ocr(
         self,
         image: np.ndarray,
@@ -292,9 +340,9 @@ class OCRPipeline:
         [rot_mask, sorted_lines, ocr_lines, page_angle], a FAILED payload
         the error message. ``observer`` receives stage start/end/failed
         events with the raw payloads. As in the JAX pipeline, the lines of a
-        dewarped page are sorted against the mask from before the warp."""
-        if eval_mode:
-            raise NotImplementedError(NO_EVAL)
+        dewarped page are sorted against the mask from before the warp.
+        ``eval_mode`` reads the lines with the beam search
+        (``run_text_recognition_eval``) instead of greedy decoding."""
         obs = observer or _NULL_OBSERVER
 
         def run_stage(stage: str, error_prefix: str, fn, *args, **kwargs):
@@ -358,9 +406,14 @@ class OCRPipeline:
                 return OpStatus.FAILED, result
             sorted_lines, line_images = result
 
+            recognize = (
+                self.run_text_recognition_eval
+                if eval_mode
+                else self.run_text_recognition
+            )
             ok, ocr_lines = run_stage(
                 "ocr_inference", "OCR processing failed",
-                self.run_text_recognition, line_images, sorted_lines,
+                recognize, line_images, sorted_lines,
                 target_encoding=target_encoding,
             )
             if not ok:

@@ -27,12 +27,33 @@ the port's dewarp and eval suite are held against (about five minutes):
         that CLI defaults): each page's distribution, the sha256 of its
         bytes and of its ground truth, and the JAX texts, line count and
         TPS gate;
+        ``lm``: eval mode as the CLI runs it with its default LM
+        (cli/selftrain_cli.py:386-466, :527-540, :632-645): the order-3
+        token ARPA built from the CLI's corpus (it must equal
+        artifacts/full77f/lm.arpa byte for byte), the ``calibrate_lm``
+        report on 16 pipeline-extracted strips of the ``RandomState(5 +
+        31337)`` calibration pages, the pooled ``cer_beam`` and
+        ``cer_beam_lm``, and the fusion state after calibration; each page
+        also holds its top-1 plain and fused beam texts
+        (``jax_f32_beam_text``, ``jax_f32_beam_lm_text``);
         ``curved``: two bench.py config 2 pages (``make_curved_volume``)
         through ``run_ocr(use_tps=True)``: the TPS ratio, whether the warp
         ran, its band ``b`` and ``max_dy``, the line counts before and
         after the warp, and the line boxes and texts.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py eval_suite
+
+With the argument ``eval_mode`` it writes the JAX float32 eval-mode
+record of the three fixture pages (about a minute):
+
+    tests/data/torch_port/eval_mode.json
+        per page, ``run_ocr(eval_mode=True)`` with the eval LM
+        (artifacts/full77f/lm.arpa, alpha 0.5, beta 0): the top-1 beam
+        texts, line boxes, ``ctc_conf`` and the top beams' scores; and the
+        top-1 texts of the page's strips through ``run_batch_beams`` with
+        the LM fused (``use_lm=True``), before any calibration.
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py eval_mode
 
 The JAX warp is pinned to its device path (``OCR_TPS_HOST=0``): the port
 has no host warp.
@@ -64,6 +85,11 @@ EVAL_SUITE = (
     ("curve_tps", 0.0, 0.0, 10.0, True),
 )
 EVAL_SEED, EVAL_PAGES, EVAL_CANVAS = 5, 150, 512
+# the eval CLI's LM defaults (selftrain_cli.py --lm-order, --lm-corpus-lines,
+# --lm-calib-lines, --lm-alpha, --lm-beta)
+LM_ORDER, LM_CORPUS_LINES, LM_CALIB_LINES = 3, 500, 16
+LM_ALPHA, LM_BETA = 0.5, 0.0
+LM_ARPA = WEIGHTS / "lm.arpa"
 CURVED_PAGES = 2
 
 
@@ -96,8 +122,11 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(REPO))
     if argv == ["eval_suite"]:
         return eval_suite()
+    if argv == ["eval_mode"]:
+        return eval_mode()
     if argv:
-        raise SystemExit(f"unknown arguments {argv}; expected eval_suite")
+        raise SystemExit(
+            f"unknown arguments {argv}; expected eval_suite or eval_mode")
     import jax
     import jax.numpy as jnp
 
@@ -172,6 +201,66 @@ def main(argv: list[str]) -> int:
     return 0
 
 
+def eval_mode() -> int:
+    """Write tests/data/torch_port/eval_mode.json (see the module doc)."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
+
+    from ocr_inference_tpu.core.data import (
+        CharsetEncoder, Encoding, KenLMConfig, LineDetectionConfig,
+        OCRModelConfig, OpStatus,
+    )
+    from ocr_inference_tpu.pipeline.builder import build_pipeline
+    from ocr_inference_tpu.pipeline.ocr_pipeline import PipelineObserver
+    from ocr_inference_tpu_torch.eval import synthetic as port_synth
+
+    class Capture(PipelineObserver):
+        strips = None
+
+        def stage_end(self, stage, payload):
+            if stage == "extract_lines":
+                self.strips = payload[1]
+
+    pipe = build_pipeline(
+        *full77f_configs(OCRModelConfig, LineDetectionConfig,
+                         CharsetEncoder.WYLIE),
+        kenlm_config=KenLMConfig(str(LM_ARPA), str(LM_ARPA), None,
+                                 alpha=LM_ALPHA, beta=LM_BETA),
+        dtype=jnp.float32)
+    record = {"weights": "artifacts/full77f", "dtype": "float32",
+              "input_width": INPUT_WIDTH,
+              "lm": str(LM_ARPA.relative_to(REPO)), "lm_alpha": LM_ALPHA,
+              "lm_beta": LM_BETA, "pages": []}
+    for name, img, _ in port_synth.fixture_pages(OUT / "pages.npz"):
+        cap = Capture()
+        status, payload = pipe.run_ocr(img, target_encoding=Encoding.WYLIE,
+                                       eval_mode=True, observer=cap)
+        if status != OpStatus.SUCCESS:
+            raise RuntimeError(f"{name}: JAX pipeline failed: {payload}")
+        _, lines, ocr_lines, angle = payload
+        fused = pipe.ocr_inference.run_batch_beams(cap.strips, use_lm=True,
+                                                   top_k=1)
+        record["pages"].append({
+            "name": name,
+            "jax_f32_beam_texts": [ln.text for ln in ocr_lines],
+            "jax_f32_boxes": [list(ln.bbox.as_tuple()) for ln in lines],
+            "jax_f32_ctc_conf": [ln.ctc_conf for ln in ocr_lines],
+            "jax_f32_beam_scores": [ln.logits for ln in ocr_lines],
+            "jax_f32_fused_texts": [
+                b[0].text.strip().replace("§", " ") if b else ""
+                for b in fused],
+            "jax_angle": angle,
+        })
+        print(name, len(ocr_lines), "lines", file=sys.stderr)
+    (OUT / "eval_mode.json").write_text(
+        json.dumps(record, indent=1, ensure_ascii=False) + "\n",
+        encoding="utf-8",
+    )
+    return 0
+
+
 def eval_suite() -> int:
     """Write tests/data/torch_port/eval_suite.json (see the module doc)."""
     os.environ["OCR_TPS_HOST"] = "0"
@@ -182,15 +271,18 @@ def eval_suite() -> int:
     jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
 
     import bench
+    import tempfile
+
     from ocr_inference_tpu.core.data import (
-        CharsetEncoder, Encoding, LineDetectionConfig, OCRModelConfig,
-        OpStatus,
+        CharsetEncoder, Encoding, KenLMConfig, LineDetectionConfig,
+        OCRModelConfig, OpStatus,
     )
+    from ocr_inference_tpu.decode.ngram_builder import build_char_arpa
     from ocr_inference_tpu.dewarp import tps as T
     from ocr_inference_tpu.eval.cer import cer
     from ocr_inference_tpu.eval.synthetic import (
         WYLIE_CHARSET_FULL, GlyphSet, degrade_page, distort_page,
-        render_page,
+        render_page, sample_tokens,
     )
     from ocr_inference_tpu.ops.packing import pack_bits_host
     from ocr_inference_tpu.pipeline.builder import build_pipeline
@@ -199,25 +291,66 @@ def eval_suite() -> int:
     class Dewarp(PipelineObserver):
         def __init__(self):
             self.result = None
+            self.strips = []
 
         def stage_end(self, stage, payload):
             if stage == "dewarping":
                 self.result = payload
+            elif stage == "extract_lines":
+                self.strips = payload[1]
 
-    def pipeline(width):
+    def pipeline(width, kenlm_config=None):
         return build_pipeline(
             *full77f_configs(OCRModelConfig, LineDetectionConfig,
                              CharsetEncoder.WYLIE, input_width=width),
-            dtype=jnp.float32)
+            kenlm_config=kenlm_config, dtype=jnp.float32)
+
+    def beam_text(beams) -> str:
+        return beams[0].text.strip().replace("§", " ") if beams else ""
+
+    # the CLI's LM: built from its corpus, it is the committed lm.arpa
+    lm_rng = np.random.RandomState(EVAL_SEED + 77)
+    corpus = [" ".join(sample_tokens(lm_rng, WYLIE_CHARSET_FULL))
+              for _ in range(LM_CORPUS_LINES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        built = build_char_arpa(corpus, Path(tmp) / "lm.arpa",
+                                order=LM_ORDER, tokens=True).read_bytes()
+    if built != LM_ARPA.read_bytes():
+        raise RuntimeError(f"the CLI's LM differs from {LM_ARPA}")
+    kenlm_cfg = KenLMConfig(kenlm_file=str(LM_ARPA), arpa_file=str(LM_ARPA),
+                            unigrams=None, alpha=LM_ALPHA, beta=LM_BETA)
 
     record = {
         "weights": "artifacts/full77f", "dtype": "float32", "backend": "cpu",
         "seed": EVAL_SEED, "canvas_width": EVAL_CANVAS,
         "suite": [list(row) for row in EVAL_SUITE], "pages": [],
     }
-    pipe = pipeline(EVAL_CANVAS)
+    pipe = pipeline(EVAL_CANVAS, kenlm_cfg)
+    rec_engine = pipe.ocr_inference
     glyphs = GlyphSet(charset=WYLIE_CHARSET_FULL, height=40, seed=7)
+
+    # calibration (selftrain_cli.py:439-466): pipeline-extracted strips of
+    # pages whose line count equals the rendered count
+    calib_rng = np.random.RandomState(EVAL_SEED + 31_337)
+    strips, calib_refs, calib_pages, attempts = [], [], [], 0
+    while len(strips) < LM_CALIB_LINES and attempts < 50:
+        attempts += 1
+        page = render_page(calib_rng, glyphs, WYLIE_CHARSET_FULL)
+        img = degrade_page(page.image, calib_rng, 0.0)
+        obs = Dewarp()
+        status, _ = pipe.run_ocr(img, target_encoding=Encoding.WYLIE,
+                                 observer=obs)
+        if status != OpStatus.SUCCESS or len(obs.strips) != len(page.texts):
+            continue
+        strips.extend(obs.strips)
+        calib_refs.extend(page.texts)
+        calib_pages.append(attempts - 1)
+    report = rec_engine.calibrate_lm(strips[:LM_CALIB_LINES],
+                                     calib_refs[:LM_CALIB_LINES])
+    print("calibration", report, file=sys.stderr)
+
     rng = np.random.RandomState(EVAL_SEED + 10_000)
+    gts = []
     for p in range(EVAL_PAGES):
         page = render_page(rng, glyphs, WYLIE_CHARSET_FULL)
         name, level, shear, curve, use_tps = EVAL_SUITE[p % len(EVAL_SUITE)]
@@ -230,7 +363,15 @@ def eval_suite() -> int:
                                        observer=obs, use_tps=use_tps)
         ok = status == OpStatus.SUCCESS
         text = " ".join(ln.text for ln in payload[2]) if ok else ""
+        beam = beam_lm = ""
+        if ok and obs.strips:
+            beam = " ".join(beam_text(b) for b in rec_engine.run_batch_beams(
+                obs.strips, use_lm=False, top_k=1))
+            beam_lm = " ".join(beam_text(b) for b in
+                               rec_engine.run_batch_beams(
+                                   obs.strips, use_lm=True, top_k=1))
         gt = " ".join(page.texts)
+        gts.append(gt)
         dw = obs.result
         record["pages"].append({
             "dist": name, "shape": list(img.shape), "sha256": sha256(img),
@@ -239,8 +380,26 @@ def eval_suite() -> int:
             "jax_f32_cer": cer([text], [gt]),
             "tps_ratio": None if dw is None else dw.tps_ratio,
             "tps_applied": bool(dw is not None and dw.applied),
+            "jax_f32_beam_text": beam, "jax_f32_beam_lm_text": beam_lm,
         })
-        print(p, name, record["pages"][-1]["jax_f32_cer"], file=sys.stderr)
+        print(p, name, record["pages"][-1]["jax_f32_cer"],
+              cer([beam], [gt]), cer([beam_lm], [gt]), file=sys.stderr)
+
+    pages = record["pages"]
+    record["lm"] = {
+        "arpa": str(LM_ARPA.relative_to(REPO)), "order": LM_ORDER,
+        "corpus_lines": LM_CORPUS_LINES, "calib_lines": LM_CALIB_LINES,
+        "calib_pages": calib_pages, "calib_attempts": attempts,
+        "calib_refs": calib_refs[:LM_CALIB_LINES],
+        "cer_beam": cer([p["jax_f32_beam_text"] for p in pages], gts),
+        "cer_beam_lm": cer([p["jax_f32_beam_lm_text"] for p in pages], gts),
+        "lm_alpha": rec_engine.ctc_decoder_lm.lm_alpha,
+        "lm_beta": rec_engine.ctc_decoder_lm.lm_beta,
+        "lm_fusion_enabled": rec_engine.lm_fusion_enabled,
+        "lm_calibration": report,
+    }
+    print("lm", {k: v for k, v in record["lm"].items() if k != "calib_refs"},
+          file=sys.stderr)
 
     curved = []
     pipe = pipeline(INPUT_WIDTH)

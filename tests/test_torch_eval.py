@@ -211,3 +211,74 @@ def test_suite_reads_the_jax_texts_in_float32(glyphs, record):
     lo, hi = result.cer_ci95
     assert lo <= result.cer <= hi
     assert result.dists == [row[0] for row in EVAL_SUITE]
+
+
+@pytest.fixture(scope="module")
+def lm_suite(glyphs, record, tmp_path_factory):
+    """The eval loop with the CLI's LM on the CPU in float32: the LM built
+    by the suite, calibrated on the CLI's calibration strips, then the
+    first three pages read greedy, with the plain beam and fused."""
+    got, charset, _ = glyphs
+    arpa = suite.build_eval_lm(tmp_path_factory.mktemp("lm") / "lm.arpa",
+                               charset)
+    pipe = build_pipeline(
+        *full77f_configs(data.OCRModelConfig, data.LineDetectionConfig,
+                         data.CharsetEncoder.WYLIE, input_width=EVAL_CANVAS),
+        kenlm_config=data.KenLMConfig(str(arpa), str(arpa), None),
+        dtype=torch.float32, device="cpu")
+    strips, refs, used, attempts = suite.calibration_strips(pipe, got,
+                                                            charset)
+    report = pipe.ocr_inference.calibrate_lm(strips, refs)
+    result = suite.run_suite(pipe, 3, got, charset)
+    return arpa, pipe, (strips, refs, used, attempts), report, result
+
+
+def test_suite_lm_is_the_eval_lm(lm_suite, record):
+    arpa = lm_suite[0]
+    assert arpa.read_bytes() == (OUT.parents[2] / record["lm"]["arpa"]
+                                 ).read_bytes()
+
+
+def test_suite_calibration_gives_the_jax_report(lm_suite, record):
+    """The CLI's calibration strips and the calibrate_lm report of the JAX
+    float32 record: the same pages used, references, grid and decision."""
+    _, pipe, (strips, refs, used, attempts), report, _ = lm_suite
+    lm = record["lm"]
+    assert used == lm["calib_pages"] and attempts == lm["calib_attempts"]
+    assert len(strips) == suite.CALIB_LINES == lm["calib_lines"]
+    assert refs == lm["calib_refs"]
+    assert report == lm["lm_calibration"]
+    assert pipe.ocr_inference.lm_fusion_enabled == lm["lm_fusion_enabled"]
+
+
+def test_suite_beam_columns_equal_the_jax_beams(lm_suite, record):
+    """The first three pages' plain and fused top beams are the JAX
+    float32 ones, and the LM columns are the CLI's."""
+    _, pipe, _, report, result = lm_suite
+    want = record["pages"][:3]
+    assert result.predictions == [p["jax_f32_text"] for p in want]
+    assert result.beam_predictions == [p["jax_f32_beam_text"] for p in want]
+    assert result.beam_lm_predictions == \
+        [p["jax_f32_beam_lm_text"] for p in want]
+    assert result.cer_beam == pcer.cer(result.beam_predictions,
+                                       result.references)
+    cols = suite.lm_columns(pipe, result, report)
+    lm = record["lm"]
+    assert cols["lm_order"] == lm["order"] == 3
+    assert (cols["lm_alpha"], cols["lm_beta"], cols["lm_fusion_enabled"]) \
+        == (lm["lm_alpha"], lm["lm_beta"], lm["lm_fusion_enabled"])
+    assert cols["lm_calibration"] == lm["lm_calibration"]
+    assert (cols["cer_beam"], cols["cer_beam_lm"]) == (result.cer_beam,
+                                                       result.cer_beam_lm)
+
+
+def test_suite_without_an_lm_has_no_beam_columns(glyphs):
+    """A recognizer without an LM reads greedy only, as the CLI does
+    without --lm-order."""
+    got, charset, _ = glyphs
+    pipe = build_pipeline(
+        *full77f_configs(data.OCRModelConfig, data.LineDetectionConfig,
+                         data.CharsetEncoder.WYLIE, input_width=EVAL_CANVAS),
+        dtype=torch.float32, device="cpu")
+    result = suite.run_suite(pipe, 1, got, charset)
+    assert result.beam_predictions is None and result.cer_beam is None

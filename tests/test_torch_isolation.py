@@ -122,3 +122,21 @@ def test_probe_eval_fails_without_cuda():
     proc = subprocess.run([sys.executable, "probe_eval.py"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2 and '"ok": true' not in proc.stdout
+
+
+def test_eval_mode_modules_import_nothing_forbidden():
+    """Eval mode's modules — the beam searches, the decoder, the ARPA
+    scorers, builder and KenLM binaries, the asset helpers — with the
+    C++ scorer built and loaded, and the eval suite's LM columns."""
+    imports = (
+        "from ocr_inference_tpu_torch.decode import (ArpaLM, CTCDecoder,"
+        " beam_search)\n"
+        "from ocr_inference_tpu_torch.decode import ctc_batch, decoder, "
+        "kenlm_binary, kenlm_trie, ngram_builder\n"
+        "from ocr_inference_tpu_torch.core import assets\n"
+        "from ocr_inference_tpu_torch.native import NativeArpaLM\n"
+        "NativeArpaLM({lm!r})\n"
+        "from ocr_inference_tpu_torch.eval.suite import (build_eval_lm, "
+        "calibrate, lm_columns)\n"
+    ).format(lm=str(REPO / "artifacts" / "full77f" / "lm.arpa"))
+    assert _imported(imports) == "FORBIDDEN []"

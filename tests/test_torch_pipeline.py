@@ -228,9 +228,11 @@ def test_stage_payloads_match_jax_stages(refpipes, deg):
 
 
 def test_tps_and_eval_mode_raise_until_ported(refpipes):
-    """eval_mode=True still raises (ROADMAP item 4); use_tps=True runs in
-    every entry point and gives the JAX results on straight pages, where
-    the gate keeps the page as it is."""
+    """Neither raises any more: use_tps=True runs in every entry point and
+    gives the JAX results on straight pages, where the gate keeps the page
+    as it is; eval_mode=True reads the lines with the beam search and gives
+    the JAX lines, boxes and beams (tests/test_torch_eval_mode.py holds the
+    scores on the full77f pages)."""
     ours, theirs, pages = refpipes
     st, dw = ours.apply_dewarping(pages[0], pages[0][..., 0], [], 0.0,
                                   use_tps=True)
@@ -245,8 +247,18 @@ def test_tps_and_eval_mode_raise_until_ported(refpipes):
                                target_encoding=jdata.Encoding.WYLIE)
     assert st.name == jst.name == "SUCCESS"
     assert [ln.text for ln in got[2]] == [ln.text for ln in want[2]]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        ours.run_ocr(pages[0], eval_mode=True)
+    st, got = ours.run_ocr(pages[0], eval_mode=True,
+                           target_encoding=data.Encoding.WYLIE)
+    jst, want = theirs.run_ocr(pages[0], eval_mode=True,
+                               target_encoding=jdata.Encoding.WYLIE)
+    assert st.name == jst.name == "SUCCESS"
+    assert [ln.bbox.as_tuple() for ln in got[1]] == \
+        [ln.bbox.as_tuple() for ln in want[1]]
+    assert [ln.text for ln in got[2]] == [ln.text for ln in want[2]]
+    assert [len(ln.logits) for ln in got[2]] == \
+        [len(ln.logits) for ln in want[2]]
+    assert all(ln.lm_scores is None and 0.0 < ln.ctc_conf <= 1.0
+               for ln in got[2])
     (rec,) = VolumeRunner(ours).run([("p", pages[0])], use_tps=True,
                                     target_encoding=data.Encoding.WYLIE)
     assert rec.status == data.OpStatus.SUCCESS, rec.error
