@@ -4,8 +4,8 @@ check it.
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
-geometry library and for the ARPA scorer, all started together), then runs
-eleven phases and prints one JSON line for each:
+geometry library, the ARPA scorer and the PNG unfilter, all started
+together), then runs fourteen phases and prints one JSON line for each:
 
 1. build        — seconds of each compiler; registers and spills of each
                   kernel as ptxas reports them;
@@ -94,12 +94,39 @@ eleven phases and prints one JSON line for each:
                   first 12 eval pages through run_suite with the plain and
                   the fused top beam: each within 2% CER of the JAX float32
                   beam texts; cer_beam and cer_beam_lm against the ground
-                  truth, the LM columns, peak memory.
+                  truth, the LM columns, peak memory;
+12. layout_f32  — layout mode in float32, TF32 off: full77f's recognizer
+                  behind the full-width DeepLabV3+ (five classes) with the
+                  seeded weights of tests/data/torch_port/layout.json, on
+                  its four pages (the fixture pages and bench.py config
+                  4's first page): per class at most 1e-3 of the JAX
+                  float32 mask's pixels differ (layout_masks.npz, rounded
+                  up to a whole pixel); run_ocr gives the record's status,
+                  line count and boxes, texts within 0.5% CER;
+                  predict_many_async over the four pages gives each
+                  page's predict masks; the modern-book layout runner's
+                  JSON equals the record's; the bench page's detection
+                  time (device, span, wall);
+13. layout_bf16 — the layout path at its defaults: 8 bench.py pages
+                  through VolumeRunner and a run_ocr loop (pages/s, peak
+                  memory; the volume's boxes equal run_ocr's and its CER
+                  against run_ocr's texts is at most 0.5%); four pages'
+                  masks from predict against predict_many_async (at most
+                  1e-3 of a class's pixels); detection device ms per page
+                  in layout mode and in line mode on the same page;
+14. cli         — the page-OCR CLI (python -m ocr_inference_tpu_torch.cli.cli)
+                  on the fixture pages written as PNG, with a model
+                  directory pointing at artifacts/full77f: line mode with
+                  --save-artifacts (in this process, so that its launches
+                  count; each page's text equals bf16 run_ocr's), then as
+                  a subprocess --resume (skips every page), --line-mode
+                  layout --allow-random-weights (exits 0) and a folder
+                  holding a JPEG (exits non-zero, naming it).
 
 Kernel launch and recheck counts are zeroed just before each OCR path is
-driven (phases 3-11) and read just after it. Then a ``kernels`` JSON line
-(per kernel: launches over the main paths, phases 5, 6, 8 and 11, and by
-path,
+driven (phases 3-14) and read just after it. Then a ``kernels`` JSON line
+(per kernel: launches over the main paths, phases 5, 6, 8, 11, 13 and 14,
+and by path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -113,6 +140,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -279,7 +307,8 @@ def bench_page(seed: int = 42) -> np.ndarray:
 
 
 def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000,
-                     kenlm_config=None):
+                     kenlm_config=None, line_config=None,
+                     allow_random: bool = False, seed: int = 0):
     from ocr_inference_tpu_torch.core.data import (
         CharsetEncoder, LineDetectionConfig, OCRModelConfig,
     )
@@ -293,11 +322,12 @@ def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000,
         encoder=CharsetEncoder.WYLIE, charset=list(meta["charset"]),
         add_blank=True, version="full77f",
     )
-    line = LineDetectionConfig(
+    line = line_config or LineDetectionConfig(
         checkpoint="", onnx_file=str(WEIGHTS / "lines.onnx"),
         architecture="unet", patch_size=512, classes=["line"],
     )
-    return build_pipeline(ocr, line, kenlm_config=kenlm_config, dtype=dtype)
+    return build_pipeline(ocr, line, kenlm_config=kenlm_config, dtype=dtype,
+                          allow_random=allow_random, seed=seed)
 
 
 def run_page(pipe, img):
@@ -324,7 +354,8 @@ def build():
             errors.append(e)
 
     builds = (kernels.build_library, native.build_library,
-              lambda: native.build_library("arpa_lm.cpp"))
+              lambda: native.build_library("arpa_lm.cpp"),
+              lambda: native.build_library("png.cpp"))
     threads = [threading.Thread(target=guarded, args=(f,)) for f in builds]
     for t in threads:
         t.start()
@@ -1317,14 +1348,350 @@ def eval_mode_bf16(results: dict):
     }
 
 
+def layout_record() -> tuple[dict, dict]:
+    """The JAX float32 layout record and its packed (C, H, W/8) masks."""
+    record = json.loads((FIXTURE / "layout.json").read_text(encoding="utf-8"))
+    with np.load(FIXTURE / "layout_masks.npz") as npz:
+        masks = {name: npz[name] for name in npz.files}
+    return record, masks
+
+
+def layout_pipeline(dtype: torch.dtype, record: dict):
+    """full77f's recognizer behind the layout DeepLabV3+ (five classes)
+    with the record's seeded weights, made from the seed with numpy."""
+    from ocr_inference_tpu_torch.core.data import LayoutDetectionConfig
+
+    cfg = LayoutDetectionConfig(checkpoint="", onnx_file="",
+                                architecture="deeplabv3", patch_size=512,
+                                classes=list(record["classes"]))
+    return full77f_pipeline(dtype, line_config=cfg, allow_random=True,
+                            seed=record["seed"])
+
+
+def layout_pages() -> list[tuple[str, np.ndarray]]:
+    """The record's pages: the three fixture pages and bench.py config 4's
+    first page."""
+    pages, _ = fixture()
+    return [(n, img) for n, img, _ in pages] + [("bench_cfg4_0",
+                                                 bench_page(42))]
+
+
+def mask_agreement(mask: np.ndarray, want: np.ndarray, classes) -> dict:
+    """(H, W, C) 0/255 mask against (C, H, W) 0/1 reference masks: per
+    class the reference's pixels, the pixels that differ, and whether
+    they are at most 1e-3 of the class's pixels (rounded up to a whole
+    pixel)."""
+    out = {}
+    for c, cls in enumerate(classes):
+        ref = want[c] > 0
+        differ = int(((mask[:, :, c] > 0) != ref).sum())
+        pixels = int(ref.sum())
+        out[cls] = {"pixels": pixels, "differ": differ,
+                    "ok": differ <= math.ceil(1e-3 * pixels)}
+    return out
+
+
+def detect_device_ms(engine, img, repeats: int = 3) -> dict:
+    """One page's detection (``engine.predict``) on the card, warm: the
+    device time of its kernels (torch.profiler, the kernel rows alone,
+    summed per page: an operator's row repeats its kernels' time), the
+    span on the card's clock from the first queued op to the mask copy
+    (CUDA events; gaps included), and the host wall time per page from
+    the call to the mask on the host (without the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.predict(img)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spans, walls = [], []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        start.record()
+        resolve = engine.predict_async(img)
+        end.record()
+        resolve()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            engine.predict(img)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    busy = sum(dev_us(e) for e in kernels) / 1e3 / repeats
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    return {"device_ms": busy or None, "span_ms": _median(spans),
+            "wall_ms": _median(walls),
+            "top_device_ms": [[e.key[:60], dev_us(e) / 1e3 / repeats]
+                              for e in top]}
+
+
+@phase("layout_f32")
+def layout_f32(results: dict):
+    from ocr_inference_tpu_torch.core.data import Encoding, OpStatus
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.pipeline.modern_layout import (
+        ModernBookFormatLayoutDetection,
+    )
+
+    record, want_masks = layout_record()
+    classes = record["classes"]
+    pipe = layout_pipeline(torch.float32, record)
+    det = pipe.line_inference
+    pages = layout_pages()
+    refs = {p["name"]: p for p in record["pages"]}
+    per_page, checks = {}, {}
+    with no_tf32():
+        with counted_path(results, "layout_f32"):
+            masks = {}
+            for name, img in pages:
+                ref = refs[name]
+                masks[name] = det.predict(img)
+                agree = mask_agreement(masks[name], np.unpackbits(
+                    want_masks[name], axis=-1)[..., :img.shape[1]], classes)
+                status, payload = pipe.run_ocr(
+                    img, target_encoding=Encoding.WYLIE)
+                ok = status == OpStatus.SUCCESS
+                texts = [ln.text for ln in payload[2]] if ok else []
+                boxes = [list(ln.bbox.as_tuple())
+                         for ln in payload[1]] if ok else []
+                page_cer = cer([" ".join(texts)],
+                               [" ".join(ref["jax_f32_texts"])])
+                per_page[name] = {
+                    "page_equals_record": sha256(img) == ref["sha256"],
+                    "masks": agree, "status": status.name,
+                    "lines": len(texts), "jax_lines": len(ref["jax_f32_texts"]),
+                    "boxes_equal": boxes == ref["jax_f32_boxes"],
+                    "cer_vs_jax_f32": page_cer,
+                }
+                checks[name] = (
+                    sha256(img) == ref["sha256"]
+                    and all(a["ok"] for a in agree.values())
+                    and status.name == ref["status"]
+                    and len(texts) == len(ref["jax_f32_texts"])
+                    and boxes == ref["jax_f32_boxes"] and page_cer <= 0.005)
+            many = det.predict_many_async([img for _, img in pages])
+            many_equal = {name: bool(np.array_equal(r(), masks[name]))
+                          for (name, _), r in zip(pages, many)}
+        with tempfile.TemporaryDirectory() as tmp:
+            page_dir = Path(tmp) / "pages"
+            page_dir.mkdir()
+            for name, img in pages[:3]:
+                write_png(page_dir / f"{name}.png", img[..., ::-1])
+            modern = ModernBookFormatLayoutDetection(
+                pipe.line_config, engine=det).run(str(page_dir),
+                                                  str(Path(tmp) / "json"))
+        modern = {Path(p).stem: found for p, found in modern.items()}
+        timing = detect_device_ms(det, pages[-1][1])
+    checks["predict_many_async_equal"] = all(many_equal.values())
+    checks["modern_layout_json_equal"] = modern == record["modern_layout"]
+    return {
+        "_ok": all(checks.values()), "checks": checks, "pages": per_page,
+        "seed": record["seed"], "predict_many_equal": many_equal,
+        "bench_page_detect_f32": timing,
+        "launches": results["launches"]["layout_f32"],
+        "gpu": gpu_name_and_limit(),
+    }
+
+
+LAYOUT_VOLUME_PAGES = 8
+
+
+@phase("layout_bf16")
+def layout_bf16(results: dict):
+    from ocr_inference_tpu_torch.core.data import Encoding, OpStatus
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.pipeline import VolumeRunner
+
+    record, _ = layout_record()
+    classes = record["classes"]
+    pipe = layout_pipeline(torch.bfloat16, record)
+    det = pipe.line_inference
+    pages = bench_volume(LAYOUT_VOLUME_PAGES)
+    entries = [(f"layout{i:03d}", img) for i, img in enumerate(pages)]
+    VolumeRunner(pipe).run(entries[:2], target_encoding=Encoding.WYLIE)
+    pipe.ocr_inference.warm_shapes()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_path(results, "layout_bf16"):
+        t0 = time.perf_counter()
+        records = VolumeRunner(pipe).run(entries,
+                                         target_encoding=Encoding.WYLIE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    plain, plain_s = plain_reads(pipe, entries)
+
+    # a page's mask alone and in one tile stream with three others
+    # (chunks of 32 tiles against the page's own 24)
+    single = [det.predict(img) for img in pages[:4]]
+    many = [r() for r in det.predict_many_async(pages[:4])]
+    many_vs_single = [mask_agreement(m, s.transpose(2, 0, 1) > 0, classes)
+                      for m, s in zip(many, single)]
+    layout_ms = detect_device_ms(det, pages[0])
+    del pipe, det
+    line_ms = detect_device_ms(
+        full77f_pipeline(torch.bfloat16).line_inference, pages[0])
+
+    ok_pages = [r for r in records if r.status == OpStatus.SUCCESS]
+    volume_cer = cer(
+        [" ".join(ln.text for ln in r.ocr_lines) for r in ok_pages],
+        [" ".join(plain.get(r.name, ([], []))[1]) for r in ok_pages])
+    checks = {
+        "in_order": [r.name for r in records] == [n for n, _ in entries],
+        "all_pages_read": len(ok_pages) == len(entries),
+        "boxes_equal_run_ocr": all(
+            r.name in plain
+            and [ln.bbox.as_tuple() for ln in r.lines] == plain[r.name][0]
+            for r in ok_pages),
+        "cer_vs_run_ocr_le_0.5pct": volume_cer <= 0.005,
+        "many_vs_single_le_1e-3": all(a["ok"] for page in many_vs_single
+                                      for a in page.values()),
+    }
+    n_lines = sum(len(r.lines) for r in ok_pages)
+    return {
+        "_ok": all(checks.values()), "checks": checks,
+        "pages": len(entries), "lines": n_lines,
+        "volume": {"seconds": dt, "pages_per_s": len(ok_pages) / dt,
+                   "lines_per_s": n_lines / dt},
+        "run_ocr_loop": {"seconds": plain_s,
+                         "pages_per_s": len(plain) / plain_s},
+        "cer_vs_run_ocr": volume_cer, "peak_memory_gib": peak_gib,
+        "detect_per_page": {"layout_bf16": layout_ms, "line_bf16": line_ms},
+        "many_vs_single": many_vs_single,
+        "stage_median_ms": {k: _median([r.timings_ms[k] for r in ok_pages
+                                        if k in r.timings_ms])
+                            for k in ("detect_dispatch", "detect",
+                                      "geometry", "recognize")},
+        "launches": results["launches"]["layout_bf16"],
+        "errors": {r.name: r.error for r in records if r.error},
+        "gpu": gpu_name_and_limit(),
+    }
+
+
+def write_model_dirs(root: Path) -> tuple[Path, Path]:
+    """A recognizer model directory (model_config.json) and a line model
+    directory (one config JSON) that point at artifacts/full77f, in the
+    layout of the BDRC model repositories."""
+    meta = json.loads((WEIGHTS / "recognizer.msgpack.json").read_text())
+    model, lines = root / "model", root / "lines"
+    model.mkdir()
+    lines.mkdir()
+    (model / "model_config.json").write_text(json.dumps({
+        "onnx-model": str(WEIGHTS / "recognizer.onnx"),
+        "architecture": "Easter2", "input_width": 3000, "input_height": 80,
+        "input_layer": "input", "output_layer": "output",
+        "squeeze_channel_dim": "yes", "swap_hw": "no", "encoder": "wylie",
+        "charset": meta["charset"], "add_blank": "yes",
+        "version": "full77f"}))
+    (lines / "config.json").write_text(json.dumps({
+        "checkpoint": "", "onnx-model": str(WEIGHTS / "lines.onnx"),
+        "architecture": "unet", "patch_size": 512, "classes": ["line"]}))
+    return model, lines
+
+
+@phase("cli")
+def cli_phase(results: dict):
+    from ocr_inference_tpu_torch.cli import cli
+    from ocr_inference_tpu_torch.core.data import Encoding
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.io.images import read_image
+
+    record, _ = layout_record()
+    pages, _ = fixture()
+    checks, runs = {}, {}
+
+    def script(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ocr_inference_tpu_torch.cli.cli", *args],
+            capture_output=True, text=True, cwd=REPO, timeout=600)
+        return proc, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        model, lines = write_model_dirs(root)
+        page_dir = root / "pages"
+        page_dir.mkdir()
+        for name, img, _ in pages:
+            write_png(page_dir / f"{name}.png", img[..., ::-1])
+        args = ["--model", str(model), "--folder", str(page_dir),
+                "--output", str(root / "out"), "--line-model", str(lines),
+                "--encoding", "wylie", "--save-artifacts",
+                "--artifact-output", str(root / "art"), "--job-id", "smoke"]
+        # line mode, in this process so that its launches are counted
+        t0 = time.perf_counter()
+        with counted_path(results, "cli"):
+            rc = cli.main(args)
+        runs["line_mode"] = {"rc": rc, "s": time.perf_counter() - t0}
+        pipe = full77f_pipeline(torch.bfloat16)
+        same = {}
+        for name, _, _ in pages:
+            img = read_image(page_dir / f"{name}.png")
+            _, payload = pipe.run_ocr(img, merge_lines=False,
+                                      target_encoding=Encoding.WYLIE)
+            want = "".join(f"{ln.text}\n" for ln in payload[2])
+            got = root / "art" / "smoke" / f"{name}.png" / "results" / \
+                f"{name}.txt"
+            same[name] = got.is_file() and got.read_text(
+                encoding="utf-8") == want
+        del pipe
+        checks["line_mode_texts_equal_run_ocr"] = rc == 0 and all(
+            same.values())
+
+        proc, s = script(*args, "--resume")
+        runs["resume"] = {"rc": proc.returncode, "s": s,
+                          "stdout": proc.stdout[-400:]}
+        checks["resume_skips_every_page"] = (
+            proc.returncode == 1  # the JAX CLI's code when no page ran
+            and f"Resuming: {len(pages)} pages already done" in proc.stdout
+            and "Text output" not in proc.stdout
+            and "OCR failed" not in proc.stdout)
+
+        proc, s = script("--model", str(model), "--folder", str(page_dir),
+                         "--output", str(root / "layout"), "--line-mode",
+                         "layout", "--allow-random-weights", "--seed",
+                         str(record["seed"]))
+        runs["layout"] = {"rc": proc.returncode, "s": s,
+                          "stderr": proc.stderr[-400:]}
+        checks["layout_runs"] = proc.returncode == 0 and all(
+            (root / "layout" / f"{name}.txt").is_file()
+            for name, _, _ in pages)
+
+        jpeg = page_dir / "scan.jpg"
+        jpeg.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00")
+        proc, s = script("--model", str(model), "--folder", str(page_dir),
+                         "--output", str(root / "refused"))
+        runs["jpeg"] = {"rc": proc.returncode, "s": s,
+                        "stderr": proc.stderr[-400:]}
+        checks["jpeg_refused_by_name"] = (
+            proc.returncode != 0 and "scan.jpg (JPEG)" in proc.stderr
+            and not (root / "refused").exists())
+    return {"_ok": all(checks.values()), "checks": checks, "runs": runs,
+            "texts_equal": same,
+            "launches": results["launches"]["cli"],
+            "gpu": gpu_name_and_limit()}
+
+
 MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16",
-              "eval_mode_bf16")
+              "eval_mode_bf16", "layout_bf16", "cli")
 
 
 def kernels_line(results: dict) -> dict:
     """The per-kernel summary: launches and rechecked pixels over the main
-    paths (bf16 page OCR, the bf16 volume, the dewarped bf16 volume and
-    bf16 eval mode), with each path's own count;
+    paths (bf16 page OCR, the bf16 volume, the dewarped bf16 volume, bf16
+    eval mode, the bf16 layout volume and the CLI), with each path's own
+    count;
     time, plain time and bound at the largest shape the main paths gave
     the kernel, and the shapes each path gave it."""
     from ocr_inference_tpu_torch.ops import kernels
@@ -1401,6 +1768,9 @@ def main() -> int:
                    results)
         eval_mode_f32(results)
         eval_mode_bf16(results)
+        layout_f32(results)
+        layout_bf16(results)
+        cli_phase(results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1

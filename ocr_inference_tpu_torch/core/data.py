@@ -120,6 +120,17 @@ class LineDetectionConfig:
 
 
 @dataclass
+class LayoutDetectionConfig:
+    """Layout segmentation model config (reference: BDRC/data.py:193)."""
+
+    checkpoint: str
+    onnx_file: str
+    architecture: str
+    patch_size: int
+    classes: list[str]
+
+
+@dataclass
 class OCRModelConfig:
     """Recognizer model config (reference: BDRC/data.py:203)."""
 
@@ -135,6 +146,16 @@ class OCRModelConfig:
     charset: list[str]
     add_blank: bool
     version: str
+
+
+@dataclass
+class OCRModel:
+    """Named model + config handle (reference: BDRC/data.py:250)."""
+
+    guid: UUID
+    name: str
+    path: str
+    config: OCRModelConfig
 
 
 @dataclass

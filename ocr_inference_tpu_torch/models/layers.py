@@ -23,19 +23,96 @@ def same_pads(length: int, k: int, stride: int = 1, dilation: int = 1):
     return total // 2, total - total // 2
 
 
-class ConvBN(nn.Module):
-    """3x3 stride-1 SAME Conv2d (no bias) + BatchNorm + optional ReLU
-    (layers.py ConvBN at its UNet settings)."""
+def pad_same_2d(x: torch.Tensor, k: int, stride: int = 1, dilation: int = 1,
+                value: float = 0.0) -> torch.Tensor:
+    """Pad NCHW ``x`` as XLA's SAME does for its height and width: the
+    larger half after (a stride-2 3x3 over 512 pads (0, 1), a stride-2 7x7
+    (2, 3)), which a symmetric ``padding=`` cannot express."""
+    top, bottom = same_pads(x.shape[-2], k, stride, dilation)
+    left, right = same_pads(x.shape[-1], k, stride, dilation)
+    return F.pad(x, (left, right, top, bottom), value=value)
 
-    def __init__(self, cin: int, cout: int, act: bool = True):
+
+class ConvBN(nn.Module):
+    """Square Conv2d (no bias) with XLA SAME padding + BatchNorm + optional
+    ReLU (layers.py ConvBN). At stride 1 with an odd effective kernel the
+    SAME padding is symmetric and the convolution pads itself; otherwise
+    it is computed per input size and padded explicitly."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 dilation: int = 1, act: bool = True):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(cin, cout, 3, padding=1, bias=False)
+        k_eff = (kernel - 1) * dilation + 1
+        self.own_pad = stride == 1 and k_eff % 2 == 1
+        self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride=stride,
+                                dilation=dilation, bias=False,
+                                padding=(k_eff - 1) // 2 if self.own_pad else 0)
         self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=BN_EPS)
-        self.act = act
+        self.kernel, self.stride, self.dilation, self.act = (
+            kernel, stride, dilation, act)
 
     def forward(self, x):
+        if not self.own_pad:
+            x = pad_same_2d(x, self.kernel, self.stride, self.dilation)
         x = self.BatchNorm_0(self.Conv_0(x))
         return F.relu(x) if self.act else x
+
+
+class ResidualBlock(nn.Module):
+    """ResNet basic block: two 3x3 ConvBN, the second without ReLU, plus
+    the input, or its 1x1 strided projection with its BatchNorm where the
+    shape changes (layers.py ResidualBlock), then ReLU."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(cin, features, stride=stride)
+        self.ConvBN_1 = ConvBN(features, features, act=False)
+        self.project = stride != 1 or cin != features
+        if self.project:
+            # a 1x1 kernel needs no SAME padding at any stride
+            self.Conv_0 = nn.Conv2d(cin, features, 1, stride=stride,
+                                    bias=False)
+            self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS)
+
+    def forward(self, x):
+        y = self.ConvBN_1(self.ConvBN_0(x))
+        residual = self.BatchNorm_0(self.Conv_0(x)) if self.project else x
+        return F.relu(y + residual)
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling (layers.py ASPP): a 1x1 branch, 3x3
+    branches at each rate, the image-pool branch (mean over H, W, a 1x1
+    ConvBN on the 1x1 map, broadcast back), concatenated in that order and
+    projected by a 1x1 ConvBN."""
+
+    def __init__(self, cin: int, features: int = 256,
+                 rates: tuple[int, ...] = (6, 12, 18)):
+        super().__init__()
+        branches = [ConvBN(cin, features, 1)]
+        branches += [ConvBN(cin, features, 3, dilation=r) for r in rates]
+        branches.append(ConvBN(cin, features, 1))  # image pool
+        branches.append(ConvBN(features * len(branches), features, 1))
+        for i, m in enumerate(branches):
+            self.add_module(f"ConvBN_{i}", m)
+        self.n_rates = len(rates)
+
+    def forward(self, x):
+        convs = [getattr(self, f"ConvBN_{i}") for i in range(self.n_rates + 3)]
+        branches = [m(x) for m in convs[: self.n_rates + 1]]
+        pooled = convs[-2](x.mean(dim=(2, 3), keepdim=True))
+        branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
+        return convs[-1](torch.cat(branches, dim=1))
+
+
+def resize_feature(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear NCHW resize to (h, w) (layers.py resize_feature). For the
+    upsamplings DeepLabV3+ makes, ``jax.image.resize(..., "bilinear")``
+    (half-pixel centres, a triangle kernel renormalised at the borders)
+    is the same function as align_corners=False bilinear with clamped
+    borders; tests/test_torch_layout.py holds the two together."""
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
+                         antialias=False)
 
 
 class ConvBN1D(nn.Module):

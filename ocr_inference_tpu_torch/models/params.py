@@ -172,21 +172,112 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     return {k: out[k] for k in sorted(out, key=_natural_key)}
 
 
-def load_flax_weights(module: torch.nn.Module, path: str | Path) -> None:
-    """Read a Flax msgpack checkpoint into ``module`` (strict: every key
-    of both sides must match, every shape must agree)."""
-    state = params_from_flax(read_msgpack(path))
+def load_flax_tree(module: torch.nn.Module, tree: dict,
+                   what: str = "weights") -> None:
+    """Load Flax variables {"params": ..., "batch_stats": ...} into
+    ``module`` (strict: every key of both sides must match, every shape
+    must agree)."""
+    state = params_from_flax(tree)
     own = module.state_dict()
     missing = [k for k in own if k not in state and "num_batches" not in k]
     unexpected = [k for k in state if k not in own]
     if missing or unexpected:
         raise KeyError(
-            f"{path}: missing {missing[:5]}, unexpected {unexpected[:5]}"
+            f"{what}: missing {missing[:5]}, unexpected {unexpected[:5]}"
         )
     for k, v in state.items():
         if own[k].shape != v.shape:
             raise ValueError(
-                f"{path}: {k} has shape {tuple(v.shape)}, module wants "
+                f"{what}: {k} has shape {tuple(v.shape)}, module wants "
                 f"{tuple(own[k].shape)}"
             )
     module.load_state_dict(state, strict=False)
+
+
+def load_flax_weights(module: torch.nn.Module, path: str | Path) -> None:
+    """Read a Flax msgpack checkpoint into ``module`` (``load_flax_tree``)."""
+    load_flax_tree(module, read_msgpack(path), str(path))
+
+
+_FLAX_BN = {v: k for k, v in _BN_NAMES.items()}
+
+
+def flax_shapes(module: torch.nn.Module) -> dict:
+    """The Flax variable tree's shapes for one of the port's modules, the
+    inverse of ``params_from_flax``: {"params": {...}, "batch_stats":
+    {...}} with a shape tuple at each leaf (conv kernels HWIO / WIO, dense
+    kernels (in, out))."""
+    tree: dict = {}
+    for key, t in module.state_dict().items():
+        *modules, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        shape = tuple(t.shape)
+        owner = modules[-1] if modules else ""
+        if owner.startswith("BatchNorm_"):
+            collection, leaf = _FLAX_BN[name]
+        elif name == "weight" and owner.startswith("Dense_"):
+            collection, leaf, shape = "params", "kernel", shape[::-1]
+        elif name == "weight":  # OIHW -> HWIO, OIW -> WIO
+            collection, leaf = "params", "kernel"
+            shape = shape[2:] + (shape[1], shape[0])
+        else:
+            collection, leaf = "params", name
+        node = tree.setdefault(collection, {})
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[leaf] = shape
+    return tree
+
+
+# the standard deviation of a unit normal truncated to [-2, 2]
+# (jax.nn.initializers.variance_scaling's truncated_normal correction)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Unit normal draws, each outside [-2, 2] drawn again."""
+    out = rng.standard_normal(int(np.prod(shape)))
+    bad = np.flatnonzero(np.abs(out) > 2.0)
+    while bad.size:
+        out[bad] = rng.standard_normal(bad.size)
+        bad = bad[np.abs(out[bad]) > 2.0]
+    return out.reshape(shape)
+
+
+def seeded_flax_params(shapes: dict, seed: int) -> dict:
+    """Weights for a model the repository has no checkpoint for, drawn
+    with numpy alone so both packages can make the same ones: from
+    ``np.random.default_rng(seed)``, kernels in the sorted order of their
+    Flax paths, each from the Flax default initialiser's distribution
+    (lecun normal: a normal truncated at 2 sigma, scaled to variance
+    1/fan_in, fan_in = the kernel's size over its output axis); biases 0,
+    BatchNorm scale 1 and bias 0, running mean 0 and variance 1. ``shapes``
+    is a tree as ``flax_shapes`` gives it; the result is the same tree of
+    float32 arrays, in the Flax layout. These are not the weights the JAX
+    package's own random init (JAX's PRNG) gives."""
+    leaves = sorted(
+        ((collection,) + path, shape)
+        for collection in shapes
+        for path, shape in _leaves(shapes[collection])
+    )
+    rng = np.random.default_rng(seed)
+    out: dict = {}
+    for path, shape in leaves:
+        collection, leaf, owner = path[0], path[-1], path[-2]
+        if collection == "params" and leaf == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            std = np.sqrt(1.0 / fan_in) / _TRUNC_STD
+            arr = _truncated_normal(rng, shape) * std
+        elif (collection, leaf) in (("params", "scale"),
+                                    ("batch_stats", "var")):
+            arr = np.ones(shape)
+        elif leaf in ("bias", "mean"):
+            arr = np.zeros(shape)
+        else:
+            raise KeyError(f"no initialiser for {'/'.join(path)} ({owner})")
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[leaf] = arr.astype(np.float32)
+    return out

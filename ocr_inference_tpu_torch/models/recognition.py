@@ -45,6 +45,8 @@ class Easter2(nn.Module):
     """Easter2 base: two stride-2 stems, three blocks, a dilated post conv,
     a 1x1 post conv and a float32 vocab head."""
 
+    _head_name = "Conv_0"
+
     def __init__(self, vocab_size: int, input_height: int = 80,
                  stem_features: int = 128, width_mult: float = 1.0):
         super().__init__()

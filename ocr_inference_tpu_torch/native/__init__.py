@@ -1,9 +1,11 @@
 """Native (C++) libraries, counterpart of ocr_inference_tpu/native: the
-geometry library and the ARPA LM scorer.
+geometry library, the ARPA LM scorer and the PNG unfilter.
 
 ``geometry.cpp`` is the port's own copy of the JAX package's library plus
 ``ocr_fill_contour`` (the filled-contour rasterizer that replaces
-cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer.
+cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer;
+``png.cpp`` undoes PNG's scanline filters for the port's PNG reader
+(io/images.py), which replaces cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
 (named by the source's hash) and loads through ctypes. There is no
 fallback: if a build fails, this raises."""
@@ -26,6 +28,7 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _LIB: ctypes.CDLL | None = None
 _ARPA_LIB: ctypes.CDLL | None = None
+_PNG_LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: dict[str, float] = {}
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -36,7 +39,7 @@ _F64P = ctypes.POINTER(ctypes.c_double)
 
 
 def build_library(source: str = "geometry.cpp") -> Path:
-    """Compile ``source`` (geometry.cpp or arpa_lm.cpp) into
+    """Compile ``source`` (geometry.cpp, arpa_lm.cpp or png.cpp) into
     _build/libocr_<stem>-<hash>.so once per source content and return its
     path; raises if g++ fails. ``BUILD_SECONDS[source]`` records the
     compile time of a build this process made."""
@@ -344,3 +347,24 @@ class NativeArpaLM:
             )
 
         return fn
+
+
+def png_unfilter(data: np.ndarray, h: int, row_bytes: int,
+                 bpp: int) -> np.ndarray:
+    """Undo PNG's per-scanline filters: ``data`` holds ``h`` rows of one
+    filter-type byte and ``row_bytes`` filtered bytes; ``bpp`` is the
+    bytes of one complete pixel (at least 1). Returns the (h, row_bytes)
+    uint8 raw samples; an unknown filter type raises ValueError."""
+    global _PNG_LIB
+    if _PNG_LIB is None:
+        _PNG_LIB = _load("png.cpp", {"ocr_png_unfilter": (ctypes.c_int64, [
+            _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, _U8P])})
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    if data.size != h * (row_bytes + 1):
+        raise ValueError(f"{data.size} bytes for {h} rows of {row_bytes}")
+    out = np.empty((h, row_bytes), np.uint8)
+    rc = _PNG_LIB.ocr_png_unfilter(data.ctypes.data_as(_U8P), h, row_bytes,
+                                   bpp, out.ctypes.data_as(_U8P))
+    if rc < 0:
+        raise ValueError(f"unknown PNG filter type on row {-1 - rc}")
+    return out

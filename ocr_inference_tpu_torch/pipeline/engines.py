@@ -6,11 +6,14 @@ Binarizing runs on the card through the hand-written kernel
 (ops/kernels.py) in both engines — the JAX default path does it on the
 host with cv2 and uploads packed bits; the kernel gives the same bytes.
 
-- ``SegmentationEngine.predict_async`` (line mode): page -> tiles ->
-  binarize kernel -> UNet in chunks rounded to 8 -> sigmoid > 0.9, stitch,
-  crop, resize, ``>= 1.0``, horizontal opening -> bit-packed mask, all
-  queued on the card; the resolver waits for the packed mask's copy to
-  the host alone (engines.py:340-380, :440-466, :510-562).
+- ``SegmentationEngine.predict_async``: page -> tiles -> binarize kernel
+  -> model in chunks rounded to 8 -> line mode: sigmoid > 0.9, stitch,
+  crop, resize, ``>= 1.0``, horizontal opening; layout mode: float32
+  softmax over the classes > 0.8, the same stitch/crop/resize of the
+  (H, W, C) stack -> bit-packed mask, all queued on the card; the
+  resolver waits for the packed mask's copy to the host alone
+  (engines.py:340-380, :440-466, :510-562). ``predict_many_async`` runs
+  several pages' tiles as one stream (engines.py:569-636).
 - ``RecognitionEngine.run_batch``: host canvas pad per width bucket,
   batches rounded to {1, 2, 4, 8, 16, 24, ...}, line binarize kernel,
   Easter2, greedy CTC on the card (engines.py:861-923).
@@ -38,7 +41,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ocr_inference_tpu_torch.core.config import LINE_CLASS_THRESHOLD
+from ocr_inference_tpu_torch.core.config import (
+    LAYOUT_CLASS_THRESHOLD,
+    LINE_CLASS_THRESHOLD,
+)
 from ocr_inference_tpu_torch.core.data import (
     BatchConfig,
     KenLMConfig,
@@ -56,39 +62,74 @@ from ocr_inference_tpu_torch.ops.imaging import resize_bilinear, rgb_to_gray
 
 
 class SegmentationEngine:
-    """Page -> line mask (sigmoid, threshold 0.9, binary mask * 255;
-    reference: inference.py:166-183)."""
+    """Page -> class mask(s), queued on the card. ``mode="line"``: sigmoid,
+    threshold 0.9, one (H, W) mask (reference: inference.py:166-183);
+    ``mode="layout"``: softmax over the classes, threshold 0.8, an
+    (H, W, C) stack of per-class masks (reference: inference.py:186-276;
+    engines.py:374-380, :557-560). Masks are uint8 0/255."""
 
-    TILE_CHUNK = 32  # most tiles per UNet call (engines.py:140)
+    TILE_CHUNK = 32  # most tiles per chunk (engines.py:140)
+    # In layout mode every model call runs exactly this many tiles of a
+    # chunk. cuDNN picks its algorithm by the batch size, and in bf16
+    # another algorithm moves some DeepLabV3+ mask pixels across the
+    # threshold (on the H100: up to 1.6e-3 of a class's pixels between
+    # calls of 24 and of 32 tiles), so a page's masks would depend on the
+    # pages that share its tile stream in predict_many_async. Line mode
+    # keeps one call a chunk.
+    LAYOUT_MODEL_BATCH = 8
 
     def __init__(
         self,
         model: torch.nn.Module,
         device: torch.device,
+        mode: str = "line",
         patch_size: int = 512,
+        classes: Optional[list[str]] = None,
         open_width_frac: float = 0.0,
     ):
+        if mode not in ("line", "layout"):
+            raise ValueError(f"mode must be 'line' or 'layout', got {mode!r}")
         self.model = model
         self.device = device
+        self.mode = mode
         self.patch_size = patch_size
+        self.classes = classes or ["line"]
         # Horizontal opening erasing components narrower than this fraction
         # of the page width: the builder turns it on for stem-2 detectors,
         # whose thin tile-edge artifacts pass the contour filter
-        # (engines.py:174-186, builder.py:110).
+        # (engines.py:174-186, builder.py:110). Line mode only.
         self.open_width_frac = open_width_frac
 
-    def _run_tiles(self, x: torch.Tensor) -> torch.Tensor:
-        """Forward all tiles in chunks: one chunk of the tile count rounded
-        up to a multiple of 8 (at most TILE_CHUNK), zero-padded."""
-        n = x.shape[0]
+    def _threshold(self, class_threshold: Optional[float]) -> float:
+        if class_threshold is not None:
+            return class_threshold
+        return (LINE_CLASS_THRESHOLD if self.mode == "line"
+                else LAYOUT_CLASS_THRESHOLD)
+
+    def _run_tiles(self, bw: torch.Tensor) -> torch.Tensor:
+        """Forward binarized (N, p, p) uint8 tiles in chunks: the tile count
+        rounded up to a multiple of 8, at most TILE_CHUNK tiles a chunk,
+        zero tiles after the real ones; one model call a chunk, or in
+        layout mode calls of LAYOUT_MODEL_BATCH, the last chunk padded to
+        a whole call only. The model sees each tile as three equal
+        channels in {0.0, 1.0}."""
+        n = bw.shape[0]
         chunk = min(-(-n // 8) * 8, self.TILE_CHUNK)
+        per_call = self.LAYOUT_MODEL_BATCH
         outs = []
         for start in range(0, n, chunk):
-            block = x[start: start + chunk]
+            block = bw[start: start + chunk]
             real = block.shape[0]
-            if real < chunk:
-                block = F.pad(block, (0, 0, 0, 0, 0, 0, 0, chunk - real))
-            outs.append(self.model(block)[:real])
+            size = (chunk if self.mode == "line"
+                    else -(-real // per_call) * per_call)
+            if real < size:
+                block = F.pad(block, (0, 0, 0, 0, 0, size - real))
+            x = (block.to(torch.float32) / 255.0)[:, None].expand(-1, 3, -1, -1)
+            if self.mode == "layout":
+                y = torch.cat([self.model(c) for c in x.split(per_call)])
+            else:
+                y = self.model(x)
+            outs.append(y[:real])
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     @staticmethod
@@ -101,47 +142,124 @@ class SegmentationEngine:
         di = F.max_pool1d(F.pad(er, (hi, lo)), k, stride=1)
         return di[0] > 0.5
 
-    @torch.inference_mode()
-    def predict_async(self, image: np.ndarray):
-        """Queue a page's detection on the card; returns a zero-arg
-        resolver giving the (H, W) uint8 mask, values 0/255.
-
-        Everything from the upload to the bit-packed mask's copy to the
-        host is queued here, with no wait on the card in between; the
-        resolver waits only for that copy. A page of the wrong shape or
-        type raises here, before anything is queued."""
-        if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
-            raise ValueError(
-                f"expected an (H, W, 3) uint8 page, got {image.shape} "
-                f"{image.dtype}")
+    def _queue_tiles(self, image: np.ndarray):
+        """Upload a page, resize and pad it per its plan, cut it into tiles
+        and binarize each with the tile kernel (the reference binarizes per
+        tile, inference.py:132-139) -> (plan, (N, p, p) uint8 tiles)."""
         h, w = image.shape[:2]
         plan = tiling.plan_page(h, w, self.patch_size)
         page = upload(image, self.device)
         tiles = tiling.tile_page(tiling.preprocess_page(page, plan),
                                  self.patch_size)
-        # binarize per tile, as the reference does (inference.py:132-139)
-        bw = kernels.binarize_tiles(tiles)
-        x = (bw.to(torch.float32) / 255.0)[:, None].expand(-1, 3, -1, -1)
-        logits = self._run_tiles(x)
-        pred = (torch.sigmoid(logits[:, 0]) > LINE_CLASS_THRESHOLD).float()
+        return plan, kernels.binarize_tiles(tiles)
+
+    def _post(self, logits: torch.Tensor, plan: tiling.PagePlan,
+              threshold: float) -> PendingHost:
+        """A page's logits tiles -> its bit-packed mask, copied to the host
+        (engines.py:357-380): threshold, stitch, crop, resize to the page,
+        ``>= 1.0`` (the reference truncates before *255, so only 1.0
+        survives), pack along W. Layout masks are packed as (C, H, W)."""
+        if self.mode == "line":
+            pred = (torch.sigmoid(logits[:, 0]) > threshold).float()
+        else:
+            probs = torch.softmax(logits.float(), dim=1)
+            pred = (probs > threshold).float().permute(0, 2, 3, 1)
         merged = tiling.crop_padding(
             tiling.stitch_tiles(pred, plan.y_steps), plan.pad_x, plan.pad_y
         )
-        # the reference truncates (astype uint8) before *255: >= 1.0 survives
-        m = resize_bilinear(merged, h, w) >= 1.0
-        if self.open_width_frac > 0:
-            k = max(int(w * self.open_width_frac) | 1, 3)
+        m = resize_bilinear(merged, plan.orig_h, plan.orig_w) >= 1.0
+        if self.mode == "layout":
+            m = m.permute(2, 0, 1)
+        elif self.open_width_frac > 0:
+            k = max(int(plan.orig_w * self.open_width_frac) | 1, 3)
             m = self._open_horizontal(m, k)
-        packed = PendingHost(packing.pack_mask(m))
+        return PendingHost(packing.pack_mask(m))
+
+    def _resolver(self, packed: PendingHost, w: int):
+        """Zero-arg resolver: waits for the packed mask's copy alone ->
+        (H, W) or, in layout mode, (H, W, C) uint8 mask, values 0/255."""
 
         def resolve() -> np.ndarray:
-            return packing.unpack_mask(packed.get(), w) * np.uint8(255)
+            bits = packing.unpack_mask(packed.get(), w)
+            if self.mode == "layout":
+                bits = np.ascontiguousarray(bits.transpose(1, 2, 0))
+            return bits * np.uint8(255)
 
         return resolve
 
-    def predict(self, image: np.ndarray) -> np.ndarray:
-        """(H, W, 3) uint8 RGB page -> (H, W) uint8 mask, values 0/255."""
-        return self.predict_async(image)()
+    @staticmethod
+    def _check_page(image: np.ndarray) -> None:
+        if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
+            raise ValueError(
+                f"expected an (H, W, 3) uint8 page, got {image.shape} "
+                f"{image.dtype}")
+
+    @torch.inference_mode()
+    def predict_async(self, image: np.ndarray,
+                      class_threshold: Optional[float] = None):
+        """Queue a page's detection on the card; returns a zero-arg
+        resolver giving its mask.
+
+        Everything from the upload to the bit-packed mask's copy to the
+        host is queued here, with no wait on the card in between; the
+        resolver waits only for that copy. A page of the wrong shape or
+        type raises here, before anything is queued."""
+        self._check_page(image)
+        plan, bw = self._queue_tiles(image)
+        packed = self._post(self._run_tiles(bw), plan,
+                            self._threshold(class_threshold))
+        return self._resolver(packed, image.shape[1])
+
+    def predict(self, image: np.ndarray,
+                class_threshold: Optional[float] = None) -> np.ndarray:
+        """(H, W, 3) uint8 RGB page -> uint8 mask, values 0/255: (H, W) in
+        line mode, (H, W, C) in layout mode."""
+        return self.predict_async(image, class_threshold)()
+
+    @torch.inference_mode()
+    def predict_many_async(self, images: Sequence[np.ndarray],
+                           class_threshold: Optional[float] = None) -> list:
+        """Many pages, one tile stream (engines.py:569-613): every page's
+        tiles join one stack, so model calls fill across page boundaries
+        (pages may differ in size); returns one resolver a page. Every
+        page is checked before anything is queued."""
+        if not images:
+            return []
+        for image in images:
+            self._check_page(image)
+        threshold = self._threshold(class_threshold)
+        queued = [self._queue_tiles(image) for image in images]
+        stack = [bw for _, bw in queued]
+        logits = self._run_tiles(stack[0] if len(stack) == 1
+                                 else torch.cat(stack))
+        resolvers, start = [], 0
+        for image, (plan, _) in zip(images, queued):
+            page_logits = logits[start: start + plan.n_tiles]
+            start += plan.n_tiles
+            resolvers.append(self._resolver(
+                self._post(page_logits, plan, threshold), image.shape[1]))
+        return resolvers
+
+    def predict_many_batched(self, items, batch_size: int = 4,
+                             class_threshold: Optional[float] = None):
+        """Generator over (key, image) pairs yielding (key, image, mask),
+        pages grouped into ``batch_size`` calls of predict_many_async
+        (engines.py:615-636)."""
+        batch: list = []
+
+        def flush():
+            resolvers = self.predict_many_async(
+                [img for _, img in batch], class_threshold=class_threshold)
+            for (key, img), resolve in zip(batch, resolvers):
+                yield key, img, resolve()
+            batch.clear()
+
+        for key, image in items:
+            batch.append((key, image))
+            if len(batch) >= max(1, batch_size):
+                yield from flush()
+        if batch:
+            yield from flush()
 
 
 class StreamState:

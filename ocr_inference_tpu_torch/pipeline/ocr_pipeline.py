@@ -29,6 +29,7 @@ from ocr_inference_tpu_torch.core.data import (
     CharsetEncoder,
     DewarpingResult,
     Encoding,
+    LayoutDetectionConfig,
     Line,
     LineDetectionConfig,
     LineSorting,
@@ -77,7 +78,7 @@ class OCRPipeline:
         self,
         ocr_engine: RecognitionEngine,
         detection_engine: SegmentationEngine,
-        line_config: Optional[LineDetectionConfig] = None,
+        line_config: LineDetectionConfig | LayoutDetectionConfig | None = None,
         use_line_prepadding: bool = False,
     ):
         self.ocr_inference = ocr_engine
@@ -114,7 +115,11 @@ class OCRPipeline:
         self.ocr_inference = engine
         self.encoder = engine.config.encoder
 
-    def update_line_detection(self, engine: SegmentationEngine, config=None):
+    def update_line_detection(
+        self,
+        engine: SegmentationEngine,
+        config: LineDetectionConfig | LayoutDetectionConfig | None = None,
+    ):
         """Swap the detector (reference: inference.py:469-482)."""
         self.line_inference = engine
         self.line_config = config
@@ -124,8 +129,13 @@ class OCRPipeline:
     def detect_lines_async(self, image: np.ndarray):
         """Stage 1, dispatched: the page's work is queued on the card now;
         the returned zero-arg resolver waits only for the packed mask's
-        copy to the host."""
+        copy to the host. A layout detector's mask gives its "line"
+        channel (ocr_pipeline.py:102-116)."""
         resolver = self.line_inference.predict_async(image)
+        if self.line_inference.mode == "layout":
+            line = self.line_inference.classes.index("line")
+            return lambda: (OpStatus.SUCCESS,
+                            np.ascontiguousarray(resolver()[:, :, line]))
         return lambda: (OpStatus.SUCCESS, resolver())
 
     def detect_lines(self, image: np.ndarray):

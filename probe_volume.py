@@ -282,6 +282,7 @@ def probe_host(pipe, pages, entries) -> dict:
 
 def probe_profile(pipe, entries, use_tps: bool = False, warm: int = 8,
                   geometry_workers=None) -> dict:
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ocr_inference_tpu_torch.core.data import Encoding
@@ -305,7 +306,9 @@ def probe_profile(pipe, entries, use_tps: bool = False, warm: int = 8,
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    busy_us = sum(dev_us(e) for e in events)
+    # kernel rows alone: an operator's row repeats its kernels' time
+    busy_us = sum(dev_us(e) for e in events
+                  if e.device_type == DeviceType.CUDA)
     top_dev = sorted(events, key=dev_us, reverse=True)[:12]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:12]

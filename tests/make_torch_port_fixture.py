@@ -55,6 +55,30 @@ record of the three fixture pages (about a minute):
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py eval_mode
 
+With the argument ``layout`` it writes the JAX float32 layout-mode record
+(a few minutes):
+
+    tests/data/torch_port/layout.json
+        The repository has no layout checkpoint, so the full-width
+        DeepLabV3+ (five classes, builder.py:241) runs with the port's
+        seeded weights (``pipeline.builder.seeded_variables``, numpy only),
+        loaded into the JAX module. The seed is the first from 0 up with
+        which, on every record page, at least two classes are non-empty
+        and ``run_ocr`` in layout mode returns SUCCESS with at least one
+        line; the seeds skipped before it are recorded with the reason.
+        Per page (the three fixture pages and bench.py config 4's first
+        page): each class's pixel count and the sha256 of its packed mask
+        (``packed_mask_sha256``), and ``run_ocr``'s status, line boxes
+        and texts with the full77f recognizer; and
+        ``ModernBookFormatLayoutDetection.run``'s JSON for the three
+        fixture pages, written as PNG.
+    tests/data/torch_port/layout_masks.npz
+        the same masks, one (C, H, ceil(W / 8)) array of bits packed along
+        each row (``np.packbits``) per page name, so that a run can count
+        the pixels that differ (about 160 kB).
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py layout
+
 The JAX warp is pinned to its device path (``OCR_TPS_HOST=0``): the port
 has no host warp.
 """
@@ -91,6 +115,8 @@ LM_ORDER, LM_CORPUS_LINES, LM_CALIB_LINES = 3, 500, 16
 LM_ALPHA, LM_BETA = 0.5, 0.0
 LM_ARPA = WEIGHTS / "lm.arpa"
 CURVED_PAGES = 2
+# the reference CLI's layout classes (builder.py:241)
+LAYOUT_CLASSES = ["background", "image", "line", "caption", "margin"]
 
 
 def sha256(data) -> str:
@@ -98,6 +124,11 @@ def sha256(data) -> str:
     raw = data.encode() if isinstance(data, str) else \
         np.ascontiguousarray(data).tobytes()
     return hashlib.sha256(raw).hexdigest()
+
+
+def packed_mask_sha256(mask) -> str:
+    """sha256 of one class's (H, W) mask packed to bits along each row."""
+    return sha256(np.packbits(np.asarray(mask) > 0, axis=-1))
 
 
 def full77f_configs(ocr_cls, line_cls, encoder, input_width=INPUT_WIDTH):
@@ -124,9 +155,11 @@ def main(argv: list[str]) -> int:
         return eval_suite()
     if argv == ["eval_mode"]:
         return eval_mode()
+    if argv == ["layout"]:
+        return layout()
     if argv:
-        raise SystemExit(
-            f"unknown arguments {argv}; expected eval_suite or eval_mode")
+        raise SystemExit(f"unknown arguments {argv}; expected eval_suite, "
+                         "eval_mode or layout")
     import jax
     import jax.numpy as jnp
 
@@ -258,6 +291,117 @@ def eval_mode() -> int:
         json.dumps(record, indent=1, ensure_ascii=False) + "\n",
         encoding="utf-8",
     )
+    return 0
+
+
+def layout() -> int:
+    """Write tests/data/torch_port/layout.json (see the module doc)."""
+    import tempfile
+
+    import cv2
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
+
+    import bench
+    from ocr_inference_tpu.core.data import (
+        CharsetEncoder, Encoding, LayoutDetectionConfig, LineDetectionConfig,
+        OCRModelConfig, OpStatus,
+    )
+    from ocr_inference_tpu.models import DeepLabV3Plus
+    from ocr_inference_tpu.pipeline.builder import build_recognition_engine
+    from ocr_inference_tpu.pipeline.engines import SegmentationEngine
+    from ocr_inference_tpu.pipeline.modern_layout import (
+        ModernBookFormatLayoutDetection,
+    )
+    from ocr_inference_tpu.pipeline.ocr_pipeline import OCRPipeline
+    from ocr_inference_tpu_torch.eval import synthetic as port_synth
+    from ocr_inference_tpu_torch.models.segmentation import (
+        DeepLabV3Plus as PortDeepLab,
+    )
+    from ocr_inference_tpu_torch.pipeline.builder import seeded_variables
+
+    ocr_cfg, _ = full77f_configs(OCRModelConfig, LineDetectionConfig,
+                                 CharsetEncoder.WYLIE)
+    rec = build_recognition_engine(ocr_cfg, dtype=jnp.float32)
+    cfg = LayoutDetectionConfig(checkpoint="", onnx_file="",
+                                architecture="deeplabv3", patch_size=512,
+                                classes=LAYOUT_CLASSES)
+    fixture = [(name, img) for name, img, _ in
+               port_synth.fixture_pages(OUT / "pages.npz")]
+    pages = fixture + [("bench_cfg4_0", bench.make_volume(1)[0])]
+    model = DeepLabV3Plus(classes=len(LAYOUT_CLASSES), dtype=jnp.float32)
+
+    def read(det, seed):
+        """Per page: masks and run_ocr; the reason when the seed fails."""
+        pipe = OCRPipeline(rec, det, cfg)
+        out = []
+        masks.clear()
+        for name, img in pages:
+            mask = det.predict(img)
+            counts = [int((mask[:, :, c] > 0).sum())
+                      for c in range(len(LAYOUT_CLASSES))]
+            if sum(n > 0 for n in counts) < 2:
+                return out, (f"{name}: fewer than two classes non-empty "
+                             f"{counts}")
+            status, payload = pipe.run_ocr(img, target_encoding=Encoding.WYLIE)
+            if status != OpStatus.SUCCESS:
+                return out, f"{name}: run_ocr {status.name}: {payload}"
+            if not payload[2]:
+                return out, f"{name}: run_ocr read no lines"
+            _, lines, ocr_lines, angle = payload
+            masks[name] = np.packbits(mask.transpose(2, 0, 1) > 0, axis=-1)
+            out.append({
+                "name": name, "shape": list(img.shape), "sha256": sha256(img),
+                "classes": {
+                    cls: {"pixels": counts[c],
+                          "packed_mask_sha256": packed_mask_sha256(
+                              mask[:, :, c])}
+                    for c, cls in enumerate(LAYOUT_CLASSES)},
+                "status": status.name,
+                "jax_f32_boxes": [list(ln.bbox.as_tuple()) for ln in lines],
+                "jax_f32_texts": [ln.text for ln in ocr_lines],
+                "jax_angle": angle,
+            })
+            print(seed, name, counts, len(ocr_lines), "lines",
+                  file=sys.stderr)
+        return out, None
+
+    skipped, masks = [], {}
+    for seed in range(64):
+        variables = seeded_variables(PortDeepLab(len(LAYOUT_CLASSES)), seed)
+        det = SegmentationEngine(model, variables, mode="layout",
+                                 classes=LAYOUT_CLASSES)
+        records, reason = read(det, seed)
+        if reason is None:
+            break
+        print("seed", seed, "skipped:", reason, file=sys.stderr)
+        skipped.append({"seed": seed, "reason": reason})
+    else:
+        raise RuntimeError("no seed in 0..63 exercises layout mode")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        page_dir, out_dir = Path(tmp) / "pages", Path(tmp) / "json"
+        page_dir.mkdir()
+        for name, img in fixture:
+            cv2.imwrite(str(page_dir / f"{name}.png"),
+                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        modern = ModernBookFormatLayoutDetection(cfg, engine=det).run(
+            str(page_dir), str(out_dir))
+        modern = {Path(p).stem: found for p, found in sorted(modern.items())}
+
+    record = {
+        "weights": "seeded DeepLabV3Plus(classes=5) + artifacts/full77f",
+        "dtype": "float32", "backend": "cpu", "input_width": INPUT_WIDTH,
+        "classes": LAYOUT_CLASSES, "seed": seed, "skipped_seeds": skipped,
+        "class_threshold": 0.8, "pages": records, "modern_layout": modern,
+    }
+    (OUT / "layout.json").write_text(
+        json.dumps(record, indent=1, ensure_ascii=False) + "\n",
+        encoding="utf-8",
+    )
+    np.savez_compressed(OUT / "layout_masks.npz", **masks)
     return 0
 
 

@@ -1,0 +1,189 @@
+"""The port's page-OCR CLI (``python -m ocr_inference_tpu_torch.cli.cli``)
+against the JAX ``bocr`` (ocr_inference_tpu/cli/cli.py) on the same PNG
+pages and model directory, on the CPU in float32: line-mode texts, the
+artifact and resume flags; and its refusals: JPEG pages, ``--mesh``, and
+the ``cuda`` default without a card."""
+
+import functools
+import json
+import os
+from pathlib import Path
+
+import cv2
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ocr_inference_tpu.cli import cli as jax_cli
+from ocr_inference_tpu.eval.synthetic import WYLIE_CHARSET, GlyphSet, render_page
+from ocr_inference_tpu.pipeline.builder import build_pipeline as jax_build
+from ocr_inference_tpu_torch.cli import cli
+from ocr_inference_tpu_torch.io.artifacts import write_png
+from tests import make_refpipe_fixture as fx
+
+REPO = Path(__file__).resolve().parents[1]
+REFPIPE = REPO / "tests" / "data" / "refpipe"
+LAYOUT_SEED = json.loads(
+    (REPO / "tests" / "data" / "torch_port" / "layout.json").read_text())["seed"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def job(tmp_path_factory):
+    """A model directory (model_config.json and a line config JSON for the
+    refpipe weights) and a folder of two PNG pages."""
+    root = tmp_path_factory.mktemp("cli")
+    model = root / "model"
+    model.mkdir()
+    (model / "model_config.json").write_text(json.dumps({
+        "onnx-model": str(REFPIPE / "recognizer.onnx"),
+        "architecture": "Easter2", "input_width": fx.CANVAS,
+        "input_height": fx.INPUT_H, "input_layer": "input",
+        "output_layer": "output", "squeeze_channel_dim": "yes",
+        "swap_hw": "no", "encoder": "wylie", "charset": list(WYLIE_CHARSET),
+        "add_blank": "yes", "version": "refpipe"}))
+    lines = root / "lines"
+    lines.mkdir()
+    (lines / "config.json").write_text(json.dumps({
+        "checkpoint": "", "onnx-model": str(REFPIPE / "lines.onnx"),
+        "architecture": "unet", "patch_size": 512, "classes": ["line"]}))
+    pages = root / "pages"
+    pages.mkdir()
+    glyphs = GlyphSet(height=fx.GLYPH_H, seed=7)
+    rng = np.random.RandomState(20_260)
+    for i in range(2):
+        img = render_page(rng, glyphs, WYLIE_CHARSET, n_lines=(3, 5),
+                          page_w=512, align="left",
+                          n_syllables=fx.N_SYLLABLES,
+                          syllable_len=fx.SYLLABLE_LEN).image
+        write_png(pages / f"page{i}.png", img[..., ::-1])  # takes BGR
+    return root
+
+
+def _args(job, out, *extra):
+    return ["--model", str(job / "model"), "--folder", str(job / "pages"),
+            "--output", str(out), "--line-model", str(job / "lines"),
+            *extra]
+
+
+def _port(job, out, *extra):
+    return cli.main(_args(job, out, "--device", "cpu", "--dtype", "float32",
+                          *extra))
+
+
+def _jax(job, out, monkeypatch, *extra):
+    monkeypatch.setattr(jax_cli, "build_pipeline",
+                        functools.partial(jax_build, dtype=jnp.float32))
+    return jax_cli.main(_args(job, out, *extra))
+
+
+def test_line_mode_texts_equal_jax_cli(job, tmp_path, monkeypatch, capsys):
+    assert _port(job, tmp_path / "ours") == 0
+    assert _jax(job, tmp_path / "jax", monkeypatch) == 0
+    printed = capsys.readouterr().out
+    assert printed.count("Text output:") == 4
+    for i in range(2):
+        got = (tmp_path / "ours" / f"page{i}.txt").read_text(encoding="utf-8")
+        want = (tmp_path / "jax" / f"page{i}.txt").read_text(encoding="utf-8")
+        assert got == want and got.strip()
+
+
+def _files(job_dir: Path) -> set[str]:
+    return {str(p.relative_to(job_dir)) for p in job_dir.rglob("*")
+            if p.is_file()}
+
+
+def test_artifacts_and_resume(job, tmp_path, monkeypatch, capsys):
+    """--save-artifacts writes the JAX CLI's job layout and texts;
+    --resume then skips every page, and exits 1 as the JAX CLI does when
+    no page was read in the run."""
+    flags = ("--save-artifacts", "--artifact-output", str(tmp_path / "art"),
+             "--job-id", "ours")
+    assert _port(job, tmp_path / "o", *flags) == 0
+    jflags = ("--save-artifacts", "--artifact-output", str(tmp_path / "art"),
+              "--job-id", "jax")
+    assert _jax(job, tmp_path / "j", monkeypatch, *jflags) == 0
+    ours, theirs = tmp_path / "art" / "ours", tmp_path / "art" / "jax"
+    assert _files(ours) == _files(theirs)
+    for i in range(2):
+        name = f"page{i}.png/results/page{i}.txt"
+        assert (ours / name).read_text(encoding="utf-8") == \
+            (theirs / name).read_text(encoding="utf-8")
+    capsys.readouterr()
+    assert _port(job, tmp_path / "o", *flags, "--resume") == 1
+    printed = capsys.readouterr().out
+    assert "Resuming: 2 pages already done" in printed
+    assert "Text output" not in printed and "OCR failed" not in printed
+
+
+def test_layout_mode_with_seeded_weights(job, tmp_path):
+    """--line-mode layout builds the default layout config's DeepLabV3+;
+    with no checkpoint it needs --allow-random-weights, and then reads
+    lines with the seeded weights."""
+    one = tmp_path / "one"
+    one.mkdir()
+    (one / "page0.png").write_bytes((job / "pages" / "page0.png").read_bytes())
+    base = ["--model", str(job / "model"), "--folder", str(one), "--output",
+            str(tmp_path / "out"), "--line-mode", "layout", "--device", "cpu",
+            "--dtype", "float32"]
+    with pytest.raises(FileNotFoundError, match="allow_random"):
+        cli.main(base)
+    assert cli.main(base + ["--allow-random-weights", "--seed",
+                            str(LAYOUT_SEED)]) == 0
+    assert (tmp_path / "out" / "page0.txt").read_text(encoding="utf-8")
+
+
+def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
+                                                       capsys):
+    folder = tmp_path / "mixed"
+    folder.mkdir()
+    (folder / "a.png").write_bytes((job / "pages" / "page0.png").read_bytes())
+    cv2.imwrite(str(folder / "b.jpg"), np.zeros((8, 8, 3), np.uint8))
+    args = ["--model", str(tmp_path / "no_model"), "--output",
+            str(tmp_path / "out"), "--device", "cpu"]
+    for where in (["--folder", str(folder)],
+                  ["--image", str(folder / "b.jpg")]):
+        with pytest.raises(SystemExit) as exit_info:
+            cli.main(args + where)
+        message = str(exit_info.value.code)
+        assert "b.jpg (JPEG)" in message and "PNG" in message
+    assert not (tmp_path / "out").exists()
+
+
+def test_mesh_is_refused(job, tmp_path):
+    with pytest.raises(SystemExit) as exit_info:
+        _port(job, tmp_path / "o", "--mesh", "2")
+    assert "ROADMAP item 9" in str(exit_info.value.code)
+
+
+def test_cuda_is_the_default_device(job, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(_args(job, tmp_path / "o"))
+
+
+def test_module_runs_as_a_script(job, tmp_path):
+    """python -m ocr_inference_tpu_torch.cli.cli, as a user runs it."""
+    import subprocess
+    import sys
+
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "ocr_inference_tpu_torch.cli.cli",
+         "--model", str(job / "model"),
+         "--image", str(job / "pages" / "page1.png"),
+         "--output", str(tmp_path / "o"), "--line-model", str(job / "lines"),
+         "--device", "cpu", "--dtype", "float32"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("Text output:") == 1
+    assert (tmp_path / "o" / "page1.txt").read_text(encoding="utf-8")

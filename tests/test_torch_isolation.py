@@ -140,3 +140,24 @@ def test_eval_mode_modules_import_nothing_forbidden():
         "calibrate, lm_columns)\n"
     ).format(lm=str(REPO / "artifacts" / "full77f" / "lm.arpa"))
     assert _imported(imports) == "FORBIDDEN []"
+
+
+def test_layout_cli_and_reader_import_nothing_forbidden(tmp_path):
+    """Layout mode (DeepLabV3+, the modern-book runner), the CLI and the
+    PNG reader, with its unfilter built and run."""
+    png = tmp_path / "page.png"
+    imports = (
+        "from ocr_inference_tpu_torch.cli import cli\n"
+        "from ocr_inference_tpu_torch.models.segmentation import "
+        "DeepLabV3Plus\n"
+        "from ocr_inference_tpu_torch.pipeline.modern_layout import "
+        "ModernBookFormatLayoutDetection\n"
+        "from ocr_inference_tpu_torch.pipeline.builder import "
+        "seeded_variables\n"
+        "import numpy as np\n"
+        "from ocr_inference_tpu_torch.io.artifacts import write_png\n"
+        "from ocr_inference_tpu_torch.io.images import read_image\n"
+        "write_png({png!r}, np.zeros((4, 4, 3), np.uint8))\n"
+        "assert read_image({png!r}).shape == (4, 4, 3)\n"
+    ).format(png=str(png))
+    assert _imported(imports) == "FORBIDDEN []"
