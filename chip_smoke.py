@@ -5,7 +5,7 @@ check it.
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
 geometry library, the ARPA scorer and the PNG unfilter, all started
-together), then runs fourteen phases and prints one JSON line for each:
+together), then runs eighteen phases and prints one JSON line for each:
 
 1. build        — seconds of each compiler; registers and spills of each
                   kernel as ptxas reports them;
@@ -13,7 +13,10 @@ together), then runs fourteen phases and prints one JSON line for each:
                   the card: binarize_tiles on (24, 512, 512, 3) random,
                   page-like and knife-edge tiles, binarize_lines on
                   (8, 80, 1024), on (64, 80, W) for every width bucket and
-                  on knife-edge canvases (64, 80, 3000); per case
+                  on knife-edge canvases (64, 80, 3000), and on whole
+                  line images (1, H, W) of the heights the evaluator
+                  sends, H in 23, 80, 81, 161, 300 by W in 37, 1024,
+                  2999; per case
                   mismatching pixels (must be 0), pixels the exact tier
                   rechecked (must be > 0 on the knife-edge inputs), the
                   kernel's device time (a CUDA graph of calls) and its time
@@ -121,12 +124,44 @@ together), then runs fourteen phases and prints one JSON line for each:
                   count; each page's text equals bf16 run_ocr's), then as
                   a subprocess --resume (skips every page), --line-mode
                   layout --allow-random-weights (exits 0) and a folder
-                  holding a JPEG (exits non-zero, naming it).
+                  holding a JPEG (exits non-zero, naming it);
+15. recognizers_f32 — Easter2-Attention, Easter2-Vit and CRNN at full
+                  width with the seeded weights of tests/data/torch_port/
+                  recognizers.json (build_pipeline's allow_random), float32,
+                  TF32 off: the logits of the record's four canvases at the
+                  Flax scale within 1e-3 of the JAX float32 logits
+                  (recognizer_logits.npz); run_ocr behind the full77f
+                  detector on the fixture pages: the record's line counts
+                  and boxes, texts within 0.5% CER;
+16. recognizers_bf16 — each of them at its defaults (bf16): run_batch of
+                  32 bench-page lines against four calls of 8 (equal
+                  texts), an 8-page bench volume through VolumeRunner
+                  against its run_ocr loop (equal boxes, CER at most 0.5%),
+                  lines/s, peak memory, the device ms of one (8, 80, 1024)
+                  forward beside the base Easter2's, the bf16 CER against
+                  the float32 texts (no bar);
+17. serve       — bocr-serve (python -m ocr_inference_tpu_torch.cli
+                  .serve_cli) as a process with full77f: 8 bench pages as
+                  PNG, a JPEG, a malformed line, a blank line and a request
+                  after it; one response per image, boxes equal and texts
+                  within 0.5% CER of a bf16 VolumeRunner's on the same
+                  files, the JPEG refused by name, the malformed line
+                  answered, exit 0; a --max-queue 2 burst sheds with 429;
+                  then the serving loop in this process over an os.pipe
+                  with Poisson arrivals as bench.py config 6 drives it (24
+                  pages at 4 requests/s): p50/p90 latency, pages/s, shed;
+18. eval_cli    — bocr-eval (python -m ocr_inference_tpu_torch.cli
+                  .evaluate_cli) with full77f in bf16 on the tests' PNG
+                  line dataset (eval/synthetic.py line_dataset, two
+                  distributions of 24 lines, 120-180 px tall): each mean
+                  CER within 0.5 points of the JAX float32 record; a
+                  float32 OCREvaluator in this process, TF32 off: each
+                  line's CER within 0.005 of the record's.
 
 Kernel launch and recheck counts are zeroed just before each OCR path is
-driven (phases 3-14) and read just after it. Then a ``kernels`` JSON line
-(per kernel: launches over the main paths, phases 5, 6, 8, 11, 13 and 14,
-and by path,
+driven (phases 3-18) and read just after it. Then a ``kernels`` JSON line
+(per kernel: launches over the main paths, phases 5, 6, 8, 11, 13, 14, 16,
+17 and 18, and by path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -141,6 +176,7 @@ import contextlib
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -306,27 +342,32 @@ def bench_page(seed: int = 42) -> np.ndarray:
     return bench_volume(1, seed)[0]
 
 
-def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000,
-                     kenlm_config=None, line_config=None,
-                     allow_random: bool = False, seed: int = 0):
-    from ocr_inference_tpu_torch.core.data import (
-        CharsetEncoder, LineDetectionConfig, OCRModelConfig,
-    )
-    from ocr_inference_tpu_torch.pipeline import build_pipeline
+def full77f_config(input_width: int = 3000):
+    from ocr_inference_tpu_torch.core.data import CharsetEncoder, OCRModelConfig
 
     meta = json.loads((WEIGHTS / "recognizer.msgpack.json").read_text())
-    ocr = OCRModelConfig(
+    return OCRModelConfig(
         model_file=str(WEIGHTS / "recognizer.onnx"), architecture="Easter2",
         input_width=input_width, input_height=80, input_layer="input",
         output_layer="output", squeeze_channel=True, swap_hw=False,
         encoder=CharsetEncoder.WYLIE, charset=list(meta["charset"]),
         add_blank=True, version="full77f",
     )
+
+
+def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000,
+                     kenlm_config=None, line_config=None,
+                     allow_random: bool = False, seed: int = 0,
+                     ocr_config=None):
+    from ocr_inference_tpu_torch.core.data import LineDetectionConfig
+    from ocr_inference_tpu_torch.pipeline import build_pipeline
+
     line = line_config or LineDetectionConfig(
         checkpoint="", onnx_file=str(WEIGHTS / "lines.onnx"),
         architecture="unet", patch_size=512, classes=["line"],
     )
-    return build_pipeline(ocr, line, kenlm_config=kenlm_config, dtype=dtype,
+    return build_pipeline(ocr_config or full77f_config(input_width), line,
+                          kenlm_config=kenlm_config, dtype=dtype,
                           allow_random=allow_random, seed=seed)
 
 
@@ -368,6 +409,10 @@ def build():
             "ptxas": ptxas_report(kernels.BUILD_REPORT)}
 
 
+LINE_HEIGHTS = (23, 80, 81, 161, 300)
+LINE_WIDTHS = (37, 1024, 2999)
+
+
 @phase("kernels")
 def check_kernels():
     from ocr_inference_tpu_torch.ops import kernels
@@ -394,6 +439,11 @@ def check_kernels():
             0, 256, (64, 80, w), dtype=torch.uint8, generator=gen))
     cases["lines_knife_edge_3000"] = (
         *lines, torch.from_numpy(kernels.knife_edge_gray(64, 80, 3000)))
+    # whole line images of their own height, as the evaluator sends them
+    for h in LINE_HEIGHTS:
+        for w in LINE_WIDTHS:
+            cases[f"lines_1x{h}x{w}"] = (*lines, torch.randint(
+                0, 256, (1, h, w), dtype=torch.uint8, generator=gen))
     out = {}
     ok = True
     for name, (fn, plain, channels, x) in cases.items():
@@ -1683,15 +1733,425 @@ def cli_phase(results: dict):
             "gpu": gpu_name_and_limit()}
 
 
+# -- the other recognizers, the serving entry point and the eval CLI --
+
+RECOGNIZERS = ("Easter2-Attention", "Easter2-Vit", "CRNN")
+REC_VOLUME_PAGES = 8
+FORWARD_SHAPE = (8, 80, 1024)
+SERVE_PAGES, STREAM_PAGES, STREAM_RPS = 8, 24, 4.0
+JPEG_BYTES = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00"
+
+
+def recognizer_record() -> tuple[dict, dict]:
+    """tests/data/torch_port/recognizers.json and the logits beside it."""
+    record = json.loads((FIXTURE / "recognizers.json").read_text(
+        encoding="utf-8"))
+    with np.load(FIXTURE / "recognizer_logits.npz") as npz:
+        return record, {k: npz[k] for k in npz.files}
+
+
+def seeded_pipeline(arch: str, dtype: torch.dtype, seed: int):
+    """full77f's line detector and a recognizer of ``arch`` at full width
+    with the seeded weights of ``seed`` (build_pipeline's allow_random)."""
+    ocr = full77f_config()
+    ocr.architecture, ocr.model_file = arch, ""
+    return full77f_pipeline(dtype, ocr_config=ocr, allow_random=True,
+                            seed=seed)
+
+
+def joined_cer(got: list[list[str]], want: list[list[str]]) -> float:
+    """Pooled CER of pages' texts, each page's lines joined by spaces."""
+    from ocr_inference_tpu_torch.eval.cer import cer
+
+    return cer([" ".join(t) for t in got], [" ".join(t) for t in want])
+
+
+def forward_ms(model, x: torch.Tensor, iters: int = 10) -> float:
+    """Device ms of one forward: ``iters`` calls queued behind a spin
+    kernel that holds the stream until all are queued, between CUDA
+    events, so the host's launch pace does not count."""
+    with torch.inference_mode():
+        for _ in range(3):
+            model(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)  # ~0.1 s at 1.98 GHz
+        start.record()
+        for _ in range(iters):
+            model(x)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@phase("recognizers_f32")
+def recognizers_f32(results: dict):
+    """Each other recognizer at full width with the record's seeded
+    weights, float32, TF32 off: logits of the record's canvases at the
+    Flax scale against the JAX float32 logits (bar 1e-3); run_ocr on the
+    fixture pages against the JAX float32 record (line counts and boxes
+    equal, texts within 0.5% CER)."""
+    record, logits = recognizer_record()
+    pages, _ = fixture()
+    x = torch.from_numpy(logits["canvases"]).cuda().float() / 127.5 - 1.0
+    texts, out, ok = {}, {}, True
+    for arch in RECOGNIZERS:
+        pipe = seeded_pipeline(arch, torch.float32, record["seed"])
+        with no_tf32(), torch.inference_mode():
+            got = pipe.ocr_inference.model(x) / record["head_gain"]
+        diff = float(np.abs(got.cpu().numpy() - logits[arch]).max())
+        want_pages = record["architectures"][arch]["pages"]
+        per_page = {}
+        path = f"recognizers_f32/{arch}"
+        with no_tf32(), counted_path(results, path):
+            for (name, img, _), want in zip(pages, want_pages):
+                page_texts, lines, _ = run_page(pipe, img)
+                texts[(arch, name)] = page_texts
+                boxes = [list(ln.bbox.as_tuple()) for ln in lines]
+                page_cer = joined_cer([page_texts], [want["jax_f32_texts"]])
+                same = (name == want["name"]
+                        and len(page_texts) == len(want["jax_f32_texts"])
+                        and boxes == want["jax_f32_boxes"]
+                        and page_cer <= 0.005)
+                ok &= same
+                per_page[name] = {"lines": len(page_texts), "ok": same,
+                                  "cer_vs_jax_f32": page_cer,
+                                  "texts_identical":
+                                      page_texts == want["jax_f32_texts"]}
+        ok &= diff <= 1e-3
+        out[arch] = {"logits_max_abs_diff": diff,
+                     "logits_shape": list(got.shape),
+                     "logits_max_abs": float(np.abs(logits[arch]).max()),
+                     "pages": per_page,
+                     "launches": results["launches"][path]}
+        del pipe
+    results["recognizer_f32_texts"] = texts
+    return {"_ok": ok, "architectures": out, "gpu": gpu_name_and_limit()}
+
+
+@phase("recognizers_bf16")
+def recognizers_bf16(results: dict):
+    """Each other recognizer at its defaults (bf16): run_batch of 32 lines
+    against four calls of 8 (equal texts); an 8-page bench volume through
+    VolumeRunner against its run_ocr loop (equal boxes, CER at most
+    0.5%); the device ms of one (8, 80, 1024) forward beside the base
+    Easter2's; lines/s, peak memory; bf16 texts on the fixture pages
+    against the float32 ones (no bar: seeded weights read no text)."""
+    from ocr_inference_tpu_torch.core.data import Encoding, OpStatus
+    from ocr_inference_tpu_torch.pipeline import PipelineObserver, VolumeRunner
+
+    record, _ = recognizer_record()
+    pages, _ = fixture()
+    bench = bench_volume(REC_VOLUME_PAGES, seed=43)
+    entries = [(f"rec{i:03d}", img) for i, img in enumerate(bench)]
+
+    class Strips(PipelineObserver):
+        def stage_end(self, stage, payload):
+            if stage == "extract_lines":
+                strips.extend(s for s in payload[1] if s.size)
+
+    strips: list[np.ndarray] = []
+    base = full77f_pipeline(torch.bfloat16)
+    for _, img in entries:
+        base.run_ocr(img, observer=Strips())
+        if len(strips) >= 32:
+            break
+    strips = strips[:32]
+    gen = torch.Generator().manual_seed(2)
+    x = (torch.randint(0, 2, FORWARD_SHAPE, generator=gen).float() * 2
+         - 1).cuda()
+    forward = {"Easter2": forward_ms(base.ocr_inference.model, x)}
+    del base
+
+    out, ok = {}, len(strips) == 32
+    for arch in RECOGNIZERS:
+        pipe = seeded_pipeline(arch, torch.bfloat16, record["seed"])
+        eng = pipe.ocr_inference
+        one = eng.run_batch(strips)
+        four = [t for i in range(0, 32, 8) for t in eng.run_batch(
+            strips[i: i + 8])]
+        VolumeRunner(pipe).run(entries[:2], target_encoding=Encoding.WYLIE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        path = f"recognizers_bf16/{arch}"
+        with counted_path(results, path):
+            t0 = time.perf_counter()
+            records = VolumeRunner(pipe).run(entries,
+                                             target_encoding=Encoding.WYLIE)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        plain, plain_s = plain_reads(pipe, entries)
+        ok_pages = [r for r in records if r.status == OpStatus.SUCCESS]
+        volume_cer = joined_cer(
+            [[ln.text for ln in r.ocr_lines] for r in ok_pages],
+            [plain.get(r.name, ([], []))[1] for r in ok_pages])
+        bf16_texts = [run_page(pipe, img)[0] for _, img, _ in pages]
+        f32_texts = [results["recognizer_f32_texts"][(arch, name)]
+                     for name, _, _ in pages]
+        forward[arch] = forward_ms(eng.model, x)
+        n_lines = sum(len(r.lines) for r in ok_pages)
+        checks = {
+            "batch_invariant_32_vs_4x8": one == four,
+            "all_pages_read": len(ok_pages) == len(entries),
+            "boxes_equal_run_ocr": all(
+                r.name in plain
+                and [ln.bbox.as_tuple() for ln in r.lines] == plain[r.name][0]
+                for r in ok_pages),
+            "cer_vs_run_ocr_le_0.5pct": volume_cer <= 0.005,
+        }
+        ok &= all(checks.values())
+        out[arch] = {
+            "checks": checks,
+            "batch_32_vs_4x8_differing_lines": sum(
+                a != b for a, b in zip(one, four)),
+            "volume": {"seconds": dt, "pages_per_s": len(ok_pages) / dt,
+                       "lines_per_s": n_lines / dt, "lines": n_lines},
+            "run_ocr_loop": {"seconds": plain_s,
+                             "pages_per_s": len(plain) / plain_s},
+            "cer_vs_run_ocr": volume_cer,
+            "bf16_cer_vs_f32_fixture_pages": joined_cer(bf16_texts,
+                                                        f32_texts),
+            "peak_memory_gib": peak_gib,
+            "launches": results["launches"][path],
+        }
+        del pipe, eng
+    return {"_ok": ok, "architectures": out,
+            "forward_8x80x1024_device_ms": forward,
+            "gpu": gpu_name_and_limit()}
+
+
+def serve_subprocess(args: list[str], requests: list[str]) -> tuple:
+    """bocr-serve as a process fed ``requests`` on stdin -> (completed
+    process, its JSON lines, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ocr_inference_tpu_torch.cli.serve_cli",
+         *args], input="\n".join(requests) + "\n", capture_output=True,
+        text=True, cwd=REPO, timeout=600)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.strip()]
+    return proc, lines, time.perf_counter() - t0
+
+
+def poisson_stream(pipe, paths: list[str], results: dict) -> dict:
+    """The serving loop in this process over an os.pipe, as bench.py config
+    6 drives it (bench.py:441-540): a feeder thread writes one request per
+    page at exponential gaps (STREAM_RPS a second, numpy seed 123); each
+    page's latency runs from its request's write to its emit."""
+    from ocr_inference_tpu_torch.cli.serve_cli import (
+        _LineReader, load_page, serve_loop,
+    )
+    from ocr_inference_tpu_torch.core.data import Encoding
+    from ocr_inference_tpu_torch.pipeline import VolumeRunner
+
+    runner = VolumeRunner(pipe, window_pages=4)
+    arrival, done, shed, failed = {}, {}, [], []
+    gaps = np.random.default_rng(123).exponential(1.0 / STREAM_RPS,
+                                                  len(paths))
+    r_fd, w_fd = os.pipe()
+
+    def feeder():
+        try:
+            for path, gap in zip(paths, gaps):
+                time.sleep(gap)
+                arrival[path] = time.perf_counter()
+                os.write(w_fd, (json.dumps({"image": path}) + "\n").encode())
+        finally:
+            os.close(w_fd)
+
+    def emit(rec):
+        done[rec.name] = time.perf_counter()
+        if rec.status.name != "SUCCESS":
+            failed.append(rec.name)
+
+    thread = threading.Thread(target=feeder, daemon=True)
+    with counted_path(results, "serve"):
+        thread.start()
+        serve_loop(runner, _LineReader(fd=r_fd), load_page, emit,
+                   lambda obj: shed.append(obj), encoding=Encoding.WYLIE)
+        thread.join(timeout=60)
+    os.close(r_fd)
+    lat = sorted((done[p] - arrival[p]) * 1e3 for p in done)
+    span = max(done.values()) - min(arrival.values())
+    return {"pages": len(paths), "served": len(done), "failed": len(failed),
+            "shed": len(shed), "rate_rps": STREAM_RPS,
+            "latency_ms_p50": lat[len(lat) // 2],
+            "latency_ms_p90": lat[int(0.9 * (len(lat) - 1))],
+            "pages_per_s": len(done) / span,
+            "_ok": len(done) + len(shed) == len(paths) and not failed
+            and not thread.is_alive()}
+
+
+@phase("serve")
+def serve_phase(results: dict):
+    """bocr-serve (python -m ocr_inference_tpu_torch.cli.serve_cli) as a
+    process with full77f: 8 bench pages as PNG, a JPEG, a malformed line,
+    then a blank line (a request after it goes unanswered); one response
+    per image, texts within 0.5% CER of a bf16 VolumeRunner's on the same
+    files in this process and boxes equal, the JPEG refused by name, the
+    malformed line answered with an error, exit 0. A --max-queue 2 burst
+    sheds with code 429. Then the serving loop in this process under a
+    Poisson stream (no bar)."""
+    from ocr_inference_tpu_torch.cli.serve_cli import load_page
+    from ocr_inference_tpu_torch.core.data import Encoding
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.pipeline import VolumeRunner
+
+    checks, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        model, lines = write_model_dirs(root)
+        paths = []
+        for i, img in enumerate(bench_volume(SERVE_PAGES, seed=44)):
+            paths.append(str(root / f"page{i:02d}.png"))
+            write_png(paths[-1], img[..., ::-1])
+        jpeg = root / "scan.jpg"
+        jpeg.write_bytes(JPEG_BYTES)
+        args = ["--model", str(model), "--line-model",
+                str(lines / "config.json"), "--encoding", "wylie"]
+        requests = ([json.dumps({"image": p}) for p in paths[:4]]
+                    + ["{not json"]
+                    + [json.dumps({"images": paths[4:] + [str(jpeg)]})]
+                    + ["", json.dumps({"image": paths[0]})])
+        proc, answers, s = serve_subprocess(args, requests)
+        runs["session"] = {"rc": proc.returncode, "s": s,
+                           "responses": len(answers),
+                           "stderr": proc.stderr[-400:]}
+
+        pipe = full77f_pipeline(torch.bfloat16)
+        want = {r.name: r for r in VolumeRunner(pipe, window_pages=4).run(
+            [(p, load_page(p)) for p in paths],
+            target_encoding=Encoding.WYLIE)}
+        pages = {a["image"]: a for a in answers if a.get("image") in want}
+        checks["exit_0"] = proc.returncode == 0
+        checks["one_response_per_image"] = (
+            len(answers) == len(paths) + 2
+            and sorted(pages) == sorted(paths))
+        checks["boxes_equal_volume_runner"] = all(
+            a["status"] == "success"
+            and [ln["bbox"] for ln in a["lines"]]
+            == [list(ln.bbox.as_tuple()) for ln in want[p].lines]
+            for p, a in pages.items())
+        served_cer = joined_cer(
+            [[ln["text"] for ln in pages[p]["lines"]] for p in paths
+             if p in pages],
+            [[ln.text for ln in want[p].ocr_lines] for p in paths
+             if p in pages])
+        checks["cer_vs_volume_runner_le_0.5pct"] = served_cer <= 0.005
+        refused = [a for a in answers if a.get("image") == str(jpeg)]
+        checks["jpeg_refused_by_name"] = (
+            len(refused) == 1 and refused[0]["status"] == "failed"
+            and "JPEG" in refused[0]["error"])
+        checks["malformed_line_answered"] = any(
+            "bad request" in a.get("error", "") for a in answers)
+
+        proc, burst, s = serve_subprocess(
+            args + ["--max-queue", "2"],
+            [json.dumps({"image": p}) for p in paths[:6]])
+        shed = [a for a in burst if a.get("status") == "shed"]
+        runs["burst"] = {"rc": proc.returncode, "s": s,
+                         "responses": len(burst), "shed": len(shed)}
+        checks["burst_sheds_429"] = (
+            proc.returncode == 0 and len(burst) == 6 and len(shed) >= 1
+            and all(a["code"] == 429 for a in shed))
+
+        stream_paths = []
+        for i in range(STREAM_PAGES):
+            link = root / f"req_{i:04d}.png"
+            os.symlink(paths[i % len(paths)], link)
+            stream_paths.append(str(link))
+        stream = poisson_stream(pipe, stream_paths, results)
+        checks["stream_served"] = stream.pop("_ok")
+    return {"_ok": all(checks.values()), "checks": checks, "runs": runs,
+            "cer_vs_volume_runner": served_cer, "stream": stream,
+            "launches": results["launches"]["serve"],
+            "gpu": gpu_name_and_limit()}
+
+
+@phase("eval_cli")
+def eval_cli_phase(results: dict):
+    """bocr-eval (python -m ocr_inference_tpu_torch.cli.evaluate_cli) with
+    full77f in bf16 on the tests' PNG line dataset: each distribution's
+    mean CER within 0.5 points of the JAX float32 record; then a float32
+    OCREvaluator in this process (TF32 off): each line's CER within 0.005
+    of the record's."""
+    from ocr_inference_tpu_torch.cli.evaluate_cli import collect_distributions
+    from ocr_inference_tpu_torch.eval.evaluator import OCREvaluator
+    from ocr_inference_tpu_torch.eval.synthetic import (
+        line_dataset, load_glyphs, write_line_dataset,
+    )
+
+    want = recognizer_record()[0]["eval_cli"]
+    glyphs, charset = load_glyphs(FIXTURE / "pages.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        model, _ = write_model_dirs(root)
+        data = root / "data"
+        write_line_dataset(data, line_dataset(glyphs, charset, want["seed"],
+                                              want["per_distribution"]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ocr_inference_tpu_torch.cli.evaluate_cli",
+             "--model", str(model), "--dataset", str(data), "--output",
+             str(root / "out")], capture_output=True, text=True, cwd=REPO,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        scores = (json.loads((root / "out" / "Easter2.json").read_text())
+                  if proc.returncode == 0 else {})
+        mean_diff = {d: abs(scores[d]["mean_cer"] - w["mean_cer"])
+                     for d, w in want["scores"].items() if d in scores}
+
+        with no_tf32(), counted_path(results, "eval_cli"):
+            evaluator = OCREvaluator(str(model / "model_config.json"),
+                                     dtype=torch.float32)
+            per_line = {
+                dist: evaluator.evaluate_distribution(dist, images,
+                                                      labels).cer_scores
+                for dist, (images, labels)
+                in collect_distributions(str(data)).items()}
+    line_diff = max(abs(per_line.get(d, {}).get(n, float("inf")) - c)
+                    for d, w in want["scores"].items()
+                    for n, c in w["per_image"].items())
+    checks = {
+        "cli_exit_0": proc.returncode == 0,
+        "bf16_mean_cer_within_0.5_points": len(mean_diff) == len(
+            want["scores"]) and max(mean_diff.values()) <= 0.005,
+        "f32_line_cer_within_0.005": line_diff <= 0.005,
+    }
+    return {"_ok": all(checks.values()), "checks": checks,
+            "bf16_mean_cer": {d: r["mean_cer"] for d, r in scores.items()},
+            "jax_f32_mean_cer": {d: w["mean_cer"]
+                                 for d, w in want["scores"].items()},
+            "bf16_mean_cer_diff": mean_diff,
+            "f32_max_line_cer_diff": line_diff, "cli_s": cli_s,
+            "stderr": proc.stderr[-400:] if proc.returncode else "",
+            "launches": results["launches"]["eval_cli"],
+            "gpu": gpu_name_and_limit()}
+
+
 MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16",
-              "eval_mode_bf16", "layout_bf16", "cli")
+              "eval_mode_bf16", "layout_bf16", "cli", "serve", "eval_cli",
+              *(f"recognizers_bf16/{arch}" for arch in RECOGNIZERS))
+# the counted paths that run only some of the kernels: the eval CLI's
+# lines are binarized whole and recognized, no page is detected
+PATH_KERNELS = {"eval_cli": ("binarize_lines",)}
+
+
+def idle_kernels(summary: dict) -> list[tuple[str, str]]:
+    """(kernel, path) pairs where a counted path that runs the kernel
+    launched it no time."""
+    return [(k["name"], path) for k in summary["kernels"]
+            for path, n in k["launches_by_path"].items()
+            if n == 0 and k["name"] in PATH_KERNELS.get(path, (k["name"],))]
 
 
 def kernels_line(results: dict) -> dict:
     """The per-kernel summary: launches and rechecked pixels over the main
     paths (bf16 page OCR, the bf16 volume, the dewarped bf16 volume, bf16
-    eval mode, the bf16 layout volume and the CLI), with each path's own
-    count;
+    eval mode, the bf16 layout volume, the CLI, the serving loop, the eval
+    CLI's evaluator and the other recognizers' bf16 volumes), with each
+    path's own count;
     time, plain time and bound at the largest shape the main paths gave
     the kernel, and the shapes each path gave it."""
     from ocr_inference_tpu_torch.ops import kernels
@@ -1771,13 +2231,17 @@ def main() -> int:
         layout_f32(results)
         layout_bf16(results)
         cli_phase(results)
+        recognizers_f32(results)
+        recognizers_bf16(results)
+        serve_phase(results)
+        eval_cli_phase(results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1
     summary = kernels_line(results)
-    if any(k["launches"] == 0 or k["max_abs_err"] != 0
-           or 0 in k["launches_by_path"].values()
-           for k in summary["kernels"]):
+    if idle_kernels(summary) or any(
+            k["launches"] == 0 or k["max_abs_err"] != 0
+            for k in summary["kernels"]):
         emit(summary)
         print("chip_smoke: a kernel did not run or disagreed", file=sys.stderr)
         return 1

@@ -159,6 +159,16 @@ class OCRModel:
 
 
 @dataclass
+class EvaluationSet:
+    """CER evaluation result set (reference: BDRC/data.py:275)."""
+
+    distribution: str
+    image_paths: list[str]
+    label_paths: list[str]
+    cer_scores: dict[str, float]
+
+
+@dataclass
 class KenLMConfig:
     """n-gram LM config (reference: BDRC/data.py:283). ``alpha``/``beta``
     are the shallow-fusion weights: fused score = alpha * ln p_lm + beta per

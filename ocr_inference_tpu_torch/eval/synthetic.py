@@ -293,3 +293,56 @@ def fixture_pages(path: str | Path) -> list[tuple[str, np.ndarray, list[str]]]:
                 img = rotate_page(img, deg)
             pages.append((str(name), img, texts))
     return pages
+
+
+# the line dataset of the eval CLI's checks: two distributions, clean lines
+# and the eval suite's degrade_03 ink dropout (cli/selftrain_cli.py:485)
+LINE_DISTRIBUTIONS = (("clean", 0.0), ("degrade_03", 0.3))
+
+
+def line_dataset(glyphs: dict, charset, seed: int = 11, per_dist: int = 24
+                 ) -> dict[str, list[tuple[str, np.ndarray, str]]]:
+    """{distribution: [(name, RGB line image, label)]}: rendered lines of
+    2-5 syllables with 40-70 px of paper on each side (a strip the
+    page pipeline cuts around a 40 px glyph line is about 150 px tall), so
+    that the images' heights vary from 120 to 180 px, degraded as
+    ``LINE_DISTRIBUTIONS`` says. A label is the line's tokens in the
+    recognizer's Wylie units with the "§" tsheg, which ``WylieEncoder``
+    reads back unchanged (a random stack's Unicode would not come back as
+    the same units)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for dist, level in LINE_DISTRIBUTIONS:
+        lines = []
+        for i in range(per_dist):
+            tokens = sample_tokens(rng, charset, n_syllables=(2, 6))
+            strip = render_line_strip(tokens, glyphs, rng)
+            top, bottom, left, right = (int(v) for v in
+                                        rng.randint(40, 71, size=4))
+            h, w = strip.shape[:2]
+            img = rng.randint(215, 250, (top + h + bottom, left + w + right,
+                                         3)).astype(np.uint8)
+            img[top: top + h, left: left + w] = strip
+            # paper within +-5 gray levels: the evaluator binarizes the
+            # whole line before the recognizer's own binarize, and paper
+            # noise wider than the threshold's 13 levels turns into specks
+            paper = rgb_to_gray(torch.from_numpy(img)).numpy() >= 128
+            img[paper] = rng.randint(228, 239, (int(paper.sum()), 3))
+            img = degrade_page(img, rng, level)
+            lines.append((f"line{i:02d}", img, "".join(tokens)))
+        out[dist] = lines
+    return out
+
+
+def write_line_dataset(root: str | Path, dataset: dict) -> None:
+    """``line_dataset`` as the eval CLI reads it: ROOT/<distribution>/
+    <name>.png with <name>.txt holding the label."""
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+
+    for dist, lines in dataset.items():
+        folder = Path(root) / dist
+        folder.mkdir(parents=True, exist_ok=True)
+        for name, img, label in lines:
+            write_png(folder / f"{name}.png", img[..., ::-1])
+            (folder / f"{name}.txt").write_text(label + "\n",
+                                                encoding="utf-8")

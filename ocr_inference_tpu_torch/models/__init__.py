@@ -1,1 +1,2 @@
-"""Networks (UNet, Easter2) and the Flax-msgpack weight reader."""
+"""Networks (UNet, DeepLabV3+, the Easter2 family, CRNN) and the
+Flax-msgpack weight reader."""

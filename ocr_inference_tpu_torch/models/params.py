@@ -12,7 +12,18 @@ decodes that format with ``struct`` alone — the card machine has neither
   ``ConvBN_10`` before ``ConvBN_2`` can misplace a layer;
 - conv kernels go HWIO -> OIHW (1-D: WIO -> OIW), dense kernels are
   transposed, BatchNorm scale/bias/mean/var become weight/bias/
-  running_mean/running_var (eps 1e-5 is set on the modules).
+  running_mean/running_var (eps 1e-5 is set on the modules), LayerNorm
+  scale becomes weight;
+- attention projections (``MultiHeadDotProductAttention_k/query|key|
+  value|out``) become Linear weights: the (C, heads, d) kernels and
+  (heads, d) biases flatten heads-major to (heads * d, C) and (heads * d,),
+  the (heads, d, C) output kernel to (C, heads * d);
+- the four GRU cells of a CRNN (``GRUCell_0..3``: layer 0 forward,
+  backward, layer 1 forward, backward) become one bidirectional two-layer
+  ``nn.GRU`` named ``BiGRU``: gates in torch's r, z, n order, the input
+  side's biases of ir/iz/in in ``bias_ih``, ``bias_hh`` zero for r and z
+  and ``hn``'s bias for n (Flax's ``r * (hn(h) + b_hn)`` is torch's
+  ``r * (W_hn h + b_hn)``).
 """
 
 from __future__ import annotations
@@ -144,6 +155,57 @@ _BN_NAMES = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+_ATTENTION_IN = ("query", "key", "value")
+_GRU = "BiGRU"
+_GATES_I, _GATES_H = ("ir", "iz", "in"), ("hr", "hz", "hn")
+
+
+def _is_attention(modules) -> bool:
+    return len(modules) >= 2 and modules[-2].startswith(
+        "MultiHeadDotProductAttention_")
+
+
+def _gru_key(prefix: list, cell: str, name: str) -> str:
+    """GRUCell_k's weight ``name`` (weight_ih, ...) -> the BiGRU key:
+    layer k // 2, the reverse direction for odd k."""
+    k = int(cell.split("_")[1])
+    suffix = f"_l{k // 2}" + ("_reverse" if k % 2 else "")
+    return ".".join(prefix + [_GRU, name + suffix])
+
+
+def _gru_params(prefix: list, cell: str, gates: dict) -> dict:
+    """One Flax GRUCell's {gate: {kernel, bias}} -> its four BiGRU
+    tensors."""
+    try:
+        w_ih = np.concatenate([gates[g]["kernel"].T for g in _GATES_I])
+        w_hh = np.concatenate([gates[g]["kernel"].T for g in _GATES_H])
+        b_ih = np.concatenate([gates[g]["bias"] for g in _GATES_I])
+        b_hn = gates["hn"]["bias"]
+    except KeyError as e:
+        raise KeyError(f"{'/'.join(prefix + [cell])}: missing {e}") from None
+    extra = set(gates) - set(_GATES_I + _GATES_H)
+    if extra or "bias" in gates["hr"] or "bias" in gates["hz"]:
+        raise KeyError(f"unmapped GRU leaves under {cell}: {sorted(extra)}")
+    b_hh = np.concatenate([np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+    return {_gru_key(prefix, cell, n): a for n, a in (
+        ("weight_ih", w_ih), ("weight_hh", w_hh), ("bias_ih", b_ih),
+        ("bias_hh", b_hh))}
+
+
+def _cells(tree: dict, prefix: tuple = ()):
+    """Split a params tree into its GRU cells ((module path, cell name,
+    gates) triples) and the rest (the tree without them)."""
+    rest, cells = {}, []
+    for k, v in tree.items():
+        if k.startswith("GRUCell_"):
+            cells.append((list(prefix), k, v))
+        elif isinstance(v, dict):
+            sub, found = _cells(v, prefix + (k,))
+            rest[k] = sub
+            cells += found
+        else:
+            rest[k] = v
+    return rest, cells
 
 
 def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
@@ -152,11 +214,22 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     ConvBN_10)."""
     out: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        for path, arr in _leaves(tree.get(collection, {})):
+        rest, cells = _cells(tree.get(collection, {}))
+        for prefix, cell, gates in cells:
+            for key, arr in _gru_params(prefix, cell, gates).items():
+                out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+        for path, arr in _leaves(rest):
             *modules, leaf = path
             owner = modules[-1] if modules else ""
-            if owner.startswith("BatchNorm_"):
+            if owner.startswith(("BatchNorm_", "LayerNorm_")):
                 name = _BN_NAMES[(collection, leaf)]
+            elif _is_attention(modules) and owner in _ATTENTION_IN:
+                name = "weight" if leaf == "kernel" else "bias"
+                arr = (arr.reshape(arr.shape[0], -1).T if leaf == "kernel"
+                       else arr.reshape(-1))
+            elif _is_attention(modules) and owner == "out" and \
+                    leaf == "kernel":
+                name, arr = "weight", arr.reshape(-1, arr.shape[-1]).T
             elif leaf == "kernel" and owner.startswith("Dense_"):
                 name, arr = "weight", arr.T
             elif leaf == "kernel":  # Conv: HWIO -> OIHW, WIO -> OIW
@@ -202,11 +275,34 @@ def load_flax_weights(module: torch.nn.Module, path: str | Path) -> None:
 _FLAX_BN = {v: k for k, v in _BN_NAMES.items()}
 
 
+def _gru_shapes(tree: dict, modules: list, name: str, shape) -> None:
+    """One BiGRU tensor's shape -> its Flax GRUCell leaves in ``tree``."""
+    kind, layer = name.rsplit("_l", 1)
+    layer, reverse = layer.split("_")[0], layer.endswith("_reverse")
+    cell = f"GRUCell_{2 * int(layer) + int(reverse)}"
+    node = tree.setdefault("params", {})
+    for m in modules[:-1]:
+        node = node.setdefault(m, {})
+    node = node.setdefault(cell, {})
+    hidden = shape[0] // 3
+    if kind == "weight_ih":
+        leaves = {g: ("kernel", (shape[1], hidden)) for g in _GATES_I}
+    elif kind == "weight_hh":
+        leaves = {g: ("kernel", (shape[1], hidden)) for g in _GATES_H}
+    elif kind == "bias_ih":
+        leaves = {g: ("bias", (hidden,)) for g in _GATES_I}
+    else:
+        leaves = {"hn": ("bias", (hidden,))}
+    for gate, (leaf, leaf_shape) in leaves.items():
+        node.setdefault(gate, {})[leaf] = leaf_shape
+
+
 def flax_shapes(module: torch.nn.Module) -> dict:
     """The Flax variable tree's shapes for one of the port's modules, the
     inverse of ``params_from_flax``: {"params": {...}, "batch_stats":
     {...}} with a shape tuple at each leaf (conv kernels HWIO / WIO, dense
-    kernels (in, out))."""
+    kernels (in, out), attention kernels (C, heads, d) / (heads, d, C),
+    GRU cells' gates (in, hidden))."""
     tree: dict = {}
     for key, t in module.state_dict().items():
         *modules, name = key.split(".")
@@ -214,8 +310,21 @@ def flax_shapes(module: torch.nn.Module) -> dict:
             continue
         shape = tuple(t.shape)
         owner = modules[-1] if modules else ""
-        if owner.startswith("BatchNorm_"):
+        if owner == _GRU:
+            _gru_shapes(tree, modules, name, shape)
+            continue
+        if owner.startswith(("BatchNorm_", "LayerNorm_")):
             collection, leaf = _FLAX_BN[name]
+        elif _is_attention(modules):
+            heads = module.get_submodule(".".join(modules[:-1])).heads
+            collection, leaf = "params", "kernel" if name == "weight" else name
+            if owner == "out":
+                if name == "weight":
+                    shape = (heads, shape[1] // heads, shape[0])
+            elif name == "weight":
+                shape = (shape[1], heads, shape[0] // heads)
+            else:
+                shape = (heads, shape[0] // heads)
         elif name == "weight" and owner.startswith("Dense_"):
             collection, leaf, shape = "params", "kernel", shape[::-1]
         elif name == "weight":  # OIHW -> HWIO, OIW -> WIO
@@ -245,17 +354,48 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
     return out.reshape(shape)
 
 
+def _orthogonal(rng: np.random.Generator, shape) -> np.ndarray:
+    """jax.nn.initializers.orthogonal() with numpy: a standard normal
+    (rows, cols) matrix (transposed first when rows < cols), Q of its QR
+    with the signs of R's diagonal, shaped back."""
+    rows, cols = int(np.prod(shape[:-1])), shape[-1]
+    a = rng.standard_normal((max(rows, cols), min(rows, cols)))
+    q, r = np.linalg.qr(a)
+    q = q * np.sign(np.diag(r))
+    if rows < cols:
+        q = q.T
+    return q.reshape(shape)
+
+
+def _fan_in(path: tuple, shape) -> int:
+    """A kernel's fan-in as Flax's initialisers count it: over the input
+    axes, which are all but the last except for an attention projection's
+    (C, heads, d) query/key/value kernel, whose input axis is the first."""
+    modules = path[1:-1]
+    if _is_attention(modules) and modules[-1] in _ATTENTION_IN:
+        return int(shape[0])
+    return int(np.prod(shape[:-1]))
+
+
 def seeded_flax_params(shapes: dict, seed: int) -> dict:
     """Weights for a model the repository has no checkpoint for, drawn
     with numpy alone so both packages can make the same ones: from
-    ``np.random.default_rng(seed)``, kernels in the sorted order of their
-    Flax paths, each from the Flax default initialiser's distribution
-    (lecun normal: a normal truncated at 2 sigma, scaled to variance
-    1/fan_in, fan_in = the kernel's size over its output axis); biases 0,
-    BatchNorm scale 1 and bias 0, running mean 0 and variance 1. ``shapes``
-    is a tree as ``flax_shapes`` gives it; the result is the same tree of
-    float32 arrays, in the Flax layout. These are not the weights the JAX
-    package's own random init (JAX's PRNG) gives."""
+    ``np.random.default_rng(seed)``, leaves in the sorted order of their
+    Flax paths, each from the distribution of the Flax module's default
+    initialiser:
+
+    - kernels of convs, Dense layers, attention projections and a GRU
+      cell's input gates (ir, iz, in): lecun normal, a normal truncated at
+      2 sigma scaled to variance 1/fan_in, fan_in over the kernel's input
+      axes (``_fan_in``);
+    - a GRU cell's recurrent kernels (hr, hz, hn): orthogonal
+      (``_orthogonal``);
+    - biases 0, BatchNorm and LayerNorm scale 1 and bias 0, running mean 0
+      and variance 1.
+
+    ``shapes`` is a tree as ``flax_shapes`` gives it; the result is the
+    same tree of float32 arrays, in the Flax layout. These are not the
+    weights the JAX package's own random init (JAX's PRNG) gives."""
     leaves = sorted(
         ((collection,) + path, shape)
         for collection in shapes
@@ -265,9 +405,12 @@ def seeded_flax_params(shapes: dict, seed: int) -> dict:
     out: dict = {}
     for path, shape in leaves:
         collection, leaf, owner = path[0], path[-1], path[-2]
-        if collection == "params" and leaf == "kernel":
-            fan_in = int(np.prod(shape[:-1]))
-            std = np.sqrt(1.0 / fan_in) / _TRUNC_STD
+        recurrent = (owner in _GATES_H and len(path) > 3
+                     and path[-3].startswith("GRUCell_"))
+        if collection == "params" and leaf == "kernel" and recurrent:
+            arr = _orthogonal(rng, shape)
+        elif collection == "params" and leaf == "kernel":
+            std = np.sqrt(1.0 / _fan_in(path, shape)) / _TRUNC_STD
             arr = _truncated_normal(rng, shape) * std
         elif (collection, leaf) in (("params", "scale"),
                                     ("batch_stats", "var")):

@@ -34,7 +34,7 @@ from ocr_inference_tpu_torch.models.params import (
     read_msgpack,
     seeded_flax_params,
 )
-from ocr_inference_tpu_torch.models.recognition import Easter2
+from ocr_inference_tpu_torch.models.recognition import build_recognizer
 from ocr_inference_tpu_torch.models.segmentation import DeepLabV3Plus, UNet
 from ocr_inference_tpu_torch.pipeline.engines import (
     RecognitionEngine,
@@ -45,7 +45,9 @@ from ocr_inference_tpu_torch.pipeline.ocr_pipeline import OCRPipeline
 # Seeded weights scale the float32 head's kernel by this gain. At the
 # Flax initialisers' own scale a fresh DeepLabV3+ gives logits within
 # about +-0.7 on binarized pages, so no pixel of any class passes the 0.8
-# softmax threshold and layout mode would run on empty masks.
+# softmax threshold and layout mode would run on empty masks. A seeded
+# recognizer reads strings of random tokens, the same in both packages;
+# with the gain its frames' top two logits lie far apart.
 SEEDED_HEAD_GAIN = 32.0
 
 
@@ -62,8 +64,9 @@ def find_weights(model_file: str) -> Path | None:
 
 def seeded_variables(model: torch.nn.Module, seed: int) -> dict:
     """Flax variables for ``model`` from ``seeded_flax_params`` (numpy
-    alone, so the JAX module can load the same arrays), the head's kernel
-    scaled by SEEDED_HEAD_GAIN."""
+    alone, so the JAX module can load the same arrays), the kernel of the
+    model's own head (``_head_name``: Conv_0 of the Easter2 family, Dense_1
+    of CRNN, the segmentation heads) scaled by SEEDED_HEAD_GAIN."""
     tree = seeded_flax_params(flax_shapes(model), seed)
     tree["params"][model._head_name]["kernel"] *= SEEDED_HEAD_GAIN
     return tree
@@ -84,9 +87,15 @@ def _load(model: torch.nn.Module, weights: Path | None, model_file: str,
 
 def _place(model: torch.nn.Module, head: str, dtype: torch.dtype,
            device: torch.device) -> torch.nn.Module:
-    """Body in ``dtype``, head in float32 (as the Flax modules), eval mode."""
+    """Body in ``dtype``, head in float32 (as the Flax modules), eval mode.
+    An RNN's weights are packed into the one buffer cuDNN reads (after a
+    move they are separate tensors, which cuDNN would copy on every
+    call)."""
     model.to(device=device, dtype=dtype)
     getattr(model, head).float()
+    for m in model.modules():
+        if isinstance(m, torch.nn.RNNBase):
+            m.flatten_parameters()
     return model.eval()
 
 
@@ -99,18 +108,20 @@ def build_recognition_engine(
     allow_random: bool = False,
     seed: int = 0,
 ) -> RecognitionEngine:
-    if config.architecture.lower() not in ("easter2", "easter2b"):
-        raise NotImplementedError(f"recognizer {config.architecture}")
+    """The recognizer of ``config.architecture`` (any name
+    ``build_recognizer`` takes) behind a RecognitionEngine. ``width_mult``,
+    ``stem_features`` and ``hidden`` come from the weight sidecar's meta
+    where it has them (builder.py:101-118); an unknown name raises
+    ValueError."""
     dev = resolve_device(device)
     weights = find_weights(config.model_file)
     meta = load_meta(weights) if weights is not None else {}
     vocab = len(config.charset) + (1 if config.add_blank else 0)
-    model = Easter2(
-        vocab,
-        input_height=config.input_height,
-        stem_features=int(meta.get("stem_features", 128)),
-        width_mult=float(meta.get("width_mult", 1.0)),
-    )
+    kwargs = {k: t(meta[k]) for k, t in (
+        ("width_mult", float), ("stem_features", int), ("hidden", int))
+        if k in meta}
+    model = build_recognizer(config.architecture, vocab,
+                             input_height=config.input_height, **kwargs)
     _load(model, weights, config.model_file, allow_random, seed,
           f"recognizer ({config.architecture})")
     return RecognitionEngine(_place(model, model._head_name, dtype, dev),

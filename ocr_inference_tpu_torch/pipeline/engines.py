@@ -16,12 +16,12 @@ host with cv2 and uploads packed bits; the kernel gives the same bytes.
   several pages' tiles as one stream (engines.py:569-636).
 - ``RecognitionEngine.run_batch``: host canvas pad per width bucket,
   batches rounded to {1, 2, 4, 8, 16, 24, ...}, line binarize kernel,
-  Easter2, greedy CTC on the card (engines.py:861-923).
+  the recognizer, greedy CTC on the card (engines.py:861-923).
 - ``RecognitionEngine`` streaming (``stream_add`` / ``stream_run``): the
   cross-window carry the volume runner feeds, batches of ``quantum`` and
   power-of-two tails only (engines.py:1076-1182).
 - ``RecognitionEngine`` eval mode (``run_batch_beams``, ``calibrate_lm``):
-  the same forward up to Easter2, whose float32 logits of the real rows
+  the same forward up to the recognizer, whose float32 logits of the real rows
   come back to the host, where the CTC prefix beam search runs, with or
   without shallow fusion of the n-gram LM (engines.py:924-1060).
 
@@ -274,15 +274,17 @@ class StreamState:
 class RecognitionEngine:
     """Batched line recognizer (reference: OCRInference,
     inference.py:279-429): canvases padded into width buckets on the host,
-    then per (bucket, batch): line binarize kernel -> [-1, 1] -> Easter2 ->
-    greedy CTC on the card, or in eval mode the logits back to the host
-    for the beam search."""
+    then per (bucket, batch): line binarize kernel -> [-1, 1] -> the
+    recognizer (any architecture of ``build_recognizer``) -> greedy CTC on
+    the card, or in eval mode the logits back to the host for the beam
+    search."""
 
     # streaming batches: full batches of this many lines, power-of-two
     # tails (engines.py:1076-1094)
     STREAM_QUANTUM = 32
-    # Every Easter2 call runs exactly this many canvases, zero rows after
-    # the real ones. cuDNN picks its algorithm by the batch size, and in
+    # Every recognizer call runs exactly this many canvases, zero rows
+    # after the real ones, whatever the architecture. cuDNN picks its
+    # algorithm by the batch size, for convolutions and RNNs alike, and in
     # bf16 another algorithm changes some lines' texts (probe_volume.py:
     # 5 of 30 lines between one call of 32 and calls of 8), so a line's text
     # would depend on the lines that share its batch. With one call size a
@@ -352,7 +354,7 @@ class RecognitionEngine:
 
     def _logits(self, host: torch.Tensor) -> torch.Tensor:
         """Queue one (B, H, W) uint8 batch, B a multiple of MODEL_BATCH:
-        upload, line binarize kernel, Easter2 in calls of MODEL_BATCH ->
+        upload, line binarize kernel, the recognizer in calls of MODEL_BATCH ->
         (B, T, V) float32 logits on the device."""
         gray = host.to(self.device, non_blocking=True)
         bw = kernels.binarize_lines(gray)
@@ -490,6 +492,11 @@ class RecognitionEngine:
             for row, idx in enumerate(idxs):
                 beams_by_idx[idx] = batch_beams[row]
         return [beams_by_idx.get(i, []) for i in range(len(line_images))]
+
+    def run(self, line_image: np.ndarray, pre_pad: bool = False) -> str:
+        """One line's greedy text (reference: inference.py:416-429;
+        engines.py:1184-1187)."""
+        return self.run_batch([line_image], pre_pad=pre_pad)[0]
 
     def run_beam_code(self, line_image: np.ndarray, pre_pad: bool = True):
         """One line's beams (reference: inference.py:400-414)."""

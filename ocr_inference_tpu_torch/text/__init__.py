@@ -1,6 +1,19 @@
-"""EWTS transliteration (copy of ocr_inference_tpu.text's converter)."""
+"""Tibetan text handling: EWTS transliteration, stack tokenization, label
+encoders (copy of ocr_inference_tpu.text)."""
 
-from ocr_inference_tpu_torch.text.ewts import to_unicode, to_wylie
+from ocr_inference_tpu_torch.text.encoders import (  # noqa: F401
+    LabelEncoder,
+    StackEncoder,
+    WylieEncoder,
+    postprocess_wylie_label,
+    preprocess_unicode,
+)
+from ocr_inference_tpu_torch.text.ewts import (  # noqa: F401
+    normalize_unicode,
+    to_unicode,
+    to_wylie,
+    tokenize_in_stacks,
+)
 
 
 class Converter:

@@ -79,6 +79,27 @@ With the argument ``layout`` it writes the JAX float32 layout-mode record
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py layout
 
+With the argument ``recognizers`` it writes the JAX float32 record of the
+other recognizers and of the eval CLI (a few minutes):
+
+    tests/data/torch_port/recognizers.json
+        The repository has no weights for Easter2-Attention, Easter2-Vit
+        or CRNN, so each runs at full width with the port's seeded weights
+        (``pipeline.builder.seeded_variables``, seed 0, the head gain
+        included), loaded into the Flax module. Per architecture and
+        fixture page, ``run_ocr``'s status, line boxes and texts behind the
+        full77f line detector; the eval CLI's line dataset (the seed and
+        size of ``eval.synthetic.line_dataset``) with the JAX ``bocr-eval``
+        per-line CERs, mean CERs and score files for full77f in float32.
+    tests/data/torch_port/recognizer_logits.npz
+        ``canvases``: four binarized (80, 512) canvases of the first
+        fixture page's lines (the port's prepare_canvas at the eval
+        canvas width, the line kernel's plain version); per architecture
+        the Flax module's float32 logits on them at the Flax
+        initialisers' scale (divided by the head gain, a power of two).
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py recognizers
+
 The JAX warp is pinned to its device path (``OCR_TPS_HOST=0``): the port
 has no host warp.
 """
@@ -117,6 +138,10 @@ LM_ARPA = WEIGHTS / "lm.arpa"
 CURVED_PAGES = 2
 # the reference CLI's layout classes (builder.py:241)
 LAYOUT_CLASSES = ["background", "image", "line", "caption", "margin"]
+# the recognizers without weights in the repository, run with seeded ones
+SEEDED_RECOGNIZERS = ("Easter2-Attention", "Easter2-Vit", "CRNN")
+RECOGNIZER_SEED, LOGIT_CANVASES = 0, 4
+LINE_DATASET_SEED, LINE_DATASET_PER_DIST = 11, 24
 
 
 def sha256(data) -> str:
@@ -157,9 +182,11 @@ def main(argv: list[str]) -> int:
         return eval_mode()
     if argv == ["layout"]:
         return layout()
+    if argv == ["recognizers"]:
+        return recognizers()
     if argv:
         raise SystemExit(f"unknown arguments {argv}; expected eval_suite, "
-                         "eval_mode or layout")
+                         "eval_mode, layout or recognizers")
     import jax
     import jax.numpy as jnp
 
@@ -402,6 +429,139 @@ def layout() -> int:
         encoding="utf-8",
     )
     np.savez_compressed(OUT / "layout_masks.npz", **masks)
+    return 0
+
+
+def seeded_recognizer_config(ocr_cls, line_cls, encoder, arch: str):
+    """full77f's recognizer config with another architecture and no
+    weights file, so that a builder given ``allow_random`` seeds it."""
+    ocr, _ = full77f_configs(ocr_cls, line_cls, encoder)
+    ocr.architecture, ocr.model_file = arch, ""
+    return ocr
+
+
+def recognizers() -> int:
+    """Write tests/data/torch_port/recognizers.json and
+    recognizer_logits.npz (see the module doc)."""
+    import functools
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
+
+    import torch
+
+    import ocr_inference_tpu.eval.evaluator as jax_evaluator
+    from ocr_inference_tpu.cli import evaluate_cli
+    from ocr_inference_tpu.core.data import (
+        CharsetEncoder, Encoding, LineDetectionConfig, OCRModelConfig,
+        OpStatus,
+    )
+    from ocr_inference_tpu.models import build_recognizer as flax_recognizer
+    from ocr_inference_tpu.pipeline.builder import build_detection_engine
+    from ocr_inference_tpu.pipeline.engines import RecognitionEngine
+    from ocr_inference_tpu.pipeline.ocr_pipeline import OCRPipeline
+    from ocr_inference_tpu_torch.core import data as port_data
+    from ocr_inference_tpu_torch.eval import synthetic as port_synth
+    from ocr_inference_tpu_torch.models.recognition import build_recognizer
+    from ocr_inference_tpu_torch.ops.kernels import binarize_lines_plain
+    from ocr_inference_tpu_torch.pipeline import PipelineObserver
+    from ocr_inference_tpu_torch.pipeline.builder import (
+        SEEDED_HEAD_GAIN, build_pipeline, seeded_variables,
+    )
+
+    class Strips(PipelineObserver):
+        strips = None
+
+        def stage_end(self, stage, payload):
+            if stage == "extract_lines":
+                self.strips = payload[1]
+
+    pages = port_synth.fixture_pages(OUT / "pages.npz")
+    # the canvases: the first page's strips on the port's CPU path at the
+    # eval canvas width, binarized by the line kernel's plain version
+    port = build_pipeline(
+        *full77f_configs(port_data.OCRModelConfig,
+                         port_data.LineDetectionConfig,
+                         port_data.CharsetEncoder.WYLIE,
+                         input_width=EVAL_CANVAS),
+        dtype=torch.float32, device="cpu")
+    obs = Strips()
+    port.run_ocr(pages[0][1], observer=obs)
+    canvases = np.stack([port.ocr_inference.prepare_canvas(s)
+                         for s in obs.strips[:LOGIT_CANVASES]])
+    bw = binarize_lines_plain(torch.from_numpy(canvases)).numpy()
+    x = bw.astype(np.float32) / 127.5 - 1.0
+    arrays = {"canvases": bw}
+
+    _, line_cfg = full77f_configs(OCRModelConfig, LineDetectionConfig,
+                                  CharsetEncoder.WYLIE)
+    det = build_detection_engine(line_cfg, dtype=jnp.float32)
+    record = {"weights": "seeded (port seeded_variables) + artifacts/full77f "
+                         "lines", "dtype": "float32", "backend": "cpu",
+              "seed": RECOGNIZER_SEED, "head_gain": SEEDED_HEAD_GAIN,
+              "input_width": INPUT_WIDTH, "logit_canvases": list(bw.shape),
+              "architectures": {}}
+    for arch in SEEDED_RECOGNIZERS:
+        cfg = seeded_recognizer_config(OCRModelConfig, LineDetectionConfig,
+                                       CharsetEncoder.WYLIE, arch)
+        vocab = len(cfg.charset) + 1
+        variables = seeded_variables(build_recognizer(arch, vocab),
+                                     RECOGNIZER_SEED)
+        model = flax_recognizer(arch, vocab, dtype=jnp.float32)
+        logits = np.asarray(model.apply(variables, x, train=False))
+        arrays[arch] = (logits / SEEDED_HEAD_GAIN).astype(np.float32)
+        pipe = OCRPipeline(RecognitionEngine(model, variables, cfg), det,
+                           line_cfg)
+        per_page = []
+        for name, img, _ in pages:
+            status, payload = pipe.run_ocr(img,
+                                           target_encoding=Encoding.WYLIE)
+            if status != OpStatus.SUCCESS:
+                raise RuntimeError(f"{arch} {name}: {payload}")
+            _, lines, ocr_lines, angle = payload
+            per_page.append({
+                "name": name,
+                "jax_f32_boxes": [list(ln.bbox.as_tuple()) for ln in lines],
+                "jax_f32_texts": [ln.text for ln in ocr_lines],
+                "jax_angle": angle,
+            })
+            print(arch, name, len(lines), "lines", file=sys.stderr)
+        record["architectures"][arch] = {"pages": per_page}
+
+    # the eval CLI on the line dataset, full77f in float32
+    glyphs, charset = port_synth.load_glyphs(OUT / "pages.npz")
+    meta = json.loads((WEIGHTS / "recognizer.msgpack.json").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        port_synth.write_line_dataset(root / "data", port_synth.line_dataset(
+            glyphs, charset, LINE_DATASET_SEED, LINE_DATASET_PER_DIST))
+        (root / "model").mkdir()
+        (root / "model" / "model_config.json").write_text(json.dumps({
+            "onnx-model": str(WEIGHTS / "recognizer.onnx"),
+            "architecture": "Easter2", "input_width": INPUT_WIDTH,
+            "input_height": 80, "input_layer": "input",
+            "output_layer": "output", "squeeze_channel_dim": "yes",
+            "swap_hw": "no", "encoder": "wylie", "charset": meta["charset"],
+            "add_blank": "yes", "version": "full77f"}))
+        jax_evaluator.build_recognition_engine = functools.partial(
+            jax_evaluator.build_recognition_engine, dtype=jnp.float32)
+        evaluate_cli.main(["--model", str(root / "model"), "--dataset",
+                           str(root / "data"), "--output", str(root / "out")])
+        record["eval_cli"] = {
+            "seed": LINE_DATASET_SEED,
+            "per_distribution": LINE_DATASET_PER_DIST,
+            "weights": "artifacts/full77f", "input_width": INPUT_WIDTH,
+            "scores": json.loads((root / "out" / "Easter2.json").read_text()),
+            "score_file": (root / "out" / "Easter2.txt").read_text(),
+        }
+    (OUT / "recognizers.json").write_text(
+        json.dumps(record, indent=1, ensure_ascii=False) + "\n",
+        encoding="utf-8",
+    )
+    np.savez_compressed(OUT / "recognizer_logits.npz", **arrays)
     return 0
 
 

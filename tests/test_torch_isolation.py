@@ -161,3 +161,67 @@ def test_layout_cli_and_reader_import_nothing_forbidden(tmp_path):
         "assert read_image({png!r}).shape == (4, 4, 3)\n"
     ).format(png=str(png))
     assert _imported(imports) == "FORBIDDEN []"
+
+
+def test_walk_covers_the_serve_and_eval_modules():
+    """The walk_packages probe above imports the serving and eval entry
+    points, the evaluator, the label encoders and the recognizers."""
+    import pkgutil
+
+    import ocr_inference_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(
+        ocr_inference_tpu_torch.__path__, "ocr_inference_tpu_torch.")}
+    assert {
+        "ocr_inference_tpu_torch.cli.serve_cli",
+        "ocr_inference_tpu_torch.cli.evaluate_cli",
+        "ocr_inference_tpu_torch.eval.evaluator",
+        "ocr_inference_tpu_torch.text.encoders",
+        "ocr_inference_tpu_torch.models.recognition",
+    } <= names
+
+
+def _model_dir(tmp_path):
+    d = tmp_path / "model"
+    d.mkdir()
+    (d / "model_config.json").write_text(
+        '{"onnx-model": "ocr.onnx", "architecture": "CRNN", "version": "1",'
+        ' "input_width": 512, "input_height": 80, "input_layer": "input",'
+        ' "output_layer": "output", "encoder": "wylie",'
+        ' "squeeze_channel_dim": "yes", "swap_hw": "no",'
+        ' "charset": "kg\'abcdefh", "add_blank": "yes"}')
+    return d
+
+
+def test_serve_and_eval_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """bocr-serve, bocr-eval and OCREvaluator default to cuda and raise
+    without a card; asked for the CPU they build."""
+    import io
+
+    import numpy as np
+
+    from ocr_inference_tpu_torch.cli import evaluate_cli, serve_cli
+    from ocr_inference_tpu_torch.eval.evaluator import OCREvaluator
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    model = _model_dir(tmp_path)
+    config = str(model / "model_config.json")
+    data = tmp_path / "data" / "dist"
+    data.mkdir(parents=True)
+    write_png(data / "l.png", np.full((50, 120, 3), 230, np.uint8))
+    (data / "l.txt").write_text("ka\n")
+    monkeypatch.setattr("sys.stdin", io.StringIO("\n"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--model", str(model), "--allow-random-weights"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_cli.main(["--model", str(model), "--dataset",
+                           str(tmp_path / "data"), "--output",
+                           str(tmp_path / "out"), "--allow-random-weights"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        OCREvaluator(config, allow_random=True)
+    assert OCREvaluator(config, allow_random=True,
+                        device="cpu").get_architecture() == "CRNN"
+    assert serve_cli.main(["--model", str(model), "--allow-random-weights",
+                           "--device", "cpu"]) == 0
