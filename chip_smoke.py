@@ -4,8 +4,9 @@ check it.
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
-geometry library, the ARPA scorer and the PNG unfilter, all started
-together), then runs eighteen phases and prints one JSON line for each:
+geometry library, the ARPA scorer and the PNG, JPEG and TIFF decoders,
+all started together), then runs nineteen phases and prints one JSON line
+for each:
 
 1. build        — seconds of each compiler; registers and spills of each
                   kernel as ptxas reports them;
@@ -124,7 +125,8 @@ together), then runs eighteen phases and prints one JSON line for each:
                   count; each page's text equals bf16 run_ocr's), then as
                   a subprocess --resume (skips every page), --line-mode
                   layout --allow-random-weights (exits 0) and a folder
-                  holding a JPEG (exits non-zero, naming it);
+                  holding an arithmetic-coded JPEG (exits non-zero, naming
+                  it);
 15. recognizers_f32 — Easter2-Attention, Easter2-Vit and CRNN at full
                   width with the seeded weights of tests/data/torch_port/
                   recognizers.json (build_pipeline's allow_random), float32,
@@ -142,10 +144,11 @@ together), then runs eighteen phases and prints one JSON line for each:
                   the float32 texts (no bar);
 17. serve       — bocr-serve (python -m ocr_inference_tpu_torch.cli
                   .serve_cli) as a process with full77f: 8 bench pages as
-                  PNG, a JPEG, a malformed line, a blank line and a request
-                  after it; one response per image, boxes equal and texts
-                  within 0.5% CER of a bf16 VolumeRunner's on the same
-                  files, the JPEG refused by name, the malformed line
+                  PNG, an arithmetic-coded JPEG, a malformed line, a blank
+                  line and a request after it; one response per image,
+                  boxes equal and texts within 0.5% CER of a bf16
+                  VolumeRunner's on the same files, the JPEG refused by
+                  name, the malformed line
                   answered, exit 0; a --max-queue 2 burst sheds with 429;
                   then the serving loop in this process over an os.pipe
                   with Poisson arrivals as bench.py config 6 drives it (24
@@ -156,12 +159,24 @@ together), then runs eighteen phases and prints one JSON line for each:
                   distributions of 24 lines, 120-180 px tall): each mean
                   CER within 0.5 points of the JAX float32 record; a
                   float32 OCREvaluator in this process, TF32 off: each
-                  line's CER within 0.005 of the record's.
+                  line's CER within 0.005 of the record's;
+19. image_formats — the committed JPEG, TIFF and Adam7 PNG files of
+                  tests/data/torch_port/images through read_image: shape
+                  and sha256 equal to cv2's decode (images.json), decode
+                  ms of each, and a 4-thread pool's decode rate against
+                  one thread; bocr --folder over the page files in float32
+                  (TF32 off): texts within 0.5% CER of the JAX float32
+                  record, the same line counts and boxes; bocr in bf16 over
+                  them, and the per-page loop's pages/s on the files
+                  against their PNG copies; bocr-lines (python -m
+                  ocr_inference_tpu_torch.cli.infer_lines_cli) in float32:
+                  every Parquet row read back equal to the JAX bocr-lines
+                  row (contours, boxes and counts exactly).
 
 Kernel launch and recheck counts are zeroed just before each OCR path is
-driven (phases 3-18) and read just after it. Then a ``kernels`` JSON line
+driven (phases 3-19) and read just after it. Then a ``kernels`` JSON line
 (per kernel: launches over the main paths, phases 5, 6, 8, 11, 13, 14, 16,
-17 and 18, and by path,
+17, 18 and 19's bf16 bocr and bocr-lines, and by path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -396,7 +411,9 @@ def build():
 
     builds = (kernels.build_library, native.build_library,
               lambda: native.build_library("arpa_lm.cpp"),
-              lambda: native.build_library("png.cpp"))
+              lambda: native.build_library("png.cpp"),
+              lambda: native.build_library("jpeg.cpp"),
+              lambda: native.build_library("tiff.cpp"))
     threads = [threading.Thread(target=guarded, args=(f,)) for f in builds]
     for t in threads:
         t.start()
@@ -1719,13 +1736,14 @@ def cli_phase(results: dict):
             for name, _, _ in pages)
 
         jpeg = page_dir / "scan.jpg"
-        jpeg.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00")
+        jpeg.write_bytes(arithmetic_jpeg())
         proc, s = script("--model", str(model), "--folder", str(page_dir),
                          "--output", str(root / "refused"))
         runs["jpeg"] = {"rc": proc.returncode, "s": s,
                         "stderr": proc.stderr[-400:]}
-        checks["jpeg_refused_by_name"] = (
-            proc.returncode != 0 and "scan.jpg (JPEG)" in proc.stderr
+        checks["arithmetic_jpeg_refused_by_name"] = (
+            proc.returncode != 0
+            and "scan.jpg (arithmetic-coded JPEG" in proc.stderr
             and not (root / "refused").exists())
     return {"_ok": all(checks.values()), "checks": checks, "runs": runs,
             "texts_equal": same,
@@ -1739,7 +1757,6 @@ RECOGNIZERS = ("Easter2-Attention", "Easter2-Vit", "CRNN")
 REC_VOLUME_PAGES = 8
 FORWARD_SHAPE = (8, 80, 1024)
 SERVE_PAGES, STREAM_PAGES, STREAM_RPS = 8, 24, 4.0
-JPEG_BYTES = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00"
 
 
 def recognizer_record() -> tuple[dict, dict]:
@@ -2007,7 +2024,7 @@ def serve_phase(results: dict):
             paths.append(str(root / f"page{i:02d}.png"))
             write_png(paths[-1], img[..., ::-1])
         jpeg = root / "scan.jpg"
-        jpeg.write_bytes(JPEG_BYTES)
+        jpeg.write_bytes(arithmetic_jpeg())
         args = ["--model", str(model), "--line-model",
                 str(lines / "config.json"), "--encoding", "wylie"]
         requests = ([json.dumps({"image": p}) for p in paths[:4]]
@@ -2040,9 +2057,9 @@ def serve_phase(results: dict):
              if p in pages])
         checks["cer_vs_volume_runner_le_0.5pct"] = served_cer <= 0.005
         refused = [a for a in answers if a.get("image") == str(jpeg)]
-        checks["jpeg_refused_by_name"] = (
+        checks["arithmetic_jpeg_refused_by_name"] = (
             len(refused) == 1 and refused[0]["status"] == "failed"
-            and "JPEG" in refused[0]["error"])
+            and "arithmetic-coded JPEG" in refused[0]["error"])
         checks["malformed_line_answered"] = any(
             "bad request" in a.get("error", "") for a in answers)
 
@@ -2130,12 +2147,199 @@ def eval_cli_phase(results: dict):
             "gpu": gpu_name_and_limit()}
 
 
+# -- the image readers, bocr on JPEG/TIFF pages and bocr-lines --
+
+IMAGE_DIR = FIXTURE / "images"
+
+
+def arithmetic_jpeg() -> bytes:
+    """A fixture JPEG with its SOF0 marker turned into SOF9: by its header
+    an arithmetic-coded JPEG, which read_image refuses by name."""
+    data = bytearray((IMAGE_DIR / "pages" / "clean_a.jpg").read_bytes())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9
+    return bytes(data)
+
+
+def decode_ms(path: Path, repeats: int = 5) -> float:
+    """Median host ms of read_image on one file."""
+    from ocr_inference_tpu_torch.io.images import read_image
+
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        read_image(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def pool_decode(paths: list[Path], workers: int) -> float:
+    """Seconds to decode ``paths`` through a thread pool of ``workers``, as
+    io/dataset.py's prefetch does."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ocr_inference_tpu_torch.io.images import read_image
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(read_image, paths))
+    return time.perf_counter() - t0
+
+
+def page_loop_s(pipe, paths: list[Path]) -> float:
+    """Seconds of read_image + run_ocr over the pages (bocr's per-page
+    work without the model load), after one warm pass."""
+    from ocr_inference_tpu_torch.core.data import Encoding
+    from ocr_inference_tpu_torch.io.images import read_image
+
+    for warm in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for path in paths:
+            pipe.run_ocr(read_image(path), merge_lines=False,
+                         target_encoding=Encoding.WYLIE)
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+@phase("image_formats")
+def image_formats(results: dict):
+    """The committed JPEG, TIFF and Adam7 PNG files of tests/data/
+    torch_port/images through read_image against cv2's decode (shape and
+    sha256 in images.json) and their decode ms; a thread pool's decode
+    rate; bocr --folder over the page files in float32 (TF32 off) against
+    the JAX float32 record (CER at most 0.5%, the same line count and
+    boxes); bocr in bf16 (counted), and the per-page loop's pages/s on the
+    files against their PNG copies; bocr-lines in float32 (counted): its
+    Parquet files, read back with read_result_parquet, equal the JAX
+    bocr-lines rows exactly."""
+    from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
+    from ocr_inference_tpu_torch.core.data import Encoding
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.io.images import read_image
+    from ocr_inference_tpu_torch.io.parquet import read_result_parquet
+
+    record = json.loads((FIXTURE / "images.json").read_text(encoding="utf-8"))
+    pages_dir = IMAGE_DIR / "pages"
+    page_paths = sorted(pages_dir.iterdir())
+    checks, files = {}, {}
+    for rel, want in record["files"].items():
+        img = read_image(IMAGE_DIR / rel)
+        files[rel] = {
+            "kind": want["kind"], "bytes": want["bytes"],
+            "shape": want["shape"],
+            "equal_cv2": img is not None and list(img.shape) == want["shape"]
+            and sha256(img) == want["sha256"],
+            "decode_ms": decode_ms(IMAGE_DIR / rel)}
+    checks["every_file_equals_cv2"] = all(f["equal_cv2"]
+                                          for f in files.values())
+    work = page_paths * 4
+    pool = {f"workers_{n}_s": pool_decode(work, n) for n in (1, 4)}
+    pool["speedup_4_over_1"] = pool["workers_1_s"] / pool["workers_4_s"]
+    pool["files"] = len(work)
+
+    per_page, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        model, lines = write_model_dirs(root)
+        args = ["--model", str(model), "--line-model", str(lines),
+                "--encoding", "wylie"]
+        t0 = time.perf_counter()
+        with no_tf32():
+            rc = cli.main(args + ["--folder", str(pages_dir), "--output",
+                                  str(root / "f32"), "--dtype", "float32"])
+        runs["bocr_f32"] = {"rc": rc, "s": time.perf_counter() - t0}
+        f32 = full77f_pipeline(torch.float32)
+        ok = rc == 0
+        with no_tf32():
+            for path in page_paths:
+                want = record["bocr"][path.name]
+                out = root / "f32" / f"{path.stem}.txt"
+                texts = out.read_text(encoding="utf-8").splitlines() \
+                    if out.is_file() else []
+                _, payload = f32.run_ocr(read_image(path), merge_lines=False,
+                                         target_encoding=Encoding.WYLIE)
+                boxes = [list(ln.bbox.as_tuple()) for ln in payload[1]]
+                page_cer = cer([" ".join(texts)],
+                               [" ".join(want["jax_f32_texts"])])
+                same = (len(texts) == len(want["jax_f32_texts"])
+                        and boxes == want["jax_f32_boxes"])
+                ok &= same and page_cer <= 0.005
+                per_page[path.name] = {"lines": len(texts),
+                                       "jax_lines": len(want["jax_f32_texts"]),
+                                       "boxes_equal": boxes ==
+                                       want["jax_f32_boxes"],
+                                       "cer_vs_jax_f32": page_cer}
+        del f32
+        checks["bocr_f32_equals_jax_record"] = ok
+
+        t0 = time.perf_counter()
+        with counted_path(results, "bocr_formats"):
+            rc = cli.main(args + ["--folder", str(pages_dir), "--output",
+                                  str(root / "bf16")])
+        runs["bocr_bf16"] = {"rc": rc, "s": time.perf_counter() - t0}
+        checks["bocr_bf16_runs"] = rc == 0 and all(
+            (root / "bf16" / f"{p.stem}.txt").is_file() for p in page_paths)
+        png_dir = root / "png"
+        png_dir.mkdir()
+        for path in page_paths:
+            write_png(png_dir / f"{path.name}.png",
+                      read_image(path)[..., ::-1])
+        bf16 = full77f_pipeline(torch.bfloat16)
+        png_paths = sorted(png_dir.iterdir())
+        runs_s = {"files": [], "png_copies": []}
+        for kind in ("files", "png_copies", "png_copies", "files"):
+            runs_s[kind].append(page_loop_s(
+                bf16, page_paths if kind == "files" else png_paths))
+        del bf16
+        loop = {f"{k}_s": v for k, v in runs_s.items()}
+        loop.update({f"{k}_pages_per_s": len(page_paths) / min(v)
+                     for k, v in runs_s.items()})
+
+        t0 = time.perf_counter()
+        with no_tf32(), counted_path(results, "bocr_lines"):
+            rc = infer_lines_cli.main([
+                "-i", str(pages_dir), "-o", str(root / "parquet"), "-c",
+                str(WEIGHTS / "lines.msgpack"), "--dtype", "float32"])
+        runs["bocr_lines_f32"] = {"rc": rc, "s": time.perf_counter() - t0}
+        rows = {}
+        for name, want in record["bocr_lines"].items():
+            path = root / "parquet" / name
+            got = read_result_parquet(path) if path.is_file() else None
+            if got is None:
+                rows[name] = {"read": False}
+                continue
+            got_contours = [[list(p) for p in c] for c in got["contours"]]
+            rows[name] = {
+                "num_contours": got["num_contours"],
+                "jax_num_contours": want["num_contours"],
+                "bboxes_equal": [list(b) for b in got["bboxes"]]
+                == want["bboxes"],
+                "contours_equal": got_contours == want["contours"],
+                "fields_equal": all(got[k] == want[k] for k in (
+                    "image_name", "image_width", "image_height",
+                    "num_contours"))}
+        checks["bocr_lines_rows_equal_jax_record"] = rc == 0 and all(
+            r.get("bboxes_equal") and r.get("contours_equal")
+            and r.get("fields_equal") for r in rows.values()) and len(
+            rows) == len(page_paths)
+    return {"_ok": all(checks.values()), "checks": checks, "files": files,
+            "pool_decode": pool, "pages": per_page, "runs": runs,
+            "page_loop_bf16": loop, "bocr_lines": rows,
+            "launches": {p: results["launches"][p]
+                         for p in ("bocr_formats", "bocr_lines")},
+            "gpu": gpu_name_and_limit()}
+
+
 MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16",
               "eval_mode_bf16", "layout_bf16", "cli", "serve", "eval_cli",
-              *(f"recognizers_bf16/{arch}" for arch in RECOGNIZERS))
+              *(f"recognizers_bf16/{arch}" for arch in RECOGNIZERS),
+              "bocr_formats", "bocr_lines")
 # the counted paths that run only some of the kernels: the eval CLI's
-# lines are binarized whole and recognized, no page is detected
-PATH_KERNELS = {"eval_cli": ("binarize_lines",)}
+# lines are binarized whole and recognized, no page is detected;
+# bocr-lines detects and reads no line
+PATH_KERNELS = {"eval_cli": ("binarize_lines",),
+                "bocr_lines": ("binarize_tiles",)}
 
 
 def idle_kernels(summary: dict) -> list[tuple[str, str]]:
@@ -2235,6 +2439,7 @@ def main() -> int:
         recognizers_bf16(results)
         serve_phase(results)
         eval_cli_phase(results)
+        image_formats(results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1

@@ -11,9 +11,10 @@ Differences from the JAX CLI:
   without a card the default raises; ``--seed`` picks the seeded weights
   that ``--allow-random-weights`` makes (pipeline/builder.py
   ``seeded_variables``);
-- pages are read with io/images.py ``read_image``, PNG only: a ``--image``
-  or ``--folder`` holding JPEG, TIFF or another format exits non-zero,
-  naming the files, before any model is loaded;
+- pages are read with io/images.py ``read_image`` (PNG, JPEG, TIFF, as
+  cv2.imread reads them): a ``--image`` or ``--folder`` holding a format or
+  variant it does not decode (BMP, WebP, an arithmetic-coded JPEG, ...)
+  exits non-zero, naming the files and why, before any model is loaded;
 - ``--mesh`` other than ``off`` exits with an error: multi-card runs are
   not ported yet (ROADMAP item 9);
 - a CUDA error ends the run with a traceback and a non-zero exit instead
@@ -39,7 +40,7 @@ from ocr_inference_tpu_torch.core.config import LINE_SORTING
 from ocr_inference_tpu_torch.core.data import ArtifactConfig, Encoding
 from ocr_inference_tpu_torch.io.artifacts import ArtifactManager, AuditLogger
 from ocr_inference_tpu_torch.io.exporter import TextExporter
-from ocr_inference_tpu_torch.io.images import image_format, read_image
+from ocr_inference_tpu_torch.io.images import read_image, unsupported
 from ocr_inference_tpu_torch.pipeline.builder import (
     build_pipeline,
     default_layout_config,
@@ -176,11 +177,10 @@ def main(argv=None):
         )
     else:
         image_paths = [args.image]
-    refused = [(p, fmt) for p in image_paths
-               if (fmt := image_format(p)) not in ("PNG", None)]
+    refused = [(p, why) for p in image_paths if (why := unsupported(p))]
     if refused:
-        sys.exit("Only PNG pages can be read so far; not supported: "
-                 + ", ".join(f"{p} ({fmt})" for p, fmt in refused))
+        sys.exit("These pages cannot be read: "
+                 + ", ".join(f"{p} ({why})" for p, why in refused))
 
     os.makedirs(args.output, exist_ok=True)
 
@@ -256,7 +256,10 @@ def main(argv=None):
         page_name = os.path.basename(img_path)
         if page_name in completed:
             continue
-        img = read_image(img_path)
+        try:
+            img = read_image(img_path)
+        except NotImplementedError as e:  # found only when decoding
+            sys.exit(str(e))
         if img is None:
             print(f"Failed to load image: {img_path}")
             if audit_logger:

@@ -18,8 +18,10 @@ Differences from the JAX CLI:
 - ``--device`` (default ``cuda``), ``--dtype`` (default ``bfloat16``) and
   ``--seed`` (of the weights ``--allow-random-weights`` makes), as the
   port's ``bocr`` has them; without a card the default device raises;
-- line images are read as PNG only: a dataset holding a JPEG or TIFF line
-  exits non-zero, naming the files, before any model is loaded;
+- line images are read with io/images.py ``read_image`` (PNG, JPEG and
+  TIFF, as cv2.imread reads them): a dataset holding a format or variant
+  it does not decode (BMP, WebP, an arithmetic-coded JPEG, ...) exits
+  non-zero, naming the files and why, before any model is loaded;
 - the JAX CLI's persistent compilation cache has no counterpart.
 """
 
@@ -88,18 +90,17 @@ def main(argv=None):
 
     from ocr_inference_tpu_torch.core.assets import get_kenlm_config
     from ocr_inference_tpu_torch.eval.evaluator import OCREvaluator
-    from ocr_inference_tpu_torch.io.images import image_format
+    from ocr_inference_tpu_torch.io.images import unsupported
 
     distributions = collect_distributions(args.dataset)
     if not distributions:
         print(f"No distributions with image/label pairs under {args.dataset}")
         sys.exit(1)
-    refused = [(p, fmt) for images, _ in distributions.values()
-               for p in images
-               if (fmt := image_format(p)) not in ("PNG", None)]
+    refused = [(p, why) for images, _ in distributions.values()
+               for p in images if (why := unsupported(p))]
     if refused:
-        sys.exit("Only PNG line images can be read so far; not supported: "
-                 + ", ".join(f"{p} ({fmt})" for p, fmt in refused))
+        sys.exit("These line images cannot be read: "
+                 + ", ".join(f"{p} ({why})" for p, why in refused))
     os.makedirs(args.output, exist_ok=True)
 
     kenlm_config = (

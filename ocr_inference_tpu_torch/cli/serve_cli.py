@@ -25,8 +25,10 @@ Differences from the JAX service:
 - ``--device`` (default ``cuda``), ``--dtype`` (default ``bfloat16``) and
   ``--seed`` (of the weights ``--allow-random-weights`` makes); without a
   card the default device raises;
-- pages are read with io/images.py ``read_image``, PNG only: a JPEG or
-  TIFF request is answered with a ``failed`` line that names the format;
+- pages are read with io/images.py ``read_image`` (PNG, JPEG and TIFF, as
+  cv2.imread reads them): a request for a format or variant it does not
+  decode (BMP, WebP, an arithmetic-coded JPEG, ...) is answered with a
+  ``failed`` line that names it;
 - a CUDA error ends the session: its last line is a ``failed`` object
   naming the fault (``"fatal": true``) and the process exits 1. CUDA
   errors are sticky, so no later request could be served;
@@ -232,8 +234,9 @@ def _record_to_json(rec) -> dict:
 
 
 def load_page(path: str):
-    """A loader for VolumeRunner: the PNG page as RGB, None when it cannot
-    be read; another format raises, naming it, and fails that page."""
+    """A loader for VolumeRunner: the page as RGB, None when it cannot be
+    read; a format or variant read_image does not decode raises, naming
+    it, and fails that page."""
     return lambda: read_image(path)
 
 

@@ -7,7 +7,9 @@ distribution through the bucketed recognition engine in device batches.
 
 Differences from the JAX evaluator:
 
-- line images are read with io/images.py ``read_image`` (PNG only);
+- line images are read with io/images.py ``read_image`` (PNG, JPEG and
+  TIFF, as cv2.imread reads them; other formats raise NotImplementedError
+  naming them);
 - the whole-line binarize, which the JAX evaluator runs on the host with
   cv2 (``ops_host.binarize_host``), runs on the card: the port's cv2-exact
   ``rgb_to_gray``, then the line kernel (``kernels.binarize_lines``) on a

@@ -31,8 +31,17 @@ from ocr_inference_tpu_torch.ops.imaging import (
 
 PAPER = 235
 
+# the 35 base Wylie units, the JAX generator's default charset
+# (eval/synthetic.py:27)
+WYLIE_CHARSET: tuple[str, ...] = (
+    "k", "kh", "g", "ng", "c", "ch", "j", "ny", "t", "th", "d", "n",
+    "p", "ph", "b", "m", "ts", "tsh", "dz", "w", "zh", "z", "'", "y",
+    "r", "l", "sh", "s", "h", "a", "i", "u", "e", "o", "§",
+)
 
-def sample_tokens(rng: np.random.RandomState, charset, n_syllables=(4, 10),
+
+def sample_tokens(rng: np.random.RandomState, charset=WYLIE_CHARSET,
+                  n_syllables=(4, 10),
                   syllable_len=(1, 4)) -> list[str]:
     """Random token sequence with "§" separators between syllables."""
     units = [t for t in charset if t != "§"]
@@ -50,7 +59,8 @@ class MarkovSampler:
     (eval/synthetic.py:129-175): each token allows only ``fanout``
     successors, fixed per seed, the first drawn about half of the time."""
 
-    def __init__(self, charset, fanout: int = 4, seed: int = 1234):
+    def __init__(self, charset=WYLIE_CHARSET, fanout: int = 4,
+                 seed: int = 1234):
         self.charset = charset
         units = [t for t in charset if t != "§"]
         self.units = units
@@ -100,21 +110,25 @@ def render_line_strip(tokens, glyphs: dict, rng: np.random.RandomState,
     return strip
 
 
-def render_page(rng: np.random.RandomState, glyphs: dict, charset,
-                n_lines=(4, 7), page_w=1024, margin=48, gap=(50, 90),
-                n_syllables=(4, 10), syllable_len=(1, 4),
-                align="random") -> tuple[np.ndarray, list[str]]:
+def render_page(rng: np.random.RandomState, glyphs: dict,
+                charset=WYLIE_CHARSET, n_lines=(4, 7), page_w=1024, margin=48,
+                gap=(50, 90), n_syllables=(4, 10), syllable_len=(1, 4),
+                align="random", token_sampler=None
+                ) -> tuple[np.ndarray, list[str]]:
     """A pecha-like page -> (RGB uint8 image, per-line texts in reading
-    order); eval/synthetic.py render_page with uniform token sampling."""
+    order); eval/synthetic.py render_page. ``token_sampler`` (default
+    ``sample_tokens``; a ``MarkovSampler`` gives markov text) draws each
+    line's tokens as ``sampler(rng, charset, n_syllables, syllable_len)``."""
     h_line = next(iter(glyphs.values())).shape[0]
     n = int(rng.randint(*n_lines))
     pitch = h_line + int(rng.randint(*gap))
     page_h = 2 * margin + n * pitch
     page = rng.randint(215, 250, (page_h, page_w, 3)).astype(np.uint8)
     texts: list[str] = []
+    sampler = token_sampler or sample_tokens
     max_w = page_w - 2 * margin
     for i in range(n):
-        tokens = sample_tokens(rng, charset, n_syllables, syllable_len)
+        tokens = sampler(rng, charset, n_syllables, syllable_len)
         strip = render_line_strip(tokens, glyphs, rng)
         while strip.shape[1] > max_w and len(tokens) > 2:
             tokens = tokens[: max(len(tokens) - 3, 2)]

@@ -30,9 +30,27 @@ def line_threshold(mask: np.ndarray, slice_width: int = 20) -> float:
     return native.line_threshold(mask, slice_width)
 
 
-def bounding_rect(points: np.ndarray) -> tuple[int, int, int, int]:
-    """(x, y, w, h) of a contour's points (cv2.boundingRect)."""
-    return native.bounding_rect(np.asarray(points))
+def _is_point_array(arr: np.ndarray) -> bool:
+    """Contours are (N, 1, 2) or (N, 2) integer point lists; 2-D uint8 or
+    float arrays are images (geometry/backend.py:78-84)."""
+    if arr.ndim == 3:
+        return True
+    return arr.ndim == 2 and arr.shape[1] == 2 and arr.dtype.kind in "iu" \
+        and arr.dtype.itemsize >= 2
+
+
+def bounding_rect(points_or_mask: np.ndarray) -> tuple[int, int, int, int]:
+    """(x, y, w, h) of a contour's points, or of the nonzero pixels of a
+    2-D image (cv2.boundingRect accepts both)."""
+    arr = np.asarray(points_or_mask)
+    if _is_point_array(arr):
+        return native.bounding_rect(arr)
+    rows = np.flatnonzero(arr.any(axis=1))
+    cols = np.flatnonzero(arr.any(axis=0))
+    if rows.size == 0:
+        return (0, 0, 0, 0)
+    return (int(cols[0]), int(rows[0]), int(cols[-1] - cols[0] + 1),
+            int(rows[-1] - rows[0] + 1))
 
 
 def convex_hull(points: np.ndarray) -> np.ndarray:

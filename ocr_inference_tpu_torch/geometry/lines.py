@@ -90,11 +90,16 @@ def build_line_data(contour: np.ndarray, optimize: bool = True) -> Line:
 
 
 def build_raw_line_data(
-    image: np.ndarray, line_mask: np.ndarray, rot_threshold: float = 0.5
+    image: np.ndarray, line_mask: np.ndarray, rot_threshold: float = 0.5,
+    rgb_mask: bool = True,
 ):
     """Deskew + contour extraction (reference: line_detection.py:212-244;
     the |angle| gate of geometry/lines.py:170-175). Returns
-    (rotated_image, rotated mask, contours, angle) for a 2-D mask."""
+    (rotated_image, rotated mask, contours, angle). A 3-channel mask is
+    read as BGR and made gray first; ``rgb_mask=True`` (the JAX default)
+    returns the mask in 3 channels, and the pipeline passes False."""
+    if line_mask.ndim == 3:
+        line_mask = bgr_to_gray(line_mask)
     angle = calculate_rotation_angle_from_lines(line_mask)
     if abs(angle) > rot_threshold:
         out_mask = rotate_from_angle(line_mask, angle)
@@ -104,6 +109,8 @@ def build_raw_line_data(
     line_contours = [
         x for x in get_contours(out_mask) if geo.contour_area(x) > 10
     ]
+    if rgb_mask:
+        out_mask = np.repeat(out_mask[..., None], 3, axis=2)
     return out_img, out_mask, line_contours, angle
 
 
@@ -318,12 +325,16 @@ def group_line_chunks(sorted_bbox_centers, lines: list[Line]) -> list[Line]:
 def sort_lines_by_threshold(
     line_mask: np.ndarray,
     lines: list[Line],
+    threshold: float = 20,
+    calculate_threshold: bool = True,
     group_lines: bool = True,
 ) -> tuple[list[Line], float]:
-    """Reading-order sort with the slice-vote threshold + optional chunk
-    merge (reference: line_detection.py:551-634)."""
+    """Reading-order sort with the slice-vote threshold (or ``threshold``
+    when ``calculate_threshold`` is False) + optional chunk merge
+    (reference: line_detection.py:551-634)."""
     centers = [line.center for line in lines]
-    threshold = geo.line_threshold(line_mask)
+    if calculate_threshold:
+        threshold = geo.line_threshold(line_mask)
     sorted_centers = sort_bbox_centers(centers, line_threshold=threshold)
     if group_lines:
         new_lines = group_line_chunks(sorted_centers, lines)

@@ -1,11 +1,13 @@
 """Native (C++) libraries, counterpart of ocr_inference_tpu/native: the
-geometry library, the ARPA LM scorer and the PNG unfilter.
+geometry library, the ARPA LM scorer, and the image decoders' pixel loops
+(the PNG unfilter, JPEG, the TIFF codecs).
 
 ``geometry.cpp`` is the port's own copy of the JAX package's library plus
 ``ocr_fill_contour`` (the filled-contour rasterizer that replaces
 cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer;
-``png.cpp`` undoes PNG's scanline filters for the port's PNG reader
-(io/images.py), which replaces cv2.imread.
+``png.cpp`` undoes PNG's scanline filters, ``jpeg.cpp`` decodes JPEG and
+``tiff.cpp`` holds the TIFF LZW, PackBits and CCITT decoders, for the
+port's image reader (io/images.py), which replaces cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
 (named by the source's hash) and loads through ctypes. There is no
 fallback: if a build fails, this raises."""
@@ -29,6 +31,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 _LIB: ctypes.CDLL | None = None
 _ARPA_LIB: ctypes.CDLL | None = None
 _PNG_LIB: ctypes.CDLL | None = None
+_JPEG_LIB: ctypes.CDLL | None = None
+_TIFF_LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: dict[str, float] = {}
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -39,7 +43,7 @@ _F64P = ctypes.POINTER(ctypes.c_double)
 
 
 def build_library(source: str = "geometry.cpp") -> Path:
-    """Compile ``source`` (geometry.cpp, arpa_lm.cpp or png.cpp) into
+    """Compile ``source`` (a .cpp file of this directory) into
     _build/libocr_<stem>-<hash>.so once per source content and return its
     path; raises if g++ fails. ``BUILD_SECONDS[source]`` records the
     compile time of a build this process made."""
@@ -367,4 +371,83 @@ def png_unfilter(data: np.ndarray, h: int, row_bytes: int,
                                    bpp, out.ctypes.data_as(_U8P))
     if rc < 0:
         raise ValueError(f"unknown PNG filter type on row {-1 - rc}")
+    return out
+
+
+def _jpeg_lib() -> ctypes.CDLL:
+    global _JPEG_LIB
+    if _JPEG_LIB is None:
+        _JPEG_LIB = _load("jpeg.cpp", {
+            "ocr_jpeg_header": (ctypes.c_int, [_U8P, ctypes.c_int64, _I32P]),
+            "ocr_jpeg_decode": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, _U8P, ctypes.c_int64]),
+        })
+    return _JPEG_LIB
+
+
+def jpeg_header(data: bytes) -> tuple[int, tuple[int, int, int]]:
+    """(status, (width, height, components)) of a JPEG file's first frame
+    from its headers; status is jpeg.cpp's JPEG_* code (0 ok, 1 a file
+    cv2.imread cannot read, 2 and up a variant not decoded here)."""
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(4, np.int32)
+    rc = _jpeg_lib().ocr_jpeg_header(buf.ctypes.data_as(_U8P), buf.size,
+                                     info.ctypes.data_as(_I32P))
+    return rc, (int(info[0]), int(info[1]), int(info[2]))
+
+
+def jpeg_decode(data: bytes) -> tuple[int, np.ndarray | None]:
+    """Decode a JPEG file's bytes with jpeg.cpp: (0, (H, W, 3) uint8 RGB or
+    (H, W, 1) gray) or (status, None) as ``jpeg_header`` gives it, status
+    6 meaning a progressive file whose blocks libjpeg would smooth. ctypes
+    releases the GIL for the call."""
+    rc, (w, h, nc) = jpeg_header(data)
+    if rc:
+        return rc, None
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w, 1 if nc == 1 else 3), np.uint8)
+    rc = _jpeg_lib().ocr_jpeg_decode(buf.ctypes.data_as(_U8P), buf.size,
+                                     out.ctypes.data_as(_U8P), out.size)
+    return (rc, None) if rc else (0, out)
+
+
+def _tiff_lib() -> ctypes.CDLL:
+    global _TIFF_LIB
+    if _TIFF_LIB is None:
+        coder = (ctypes.c_int64, [_U8P, ctypes.c_int64, _U8P, ctypes.c_int64])
+        _TIFF_LIB = _load("tiff.cpp", {
+            "ocr_tiff_lzw": coder,
+            "ocr_tiff_packbits": coder,
+            "ocr_tiff_fax": (ctypes.c_int64, [
+                _U8P, ctypes.c_int64, _U8P, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+        })
+    return _TIFF_LIB
+
+
+def tiff_unpack(method: str, data: bytes, size: int) -> np.ndarray:
+    """Decompress one TIFF strip or tile with tiff.cpp: ``method`` "lzw" or
+    "packbits", ``size`` the bytes expected. Returns the bytes decoded (at
+    most ``size``); bad LZW codes raise ValueError."""
+    fn = getattr(_tiff_lib(), f"ocr_tiff_{method}")
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(size, np.uint8)
+    n = fn(src.ctypes.data_as(_U8P), src.size, out.ctypes.data_as(_U8P), size)
+    if n < 0:
+        raise ValueError(f"bad {method} data")
+    return out[:n]
+
+
+def tiff_fax(data: bytes, width: int, rows: int, compression: int,
+             g3opts: int, fill_order: int) -> np.ndarray:
+    """CCITT-decode one strip or tile (compression 2, 3 or 4) into
+    (rows, (width + 7) // 8) packed bits, 1 = black; data that ends early
+    or holds a bad code raises ValueError."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((rows, (width + 7) // 8), np.uint8)
+    n = _tiff_lib().ocr_tiff_fax(src.ctypes.data_as(_U8P), src.size,
+                                 out.ctypes.data_as(_U8P), width, rows,
+                                 compression, g3opts, fill_order)
+    if n != rows:
+        raise ValueError(f"CCITT data ends at row {n} of {rows}")
     return out

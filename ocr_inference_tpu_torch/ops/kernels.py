@@ -189,9 +189,13 @@ def _ready(device: torch.device) -> ctypes.CDLL:
                     f"ocr_binarize_init failed: CUDA error {err}")
             _SMS[device.index] = torch.cuda.get_device_properties(
                 device).multi_processor_count
-            for name in LAUNCHES:
-                _COUNTERS[(name, device.index)] = torch.zeros(
-                    1, dtype=torch.int64, device=device)
+            # normal tensors even when the first launch comes from inside
+            # an engine's inference_mode: reset_rechecked zeroes them in
+            # place from outside it
+            with torch.inference_mode(False):
+                for name in LAUNCHES:
+                    _COUNTERS[(name, device.index)] = torch.zeros(
+                        1, dtype=torch.int64, device=device)
             # the counters are zeroed on this thread's stream; the other
             # thread's stream may launch next
             torch.cuda.synchronize(device)

@@ -11,6 +11,11 @@ Stem-2 UNets get the 2% horizontal opening (builder.py:110). A
 ``allow_random=True`` builds a model that has no weights file with seeded
 weights (``seeded_variables``); without it a missing file raises
 ``FileNotFoundError``. The ONNX executor is not part of this port.
+
+The builders take the JAX positional order (builder.py:76, :131, :197);
+the port's ``device`` and ``seed`` come after it. ``mesh`` is accepted
+for that order only: the port has no mesh, and a mesh other than None
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -99,13 +104,20 @@ def _place(model: torch.nn.Module, head: str, dtype: torch.dtype,
     return model.eval()
 
 
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the port runs on one card; a device mesh "
+                                  "is not supported")
+
+
 def build_recognition_engine(
     config: OCRModelConfig,
     kenlm_config: KenLMConfig | None = None,
     batch_cfg: BatchConfig | None = None,
-    dtype: torch.dtype = torch.bfloat16,
-    device: str | torch.device | None = None,
     allow_random: bool = False,
+    dtype: torch.dtype = torch.bfloat16,
+    mesh=None,
+    device: str | torch.device | None = None,
     seed: int = 0,
 ) -> RecognitionEngine:
     """The recognizer of ``config.architecture`` (any name
@@ -113,6 +125,7 @@ def build_recognition_engine(
     ``stem_features`` and ``hidden`` come from the weight sidecar's meta
     where it has them (builder.py:101-118); an unknown name raises
     ValueError."""
+    _no_mesh(mesh)
     dev = resolve_device(device)
     weights = find_weights(config.model_file)
     meta = load_meta(weights) if weights is not None else {}
@@ -130,15 +143,17 @@ def build_recognition_engine(
 
 def build_detection_engine(
     config: LineDetectionConfig | LayoutDetectionConfig,
-    dtype: torch.dtype = torch.bfloat16,
-    device: str | torch.device | None = None,
     allow_random: bool = False,
+    dtype: torch.dtype = torch.bfloat16,
+    mesh=None,
+    device: str | torch.device | None = None,
     seed: int = 0,
 ) -> SegmentationEngine:
     is_layout = isinstance(config, LayoutDetectionConfig)
     arch = config.architecture.lower()
     if not (is_layout or arch.startswith(("unet", "deeplab"))):
         raise NotImplementedError(f"detector {config.architecture}")
+    _no_mesh(mesh)
     dev = resolve_device(device)
     weights = find_weights(config.onnx_file)
     n_classes = len(config.classes) if is_layout else 1
@@ -166,10 +181,11 @@ def build_pipeline(
     line_config: LineDetectionConfig | LayoutDetectionConfig,
     kenlm_config: KenLMConfig | None = None,
     batch_cfg: BatchConfig | None = None,
+    allow_random: bool = False,
+    use_line_prepadding: bool = False,
+    mesh=None,
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device | None = None,
-    use_line_prepadding: bool = False,
-    allow_random: bool = False,
     seed: int = 0,
 ) -> OCRPipeline:
     """Page pipeline from configs (reference: OCRPipeline ctor,
@@ -180,9 +196,9 @@ def build_pipeline(
     ``calibrate_lm`` use. ``allow_random`` gives a model without a weights
     file the seeded weights of ``seed``."""
     rec = build_recognition_engine(ocr_config, kenlm_config, batch_cfg,
-                                   dtype, device, allow_random, seed)
-    det = build_detection_engine(line_config, dtype, device, allow_random,
-                                 seed)
+                                   allow_random, dtype, mesh, device, seed)
+    det = build_detection_engine(line_config, allow_random, dtype, mesh,
+                                 device, seed)
     return OCRPipeline(rec, det, line_config, use_line_prepadding)
 
 

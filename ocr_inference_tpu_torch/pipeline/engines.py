@@ -493,9 +493,11 @@ class RecognitionEngine:
                 beams_by_idx[idx] = batch_beams[row]
         return [beams_by_idx.get(i, []) for i in range(len(line_images))]
 
-    def run(self, line_image: np.ndarray, pre_pad: bool = False) -> str:
+    def run(self, line_image: np.ndarray, pre_pad: bool = False,
+            use_lm: bool = False) -> str:
         """One line's greedy text (reference: inference.py:416-429;
-        engines.py:1184-1187)."""
+        engines.py:1184-1187). ``use_lm`` is taken and ignored, as the JAX
+        engine does."""
         return self.run_batch([line_image], pre_pad=pre_pad)[0]
 
     def run_beam_code(self, line_image: np.ndarray, pre_pad: bool = True):

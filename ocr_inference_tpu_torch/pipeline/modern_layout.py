@@ -7,9 +7,11 @@ the page on the card) in groups of ``predict_many_batched``, then each
 class's contours are unioned into one bbox and written as
 ``{class: {bbox: {x, y, w, h}}}`` JSON per page.
 
-Pages are read with io/images.py ``read_image``: PNG only. A directory
-holding pages of another format (JPEG, TIFF, ...) raises
-NotImplementedError naming them before any page is run.
+Pages are read with io/images.py ``read_image`` (PNG and JPEG by the JAX
+runner's glob, as cv2.imread reads them). A directory holding a page of
+a format or variant it does not decode (an arithmetic-coded JPEG, a BMP
+named .jpg, ...) raises NotImplementedError naming it before any page is
+run.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from ocr_inference_tpu_torch.core.assets import get_filename
 from ocr_inference_tpu_torch.core.data import LayoutDetectionConfig
 from ocr_inference_tpu_torch.geometry import backend as geo
 from ocr_inference_tpu_torch.geometry import get_union_bbox
-from ocr_inference_tpu_torch.io.images import image_format, read_image
+from ocr_inference_tpu_torch.io.images import read_image, unsupported
 from ocr_inference_tpu_torch.pipeline.engines import SegmentationEngine
 
 
@@ -114,10 +116,10 @@ class ModernBookFormatLayoutDetection:
             for p in glob(os.path.join(directory, "*"))
             if p.lower().endswith((".jpg", ".png", ".jpeg"))
         )
-        refused = [p for p in paths if image_format(p) not in ("PNG", None)]
+        refused = [f"{p} ({why})" for p in paths if (why := unsupported(p))]
         if refused:
             raise NotImplementedError(
-                f"only PNG pages are read so far; not supported: {refused}")
+                "these pages cannot be read: " + ", ".join(refused))
         os.makedirs(output_dir, exist_ok=True)
 
         results = {}

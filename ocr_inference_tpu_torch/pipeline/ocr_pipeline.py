@@ -146,7 +146,7 @@ class OCRPipeline:
         """Stage 2: deskew + contours (reference: inference.py:508-533)."""
         image = np.ascontiguousarray(image)
         rot_img, rot_mask, line_contours, page_angle = build_raw_line_data(
-            image, line_mask
+            image, line_mask, rgb_mask=False
         )
         if len(line_contours) == 0:
             return OpStatus.FAILED, "No lines detected"
@@ -202,7 +202,7 @@ class OCRPipeline:
                 stream=stream,
             )
         dew_rot_img, dew_rot_mask, line_contours, new_page_angle = (
-            build_raw_line_data(dewarped_img, dewarped_mask)
+            build_raw_line_data(dewarped_img, dewarped_mask, rgb_mask=False)
         )
         new_filtered = filter_line_contours(dew_rot_mask, line_contours)
 

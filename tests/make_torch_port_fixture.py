@@ -100,6 +100,38 @@ other recognizers and of the eval CLI (a few minutes):
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py recognizers
 
+With the argument ``images`` it writes the encoded page files the port's
+image readers are held to on the card (the card machine has neither cv2
+nor PIL, so the files are committed), and the JAX record of them (a few
+minutes):
+
+    tests/data/torch_port/images/pages/
+        the fixture pages as cv2 and PIL write them: clean_a.jpg (q90,
+        4:2:0, baseline), clean_b.jpg (q90, 4:4:4, progressive),
+        skew_2deg.jpg (gray, q90, restart interval 4), clean_b_exif6.jpg
+        (stored turned a quarter left, EXIF orientation 6), clean_a_lzw.tif
+        (LZW, predictor 2, RGB), skew_2deg_g4.tif (Group 4 of the page
+        thresholded at 128), clean_b_tiled16.tif (256x256 tiles, Deflate,
+        predictor 2, 16-bit gray), clean_a_adam7.png (Adam7, RGB, written
+        by tests/image_writers.py). All but clean_a.jpg hold the page with
+        its paper and ink flattened to 235 and 40 (``flat_page``): the
+        paper noise of the synthetic pages would make the lossless files
+        megabytes;
+    tests/data/torch_port/images/bench_cfg4.jpg
+        bench.py config 4's first page (chip_smoke.bench_page, 1600x2640,
+        seed 42) as a baseline 4:2:0 JPEG at the highest quality that
+        keeps it under 400 KB (``BENCH_JPEG_QUALITY``);
+    tests/data/torch_port/images.json
+        per file its size, sha256 and cv2's decode (``cvtColor(imread,
+        BGR2RGB)``: shape and sha256); per page file the JAX float32 CPU
+        ``bocr`` record: the texts of the JAX CLI (``--encoding wylie``,
+        full77f, float32) and the line boxes of ``run_ocr`` with the CLI's
+        options on cv2's decode; and the rows of the JAX ``bocr-lines``
+        (float32, artifacts/full77f/lines.msgpack, threshold 0.85) over the
+        pages folder, as pyarrow reads its Parquet files.
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py images
+
 The JAX warp is pinned to its device path (``OCR_TPS_HOST=0``): the port
 has no host warp.
 """
@@ -184,9 +216,11 @@ def main(argv: list[str]) -> int:
         return layout()
     if argv == ["recognizers"]:
         return recognizers()
+    if argv == ["images"]:
+        return images()
     if argv:
         raise SystemExit(f"unknown arguments {argv}; expected eval_suite, "
-                         "eval_mode, layout or recognizers")
+                         "eval_mode, layout, recognizers or images")
     import jax
     import jax.numpy as jnp
 
@@ -752,6 +786,170 @@ def eval_suite() -> int:
         json.dumps(record, indent=0, ensure_ascii=False) + "\n",
         encoding="utf-8",
     )
+    return 0
+
+
+
+IMAGES = OUT / "images"
+BENCH_JPEG_QUALITY = 0  # set by images(): the quality bench_cfg4.jpg has
+
+
+def flat_page(img):
+    """A fixture page as a clean scan: paper 235, ink 40."""
+    ink = img.astype(np.int32).mean(axis=2) <= 128
+    return np.where(ink[..., None], 40, 235).astype(np.uint8).repeat(3, 2)
+
+
+def write_image_files(pages) -> dict[str, str]:
+    """Write the page files and the bench JPEG; returns {file: kind}."""
+    import cv2
+    from PIL import Image
+
+    from tests.image_writers import write_adam7_png, write_tiff
+    import chip_smoke
+
+    by_name = {name: img for name, img, _ in pages}
+    flat = {name: flat_page(img) for name, img in by_name.items()}
+    folder = IMAGES / "pages"
+    folder.mkdir(parents=True, exist_ok=True)
+    for old in folder.iterdir():
+        old.unlink()
+    kinds = {}
+
+    def jpg(name, img, kind, *params):
+        assert cv2.imwrite(str(folder / name), img, list(params))
+        kinds[name] = kind
+
+    jpg("clean_a.jpg", by_name["clean_a"][..., ::-1],
+        "JPEG q90 4:2:0 baseline", cv2.IMWRITE_JPEG_QUALITY, 90,
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x221111)
+    jpg("clean_b.jpg", flat["clean_b"], "JPEG q90 4:4:4 progressive",
+        cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+        0x111111, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    jpg("skew_2deg.jpg", flat["skew_2deg"][..., 0],
+        "JPEG q90 gray, restart interval 4", cv2.IMWRITE_JPEG_QUALITY, 90,
+        cv2.IMWRITE_JPEG_RST_INTERVAL, 4)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    Image.fromarray(np.ascontiguousarray(np.rot90(flat["clean_b"], 1))).save(
+        folder / "clean_b_exif6.jpg", "JPEG", quality=90, exif=exif.tobytes())
+    kinds["clean_b_exif6.jpg"] = "JPEG q90 (PIL), EXIF orientation 6"
+    Image.fromarray(flat["clean_a"]).save(
+        folder / "clean_a_lzw.tif", compression="tiff_lzw",
+        tiffinfo={317: 2})
+    kinds["clean_a_lzw.tif"] = "TIFF LZW, predictor 2, RGB"
+    Image.fromarray(flat["skew_2deg"][..., 0]).point(
+        lambda v: 255 if v > 128 else 0).convert("1").save(
+        folder / "skew_2deg_g4.tif", compression="group4")
+    kinds["skew_2deg_g4.tif"] = "TIFF CCITT Group 4, bitonal"
+    write_tiff(folder / "clean_b_tiled16.tif", [dict(
+        samples=flat["clean_b"][..., :1].astype(np.uint16) * 257, bits=16,
+        photometric=1, compression=8, predictor=2, tile=(256, 256))])
+    kinds["clean_b_tiled16.tif"] = "TIFF 256x256 tiles, Deflate, " \
+        "predictor 2, 16-bit gray"
+    write_adam7_png(folder / "clean_a_adam7.png", flat["clean_a"], 2, 8)
+    kinds["clean_a_adam7.png"] = "PNG Adam7, RGB"
+
+    global BENCH_JPEG_QUALITY
+    bench = chip_smoke.bench_page(42)[..., ::-1]
+    for quality in range(90, 0, -5):
+        ok, data = cv2.imencode(".jpg", bench,
+                                [cv2.IMWRITE_JPEG_QUALITY, quality])
+        if data.size <= 400 * 1024:
+            break
+    BENCH_JPEG_QUALITY = quality
+    (IMAGES / "bench_cfg4.jpg").write_bytes(data.tobytes())
+    kinds["bench_cfg4.jpg"] = f"JPEG q{quality} 4:2:0 baseline, " \
+        "bench.py config 4 page"
+    return kinds
+
+
+def images() -> int:
+    """Write tests/data/torch_port/images/ and images.json (see the
+    module doc)."""
+    import functools
+
+    import cv2
+    import jax
+    import jax.numpy as jnp
+    import pyarrow.parquet as pq
+    import tempfile
+
+    jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
+    from ocr_inference_tpu.cli import cli as jax_cli
+    from ocr_inference_tpu.cli import infer_lines_cli as jax_lines_cli
+    from ocr_inference_tpu.core.data import (
+        CharsetEncoder, Encoding, LineDetectionConfig, OCRModelConfig,
+        OpStatus,
+    )
+    from ocr_inference_tpu.pipeline import builder as jax_builder
+    from ocr_inference_tpu_torch.eval.synthetic import fixture_pages
+    from ocr_inference_tpu_torch.io.images import read_image
+    import chip_smoke
+
+    pages = fixture_pages(OUT / "pages.npz")
+    kinds = write_image_files(pages)
+    files = sorted((IMAGES / "pages").iterdir()) + [IMAGES / "bench_cfg4.jpg"]
+    total = sum(p.stat().st_size for p in files)
+    assert total < 800 * 1024, f"{total} bytes of image files"
+    record = {"bench_jpeg_quality": BENCH_JPEG_QUALITY, "files": {},
+              "bocr": {}, "bocr_lines": {}}
+    for path in files:
+        rel = str(path.relative_to(IMAGES))
+        img = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
+        assert np.array_equal(read_image(path), img), rel
+        record["files"][rel] = {
+            "kind": kinds[path.name], "bytes": path.stat().st_size,
+            "file_sha256": hashlib.sha256(path.read_bytes()).hexdigest(),
+            "shape": list(img.shape), "sha256": sha256(img)}
+        print(rel, img.shape, path.stat().st_size, file=sys.stderr)
+
+    ocr_cfg, line_cfg = full77f_configs(OCRModelConfig, LineDetectionConfig,
+                                        CharsetEncoder.WYLIE)
+    pipe = jax_builder.build_pipeline(ocr_cfg, line_cfg, dtype=jnp.float32)
+    f32_build = functools.partial(jax_builder.build_pipeline,
+                                  dtype=jnp.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        model, lines = chip_smoke.write_model_dirs(tmp)
+        jax_cli.build_pipeline = f32_build
+        rc = jax_cli.main(["--model", str(model), "--folder",
+                           str(IMAGES / "pages"), "--output",
+                           str(tmp / "out"), "--line-model", str(lines),
+                           "--encoding", "wylie"])
+        assert rc == 0, rc
+        for path in sorted((IMAGES / "pages").iterdir()):
+            img = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
+            status, payload = pipe.run_ocr(img, merge_lines=False,
+                                           target_encoding=Encoding.WYLIE)
+            assert status == OpStatus.SUCCESS, path.name
+            _, found, ocr_lines, angle = payload
+            text = (tmp / "out" / f"{path.stem}.txt").read_text(
+                encoding="utf-8")
+            assert text == "".join(f"{ln.text}\n" for ln in ocr_lines), \
+                path.name
+            record["bocr"][path.name] = {
+                "jax_f32_texts": [ln.text for ln in ocr_lines],
+                "jax_f32_boxes": [list(ln.bbox.as_tuple()) for ln in found],
+                "jax_angle": angle}
+            print(path.name, len(ocr_lines), "lines", file=sys.stderr)
+        jax_lines_cli.build_detection_engine = functools.partial(
+            jax_builder.build_detection_engine, dtype=jnp.float32)
+        rc = jax_lines_cli.main(["-i", str(IMAGES / "pages"), "-o",
+                                 str(tmp / "parquet"), "-c",
+                                 str(WEIGHTS / "lines.msgpack"),
+                                 "--device", "cpu"])
+        assert rc == 0, rc
+        for path in sorted((tmp / "parquet").iterdir()):
+            row, = pq.read_table(path).to_pylist()
+            row["contours"] = [[[p["x"], p["y"]] for p in c]
+                               for c in row["contours"]]
+            row["bboxes"] = [[b["x"], b["y"], b["w"], b["h"]]
+                             for b in row["bboxes"]]
+            record["bocr_lines"][path.name] = row
+    (OUT / "images.json").write_text(
+        json.dumps(record, ensure_ascii=False, separators=(",", ":")) + "\n",
+        encoding="utf-8")
     return 0
 
 

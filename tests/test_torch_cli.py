@@ -1,8 +1,10 @@
 """The port's page-OCR CLI (``python -m ocr_inference_tpu_torch.cli.cli``)
-against the JAX ``bocr`` (ocr_inference_tpu/cli/cli.py) on the same PNG
-pages and model directory, on the CPU in float32: line-mode texts, the
-artifact and resume flags; and its refusals: JPEG pages, ``--mesh``, and
-the ``cuda`` default without a card."""
+against the JAX ``bocr`` (ocr_inference_tpu/cli/cli.py) on the same pages
+and model directory, on the CPU in float32: line-mode texts on PNG pages
+and on the same pages as JPEG and TIFF, the artifact and resume flags; and
+its refusals: pages of a variant the port does not decode (an
+arithmetic-coded JPEG, a BMP), ``--mesh``, and the ``cuda`` default
+without a card."""
 
 import functools
 import json
@@ -21,6 +23,7 @@ from ocr_inference_tpu.pipeline.builder import build_pipeline as jax_build
 from ocr_inference_tpu_torch.cli import cli
 from ocr_inference_tpu_torch.io.artifacts import write_png
 from tests import make_refpipe_fixture as fx
+from tests.image_writers import arithmetic_jpeg
 
 REPO = Path(__file__).resolve().parents[1]
 REFPIPE = REPO / "tests" / "data" / "refpipe"
@@ -143,19 +146,64 @@ def test_layout_mode_with_seeded_weights(job, tmp_path):
 
 def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
                                                        capsys):
+    """A JPEG of a variant the port does not decode (arithmetic-coded) and
+    a BMP page are refused by name before any model loads; baseline JPEG
+    pages are read (test_jpeg_and_tiff_pages_equal_jax_cli)."""
     folder = tmp_path / "mixed"
     folder.mkdir()
     (folder / "a.png").write_bytes((job / "pages" / "page0.png").read_bytes())
     cv2.imwrite(str(folder / "b.jpg"), np.zeros((8, 8, 3), np.uint8))
+    (folder / "b.jpg").write_bytes(arithmetic_jpeg(
+        (folder / "b.jpg").read_bytes()))
+    cv2.imwrite(str(folder / "c.bmp"), np.zeros((8, 8, 3), np.uint8))
     args = ["--model", str(tmp_path / "no_model"), "--output",
             str(tmp_path / "out"), "--device", "cpu"]
-    for where in (["--folder", str(folder)],
-                  ["--image", str(folder / "b.jpg")]):
+    for where, name in ((["--folder", str(folder)], "b.jpg"),
+                        (["--image", str(folder / "b.jpg")], "b.jpg"),
+                        (["--image", str(folder / "c.bmp")], "c.bmp")):
         with pytest.raises(SystemExit) as exit_info:
             cli.main(args + where)
         message = str(exit_info.value.code)
-        assert "b.jpg (JPEG)" in message and "PNG" in message
+        assert f"{name} (" in message
+        assert ("arithmetic-coded JPEG" if name == "b.jpg"
+                else "BMP images are not supported") in message
     assert not (tmp_path / "out").exists()
+
+
+def test_jpeg_and_tiff_pages_equal_jax_cli(job, tmp_path, monkeypatch,
+                                           capsys):
+    """The job's pages as a baseline JPEG, a progressive one with EXIF
+    orientation 6 (stored turned a quarter left), an LZW TIFF and a Group
+    4 TIFF: the port's texts equal the JAX bocr's on the same files."""
+    from PIL import Image
+
+    folder = tmp_path / "formats"
+    folder.mkdir()
+    page0 = cv2.imread(str(job / "pages" / "page0.png"))
+    page1 = cv2.imread(str(job / "pages" / "page1.png"))
+    cv2.imwrite(str(folder / "p0.jpg"), page0, [cv2.IMWRITE_JPEG_QUALITY, 92])
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    Image.fromarray(np.ascontiguousarray(np.rot90(page1[..., ::-1], 1))).save(
+        folder / "p1.jpeg", "JPEG", quality=92, progressive=True,
+        exif=exif.tobytes())
+    Image.fromarray(page0[..., ::-1]).save(folder / "p2.tif",
+                                           compression="tiff_lzw")
+    Image.fromarray(page1[..., 0]).point(
+        lambda v: 255 if v > 128 else 0).convert("1").save(
+        folder / "p3.tiff", compression="group4")
+    common = ["--model", str(job / "model"), "--folder", str(folder),
+              "--line-model", str(job / "lines")]
+    assert cli.main(common + ["--output", str(tmp_path / "ours"), "--device",
+                              "cpu", "--dtype", "float32"]) == 0
+    monkeypatch.setattr(jax_cli, "build_pipeline",
+                        functools.partial(jax_build, dtype=jnp.float32))
+    assert jax_cli.main(common + ["--output", str(tmp_path / "jax")]) == 0
+    assert capsys.readouterr().out.count("Text output:") == 8
+    for stem in ("p0", "p1", "p2", "p3"):
+        got = (tmp_path / "ours" / f"{stem}.txt").read_text(encoding="utf-8")
+        want = (tmp_path / "jax" / f"{stem}.txt").read_text(encoding="utf-8")
+        assert got == want and got.strip(), stem
 
 
 def test_mesh_is_refused(job, tmp_path):

@@ -4,7 +4,8 @@ package on the CPU: the encoders on tests/test_text.py's cases;
 ``collect_distributions``; on a PNG line dataset of two distributions
 (eval/synthetic.py ``line_dataset``) with the full77f weights in float32,
 the per-line CERs and the score files equal to the JAX ``bocr-eval``'s
-(made float32 here: its OCREvaluator passes no dtype); the whole-line
+(made float32 here: its OCREvaluator passes no dtype), and the CER of
+lines read as JPEG and TIFF equal to the JAX evaluator's; the whole-line
 binarize byte for byte against ``binarize_host``."""
 
 import functools
@@ -35,6 +36,7 @@ from ocr_inference_tpu_torch.eval.synthetic import (
     write_line_dataset,
 )
 from ocr_inference_tpu_torch.io.artifacts import write_png
+from tests.image_writers import arithmetic_jpeg
 from tests.make_torch_port_fixture import OUT, WEIGHTS
 
 REPO = Path(__file__).resolve().parents[1]
@@ -167,6 +169,28 @@ def test_evaluate_one_line_matches_jax(job, monkeypatch):
     assert ours.evaluate(str(image), str(label)) == theirs.evaluate(
         str(image), str(label))
     assert ours.get_architecture() == "Easter2"
+    # the same lines as JPEG and TIFF files read as the JAX evaluator
+    # reads them
+    import cv2
+    from PIL import Image
+
+    for i, (ext, kw) in enumerate(((".jpg", {"quality": 90}),
+                                   (".jpeg", {"quality": 75,
+                                              "progressive": True}),
+                                   (".tif", {"compression": "tiff_lzw"}),
+                                   (".tiff", {"compression": "group4"}))):
+        src = job / "data" / "clean" / f"line{i + 2:02d}.png"
+        rgb = cv2.imread(str(src))[..., ::-1]
+        path = job / "formats" / f"line{i}{ext}"
+        path.parent.mkdir(exist_ok=True)
+        im = Image.fromarray(np.ascontiguousarray(rgb))
+        if kw.get("compression") == "group4":
+            im = im.convert("L").point(lambda v: 255 if v > 128 else 0) \
+                .convert("1")
+        im.save(path, **kw)
+        lbl = src.with_suffix(".txt")
+        assert ours.evaluate(str(path), str(lbl)) == theirs.evaluate(
+            str(path), str(lbl)), ext
 
 
 def test_eval_cli_score_files_match_jax(job, tmp_path):
@@ -188,12 +212,18 @@ def test_eval_cli_score_files_match_jax(job, tmp_path):
 
 
 def test_eval_cli_refuses_non_png_lines_by_name(tmp_path):
-    """Before any model is loaded: the model directory here has no
-    config at all."""
+    """A line image of a variant the port does not decode (here an
+    arithmetic-coded JPEG) is refused by name before any model is loaded:
+    the model directory here has no config at all."""
+    import cv2
+
     folder = tmp_path / "data" / "dist"
     folder.mkdir(parents=True)
     write_png(folder / "ok.png", np.full((40, 60, 3), 230, np.uint8))
-    (folder / "scan.jpg").write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00")
+    cv2.imwrite(str(folder / "scan.jpg"), np.full((40, 60, 3), 230,
+                                                  np.uint8))
+    (folder / "scan.jpg").write_bytes(arithmetic_jpeg(
+        (folder / "scan.jpg").read_bytes()))
     for stem in ("ok", "scan"):
         (folder / f"{stem}.txt").write_text("ka\n")
     with pytest.raises(SystemExit) as exc:
@@ -201,7 +231,7 @@ def test_eval_cli_refuses_non_png_lines_by_name(tmp_path):
                            "--dataset", str(tmp_path / "data"),
                            "--output", str(tmp_path / "out"),
                            "--device", "cpu"])
-    assert "scan.jpg (JPEG)" in str(exc.value)
+    assert "scan.jpg (arithmetic-coded JPEG" in str(exc.value)
     assert not (tmp_path / "out").exists()
 
 

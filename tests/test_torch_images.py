@@ -1,10 +1,14 @@
 """The port's PNG reader (io/images.py read_image) against
 ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)``: byte-equal on PNGs
 written by cv2.imwrite, by the port's write_png and, for the colour types,
-bit depths and filters cv2.imwrite does not choose, by a small encoder
-here on zlib; None where cv2 gives None; NotImplementedError for other
-formats and interlaced PNG."""
+bit depths, filters and Adam7 interlacing cv2.imwrite does not choose, by
+small encoders here on zlib; EXIF orientation from an ``eXIf`` chunk;
+None where cv2 gives None; NotImplementedError for the formats read_image
+does not decode. JPEG and TIFF have their own files
+(tests/test_torch_jpeg.py, tests/test_torch_tiff.py)."""
 
+import hashlib
+import json
 import struct
 import zlib
 
@@ -12,8 +16,14 @@ import cv2
 import numpy as np
 import pytest
 
+from PIL import Image
+
 from ocr_inference_tpu_torch.io.artifacts import write_png
 from ocr_inference_tpu_torch.io.images import image_format, read_image
+from tests.image_writers import write_adam7_png
+from tests.make_torch_port_fixture import OUT
+
+IMAGES = json.loads((OUT / "images.json").read_text(encoding="utf-8"))
 
 
 def _cv2_rgb(path):
@@ -210,15 +220,85 @@ def test_unreadable_files_give_none(tmp_path):
 
 
 def test_other_formats_and_interlaced_png_raise(tmp_path):
+    """BMP is still refused by name; JPEG, TIFF and Adam7 PNG, once
+    refused, now read as cv2 reads them."""
     img = np.random.default_rng(5).integers(0, 256, (16, 24, 3), np.uint8)
-    for ext, name in ((".jpg", "JPEG"), (".tiff", "TIFF"), (".bmp", "BMP")):
+    path = tmp_path / "page.bmp"
+    assert cv2.imwrite(str(path), img)
+    assert image_format(path) == "BMP"
+    with pytest.raises(NotImplementedError, match="BMP"):
+        read_image(path)
+    for ext, name in ((".jpg", "JPEG"), (".tiff", "TIFF")):
         path = tmp_path / f"page{ext}"
         assert cv2.imwrite(str(path), img)
         assert image_format(path) == name
-        with pytest.raises(NotImplementedError, match=name):
-            read_image(path)
+        _assert_same_as_cv2(path)
     path = _adam7_png(tmp_path / "adam7.png", img)
     np.testing.assert_array_equal(_cv2_rgb(path), img)  # cv2 reads it
-    with pytest.raises(NotImplementedError, match="interlaced"):
-        read_image(path)
+    np.testing.assert_array_equal(read_image(path), img)
     assert image_format(tmp_path / "adam7.png") == "PNG"
+
+
+@pytest.mark.parametrize("color,depth", [
+    (0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
+    (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)])
+def test_adam7_pngs(tmp_path, color, depth):
+    """Every colour type at its depths, Adam7-interlaced, each pass's rows
+    through all five filters; sizes where passes are empty included."""
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    rng = np.random.RandomState(color * 17 + depth)
+    for h, w in ((1, 1), (3, 5), (7, 13), (33, 17)):
+        samples = rng.randint(0, 1 << depth, (h, w, channels))
+        palette = rng.randint(0, 256, (1 << depth, 3)) if color == 3 \
+            else None
+        path = tmp_path / "i.png"
+        write_adam7_png(path, samples, color, depth, palette)
+        _assert_same_as_cv2(path)
+
+
+def _exif_png(path, img, orientation, where="before", crc=None):
+    """A PNG with an eXIf chunk (orientation) before or after IDAT."""
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    plain = path.with_suffix(".plain.png")
+    Image.fromarray(img).save(plain)
+    data = plain.read_bytes()
+    block = exif.tobytes()
+    block = block[6:] if block.startswith(b"Exif\x00\x00") else block
+    chunk = _chunk(b"eXIf", block, crc)
+    at = data.index(b"IDAT") - 4 if where == "before" else \
+        data.index(b"IEND") - 4
+    path.write_bytes(data[:at] + chunk + data[at:])
+    return path
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("where", ["before", "after"])
+def test_png_exif_orientation(tmp_path, orientation, where):
+    """cv2.imread turns a PNG by its eXIf orientation, wherever the chunk
+    stands; a 20x30 page with orientation 6 comes back 30x20, equal to
+    np.rot90(page, -1). An eXIf chunk with a bad CRC is ignored."""
+    img = np.random.default_rng(orientation).integers(0, 256, (20, 30, 3),
+                                                      np.uint8)
+    path = _exif_png(tmp_path / "e.png", img, orientation, where)
+    _assert_same_as_cv2(path)
+    if orientation == 6:
+        np.testing.assert_array_equal(read_image(path), np.rot90(img, -1))
+    path = _exif_png(tmp_path / "bad.png", img, orientation, where, crc=0)
+    _assert_same_as_cv2(path)
+    np.testing.assert_array_equal(read_image(path), img)
+
+
+@pytest.mark.parametrize("rel", sorted(IMAGES["files"]))
+def test_committed_files_equal_the_cv2_record(rel):
+    """The encoded pages chip_smoke.py reads on the card (the card machine
+    has no cv2): each file unchanged, and read_image gives cv2's decode,
+    equal to the shape and sha256 images.json records."""
+    want = IMAGES["files"][rel]
+    path = OUT / "images" / rel
+    assert hashlib.sha256(path.read_bytes()).hexdigest() == \
+        want["file_sha256"]
+    got = read_image(path)
+    assert list(got.shape) == want["shape"]
+    assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+    np.testing.assert_array_equal(got, _cv2_rgb(path))

@@ -61,6 +61,7 @@ from ocr_inference_tpu_torch.pipeline.engines import SegmentationEngine
 from ocr_inference_tpu_torch.pipeline.modern_layout import (
     ModernBookFormatLayoutDetection,
 )
+from tests.image_writers import arithmetic_jpeg
 from tests.make_torch_port_fixture import (
     LAYOUT_CLASSES,
     full77f_configs,
@@ -396,9 +397,9 @@ class BandLayoutModel(torch.nn.Module):
 
 
 def test_modern_layout_json_matches_jax(tmp_path):
-    """The same PNG pages through both runners: the same JSON files; the
-    filter-class error keeps its text; a JPEG page is refused by name
-    before any page runs."""
+    """The same PNG and JPEG pages through both runners: the same JSON
+    files; the filter-class error keeps its text; an arithmetic-coded JPEG
+    page is refused by name before any page runs."""
     import cv2
 
     classes = ["background", "header", "footer"]
@@ -409,6 +410,8 @@ def test_modern_layout_json_matches_jax(tmp_path):
         img[top: top + 30, 100:400] = 30
         img[bottom: bottom + 30, 150:500] = 30
         write_png(pages / f"p{i}.png", img)
+        cv2.imwrite(str(pages / f"q{i}.jpg"), img[::-1],
+                    [cv2.IMWRITE_JPEG_QUALITY, 85])
     cfg = data.LayoutDetectionConfig("", "", "deeplabv3", 512, classes)
     ours = ModernBookFormatLayoutDetection(cfg, engine=SegmentationEngine(
         BandLayoutModel(), CPU, mode="layout", classes=classes))
@@ -425,13 +428,17 @@ def test_modern_layout_json_matches_jax(tmp_path):
                           filter_classes=filt, batch_size=2)
         assert got == want and set(got[str(pages / "p0.png")]) == (
             set(classes) if filt is None else {"header"})
-        for i in range(2):
-            assert (tmp_path / "ours" / f"p{i}.json").read_text() == \
-                (tmp_path / "jax" / f"p{i}.json").read_text()
+        assert len(got) == 4
+        for name in ("p0", "p1", "q0", "q1"):
+            assert (tmp_path / "ours" / f"{name}.json").read_text() == \
+                (tmp_path / "jax" / f"{name}.json").read_text()
     with pytest.raises(ValueError, match="not part of the model's classes"):
         ours.run(str(pages), str(tmp_path / "x"), filter_classes=["sidebar"])
     cv2.imwrite(str(pages / "scan.jpg"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="scan.jpg"):
+    (pages / "scan.jpg").write_bytes(arithmetic_jpeg(
+        (pages / "scan.jpg").read_bytes()))
+    with pytest.raises(NotImplementedError,
+                       match="scan.jpg .arithmetic-coded JPEG"):
         ours.run(str(pages), str(tmp_path / "y"))
     assert not (tmp_path / "y").exists()
 

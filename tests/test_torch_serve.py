@@ -2,8 +2,9 @@
 ocr_inference_tpu_torch.cli.serve_cli``), on the CPU: the cases of
 tests/test_serve_cli.py (dynamic batching over an os.pipe, overload
 shedding, the JSONL protocol); the fixture pages served in float32 give the
-JAX package's recorded float32 texts and boxes; a JPEG request fails by
-name; a device fault ends the session."""
+JAX package's recorded float32 texts and boxes, as PNG and as the JPEG and
+TIFF files of tests/data/torch_port/images; an arithmetic-coded JPEG
+request fails by name; a device fault ends the session."""
 
 import io
 import json
@@ -18,6 +19,7 @@ from ocr_inference_tpu_torch.cli.serve_cli import _LineReader, main, serve_loop
 from ocr_inference_tpu_torch.device import DeviceFault
 from ocr_inference_tpu_torch.eval.synthetic import fixture_pages
 from ocr_inference_tpu_torch.io.artifacts import write_png
+from tests.image_writers import arithmetic_jpeg
 from tests.make_torch_port_fixture import OUT, WEIGHTS
 
 
@@ -122,18 +124,24 @@ def _serve(monkeypatch, capsys, requests: list[str], *args) -> tuple:
 
 def test_serve_jsonl_protocol(tmp_path, monkeypatch, capsys):
     """Per-request responses with error isolation: a page, a bad JSON line,
-    a request without an image, a batch with a missing file, a JPEG that
-    fails naming its format; a blank line ends the session."""
+    a request without an image, a batch with a missing file, a JPEG cut
+    inside its headers (unreadable, as cv2 finds it) and an
+    arithmetic-coded JPEG that fails naming its variant; a blank line ends
+    the session."""
     model_dir = _model_dir(tmp_path)
     page = tmp_path / "page.png"
     write_png(page, np.full((600, 900, 3), 230, np.uint8))
+    cut = tmp_path / "cut.jpg"
+    cut.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00")
     jpeg = tmp_path / "scan.jpg"
-    jpeg.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00")
+    jpeg.write_bytes(arithmetic_jpeg(
+        (OUT / "images" / "pages" / "clean_a.jpg").read_bytes()))
     rc, out = _serve(monkeypatch, capsys, [
         json.dumps({"image": str(page)}),
         "not json",
         json.dumps({"wrong": "key"}),
         json.dumps({"images": [str(page), str(tmp_path / "missing.png")]}),
+        json.dumps({"image": str(cut)}),
         json.dumps({"image": str(jpeg)}),
         "",
         json.dumps({"image": str(page)}),
@@ -141,8 +149,8 @@ def test_serve_jsonl_protocol(tmp_path, monkeypatch, capsys):
         "--window-pages", "1")
     assert rc == 0
     # 1 page + 1 bad-json error + 1 bad-request error + 2 batch pages +
-    # the JPEG; nothing after the blank line
-    assert len(out) == 6
+    # the two JPEGs; nothing after the blank line
+    assert len(out) == 7
     assert out[0]["image"] == str(page)
     assert out[0]["status"] in ("success", "failed")
     assert "bad request" in out[1]["error"]
@@ -150,16 +158,19 @@ def test_serve_jsonl_protocol(tmp_path, monkeypatch, capsys):
     statuses = {r["image"]: r for r in out[3:]}
     assert statuses[str(tmp_path / "missing.png")]["status"] == "failed"
     assert str(page) in statuses
+    assert statuses[str(cut)]["status"] == "failed"
     refused = statuses[str(jpeg)]
     assert refused["status"] == "failed"
-    assert "JPEG images are not supported" in refused["error"]
+    assert "arithmetic-coded JPEG is not supported" in refused["error"]
 
 
 def test_served_fixture_pages_give_the_jax_float32_record(tmp_path,
                                                          monkeypatch, capsys):
     """The three fixture pages as PNG through the service with the full77f
     weights in float32: the JAX float32 texts and line boxes of
-    tests/data/torch_port/texts.json, one response per page."""
+    tests/data/torch_port/texts.json, one response per page; and a JPEG
+    (EXIF orientation 6) and a Group 4 TIFF of them: the JAX float32 texts
+    and boxes of tests/data/torch_port/images.json."""
     meta = json.loads((WEIGHTS / "recognizer.msgpack.json").read_text())
     model_dir = _model_dir(tmp_path, charset=meta["charset"],
                            input_width=3000,
@@ -174,6 +185,10 @@ def test_served_fixture_pages_give_the_jax_float32_record(tmp_path,
     for name, img, _ in fixture_pages(OUT / "pages.npz"):
         paths[name] = str(tmp_path / f"{name}.png")
         write_png(paths[name], img[..., ::-1])
+    images = json.loads((OUT / "images.json").read_text(encoding="utf-8"))
+    for name in ("clean_b_exif6.jpg", "skew_2deg_g4.tif"):
+        paths[name] = str(OUT / "images" / "pages" / name)
+        want[name] = images["bocr"][name]
     rc, out = _serve(monkeypatch, capsys,
                      [json.dumps({"images": list(paths.values())})],
                      "--model", str(model_dir), "--line-model", str(line_cfg),
