@@ -1,12 +1,12 @@
-"""Drive the PyTorch port's page and volume OCR on one NVIDIA card and
-check it.
+"""Drive the PyTorch port's page and volume OCR and its training on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
 geometry library, the ARPA scorer and the PNG, JPEG and TIFF decoders,
-all started together), then runs nineteen phases and prints one JSON line
-for each:
+all started together), then runs twenty-four phases and prints one JSON
+line for each:
 
 1. build        — seconds of each compiler; registers and spills of each
                   kernel as ptxas reports them;
@@ -171,12 +171,41 @@ for each:
                   against their PNG copies; bocr-lines (python -m
                   ocr_inference_tpu_torch.cli.infer_lines_cli) in float32:
                   every Parquet row read back equal to the JAX bocr-lines
-                  row (contours, boxes and counts exactly).
+                  row (contours, boxes and counts exactly);
+20. train_rec_f32 — Easter2 from full77f, five float32 train steps (TF32
+                  off) on recognizer_batch batches of full77f's recipe (32
+                  canvases of 80x512, binarized on the card by
+                  binarize_lines) against the JAX CPU record
+                  tests/data/torch_port/training.json: each batch's sha256
+                  equal, each loss within REC_BARS of the float32 run and
+                  each parameter leaf's change norm as close to the
+                  float64 run as the float32 run, or within REC_BARS;
+                  the weights written with save_params,
+                  read back byte-equal, and run_ocr on the fixture pages;
+21. train_seg_f32 — the full77f UNet, three float32 steps on
+                  segmentation_batch batches (8 tiles of 512^2, binarized
+                  by binarize_tiles) against the same record, SEG_BARS;
+22. train_cli   — bocr-train (fine-tuning full77f, float32, batch 32, 20
+                  steps) on a 64-line PNG dataset and bocr-train-seg (10
+                  steps) on four pages with their line masks, as
+                  processes; their weights load into build_pipeline;
+                  lines/s and tiles/s;
+23. selftrain   — bocr-selftrain in this process: from scratch (40
+                  recognizer and 20 UNet steps, 4 eval pages, an order-2
+                  LM), then fine-tuning full77f's recognizer 5 steps with
+                  full77f's UNet (its eval pages detect and read lines),
+                  then --weights on that directory: EVAL.json with the JAX
+                  keys each time, and eval-only the fine-tuned run's CERs
+                  page by page and its line count;
+24. train_rates — device ms of one Easter2 step (32 x 80x512) and one UNet
+                  step (8 x 512^2), float32 and bf16, host ms of one
+                  batch of each, peak memory.
 
-Kernel launch and recheck counts are zeroed just before each OCR path is
-driven (phases 3-19) and read just after it. Then a ``kernels`` JSON line
-(per kernel: launches over the main paths, phases 5, 6, 8, 11, 13, 14, 16,
-17, 18 and 19's bf16 bocr and bocr-lines, and by path,
+Kernel launch and recheck counts are zeroed just before each OCR or
+training path is driven (phases 3-23) and read just after it. Then a
+``kernels`` JSON line (per kernel: launches over the main paths, phases
+5, 6, 8, 11, 13, 14, 16, 17, 18, 19's bf16 bocr and bocr-lines, 20, 21
+and 23, and by path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -2331,15 +2360,470 @@ def image_formats(results: dict):
             "gpu": gpu_name_and_limit()}
 
 
+# -- training: the train steps, the batches made on the card, the CLIs --
+
+TRAIN_RECORD = FIXTURE / "training.json"
+FULL_GLYPHS = {"height": 40, "seed": 7}
+TRAIN_LINES, TRAIN_CLI_STEPS, SEG_CLI_STEPS, SEG_CLI_PAGES = 32, 20, 10, 4
+# the per-step bars against the record (training.json): each loss within
+# bars[0] of the JAX float32 loss, relative; each parameter leaf's change
+# norm as close to the record's float64 run as the JAX float32 run is, up
+# to a factor of 2, or within bars[1] of it. The JAX float32 run itself
+# lies up to 3.3e-3 (Easter2) and 1.57e-2 (the UNet's ConvBN_2 BatchNorm
+# bias, whose float32 gradient rounds at 3e-3 of its norm) from float64;
+# the port lies within 2.30e-3 and 3.62e-3 of it, on the card (H100) and
+# on the CPU alike.
+REC_BARS, SEG_BARS = (2e-5, 5e-3), (1e-4, 5e-3)
+
+
+def flax_params(model) -> dict:
+    from ocr_inference_tpu_torch.models.params import flax_variables
+
+    return flax_variables(model)["params"]
+
+
+def leaf_change_norms(before: dict, after: dict, prefix=()) -> dict:
+    """Per parameter leaf, the float64 norm of its change (the record's
+    ``change_norms``, tests/make_torch_port_fixture.py)."""
+    out = {}
+    for k in sorted(before):
+        if isinstance(before[k], dict):
+            out.update(leaf_change_norms(before[k], after[k], prefix + (k,)))
+        else:
+            d = after[k].astype(np.float64) - before[k].astype(np.float64)
+            out["/".join(prefix + (k,))] = float(np.linalg.norm(d))
+    return out
+
+
+def bound_step(model, opt, make_step, **kwargs):
+    """run(batch) -> loss of ``make_step(model, opt, **kwargs)``, the train
+    state threaded from one call to the next."""
+    from ocr_inference_tpu_torch.training.train import model_state
+
+    step = make_step(model, opt, **kwargs)
+    state = model_state(model, opt).as_tuple()
+
+    def run(batch):
+        nonlocal state
+        state, loss = step(state, batch)
+        return loss
+
+    return run
+
+
+def change_norm_errors(got: dict, want: dict) -> dict:
+    """Per step, each parameter leaf's change norm on the card against the
+    record's float64 run: ``ours`` its relative distance, ``theirs`` the
+    JAX float32 run's, ``vs_jax_f32`` its distance from that run, and
+    ``jax_grad_rounding`` how far the JAX float32 gradient's norm lies
+    from the float64 one. A leaf the float64 run leaves unmoved (learning
+    rate 0) must stay unmoved."""
+    out = {}
+    for k, ref in want["change_norms_f64"].items():
+        if ref == 0.0:
+            out[k] = {"ours": 0.0 if got[k] == 0.0 else float("inf"),
+                      "theirs": 0.0, "vs_jax_f32": 0.0}
+            continue
+        jax32, g64 = want["change_norms"][k], want["grad_norms_f64"][k]
+        out[k] = {"ours": abs(got[k] - ref) / ref,
+                  "theirs": abs(jax32 - ref) / ref,
+                  "vs_jax_f32": abs(got[k] - jax32) / jax32,
+                  "jax_grad_rounding": abs(want["grad_norms"][k] - g64)
+                  / g64 if g64 else None}
+    return out
+
+
+def train_against_record(model, record: dict, step_fn, make_batch,
+                         results: dict, path: str, bars: tuple) -> dict:
+    """Drive ``step_fn`` on the record's batches (made on the card inside
+    the counted path): each batch's sha256 equal to the record's, each
+    loss within ``bars[0]`` of the JAX float32 loss, and each parameter
+    leaf's change norm as close to the record's float64 run as the JAX
+    float32 run is, up to a factor of 2, or within ``bars[1]`` of it."""
+    steps, same_batches = [], True
+    with no_tf32(), counted_path(results, path):
+        for want in record["steps"]:
+            batch = make_batch()
+            hashes = {k: sha256(v.cpu().numpy()) for k, v in batch.items()}
+            before = flax_params(model)
+            loss = float(step_fn(batch))
+            errs = change_norm_errors(
+                leaf_change_norms(before, flax_params(model)), want)
+            same_batches &= hashes == want["batch_sha256"]
+            over = {k: e["ours"] / max(2 * e["theirs"], bars[1])
+                    for k, e in errs.items()}
+            worst = max(over, key=over.get)
+            steps.append({
+                "loss": loss, "jax_loss": want["loss"],
+                "loss_rel_err": abs(loss - want["loss"]) / abs(want["loss"]),
+                "worst_leaf": worst, "worst_leaf_errs": errs[worst],
+                "worst_over_bar": over[worst],
+                "change_norm_max_rel_err_vs_f64": max(
+                    e["ours"] for e in errs.values()),
+                "change_norm_max_rel_err_vs_jax_f32": max(
+                    e["vs_jax_f32"] for e in errs.values()),
+                "leaves_over_floor": sorted(
+                    k for k, e in errs.items() if e["ours"] > bars[1])})
+    ok = (same_batches
+          and all(st["loss_rel_err"] <= bars[0] for st in steps)
+          and all(st["worst_over_bar"] <= 1.0 for st in steps))
+    return {"_ok": ok, "batches_equal_jax": same_batches, "bars": bars,
+            "loss_max_rel_err": max(st["loss_rel_err"] for st in steps),
+            "change_norm_max_rel_err_vs_f64": max(
+                st["change_norm_max_rel_err_vs_f64"] for st in steps),
+            "change_norm_max_rel_err_vs_jax_f32": max(
+                st["change_norm_max_rel_err_vs_jax_f32"] for st in steps),
+            "steps": steps, "launches": results["launches"][path]}
+
+
+@phase("train_rec_f32")
+def train_rec_f32(results: dict):
+    """Easter2 from full77f, five float32 steps (TF32 off) on
+    recognizer_batch batches made on the card, against training.json;
+    the weights written with save_params, read back, and read by run_ocr
+    on the fixture pages."""
+    from ocr_inference_tpu_torch.eval.synthetic import (
+        WYLIE_CHARSET_FULL, GlyphSet, recognizer_batch,
+    )
+    from ocr_inference_tpu_torch.models.params import (
+        load_flax_weights, load_params, save_params, to_bytes, flax_variables,
+    )
+    from ocr_inference_tpu_torch.models.recognition import build_recognizer
+    from ocr_inference_tpu_torch.training import (
+        make_optimizer, make_train_step,
+    )
+
+    record = json.loads(TRAIN_RECORD.read_text())["rec"]
+    dev = torch.device("cuda")
+    model = build_recognizer("Easter2", len(WYLIE_CHARSET_FULL) + 1).to(dev)
+    load_flax_weights(model, WEIGHTS / "recognizer.msgpack")
+    step_fn = bound_step(model, make_optimizer(**record["optimizer"]),
+                         make_train_step)
+    glyphs = GlyphSet(charset=WYLIE_CHARSET_FULL, **FULL_GLYPHS)
+    rng = np.random.RandomState(record["seed"])
+    recipe = dict(record["recipe"])
+    size = recipe.pop("batch")
+    out = train_against_record(
+        model, record, step_fn,
+        lambda: recognizer_batch(rng, glyphs, WYLIE_CHARSET_FULL, size,
+                                 device=dev, **recipe),
+        results, "train_rec_f32", REC_BARS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "recognizer.msgpack"
+        save_params(model, path, meta={"architecture": "Easter2"})
+        back = build_recognizer("Easter2", len(WYLIE_CHARSET_FULL) + 1)
+        load_params(back, path)
+        round_trip = to_bytes(flax_variables(back)) == path.read_bytes()
+        ocr = full77f_config()
+        ocr.model_file = str(Path(tmp) / "recognizer.onnx")
+        pipe = full77f_pipeline(torch.float32, ocr_config=ocr)
+        pages, _ = fixture()
+        with no_tf32():
+            texts = {name: run_page(pipe, img)[0] for name, img, _ in pages}
+        del pipe
+    out["_ok"] &= round_trip and all(any(t) for t in texts.values())
+    out.update({"save_load_round_trip": round_trip,
+                "run_ocr_lines": {k: len(v) for k, v in texts.items()},
+                "gpu": gpu_name_and_limit()})
+    return out
+
+
+@phase("train_seg_f32")
+def train_seg_f32(results: dict):
+    """The full77f UNet (width 32, stem 2), three float32 steps (TF32 off)
+    on segmentation_batch batches of 8 tiles of 512^2 made on the card,
+    against training.json."""
+    from ocr_inference_tpu_torch.eval.synthetic import (
+        WYLIE_CHARSET_FULL, GlyphSet, segmentation_batch,
+    )
+    from ocr_inference_tpu_torch.models.params import load_flax_weights
+    from ocr_inference_tpu_torch.models.segmentation import UNet
+    from ocr_inference_tpu_torch.training import (
+        make_optimizer, make_seg_train_step,
+    )
+
+    record = json.loads(TRAIN_RECORD.read_text())["seg"]
+    dev = torch.device("cuda")
+    model = UNet(classes=1, width=32, stem_stride=2).to(dev)
+    load_flax_weights(model, WEIGHTS / "lines.msgpack")
+    step_fn = bound_step(model, make_optimizer(**record["optimizer"]),
+                         make_seg_train_step)
+    glyphs = GlyphSet(charset=WYLIE_CHARSET_FULL, **FULL_GLYPHS)
+    rng = np.random.RandomState(record["seed"])
+    out = train_against_record(
+        model, record, step_fn,
+        lambda: segmentation_batch(rng, glyphs, WYLIE_CHARSET_FULL,
+                                   record["recipe"]["batch"],
+                                   record["recipe"]["patch"], device=dev),
+        results, "train_seg_f32", SEG_BARS)
+    out["gpu"] = gpu_name_and_limit()
+    return out
+
+
+def _rate(stdout: str, pattern: str) -> float | None:
+    import re
+
+    found = re.findall(pattern, stdout)
+    return float(found[-1]) if found else None
+
+
+@phase("train_cli")
+def train_cli_phase(results: dict):
+    """bocr-train (float32, batch 32, 20 steps, fine-tuning full77f) on a
+    64-line PNG dataset from line_dataset, then bocr-train-seg (10 steps)
+    on four render_page pages with their line masks, both as processes;
+    their weights load into build_pipeline and read a fixture page.
+    Neither binarizes (the JAX CLIs train on gray canvases and RGB tiles),
+    so this is not a counted path."""
+    from ocr_inference_tpu_torch.core.data import LineDetectionConfig
+    from ocr_inference_tpu_torch.eval.synthetic import (
+        WYLIE_CHARSET_FULL, GlyphSet, line_dataset, load_glyphs,
+        render_page,
+    )
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+
+    glyph_map, charset = load_glyphs(FIXTURE / "pages.npz")
+    checks, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        model, _ = write_model_dirs(root)
+        (model / "weights.msgpack").write_bytes(
+            (WEIGHTS / "recognizer.msgpack").read_bytes())
+        data = root / "line_data"
+        data.mkdir()
+        for dist, lines in line_dataset(glyph_map, charset, 11,
+                                        TRAIN_LINES).items():
+            for name, img, label in lines:
+                write_png(data / f"{dist}_{name}.png", img[..., ::-1])
+                (data / f"{dist}_{name}.txt").write_text(label + "\n",
+                                                         encoding="utf-8")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ocr_inference_tpu_torch.cli.train_cli",
+             "--model", str(model), "--data", str(data), "--output",
+             str(root / "rec" / "recognizer.msgpack"), "--steps",
+             str(TRAIN_CLI_STEPS), "--batch-size", "32", "--width", "512",
+             "--log-every", "5"], capture_output=True, text=True, cwd=REPO,
+            timeout=600)
+        runs["bocr_train"] = {
+            "rc": proc.returncode, "s": time.perf_counter() - t0,
+            "lines_per_s": _rate(proc.stdout, r"\(([0-9.]+) lines/s\)"),
+            "stdout": proc.stdout[-600:], "stderr": proc.stderr[-400:]}
+        checks["bocr_train_exit_0"] = proc.returncode == 0
+
+        pages = root / "pages"
+        pages.mkdir()
+        glyphs = GlyphSet(charset=WYLIE_CHARSET_FULL, **FULL_GLYPHS)
+        for i in range(SEG_CLI_PAGES):
+            page = render_page(np.random.RandomState(500 + i), glyphs,
+                               WYLIE_CHARSET_FULL)
+            write_png(pages / f"p{i}.png", page.image[..., ::-1])
+            write_png(pages / f"p{i}_mask.png", page.line_mask)
+        (root / "seg.json").write_text(json.dumps({
+            "checkpoint": "", "onnx-model": "lines.onnx",
+            "architecture": "unet", "patch_size": 512, "classes": ["line"]}))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "ocr_inference_tpu_torch.cli.train_seg_cli", "--config",
+             str(root / "seg.json"), "--data", str(pages), "--output",
+             str(root / "seg" / "lines.msgpack"), "--steps",
+             str(SEG_CLI_STEPS), "--batch-size", "8", "--log-every", "5"],
+            capture_output=True, text=True, cwd=REPO, timeout=600)
+        seg_s = time.perf_counter() - t0
+        runs["bocr_train_seg"] = {
+            "rc": proc.returncode, "s": seg_s,
+            "tiles_per_s_with_start": SEG_CLI_STEPS * 8 / seg_s,
+            "stdout": proc.stdout[-600:], "stderr": proc.stderr[-400:]}
+        checks["bocr_train_seg_exit_0"] = proc.returncode == 0
+
+        if all(checks.values()):
+            ocr = full77f_config()
+            ocr.model_file = str(root / "rec" / "recognizer.onnx")
+            line = LineDetectionConfig(
+                checkpoint="", onnx_file=str(root / "seg" / "lines.onnx"),
+                architecture="unet", patch_size=512, classes=["line"])
+            pipe = full77f_pipeline(torch.bfloat16, ocr_config=ocr,
+                                    line_config=line)
+            name, img, _ = fixture()[0][0]
+            status, _ = pipe.run_ocr(img)
+            runs["trained_pipeline_status"] = str(status)
+            checks["weights_load_into_build_pipeline"] = True
+            del pipe
+    return {"_ok": all(checks.values()), "checks": checks, "runs": runs,
+            "gpu": gpu_name_and_limit()}
+
+
+# the keys the JAX selftrain writes for these arguments
+# (selftrain_cli.py:600-646)
+SELFTRAIN_KEYS = {
+    "cer", "pages", "failed_pages", "lines_detected", "rec_steps",
+    "seg_steps", "rec_loss", "seg_loss", "eval_seconds", "per_page_cer",
+    "charset_size", "backend", "provenance", "cer_beam", "cer_beam_lm",
+    "lm_order", "lm_alpha", "lm_beta", "lm_fusion_enabled"}
+SELFTRAIN_ARGS = ["--rec-steps", "40", "--seg-steps", "20",
+                  "--eval-pages", "4", "--lm-order", "2"]
+# from full77f, so that the eval pages detect and read lines: the
+# recognizer fine-tuned a few steps (bf16), the UNet reused; the eval
+# pages degraded so that their CERs are not all 0 (full77f on the CPU:
+# 19 lines, CER 0.0216)
+EVAL_ARGS = ["--eval-pages", "4", "--lm-order", "2", "--eval-degrade", "0.6"]
+FINETUNE_ARGS = ["--resume-rec", str(WEIGHTS), "--weights-seg", str(WEIGHTS),
+                 "--rec-steps", "5", "--lr", "3e-5", *EVAL_ARGS]
+EVAL_KEYS = ("cer", "cer_beam", "cer_beam_lm", "lines_detected",
+             "failed_pages", "rec_loss", "seg_loss", "per_page_cer",
+             "eval_seconds")
+
+
+@phase("selftrain")
+def selftrain_phase(results: dict):
+    """bocr-selftrain in this process, so that its launches count: from
+    scratch, short (SELFTRAIN_ARGS): EVAL.json with the JAX keys; then
+    fine-tuning full77f's recognizer with full77f's UNet (FINETUNE_ARGS),
+    whose eval reads lines; then --weights on that directory, eval only:
+    the same CERs, page by page, and the same line count."""
+    import contextlib as ctx
+    import io
+
+    from ocr_inference_tpu_torch.cli import selftrain_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"scratch": SELFTRAIN_ARGS, "finetune": FINETUNE_ARGS,
+            "weights": ["--weights", None, *EVAL_ARGS]}
+    rcs, evals, seconds = {}, {}, {}
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        with counted_path(results, "selftrain"), ctx.redirect_stderr(log), \
+                ctx.redirect_stdout(io.StringIO()):
+            for name, args in runs.items():
+                out = Path(tmp) / name
+                args = [str(Path(tmp) / "finetune") if a is None else a
+                        for a in args]
+                t0 = time.perf_counter()
+                rcs[name] = selftrain_cli.main(["--out", str(out), *args])
+                seconds[name] = time.perf_counter() - t0
+                evals[name] = json.loads((out / "EVAL.json").read_text()) \
+                    if rcs[name] == 0 else {}
+    tuned, again = evals["finetune"], evals["weights"]
+    degraded = SELFTRAIN_KEYS | {"eval_degrade"}
+    checks = {
+        "exit_0": all(rc == 0 for rc in rcs.values()),
+        "eval_json_has_the_jax_keys": set(evals["scratch"]) == SELFTRAIN_KEYS
+        and set(tuned) == degraded and set(again) == degraded,
+        "finetuned_reads_lines": tuned.get("lines_detected", 0) > 0
+        and tuned.get("cer", 1.0) < 1.0 and tuned.get("rec_steps") == 5,
+        "weights_eval_only_same_result": again.get("rec_steps") == 0
+        and bool(tuned) and all(again.get(k) == tuned.get(k) for k in (
+            "per_page_cer", "cer", "cer_beam", "cer_beam_lm",
+            "lines_detected")),
+    }
+    lines = log.getvalue().splitlines()
+    return {"_ok": all(checks.values()), "checks": checks,
+            "eval": {name: {k: e.get(k) for k in EVAL_KEYS}
+                     for name, e in evals.items()},
+            "seconds": seconds,
+            "log": [ln for ln in lines if "trained in" in ln],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": results["launches"]["selftrain"],
+            "gpu": gpu_name_and_limit()}
+
+
+def step_ms(step, batch, iters: int = 5) -> dict:
+    """One train step's time: CUDA events around ``iters`` steps after two
+    warm-up steps (device ms; a step whose host side is slower is timed at
+    the host's pace), and the host clock of the same steps."""
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    return {"device_ms": start.elapsed_time(end) / iters,
+            "wall_ms": (time.perf_counter() - t0) * 1e3 / iters}
+
+
+@phase("train_rates")
+def train_rates(results: dict):
+    """Device ms of one Easter2 step (32 canvases of 80x512) in float32
+    (TF32 off) and bf16, of one UNet step (8 tiles of 512^2, float32 and
+    selftrain's bf16), host ms to make one batch of each, peak memory."""
+    from ocr_inference_tpu_torch.eval.synthetic import (
+        WYLIE_CHARSET_FULL, GlyphSet, recognizer_batch, segmentation_batch,
+    )
+    from ocr_inference_tpu_torch.models.params import load_flax_weights
+    from ocr_inference_tpu_torch.models.recognition import build_recognizer
+    from ocr_inference_tpu_torch.models.segmentation import UNet
+    from ocr_inference_tpu_torch.training import (
+        make_optimizer, make_seg_train_step, make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    glyphs = GlyphSet(charset=WYLIE_CHARSET_FULL, **FULL_GLYPHS)
+    rng = np.random.RandomState(7)
+    host = {}
+    t0 = time.perf_counter()
+    rec_batch = recognizer_batch(rng, glyphs, WYLIE_CHARSET_FULL, 32,
+                                 width=512, degrade_max=0.7,
+                                 shear_max_deg=0.6, curve_max_amp=12.0,
+                                 geo_prob=0.35, device=dev)
+    torch.cuda.synchronize()
+    host["recognizer_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    seg_batch = segmentation_batch(rng, glyphs, WYLIE_CHARSET_FULL, 8,
+                                   device=dev)
+    torch.cuda.synchronize()
+    host["segmentation_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    out = {"host": host}
+    for name, dtype in (("easter2_f32", torch.float32),
+                        ("easter2_bf16", torch.bfloat16)):
+        torch.cuda.reset_peak_memory_stats()
+        model = build_recognizer("Easter2", len(WYLIE_CHARSET_FULL) + 1)
+        load_flax_weights(model, WEIGHTS / "recognizer.msgpack")
+        model.to(dev)
+        run = bound_step(model, make_optimizer(3e-4, 3000, 100),
+                         make_train_step, dtype=dtype)
+        with no_tf32():
+            out[name] = step_ms(run, rec_batch)
+        out[name]["lines_per_s"] = 32e3 / out[name]["device_ms"]
+        out[name]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, run
+    for name, dtype in (("unet_f32", torch.float32),
+                        ("unet_bf16", torch.bfloat16)):
+        torch.cuda.reset_peak_memory_stats()
+        model = UNet(classes=1, width=32, stem_stride=2)
+        load_flax_weights(model, WEIGHTS / "lines.msgpack")
+        model.to(dev)
+        run = bound_step(model, make_optimizer(3e-4, 400, 50),
+                         make_seg_train_step, dtype=dtype)
+        with no_tf32():
+            out[name] = step_ms(run, seg_batch)
+        out[name]["tiles_per_s"] = 8e3 / out[name]["device_ms"]
+        out[name]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, run
+    out["gpu"] = gpu_name_and_limit()
+    return out
+
+
 MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16",
               "eval_mode_bf16", "layout_bf16", "cli", "serve", "eval_cli",
               *(f"recognizers_bf16/{arch}" for arch in RECOGNIZERS),
-              "bocr_formats", "bocr_lines")
+              "bocr_formats", "bocr_lines", "train_rec_f32", "train_seg_f32",
+              "selftrain")
 # the counted paths that run only some of the kernels: the eval CLI's
 # lines are binarized whole and recognized, no page is detected;
-# bocr-lines detects and reads no line
+# bocr-lines detects and reads no line; the recognizer's training batches
+# are line canvases, the UNet's are tiles. bocr-train and bocr-train-seg
+# binarize nothing (the JAX CLIs train on gray canvases and RGB tiles), so
+# the train_cli phase is not a counted path; selftrain runs both kernels.
 PATH_KERNELS = {"eval_cli": ("binarize_lines",),
-                "bocr_lines": ("binarize_tiles",)}
+                "bocr_lines": ("binarize_tiles",),
+                "train_rec_f32": ("binarize_lines",),
+                "train_seg_f32": ("binarize_tiles",)}
 
 
 def idle_kernels(summary: dict) -> list[tuple[str, str]]:
@@ -2440,6 +2924,11 @@ def main() -> int:
         serve_phase(results)
         eval_cli_phase(results)
         image_formats(results)
+        train_rec_f32(results)
+        train_seg_f32(results)
+        train_cli_phase(results)
+        selftrain_phase(results)
+        train_rates(results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1

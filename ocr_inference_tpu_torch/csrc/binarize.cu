@@ -24,27 +24,31 @@
 // half to even). So a pixel needs acc only against g + 12.5.
 //
 // Two tiers, one kernel. The blur runs in float32 with FMA, in the order
-// that suits the card, on the same taps as the float64 plain version (its
-// taps are these float32 taps widened). A pixel whose float32 sum lies
-// more than eps from g + 12.5 is decided by it. Any other pixel is
-// recomputed from the staged gray values by its warp, in exactly the plain
-// version's float64 arithmetic (each tap a separately rounded product and
-// sum, in order t = 0..50, rows then columns), and decided by that.
+// that suits the card, on cv2's float32 taps. A pixel whose float32 sum
+// lies more than eps from g + 12.5 is decided by it. Any other pixel is
+// recomputed from the staged gray values by its warp in exactly cv2's own
+// float32 arithmetic (adaptiveThreshold blurs the float image with its
+// separable filter: the row pass first, each row's 51 taps left to right,
+// fused for columns below 4 * (w / 4) and product and sum rounded apart
+// beyond; then the column pass, the centre row first and each symmetric
+// pair of rows added and multiplied in, fused for columns below 8 * (w /
+// 8); a one-row image has no column pass, a one-column image no row
+// pass), and decided by that. This is the plain version's arithmetic
+// (ops/imaging.py blur_cv2).
 //
-// The bound on |acc32 - acc64|, with u = 2^-24, gamma_n = n u / (1 - n u),
-// taps t_i > 0 with sum S = 1 + O(u), gray 0..255:
-//   rows:    each of the 51 sums of t_i * g has error <= gamma_51 * 255 * S
-//            (any order, with or without FMA) = 7.75e-4;
-//   columns: the sum of t_j * v32_j errs by <= gamma_51 * 255 * S * (1 +
-//            gamma_51) from its own rounding, plus S * 7.75e-4 carried from
-//            the rows: 1.55e-3 in all;
-//   float64: the in-order float64 sum is within 51 * 2^-53 * 255 * 2 =
-//            2.9e-12 of the exact one.
-// So |acc32 - acc64| < 1.56e-3 < eps = 2^-9 = 1.95e-3. g + 12.5 +- eps is
-// exact in float32 (below 256 float32 resolves 2^-16), so the two tests
-// acc32 < g + 12.5 - eps and acc32 > g + 12.5 + eps are exact and decide
-// like acc64 would. The wrapper passes eps (ops/kernels.py RECHECK_EPS).
-// The recheck counts its pixels into a 64-bit counter the wrapper owns.
+// The bound on |acc32 - acc_cv2|, with u = 2^-24, gamma_n = n u / (1 -
+// n u), taps t_i > 0 with sum S = 1 + O(u), gray 0..255: each float32
+// order lies within
+//   rows:    gamma_51 * 255 * S = 7.75e-4 for each of the 51 row sums (any
+//            order, with or without FMA);
+//   columns: gamma_51 * 255 * S * (1 + gamma_51) from its own rounding,
+//            plus S * 7.75e-4 carried from the rows: 1.55e-3 in all
+// of the exact sum, so the two orders lie within 3.1e-3 < eps = 2^-8 =
+// 3.9e-3 of each other. g + 12.5 +- eps is exact in float32 (below 256
+// float32 resolves 2^-16), so the two tests acc32 < g + 12.5 - eps and
+// acc32 > g + 12.5 + eps are exact and decide like acc_cv2 would. The
+// wrapper passes eps (ops/kernels.py RECHECK_EPS). The recheck counts its
+// pixels into a 64-bit counter the wrapper owns.
 //
 // Bound on this card: 2 * 51 * 2 = 204 flop a pixel against 2-4 bytes of
 // traffic, so operations bound it (float32, 67 TFLOP/s). The design spends
@@ -86,7 +90,7 @@ struct Layout {
   static constexpr int kVertCols = TW + 2 * kHalf;  // row-pass columns
   // the column pass reads float4s up to column TW + 51
   static constexpr int kVertW = TW + 52;
-  static constexpr int kScratchBytes = kWarps * kBlock * 8;
+  static constexpr int kScratchBytes = kWarps * kBlock * 4;
   static constexpr int kVertBytes = TH * kVertW * 4;
   static constexpr int kGrayBytes = kGrayRows * kGrayW * 2;
   static constexpr int kSmemBytes = kScratchBytes + kVertBytes + kGrayBytes;
@@ -102,11 +106,12 @@ __device__ __forceinline__ float bf16_to_float(uint16_t b) {
   return __uint_as_float((uint32_t)b << 16);
 }
 
-// the plain version's rule on the float64 sum
-__device__ __forceinline__ bool rule(double acc, float g) {
-  double mean = rint(acc);
-  mean = mean < 0.0 ? 0.0 : (mean > 255.0 ? 255.0 : mean);
-  return (double)g > mean - 13.0;
+// cv2's rule on its float32 mean: rounded half to even, saturated to
+// 0..255, white where g > mean - 13
+__device__ __forceinline__ bool rule(float acc, float g) {
+  float mean = rintf(acc);
+  mean = mean < 0.0f ? 0.0f : (mean > 255.0f ? 255.0f : mean);
+  return g > mean - 13.0f;
 }
 
 // Load 16 pixels (16 * CH bytes) of one image row from column gx on: the
@@ -192,28 +197,42 @@ __device__ __forceinline__ void stage_gray(
   }
 }
 
-// The exact tier for one pixel, by the whole warp: lanes take the 51
-// column sums (in order over rows), lane `owner` the sum over columns (in
-// order), all in float64 with separately rounded products and sums.
+// The exact tier for one pixel (image column x), by the whole warp, in
+// cv2's float32 arithmetic: lanes take the 51 row sums (window rows, taps
+// over columns left to right), lane `owner` the column sum (the centre
+// row, then each symmetric pair of rows).
 template <int TH, int TW>
-__device__ bool recheck(const uint16_t* gray, double* scratch, int r, int o,
-                        int lane, int owner) {
+__device__ bool recheck(const uint16_t* gray, float* scratch, int r, int o,
+                        int lane, int owner, int x, int h, int w) {
   using L = Layout<TH, TW>;
+  const bool row_fma = x < (w / 4) * 4;
+  const bool col_fma = x < (w / 8) * 8;
   // window rows r .. r+50 of the staged gray, columns o+7 .. o+57
   for (int j = lane; j < kBlock; j += 32) {
-    const uint16_t* col = gray + r * L::kGrayW + o + 7 + j;
-    double acc = __dmul_rn((double)bf16_to_float(col[0]), (double)c_taps[0]);
-    for (int t = 1; t < kBlock; ++t)
-      acc = __dadd_rn(acc, __dmul_rn((double)bf16_to_float(col[t * L::kGrayW]),
-                                     (double)c_taps[t]));
+    const uint16_t* row = gray + (r + j) * L::kGrayW + o + 7;
+    float acc = bf16_to_float(row[kHalf]);
+    if (w > 1) {
+      acc = __fmul_rn(bf16_to_float(row[0]), c_taps[0]);
+      for (int t = 1; t < kBlock; ++t) {
+        const float v = bf16_to_float(row[t]);
+        acc = row_fma ? __fmaf_rn(v, c_taps[t], acc)
+                      : __fadd_rn(acc, __fmul_rn(v, c_taps[t]));
+      }
+    }
     scratch[j] = acc;
   }
   __syncwarp();
   bool white = false;
   if (lane == owner) {
-    double acc = __dmul_rn(scratch[0], (double)c_taps[0]);
-    for (int j = 1; j < kBlock; ++j)
-      acc = __dadd_rn(acc, __dmul_rn(scratch[j], (double)c_taps[j]));
+    float acc = scratch[kHalf];
+    if (h > 1) {
+      acc = __fmul_rn(acc, c_taps[kHalf]);
+      for (int j = 1; j <= kHalf; ++j) {
+        const float pair = __fadd_rn(scratch[kHalf + j], scratch[kHalf - j]);
+        acc = col_fma ? __fmaf_rn(pair, c_taps[kHalf + j], acc)
+                      : __fadd_rn(acc, __fmul_rn(pair, c_taps[kHalf + j]));
+      }
+    }
     white = rule(acc, bf16_to_float(gray[(r + kHalf) * L::kGrayW + o + 32]));
   }
   __syncwarp();
@@ -227,7 +246,7 @@ binarize_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                 float eps, int align) {
   using L = Layout<TH, TW>;
   extern __shared__ __align__(16) unsigned char smem[];
-  double* scratch = reinterpret_cast<double*>(smem);
+  float* scratch = reinterpret_cast<float*>(smem);
   float* vert = reinterpret_cast<float*>(smem + L::kScratchBytes);
   uint16_t* gray =
       reinterpret_cast<uint16_t*>(smem + L::kScratchBytes + L::kVertBytes);
@@ -271,7 +290,7 @@ binarize_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
   constexpr int kTasks = TH * (TW / kOutH);
   // g + 12.5 -+ eps, exact in float32 for g in 0..255
   const float lo_off = 12.5f - eps, hi_off = 12.5f + eps;
-  double* my_scratch = scratch + (tid / 32) * kBlock;
+  float* my_scratch = scratch + (tid / 32) * kBlock;
   for (int base = 0; base < kTasks; base += kThreads) {
     const int task = base + tid;
     const bool active = task < kTasks;
@@ -322,8 +341,8 @@ binarize_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
       while (bits) {
         const int k = __ffs(bits) - 1;
         bits &= bits - 1;
-        const bool white =
-            recheck<TH, TW>(gray, my_scratch, orow, ocol + k, lane, owner);
+        const bool white = recheck<TH, TW>(gray, my_scratch, orow, ocol + k,
+                                           lane, owner, x0 + ocol + k, h, w);
         if (lane == owner) {
           // k is not known at compile time: no indexing of `bytes` by it
           const uint32_t bit = white ? 0xffu << (8 * (k % 4)) : 0u;

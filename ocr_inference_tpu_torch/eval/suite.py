@@ -63,28 +63,40 @@ class EvalPage:
     texts: list[str]       # ground truth per line, reading order
 
 
-def eval_pages(n_pages: int, glyphs: dict, charset) -> Iterator[EvalPage]:
-    """The suite's pages, made as the CLI makes them with its default
-    uniform text (one generator for page, distortion and degradation
-    draws)."""
-    rng = np.random.RandomState(SEED + SEED_OFFSET)
+def eval_pages(n_pages: int, glyphs, charset, seed: int = SEED,
+               token_sampler=None, suite: bool = True, degrade: float = 0.0
+               ) -> Iterator[EvalPage]:
+    """The eval CLI's pages (selftrain_cli.py:502-518), one generator,
+    ``RandomState(seed + 10000)``, for page, distortion and degradation
+    draws: with ``suite`` page ``p`` distorted and degraded as
+    ``SUITE[p % 6]`` says, else every page degraded at ``degrade``.
+    ``token_sampler`` draws the text (None: uniform ``sample_tokens``)."""
+    rng = np.random.RandomState(seed + SEED_OFFSET)
     for p in range(n_pages):
-        img, texts = render_page(rng, glyphs, charset)
-        name, level, shear, curve, use_tps = SUITE[p % len(SUITE)]
-        if shear or curve:
-            img = distort_page(img, rng, shear_deg=shear, curve_amp=curve)
+        page = render_page(rng, glyphs, charset, token_sampler=token_sampler)
+        img, texts = page.image, page.texts
+        if suite:
+            name, level, shear, curve, use_tps = SUITE[p % len(SUITE)]
+            if shear or curve:
+                img = distort_page(img, rng, shear_deg=shear,
+                                   curve_amp=curve)
+        else:
+            name, level, use_tps = "", degrade, False
         img = degrade_page(img, rng, level)
         yield EvalPage(p, name, use_tps, img, texts)
 
 
-def build_eval_lm(out_path: str | Path, charset) -> Path:
-    """The CLI's LM: an order-3 token ARPA over 500 lines of
-    ``sample_tokens`` from ``RandomState(5 + 77)`` (selftrain_cli.py:
-    386-406)."""
-    rng = np.random.RandomState(SEED + LM_SEED_OFFSET)
-    corpus = [" ".join(sample_tokens(rng, charset))
-              for _ in range(LM_CORPUS_LINES)]
-    return build_char_arpa(corpus, out_path, order=LM_ORDER, tokens=True)
+def build_eval_lm(out_path: str | Path, charset, seed: int = SEED,
+                  order: int = LM_ORDER, corpus_lines: int = LM_CORPUS_LINES,
+                  token_sampler=None) -> Path:
+    """The eval CLI's LM (selftrain_cli.py:386-406): a token ARPA of
+    ``order`` over ``corpus_lines`` lines from ``RandomState(seed + 77)``
+    (defaults: order 3 over 500 lines of ``sample_tokens`` from
+    ``RandomState(5 + 77)``, artifacts/full77f/lm.arpa byte for byte)."""
+    rng = np.random.RandomState(seed + LM_SEED_OFFSET)
+    sampler = token_sampler or sample_tokens
+    corpus = [" ".join(sampler(rng, charset)) for _ in range(corpus_lines)]
+    return build_char_arpa(corpus, out_path, order=order, tokens=True)
 
 
 class StripCapture(PipelineObserver):
@@ -103,19 +115,20 @@ class StripCapture(PipelineObserver):
             self.strips = payload[1]
 
 
-def calibration_strips(pipeline, glyphs: dict, charset,
-                       n_lines: int = CALIB_LINES):
+def calibration_strips(pipeline, glyphs, charset,
+                       n_lines: int = CALIB_LINES, seed: int = SEED,
+                       token_sampler=None, degrade: float = 0.0):
     """The CLI's calibration set (selftrain_cli.py:439-459): pages from
-    ``RandomState(5 + 31337)``, read with ``run_ocr``; the strips of the
-    pages whose line count equals the rendered count, until ``n_lines``
-    strips (at most 50 pages). Returns (strips, references, the indices of
-    the pages used, pages tried)."""
-    rng = np.random.RandomState(SEED + CALIB_SEED_OFFSET)
+    ``RandomState(seed + 31337)``, degraded at ``degrade``, read with
+    ``run_ocr``; the strips of the pages whose line count equals the
+    rendered count, until ``n_lines`` strips (at most 50 pages). Returns
+    (strips, references, the indices of the pages used, pages tried)."""
+    rng = np.random.RandomState(seed + CALIB_SEED_OFFSET)
     strips, refs, used, attempts = [], [], [], 0
     while len(strips) < n_lines and attempts < CALIB_ATTEMPTS:
         attempts += 1
-        img, texts = render_page(rng, glyphs, charset)
-        img = degrade_page(img, rng, 0.0)
+        page = render_page(rng, glyphs, charset, token_sampler=token_sampler)
+        img, texts = degrade_page(page.image, rng, degrade), page.texts
         obs = StripCapture()
         status, _ = pipeline.run_ocr(img, target_encoding=Encoding.WYLIE,
                                      observer=obs)
@@ -176,22 +189,23 @@ def lm_columns(pipeline, result: SuiteResult,
     return out
 
 
-def run_suite(pipeline, n_pages: int, glyphs: dict, charset,
-              on_page: Optional[Callable[[EvalPage, str], None]] = None
-              ) -> SuiteResult:
+def run_suite(pipeline, n_pages: int, glyphs, charset,
+              on_page: Optional[Callable[[EvalPage, str], None]] = None,
+              **page_kwargs) -> SuiteResult:
     """Read the first ``n_pages`` suite pages with ``pipeline.run_ocr`` and
     score them: pooled CER with its bootstrap 95% CI, CER per distribution
     and per page, lines read, the pages that failed and the pages the TPS
     dewarp was applied to. When the recognizer has an LM, each page's
     strips are also read with the top beam, plain and fused (the fused
     read is a plain beam while fusion is disabled), and scored pooled.
-    ``on_page(page, prediction)`` is called after each page."""
+    ``on_page(page, prediction)`` is called after each page;
+    ``page_kwargs`` go to ``eval_pages``."""
     engine = pipeline.ocr_inference
     beams = engine.ctc_decoder_lm is not None
     preds, refs, dists, per_page = [], [], [], []
     beam_preds, beam_lm_preds = [], []
     lines, failed, tps_applied = 0, [], []
-    for page in eval_pages(n_pages, glyphs, charset):
+    for page in eval_pages(n_pages, glyphs, charset, **page_kwargs):
         obs = StripCapture()
         status, payload = pipeline.run_ocr(
             page.image, target_encoding=Encoding.WYLIE, observer=obs,

@@ -13,6 +13,54 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm's default (onnx/transplant.py:412-414)
+BN_MOMENTUM = 0.99  # flax.linen.BatchNorm's running-average decay
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over the channel axis of (B, C, ...) with Flax's
+    semantics.
+
+    In eval mode it is ``nn.BatchNorm`` on the running statistics. In
+    train mode it computes as ``flax.linen.BatchNorm(use_running_average=
+    False)``: the batch mean and the biased variance in float32 over every
+    axis but the channel, the variance as ``max(0, E[x^2] - E[x]^2)``,
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32 cast back
+    to the input's dtype, and the running statistics updated in place as
+    ``0.99 * running + 0.01 * batch`` (torch's BatchNorm uses the unbiased
+    variance and momentum 0.1)."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=BN_EPS)
+
+    def _check_input_dim(self, x):
+        if x.ndim < 2:
+            raise ValueError(f"expected (B, C, ...) input, got {x.ndim}-D")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        axes = [0] + list(range(2, x.ndim))
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(shape)) * mul.view(shape) + \
+            self.bias.to(xf.dtype).view(shape)
+        return y.to(x.dtype)
+
+
+def float_head(head: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A model's head in its own dtype (float32, as Flax's heads take
+    ``dtype=float32`` whatever the body's), outside any autocast
+    region."""
+    with torch.autocast(x.device.type, enabled=False):
+        return head(x.to(head.weight.dtype))
 
 
 def same_pads(length: int, k: int, stride: int = 1, dilation: int = 1):
@@ -47,7 +95,7 @@ class ConvBN(nn.Module):
         self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride=stride,
                                 dilation=dilation, bias=False,
                                 padding=(k_eff - 1) // 2 if self.own_pad else 0)
-        self.BatchNorm_0 = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.BatchNorm_0 = BatchNorm(cout)
         self.kernel, self.stride, self.dilation, self.act = (
             kernel, stride, dilation, act)
 
@@ -72,7 +120,7 @@ class ResidualBlock(nn.Module):
             # a 1x1 kernel needs no SAME padding at any stride
             self.Conv_0 = nn.Conv2d(cin, features, 1, stride=stride,
                                     bias=False)
-            self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS)
+            self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x):
         y = self.ConvBN_1(self.ConvBN_0(x))
@@ -125,7 +173,7 @@ class ConvBN1D(nn.Module):
         super().__init__()
         self.Conv_0 = nn.Conv1d(cin, cout, k, stride=stride, dilation=dilation,
                                 bias=False)
-        self.BatchNorm_0 = nn.BatchNorm1d(cout, eps=BN_EPS)
+        self.BatchNorm_0 = BatchNorm(cout)
         self.k, self.stride, self.dilation, self.act = k, stride, dilation, act
 
     def forward(self, x):

@@ -1,4 +1,5 @@
-"""Flax msgpack checkpoints -> PyTorch state dicts.
+"""Flax msgpack checkpoints <-> PyTorch state dicts, and the parameter
+lifecycle (init, save, load).
 
 Counterpart of ocr_inference_tpu/models/params.py. The JAX package writes
 weights with ``flax.serialization.to_bytes``: a msgpack map of maps whose
@@ -128,13 +129,167 @@ def read_msgpack(path: str | Path) -> dict:
     return tree
 
 
-def load_meta(path: str | Path) -> dict:
+def _pack_header(out: bytearray, n: int, fix: int | None, fix_max: int,
+                 codes: tuple[int, ...]) -> None:
+    """A msgpack length header: the fix form below ``fix_max``, else the
+    8/16/32-bit form (``codes``, the 8-bit one may be absent)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I")[3 - len(codes):],
+                                (0xFF, 0xFFFF, 0xFFFFFFFF)[3 - len(codes):]):
+        if n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(obj, out: bytearray) -> None:
+    """msgpack of ``obj`` as ``msgpack.packb(obj, use_bin_type=True)``
+    writes it; numpy arrays as flax's ExtType 1; dict keys sorted, as
+    ``jax.tree.map`` leaves the tree that flax serialises."""
+    if isinstance(obj, dict):
+        _pack_header(out, len(obj), 0x80, 15, (0xDE, 0xDF))
+        for k in sorted(obj):
+            _pack(str(k), out)
+            _pack(obj[k], out)
+    elif isinstance(obj, (list, tuple)):
+        _pack_header(out, len(obj), 0x90, 15, (0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_header(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, bytes):
+        _pack_header(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (int, np.integer)) and 0 <= obj:
+        n = int(obj)
+        if n <= 0x7F:
+            out.append(n)
+        else:
+            for code, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                     (0xCE, ">I", 0xFFFFFFFF),
+                                     (0xCF, ">Q", 2 ** 64 - 1)):
+                if n <= limit:
+                    out.append(code)
+                    out += struct.pack(fmt, n)
+                    break
+    elif isinstance(obj, np.ndarray):
+        payload = bytearray()
+        _pack((list(obj.shape), obj.dtype.name,
+               np.ascontiguousarray(obj).tobytes()), payload)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            _pack_header(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", 1)
+        out += payload
+    else:
+        raise TypeError(f"cannot serialise {type(obj).__name__}")
+
+
+def to_bytes(tree: dict) -> bytes:
+    """``flax.serialization.to_bytes`` of a tree of numpy arrays (or
+    tensors), byte for byte."""
+    out = bytearray()
+    _pack(_map_leaves(tree, _host), out)
+    return bytes(out)
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _variables(variables) -> dict:
+    """A Flax variables tree, or a module's (``flax_variables``)."""
+    if isinstance(variables, torch.nn.Module):
+        return flax_variables(variables)
+    return variables
+
+
+def save_params(variables, path: str | Path, meta: dict | None = None) -> None:
+    """Write ``variables`` (a Flax tree, or one of the port's modules) to
+    ``path`` as ``flax.serialization.to_bytes`` writes it, and ``meta``,
+    when given, to the ``<path>.json`` sidecar (models/params.py:37-46).
+    The JAX ``load_params`` reads the file, and ``read_msgpack`` reads the
+    JAX package's."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(to_bytes(_variables(variables)))
+    if meta is not None:
+        Path(str(path) + ".json").write_text(json.dumps(meta, indent=2),
+                                             encoding="utf-8")
+
+
+def _restore(template: dict, loaded: dict, where: str) -> dict:
+    out = {}
+    for k, want in template.items():
+        if k not in loaded:
+            raise ValueError(f"checkpoint lacks {where}{k}")
+        got = loaded[k]
+        if isinstance(want, dict):
+            out[k] = _restore(want, got, f"{where}{k}/")
+        else:
+            if tuple(np.shape(got)) != tuple(np.shape(want)):
+                raise ValueError(
+                    f"{where}{k}: checkpoint shape {np.shape(got)}, "
+                    f"template {np.shape(want)}")
+            out[k] = got
+    extra = set(loaded) - set(template)
+    if extra:
+        raise ValueError(f"checkpoint has unexpected {where}{sorted(extra)}")
+    return out
+
+
+def load_params(template, path: str | Path):
+    """Read a msgpack checkpoint (models/params.py:49-52). ``template`` is
+    a Flax variables tree, and the checkpoint's tree with its structure
+    and shapes is returned (a mismatch raises ValueError); or one of the
+    port's modules, which is loaded in place and returned."""
+    tree = read_msgpack(path)
+    if isinstance(template, torch.nn.Module):
+        load_flax_tree(template, tree, str(path))
+        return template
+    return _restore(template, tree, "")
+
+
+def load_meta(path: str | Path) -> dict | None:
     """The ``<weights>.json`` sidecar (architecture geometry, charset), or
-    {} when absent (models/params.py load_meta)."""
+    None when absent (models/params.py:55-59)."""
     meta = Path(str(path) + ".json")
     if meta.is_file():
         return json.loads(meta.read_text(encoding="utf-8"))
-    return {}
+    return None
+
+
+def param_count(variables) -> int:
+    """Elements in a Flax variables tree or a module's, batch statistics
+    included (models/params.py:62)."""
+    return int(sum(int(np.prod(np.shape(a)))
+                   for _, a in _leaves(_variables(variables))))
+
+
+def init_recognizer(model: torch.nn.Module, input_height: int = 80,
+                    width: int = 256, seed: int = 0) -> dict:
+    """Fresh Flax variables for a recognizer (models/params.py:31-34):
+    ``seeded_flax_params`` of its tree, numpy draws from the Flax
+    initialisers' distributions, not JAX's PRNG bits. ``input_height`` and
+    ``width`` are the JAX signature's; the module fixes the shapes."""
+    return seeded_flax_params(flax_shapes(model), seed)
+
+
+def init_segmentation(model: torch.nn.Module, patch_size: int = 512,
+                      seed: int = 0) -> dict:
+    """Fresh Flax variables for a segmentation net (models/params.py:
+    25-28), as ``init_recognizer`` draws them."""
+    return seeded_flax_params(flax_shapes(model), seed)
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -275,68 +430,85 @@ def load_flax_weights(module: torch.nn.Module, path: str | Path) -> None:
 _FLAX_BN = {v: k for k, v in _BN_NAMES.items()}
 
 
-def _gru_shapes(tree: dict, modules: list, name: str, shape) -> None:
-    """One BiGRU tensor's shape -> its Flax GRUCell leaves in ``tree``."""
+def _gru_leaves(modules: list, name: str, arr: np.ndarray):
+    """One BiGRU tensor -> its Flax GRUCell leaves ((collection, path),
+    array): the three gates' (in, hidden) kernels or biases; of
+    ``bias_hh`` only ``hn``'s bias (Flax's r and z gates have no hidden
+    bias)."""
     kind, layer = name.rsplit("_l", 1)
     layer, reverse = layer.split("_")[0], layer.endswith("_reverse")
     cell = f"GRUCell_{2 * int(layer) + int(reverse)}"
-    node = tree.setdefault("params", {})
-    for m in modules[:-1]:
-        node = node.setdefault(m, {})
-    node = node.setdefault(cell, {})
-    hidden = shape[0] // 3
+    prefix = tuple(modules[:-1]) + (cell,)
+    parts = np.split(arr, 3)
     if kind == "weight_ih":
-        leaves = {g: ("kernel", (shape[1], hidden)) for g in _GATES_I}
+        leaves = zip(_GATES_I, ["kernel"] * 3, [p.T for p in parts])
     elif kind == "weight_hh":
-        leaves = {g: ("kernel", (shape[1], hidden)) for g in _GATES_H}
+        leaves = zip(_GATES_H, ["kernel"] * 3, [p.T for p in parts])
     elif kind == "bias_ih":
-        leaves = {g: ("bias", (hidden,)) for g in _GATES_I}
+        leaves = zip(_GATES_I, ["bias"] * 3, parts)
     else:
-        leaves = {"hn": ("bias", (hidden,))}
-    for gate, (leaf, leaf_shape) in leaves.items():
-        node.setdefault(gate, {})[leaf] = leaf_shape
+        leaves = [("hn", "bias", parts[2])]
+    for gate, leaf, a in leaves:
+        yield ("params", prefix + (gate, leaf)), a
 
 
-def flax_shapes(module: torch.nn.Module) -> dict:
-    """The Flax variable tree's shapes for one of the port's modules, the
-    inverse of ``params_from_flax``: {"params": {...}, "batch_stats":
-    {...}} with a shape tuple at each leaf (conv kernels HWIO / WIO, dense
+def flax_variables(module: torch.nn.Module) -> dict:
+    """The Flax variable tree of one of the port's modules, the inverse of
+    ``params_from_flax``: {"params": {...}, "batch_stats": {...}} of float32
+    numpy arrays in the Flax layouts (conv kernels HWIO / WIO, dense
     kernels (in, out), attention kernels (C, heads, d) / (heads, d, C),
-    GRU cells' gates (in, hidden))."""
+    GRU cells' gates (in, hidden)). A JAX module loads it as its own
+    variables."""
     tree: dict = {}
+
+    def put(collection, path, arr):
+        node = tree.setdefault(collection, {})
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = np.ascontiguousarray(arr, dtype=np.float32)
+
     for key, t in module.state_dict().items():
         *modules, name = key.split(".")
         if name == "num_batches_tracked":
             continue
-        shape = tuple(t.shape)
+        # a copy: the tree must not follow later in-place updates
+        arr = t.detach().to("cpu", torch.float32).numpy().copy()
         owner = modules[-1] if modules else ""
         if owner == _GRU:
-            _gru_shapes(tree, modules, name, shape)
+            for (collection, path), a in _gru_leaves(modules, name, arr):
+                put(collection, path, a)
             continue
+        leaf = name
+        collection = "params"
         if owner.startswith(("BatchNorm_", "LayerNorm_")):
             collection, leaf = _FLAX_BN[name]
         elif _is_attention(modules):
             heads = module.get_submodule(".".join(modules[:-1])).heads
-            collection, leaf = "params", "kernel" if name == "weight" else name
             if owner == "out":
                 if name == "weight":
-                    shape = (heads, shape[1] // heads, shape[0])
+                    leaf, arr = "kernel", arr.T.reshape(heads, -1, arr.shape[0])
             elif name == "weight":
-                shape = (shape[1], heads, shape[0] // heads)
+                leaf = "kernel"
+                arr = arr.T.reshape(arr.shape[1], heads, -1)
             else:
-                shape = (heads, shape[0] // heads)
+                arr = arr.reshape(heads, -1)
         elif name == "weight" and owner.startswith("Dense_"):
-            collection, leaf, shape = "params", "kernel", shape[::-1]
+            leaf, arr = "kernel", arr.T
         elif name == "weight":  # OIHW -> HWIO, OIW -> WIO
-            collection, leaf = "params", "kernel"
-            shape = shape[2:] + (shape[1], shape[0])
-        else:
-            collection, leaf = "params", name
-        node = tree.setdefault(collection, {})
-        for m in modules:
-            node = node.setdefault(m, {})
-        node[leaf] = shape
+            leaf = "kernel"
+            arr = arr.transpose(tuple(range(2, arr.ndim)) + (1, 0))
+        put(collection, tuple(modules) + (leaf,), arr)
     return tree
+
+
+def _map_leaves(tree: dict, fn) -> dict:
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def flax_shapes(module: torch.nn.Module) -> dict:
+    """``flax_variables``'s tree with a shape tuple at each leaf."""
+    return _map_leaves(flax_variables(module), lambda a: tuple(a.shape))
 
 
 # the standard deviation of a unit normal truncated to [-2, 2]

@@ -28,9 +28,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ocr_inference_tpu_torch.models.layers import (
-    BN_EPS,
+    BatchNorm,
     ConvBN1D,
     SqueezeExcite1D,
+    float_head,
 )
 
 # flax.linen.LayerNorm's default epsilon (MHSABlock.ln_eps); torch's is 1e-5
@@ -44,7 +45,7 @@ class Easter2Block(nn.Module):
     def __init__(self, cin: int, cout: int, k: int, repeats: int = 3):
         super().__init__()
         self.Conv_0 = nn.Conv1d(cin, cout, 1, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm1d(cout, eps=BN_EPS)
+        self.BatchNorm_0 = BatchNorm(cout)
         convs = []
         for i in range(repeats):
             convs.append(ConvBN1D(cin if i == 0 else cout, cout, k,
@@ -155,7 +156,7 @@ class Easter2(nn.Module):
                 x = block(x)
             x = x.transpose(1, 2)
         x = self.ConvBN1D_3(self.ConvBN1D_2(x))
-        return self.Conv_0(x.float()).transpose(1, 2)  # (B, T, V)
+        return float_head(self.Conv_0, x).transpose(1, 2)  # (B, T, V)
 
 
 class CRNN(nn.Module):
@@ -181,7 +182,7 @@ class CRNN(nn.Module):
         for i, (cout, pool) in enumerate(self.STAGES):
             self.add_module(f"Conv_{i}", nn.Conv2d(cin, cout, 3, padding=1,
                                                    bias=False))
-            self.add_module(f"BatchNorm_{i}", nn.BatchNorm2d(cout, eps=BN_EPS))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(cout))
             self._pools.append(pool)
             cin = cout
             if pool is not None:
@@ -204,7 +205,7 @@ class CRNN(nn.Module):
         b, c, h, w = x.shape
         x = self.Dense_0(x.permute(0, 3, 2, 1).reshape(b, w, h * c))
         x, _ = self.BiGRU(x)
-        return self.Dense_1(x.float())  # (B, W / 4, V)
+        return float_head(self.Dense_1, x)  # (B, W / 4, V)
 
 
 def build_recognizer(architecture: str, vocab_size: int,

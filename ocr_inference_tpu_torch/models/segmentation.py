@@ -18,6 +18,7 @@ from ocr_inference_tpu_torch.models.layers import (
     ASPP,
     ConvBN,
     ResidualBlock,
+    float_head,
     pad_same_2d,
     resize_feature,
     space_to_depth,
@@ -99,7 +100,7 @@ class UNet(nn.Module):
                 x = upsample2x(x)
                 s //= 2
             x = next(cb)(torch.cat([x, stem], dim=1))
-        return getattr(self, self._head_name)(x.float())
+        return float_head(getattr(self, self._head_name), x)
 
 
 class ResNetEncoder(nn.Module):
@@ -165,4 +166,4 @@ class DeepLabV3Plus(nn.Module):
         y = resize_feature(self.ASPP_0(high), low.shape[2], low.shape[3])
         y = torch.cat([y, self.ConvBN_0(low)], dim=1)
         y = self.ConvBN_2(self.ConvBN_1(y))
-        return resize_feature(self.Conv_0(y.float()), h, w)
+        return resize_feature(float_head(self.Conv_0, y), h, w)

@@ -9,7 +9,7 @@ returns tensors on the same device:
 - ``gaussian_kernel_1d``: cv2.getGaussianKernel taps;
 - ``adaptive_threshold_gaussian``: the plain version of the binarize kernels
   (ops/kernels.py), cv2.adaptiveThreshold GAUSSIAN_C 51/13, on
-  ``blur_in_order``;
+  ``blur_cv2``, cv2's own float32 blur;
 - ``resize_bilinear``: the JAX float resize (imaging.py:138-176) used on
   page tensors and the detection post chain;
 - ``resize_linear_u8``: cv2.resize INTER_LINEAR on uint8 in cv2's own
@@ -90,26 +90,79 @@ def blur_in_order(gray: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return acc
 
 
+# cv2 5.x's float32 separable filter runs its row pass in 8- and then 4-
+# pixel vector steps with FMA and the rest of a row in scalar code (product
+# and sum rounded apart); its column pass fuses in 8-pixel steps only
+ROW_FMA_STEP, COL_FMA_STEP = 4, 8
+
+
+def blur_cv2(gray: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) gray -> (B, H, W) float32: the Gaussian mean of
+    cv2.adaptiveThreshold(GAUSSIAN_C, 51), in its own float32 arithmetic
+    (GaussianBlur of the float image, BORDER_REPLICATE | BORDER_ISOLATED):
+
+    - the row pass first: per output column the 51 taps left to right,
+      each fused (``fma32``) for columns below 4 * (W // 4) and a rounded
+      product added with a rounding beyond (the scalar tail);
+    - then the column pass: the centre row times the centre tap, then for
+      j = 1..25 the rows j above and below added (one rounding) and
+      multiplied in, fused for columns below 8 * (W // 8);
+    - a one-row image has no column pass, a one-column image no row
+      pass."""
+    b, h, w = gray.shape
+    taps = torch.from_numpy(gaussian_kernel_1d(BLOCK)).to(gray.device)
+    g = gray.to(torch.float32)
+    rows = g
+    if w > 1:
+        cols = torch.arange(w, device=g.device)
+        fused = ROW_FMA_STEP * (w // ROW_FMA_STEP)
+
+        def tap(t, part):
+            return g[:, :, (cols[part] + (t - HALF)).clamp(0, w - 1)]
+
+        head_cols, tail_cols = slice(0, fused), slice(fused, w)
+        head = tap(0, head_cols) * taps[0]
+        tail = tap(0, tail_cols) * taps[0]
+        # a fused row tap in float64 is exact before its one rounding: the
+        # integer gray times a tap (at least 2^-12) plus a partial sum that
+        # is 0 or at least the smallest tap spans under 53 bits
+        taps64 = taps.to(torch.float64)
+        for t in range(1, BLOCK):
+            head = (tap(t, head_cols).to(torch.float64) * taps64[t]
+                    + head.to(torch.float64)).to(torch.float32)
+            tail = tail + tap(t, tail_cols) * taps[t]
+        rows = torch.cat([head, tail], dim=2)
+    if h == 1:
+        return rows
+    r = torch.arange(h, device=g.device)
+    fused = COL_FMA_STEP * (w // COL_FMA_STEP)
+    acc = rows * taps[HALF]
+    head, tail = acc[:, :, :fused], acc[:, :, fused:]
+    for j in range(1, HALF + 1):
+        pair = (rows[:, (r + j).clamp(max=h - 1)]
+                + rows[:, (r - j).clamp(min=0)])
+        if fused:
+            head = fma32(pair[:, :, :fused], taps[HALF + j], head)
+        if fused < w:
+            tail = tail + pair[:, :, fused:] * taps[HALF + j]
+    return torch.cat([head, tail], dim=2)
+
+
 def adaptive_threshold_gaussian(gray: torch.Tensor) -> torch.Tensor:
     """Plain version of the binarize kernels: (..., H, W) uint8 gray ->
-    (..., H, W) uint8 0/255 with cv2.adaptiveThreshold(GAUSSIAN_C, 51, 13)
-    semantics, each image blurred with its own replicate border.
-
-    Arithmetic: ``blur_in_order`` in float64, then round half to even, clip
-    to 0..255, and 255 where gray > mean - 13. The kernels
-    (csrc/binarize.cu) blur in float32 and recompute, in exactly this
-    arithmetic, every pixel whose float32 sum is near its threshold, so
-    they equal this bit for bit. float64 keeps the knife-edge pixels that
-    flip under float32 or TF32 (152 of 640k on the TPU at reduced
-    precision) on cv2's side: the vertical pass is exact in float64 and
-    the horizontal one is off by < 1e-12.
+    (..., H, W) uint8 0/255 equal to cv2.adaptiveThreshold(GAUSSIAN_C, 51,
+    13, THRESH_BINARY), each image blurred with its own replicate border:
+    ``blur_cv2``'s float32 mean rounded half to even and clipped to
+    0..255, and 255 where gray > mean - 13. The kernels
+    (csrc/binarize.cu) blur in float32 in their own order and recompute,
+    in exactly this arithmetic, every pixel whose sum lies near its
+    threshold, so they equal this bit for bit.
     """
     shape = gray.shape
     h, w = shape[-2], shape[-1]
     g = gray.reshape(-1, h, w)
-    acc = blur_in_order(g, torch.float64)
-    mean = torch.round(acc).clamp(0.0, 255.0)
-    out = torch.where(g.to(torch.float64) > mean - C, 255, 0).to(torch.uint8)
+    mean = torch.round(blur_cv2(g)).clamp(0.0, 255.0)
+    out = torch.where(g.to(torch.float32) > mean - C, 255, 0).to(torch.uint8)
     return out.reshape(shape)
 
 
@@ -193,6 +246,19 @@ def resize_linear_u8(image: torch.Tensor, height: int, width: int) -> torch.Tens
     return out if image.ndim == 3 else out[..., 0]
 
 
+def resize_nearest_u8(image: np.ndarray, height: int, width: int
+                      ) -> np.ndarray:
+    """cv2.resize(INTER_NEAREST) of a (H, W[, C]) array: destination
+    pixel (y, x) takes source pixel (min(floor(y / fy), H - 1),
+    min(floor(x / fx), W - 1)) with fx = width / W and fy = height / H in
+    double precision, as cv2's ``resizeNN`` computes them."""
+    h, w = image.shape[:2]
+    ifx, ify = 1.0 / (width / w), 1.0 / (height / h)
+    xs = np.minimum(np.floor(np.arange(width) * ifx).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(height) * ify).astype(np.int64), h - 1)
+    return image[ys][:, xs]
+
+
 # ---------------------------------------------------------------------------
 # Affine rotate (cv2.getRotationMatrix2D + warpAffine)
 # ---------------------------------------------------------------------------
@@ -238,9 +304,11 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     exactly on a float32 midpoint while the exact sum does not; the sum's
     error, found exactly with TwoSum, then moves it one float64 step
     toward the exact value. The midpoint test reads the low 29 bits of the
-    float64, which is right for normal float32 results; every call here
-    has one float32 factor that is an integer, so the exact sum is a
-    multiple of 2**-149 and, below the normal range, exact in float64."""
+    float64, which is right for normal float32 results; the warp's calls
+    have one float32 factor that is an integer, so the exact sum is a
+    multiple of 2**-149 and, below the normal range, exact in float64, and
+    ``blur_cv2``'s column pass sums non-negative blurred gray, whose
+    results are 0 or normal."""
     p = a.to(torch.float64) * b.to(torch.float64)
     cd = c.to(torch.float64)
     s = p + cd

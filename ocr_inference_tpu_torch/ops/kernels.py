@@ -16,8 +16,9 @@ of one kernel:
   ``binarize_lines_pallas``; no window stack, no divisor gate).
 
 Both blur in float32 and recheck every pixel within ``RECHECK_EPS`` of its
-threshold in the plain version's float64 arithmetic, so they equal it bit
-for bit; ``binarize_two_tier`` renders that decision in plain PyTorch.
+threshold in the plain version's arithmetic (cv2's own float32 blur,
+ops/imaging.py ``blur_cv2``), so they equal it, and cv2, bit for bit;
+``binarize_two_tier`` renders that decision in plain PyTorch.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (ops/imaging.py ``adaptive_threshold_gaussian``). Each wrapper
@@ -51,6 +52,7 @@ from ocr_inference_tpu_torch.ops.imaging import (
     C,
     HALF,
     adaptive_threshold_gaussian,
+    blur_cv2,
     blur_in_order,
     gaussian_kernel_1d,
     rgb_to_gray,
@@ -65,10 +67,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# A float32 blur of 0..255 gray with these taps is within 1.56e-3 of the
-# plain version's float64 one (csrc/binarize.cu derives the bound); a pixel
-# whose float32 sum lies within this of its threshold is rechecked.
-RECHECK_EPS = 2.0 ** -9
+# A float32 blur of 0..255 gray with these taps, in any order, is within
+# 1.56e-3 of the exact sum, so the kernels' order and cv2's lie within
+# 3.1e-3 of each other (csrc/binarize.cu derives the bound); a pixel whose
+# float32 sum lies within this of its threshold is rechecked.
+RECHECK_EPS = 2.0 ** -8
 
 # canvas rows a line block owns, and its column strips, widest first
 LINE_ROWS = 80
@@ -265,22 +268,22 @@ def binarize_lines(gray: torch.Tensor) -> torch.Tensor:
 
 def binarize_two_tier(gray: torch.Tensor) -> tuple[torch.Tensor, int, float]:
     """(..., H, W) uint8 gray -> (mask, rechecked pixels, max |acc32 -
-    acc64|): the kernels' two tiers. ``g > clip(rint(acc)) - 13`` holds for
-    every g >= 243, and otherwise depends on acc against g + 12.5 alone; a
-    float32 blur decides every pixel whose sum lies more than
-    ``RECHECK_EPS`` from it, and the rest take the plain version's float64
-    rule."""
+    acc_cv2|): the kernels' two tiers. ``g > clip(rint(acc)) - 13`` holds
+    for every g >= 243, and otherwise depends on acc against g + 12.5
+    alone; a float32 blur in the kernels' order decides every pixel whose
+    sum lies more than ``RECHECK_EPS`` from it, and the rest take the plain
+    version's rule on cv2's float32 blur."""
     shape = gray.shape
     g = gray.reshape(-1, shape[-2], shape[-1])
     acc32 = blur_in_order(g, torch.float32)
-    acc64 = blur_in_order(g, torch.float64)
+    acc_cv2 = blur_cv2(g)
     gf = g.to(torch.float32)
     thr = gf + (C - 0.5)
     white = (gf >= 256 - C) | (acc32 < thr - RECHECK_EPS)
     need = ~white & (acc32 <= thr + RECHECK_EPS)
-    exact = g.to(torch.float64) > torch.round(acc64).clamp(0.0, 255.0) - C
+    exact = gf > torch.round(acc_cv2).clamp(0.0, 255.0) - C
     out = torch.where(need, exact, white)
-    err = float((acc32.to(torch.float64) - acc64).abs().max())
+    err = float((acc32 - acc_cv2).abs().max())
     return (torch.where(out, 255, 0).to(torch.uint8).reshape(shape),
             int(need.sum()), err)
 

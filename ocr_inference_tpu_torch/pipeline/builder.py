@@ -128,7 +128,7 @@ def build_recognition_engine(
     _no_mesh(mesh)
     dev = resolve_device(device)
     weights = find_weights(config.model_file)
-    meta = load_meta(weights) if weights is not None else {}
+    meta = (load_meta(weights) or {}) if weights is not None else {}
     vocab = len(config.charset) + (1 if config.add_blank else 0)
     kwargs = {k: t(meta[k]) for k, t in (
         ("width_mult", float), ("stem_features", int), ("hidden", int))
@@ -161,7 +161,7 @@ def build_detection_engine(
         model = DeepLabV3Plus(classes=n_classes)
         stem = 1
     else:
-        meta = load_meta(weights) if weights is not None else {}
+        meta = (load_meta(weights) or {}) if weights is not None else {}
         # weight files without a sidecar predate the stem-2 variant (stride
         # 1); a fresh detector takes the stem-2 default (builder.py:162-168)
         stem = int(meta.get("stem_stride", 2 if weights is None else 1))

@@ -132,6 +132,36 @@ minutes):
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py images
 
+With the argument ``training`` it writes the JAX CPU record of two
+short training runs at full width, in float32 and in float64, which
+chip_smoke.py's ``train_rec_f32`` and ``train_seg_f32`` phases repeat on
+the card (about 45 minutes on 8 cores, most of it the float64 runs; it
+stores no weights):
+
+    tests/data/torch_port/training.json
+        ``rec``: Easter2 from artifacts/full77f/recognizer.msgpack, five
+        steps of ``make_train_step`` with ``make_optimizer(3e-4,
+        total_steps=3000, warmup_steps=100)``, each on a
+        ``recognizer_batch`` of full77f's recipe (the 77-unit charset,
+        ``GlyphSet(height=40, seed=7)``, 32 canvases of 80x512, degrade
+        0.7, shear 0.6, curve 12, geo_prob 0.35) drawn in turn from one
+        ``RandomState(REC_SEED)``;
+        ``seg``: the UNet (width 32, stem 2) from
+        artifacts/full77f/lines.msgpack, three steps of
+        ``make_seg_train_step`` with ``make_optimizer(3e-4,
+        total_steps=400, warmup_steps=50)`` (selftrain's), each on a
+        ``segmentation_batch`` of 8 tiles of 512^2 from one
+        ``RandomState(SEG_SEED)``.
+        Per step: the sha256 of each batch array, the loss, and per
+        parameter leaf the norms of its gradient and of its change over
+        the step (7 significant digits); then the same loss and norms of
+        a float64 run on the same batches from the same weights
+        (``jax.enable_x64``, the Flax modules at dtype float64; their
+        heads stay float32, as the JAX package builds them), the
+        reference the card's float32 steps are held to.
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py training
+
 The JAX warp is pinned to its device path (``OCR_TPS_HOST=0``): the port
 has no host warp.
 """
@@ -218,9 +248,12 @@ def main(argv: list[str]) -> int:
         return recognizers()
     if argv == ["images"]:
         return images()
+    if argv == ["training"]:
+        return training()
     if argv:
         raise SystemExit(f"unknown arguments {argv}; expected eval_suite, "
-                         "eval_mode, layout, recognizers or images")
+                         "eval_mode, layout, recognizers, images or "
+                         "training")
     import jax
     import jax.numpy as jnp
 
@@ -950,6 +983,148 @@ def images() -> int:
     (OUT / "images.json").write_text(
         json.dumps(record, ensure_ascii=False, separators=(",", ":")) + "\n",
         encoding="utf-8")
+    return 0
+
+
+# the training record's recipes (tests/data/torch_port/training.json)
+REC_SEED, SEG_SEED = 0, 1
+REC_STEPS, SEG_STEPS = 5, 3
+REC_RECIPE = {"batch": 32, "input_height": 80, "width": 512,
+              "degrade_max": 0.7, "shear_max_deg": 0.6,
+              "curve_max_amp": 12.0, "geo_prob": 0.35}
+REC_OPTIMIZER = {"learning_rate": 3e-4, "total_steps": 3000,
+                 "warmup_steps": 100}
+SEG_RECIPE = {"batch": 8, "patch": 512}
+SEG_OPTIMIZER = {"learning_rate": 3e-4, "total_steps": 400,
+                 "warmup_steps": 50}
+
+
+def _norms(tree, digits: int = 7) -> dict[str, float]:
+    """Per leaf ("Mod/Sub/kernel"), its float64 norm to ``digits``
+    significant digits."""
+    out = {}
+
+    def walk(a, prefix):
+        for k in sorted(a):
+            if isinstance(a[k], dict):
+                walk(a[k], prefix + (k,))
+            else:
+                n = np.linalg.norm(np.asarray(a[k], np.float64).ravel())
+                out["/".join(prefix + (k,))] = float(f"{n:.{digits}g}")
+
+    walk(tree, ())
+    return out
+
+
+def training() -> int:
+    """tests/data/torch_port/training.json (see the module docstring)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from ocr_inference_tpu.eval.synthetic import (
+        WYLIE_CHARSET_FULL, GlyphSet, recognizer_batch, segmentation_batch,
+    )
+    from ocr_inference_tpu.models import UNet, build_recognizer
+    from ocr_inference_tpu.training import (
+        ctc_loss_fn, make_optimizer, make_seg_train_step, make_train_step,
+        seg_loss_fn,
+    )
+    from ocr_inference_tpu_torch.models.params import read_msgpack
+
+    glyphs = GlyphSet(charset=WYLIE_CHARSET_FULL, height=40, seed=7)
+    record = {"charset": "WYLIE_CHARSET_FULL", "glyph_height": 40,
+              "glyph_seed": 7}
+
+    def grad_of(model, kind):
+        def loss_fn(params, stats, batch):
+            logits, _ = model.apply(
+                {"params": params, "batch_stats": stats}, batch["images"],
+                train=True, mutable=["batch_stats"],
+                rngs={"dropout": jax.random.PRNGKey(0)})
+            if kind == "seg":
+                return seg_loss_fn(logits, batch["targets"])
+            lengths = jnp.minimum(batch["image_widths"] // 4,
+                                  logits.shape[1])
+            return ctc_loss_fn(logits, lengths, batch["labels"],
+                               batch["label_lengths"])
+        return jax.jit(jax.grad(loss_fn))
+
+    def run(model, variables, opt, step_fn, kind, batches, tag):
+        params, stats = variables["params"], variables["batch_stats"]
+        state = (params, stats, opt.init(params), 0)
+        grad = grad_of(model, kind)
+        out = []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            before = jax.tree.map(np.asarray, state[0])
+            grads = grad(state[0], state[1], batch)
+            state, loss = step_fn(state, batch)
+            after = jax.tree.map(np.asarray, state[0])
+            change = jax.tree.map(
+                lambda a, b: np.asarray(b, np.float64)
+                - np.asarray(a, np.float64), before, after)
+            out.append({"loss": float(loss), "change_norms": _norms(change),
+                        "grad_norms": _norms(grads)})
+            print(f"{kind} {tag} step {i}: loss {float(loss):.6f} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        return out
+
+    def both(build, weights, optimizer, make_step, kind, batches):
+        """The float32 run, then the float64 one (jax.enable_x64, the Flax
+        modules at dtype float64; their heads stay float32) on the same
+        batches from the same weights."""
+        variables = read_msgpack(weights)
+        model = build(jnp.float32)
+        opt = make_optimizer(**optimizer)
+        f32 = run(model, variables, opt, make_step(model, opt), kind,
+                  batches, "f32")
+        with jax.enable_x64(True):
+            model = build(jnp.float64)
+            v64 = jax.tree.map(lambda a: np.asarray(a, np.float64),
+                               variables)
+            b64 = [{k: np.asarray(a, np.float64) if a.dtype == np.float32
+                    else a for k, a in b.items()} for b in batches]
+            opt = make_optimizer(**optimizer)
+            f64 = run(model, v64, opt, make_step(model, opt), kind, b64,
+                      "f64")
+        return [{"batch_sha256": {k: sha256(v) for k, v in b.items()},
+                 "loss": s["loss"], "change_norms": s["change_norms"],
+                 "grad_norms": s["grad_norms"], "loss_f64": d["loss"],
+                 "change_norms_f64": d["change_norms"],
+                 "grad_norms_f64": d["grad_norms"]}
+                for b, s, d in zip(batches, f32, f64)]
+
+    rng = np.random.RandomState(REC_SEED)
+    recipe = dict(REC_RECIPE)
+    batch_size = recipe.pop("batch")
+    batches = [recognizer_batch(rng, glyphs, WYLIE_CHARSET_FULL, batch_size,
+                                **recipe) for _ in range(REC_STEPS)]
+    record["rec"] = {
+        "weights": "artifacts/full77f/recognizer.msgpack",
+        "seed": REC_SEED, "recipe": REC_RECIPE, "optimizer": REC_OPTIMIZER,
+        "steps": both(lambda dt: build_recognizer(
+            "Easter2", len(WYLIE_CHARSET_FULL) + 1, dtype=dt),
+            WEIGHTS / "recognizer.msgpack", REC_OPTIMIZER, make_train_step,
+            "rec", batches),
+    }
+    rng = np.random.RandomState(SEG_SEED)
+    batches = [segmentation_batch(rng, glyphs, WYLIE_CHARSET_FULL,
+                                  SEG_RECIPE["batch"], SEG_RECIPE["patch"])
+               for _ in range(SEG_STEPS)]
+    record["seg"] = {
+        "weights": "artifacts/full77f/lines.msgpack",
+        "seed": SEG_SEED, "recipe": SEG_RECIPE, "optimizer": SEG_OPTIMIZER,
+        "steps": both(lambda dt: UNet(classes=1, width=32, stem_stride=2,
+                                      dtype=dt),
+                      WEIGHTS / "lines.msgpack", SEG_OPTIMIZER,
+                      make_seg_train_step, "seg", batches),
+    }
+    path = OUT / "training.json"
+    path.write_text(json.dumps(record, separators=(",", ":")) + "\n",
+                    encoding="utf-8")
+    print(f"wrote {path} ({path.stat().st_size} bytes)")
     return 0
 
 

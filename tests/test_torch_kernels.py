@@ -2,10 +2,11 @@
 cv2.
 
 On the CPU the wrappers run their plain PyTorch versions, which must be
-bit-exact with ``binarize_tiles_pallas`` / ``binarize_lines_pallas`` (run
-in interpret mode, as tests/test_pallas_engines.py runs them) and with
-cv2.adaptiveThreshold. The kernels' two-tier decision (float32 blur, exact
-float64 recheck near the threshold) is held here in its plain rendering,
+bit-exact with cv2.adaptiveThreshold and with ``binarize_tiles_pallas`` /
+``binarize_lines_pallas`` (run in interpret mode, as
+tests/test_pallas_engines.py runs them) wherever those equal cv2. The
+kernels' two-tier decision (float32 blur, exact recheck in cv2's float32
+arithmetic near the threshold) is held here in its plain rendering,
 ``binarize_two_tier``; the CUDA kernels themselves are held against the
 plain version on the card (the ``cuda``-marked test; chip_smoke.py
 phase 2).
@@ -42,6 +43,43 @@ def _page_like(rng, shape):
     return np.clip(img.astype(int) + noise, 0, 255).astype(np.uint8)
 
 
+def _cv2_binarize(gray: np.ndarray) -> np.ndarray:
+    return np.stack([cv2.adaptiveThreshold(
+        g, 255, cv2.ADAPTIVE_THRESH_GAUSSIAN_C, cv2.THRESH_BINARY, 51, 13)
+        for g in gray])
+
+
+def _assert_follows_cv2_where_pallas_departs(got, want, cv):
+    """The port equals cv2 everywhere, and the Pallas kernel wherever the
+    Pallas kernel equals cv2. The Pallas kernels' blur (banded matmuls at
+    the highest precision) departs from cv2's float32 mean on knife-edge
+    pixels whose mean rounds the other way; there the port follows cv2,
+    as the JAX package's host binarize and training batches do."""
+    np.testing.assert_array_equal(got, cv)
+    agree = want == cv
+    np.testing.assert_array_equal(got[agree], want[agree])
+    assert (~agree).sum() <= 4, int((~agree).sum())
+
+
+@pytest.mark.parametrize("h,w", [(1, 127), (2, 20), (5, 1), (23, 37),
+                                 (80, 61), (81, 333), (57, 2500)])
+def test_plain_blur_is_cv2_float32_blur(h, w):
+    """blur_cv2 equals cv2.GaussianBlur of the float image (51x51,
+    BORDER_REPLICATE | BORDER_ISOLATED, what adaptiveThreshold blurs) bit
+    for bit, its vector and scalar column tails and the one-row and
+    one-column images included, and the plain version equals
+    cv2.adaptiveThreshold."""
+    g = np.random.default_rng(h * w).integers(0, 256, (h, w), dtype=np.uint8)
+    want = cv2.GaussianBlur(g.astype(np.float32), (51, 51), 0,
+                            borderType=cv2.BORDER_REPLICATE
+                            | cv2.BORDER_ISOLATED)
+    got = imaging.blur_cv2(torch.from_numpy(g)[None])[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        imaging.adaptive_threshold_gaussian(torch.from_numpy(g)).numpy(),
+        _cv2_binarize(g[None])[0])
+
+
 @pytest.mark.parametrize("kind", ["random", "page"])
 def test_tiles_plain_matches_pallas_tile_kernel(kind):
     rng = np.random.default_rng(1)
@@ -50,7 +88,8 @@ def test_tiles_plain_matches_pallas_tile_kernel(kind):
          else _page_like(rng, shape))
     want = np.asarray(pk.binarize_tiles_pallas(jnp.asarray(t)))
     got = kernels.binarize_tiles(torch.from_numpy(t)).numpy()
-    np.testing.assert_array_equal(got, want)
+    cv = _cv2_binarize(imaging.rgb_to_gray(torch.from_numpy(t)).numpy())
+    _assert_follows_cv2_where_pallas_departs(got, want, cv)
 
 
 @pytest.mark.parametrize("width", [512, 1024, 2000])
@@ -59,7 +98,7 @@ def test_lines_plain_matches_pallas_line_kernel(width):
     g = rng.integers(0, 256, (2, 80, width), dtype=np.uint8)
     want = np.asarray(pk.binarize_lines_pallas(jnp.asarray(g)))
     got = kernels.binarize_lines(torch.from_numpy(g)).numpy()
-    np.testing.assert_array_equal(got, want)
+    _assert_follows_cv2_where_pallas_departs(got, want, _cv2_binarize(g))
 
 
 @pytest.mark.parametrize("shape", [(80, 512), (80, 2500), (80, 3000),
@@ -112,13 +151,14 @@ TWO_TIER_CASES = [(kind, shape) for kind in ("random", "page", "knife")
 
 @pytest.mark.parametrize("kind,shape", TWO_TIER_CASES)
 def test_float32_blur_within_recheck_eps(kind, shape):
-    """The float32 blur stays within RECHECK_EPS (2**-9) of the plain
-    version's float64 one; the derived bound is 1.56e-3 and the measured
-    error sits far below both (about 1.2e-4, a margin of 16x)."""
+    """The kernels' float32 blur stays within RECHECK_EPS (2**-8) of the
+    plain version's (cv2's float32 order); each lies within the derived
+    1.56e-3 of the exact sum, and the measured distance (at most 1.5e-4)
+    sits under 2**-12, 16x inside RECHECK_EPS."""
     g = torch.from_numpy(_inputs(kind, shape, 3))
     _, _, err = kernels.binarize_two_tier(g)
     assert err < 1.56e-3
-    assert err < kernels.RECHECK_EPS / 8, err
+    assert err < kernels.RECHECK_EPS / 16, err
 
 
 @pytest.mark.parametrize("kind,shape", TWO_TIER_CASES)

@@ -1,6 +1,7 @@
 """The port's public signatures against the JAX package's: the ones that
 differed (RecognitionEngine.run's ``use_lm``, render_page's
-``token_sampler`` and the generator's default charset, the geometry
+``token_sampler``, its SyntheticPage result and the generator's default
+charset, the geometry
 functions' JAX parameters, the builders' positional order), each held
 against the JAX function on the same inputs on the CPU."""
 
@@ -58,10 +59,34 @@ def test_markov_pages_byte_equal_jax(glyphs, seed):
                          token_sampler=S.MarkovSampler(tuple(charset)))
     theirs = J.render_page(np.random.RandomState(seed), gs, tuple(charset),
                            token_sampler=J.MarkovSampler(tuple(charset)))
-    np.testing.assert_array_equal(ours[0], theirs.image)
-    assert ours[1] == theirs.texts
+    np.testing.assert_array_equal(ours.image, theirs.image)
+    assert ours.texts == theirs.texts
     uniform = S.render_page(np.random.RandomState(seed), got, tuple(charset))
-    assert uniform[1] != ours[1]
+    assert uniform.texts != ours.texts
+
+
+@pytest.mark.parametrize("charset", ["base", "full"])
+@pytest.mark.parametrize("seed", [0, 7, 31])
+def test_render_page_returns_the_jax_synthetic_page(glyphs, charset, seed):
+    """render_page returns a SyntheticPage (image, line_mask, texts,
+    token_lines) equal to the JAX one, from a GlyphSet and, for the fixture
+    charset, from its glyph dict; the mask is one solid rectangle a
+    line."""
+    cs = J.WYLIE_CHARSET if charset == "base" else J.WYLIE_CHARSET_FULL
+    theirs = J.render_page(np.random.RandomState(seed),
+                           J.GlyphSet(charset=cs, height=40, seed=7), cs)
+    sources = [S.GlyphSet(charset=cs, height=40, seed=7)]
+    if charset == "full":
+        sources.append(glyphs[0])
+    for source in sources:
+        ours = S.render_page(np.random.RandomState(seed), source, cs)
+        assert isinstance(ours, S.SyntheticPage)
+        np.testing.assert_array_equal(ours.image, theirs.image)
+        np.testing.assert_array_equal(ours.line_mask, theirs.line_mask)
+        assert ours.texts == theirs.texts
+        assert ours.token_lines == theirs.token_lines
+    rows = np.flatnonzero(ours.line_mask.any(axis=1))
+    assert set(np.unique(ours.line_mask)) == {0, 255} and len(rows)
 
 
 def _mask_page():
