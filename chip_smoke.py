@@ -1,11 +1,11 @@
-"""Drive the PyTorch port's page and volume OCR and its training on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's page and volume OCR, its training and its
+``.onnx`` checkpoints on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
 geometry library, the ARPA scorer and the PNG, JPEG and TIFF decoders,
-all started together), then runs twenty-four phases and prints one JSON
+all started together), then runs twenty-nine phases and prints one JSON
 line for each:
 
 1. build        — seconds of each compiler; registers and spills of each
@@ -199,13 +199,41 @@ line for each:
                   page by page and its line count;
 24. train_rates — device ms of one Easter2 step (32 x 80x512) and one UNet
                   step (8 x 512^2), float32 and bf16, host ms of one
-                  batch of each, peak memory.
+                  batch of each, peak memory;
+25. onnx_export — full77f's UNet and Easter2 through the port's
+                  torch_export (opset 17, TorchScript exporter, dynamic
+                  batch and recognizer width), BatchNorm folded and not:
+                  bytes, nodes, op set, export, parse and load seconds;
+26. onnx_page_f32 — build_pipeline on the .onnx configs, float32, TF32
+                  off: both engines hold an OnnxModule; the fixture pages
+                  against the JAX float32 record of an ONNX detector
+                  (tests/data/torch_port/onnx.json: no opening) within
+                  0.5% CER, equal line counts and boxes; those pages and
+                  two bench.py config 4 pages against the port's msgpack
+                  float32 path with the same detector settings: every
+                  strip's logits within 1e-3, equal texts and boxes; page
+                  ms of both, the executor's host ms a call and a node;
+27. onnx_volume — 24 config 4 pages through VolumeRunner from the .onnx
+                  configs, float32 and then under OCR_ONNX_BF16=1: the
+                  float32 texts within 0.5% CER of its run_ocr loop's,
+                  equal boxes, bf16 within 2% of float32; pages/s, stage
+                  medians, the executor's host ms, peak memory;
+28. onnx_weights — the fold-free graphs transplanted into fresh modules
+                  (leaves within 1e-6 of full77f's msgpack), the folded
+                  ones (logits within 1e-3), write_back of a fold-free
+                  graph (initializers bit-equal to the export), an fp16
+                  Easter2 export through the executor (within 3e-2 of
+                  the .half() module);
+29. onnx_cli    — bocr on a model directory naming the .onnx files, in
+                  this process: texts equal float32 run_ocr's;
+                  compat.ort.InferenceSession's outputs equal the
+                  executor's.
 
 Kernel launch and recheck counts are zeroed just before each OCR or
-training path is driven (phases 3-23) and read just after it. Then a
-``kernels`` JSON line (per kernel: launches over the main paths, phases
-5, 6, 8, 11, 13, 14, 16, 17, 18, 19's bf16 bocr and bocr-lines, 20, 21
-and 23, and by path,
+training path is driven (phases 3-23, 26, 27 and 29) and read just after
+it. Then a ``kernels`` JSON line (per kernel: launches over the main
+paths, phases 5, 6, 8, 11, 13, 14, 16, 17, 18, 19's bf16 bocr and
+bocr-lines, 20, 21, 23, 26, 27 and 29, and by path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -217,6 +245,7 @@ once. Imports torch, numpy and the port; nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import math
@@ -2809,11 +2838,549 @@ def train_rates(results: dict):
     return out
 
 
+# -- .onnx checkpoints: export, the executor's pipelines, weights, CLIs --
+
+ONNX_VOLUME_PAGES, ONNX_BENCH_PAGES = 24, 2
+REC_AXES = {"input": {0: "batch", 2: "width"}}
+DET_AXES = {"input": {0: "batch"}}
+
+
+def full77f_modules(load: bool = True) -> dict:
+    """full77f's UNet and Easter2, float32, eval mode, on the host; with
+    ``load`` False, of its geometry with torch's own random init."""
+    from ocr_inference_tpu_torch.models.params import load_flax_weights
+    from ocr_inference_tpu_torch.models.recognition import Easter2
+    from ocr_inference_tpu_torch.models.segmentation import UNet
+
+    rec_meta = json.loads((WEIGHTS / "recognizer.msgpack.json").read_text())
+    det_meta = json.loads((WEIGHTS / "lines.msgpack.json").read_text())
+    unet = UNet(1, int(det_meta.get("width", 32)),
+                int(det_meta.get("stem_stride", 1)))
+    easter2 = Easter2(len(rec_meta["charset"]) + 1)
+    if load:
+        load_flax_weights(unet, WEIGHTS / "lines.msgpack")
+        load_flax_weights(easter2, WEIGHTS / "recognizer.msgpack")
+    return {"lines": unet.eval(), "recognizer": easter2.eval()}
+
+
+def onnx_configs(store: dict, kind: str = "folded"):
+    """full77f's configs pointing at the exported files, no msgpack
+    beside them."""
+    from ocr_inference_tpu_torch.core.data import LineDetectionConfig
+
+    ocr = dataclasses.replace(full77f_config(),
+                              model_file=str(store[kind]["recognizer"]))
+    line = LineDetectionConfig(
+        checkpoint="", onnx_file=str(store[kind]["lines"]),
+        architecture="unet", patch_size=512, classes=["line"])
+    return ocr, line
+
+
+@phase("onnx_export")
+def onnx_export(store: dict):
+    """full77f's UNet and Easter2 through the port's torch_export (opset
+    17, the TorchScript exporter), BatchNorm folded (the default) and
+    not, dynamic batch (and width for the recognizer); bytes, nodes, op
+    set, export seconds, and the seconds to parse and to load (fold the
+    constants, move the weights to the card)."""
+    from ocr_inference_tpu_torch.onnx import OnnxGraphFunction
+    from ocr_inference_tpu_torch.onnx.export_shim import torch_export
+    from ocr_inference_tpu_torch.onnx.wire import load_model
+
+    modules = full77f_modules()
+    examples = {"lines": (torch.rand(2, 3, 512, 512), DET_AXES),
+                "recognizer": (torch.rand(2, 80, 512), REC_AXES)}
+    out = {}
+    for kind, fold in (("folded", True), ("unfolded", False)):
+        d = Path(store["dir"]) / kind
+        d.mkdir(parents=True)
+        store[kind] = {}
+        for name, module in modules.items():
+            x, axes = examples[name]
+            path = d / f"{name}.onnx"
+            t0 = time.perf_counter()
+            torch_export(module, x, str(path), do_constant_folding=fold,
+                         input_names=["input"], output_names=["output"],
+                         dynamic_axes=axes)
+            t1 = time.perf_counter()
+            model = load_model(path)
+            t2 = time.perf_counter()
+            fn = OnnxGraphFunction(model)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            store[kind][name] = path
+            out[f"{kind}/{name}"] = {
+                "bytes": path.stat().st_size,
+                "nodes": len(model.graph.nodes),
+                "nodes_after_fold": len(fn._steps),
+                "ops": sorted({n.op_type for n in model.graph.nodes}),
+                "export_s": t1 - t0, "parse_s": t2 - t1, "load_s": t3 - t2,
+            }
+            del fn
+    return {"graphs": out, "gpu": gpu_name_and_limit()}
+
+
+class TimedGraph:
+    """An OnnxGraphFunction with its calls' host seconds and nodes run
+    counted (the call's enqueue time; the card's work runs behind it)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.host_s, self.nodes = fn, 0, 0.0, 0
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        self.host_s += time.perf_counter() - t0
+        self.calls += 1
+        self.nodes += self.fn.steps_run
+        return out
+
+    def summary(self) -> dict:
+        return {"calls": self.calls,
+                "host_ms_per_call": 1e3 * self.host_s / max(self.calls, 1),
+                "host_us_per_node": 1e6 * self.host_s / max(self.nodes, 1)}
+
+
+def timed_pipeline(pipe):
+    """Put TimedGraph around both engines' graphs; returns them."""
+    timers = {}
+    for name, engine in (("recognizer", pipe.ocr_inference),
+                         ("lines", pipe.line_inference)):
+        engine.model.fn = timers[name] = TimedGraph(engine.model.fn)
+    return timers
+
+
+def executor_ms(module, plain, x, iters: int = 5) -> dict:
+    """One OnnxModule call on ``x``: its host ms (the enqueue, the card
+    idle before it), the nodes it ran, its time on the card's clock, and
+    the msgpack module's on the same input."""
+    for _ in range(2):
+        module(x)
+    host = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        module(x)
+        host += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    steps = module.fn.steps_run
+    return {"shape": list(x.shape), "host_ms": 1e3 * host / iters,
+            "nodes_run": steps, "host_us_per_node": 1e6 * host / iters / steps,
+            "device_ms": cuda_ms(module, x, iters=iters),
+            "msgpack_device_ms": cuda_ms(plain, x, iters=iters)}
+
+
+@phase("onnx_page_f32")
+def onnx_page_f32(store: dict, results: dict):
+    """build_pipeline on the folded .onnx configs (both engines hold an
+    OnnxModule), float32, TF32 off: the fixture pages against the JAX
+    record of an ONNX detector (onnx.json: texts within 0.5% CER, equal
+    line counts and boxes; texts.json, the msgpack path's record, beside
+    it); those pages and two bench.py config 4 pages against the port's
+    msgpack float32 pipeline with the ONNX detector's settings (no
+    opening): recognizer logits of every strip within 1e-3, equal texts
+    and boxes; page ms of both; the executor's host ms a call."""
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.onnx import OnnxModule
+    from ocr_inference_tpu_torch.pipeline import (
+        PipelineObserver,
+        build_pipeline,
+    )
+
+    class Strips(PipelineObserver):
+        def stage_end(self, stage, payload):
+            if stage == "extract_lines":
+                self.strips = payload[1]
+
+    pages, msgpack_record = fixture()
+    onnx_record = {p["name"]: p for p in json.loads(
+        (FIXTURE / "onnx.json").read_text(encoding="utf-8"))["pages"]}
+    bench = bench_volume(ONNX_BENCH_PAGES, seed=42)
+    checks, per_page = {}, {}
+    with no_tf32():
+        pipe = build_pipeline(*onnx_configs(store), dtype=torch.float32)
+        ref = full77f_pipeline(torch.float32)
+        ref.line_inference.open_width_frac = 0.0
+        checks["engines_hold_onnx_modules"] = isinstance(
+            pipe.ocr_inference.model, OnnxModule) and isinstance(
+            pipe.line_inference.model, OnnxModule)
+        with counted_path(results, "onnx_page_f32"):
+            got = {name: run_page(pipe, img) for name, img, _ in pages}
+        for name, _, _ in pages:
+            texts, lines, _ = got[name]
+            boxes = [list(ln.bbox.as_tuple()) for ln in lines]
+            want = onnx_record[name]
+            page_cer = cer([" ".join(texts)],
+                           [" ".join(want["jax_f32_texts"])])
+            per_page[name] = {
+                "lines": len(texts), "cer_vs_jax_onnx_f32": page_cer,
+                "boxes_equal_jax_onnx_f32": boxes == want["jax_f32_boxes"],
+                "msgpack_record_lines": len(
+                    msgpack_record[name]["jax_f32_texts"]),
+                "cer_vs_msgpack_record": cer(
+                    [" ".join(texts)],
+                    [" ".join(msgpack_record[name]["jax_f32_texts"])]),
+            }
+            checks[f"{name}_vs_record"] = (
+                page_cer <= 0.005 and boxes == want["jax_f32_boxes"]
+                and len(texts) == len(want["jax_f32_texts"]))
+        logits_err = 0.0
+        all_pages = [(n, img) for n, img, _ in pages] + [
+            (f"bench{i}", img) for i, img in enumerate(bench)]
+        for name, img in all_pages:
+            obs_o, obs_r = Strips(), Strips()
+            status_o, out_o = pipe.run_ocr(img, observer=obs_o)
+            status_r, out_r = ref.run_ocr(img, observer=obs_r)
+            same = (status_o.name == status_r.name == "SUCCESS"
+                    and [ln.text for ln in out_o[2]]
+                    == [ln.text for ln in out_r[2]]
+                    and [ln.bbox.as_tuple() for ln in out_o[1]]
+                    == [ln.bbox.as_tuple() for ln in out_r[1]])
+            lo = pipe.ocr_inference.line_logits(obs_o.strips)
+            lr = ref.ocr_inference.line_logits(obs_r.strips)
+            err = max((float(np.abs(lo[i] - lr[i]).max()) for i in lo),
+                      default=0.0)
+            logits_err = max(logits_err, err)
+            checks[f"{name}_equals_msgpack_path"] = same and lo.keys() == \
+                lr.keys() and err <= 1e-3
+            per_page.setdefault(name, {}).update(
+                {"strips": len(lo), "logits_max_abs_err": err,
+                 "texts_boxes_equal_msgpack_f32": same})
+        page_ms = {}
+        for label, p in (("onnx", pipe), ("msgpack", ref)):
+            run_page(p, bench[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                run_page(p, bench[0])
+            torch.cuda.synchronize()
+            page_ms[label] = (time.perf_counter() - t0) / 3 * 1e3
+        dev = torch.device("cuda")
+        executor = {
+            "recognizer": executor_ms(
+                pipe.ocr_inference.model, ref.ocr_inference.model,
+                torch.rand(8, 80, 1024, device=dev) * 2 - 1),
+            "lines": executor_ms(
+                pipe.line_inference.model, ref.line_inference.model,
+                torch.rand(8, 3, 512, 512, device=dev).round()),
+        }
+    return {"_ok": all(checks.values()), "checks": checks,
+            "pages": per_page, "logits_max_abs_err": logits_err,
+            "bench_page_ms_f32": page_ms, "executor": executor,
+            "launches": results["launches"]["onnx_page_f32"],
+            "gpu": gpu_name_and_limit()}
+
+
+def _volume_run(pipe, entries, results=None, path=None):
+    from ocr_inference_tpu_torch.core.data import Encoding
+    from ocr_inference_tpu_torch.pipeline import VolumeRunner
+
+    VolumeRunner(pipe).run(entries[:4], target_encoding=Encoding.WYLIE)
+    pipe.ocr_inference.warm_shapes()
+    timers = timed_pipeline(pipe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = counted_path(results, path) if path else contextlib.nullcontext()
+    with ctx:
+        t0 = time.perf_counter()
+        records = VolumeRunner(pipe).run(entries,
+                                         target_encoding=Encoding.WYLIE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    ok = [r for r in records if r.status.name == "SUCCESS"]
+    return records, {
+        "seconds": dt, "pages_ok": len(ok), "pages_per_s": len(ok) / dt,
+        "lines_per_s": sum(len(r.lines) for r in ok) / dt,
+        "stage_median_ms": {k: _median([r.timings_ms[k] for r in ok
+                                        if k in r.timings_ms])
+                            for k in ("detect_dispatch", "detect",
+                                      "geometry", "recognize")},
+        "executor": {k: t.summary() for k, t in timers.items()},
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+@phase("onnx_volume")
+def onnx_volume(store: dict, results: dict):
+    """VolumeRunner over 24 bench.py config 4 pages from the .onnx
+    configs, float32 (TF32 off), then under OCR_ONNX_BF16=1: the float32
+    texts within 0.5% CER of its own run_ocr loop's, the boxes equal;
+    pages/s, stage medians, the executor's host ms a call and a node,
+    peak memory. bf16 against float32: the bench pages' ink blocks are
+    noise, whose texts flip with the precision, so the CER between the
+    two volumes is printed beside the msgpack path's on the same pages,
+    and the 2% bar holds on text: the fixture pages through VolumeRunner
+    and the first 12 eval pages through run_suite, bf16 against float32
+    (and each against the ground truth)."""
+    from ocr_inference_tpu_torch.eval import suite
+    from ocr_inference_tpu_torch.eval.cer import cer
+    from ocr_inference_tpu_torch.eval.synthetic import load_glyphs
+    from ocr_inference_tpu_torch.pipeline import build_pipeline
+
+    pages = bench_volume(ONNX_VOLUME_PAGES, seed=42)
+    entries = [(f"page{i:03d}", img) for i, img in enumerate(pages)]
+    text_pages = [(name, img) for name, img, _ in fixture()[0]]
+    glyphs, charset = load_glyphs(FIXTURE / "pages.npz")
+
+    def joined(recs):
+        return {r.name: " ".join(ln.text for ln in r.ocr_lines)
+                for r in recs if r.status.name == "SUCCESS"}
+
+    def precision_cer(a, b):
+        names = sorted(a)
+        return cer([b.get(n, "") for n in names], [a[n] for n in names])
+
+    def text_reads(pipe):
+        recs = volume_records(pipe, text_pages)
+        res = suite.run_suite(pipe, EVAL_SMOKE_PAGES, glyphs, charset)
+        return joined(recs), res
+
+    with no_tf32():
+        pipe = build_pipeline(*onnx_configs(store), dtype=torch.float32)
+        records, f32 = _volume_run(pipe, entries, results, "onnx_volume")
+        plain, plain_s = plain_reads(pipe, entries)
+        text32, suite32 = text_reads(pipe)
+        del pipe
+        msgpack = {}
+        for label, dtype in (("float32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            ref = full77f_pipeline(dtype)
+            ref.line_inference.open_width_frac = 0.0
+            msgpack[label] = joined(volume_records(ref, entries))
+            del ref
+    os.environ["OCR_ONNX_BF16"] = "1"
+    try:
+        pipe16 = build_pipeline(*onnx_configs(store))
+    finally:
+        del os.environ["OCR_ONNX_BF16"]
+    records16, b16 = _volume_run(pipe16, entries)
+    text16, suite16 = text_reads(pipe16)
+    bf16_graph = pipe16.ocr_inference.model.fn.dtype == torch.bfloat16
+    del pipe16
+
+    t32, t16 = joined(records), joined(records16)
+    names = sorted(t32)
+    f32_cer = cer([t32[n] for n in names],
+                  [" ".join(plain.get(n, ([], []))[1]) for n in names])
+    text_cer = cer([text16.get(n, "") for n in text32] + suite16.predictions,
+                   list(text32.values()) + suite32.predictions)
+    checks = {
+        "all_pages_read": len(t32) == len(t16) == len(entries),
+        "f32_cer_vs_run_ocr_le_0.5pct": f32_cer <= 0.005,
+        "f32_boxes_equal_run_ocr": all(
+            [ln.bbox.as_tuple() for ln in r.lines] == plain[r.name][0]
+            for r in records if r.name in plain),
+        "bf16_graph": bf16_graph,
+        "bf16_cer_vs_f32_on_text_le_2pct": text_cer <= 0.02,
+    }
+    return {"_ok": all(checks.values()), "checks": checks,
+            "float32": f32, "bf16": b16,
+            "run_ocr_loop_f32": {"seconds": plain_s,
+                                 "pages_per_s": len(plain) / plain_s},
+            "cer_f32_vs_run_ocr": f32_cer,
+            "bench_cer_bf16_vs_f32": {
+                "onnx": precision_cer(t32, t16),
+                "msgpack": precision_cer(msgpack["float32"],
+                                         msgpack["bf16"])},
+            "text_cer_bf16_vs_f32": text_cer,
+            "text_cer_vs_ground_truth": {"float32": suite32.cer,
+                                         "bf16": suite16.cer},
+            "lines": sum(len(r.lines) for r in records),
+            "launches": results["launches"]["onnx_volume"],
+            "gpu": gpu_name_and_limit()}
+
+
+def volume_records(pipe, entries):
+    """VolumeRunner's records of ``entries`` at its defaults."""
+    from ocr_inference_tpu_torch.core.data import Encoding
+    from ocr_inference_tpu_torch.pipeline import VolumeRunner
+
+    return VolumeRunner(pipe).run(entries, target_encoding=Encoding.WYLIE)
+
+
+def _leaves(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+@phase("onnx_weights")
+def onnx_weights(store: dict):
+    """The exported graphs back into the port's modules on the card, TF32
+    off: the fold-free graphs' transplanted leaves against full77f's
+    msgpack (within 1e-6), the folded graphs' logits against full77f's
+    module (within 1e-3), write_back of a fold-free graph from the
+    module's weights (every initializer equal to the exported file's bit
+    for bit), and an fp16 export of the Easter2 through the executor
+    against the ``.half()`` module's logits (within 3e-2, the fp16 bar of
+    tests/test_onnx_fp16.py)."""
+    from ocr_inference_tpu_torch.models.params import (
+        load_flax_tree,
+        read_msgpack,
+    )
+    from ocr_inference_tpu_torch.onnx import OnnxGraphFunction
+    from ocr_inference_tpu_torch.onnx.export_shim import torch_export
+    from ocr_inference_tpu_torch.onnx.retroplant import write_back
+    from ocr_inference_tpu_torch.onnx.transplant import (
+        transplant,
+        verify_transplant,
+    )
+    from ocr_inference_tpu_torch.onnx.wire import load_model
+
+    dev = torch.device("cuda")
+    full = {k: m.to(dev) for k, m in full77f_modules().items()}
+    fresh = {k: m.to(dev) for k, m in full77f_modules(load=False).items()}
+    xs = {"lines": torch.rand(2, 3, 512, 512, device=dev).round(),
+          "recognizer": torch.rand(2, 80, 1024, device=dev) * 2 - 1}
+    out, checks = {}, {}
+    with no_tf32():
+        for name, module in full.items():
+            want = read_msgpack(WEIGHTS / f"{name}.msgpack")
+            t0 = time.perf_counter()
+            tree, report = transplant(load_model(store["unfolded"][name]),
+                                      fresh[name], None, xs[name])
+            t_s = time.perf_counter() - t0
+            got, ref = dict(_leaves(tree)), dict(_leaves(want))
+            leaf_err = max(float(np.abs(got[k] - ref[k]).max())
+                           for k in ref) if got.keys() == ref.keys() \
+                else float("inf")
+            folded_tree, folded_report = transplant(
+                load_model(store["folded"][name]), fresh[name], None,
+                xs[name])
+            load_flax_tree(fresh[name], folded_tree)
+            with torch.no_grad():
+                logits_err = float((fresh[name](xs[name])
+                                    - module(xs[name])).abs().max())
+            folded_report = verify_transplant(
+                load_model(store["folded"][name]), fresh[name], folded_tree,
+                xs[name], folded_report)
+            back = Path(store["dir"]) / f"{name}_back.onnx"
+            write_back(str(store["unfolded"][name]), module, None, xs[name],
+                       str(back))
+            a = load_model(store["unfolded"][name]).graph.initializers
+            b = load_model(back).graph.initializers
+            bit_equal = a.keys() == b.keys() and all(
+                a[k].to_numpy().tobytes() == b[k].to_numpy().tobytes()
+                for k in a)
+            out[name] = {
+                "layers": len(report.entries), "transplant_s": t_s,
+                "leaves_max_abs_err_vs_msgpack": leaf_err,
+                "folded_logits_max_abs_err": logits_err,
+                "folded_layer_max_abs_err": max(
+                    (e.max_abs_diff for e in folded_report.entries
+                     if e.max_abs_diff is not None), default=None),
+                "write_back_bit_equal": bit_equal}
+            checks[name] = (leaf_err <= 1e-6 and logits_err <= 1e-3
+                            and bit_equal)
+        half = full77f_modules()["recognizer"].half().to(dev)
+        path = Path(store["dir"]) / "recognizer_fp16.onnx"
+        torch_export(half, torch.rand(2, 80, 512, device=dev).half(),
+                     str(path), input_names=["input"],
+                     output_names=["output"], dynamic_axes=REC_AXES)
+        fn = OnnxGraphFunction(load_model(path))
+        x = xs["recognizer"].half()
+        with torch.no_grad():
+            got, want = fn(fn.weights, x)[0], half(x)
+        err = float((got.float() - want.float()).abs().max())
+        out["fp16_recognizer"] = {
+            "logits_max_abs_err": err,
+            "logits_max_abs": float(want.float().abs().max()),
+            "bytes": path.stat().st_size}
+        # tests/test_onnx_fp16.py's executor bar: full77f's logits reach
+        # |x| ~ 12, where one fp16 step is 2^-7, and BatchNorm folded into
+        # the fp16 conv weights rounds differently from the module's
+        checks["fp16"] = err <= 3e-2
+    return {"_ok": all(checks.values()), "checks": checks, **out,
+            "gpu": gpu_name_and_limit()}
+
+
+@phase("onnx_cli")
+def onnx_cli(store: dict, results: dict):
+    """bocr (in this process, so its launches count) on a model directory
+    whose model_config.json names the exported recognizer.onnx and a line
+    config naming lines.onnx, the fixture pages as PNG, TF32 off: each
+    page's text equal to float32 run_ocr's on the same file;
+    compat.ort.InferenceSession on the exported recognizer: outputs equal
+    to the OnnxModule's graph."""
+    from ocr_inference_tpu_torch.cli import cli
+    from ocr_inference_tpu_torch.compat import ort
+    from ocr_inference_tpu_torch.core.data import Encoding
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.io.images import read_image
+    from ocr_inference_tpu_torch.pipeline import build_pipeline
+
+    pages, _ = fixture()
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp, no_tf32():
+        root = Path(tmp)
+        model, lines = write_model_dirs(root)
+        config = json.loads((model / "model_config.json").read_text())
+        config["onnx-model"] = str(store["folded"]["recognizer"])
+        (model / "model_config.json").write_text(json.dumps(config))
+        config = json.loads((lines / "config.json").read_text())
+        config["onnx-model"] = str(store["folded"]["lines"])
+        (lines / "config.json").write_text(json.dumps(config))
+        page_dir = root / "pages"
+        page_dir.mkdir()
+        for name, img, _ in pages:
+            write_png(page_dir / f"{name}.png", img[..., ::-1])
+        t0 = time.perf_counter()
+        with counted_path(results, "onnx_cli"):
+            rc = cli.main(["--model", str(model), "--folder", str(page_dir),
+                           "--output", str(root / "out"), "--line-model",
+                           str(lines), "--encoding", "wylie"])
+        cli_s = time.perf_counter() - t0
+        pipe = build_pipeline(*onnx_configs(store), dtype=torch.float32)
+        same = {}
+        for name, _, _ in pages:
+            img = read_image(page_dir / f"{name}.png")
+            # the CLI's defaults: no line merging
+            _, payload = pipe.run_ocr(img, merge_lines=False,
+                                      target_encoding=Encoding.WYLIE)
+            want = "".join(f"{ln.text}\n" for ln in payload[2])
+            got = root / "out" / f"{name}.txt"
+            same[name] = got.is_file() and got.read_text(
+                encoding="utf-8") == want
+        checks["bocr_rc_0"] = rc == 0
+        checks["bocr_texts_equal_run_ocr_f32"] = all(same.values())
+        session = ort.InferenceSession(str(store["folded"]["recognizer"]))
+        x = np.random.default_rng(0).uniform(
+            -1, 1, (8, 80, 1024)).astype(np.float32)
+        got = session.run(None, {"input": x})[0]
+        fn = pipe.ocr_inference.model.fn
+        want = fn(fn.weights, torch.from_numpy(x).cuda())[0].cpu().numpy()
+        checks["ort_session_equals_executor"] = (
+            session.get_providers()[0] == "CUDAExecutionProvider"
+            and got.shape == want.shape and np.array_equal(got, want))
+    return {"_ok": all(checks.values()), "checks": checks,
+            "texts_equal": same, "cli_s": cli_s,
+            "launches": results["launches"]["onnx_cli"],
+            "gpu": gpu_name_and_limit()}
+
+
+def onnx_phases(results: dict) -> None:
+    """The five ONNX phases over one temporary directory of exports."""
+    with tempfile.TemporaryDirectory() as tmp:
+        store = {"dir": tmp}
+        onnx_export(store)
+        if "onnx_export" in FAILED:
+            return
+        onnx_page_f32(store, results)
+        onnx_volume(store, results)
+        onnx_weights(store)
+        onnx_cli(store, results)
+
+
 MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16",
               "eval_mode_bf16", "layout_bf16", "cli", "serve", "eval_cli",
               *(f"recognizers_bf16/{arch}" for arch in RECOGNIZERS),
               "bocr_formats", "bocr_lines", "train_rec_f32", "train_seg_f32",
-              "selftrain")
+              "selftrain", "onnx_page_f32", "onnx_volume", "onnx_cli")
 # the counted paths that run only some of the kernels: the eval CLI's
 # lines are binarized whole and recognized, no page is detected;
 # bocr-lines detects and reads no line; the recognizer's training batches
@@ -2929,6 +3496,7 @@ def main() -> int:
         train_cli_phase(results)
         selftrain_phase(results)
         train_rates(results)
+        onnx_phases(results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1

@@ -19,6 +19,11 @@ Differences from the JAX CLI:
   not ported yet (ROADMAP item 9);
 - a CUDA error ends the run with a traceback and a non-zero exit instead
   of failing the page.
+
+A model directory whose ``onnx-model`` has no ``.msgpack`` beside it runs
+through the port's ONNX executor (pipeline/builder.py), in float32 or,
+with ``OCR_ONNX_BF16=1``, bfloat16: ``--dtype`` does not reach it, as in
+the JAX CLI.
 """
 
 from __future__ import annotations

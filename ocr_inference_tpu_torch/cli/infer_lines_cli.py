@@ -3,7 +3,7 @@ ocr_inference_tpu/cli/infer_lines_cli.py (``bocr-lines``) with the same
 flags:
 
     python -m ocr_inference_tpu_torch.cli.infer_lines_cli -i PAGES \\
-        -c LINES.msgpack|CONFIG.json [-o OUT] [options]
+        -c LINES.msgpack|LINES.onnx|CONFIG.json [-o OUT] [options]
 
 Pages load through io/dataset.py's ``ImageInferenceDataset`` prefetch
 pool and go through the line SegmentationEngine's
@@ -48,8 +48,8 @@ def parse_args(argv=None):
     parser.add_argument("-o", "--output-dir", default="parquet_out",
                         help="Output directory for Parquet files")
     parser.add_argument("-c", "--checkpoint", required=True,
-                        help="Path to model checkpoint (.msgpack) or line "
-                             "model config JSON")
+                        help="Path to model checkpoint (.msgpack or "
+                             ".onnx) or line model config JSON")
     parser.add_argument("--num-classes", type=int, default=1,
                         help="Number of output classes (default: 1)")
     parser.add_argument("-b", "--batch-size", type=int, default=8,

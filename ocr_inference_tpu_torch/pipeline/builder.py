@@ -1,16 +1,23 @@
-"""Assemble the page pipeline from model configs and Flax msgpack weights.
+"""Assemble the page pipeline from model configs: Flax msgpack weights or
+the ``.onnx`` file itself.
 
-Counterpart of ocr_inference_tpu/pipeline/builder.py for native msgpack
-weights: ``X.onnx`` configured -> ``X.msgpack`` (or ``weights.msgpack``)
-beside it, architecture geometry from the ``.msgpack.json`` sidecar.
-Stem-2 UNets get the 2% horizontal opening (builder.py:110). A
-``LayoutDetectionConfig``, or an architecture whose name starts with
+Counterpart of ocr_inference_tpu/pipeline/builder.py, with its order of
+resolution for a configured model file ``X.onnx`` (builder.py:5-13):
+
+1. ``X.msgpack`` (or ``weights.msgpack``) beside it: the port's own module,
+   architecture geometry from the ``.msgpack.json`` sidecar; stem-2 UNets
+   get the 2% horizontal opening (builder.py:110);
+2. the ``.onnx`` file itself, run by the port's ONNX executor
+   (``onnx.load_onnx_module``) in float32, or bfloat16 under
+   ``OCR_ONNX_BF16=1``; the builders' ``dtype`` does not reach it, and
+   the ONNX detector gets no opening (builder.py:87-101, :140-150);
+3. ``allow_random=True``: the architecture with seeded weights
+   (``seeded_variables``); without it a missing file raises
+   ``FileNotFoundError``.
+
+A ``LayoutDetectionConfig``, or an architecture whose name starts with
 ``deeplab``, builds the layout DeepLabV3+ (builder.py:131-194). A
 ``kenlm_config`` gives the recognizer its n-gram LM for eval mode.
-
-``allow_random=True`` builds a model that has no weights file with seeded
-weights (``seeded_variables``); without it a missing file raises
-``FileNotFoundError``. The ONNX executor is not part of this port.
 
 The builders take the JAX positional order (builder.py:76, :131, :197);
 the port's ``device`` and ``seed`` come after it. ``mesh`` is accepted
@@ -20,6 +27,7 @@ raises NotImplementedError.
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import torch
@@ -41,6 +49,7 @@ from ocr_inference_tpu_torch.models.params import (
 )
 from ocr_inference_tpu_torch.models.recognition import build_recognizer
 from ocr_inference_tpu_torch.models.segmentation import DeepLabV3Plus, UNet
+from ocr_inference_tpu_torch.onnx import load_onnx_module
 from ocr_inference_tpu_torch.pipeline.engines import (
     RecognitionEngine,
     SegmentationEngine,
@@ -65,6 +74,12 @@ def find_weights(model_file: str) -> Path | None:
         if cand.is_file():
             return cand
     return None
+
+
+def _has_onnx(model_file: str) -> bool:
+    """The configured file is an ``.onnx`` file that exists."""
+    return bool(model_file) and model_file.endswith(".onnx") and \
+        os.path.isfile(model_file)
 
 
 def seeded_variables(model: torch.nn.Module, seed: int) -> dict:
@@ -128,8 +143,15 @@ def build_recognition_engine(
     _no_mesh(mesh)
     dev = resolve_device(device)
     weights = find_weights(config.model_file)
-    meta = (load_meta(weights) or {}) if weights is not None else {}
     vocab = len(config.charset) + (1 if config.add_blank else 0)
+    if weights is None and _has_onnx(config.model_file):
+        module = load_onnx_module(
+            config.model_file, "line", config.input_layer,
+            config.output_layer, config.swap_hw, config.squeeze_channel,
+            vocab, device=dev)
+        return RecognitionEngine(module, config, dev, batch_cfg,
+                                 kenlm_config)
+    meta = (load_meta(weights) or {}) if weights is not None else {}
     kwargs = {k: t(meta[k]) for k, t in (
         ("width_mult", float), ("stem_features", int), ("hidden", int))
         if k in meta}
@@ -150,12 +172,17 @@ def build_detection_engine(
     seed: int = 0,
 ) -> SegmentationEngine:
     is_layout = isinstance(config, LayoutDetectionConfig)
-    arch = config.architecture.lower()
-    if not (is_layout or arch.startswith(("unet", "deeplab"))):
-        raise NotImplementedError(f"detector {config.architecture}")
     _no_mesh(mesh)
     dev = resolve_device(device)
     weights = find_weights(config.onnx_file)
+    mode = "layout" if is_layout else "line"
+    if weights is None and _has_onnx(config.onnx_file):
+        return SegmentationEngine(
+            load_onnx_module(config.onnx_file, "nchw", device=dev), dev,
+            mode=mode, patch_size=config.patch_size, classes=config.classes)
+    arch = config.architecture.lower()
+    if not (is_layout or arch.startswith(("unet", "deeplab"))):
+        raise NotImplementedError(f"detector {config.architecture}")
     n_classes = len(config.classes) if is_layout else 1
     if is_layout or arch.startswith("deeplab"):
         model = DeepLabV3Plus(classes=n_classes)
@@ -171,9 +198,8 @@ def build_detection_engine(
           f"detector ({config.architecture})")
     model = _place(model, model._head_name, dtype, dev)
     return SegmentationEngine(
-        model, dev, mode="layout" if is_layout else "line",
-        patch_size=config.patch_size, classes=config.classes,
-        open_width_frac=0.02 if stem > 1 else 0.0)
+        model, dev, mode=mode, patch_size=config.patch_size,
+        classes=config.classes, open_width_frac=0.02 if stem > 1 else 0.0)
 
 
 def build_pipeline(

@@ -162,6 +162,15 @@ stores no weights):
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py training
 
+With the argument ``onnx`` it writes the JAX float32 record the port's
+``.onnx`` pipeline is held against (see ``onnx``; a few minutes):
+
+    tests/data/torch_port/onnx.json
+        the three fixture pages' texts, boxes and angle with full77f's
+        weights and an ONNX detector's settings: no horizontal opening.
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py onnx
+
 The JAX warp is pinned to its device path (``OCR_TPS_HOST=0``): the port
 has no host warp.
 """
@@ -250,10 +259,12 @@ def main(argv: list[str]) -> int:
         return images()
     if argv == ["training"]:
         return training()
+    if argv == ["onnx"]:
+        return onnx()
     if argv:
         raise SystemExit(f"unknown arguments {argv}; expected eval_suite, "
-                         "eval_mode, layout, recognizers, images or "
-                         "training")
+                         "eval_mode, layout, recognizers, images, "
+                         "training or onnx")
     import jax
     import jax.numpy as jnp
 
@@ -325,6 +336,53 @@ def main(argv: list[str]) -> int:
         json.dumps(record, indent=1, ensure_ascii=False) + "\n",
         encoding="utf-8",
     )
+    return 0
+
+
+def onnx() -> int:
+    """tests/data/torch_port/onnx.json: the JAX float32 texts and boxes of
+    the three fixture pages as JAX's builder sets up an ``.onnx``
+    detector: full77f's weights, but without the 2% horizontal opening
+    that the builder gives a stem-2 msgpack UNet (builder.py:145-150 pass
+    no ``open_width_frac`` to the ONNX SegmentationEngine). texts.json is
+    the msgpack path's record; on clean_b the two differ by one thin
+    tile-edge line that the opening removes. (The JAX builder cannot run
+    the TorchScript export itself: its jit cannot trace the export's shape
+    chains, ROADMAP §3.) A few minutes:
+
+        JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py onnx
+    """
+    import jax.numpy as jnp
+
+    from ocr_inference_tpu.core.data import (
+        CharsetEncoder, Encoding, LineDetectionConfig, OCRModelConfig,
+        OpStatus,
+    )
+    from ocr_inference_tpu.pipeline.builder import build_pipeline
+    from ocr_inference_tpu_torch.eval.synthetic import fixture_pages
+
+    ocr_cfg, line_cfg = full77f_configs(OCRModelConfig, LineDetectionConfig,
+                                        CharsetEncoder.WYLIE)
+    pipe = build_pipeline(ocr_cfg, line_cfg, dtype=jnp.float32)
+    pipe.line_inference.open_width_frac = 0.0
+    record = {"weights": "artifacts/full77f", "dtype": "float32",
+              "input_width": INPUT_WIDTH, "open_width_frac": 0.0,
+              "pages": []}
+    for name, img, _ in fixture_pages(OUT / "pages.npz"):
+        status, payload = pipe.run_ocr(img, target_encoding=Encoding.WYLIE)
+        if status != OpStatus.SUCCESS:
+            raise RuntimeError(f"{name}: JAX pipeline failed: {payload}")
+        _, lines, ocr_lines, angle = payload
+        record["pages"].append({
+            "name": name,
+            "jax_f32_texts": [ln.text for ln in ocr_lines],
+            "jax_f32_boxes": [list(ln.bbox.as_tuple()) for ln in lines],
+            "jax_angle": angle,
+        })
+        print(name, len(ocr_lines), "lines", file=sys.stderr)
+    (OUT / "onnx.json").write_text(
+        json.dumps(record, indent=1, ensure_ascii=False) + "\n",
+        encoding="utf-8")
     return 0
 
 
