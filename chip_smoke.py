@@ -1,12 +1,13 @@
-"""Drive the PyTorch port's page and volume OCR, its training and its
-``.onnx`` checkpoints on one NVIDIA card and check them.
+"""Drive the PyTorch port's page and volume OCR, its training, its
+``.onnx`` checkpoints and its public surface on one NVIDIA card and check
+them.
 
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
 geometry library, the ARPA scorer and the PNG, JPEG and TIFF decoders,
-all started together), then runs twenty-nine phases and prints one JSON
-line for each:
+all started together), then runs thirty phases and prints one JSON line
+for each:
 
 1. build        — seconds of each compiler; registers and spills of each
                   kernel as ptxas reports them;
@@ -227,13 +228,32 @@ line for each:
 29. onnx_cli    — bocr on a model directory naming the .onnx files, in
                   this process: texts equal float32 run_ocr's;
                   compat.ort.InferenceSession's outputs equal the
-                  executor's.
+                  executor's;
+30. public_api  — the public surface on a bench.py config 4 page (seed
+                  42): ops.binarize at 51/13 (the tile kernel) equal to
+                  the plain version bit for bit, gaussian_blur_gray (ksize
+                  51, 15) within 1e-4 of the CPU's, adaptive_threshold_
+                  gaussian at (31, 10), dilate_rect and erode_rect equal
+                  to the CPU's; the three examples' flows at full width
+                  through the port's names (line_inference.py: full77f's
+                  UNet in float32, predict_many_async, get_contours,
+                  create_preview_image, write_png; demo_ocr.py:
+                  import_local_model, build_pipeline, an eval-mode page to
+                  Parquet, VolumeRunner with the text and PageXML
+                  exporters, texts equal bf16 run_ocr's; modern_layout.py:
+                  the seeded DeepLabV3+ behind
+                  ModernBookFormatLayoutDetection, create_layout_preview);
+                  a trace_profile of one bf16 run_ocr of the page holding
+                  both binarize kernels' device events: its ten device ops
+                  with the most time and the card's busy share over the
+                  page's window.
 
 Kernel launch and recheck counts are zeroed just before each OCR or
-training path is driven (phases 3-23, 26, 27 and 29) and read just after
-it. Then a ``kernels`` JSON line (per kernel: launches over the main
+training path is driven (phases 3-23, 26, 27, 29 and 30) and read just
+after it. Then a ``kernels`` JSON line (per kernel: launches over the main
 paths, phases 5, 6, 8, 11, 13, 14, 16, 17, 18, 19's bf16 bocr and
-bocr-lines, 20, 21, 23, 26, 27 and 29, and by path,
+bocr-lines, 20, 21, 23, 26, 27, 29 and 30's ops.binarize and examples,
+and by path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -250,6 +270,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3363,6 +3384,278 @@ def onnx_cli(store: dict, results: dict):
             "gpu": gpu_name_and_limit()}
 
 
+# -- the public surface: the card-side ops, the examples' flows, a profile --
+
+def line_inference_flow(root: Path, lines_dir: Path) -> dict:
+    """examples/line_inference.py through the port's names: full77f's UNet
+    in float32 (TF32 off), predict_many_async over the fixture pages,
+    get_contours, create_preview_image, write_png. Each page's mask
+    equals engine.predict's and its preview PNG reads back equal."""
+    from ocr_inference_tpu_torch.core.assets import read_line_model_config
+    from ocr_inference_tpu_torch.geometry import get_contours
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.io.images import read_image
+    from ocr_inference_tpu_torch.pipeline.builder import build_detection_engine
+    from ocr_inference_tpu_torch.utils import enable_compilation_cache
+    from ocr_inference_tpu_torch.utils.preview import create_preview_image
+
+    enable_compilation_cache()
+    config = read_line_model_config(str(lines_dir / "config.json"))
+    engine = build_detection_engine(config, dtype=torch.float32)
+    pages, _ = fixture()
+    out, ok = {}, True
+    with no_tf32():
+        t0 = time.perf_counter()
+        resolvers = engine.predict_many_async([img for _, img, _ in pages])
+        for (name, img, _), resolve in zip(pages, resolvers):
+            mask = resolve()
+            contours = get_contours(mask)
+            preview = create_preview_image(img.copy(),
+                                           line_predictions=list(contours))
+            path = root / f"{name}_preview.png"
+            write_png(path, preview[..., ::-1])
+            same = bool(np.array_equal(mask, engine.predict(img)))
+            back = bool(np.array_equal(read_image(path), preview))
+            ok &= same and back and len(contours) > 0
+            out[name] = {"contours": len(contours),
+                         "mask_equals_predict": same,
+                         "png_reads_back": back}
+        seconds = time.perf_counter() - t0
+    return {"ok": ok, "pages": out, "s": seconds}
+
+
+def demo_ocr_flow(root: Path, model_dir: Path, lines_dir: Path) -> dict:
+    """examples/demo_ocr.py through the port's names: import_local_model,
+    build_pipeline at its defaults (bf16), one page in eval mode saved
+    with save_ocr_lines_parquet, then the fixture pages as PNG through
+    VolumeRunner with TextExporter and PageXMLExporter. Each page's texts
+    equal bf16 run_ocr's."""
+    from ocr_inference_tpu_torch.core.assets import (
+        import_local_model,
+        read_line_model_config,
+    )
+    from ocr_inference_tpu_torch.core.data import Encoding, OpStatus
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.io.exporter import PageXMLExporter, TextExporter
+    from ocr_inference_tpu_torch.io.images import read_image
+    from ocr_inference_tpu_torch.io.parquet import read_table, save_ocr_lines_parquet
+    from ocr_inference_tpu_torch.pipeline.builder import build_pipeline
+    from ocr_inference_tpu_torch.pipeline.volume import VolumeRunner
+
+    model = import_local_model(str(model_dir))
+    line_cfg = read_line_model_config(str(lines_dir / "config.json"))
+    pipeline = build_pipeline(model.config, line_cfg)
+    pages, _ = fixture()
+    folder, out = root / "volume", root / "demo_out"
+    folder.mkdir()
+    out.mkdir()
+    paths = []
+    for name, img, _ in pages:
+        paths.append(folder / f"{name}.png")
+        write_png(paths[-1], img[..., ::-1])
+    checks = {}
+    status, result = pipeline.run_ocr(read_image(paths[0]), eval_mode=True)
+    checks["eval_mode_page"] = status == OpStatus.SUCCESS
+    if checks["eval_mode_page"]:
+        save_ocr_lines_parquet(result[2], out / "ocr_lines.parquet")
+        rows = read_table(out / "ocr_lines.parquet")
+        checks["parquet_rows"] = [r["text"] for r in rows] == \
+            [ln.text for ln in result[2]] and len(rows) > 0
+    t0 = time.perf_counter()
+    records = VolumeRunner(pipeline).run(
+        [(p.name, (lambda p=p: read_image(p))) for p in paths],
+        target_encoding=Encoding.UNICODE)
+    seconds = time.perf_counter() - t0
+    text_exp, xml_exp = TextExporter(str(out)), PageXMLExporter(str(out))
+    per_page = {}
+    for rec, path in zip(records, paths):
+        image = read_image(path)
+        texts = [ln.text for ln in rec.ocr_lines]
+        st, payload = pipeline.run_ocr(image, target_encoding=Encoding.UNICODE)
+        want = [ln.text for ln in payload[2]] if st == OpStatus.SUCCESS else None
+        name = path.stem
+        text_exp.export_lines(image, name, rec.lines, rec.ocr_lines,
+                              angle=rec.angle)
+        xml_exp.export_lines(image, name, rec.lines, rec.ocr_lines,
+                             angle=rec.angle)
+        written = (out / f"{name}.txt").read_text(encoding="utf-8")
+        xml_lines = len(ET.parse(out / f"{name}.xml").getroot().findall(
+            ".//{*}TextLine"))
+        per_page[name] = {
+            "status": rec.status.name, "lines": len(texts),
+            "texts_equal_run_ocr": texts == want,
+            "txt_has_texts": all(t in written for t in texts),
+            "xml_text_lines": xml_lines}
+        checks[name] = (rec.status == OpStatus.SUCCESS and texts == want
+                        and len(texts) > 0 and xml_lines == len(texts)
+                        and per_page[name]["txt_has_texts"])
+    return {"ok": all(checks.values()), "checks": checks, "pages": per_page,
+            "volume_s": seconds}
+
+
+def modern_layout_flow(root: Path) -> dict:
+    """examples/modern_layout.py through the port's names: the seeded
+    full-width DeepLabV3+ (the layout record's five classes and seed, at
+    the defaults, bf16) behind ModernBookFormatLayoutDetection over the
+    fixture pages, then create_layout_preview of each page's mask."""
+    from ocr_inference_tpu_torch.core.data import LayoutDetectionConfig
+    from ocr_inference_tpu_torch.pipeline.builder import build_detection_engine
+    from ocr_inference_tpu_torch.pipeline.modern_layout import (
+        ModernBookFormatLayoutDetection,
+    )
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.utils.preview import create_layout_preview
+
+    record, _ = layout_record()
+    config = LayoutDetectionConfig(
+        checkpoint="", onnx_file="", architecture="deeplabv3plus",
+        patch_size=512, classes=list(record["classes"]))
+    det = ModernBookFormatLayoutDetection(config, engine=build_detection_engine(
+        config, allow_random=True, seed=record["seed"]))
+    pages, _ = fixture()
+    page_dir, json_dir = root / "layout_pages", root / "layout_out"
+    page_dir.mkdir()
+    for name, img, _ in pages:
+        write_png(page_dir / f"{name}.png", img[..., ::-1])
+    t0 = time.perf_counter()
+    found = det.run(str(page_dir), str(json_dir),
+                    filter_classes=["image", "line"], batch_size=4)
+    seconds = time.perf_counter() - t0
+    found = {Path(p).stem: v for p, v in found.items()}
+    per_page, ok = {}, set(found) == {n for n, _, _ in pages}
+    for name, img, _ in pages:
+        on_disk = json.loads((json_dir / f"{name}.json").read_text())
+        mask = det.engine.predict(img)
+        preview = create_layout_preview(img.copy(), mask, config.classes)
+        bboxes = [v["bbox"] for v in found.get(name, {}).values()]
+        inside = all(b["x"] >= 0 and b["y"] >= 0
+                     and b["x"] + b["w"] <= img.shape[1]
+                     and b["y"] + b["h"] <= img.shape[0] for b in bboxes)
+        ok &= (on_disk == found.get(name) and inside
+               and preview.shape == img.shape and bool((preview != img).any()))
+        per_page[name] = {"classes": sorted(found.get(name, {})),
+                          "json_equals_run": on_disk == found.get(name),
+                          "bboxes_inside": inside,
+                          "record_f32_json": record["modern_layout"].get(name)}
+    return {"ok": ok, "pages": per_page, "s": seconds}
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+BINARIZE_NAME = re.compile(r"binarize_kernel(?:<\d+, \d+, (\d)>|"
+                           r"ILi\d+ELi\d+ELi(\d)E)")
+
+
+def trace_summary(trace: Path, window_name: str) -> dict:
+    """From a Chrome trace of trace_profile, over the annotated window:
+    the ten device ops with the most time (ms and count), the card's busy
+    share (the union of the device events over the window's span), and
+    the binarize kernels' device events by specialisation (3: tiles, 1:
+    lines)."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    window = [e for e in events if e.get("name") == window_name
+              and e.get("cat") == "user_annotation"]
+    if not window:
+        raise RuntimeError(f"the trace holds no {window_name} window")
+    t0 = float(window[0]["ts"])
+    t1 = t0 + float(window[0]["dur"])
+    device = [e for e in events if e.get("cat") in DEVICE_CATS
+              and float(e["ts"]) < t1
+              and float(e["ts"]) + float(e.get("dur", 0)) > t0]
+    if not device:
+        raise RuntimeError("the trace holds no device event in its window")
+    totals: dict = {}
+    spans = []
+    binarize = {"tiles": 0, "lines": 0}
+    for e in device:
+        name, ts, dur = e["name"], float(e["ts"]), float(e.get("dur", 0))
+        ms, n = totals.get(name, (0.0, 0))
+        totals[name] = (ms + dur / 1e3, n + 1)
+        spans.append((max(ts, t0), min(ts + dur, t1)))
+        m = BINARIZE_NAME.search(name)
+        if m:
+            binarize["tiles" if (m.group(1) or m.group(2)) == "3"
+                     else "lines"] += 1
+    busy, end = 0.0, t0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(totals.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
+    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (t1 - t0), "device_events": len(device),
+            "device_ms": sum(ms for ms, _ in totals.values()),
+            "binarize_events": binarize, "trace_bytes": trace.stat().st_size,
+            "top_device_ops": [[k[:90], ms, n] for k, (ms, n) in top]}
+
+
+@phase("public_api")
+def public_api(results: dict):
+    """(a) ops.binarize, gaussian_blur_gray, adaptive_threshold_gaussian,
+    dilate_rect and erode_rect of a bench page on the card; (b) the three
+    examples' flows; (c) a trace_profile of one bf16 run_ocr."""
+    from ocr_inference_tpu_torch import ops
+    from ocr_inference_tpu_torch.ops import kernels
+    from ocr_inference_tpu_torch.utils import trace_profile
+
+    checks, out = {}, {}
+    page = bench_page(42)
+    x = torch.from_numpy(page).cuda()
+    with counted_path(results, "public_api"):
+        got = ops.binarize(x)
+    want = kernels.binarize_tiles_plain(x[None])[0]
+    checks["binarize_equals_plain"] = bool(
+        torch.equal(got, want[..., None].expand(*want.shape, 3)))
+    out["binarize"] = {"shape": list(got.shape),
+                       "ms": cuda_ms(ops.binarize, x),
+                       "plain_ms": cuda_ms(
+                           lambda t: kernels.binarize_tiles_plain(t[None]),
+                           x, iters=3),
+                       "launches": results["launches"]["public_api"]}
+    gray = ops.rgb_to_gray(x)
+    gray_cpu = gray.cpu()
+    for k in (51, 15):
+        err = float((ops.gaussian_blur_gray(gray, k).cpu()
+                     - ops.gaussian_blur_gray(gray_cpu, k)).abs().max())
+        out[f"gaussian_blur_{k}_max_abs_err"] = err
+        checks[f"gaussian_blur_{k}"] = err <= 1e-4
+    card = ops.adaptive_threshold_gaussian(gray, 255, 31, 10).cpu()
+    checks["adaptive_31_10_equals_cpu"] = bool(torch.equal(
+        card, ops.adaptive_threshold_gaussian(gray_cpu, 255, 31, 10)))
+    mask, mask_cpu = got[..., 0], got[..., 0].cpu()
+    for name, fn, args in (("dilate_12x2x10", ops.dilate_rect, (12, 2, 10)),
+                           ("erode_3x3x2", ops.erode_rect, (3, 3, 2))):
+        checks[f"{name}_equals_cpu"] = bool(torch.equal(
+            fn(mask, *args).cpu(), fn(mask_cpu, *args)))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        model_dir, lines_dir = write_model_dirs(root)
+        with counted_path(results, "examples"):
+            flows = {"line_inference": line_inference_flow(root, lines_dir),
+                     "demo_ocr": demo_ocr_flow(root, model_dir, lines_dir),
+                     "modern_layout": modern_layout_flow(root)}
+        for name, flow in flows.items():
+            checks[f"example_{name}"] = flow.pop("ok")
+        pipe = full77f_pipeline(torch.bfloat16)
+        run_page(pipe, page)  # warm-up
+        torch.cuda.synchronize()
+        with trace_profile(str(root / "trace")):
+            # the page once more before the window: in a process that
+            # has profiled before, a new profiler's first kernels can be
+            # missing from the trace (seen on the card)
+            run_page(pipe, page)
+            torch.cuda.synchronize()
+            with torch.profiler.record_function("public_api/run_ocr"):
+                run_page(pipe, page)
+        profile = trace_summary(next((root / "trace").glob("*.json")),
+                                "public_api/run_ocr")
+    checks["trace_holds_both_binarize_kernels"] = all(
+        n > 0 for n in profile["binarize_events"].values())
+    return {"_ok": all(checks.values()), "checks": checks, **out,
+            "examples": flows, "profile_bench_page_bf16": profile,
+            "launches": results["launches"]["examples"],
+            "gpu": gpu_name_and_limit()}
+
+
 def onnx_phases(results: dict) -> None:
     """The five ONNX phases over one temporary directory of exports."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -3380,15 +3673,18 @@ MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16",
               "eval_mode_bf16", "layout_bf16", "cli", "serve", "eval_cli",
               *(f"recognizers_bf16/{arch}" for arch in RECOGNIZERS),
               "bocr_formats", "bocr_lines", "train_rec_f32", "train_seg_f32",
-              "selftrain", "onnx_page_f32", "onnx_volume", "onnx_cli")
+              "selftrain", "onnx_page_f32", "onnx_volume", "onnx_cli",
+              "public_api", "examples")
 # the counted paths that run only some of the kernels: the eval CLI's
 # lines are binarized whole and recognized, no page is detected;
 # bocr-lines detects and reads no line; the recognizer's training batches
 # are line canvases, the UNet's are tiles. bocr-train and bocr-train-seg
 # binarize nothing (the JAX CLIs train on gray canvases and RGB tiles), so
 # the train_cli phase is not a counted path; selftrain runs both kernels.
+# ops.binarize of a page at 51/13 is one tile launch.
 PATH_KERNELS = {"eval_cli": ("binarize_lines",),
                 "bocr_lines": ("binarize_tiles",),
+                "public_api": ("binarize_tiles",),
                 "train_rec_f32": ("binarize_lines",),
                 "train_seg_f32": ("binarize_tiles",)}
 
@@ -3497,6 +3793,7 @@ def main() -> int:
         selftrain_phase(results)
         train_rates(results)
         onnx_phases(results)
+        public_api(results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1

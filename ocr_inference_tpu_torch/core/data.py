@@ -1,15 +1,14 @@
-"""The part of the typed data model the page and volume OCR paths use.
-
-Copied from ocr_inference_tpu/core/data.py (reference: BDRC/data.py), field
-for field, so configs and results read the same in both packages.
+"""The typed data model, copied from ocr_inference_tpu/core/data.py
+(reference: BDRC/data.py) field for field and value for value, so configs,
+settings and results read the same in both packages.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import Enum
 from pathlib import Path
-from typing import Optional
+from typing import Any, Optional
 from uuid import UUID, uuid1
 
 import numpy as np
@@ -36,11 +35,57 @@ class CharsetEncoder(Enum):
     STACK = 1
 
 
+class ExportFormat(Enum):
+    """Export formats (reference: BDRC/data.py:38)."""
+
+    TXT = 0
+    XML = 1
+    JSON = 2
+
+
+class LineMode(Enum):
+    """Line vs layout segmentation front-end (reference: BDRC/data.py:46)."""
+
+    LINE = 0
+    LAYOUT = 1
+
+
+class LineMerge(Enum):
+    """Line chunk merge strategy (reference: BDRC/data.py:53)."""
+
+    MERGE = 0
+    STACK = 1
+
+
 class LineSorting(Enum):
     """Reading-order sorting algorithm (reference: BDRC/data.py:60)."""
 
     THRESHOLD = 0
     PEAKS = 1
+
+
+class OCRArchitecture(Enum):
+    """Recognizer families (reference: BDRC/data.py:67)."""
+
+    EASTER2 = 0
+    CRNN = 1
+
+
+class TPSMode(Enum):
+    """Dewarping scope (reference: BDRC/data.py:74)."""
+
+    GLOBAL = 0
+    LOCAL = 1
+
+
+class Language(Enum):
+    """UI languages kept for config parity (reference: BDRC/data.py:81)."""
+
+    ENGLISH = 0
+    GERMAN = 1
+    FRENCH = 2
+    TIBETAN = 3
+    CHINESE = 4
 
 
 def generate_guid(clock_seq: int) -> UUID:
@@ -92,6 +137,34 @@ class OCRLine:
     ctc_conf: Optional[float] = None
     logits: Optional[list[float]] = None
     lm_scores: Optional[list[float]] = None
+
+
+@dataclass
+class LayoutData:
+    """Layout analysis output (reference: BDRC/data.py:143)."""
+
+    image: np.ndarray
+    rotation: float
+    images: list[BBox]
+    text_bboxes: list[BBox]
+    lines: list[Line]
+    captions: list[BBox]
+    margins: list[BBox]
+    predictions: dict[str, np.ndarray]
+
+
+@dataclass
+class OCRData:
+    """Per-image OCR payload (reference: BDRC/data.py:157)."""
+
+    guid: UUID
+    image_path: str
+    image_name: str
+    image: np.ndarray
+    ocr_lines: Optional[list[OCRLine]]
+    lines: Optional[list[Line]]
+    preview: Optional[np.ndarray]
+    angle: float
 
 
 @dataclass
@@ -149,6 +222,17 @@ class OCRModelConfig:
 
 
 @dataclass
+class OCResult:
+    """Full per-image OCR result (reference: BDRC/data.py:229)."""
+
+    guid: UUID
+    mask: np.ndarray
+    lines: list[Line]
+    text: list[OCRLine]
+    angle: float
+
+
+@dataclass
 class OCRModel:
     """Named model + config handle (reference: BDRC/data.py:250)."""
 
@@ -156,6 +240,21 @@ class OCRModel:
     name: str
     path: str
     config: OCRModelConfig
+
+
+@dataclass
+class OCRSettings:
+    """User settings bundle (reference: BDRC/data.py:260)."""
+
+    line_mode: LineMode
+    line_merge: LineMerge
+    line_sorting: LineSorting
+    k_factor: float
+    bbox_tolerance: float
+    dewarping: bool
+    merge_lines: bool
+    tps_mode: TPSMode
+    output_encoding: Encoding
 
 
 @dataclass
@@ -198,3 +297,15 @@ class BatchConfig:
 
     width_buckets: tuple[int, ...] = (512, 1024, 2000, 2500, 3000)
     max_lines_per_batch: int = 64
+
+
+@dataclass
+class PipelineResult:
+    """Structured replacement for the reference's 4-element list return
+    (reference: BDRC/inference.py:818-823)."""
+
+    mask: np.ndarray
+    lines: list[Line]
+    ocr_lines: list[OCRLine]
+    angle: float
+    metrics: dict[str, Any] = field(default_factory=dict)

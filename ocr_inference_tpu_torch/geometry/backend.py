@@ -4,16 +4,31 @@ Counterpart of ocr_inference_tpu/geometry/backend.py without its cv2
 fallback (the card machine has no OpenCV): every primitive goes to
 ``ocr_inference_tpu_torch.native`` (geometry.cpp), whose parity with cv2 the
 JAX package pins (tests/test_geometry_backend.py) and this port's tests
-re-check against the JAX backend.
+re-check against the JAX backend. So ``use_native`` is always True and
+``set_backend`` refuses the cv2 backend.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 from ocr_inference_tpu_torch import native
+
+
+def use_native() -> bool:
+    """True: the C++ library serves every primitive (backend.py:53-71)."""
+    return True
+
+
+def set_backend(native: Optional[bool]) -> None:
+    """The JAX switch between the C++ library and cv2 (backend.py:74-76):
+    None and True keep the library; False raises, the port has no cv2
+    backend."""
+    if native is False:
+        raise ValueError("the port has no cv2 geometry backend: "
+                         "set_backend takes None or True")
 
 
 def find_contours(mask: np.ndarray) -> Sequence[np.ndarray]:
@@ -92,3 +107,19 @@ def approx_poly_dp(contour: np.ndarray, epsilon: float,
 def fill_contour(mask: np.ndarray, contour: np.ndarray, value: int = 255) -> None:
     """cv2.drawContours(mask, [contour], -1, value, -1), in place."""
     native.fill_contour(mask, contour, value)
+
+
+def moments_centroid(contour: np.ndarray) -> tuple[int, int]:
+    """Polygon centroid via Green's theorem (cv2.moments m10/m00, m01/m00;
+    backend.py:194-209, its native branch; reference call site:
+    BDRC/utils.py:695-697)."""
+    pts = np.asarray(contour).reshape(-1, 2).astype(np.float64)
+    x, y = pts[:, 0], pts[:, 1]
+    xn, yn = np.roll(x, -1), np.roll(y, -1)
+    cross = x * yn - xn * y
+    a = cross.sum() / 2.0
+    if a == 0.0:
+        return int(x.mean()), int(y.mean())
+    cx = ((x + xn) * cross).sum() / (6.0 * a)
+    cy = ((y + yn) * cross).sum() / (6.0 * a)
+    return int(cx), int(cy)

@@ -8,10 +8,14 @@ replaced:
 - cv2.warpAffine (lines.py:54-55) by ops/imaging.py ``rotate_from_angle``;
 - cv2.drawContours(..., -1) (lines.py:227) by the native filled-contour
   rasterizer (byte-equal with cv2);
-- cv2.cvtColor(BGR2GRAY) of a 3-channel mask (lines.py:559) by
+- cv2.cvtColor(BGR2GRAY) of a 3-channel mask (lines.py:425, :559) by
   ops/imaging.py ``rgb_to_gray`` on the reversed channels (cv2's
   fixed-point weights, byte-equal); the detection engine itself returns
-  the mask 2-D.
+  the mask 2-D;
+- in the text-area helpers (lines.py:702-757): cv2.dilate by
+  ops/imaging.py ``dilate_rect``, cv2.resize by ops_host.py
+  ``resize_image`` (uint8), the filled cv2.rectangle and the float
+  BGR2GRAY of its 0/255 mask by array writes.
 
 Topology runs in the native library (geometry/backend.py).
 """
@@ -23,6 +27,7 @@ import sys
 import numpy as np
 import torch
 
+from ocr_inference_tpu_torch import ops_host
 from ocr_inference_tpu_torch.core.data import (
     BBox,
     Line,
@@ -51,6 +56,28 @@ def rotate_from_angle(image: np.ndarray, angle: float) -> np.ndarray:
     return imaging.rotate_from_angle(torch.from_numpy(image), angle).numpy()
 
 
+def mask_n_crop(image: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Apply mask, drop every all-zero row and column (lines.py:58-79;
+    reference: line_detection.py:79-104), byte-equal with the reference:
+
+    - np.delete over ``~any`` removes INTERIOR all-zero rows/columns too,
+      not just the margins;
+    - on 3-channel input ``any(axis=1)`` is per-channel, so a row is
+      dropped when ANY single channel is all-zero along it;
+    - the column profile is computed AFTER row deletion."""
+    image = image.astype(np.uint8)
+    mask = mask.astype(np.uint8)
+    if image.ndim == 2:
+        image = image[..., None]
+    if mask.ndim == 3:
+        mask = mask[..., 0]
+    masked = image * (mask[..., None] > 0)
+    rows_keep = masked.any(axis=1).all(axis=1)
+    masked = masked[rows_keep]
+    cols_keep = masked.any(axis=0).all(axis=1)
+    return masked[:, cols_keep]
+
+
 def calculate_rotation_angle_from_lines(
     line_mask: np.ndarray, max_angle: float = 5.0
 ) -> float:
@@ -74,6 +101,10 @@ def calculate_rotation_angle_from_lines(
     if not cands:
         return 0.0
     return float(np.mean(cands))
+
+
+# the reference's duplicate definition pair (line_detection.py:107, :145)
+get_rotation_angle_from_lines = calculate_rotation_angle_from_lines
 
 
 def build_line_data(contour: np.ndarray, optimize: bool = True) -> Line:
@@ -349,6 +380,19 @@ def sort_lines_by_threshold(
     return new_lines, threshold
 
 
+# name parity with the reference call site (inference.py:606)
+sort_lines_by_threshold2 = sort_lines_by_threshold
+
+
+def get_line_threshold(line_prediction: np.ndarray, slice_width: int = 20) -> float:
+    """Row-grouping threshold via vertical slice voting (lines.py:420-452;
+    reference: line_detection.py:362-421), the native library's one call,
+    which is what the JAX package runs when its library builds."""
+    if line_prediction.ndim == 3:
+        line_prediction = bgr_to_gray(line_prediction)
+    return geo.line_threshold(line_prediction, slice_width)
+
+
 def bgr_to_gray(image: np.ndarray) -> np.ndarray:
     """cv2.cvtColor(image, COLOR_BGR2GRAY) for (H, W, 3) uint8, byte-equal:
     the RGB weights on the reversed channels."""
@@ -490,3 +534,74 @@ def bbox_to_original(bbox, scale_x: float, scale_y: float):
         int(round(w / scale_x)),
         int(round(h / scale_y)),
     )
+
+
+# ---------------------------------------------------------------------------
+# Text-area analysis (layout-era helpers)
+# ---------------------------------------------------------------------------
+
+def get_text_area(image: np.ndarray, prediction: np.ndarray):
+    """Biggest dilated text region -> (resized prediction, area mask,
+    area contour) (lines.py:702-718; reference: BDRC/utils.py:576-608).
+
+    The uint8 prediction is dilated with a 12 x 2 rect 10 times (cv2 runs
+    it as one 111 x 11 window anchored at (10, 60)); the area mask is the
+    biggest region's bounding box, both corners included, at the float32
+    gray of white under cv2's BGR2GRAY weights (255.0), else 0."""
+    dil_prediction = imaging.dilate_rect(
+        torch.from_numpy(np.ascontiguousarray(prediction)), 12, 2,
+        iterations=10).numpy()
+    h, w = image.shape[0], image.shape[1]
+    prediction = ops_host.resize_image(prediction, w, h)
+    dil_prediction = ops_host.resize_image(dil_prediction, w, h)
+    contours = geo.find_contours(dil_prediction)
+    if len(contours) == 0:
+        return None, None, None
+    areas = [geo.contour_area(x) for x in contours]
+    biggest = contours[int(np.argmax(areas))]
+    x, y, bw, bh = geo.bounding_rect(biggest)
+    white = np.float32(255.0)
+    gray = (white * np.float32(0.114) + white * np.float32(0.587)
+            + white * np.float32(0.299))
+    area_mask = np.zeros((h, w), dtype=np.float32)
+    area_mask[max(y, 0): y + bh + 1, max(x, 0): x + bw + 1] = gray
+    return prediction, area_mask, biggest
+
+
+def is_inside_rectangle(point: tuple[float, float], rect) -> bool:
+    """(reference: BDRC/utils.py:661-664)."""
+    x, y = point
+    xmin, ymin, xmax, ymax = rect
+    return xmin <= x <= xmax and ymin <= y <= ymax
+
+
+def filter_contours_by_area(
+    prediction: np.ndarray, textarea_contour: np.ndarray
+) -> list[np.ndarray]:
+    """Keep line contours whose min-area-rect center falls inside the text
+    area (lines.py:721-740; reference: BDRC/utils.py:667-681)."""
+    x, y, w, h = geo.bounding_rect(textarea_contour)
+    filtered = []
+    for cnt in geo.find_contours(prediction):
+        center, _, _ = geo.min_area_rect(cnt)
+        if is_inside_rectangle(center, [x, y, x + w, y + h]):
+            filtered.append(cnt)
+    return filtered
+
+
+def post_process_prediction(image: np.ndarray, prediction: np.ndarray):
+    """Text-area crop + deskew of image and prediction -> (rotated image,
+    rotated prediction, rotated text-area contour, angle) (lines.py:
+    743-757; reference: BDRC/utils.py:684-701)."""
+    prediction, text_area, textarea_contour = get_text_area(image, prediction)
+    if prediction is None:
+        return None, None, None, None
+    cropped = mask_n_crop(prediction, text_area)
+    angle = calculate_rotation_angle_from_lines(
+        cropped[..., 0] if cropped.ndim == 3 else cropped
+    )
+    rotated_image = rotate_from_angle(image, angle)
+    rotated_prediction = rotate_from_angle(prediction, angle)
+    cx, cy = geo.moments_centroid(textarea_contour)
+    rotated_contour = rotate_contour(textarea_contour, (cx, cy), angle)
+    return rotated_image, rotated_prediction, rotated_contour, angle

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+Dtype = torch.dtype  # the modules' ``dtype`` (layers.py:17 types it Any)
+
 BN_EPS = 1e-5  # flax.linen.BatchNorm's default (onnx/transplant.py:412-414)
 BN_MOMENTUM = 0.99  # flax.linen.BatchNorm's running-average decay
 

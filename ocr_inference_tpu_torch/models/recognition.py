@@ -27,9 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ocr_inference_tpu_torch.models.layers import (
+from ocr_inference_tpu_torch.models.layers import (  # noqa: F401
     BatchNorm,
     ConvBN1D,
+    Dtype,
     SqueezeExcite1D,
     float_head,
 )

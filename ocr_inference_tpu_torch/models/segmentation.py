@@ -14,9 +14,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ocr_inference_tpu_torch.models.layers import (
+from ocr_inference_tpu_torch.models.layers import (  # noqa: F401
     ASPP,
     ConvBN,
+    Dtype,
     ResidualBlock,
     float_head,
     pad_same_2d,

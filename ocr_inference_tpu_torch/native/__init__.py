@@ -85,6 +85,13 @@ def _load(source: str, sig: dict) -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """True once the geometry library builds and loads (native/__init__.py
+    of the JAX package); a failed build raises, as every use does."""
+    _lib()
+    return True
+
+
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:

@@ -355,6 +355,20 @@ def execution_order(module: nn.Module, sample_x) -> list[PortLayer]:
     return seen
 
 
+# the JAX package's names (transplant.py:282, :295)
+FlaxLayer = PortLayer
+
+
+def flax_execution_order(module: nn.Module, variables, sample_x,
+                         **apply_kwargs) -> list[PortLayer]:
+    """``execution_order`` under the JAX signature. The order does not
+    depend on the weights, so ``variables`` and the Flax ``apply``
+    keywords (``train``, ``mutable``) change nothing: the module runs
+    one forward in eval mode."""
+    del variables, apply_kwargs
+    return execution_order(module, sample_x)
+
+
 # ---------------------------------------------------------------------------
 # Matching + assignment
 # ---------------------------------------------------------------------------

@@ -262,18 +262,20 @@ def thick_line(img: np.ndarray, p0, p1, color, thickness: int, flags: int,
             fill_circle(img, center, cap, color)
 
 
-def line(img: np.ndarray, pt1, pt2, color, thickness: int) -> None:
+def line(img: np.ndarray, pt1, pt2, color, thickness: int,
+         flags: int = 3) -> None:
     """cv2.line(img, pt1, pt2, color, thickness) for thickness >= 2: the
     segment clipped to the image grown by ``thickness`` on every side
     (nothing is drawn when none of it is left), then ``thick_line`` with
-    both caps."""
+    the caps ``flags`` asks for (both for cv2.line; cv2.polylines draws
+    each side so, with the cap at its end, flags 2)."""
     h, w = img.shape[:2]
     m = thickness
     p1 = [int(pt1[0]) + m, int(pt1[1]) + m]
     p2 = [int(pt2[0]) + m, int(pt2[1]) + m]
     if clip_line(w + 2 * m, h + 2 * m, p1, p2):
         thick_line(img, (p1[0] - m, p1[1] - m), (p2[0] - m, p2[1] - m),
-                   color, thickness, 3, 0)
+                   color, thickness, flags, 0)
 
 
 def ellipse2poly(center, axes, angle: int, arc_start: int, arc_end: int,

@@ -5,11 +5,18 @@ JAX package makes on the host (geometry/lines.py:54-55 warpAffine,
 ops_host.py:58 resize). Every function takes tensors on any device and
 returns tensors on the same device:
 
+- ``normalize`` / ``sigmoid``: elementwise (imaging.py:32-39);
 - ``rgb_to_gray``: cv2 5.x RGB2GRAY, 15-bit fixed point (imaging.py:42-51);
 - ``gaussian_kernel_1d``: cv2.getGaussianKernel taps;
-- ``adaptive_threshold_gaussian``: the plain version of the binarize kernels
-  (ops/kernels.py), cv2.adaptiveThreshold GAUSSIAN_C 51/13, on
-  ``blur_cv2``, cv2's own float32 blur;
+- ``gaussian_blur_gray``: the separable Gaussian blur with a replicate
+  border at any odd ksize (imaging.py:72-92), summed in float64;
+- ``adaptive_threshold_gaussian``: cv2.adaptiveThreshold GAUSSIAN_C at any
+  block size and C (imaging.py:95-112); at 51/13 the plain version of the
+  binarize kernels (ops/kernels.py);
+- ``binarize``: RGB -> 3-channel 0/255 (imaging.py:115-131); at 51/13 it
+  runs the binarize kernel on a card tensor;
+- ``dilate_rect`` / ``erode_rect``: cv2.dilate / cv2.erode with a rect
+  kernel (imaging.py:294-336);
 - ``resize_bilinear``: the JAX float resize (imaging.py:138-176) used on
   page tensors and the detection post chain;
 - ``resize_linear_u8``: cv2.resize INTER_LINEAR on uint8 in cv2's own
@@ -31,12 +38,23 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ocr_inference_tpu_torch.core.config import BINARIZE_BLOCK as BLOCK
 from ocr_inference_tpu_torch.core.config import BINARIZE_C
 
 C = float(BINARIZE_C)
 HALF = BLOCK // 2
+
+
+def normalize(image: torch.Tensor) -> torch.Tensor:
+    """uint8 [0,255] -> float32 [0,1] (reference: BDRC/utils.py:781-793)."""
+    return image.to(torch.float32) / 255.0
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Logistic sigmoid (reference: BDRC/utils.py:563-573)."""
+    return torch.sigmoid(x)
 
 
 def rgb_to_gray(image: torch.Tensor) -> torch.Tensor:
@@ -58,33 +76,29 @@ def gaussian_kernel_1d(ksize: int = BLOCK, sigma: float = 0.0) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def blur_taps(device: torch.device) -> torch.Tensor:
-    """The 51 float32 taps widened to float64 — the kernel's and the plain
-    version's shared coefficients."""
-    return torch.from_numpy(gaussian_kernel_1d(BLOCK).astype(np.float64)).to(
-        device
-    )
-
-
-def blur_in_order(gray: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(B, H, W) gray -> (B, H, W) 51-tap Gaussian blur in ``dtype`` with a
-    replicate border: over rows (the vertical pass, ``L @ gray``), then over
-    columns (``@ R``), each tap added in order t = 0..50 as a separately
+def blur_in_order(gray: torch.Tensor, dtype: torch.dtype, ksize: int = BLOCK,
+                  sigma: float = 0.0) -> torch.Tensor:
+    """(B, H, W) gray -> (B, H, W) Gaussian blur in ``dtype`` with a
+    replicate border and ``gaussian_kernel_1d(ksize, sigma)``'s float32
+    taps: over rows (the vertical pass, ``L @ gray``), then over columns
+    (``@ R``), each tap added in order t = 0..ksize-1 as a separately
     rounded product and sum (no fused multiply-add)."""
     h, w = gray.shape[-2], gray.shape[-1]
+    half = ksize // 2
     g = gray.to(dtype)
-    taps = blur_taps(g.device).to(dtype)
+    taps = torch.from_numpy(gaussian_kernel_1d(ksize, sigma)).to(
+        device=g.device, dtype=dtype)
     rows = torch.arange(h, device=g.device)
     cols = torch.arange(w, device=g.device)
     acc = None
-    for t in range(BLOCK):
-        idx = (rows + (t - HALF)).clamp(0, h - 1)
+    for t in range(ksize):
+        idx = (rows + (t - half)).clamp(0, h - 1)
         term = g[:, idx, :] * taps[t]
         acc = term if acc is None else acc + term
     vert = acc
     acc = None
-    for t in range(BLOCK):
-        idx = (cols + (t - HALF)).clamp(0, w - 1)
+    for t in range(ksize):
+        idx = (cols + (t - half)).clamp(0, w - 1)
         term = vert[:, :, idx] * taps[t]
         acc = term if acc is None else acc + term
     return acc
@@ -96,21 +110,28 @@ def blur_in_order(gray: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 ROW_FMA_STEP, COL_FMA_STEP = 4, 8
 
 
-def blur_cv2(gray: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) gray -> (B, H, W) float32: the Gaussian mean of
-    cv2.adaptiveThreshold(GAUSSIAN_C, 51), in its own float32 arithmetic
-    (GaussianBlur of the float image, BORDER_REPLICATE | BORDER_ISOLATED):
+def blur_cv2(gray: torch.Tensor, ksize: int = BLOCK,
+             sigma: float = 0.0) -> torch.Tensor:
+    """(B, H, W) gray -> (B, H, W) float32: cv2.GaussianBlur of the float
+    image with ``gaussian_kernel_1d(ksize, sigma)``'s taps and
+    BORDER_REPLICATE | BORDER_ISOLATED, in cv2 5.x's own float32
+    arithmetic (at 51 the Gaussian mean of cv2.adaptiveThreshold):
 
-    - the row pass first: per output column the 51 taps left to right,
+    - the row pass first: per output column the taps left to right,
       each fused (``fma32``) for columns below 4 * (W // 4) and a rounded
       product added with a rounding beyond (the scalar tail);
     - then the column pass: the centre row times the centre tap, then for
-      j = 1..25 the rows j above and below added (one rounding) and
-      multiplied in, fused for columns below 8 * (W // 8);
+      j = 1..ksize // 2 the rows j above and below added (one rounding)
+      and multiplied in, fused for columns below 8 * (W // 8);
     - a one-row image has no column pass, a one-column image no row
-      pass."""
+      pass.
+
+    Bit for bit cv2's on integer gray from ksize 9 up (11 up with sigma
+    <= 0, where cv2 5.0 takes fixed taps up to 9 and the JAX package, and
+    so this port, computes them); below 9 cv2 runs other filter loops."""
     b, h, w = gray.shape
-    taps = torch.from_numpy(gaussian_kernel_1d(BLOCK)).to(gray.device)
+    half = ksize // 2
+    taps = torch.from_numpy(gaussian_kernel_1d(ksize, sigma)).to(gray.device)
     g = gray.to(torch.float32)
     rows = g
     if w > 1:
@@ -118,16 +139,17 @@ def blur_cv2(gray: torch.Tensor) -> torch.Tensor:
         fused = ROW_FMA_STEP * (w // ROW_FMA_STEP)
 
         def tap(t, part):
-            return g[:, :, (cols[part] + (t - HALF)).clamp(0, w - 1)]
+            return g[:, :, (cols[part] + (t - half)).clamp(0, w - 1)]
 
         head_cols, tail_cols = slice(0, fused), slice(fused, w)
         head = tap(0, head_cols) * taps[0]
         tail = tap(0, tail_cols) * taps[0]
         # a fused row tap in float64 is exact before its one rounding: the
-        # integer gray times a tap (at least 2^-12) plus a partial sum that
-        # is 0 or at least the smallest tap spans under 53 bits
+        # integer gray times a tap of at least 2^-21 (at 51 each is at
+        # least 2^-12) plus a partial sum that is 0 or at least the
+        # smallest tap spans under 53 bits
         taps64 = taps.to(torch.float64)
-        for t in range(1, BLOCK):
+        for t in range(1, ksize):
             head = (tap(t, head_cols).to(torch.float64) * taps64[t]
                     + head.to(torch.float64)).to(torch.float32)
             tail = tail + tap(t, tail_cols) * taps[t]
@@ -136,34 +158,77 @@ def blur_cv2(gray: torch.Tensor) -> torch.Tensor:
         return rows
     r = torch.arange(h, device=g.device)
     fused = COL_FMA_STEP * (w // COL_FMA_STEP)
-    acc = rows * taps[HALF]
+    acc = rows * taps[half]
     head, tail = acc[:, :, :fused], acc[:, :, fused:]
-    for j in range(1, HALF + 1):
+    for j in range(1, half + 1):
         pair = (rows[:, (r + j).clamp(max=h - 1)]
                 + rows[:, (r - j).clamp(min=0)])
         if fused:
-            head = fma32(pair[:, :, :fused], taps[HALF + j], head)
+            head = fma32(pair[:, :, :fused], taps[half + j], head)
         if fused < w:
-            tail = tail + pair[:, :, fused:] * taps[HALF + j]
+            tail = tail + pair[:, :, fused:] * taps[half + j]
     return torch.cat([head, tail], dim=2)
 
 
-def adaptive_threshold_gaussian(gray: torch.Tensor) -> torch.Tensor:
-    """Plain version of the binarize kernels: (..., H, W) uint8 gray ->
-    (..., H, W) uint8 0/255 equal to cv2.adaptiveThreshold(GAUSSIAN_C, 51,
-    13, THRESH_BINARY), each image blurred with its own replicate border:
-    ``blur_cv2``'s float32 mean rounded half to even and clipped to
-    0..255, and 255 where gray > mean - 13. The kernels
-    (csrc/binarize.cu) blur in float32 in their own order and recompute,
-    in exactly this arithmetic, every pixel whose sum lies near its
-    threshold, so they equal this bit for bit.
-    """
+def gaussian_blur_gray(gray: torch.Tensor, ksize: int,
+                       sigma: float = 0.0) -> torch.Tensor:
+    """(..., H, W) gray -> (..., H, W) float32: the separable Gaussian blur
+    at an odd ``ksize`` with a replicate border and the JAX float32 taps
+    (imaging.py:72-92), each image with its own border. Summed in float64
+    and rounded once, so it lies within half a float32 step of the exact
+    blur, and the CPU and the card compute it alike. (cv2's own float32
+    order, which ``adaptive_threshold_gaussian`` needs, lies up to 1e-4
+    from the exact blur at ksize 51.)"""
+    if ksize % 2 != 1:
+        raise ValueError(f"ksize must be odd, got {ksize}")
+    shape = gray.shape
+    out = blur_in_order(gray.reshape(-1, shape[-2], shape[-1]),
+                        torch.float64, ksize, sigma)
+    return out.to(torch.float32).reshape(shape)
+
+
+def adaptive_threshold_gaussian(gray: torch.Tensor, max_value: float = 255.0,
+                                block_size: int = BLOCK,
+                                c: float = C) -> torch.Tensor:
+    """(..., H, W) uint8 gray -> (..., H, W) uint8 0/``max_value``:
+    cv2.adaptiveThreshold(ADAPTIVE_THRESH_GAUSSIAN_C, THRESH_BINARY) with
+    the JAX signature (imaging.py:95-112), each image blurred with its own
+    replicate border: ``blur_cv2``'s float32 mean rounded half to even
+    and clipped to 0..255, and ``max_value`` where gray > mean - c.
+
+    At 51/13 this is the plain version of the binarize kernels
+    (csrc/binarize.cu), which blur in float32 in their own order and
+    recompute, in exactly this arithmetic, every pixel whose sum lies near
+    its threshold, so they equal this bit for bit."""
     shape = gray.shape
     h, w = shape[-2], shape[-1]
     g = gray.reshape(-1, h, w)
-    mean = torch.round(blur_cv2(g)).clamp(0.0, 255.0)
-    out = torch.where(g.to(torch.float32) > mean - C, 255, 0).to(torch.uint8)
-    return out.reshape(shape)
+    mean = torch.round(blur_cv2(g, block_size)).clamp(0.0, 255.0)
+    out = torch.where(g.to(torch.float32) > mean - c, max_value, 0.0)
+    return out.to(torch.uint8).reshape(shape)
+
+
+def binarize(image: torch.Tensor, adaptive: bool = True,
+             block_size: int = BLOCK, c: float = C) -> torch.Tensor:
+    """(H, W, 3) uint8 RGB -> (H, W, 3) uint8 0/255, the mask repeated to
+    three channels (imaging.py:115-131; reference: BDRC/utils.py:796-815).
+
+    Adaptive 51/13, the pipeline's rule, runs the binarize kernel
+    (ops/kernels.py ``binarize_tiles`` on the page as one tile of any
+    size): on a card tensor the hand-written kernel, on a CPU tensor its
+    plain version. Any other block size or C is ``adaptive_threshold_gaussian``
+    in torch ops, and ``adaptive=False`` the global threshold gray > 120,
+    as the JAX package computes both in XLA rather than Pallas."""
+    if adaptive and block_size == BLOCK and c == C:
+        from ocr_inference_tpu_torch.ops import kernels
+
+        bw = kernels.binarize_tiles(image[None])[0]
+    elif adaptive:
+        bw = adaptive_threshold_gaussian(rgb_to_gray(image), 255.0,
+                                         block_size, c)
+    else:
+        bw = torch.where(rgb_to_gray(image) > 120, 255, 0).to(torch.uint8)
+    return bw[..., None].expand(*bw.shape, 3).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +455,39 @@ def rotate_from_angle(image: torch.Tensor, angle: float) -> torch.Tensor:
     rows, cols = image.shape[0], image.shape[1]
     m = rotation_matrix((cols / 2, rows / 2), angle)
     return warp_affine(image, m, rows, cols, border_value=0.0)
+
+
+# ---------------------------------------------------------------------------
+# Morphology
+# ---------------------------------------------------------------------------
+
+def _rect_max(mask: torch.Tensor, kh: int, kw: int, iterations: int,
+              sign: float) -> torch.Tensor:
+    """``sign`` * the max of ``sign`` * mask over a kh x kw window, the
+    window's rows from i - kh // 2 to i + kh - 1 - kh // 2 (cv2's centre
+    anchor), outside pixels ignored, ``iterations`` times; (H, W) or
+    (H, W, C), any dtype float32 holds exactly."""
+    x = mask.to(torch.float32) * sign
+    x = (x[None] if x.ndim == 2 else x.permute(2, 0, 1))[None]
+    pad = (kw // 2, kw - 1 - kw // 2, kh // 2, kh - 1 - kh // 2)
+    for _ in range(iterations):
+        x = F.max_pool2d(F.pad(x, pad, value=-math.inf), (kh, kw), stride=1)
+    x = (x[0, 0] if mask.ndim == 2 else x[0].permute(1, 2, 0)) * sign
+    return x.to(mask.dtype)
+
+
+def dilate_rect(mask: torch.Tensor, kh: int, kw: int,
+                iterations: int = 1) -> torch.Tensor:
+    """cv2.dilate with a kh x kw all-ones rect kernel, anchor at its centre
+    (imaging.py:294-314; reference: BDRC/line_detection.py:280-285)."""
+    return _rect_max(mask, kh, kw, iterations, 1.0)
+
+
+def erode_rect(mask: torch.Tensor, kh: int, kw: int,
+               iterations: int = 1) -> torch.Tensor:
+    """cv2.erode with a rect kernel, the border ignored (imaging.py:
+    317-336)."""
+    return _rect_max(mask, kh, kw, iterations, -1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ from ocr_inference_tpu_torch.decode.ctc import (
     ids_to_tokens,
     unpack_greedy_host,
 )
+from ocr_inference_tpu_torch import ops_host
 from ocr_inference_tpu_torch.ops import kernels, packing, tiling
 from ocr_inference_tpu_torch.ops.imaging import resize_bilinear, rgb_to_gray
 
@@ -269,6 +270,20 @@ class StreamState:
 
     def __init__(self):
         self.by_width: dict[int, list] = {}
+
+
+def pad_ocr_line_host(
+    img: np.ndarray,
+    target_width: int,
+    target_height: int,
+    padding: str = "black",
+) -> np.ndarray:
+    """Host aspect-preserving canvas pad (engines.py:654-672; reference:
+    BDRC/utils.py:818-899): ops_host.pad_ocr_line, always (H, W, C)."""
+    out = ops_host.pad_ocr_line(img, target_width, target_height, padding)
+    if out.ndim == 2:
+        out = out[..., None]
+    return out
 
 
 class RecognitionEngine:

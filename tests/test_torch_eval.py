@@ -6,6 +6,7 @@ tests/data/torch_port/eval_suite.json (made by
 tests/make_torch_port_fixture.py eval_suite), and the suite's texts on the
 CPU in float32 against the JAX float32 texts."""
 
+import importlib
 import json
 
 import cv2
@@ -17,7 +18,6 @@ from ocr_inference_tpu.eval import synthetic as J
 from ocr_inference_tpu.eval.cer import CERScorer as JaxCERScorer
 from ocr_inference_tpu.eval.cer import cer_bootstrap_ci as jax_bootstrap_ci
 from ocr_inference_tpu_torch.core import data
-from ocr_inference_tpu_torch.eval import cer as pcer
 from ocr_inference_tpu_torch.eval import suite
 from ocr_inference_tpu_torch.eval import synthetic as S
 from ocr_inference_tpu_torch.ops.imaging import remap_linear_u8
@@ -25,6 +25,10 @@ from ocr_inference_tpu_torch.pipeline import build_pipeline
 from tests.make_torch_port_fixture import (
     EVAL_CANVAS, EVAL_SEED, EVAL_SUITE, OUT, full77f_configs, sha256,
 )
+
+# the module: the package exports the function cer under that name, as
+# the JAX package's eval/__init__.py does
+pcer = importlib.import_module("ocr_inference_tpu_torch.eval.cer")
 
 
 @pytest.fixture(scope="module", autouse=True)

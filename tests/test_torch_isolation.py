@@ -225,3 +225,36 @@ def test_serve_and_eval_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
                         device="cpu").get_architecture() == "CRNN"
     assert serve_cli.main(["--model", str(model), "--allow-random-weights",
                            "--device", "cpu"]) == 0
+
+
+def test_public_surface_modules_are_walked_and_import_nothing_forbidden():
+    """ops_host, utils.preview and utils.runtime are in the walk above, and
+    drawing a preview, binarizing on the host and taking a profile pull
+    in no cv2, JAX or JAX-package module."""
+    import pkgutil
+
+    import ocr_inference_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(
+        ocr_inference_tpu_torch.__path__, "ocr_inference_tpu_torch.")}
+    assert {
+        "ocr_inference_tpu_torch.ops_host",
+        "ocr_inference_tpu_torch.utils",
+        "ocr_inference_tpu_torch.utils.preview",
+        "ocr_inference_tpu_torch.utils.runtime",
+    } <= names
+    imports = (
+        "import numpy as np, tempfile\n"
+        "from ocr_inference_tpu_torch import ops_host\n"
+        "from ocr_inference_tpu_torch.core.data import BBox\n"
+        "from ocr_inference_tpu_torch.utils import (create_preview_image,"
+        " draw_bbox, trace_profile)\n"
+        "img = np.full((40, 60, 3), 200, np.uint8)\n"
+        "cnt = np.array([[[5, 5]], [[30, 5]], [[30, 20]], [[5, 20]]],"
+        " np.int32)\n"
+        "with trace_profile(tempfile.mkdtemp()):\n"
+        "    create_preview_image(img, line_predictions=[cnt])\n"
+        "    draw_bbox(img, BBox(1, 1, 20, 10))\n"
+        "    ops_host.pad_ocr_line(ops_host.binarize_host(img), 512, 80)\n"
+    )
+    assert _imported(imports) == "FORBIDDEN []"
