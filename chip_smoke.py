@@ -2280,6 +2280,44 @@ def page_loop_s(pipe, paths: list[Path]) -> float:
     return time.perf_counter() - t0
 
 
+def unreadable_page_skipped(cli, args: list[str], root: Path,
+                            page: Path) -> dict:
+    """bocr --folder in float32 over a readable page and an LZMA TIFF
+    (cv2's libtiff has no LZMA, so cv2.imread gives None): rc 0, ``Failed
+    to load image`` printed for the TIFF, the page's text written."""
+    import io
+    import struct
+
+    folder = root / "lzma"
+    folder.mkdir()
+    (folder / page.name).write_bytes(page.read_bytes())
+    lzma = folder / "unreadable_lzma.tif"
+    # an 8x8 RGB page in one strip of 192 bytes at offset 122, the IFD's
+    # 9 entries at 8: width, height, bits, compression LZMA (34925),
+    # photometric RGB, strip offset, samples, rows per strip, byte count
+    entries = [(256, 3, 8), (257, 3, 8), (258, 3, 8), (259, 3, 34925),
+               (262, 3, 2), (273, 4, 122), (277, 3, 3), (278, 3, 8),
+               (279, 4, 192)]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHI", tag, typ, 1) + struct.pack(
+            "<HH" if typ == 3 else "<I", *((value, 0) if typ == 3
+                                           else (value,)))
+        for tag, typ, value in entries) + struct.pack("<I", 0)
+    lzma.write_bytes(b"II*\x00" + struct.pack("<I", 8) + ifd + bytes(192))
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with no_tf32(), contextlib.redirect_stdout(printed):
+        rc = cli.main(args + ["--folder", str(folder), "--output",
+                              str(root / "lzma_out"), "--dtype", "float32"])
+    out = printed.getvalue()
+    text = root / "lzma_out" / f"{page.stem}.txt"
+    skipped = f"Failed to load image: {lzma}" in out
+    return {"rc": rc, "s": time.perf_counter() - t0, "skipped": skipped,
+            "page_read": text.is_file() and bool(
+                text.read_text(encoding="utf-8").strip()),
+            "ok": rc == 0 and skipped and text.is_file()}
+
+
 @phase("image_formats")
 def image_formats(results: dict):
     """The committed JPEG, TIFF and Adam7 PNG files of tests/data/
@@ -2290,7 +2328,11 @@ def image_formats(results: dict):
     boxes); bocr in bf16 (counted), and the per-page loop's pages/s on the
     files against their PNG copies; bocr-lines in float32 (counted): its
     Parquet files, read back with read_result_parquet, equal the JAX
-    bocr-lines rows exactly."""
+    bocr-lines rows exactly. The files cover CMYK and smoothed progressive
+    JPEG, JPEG-in-TIFF, YCbCr, CMYK, planar and BigTIFF beside the PNG,
+    JPEG and TIFF of earlier slices. A folder holding an LZMA TIFF (cv2
+    gives None) beside a readable page: bocr exits 0, prints ``Failed to
+    load image`` for it and reads the page, as the JAX bocr does."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2402,6 +2444,10 @@ def image_formats(results: dict):
             r.get("bboxes_equal") and r.get("contours_equal")
             and r.get("fields_equal") for r in rows.values()) and len(
             rows) == len(page_paths)
+
+        skip = unreadable_page_skipped(cli, args, root, page_paths[0])
+        runs["bocr_lzma_folder"] = skip
+        checks["bocr_skips_lzma_tiff"] = skip["ok"]
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "pool_decode": pool, "pages": per_page, "runs": runs,
             "page_loop_bf16": loop, "bocr_lines": rows,

@@ -13,31 +13,43 @@ here on stdlib ``zlib`` and numpy, with the pixel loops in native code
   composited; 16-bit samples keep their high byte (libpng's
   ``png_set_strip_16``); gray below 8 bits is scaled to 0..255;
 - JPEG: baseline, extended and progressive Huffman coding, restart
-  intervals, 1 or 3 components at every sampling factor, decoded as
-  libjpeg-turbo decodes them for cv2 (native/jpeg.cpp);
-- TIFF: the first page; no compression, PackBits, LZW, Deflate (8 and
-  32946) and CCITT modified Huffman, T.4 and T.6 (Group 4); strips and
-  tiles; horizontal predictor 2; photometric 0-3 at 1, 2, 4, 8 and 16 bits,
-  each sample mapped as libtiff's RGBA interface maps it for cv2 (16-bit
-  gray keeps its high byte, 16-bit RGB rounds ``(v + 128) // 257``,
-  unassociated alpha is multiplied in, then alpha is dropped);
+  intervals, 1, 3 or 4 components at every sampling factor, decoded as
+  libjpeg-turbo 3.1 decodes them for cv2 (native/jpeg.cpp): CMYK, and
+  YCCK turned into CMYK, then RGB as OpenCV converts CMYK; a progressive
+  file whose scans leave low coefficients unsent or short of bits (cut
+  short, or complete) smoothed as libjpeg smooths it; corrupt data as
+  libjpeg treats it;
+- TIFF and BigTIFF: the first page; no compression, PackBits, LZW,
+  Deflate (8 and 32946), CCITT modified Huffman, T.4 and T.6 (Group 4) and
+  JPEG (7: JPEGTables, strips and tiles, YCbCr turned into RGB by libjpeg
+  as libtiff asks it to); strips and tiles, contiguous and planar;
+  horizontal predictor 2; photometric 0-3 at 1, 2, 4, 8 and 16 bits, 5
+  (CMYK, 8-bit, InkSet 1) and 6 (YCbCr, 8-bit, every subsampling libtiff
+  puts, its ReferenceBlackWhite and YCbCrCoefficients), each sample mapped
+  as libtiff's RGBA interface maps it for cv2 (16-bit gray keeps its high
+  byte, 16-bit RGB rounds ``(v + 128) // 257``, unassociated alpha is
+  multiplied in, then alpha is dropped);
 - EXIF orientation 2-8 is applied as cv2 applies it, from a JPEG's first
   APP1 segment and from a PNG's ``eXIf`` chunk. A TIFF's orientation is
   applied as cv2 5.0 applies it: 4 flips top-bottom; 2 flips each strip or
   tile column left-right within its own width, and 3 does that and flips
   top-bottom (so a tiled page's tiles stay in place); 5-8 give None, as
   imread does;
-- a file cv2 cannot read (missing, truncated inside its headers, a bad CRC
-  of a critical PNG chunk, bad zlib or LZW data) gives ``None``. A JPEG
-  truncated inside its entropy-coded data decodes as libjpeg decodes it:
-  the missing blocks are mid-gray.
+- a file cv2 cannot read gives ``None``: missing, truncated inside its
+  headers, a bad CRC of a critical PNG chunk, bad zlib or LZW data, and
+  the TIFF variants cv2's libtiff cannot read or map (LZMA, Zstandard,
+  WebP, old-style JPEG, PixarLog, JBIG and LERC compression, which it was
+  built without; float samples, the floating-point predictor, 32-bit
+  samples, 16-bit CMYK). A JPEG truncated inside its entropy-coded data
+  decodes as libjpeg decodes it: the missing blocks are mid-gray.
 
 What cv2 reads and this does not raises ``NotImplementedError`` naming
-it, so that no page is skipped silently: CMYK/YCCK, 12-bit, arithmetic-
-coded and lossless JPEG, a progressive JPEG whose scans leave
-coefficients unsent (libjpeg smooths those blocks), JPEG-in-TIFF, planar
-TIFF, the floating-point predictor and other TIFF codecs, BigTIFF, and
-every other format (BMP, WebP, JPEG 2000, GIF, ...).
+it, so that no page is skipped silently: arithmetic-coded, lossless and
+12-bit JPEG, the TIFF codecs NeXT, ThunderScan, CCITT RLE-W and SGI Log,
+a TIFF compression libtiff does not know (JPEG 2000 in TIFF 34712, ...;
+cv2 gives an all-zero page for those), CIE L*a*b* TIFF, old-style LZW,
+and every other format (BMP, WebP, JPEG 2000, GIF, ...).
+``unsupported(path)`` tells these from the headers, without decoding.
 """
 
 from __future__ import annotations
@@ -57,8 +69,8 @@ _MAGIC = (
     (b"\xff\xd8\xff", "JPEG"),
     (b"II*\x00", "TIFF"),
     (b"MM\x00*", "TIFF"),
-    (b"II+\x00", "BigTIFF"),
-    (b"MM\x00+", "BigTIFF"),
+    (b"II+\x00", "TIFF"),
+    (b"MM\x00+", "TIFF"),
     (b"BM", "BMP"),
     (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
     (b"\xffO\xffQ", "JPEG 2000"),
@@ -82,22 +94,31 @@ _JPEG_VARIANTS = {
     2: "arithmetic-coded JPEG",
     3: "lossless JPEG",
     4: "JPEG with 12- or 16-bit samples",
-    5: "CMYK/YCCK JPEG (four components)",
-    6: "progressive JPEG with coefficients left unsent (block smoothing)",
 }
 
+# TIFF compressions decoded here
+_TIFF_CODECS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946)
+# compressions cv2's libtiff was built without: cv2.imread gives None
+_TIFF_NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog",
+                        34661: "JBIG", 34887: "LERC", 34925: "LZMA",
+                        50000: "Zstandard", 50001: "WebP"}
+# compressions cv2 reads that are not decoded here (libtiff's own NeXT,
+# ThunderScan, RLE-W and SGI Log codecs); for a compression libtiff does
+# not know (JPEG 2000 34712, JPEG XL 50002, ...) cv2 gives an all-zero page
 _TIFF_COMPRESSION_NAMES = {
-    6: "old-style JPEG-in-TIFF (compression 6)",
-    7: "JPEG-in-TIFF (compression 7)",
+    32766: "NeXT 2-bit RLE TIFF (compression 32766)",
+    32771: "CCITT RLE-W TIFF (compression 32771)",
+    32809: "ThunderScan TIFF (compression 32809)",
+    34676: "SGI LogLuv TIFF (compression 34676)",
+    34677: "SGI LogLuv 24-bit TIFF (compression 34677)",
     34712: "JPEG 2000 in TIFF (compression 34712)",
-    34925: "LZMA TIFF (compression 34925)",
-    50000: "Zstandard TIFF (compression 50000)",
-    50001: "WebP in TIFF (compression 50001)",
 }
 
-# TIFF field types -> struct codes (rationals as two LONGs)
+# TIFF field types -> struct codes (rationals as two LONGs; BigTIFF's
+# LONG8, SLONG8 and IFD8)
 _TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B",
-               8: "h", 9: "i", 10: "ii", 11: "f", 12: "d", 13: "I"}
+               8: "h", 9: "i", 10: "ii", 11: "f", 12: "d", 13: "I",
+               16: "Q", 17: "q", 18: "Q"}
 
 _REVERSED_BITS = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                           np.uint8)
@@ -133,8 +154,7 @@ def image_format(path: str | Path) -> str | None:
 def unsupported(path: str | Path) -> str | None:
     """Why read_image would refuse a file, judged from its headers: the
     format or variant it names, or None for a file it reads (or that
-    cv2.imread cannot read either). A progressive JPEG that libjpeg would
-    smooth shows only when it is decoded."""
+    cv2.imread cannot read either)."""
     fmt = image_format(path)
     if fmt is None or fmt == "PNG":
         return None
@@ -364,20 +384,29 @@ def _decode_jpeg(data: bytes) -> np.ndarray:
 # TIFF
 # ---------------------------------------------------------------------------
 
-def _tiff_ifd(data: bytes, order: str, offset: int) -> dict[int, tuple]:
-    """The tags of the IFD at ``offset``: tag -> tuple of values (bytes
+def _tiff_ifd(data: bytes, order: str, offset: int,
+              big: bool = False) -> dict[int, tuple]:
+    """The tags of the IFD at ``offset`` (a BigTIFF's when ``big``: 8-byte
+    counts and offsets, 20-byte entries): tag -> tuple of values (bytes
     for ASCII and UNDEFINED)."""
-    count, = struct.unpack_from(order + "H", data, offset)
+    count_code, entry, field = ("Q", 20, 8) if big else ("H", 12, 4)
+    count, = struct.unpack_from(order + count_code, data, offset)
+    base = offset + struct.calcsize(count_code)
+    if base + entry * count > len(data):
+        raise _Corrupt("the IFD runs past the end of the file")
     tags: dict[int, tuple] = {}
     for i in range(count):
-        at = offset + 2 + 12 * i
-        tag, typ, n = struct.unpack_from(order + "HHI", data, at)
+        at = base + entry * i
+        tag, typ = struct.unpack_from(order + "HH", data, at)
+        n, = struct.unpack_from(order + ("Q" if big else "I"), data, at + 4)
         code = _TIFF_TYPES.get(typ)
         if code is None:
             continue
         size = struct.calcsize(order + code) * n
-        where = at + 8 if size <= 4 else \
-            struct.unpack_from(order + "I", data, at + 8)[0]
+        where = at + 4 + field
+        if size > field:
+            where, = struct.unpack_from(order + ("Q" if big else "I"), data,
+                                        where)
         if where + size > len(data):
             raise _Corrupt(f"tag {tag} runs past the end of the file")
         if typ in (2, 7):
@@ -387,8 +416,71 @@ def _tiff_ifd(data: bytes, order: str, offset: int) -> dict[int, tuple]:
     return tags
 
 
+def _tiff_chunks(tags: dict) -> list[tuple[int, int]]:
+    """(offset, byte count) of every strip or tile, planes one after
+    another."""
+    offsets = tags.get(324) or tags[273]
+    counts = tags.get(325) or tags.get(279) or (1 << 62,) * len(offsets)
+    return list(zip(offsets, counts))
+
+
+def _tiff_photometric(tags: dict) -> int:
+    return tags.get(262, (1 if tags.get(277, (1,))[0] < 3 else 2,))[0]
+
+
+def _tiff_header(data: bytes) -> tuple[str, bool, int]:
+    """(byte order, BigTIFF, offset of the first IFD)."""
+    order = {b"II": "<", b"MM": ">"}[bytes(data[:2])]
+    version, = struct.unpack_from(order + "H", data, 2)
+    if version == 43:
+        if struct.unpack_from(order + "HH", data, 4) != (8, 0):
+            raise _Corrupt("bad BigTIFF header")
+        return order, True, struct.unpack_from(order + "Q", data, 8)[0]
+    if version != 42:
+        raise _Corrupt(f"TIFF version {version}")
+    return order, False, struct.unpack_from(order + "I", data, 4)[0]
+
+
+def _tiff_first_page(data: bytes) -> tuple[str, dict]:
+    """(byte order, tags of the first IFD). The variants this reader does
+    not decode and cv2 reads raise NotImplementedError naming them; those
+    cv2's libtiff was built without raise _Corrupt (None, as cv2)."""
+    order, big, offset = _tiff_header(data)
+    tags = _tiff_ifd(data, order, offset, big)
+    compression = tags.get(259, (1,))[0]
+    if compression in _TIFF_NOT_CONFIGURED:
+        raise _Corrupt(f"{_TIFF_NOT_CONFIGURED[compression]} TIFF: not in "
+                       "cv2's libtiff")
+    if compression not in _TIFF_CODECS:
+        raise NotImplementedError(
+            _TIFF_COMPRESSION_NAMES.get(
+                compression, f"TIFF compression {compression}")
+            + " is not supported")
+    if _tiff_photometric(tags) == 8 and tags.get(277, (1,))[0] == 3 \
+            and tags.get(258, (1,))[0] in (8, 16):
+        # what libtiff's RGBA interface turns into RGB through XYZ
+        raise NotImplementedError("CIE L*a*b* TIFF (photometric 8) is not "
+                                  "supported")
+    if compression == 4 and tags.get(293, (0,))[0] & 2:
+        raise NotImplementedError("uncompressed mode in Group 4 TIFF is not "
+                                  "supported")
+    if compression == 5:
+        for off, _ in _tiff_chunks(tags):
+            if data[off: off + 2] == b"\x00\x01":
+                raise NotImplementedError("old-style (pre-TIFF 6) LZW is not "
+                                          "supported")
+    if compression == 7:
+        with native.JpegTiffTables(tags.get(347, (b"",))[0]) as tables:
+            for off, cnt in _tiff_chunks(tags) if not tables.status else ():
+                rc = tables.header(data[off: off + cnt])[0]
+                if rc in (2, 3):
+                    raise NotImplementedError(
+                        f"{_JPEG_VARIANTS[rc]} in TIFF is not supported")
+    return order, tags
+
+
 def _tiff_unpack(compression: int, chunk: bytes, size: int, width: int,
-                 rows: int, tags: dict) -> np.ndarray:
+                 rows: int, tags: dict, jpeg=None) -> np.ndarray:
     """One strip or tile's bytes, decompressed to ``size`` bytes (zero
     padded where the data is short, as libtiff leaves the buffer)."""
     if compression == 1:
@@ -397,22 +489,55 @@ def _tiff_unpack(compression: int, chunk: bytes, size: int, width: int,
         out = np.frombuffer(zlib.decompressobj().decompress(chunk, size),
                             np.uint8)
     elif compression == 5:
-        if chunk[:2] == b"\x00\x01":
-            raise NotImplementedError("old-style (pre-TIFF 6) LZW is not "
-                                      "supported")
         out = native.tiff_unpack("lzw", chunk, size)
     elif compression == 32773:
         out = native.tiff_unpack("packbits", chunk, size)
-    else:  # CCITT 2, 3 or 4 (_tiff_first_page refused the others)
+    elif compression == 7:
+        return jpeg.decode(chunk, width, rows).reshape(-1)
+    else:  # CCITT 2, 3 or 4
         opts = tags.get(292 if compression == 3 else 293, (0,))[0]
-        if compression == 4 and opts & 2:
-            raise NotImplementedError("uncompressed mode in Group 4 TIFF is "
-                                      "not supported")
         return native.tiff_fax(chunk, width, rows, compression, opts,
                                tags.get(266, (1,))[0]).reshape(-1)
     if out.size < size:
         out = np.concatenate([out, np.zeros(size - out.size, np.uint8)])
     return out
+
+
+class _TiffJpeg:
+    """How libtiff's tif_jpeg.c has libjpeg decode each strip or tile: the
+    JPEGTables stream first, YCbCr turned into RGB for a contiguous YCbCr
+    page (JPEGCOLORMODE RGB) and the components kept as decoded otherwise,
+    the stream's size and sampling checked against the strip's (a last
+    strip whose stream holds the full RowsPerStrip is cut)."""
+
+    def __init__(self, tables: native.JpegTiffTables, tags: dict, h: int,
+                 components: int, rgb: bool, sampling: tuple[int, int]):
+        self.tables = tables
+        self.tiled = 322 in tags
+        self.h, self.components, self.rgb = h, components, rgb
+        self.sampling = sampling
+        self.y = 0  # the next strip's first row
+
+    def decode(self, chunk: bytes, width: int, rows: int) -> np.ndarray:
+        last = not self.tiled and self.y + rows >= self.h
+        self.y += rows
+        rc, (sw, sh, nc, h0, v0, rest_1x1) = self.tables.header(chunk)
+        if rc:
+            raise _Corrupt("JPEG data libtiff cannot read")
+        cut = 0
+        if sw == width and sh > rows and last:
+            cut = rows
+        elif sw != width or sh != rows:
+            raise _Corrupt(f"a {sw}x{sh} JPEG stream in a {width}x{rows} "
+                           "strip or tile")
+        if nc != self.components or (h0, v0) != self.sampling \
+                or not rest_1x1:
+            raise _Corrupt("JPEG components or sampling do not match the "
+                           "TIFF's")
+        rc, img = self.tables.decode(chunk, 1 if self.rgb else 0, cut)
+        if rc:
+            raise _Corrupt("JPEG data libtiff cannot read")
+        return img
 
 
 def _undo_predictor(block: np.ndarray, bits: int, spp: int,
@@ -429,11 +554,12 @@ def _undo_predictor(block: np.ndarray, bits: int, spp: int,
 
 
 def _tiff_raw(data: bytes, tags: dict, w: int, h: int, bits: int, spp: int,
-              compression: int, order: str) -> np.ndarray:
-    """Every strip or tile decompressed into (h, row_bytes) raw bytes,
-    the predictor undone. libtiff runs predictor 2 inside the LZW and
-    Deflate codecs only: with no compression or PackBits the tag does
-    nothing."""
+              compression: int, order: str, plane: int = 0,
+              jpeg: _TiffJpeg | None = None) -> np.ndarray:
+    """Every strip or tile of one plane (all of a contiguous page: plane
+    0 with every sample) decompressed into (h, row_bytes) raw bytes, the
+    predictor undone. libtiff runs predictor 2 inside the LZW and Deflate
+    codecs only: with no compression or PackBits the tag does nothing."""
     pixel_bits = bits * spp
     row_bytes = (w * pixel_bits + 7) // 8
     predictor = tags.get(317, (1,))[0] if compression in (5, 8, 32946) \
@@ -441,95 +567,182 @@ def _tiff_raw(data: bytes, tags: dict, w: int, h: int, bits: int, spp: int,
     if predictor == 2 and bits < 8:
         raise _Corrupt("horizontal predictor on samples under 8 bits")
     if predictor not in (1, 2):
-        raise _Corrupt(f"unknown predictor {predictor}")
+        raise _Corrupt(f"predictor {predictor} on integer samples")
 
     def unpack(chunk, size, width, rows, stride):
-        block = _tiff_unpack(compression, chunk, size, width, rows, tags)
+        block = _tiff_unpack(compression, chunk, size, width, rows, tags,
+                             jpeg)
         block = block.reshape(rows, stride)
         return _undo_predictor(block, bits, spp, order) \
             if predictor == 2 else block
 
-    bits_rev = tags.get(266, (1,))[0] == 2 and compression not in (2, 3, 4)
+    bits_rev = tags.get(266, (1,))[0] == 2 and \
+        compression not in (2, 3, 4, 7)
 
     def chunk(offset, count):
         blob = data[offset: offset + count]
         return _REVERSED_BITS[np.frombuffer(blob, np.uint8)].tobytes() \
             if bits_rev else blob
 
+    chunks = _tiff_chunks(tags)
     raw = np.zeros((h, row_bytes), np.uint8)
     if 322 in tags:  # tiles, their width a multiple of 16 pixels
         tw, th = tags[322][0], tags[323][0]
         if tw * pixel_bits % 8:
             raise _Corrupt("tile rows do not end on a byte")
         tile_row = tw * pixel_bits // 8
-        across = -(-w // tw)
-        for i, (off, cnt) in enumerate(zip(tags[324], tags[325])):
+        across, down = -(-w // tw), -(-h // th)
+        per_plane = across * down
+        for i, (off, cnt) in enumerate(
+                chunks[plane * per_plane: (plane + 1) * per_plane]):
             ty, tx = divmod(i, across)
-            if ty * th >= h:
-                break
             tile = unpack(chunk(off, cnt), th * tile_row, tw, th, tile_row)
             y0, x0 = ty * th, tx * tile_row
             rows, cols = min(th, h - y0), min(tile_row, row_bytes - x0)
             raw[y0: y0 + rows, x0: x0 + cols] = tile[:rows, :cols]
         return raw
     rps = min(tags.get(278, (h,))[0], h)
-    offsets = tags[273]
-    counts = tags.get(279) or (len(data),) * len(offsets)
-    for i, (off, cnt) in enumerate(zip(offsets, counts)):
+    per_plane = -(-h // rps)
+    for i, (off, cnt) in enumerate(
+            chunks[plane * per_plane: (plane + 1) * per_plane]):
         y0 = i * rps
-        if y0 >= h:
-            break
         rows = min(rps, h - y0)
         raw[y0: y0 + rows] = unpack(chunk(off, cnt), rows * row_bytes, w,
                                     rows, row_bytes)
     return raw
 
 
-def _tiff_first_page(data: bytes) -> tuple[str, dict]:
-    """(byte order, tags of the first IFD), the variants this reader does
-    not decode refused by name."""
-    order = {b"II": "<", b"MM": ">"}[data[:2]]
-    tags = _tiff_ifd(data, order, struct.unpack_from(order + "I", data, 4)[0])
-    spp = tags.get(277, (1,))[0]
-    compression = tags.get(259, (1,))[0]
-    if compression not in (1, 2, 3, 4, 5, 8, 32773, 32946):
-        raise NotImplementedError(
-            _TIFF_COMPRESSION_NAMES.get(
-                compression, f"TIFF compression {compression}")
-            + " is not supported")
-    if tags.get(284, (1,))[0] == 2 and spp > 1:
-        raise NotImplementedError("planar TIFF (PlanarConfiguration 2) is "
-                                  "not supported")
-    if tags.get(317, (1,))[0] == 3:
-        raise NotImplementedError("the floating-point TIFF predictor (3) is "
-                                  "not supported")
-    if tags.get(339, (1,))[0] not in (1, 2):
-        raise NotImplementedError("floating-point TIFF samples are not "
-                                  "supported")
-    photometric = tags.get(262, (1 if spp < 3 else 2,))[0]
-    if photometric not in (0, 1, 2, 3):
-        names = {5: "CMYK (separated)", 6: "YCbCr", 8: "CIE L*a*b*"}
-        raise NotImplementedError(
-            f"{names.get(photometric, f'photometric {photometric}')} TIFF "
-            "is not supported")
-    bits = tags.get(258, (1,))[0]
-    allowed = {0: (1, 2, 4, 8, 16), 1: (1, 2, 4, 8, 16), 2: (8, 16),
-               3: (1, 2, 4, 8)}[photometric]
-    if bits not in allowed:
-        raise NotImplementedError(f"{bits}-bit TIFF samples are not "
-                                  "supported here")
-    return order, tags
+def _tiff_ycbcr_blocks(data: bytes, tags: dict, w: int, h: int,
+                       compression: int, hs: int, vs: int) -> np.ndarray:
+    """A contiguous YCbCr page's packed blocks (each vs rows by hs
+    columns: its hs * vs Y samples, then one Cb and one Cr) -> (h, w, 3)
+    Y, Cb, Cr samples, each block's chroma repeated over its pixels, as
+    tif_getimage.c's putcontig8bitYCbCr*tile do. Of a strip libtiff reads
+    only its rows rounded up to vs times TIFFScanlineSize (the block row
+    over vs, rounded down); the bytes past that stay zero."""
+    block = hs * vs + 2
+    out = np.zeros((h, w, 3), np.uint8)
+
+    def put(chunk, y0, x0, rows, cols, span, take):
+        across, down = -(-span // hs), -(-rows // vs)
+        size = down * across * block
+        raw = _tiff_unpack(compression, chunk, min(size, take), span, rows,
+                           tags)[:size]
+        raw = np.concatenate([raw, np.zeros(size - raw.size, np.uint8)])
+        used = -(-cols // hs)
+        if (hs, vs) == (4, 4) and cols < span:
+            # putcontig8bitYCbCr44tile skips a clipped tile's unseen
+            # blocks as 4x2 blocks of 10 bytes
+            stride = used * block + (span - cols) // 4 * 10
+            b = np.stack([raw[r * stride: r * stride + used * block]
+                          for r in range(down)]).reshape(down, used, block)
+        else:
+            b = raw.reshape(down, across, block)[:, :used]
+        y = b[..., : hs * vs].reshape(down, used, vs, hs) \
+            .transpose(0, 2, 1, 3).reshape(down * vs, used * hs)
+        chroma = np.repeat(np.repeat(b[..., hs * vs:], vs, 0), hs, 1)
+        px = np.concatenate([y[..., None], chroma], axis=2)
+        out[y0: y0 + rows, x0: x0 + cols] = px[:rows, :cols]
+
+    chunks = _tiff_chunks(tags)
+    if 322 in tags:
+        tw, th = tags[322][0], tags[323][0]
+        across = -(-w // tw)
+        for i, (off, cnt) in enumerate(chunks[: across * -(-h // th)]):
+            ty, tx = divmod(i, across)
+            y0, x0 = ty * th, tx * tw
+            put(data[off: off + cnt], y0, x0, min(th, h - y0),
+                min(tw, w - x0), tw, 1 << 62)
+        return out
+    rps = min(tags.get(278, (h,))[0], h)
+    scanline = -(-w // hs) * block // vs
+    for i, (off, cnt) in enumerate(chunks[: -(-h // rps)]):
+        y0 = i * rps
+        rows = min(rps, h - y0)
+        put(data[off: off + cnt], y0, 0, rows, w, w,
+            -(-rows // vs) * vs * scanline)
+    return out
+
+
+def _ycbcr_tables(tags: dict) -> tuple[np.ndarray, ...]:
+    """tif_color.c TIFFYCbCrToRGBInit: the Y, Cr->R, Cb->B, Cr->G and
+    Cb->G tables, built in float from YCbCrCoefficients (tag 529) and
+    ReferenceBlackWhite (tag 532) as libtiff reads their RATIONALs into
+    floats, then FIX()ed to 16-bit fixed point."""
+    f32 = np.float32
+
+    def rationals(tag, default):
+        v = tags.get(tag)
+        if v is None or len(v) < 2 * len(default):
+            return [f32(x) for x in default]
+        return [f32(0.0) if d == 0 else f32(n) / f32(d)
+                for n, d in zip(v[0::2], v[1::2])][: len(default)]
+
+    luma = rationals(529, (0.299, 0.587, 0.114))
+    rbw = rationals(532, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))
+    if any(np.isnan(luma)) or luma[1] == 0 or any(
+            not (-0x7FFFFFFF + 128 < x < 0x7FFFFFFF) for x in rbw):
+        raise _Corrupt("invalid YCbCr coefficients or reference values")
+
+    def fix(x):  # FIX(CLAMP(x, 0, 2)): (int32)(x * 65536 + 0.5) in double
+        x = f32(0.0) if not x >= 0 else min(x, f32(2.0))
+        return int(np.float64(f32(x) * f32(65536.0)) + 0.5)
+
+    f1 = f32(2.0) - f32(2.0) * luma[0]
+    f3 = f32(2.0) - f32(2.0) * luma[2]
+    d1, d2 = fix(f1), -fix(luma[0] * f1 / luma[1])
+    d3, d4 = fix(f3), -fix(luma[2] * f3 / luma[1])
+
+    def code2v(c, rb, rw, cr):  # Code2V, CLAMPw(-4096, 4096), (int32_t)
+        den = rw - rb
+        v = (c - np.int32(rb)).astype(f32) * f32(cr) / (den if den != 0
+                                                        else f32(1.0))
+        return np.clip(v, f32(-4096.0), f32(4096.0)).astype(np.int64)
+
+    x = np.arange(-128, 128, dtype=np.int64)
+    cr = code2v(x, rbw[4] - f32(128.0), rbw[5] - f32(128.0), 127)
+    cb = code2v(x, rbw[2] - f32(128.0), rbw[3] - f32(128.0), 127)
+    one_half = 1 << 15
+    return (code2v(x + 128, rbw[0], rbw[1], 255), (d1 * cr + one_half) >> 16,
+            (d3 * cb + one_half) >> 16, d2 * cr, d4 * cb + one_half)
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
+    """tif_color.c TIFFYCbCrtoRGB over (h, w, 3) Y, Cb, Cr samples."""
+    return native.tiff_ycbcr(ycc, np.stack(_ycbcr_tables(tags)))
+
+
+# YCbCrSubsampling blocks libtiff's RGBA interface puts (tif_getimage.c
+# putcontig8bitYCbCr{44,42,41,22,21,12,11}tile); others it cannot handle
+_YCBCR_SAMPLING = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
 
 
 def _decode_tiff(data: bytes) -> np.ndarray | None:
     order, tags = _tiff_first_page(data)
+    if tags.get(259, (1,))[0] != 7:
+        return _decode_tiff_page(data, order, tags, None)
+    # JPEG: one decompressor for the page's strips, as in tif_jpeg.c
+    with native.JpegTiffTables(tags.get(347, (b"",))[0]) as tables:
+        return _decode_tiff_page(data, order, tags, tables)
+
+
+def _decode_tiff_page(data: bytes, order: str, tags: dict,
+                      tables: native.JpegTiffTables | None
+                      ) -> np.ndarray | None:
     w, h = tags[256][0], tags[257][0]
     if w == 0 or h == 0:
         raise _Corrupt("empty image")
     spp = tags.get(277, (1,))[0]
     bits = tags.get(258, (1,))[0]
     compression = tags.get(259, (1,))[0]
-    photometric = tags.get(262, (1 if spp < 3 else 2,))[0]
+    photometric = _tiff_photometric(tags)
+    planar = tags.get(284, (1,))[0] == 2 and spp > 1
+    extra = tags.get(338, ())
+    # what libtiff's RGBA interface (TIFFRGBAImageOK, PickContigCase,
+    # PickSeparateCase) and cv2's TIFF decoder cannot handle: None
+    if bits not in (1, 2, 4, 8, 16) or not 1 <= spp <= 4 \
+            or tags.get(339, (1,))[0] not in (1, 2):
+        raise _Corrupt(f"{bits}-bit samples, {spp} samples per pixel")
     if spp < (3 if photometric == 2 else 1):
         raise _Corrupt("too few samples per pixel")
     if compression in (2, 3, 4) and (bits != 1 or spp != 1):
@@ -537,19 +750,66 @@ def _decode_tiff(data: bytes) -> np.ndarray | None:
     orientation = tags.get(274, (1,))[0]
     if orientation in (5, 6, 7, 8):
         return None  # cv2 5.0's imread fails on these
-    if photometric in (0, 1) and bits in (2, 4):
-        return None  # cv2 5.0's imread fails on 2- and 4-bit gray
-
-    raw = _tiff_raw(data, tags, w, h, bits, spp, compression, order)
-    if bits == 16:
-        samples = raw.view(order + "u2").reshape(h, w, spp)
-    elif bits == 8:
-        samples = raw.reshape(h, w, spp)
+    sampling = (1, 1)
+    jpeg = None
+    if compression == 7:
+        if tables.status:
+            raise _Corrupt("a bogus JPEGTables field")
+        rgb = photometric == 6 and not planar
+        if rgb:  # tif_getimage.c sets JPEGCOLORMODE RGB: an RGB page now
+            if 530 in tags:
+                sampling = tuple(tags[530][:2])
+            else:  # tif_jpeg.c JPEGFixupTagsSubsampling: the stream's
+                off, cnt = _tiff_chunks(tags)[0]
+                sampling = tables.header(data[off: off + cnt])[1][3:5]
+            photometric = 2
+        jpeg = _TiffJpeg(tables, tags, h, 1 if planar else spp, rgb,
+                         sampling)
+    if photometric in (0, 1):
+        if bits in (2, 4):
+            return None  # cv2 5.0's imread fails on 2- and 4-bit gray
+        if (bits < 8 and spp > 1) or (planar and bits != 16 and bits != 8):
+            raise _Corrupt("gray layout libtiff cannot handle")
+    elif photometric == 2:
+        if bits not in (8, 16) or spp - len(extra) < 3:
+            raise _Corrupt("RGB layout libtiff cannot handle")
+    elif photometric == 3:
+        if bits == 16 or planar or (bits < 8 and spp > 1):
+            raise _Corrupt("palette layout libtiff cannot handle")
+    elif photometric == 5:
+        if bits != 8 or spp != 4 or tags.get(332, (1,))[0] != 1:
+            raise _Corrupt("separated (CMYK) layout libtiff cannot handle")
+    elif photometric == 6:
+        sampling = tuple(tags.get(530, (2, 2))[:2])
+        if bits != 8 or spp != 3 or sampling not in _YCBCR_SAMPLING \
+                or (planar and sampling != (1, 1)):
+            raise _Corrupt("YCbCr layout libtiff cannot handle")
     else:
-        samples = _unpack_bits(raw, bits)[:, : w * spp].reshape(h, w, spp)
+        raise _Corrupt(f"photometric {photometric}")
+
+    if photometric == 6 and not planar:
+        samples = _tiff_ycbcr_blocks(data, tags, w, h, compression,
+                                     *sampling)
+    elif planar:
+        samples = np.stack([
+            _tiff_raw(data, tags, w, h, bits, 1, compression, order, s, jpeg)
+            .view(order + "u2" if bits == 16 else np.uint8)
+            for s in range(spp)], axis=-1)
+    else:
+        raw = _tiff_raw(data, tags, w, h, bits, spp, compression, order,
+                        jpeg=jpeg)
+        if bits == 16:
+            samples = raw.view(order + "u2").reshape(h, w, spp)
+        elif bits == 8:
+            samples = raw.reshape(h, w, spp)
+        else:
+            samples = _unpack_bits(raw, bits)[:, : w * spp].reshape(h, w,
+                                                                     spp)
 
     # libtiff's RGBA interface (tif_getimage.c), as cv2 reads it
-    if photometric in (0, 1):
+    alpha = samples[..., -1] if spp > (1 if photometric in (0, 1) else 3) \
+        else None
+    if photometric in (0, 1) and not planar:
         if bits == 16:
             v = (samples[..., 0] >> 8).astype(np.uint8)
             gray = 255 - v if photometric == 0 else v
@@ -565,15 +825,20 @@ def _decode_tiff(data: bytes) -> np.ndarray | None:
         if (cmap >= 256).any():  # a 16-bit colormap (checkcmap)
             cmap = cmap >> 8
         img = cmap.T.astype(np.uint8)[samples[..., 0]]
-    else:
-        rgb = samples[..., :3]
-        alpha = samples[..., 3] if spp > 3 else None
-        if bits == 16:
+    elif photometric == 5:  # putRGBcontig8bitCMYKtile, putCMYKseparate8bit
+        k = 255 - samples[..., 3:4].astype(np.int32)
+        img = (k * (255 - samples[..., :3].astype(np.int32)) // 255) \
+            .astype(np.uint8)
+    elif photometric == 6:
+        img = _ycbcr_to_rgb(samples[..., :3], tags)
+    else:  # RGB, and gray in separate planes (r = g = b, not inverted)
+        rgb = samples[..., :3] if photometric == 2 else \
+            np.repeat(samples[..., :1], 3, axis=2)
+        if bits == 16:  # Bitdepth16To8
             rgb = ((rgb.astype(np.int64) + 128) // 257).astype(np.uint8)
             if alpha is not None:
                 alpha = ((alpha.astype(np.int64) + 128) // 257)
-        extra = tags.get(338, (0,))
-        if alpha is not None and extra[0] == 2:  # unassociated alpha
+        if alpha is not None and extra[:1] == (2,):  # unassociated alpha
             a = alpha.astype(np.int64)[..., None]
             rgb = ((rgb.astype(np.int64) * a + 127) // 255).astype(np.uint8)
         img = np.ascontiguousarray(rgb, dtype=np.uint8)

@@ -6,7 +6,8 @@ geometry library, the ARPA LM scorer, and the image decoders' pixel loops
 ``ocr_fill_contour`` (the filled-contour rasterizer that replaces
 cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer;
 ``png.cpp`` undoes PNG's scanline filters, ``jpeg.cpp`` decodes JPEG and
-``tiff.cpp`` holds the TIFF LZW, PackBits and CCITT decoders, for the
+``tiff.cpp`` holds the TIFF LZW, PackBits and CCITT decoders and the
+YCbCr -> RGB conversion, for the
 port's image reader (io/images.py), which replaces cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
 (named by the source's hash) and loads through ctypes. There is no
@@ -388,6 +389,12 @@ def _jpeg_lib() -> ctypes.CDLL:
             "ocr_jpeg_header": (ctypes.c_int, [_U8P, ctypes.c_int64, _I32P]),
             "ocr_jpeg_decode": (ctypes.c_int, [
                 _U8P, ctypes.c_int64, _U8P, ctypes.c_int64]),
+            "ocr_jpeg_tiff_open": (ctypes.c_void_p, [
+                _U8P, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]),
+            "ocr_jpeg_tiff_close": (None, [ctypes.c_void_p]),
+            "ocr_jpeg_tiff": (ctypes.c_int, [
+                ctypes.c_void_p, _U8P, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_int, _I32P, _U8P, ctypes.c_int64]),
         })
     return _JPEG_LIB
 
@@ -405,8 +412,7 @@ def jpeg_header(data: bytes) -> tuple[int, tuple[int, int, int]]:
 
 def jpeg_decode(data: bytes) -> tuple[int, np.ndarray | None]:
     """Decode a JPEG file's bytes with jpeg.cpp: (0, (H, W, 3) uint8 RGB or
-    (H, W, 1) gray) or (status, None) as ``jpeg_header`` gives it, status
-    6 meaning a progressive file whose blocks libjpeg would smooth. ctypes
+    (H, W, 1) gray) or (status, None) as ``jpeg_header`` gives it. ctypes
     releases the GIL for the call."""
     rc, (w, h, nc) = jpeg_header(data)
     if rc:
@@ -416,6 +422,64 @@ def jpeg_decode(data: bytes) -> tuple[int, np.ndarray | None]:
     rc = _jpeg_lib().ocr_jpeg_decode(buf.ctypes.data_as(_U8P), buf.size,
                                      out.ctypes.data_as(_U8P), out.size)
     return (rc, None) if rc else (0, out)
+
+
+class JpegTiffTables:
+    """The Huffman and quantisation tables of one JPEG-in-TIFF page, as
+    libtiff's single decompressor holds them from strip to strip: the
+    JPEGTables stream's (``tables``, may be empty), then each strip's own
+    definitions. ``status`` is 0, or jpeg.cpp's code for a bogus
+    JPEGTables stream. Use it as a context manager, or ``close()`` it."""
+
+    def __init__(self, tables: bytes = b""):
+        t = np.frombuffer(tables, np.uint8)
+        rc = ctypes.c_int(0)
+        self._handle = _jpeg_lib().ocr_jpeg_tiff_open(
+            t.ctypes.data_as(_U8P), t.size, ctypes.byref(rc))
+        self.status = rc.value
+
+    def close(self) -> None:
+        if self._handle:
+            _jpeg_lib().ocr_jpeg_tiff_close(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def header(self, data: bytes, max_height: int = 0
+               ) -> tuple[int, tuple[int, ...]]:
+        """(status, (width, height, components, first component's
+        horizontal and vertical sampling, 1 when the others sample 1x1))
+        of one strip or tile; a bogus JPEGTables stream's status."""
+        if not self._handle:
+            return self.status or 1, (0,) * 6
+        buf = np.frombuffer(data, np.uint8)
+        info = np.zeros(6, np.int32)
+        rc = _jpeg_lib().ocr_jpeg_tiff(
+            self._handle, buf.ctypes.data_as(_U8P), buf.size, 0, max_height,
+            info.ctypes.data_as(_I32P), None, 0)
+        return rc, tuple(int(v) for v in info)
+
+    def decode(self, data: bytes, color: int, max_height: int = 0
+               ) -> tuple[int, np.ndarray | None]:
+        """Decode one strip or tile as libtiff has libjpeg decode it: (0,
+        (h, w, channels) uint8) or (status, None). ``color`` 1 turns
+        YCbCr into RGB; 0 keeps the components as decoded. ``max_height``
+        > 0 cuts a taller stream to that many rows."""
+        rc, (w, h, nc, *_) = self.header(data, max_height)
+        if rc:
+            return rc, None
+        buf = np.frombuffer(data, np.uint8)
+        out = np.empty((h, w, 3 if color == 1 else nc), np.uint8)
+        info = np.zeros(6, np.int32)
+        rc = _jpeg_lib().ocr_jpeg_tiff(
+            self._handle, buf.ctypes.data_as(_U8P), buf.size, color,
+            max_height, info.ctypes.data_as(_I32P), out.ctypes.data_as(_U8P),
+            out.size)
+        return (rc, None) if rc else (0, out)
 
 
 def _tiff_lib() -> ctypes.CDLL:
@@ -428,6 +492,7 @@ def _tiff_lib() -> ctypes.CDLL:
             "ocr_tiff_fax": (ctypes.c_int64, [
                 _U8P, ctypes.c_int64, _U8P, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+            "ocr_tiff_ycbcr": (None, [_U8P, ctypes.c_int64, _I32P, _U8P]),
         })
     return _TIFF_LIB
 
@@ -443,6 +508,19 @@ def tiff_unpack(method: str, data: bytes, size: int) -> np.ndarray:
     if n < 0:
         raise ValueError(f"bad {method} data")
     return out[:n]
+
+
+def tiff_ycbcr(ycc: np.ndarray, tables: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 Y, Cb, Cr -> RGB with tiff.cpp and the (5, 256)
+    int32 tables of tif_color.c TIFFYCbCrToRGBInit (Y, Cr->R, Cb->B,
+    Cr->G, Cb->G)."""
+    ycc = np.ascontiguousarray(ycc, dtype=np.uint8)
+    tables = np.ascontiguousarray(tables, dtype=np.int32)
+    out = np.empty_like(ycc)
+    _tiff_lib().ocr_tiff_ycbcr(ycc.ctypes.data_as(_U8P), ycc.size // 3,
+                               tables.ctypes.data_as(_I32P),
+                               out.ctypes.data_as(_U8P))
+    return out
 
 
 def tiff_fax(data: bytes, width: int, rows: int, compression: int,

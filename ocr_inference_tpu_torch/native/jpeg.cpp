@@ -2,17 +2,29 @@
 // with what libjpeg-turbo 3.1 gives cv2.imread at its defaults:
 //
 // - baseline, extended (8-bit) and progressive Huffman coding, restart
-//   intervals, 1 or 3 components, any integral sampling factors;
-// - the accurate integer IDCT (jidctint.c, "islow") with its range limit;
+//   intervals, 1, 3 or 4 components, any integral sampling factors;
+// - progressive block smoothing (jdcoefct.c decompress_smooth_data, the
+//   5x5 DC window of libjpeg-turbo 2.1+) when the scans leave one of the
+//   first 10 coefficients of a component unsent or short of bits;
+// - the accurate integer IDCT (jidctint.c, "islow") as libjpeg-turbo's
+//   AVX2 code computes it, out-of-range data included;
 // - fancy upsampling (jdsample.c): triangle filters for h2v1, h1v2 and
 //   h2v2, box replication for the other ratios and for h2v1/h2v2 chroma
 //   at most 2 samples wide;
 // - YCbCr -> RGB with jdcolor.c's fixed-point tables; RGB JPEGs (Adobe
 //   transform 0, or component ids 'R' 'G' 'B') are copied; gray is
-//   expanded to three channels by the caller;
-// - corrupt entropy data as libjpeg treats it: a bad Huffman code gives
-//   symbol 0; past the end of a segment the bits are zeros, and the MCUs
-//   after the first one that needed them stay zero (mid-gray).
+//   expanded to three channels by the caller; four components are CMYK
+//   (YCCK under Adobe transform 2, turned into CMYK as jdcolor.c does),
+//   then RGB by OpenCV's icvCvt_CMYK2BGR_8u_C4C3R;
+// - the strips and tiles of JPEG-in-TIFF (ocr_jpeg_tiff): a JPEGTables
+//   stream's tables first, then the strip's abbreviated stream, its
+//   colour handled as libtiff's tif_jpeg.c asks libjpeg to;
+// - corrupt data as libjpeg treats it: a bad Huffman code gives symbol 0
+//   after 17 bits; past the end of a segment the bits are zeros, and the
+//   MCUs after the first one that needed them stay zero (mid-gray); after
+//   the end of the data the reader finds fake EOI markers, as libjpeg's
+//   data sources insert them; libjpeg's segment checks, and the standard
+//   Huffman tables for a sequential scan's slots no DHT defined.
 //
 // EXIF orientation is applied by the caller. The return codes name what
 // is not decoded here: see JPEG_* below.
@@ -29,8 +41,6 @@ enum {
     JPEG_ARITHMETIC = 2,
     JPEG_LOSSLESS = 3,
     JPEG_PRECISION = 4,       // 12- or 16-bit samples
-    JPEG_FOUR_COMPONENTS = 5, // CMYK / YCCK
-    JPEG_SMOOTHING = 6,       // progressive with coefficients left unsent
 };
 
 // zigzag index -> natural index, with libjpeg's 16 safety entries
@@ -97,6 +107,71 @@ struct Huffman {
     }
 };
 
+// jstdhuff.c: the Annex K tables libjpeg-turbo's sequential decoder puts
+// in Huffman slots 0 and 1 when no DHT has defined them
+const uint8_t kStdDcLumaBits[] = {
+    0x00, 0x00, 0x01, 0x05, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00, 0x00,
+    0x00, 0x00, 0x00, 0x00, 0x00};
+const uint8_t kStdDcLumaVals[] = {
+    0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b};
+const uint8_t kStdDcChromaBits[] = {
+    0x00, 0x00, 0x03, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01,
+    0x00, 0x00, 0x00, 0x00, 0x00};
+const uint8_t kStdDcChromaVals[] = {
+    0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b};
+const uint8_t kStdAcLumaBits[] = {
+    0x00, 0x00, 0x02, 0x01, 0x03, 0x03, 0x02, 0x04, 0x03, 0x05, 0x05, 0x04,
+    0x04, 0x00, 0x00, 0x01, 0x7d};
+const uint8_t kStdAcLumaVals[] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kStdAcChromaBits[] = {
+    0x00, 0x00, 0x02, 0x01, 0x02, 0x04, 0x04, 0x03, 0x04, 0x07, 0x05, 0x04,
+    0x04, 0x00, 0x01, 0x02, 0x77};
+const uint8_t kStdAcChromaVals[] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// the standard table of slot tblno (0 or 1) into h
+void std_huffman(Huffman& h, bool dc, int tblno) {
+    const uint8_t* bits = dc ? (tblno ? kStdDcChromaBits : kStdDcLumaBits)
+                             : (tblno ? kStdAcChromaBits : kStdAcLumaBits);
+    const uint8_t* vals = dc ? (tblno ? kStdDcChromaVals : kStdDcLumaVals)
+                             : (tblno ? kStdAcChromaVals : kStdAcLumaVals);
+    int total = 0;
+    for (int l = 0; l <= 16; ++l) {
+        h.counts[l] = bits[l];
+        total += bits[l];
+    }
+    std::memset(h.symbols, 0, sizeof(h.symbols));
+    std::memcpy(h.symbols, vals, total);
+    h.defined = true;
+}
+
 struct Component {
     int id = 0, h = 1, v = 1, tq = 0;
     int bw = 0, bh = 0;        // allocated blocks per row / column
@@ -106,6 +181,7 @@ struct Component {
     uint16_t q[64];            // latched table, natural order
     std::vector<int16_t> coef; // bw * bh blocks of 64, natural order
     int coef_bits[64];         // progressive: -1 unsent, else Al still owed
+    int prev_coef_bits[64];    // coef_bits before this component's last scan
 };
 
 struct Reader {
@@ -173,7 +249,7 @@ struct Reader {
         return v;
     }
     inline int decode(const Huffman& h) {
-        if (nbits < 16) fill();
+        if (nbits < 17) fill();  // a bad code takes 17 bits
         int peek = (int)(acc >> (64 - 9));
         int e = h.look[peek];
         if (e) {
@@ -203,8 +279,8 @@ inline int extend(int r, int s) {
 }
 
 struct Decoder {
-    const uint8_t* data;
-    int64_t n;
+    const uint8_t* data = nullptr;
+    int64_t n = 0;
     int64_t pos = 0;
     uint16_t qt[4][64];
     bool qt_defined[4] = {};
@@ -217,6 +293,12 @@ struct Decoder {
     int mcux = 0, mcuy = 0;
     std::vector<Component> comps;
     int next_marker = -1;  // marker already read by a scan's bit reader
+    int scans = 0;         // SOS markers read (input_scan_number)
+    int total_imcu_rows = 0;
+    int last_good_imcu_row = 0;  // of the last scan, before data ran out
+    int max_height = 0;    // > 0: the frame's height cut to this (TIFF)
+    bool for_cv2_file = false;  // a .jpg file as OpenCV decodes it
+    int lossless_precision = 0;     // > 0: a lossless frame
 
     int u16(int64_t at) const { return (data[at] << 8) | data[at + 1]; }
 
@@ -239,20 +321,32 @@ struct Decoder {
     }
 
     int parse_sof(int64_t at, int len, int marker) {
-        if (frame) return JPEG_OK;  // the first frame only
+        if (frame) return JPEG_CORRUPT;  // jdmarker.c: JERR_SOF_DUPLICATE
         if (len < 6) return JPEG_CORRUPT;
         int precision = data[at];
         height = u16(at + 1);
         width = u16(at + 3);
         int nc = data[at + 5];
-        if (len < 6 + 3 * nc || nc == 0) return JPEG_CORRUPT;
-        if (marker == 0xC3 || marker == 0xCB) return JPEG_LOSSLESS;
+        if (len != 6 + 3 * nc || nc == 0) return JPEG_CORRUPT;
+        if (marker == 0xC3 || marker == 0xCB) {
+            // lossless: its first scan tells whether libjpeg takes it
+            if (precision < 2 || precision > 16) return JPEG_CORRUPT;
+            lossless_precision = precision;
+            for (int i = 0; i < nc; ++i) {
+                comps.emplace_back();
+                comps.back().id = data[at + 6 + 3 * i];
+            }
+            frame = true;
+            return JPEG_OK;
+        }
         if (marker >= 0xC9) return JPEG_ARITHMETIC;
         if (marker >= 0xC5) return JPEG_CORRUPT;  // hierarchical
-        if (precision != 8) return JPEG_PRECISION;
-        if (nc == 4) return JPEG_FOUR_COMPONENTS;
-        if (nc != 1 && nc != 3) return JPEG_CORRUPT;
+        // libjpeg-turbo 3 takes 8 and 12 bits for DCT-based JPEG
+        if (precision != 8) return precision == 12 ? JPEG_PRECISION
+                                                   : JPEG_CORRUPT;
+        if (nc != 1 && nc != 3 && nc != 4) return JPEG_CORRUPT;
         if (width == 0 || height == 0) return JPEG_CORRUPT;
+        if (max_height > 0 && height > max_height) height = max_height;
         progressive = marker == 0xC2;
         comps.resize(nc);
         for (int i = 0; i < nc; ++i) {
@@ -268,6 +362,7 @@ struct Decoder {
         }
         mcux = (width + 8 * hmax - 1) / (8 * hmax);
         mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+        total_imcu_rows = mcuy;
         for (Component& c : comps) {
             if (hmax % c.h || vmax % c.v) return JPEG_CORRUPT;
             c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
@@ -277,7 +372,7 @@ struct Decoder {
             c.bw = nc == 1 ? c.wblocks : mcux * c.h;
             c.bh = nc == 1 ? c.hblocks : mcuy * c.v;
             c.coef.assign((size_t)c.bw * c.bh * 64, 0);
-            for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
+            for (int k = 0; k < 64; ++k) c.coef_bits[k] = c.prev_coef_bits[k] = -1;
         }
         frame = true;
         return JPEG_OK;
@@ -377,7 +472,7 @@ struct Decoder {
     int scan(int64_t at, int len) {
         if (!frame) return JPEG_CORRUPT;
         int ns = data[at];
-        if (ns < 1 || ns > 4 || len < 4 + 2 * ns) return JPEG_CORRUPT;
+        if (ns < 1 || ns > 4 || len != 4 + 2 * ns) return JPEG_CORRUPT;
         int sc[4], td[4], ta[4];
         for (int i = 0; i < ns; ++i) {
             int cid = data[at + 1 + 2 * i];
@@ -385,13 +480,19 @@ struct Decoder {
             for (size_t k = 0; k < comps.size(); ++k)
                 if (comps[k].id == cid) found = (int)k;
             if (found < 0) return JPEG_CORRUPT;
+            for (int j = 0; j < i; ++j)
+                if (sc[j] == found) return JPEG_CORRUPT;
             sc[i] = found;
             td[i] = data[at + 2 + 2 * i] >> 4;
             ta[i] = data[at + 2 + 2 * i] & 15;
-            if (td[i] > 3 || ta[i] > 3) return JPEG_CORRUPT;
         }
         int ss = data[at + 1 + 2 * ns], se = data[at + 2 + 2 * ns];
         int ah = data[at + 3 + 2 * ns] >> 4, al = data[at + 3 + 2 * ns] & 15;
+        if (lossless_precision)  // jdlossls.c start_input_pass's checks
+            return ss >= 1 && ss <= 7 && se == 0 && ah == 0 &&
+                           al < lossless_precision
+                       ? JPEG_LOSSLESS
+                       : JPEG_CORRUPT;
         if (!progressive) {
             ss = 0;
             se = 63;
@@ -401,6 +502,15 @@ struct Decoder {
             if (dcscan ? se != 0 : (se < ss || se > 63 || ns != 1))
                 return JPEG_CORRUPT;
             if ((ah != 0 && al != ah - 1) || al > 13) return JPEG_CORRUPT;
+        }
+        ++scans;
+        if (scans == 1 && !progressive) {
+            // jdhuff.c jinit_huff_decoder: slots 0 and 1 still empty at
+            // the first scan get the standard tables (Motion JPEG)
+            for (int t = 0; t < 2; ++t) {
+                if (!dc[t].defined) std_huffman(dc[t], true, t);
+                if (!ac[t].defined) std_huffman(ac[t], false, t);
+            }
         }
         int blocks_in_mcu = 0;
         for (int i = 0; i < ns; ++i) {
@@ -412,11 +522,15 @@ struct Decoder {
                 c.qlatched = c.tq;
             }
             // the tables a scan uses (jdhuff.c / jdphuff.c start_pass)
-            if (ss == 0 && ah == 0 &&
-                (!dc[td[i]].defined || !dc[td[i]].build(true)))
+            if (ss == 0 && ah == 0 && (td[i] > 3 || !dc[td[i]].defined ||
+                                       !dc[td[i]].build(true)))
                 return JPEG_CORRUPT;
-            if (se > 0 && (!ac[ta[i]].defined || !ac[ta[i]].build(false)))
+            if (se > 0 && (ta[i] > 3 || !ac[ta[i]].defined ||
+                           !ac[ta[i]].build(false)))
                 return JPEG_CORRUPT;
+            // jdphuff.c start_pass_phuff_decoder: the state before this scan
+            for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+                c.prev_coef_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
             for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
         }
         if (blocks_in_mcu > 10) return JPEG_CORRUPT;  // D_MAX_BLOCKS_IN_MCU
@@ -522,7 +636,7 @@ struct Decoder {
             }
         };
 
-        auto one_mcu = [&](auto&& body) {
+        auto one_mcu = [&](int imcu_row, auto&& body) {
             if (restart_interval) {
                 if (restarts_to_go == 0) {
                     restart(r, next_rst);
@@ -532,6 +646,9 @@ struct Decoder {
                 }
                 --restarts_to_go;
             }
+            // jdcoefct.c consume_data: the row of the last MCU begun
+            // before the data ran out
+            if (!r.insufficient) last_good_imcu_row = imcu_row;
             // a DC refinement reads on regardless: zeros change nothing
             if (!r.insufficient || (progressive && ss == 0 && ah != 0))
                 body();
@@ -541,14 +658,14 @@ struct Decoder {
             Component& c = comps[sc[0]];
             for (int by = 0; by < c.hblocks; ++by)
                 for (int bx = 0; bx < c.wblocks; ++bx)
-                    one_mcu([&] {
+                    one_mcu(by / c.v, [&] {
                         decode_block(&c.coef[((size_t)by * c.bw + bx) * 64],
                                      0, td[0], ta[0]);
                     });
         } else {
             for (int my = 0; my < mcuy; ++my)
                 for (int mx = 0; mx < mcux; ++mx)
-                    one_mcu([&] {
+                    one_mcu(my, [&] {
                         for (int i = 0; i < ns; ++i) {
                             Component& c = comps[sc[i]];
                             for (int v = 0; v < c.v; ++v)
@@ -577,7 +694,11 @@ struct Decoder {
                 return seen_scan ? JPEG_OK : JPEG_CORRUPT;
             }
             if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
-            if (m == 0xD8) return JPEG_CORRUPT;
+            // SOI again, and the markers jdmarker.c read_markers does not
+            // know (JPG, DHP, EXP, JPGn, RESn), end the decode
+            if (m == 0xD8 || m < 0xC0 || m == 0xC8 || m == 0xDE ||
+                m == 0xDF || (m >= 0xF0 && m <= 0xFD))
+                return JPEG_CORRUPT;
             if (pos + 2 > n) return seen_scan ? JPEG_OK : JPEG_CORRUPT;
             int len = u16(pos);
             if (len < 2) return JPEG_CORRUPT;
@@ -591,7 +712,8 @@ struct Decoder {
             if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
                 m != 0xCC) {
                 rc = parse_sof(at, plen, m);
-                if (rc == JPEG_OK && header_only) return JPEG_OK;
+                if (rc == JPEG_OK && header_only && !lossless_precision)
+                    return JPEG_OK;
             } else if (m == 0xC4) {
                 rc = parse_dht(at, plen);
             } else if (m == 0xCC) {
@@ -599,12 +721,19 @@ struct Decoder {
             } else if (m == 0xDB) {
                 rc = parse_dqt(at, plen);
             } else if (m == 0xDD) {
-                if (plen < 2) return JPEG_CORRUPT;
+                if (plen != 2) return JPEG_CORRUPT;
                 restart_interval = u16(at);
             } else if (m == 0xDA) {
-                if (header_only) return frame ? JPEG_OK : JPEG_CORRUPT;
+                if (header_only && !lossless_precision)
+                    return frame ? JPEG_OK : JPEG_CORRUPT;
                 rc = scan(at, plen);
                 seen_scan = true;
+                // a single-scan sequential JPEG is out once its scan is:
+                // OpenCV keeps it whatever jpeg_finish_decompress meets
+                // after (libtiff's strips do not: they count the errors)
+                if (rc == JPEG_OK && for_cv2_file && !progressive &&
+                    data[at] == (int)comps.size() && scans == 1)
+                    return JPEG_OK;
             } else if (m == 0xE0) {
                 if (plen >= 5 && std::memcmp(data + at, "JFIF\0", 5) == 0)
                     jfif = true;
@@ -614,6 +743,29 @@ struct Decoder {
                     adobe_transform = data[at + 11];
                 }
             }
+            if (rc != JPEG_OK) return rc;
+        }
+    }
+
+    // A TIFF JPEGTables stream (tag 347): SOI, the tables, EOI. A frame or
+    // a scan in it is a bogus JPEGTables field (tif_jpeg.c).
+    int parse_tables() {
+        if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) return JPEG_CORRUPT;
+        pos = 2;
+        for (;;) {
+            int m = read_marker();
+            if (m < 0 || m == 0xD9) return JPEG_OK;
+            if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+            if (pos + 2 > n || u16(pos) < 2 || pos + u16(pos) > n)
+                return JPEG_CORRUPT;
+            const int len = u16(pos);
+            const int64_t at = pos + 2;
+            pos += len;
+            int rc = JPEG_OK;
+            if (m == 0xC4) rc = parse_dht(at, len - 2);
+            else if (m == 0xDB) rc = parse_dqt(at, len - 2);
+            else if (m == 0xCC) rc = JPEG_ARITHMETIC;
+            else if ((m >= 0xC0 && m <= 0xCF) || m == 0xDA) rc = JPEG_CORRUPT;
             if (rc != JPEG_OK) return rc;
         }
     }
@@ -678,112 +830,83 @@ inline uint8_t out8(int64_t v) {
                      128);
 }
 
+inline int64_t wrap16(int64_t v) { return (int16_t)(uint16_t)v; }
+
+// One 1-D pass of jidctint-avx2.asm over 8 values x[0], x[s], ..., x[7s]:
+// the sums in0 +- in4, in7 + in3 and in5 + in1 are 16-bit adds that wrap,
+// the products 32-bit; the 8 results before their descale.
+inline void idct_1d(const int64_t* x, int64_t* o) {
+    int64_t z2 = x[2], z3 = x[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = wrap16(x[0] + x[4]) * ((int64_t)1 << CONST_BITS);
+    int64_t tmp1 = wrap16(x[0] - x[4]) * ((int64_t)1 << CONST_BITS);
+    const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = x[7];
+    tmp1 = x[5];
+    tmp2 = x[3];
+    tmp3 = x[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = wrap16(tmp0 + tmp2);
+    int64_t z4 = wrap16(tmp1 + tmp3);
+    const int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    o[0] = tmp10 + tmp3;
+    o[7] = tmp10 - tmp3;
+    o[1] = tmp11 + tmp2;
+    o[6] = tmp11 - tmp2;
+    o[2] = tmp12 + tmp1;
+    o[5] = tmp12 - tmp1;
+    o[3] = tmp13 + tmp0;
+    o[4] = tmp13 - tmp0;
+}
+
+// jidctint.c's islow IDCT as libjpeg-turbo's AVX2 code computes it:
+// 16-bit dequantisation products, the DC-only shortcut only when rows 1-7
+// of the whole block are zero, the 16-bit sums of idct_1d, and each pass
+// saturated to 16 bits (the second then to 8) after its descale.
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                 int64_t stride) {
-    int ws[64];
-    for (int c = 0; c < 8; ++c) {
-        int16_t ip[57];
-        for (int k = 0; k < 8; ++k)  // 16-bit products, as the SIMD IDCT
-            ip[8 * k] = (int16_t)(in[c + 8 * k] * q[c + 8 * k]);
-        int* wp = ws + c;
-        if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-            ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-            int dcval = (int16_t)(uint16_t)((unsigned)ip[0] << PASS1_BITS);
-            for (int k = 0; k < 8; ++k) wp[8 * k] = dcval;
-            continue;
+    int64_t ws[64];
+    bool ac = false;
+    for (int k = 8; k < 64; ++k) ac |= in[k] != 0;
+    if (!ac) {
+        for (int c = 0; c < 8; ++c) {
+            const int64_t dcval = wrap16(wrap16(in[c] * q[c]) * 4);
+            for (int k = 0; k < 8; ++k) ws[8 * k + c] = dcval;
         }
-        int64_t z2 = ip[16], z3 = ip[48];
-        int64_t z1 = (z2 + z3) * FIX_0_541196100;
-        int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-        int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-        z2 = ip[0];
-        z3 = ip[32];
-        int64_t tmp0 = (z2 + z3) * ((int64_t)1 << CONST_BITS);
-        int64_t tmp1 = (z2 - z3) * ((int64_t)1 << CONST_BITS);
-        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-        int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-        tmp0 = ip[56];
-        tmp1 = ip[40];
-        tmp2 = ip[24];
-        tmp3 = ip[8];
-        z1 = tmp0 + tmp3;
-        z2 = tmp1 + tmp2;
-        z3 = tmp0 + tmp2;
-        int64_t z4 = tmp1 + tmp3;
-        int64_t z5 = (z3 + z4) * FIX_1_175875602;
-        tmp0 *= FIX_0_298631336;
-        tmp1 *= FIX_2_053119869;
-        tmp2 *= FIX_3_072711026;
-        tmp3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        tmp0 += z1 + z3;
-        tmp1 += z2 + z4;
-        tmp2 += z2 + z3;
-        tmp3 += z1 + z4;
-        const int sh = CONST_BITS - PASS1_BITS;
-        wp[0] = sat16(descale(tmp10 + tmp3, sh));
-        wp[56] = sat16(descale(tmp10 - tmp3, sh));
-        wp[8] = sat16(descale(tmp11 + tmp2, sh));
-        wp[48] = sat16(descale(tmp11 - tmp2, sh));
-        wp[16] = sat16(descale(tmp12 + tmp1, sh));
-        wp[40] = sat16(descale(tmp12 - tmp1, sh));
-        wp[24] = sat16(descale(tmp13 + tmp0, sh));
-        wp[32] = sat16(descale(tmp13 - tmp0, sh));
+    } else {
+        for (int c = 0; c < 8; ++c) {
+            int64_t x[8], o[8];
+            for (int k = 0; k < 8; ++k)
+                x[k] = wrap16(in[c + 8 * k] * q[c + 8 * k]);
+            idct_1d(x, o);
+            for (int k = 0; k < 8; ++k)
+                ws[8 * k + c] = sat16(descale(o[k], CONST_BITS - PASS1_BITS));
+        }
     }
     for (int r = 0; r < 8; ++r) {
-        const int* wp = ws + 8 * r;
+        int64_t o[8];
+        idct_1d(ws + 8 * r, o);
         uint8_t* op = out + r * stride;
-        if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 &&
-            wp[5] == 0 && wp[6] == 0 && wp[7] == 0) {
-            uint8_t dcval = out8(descale(wp[0], PASS1_BITS + 3));
-            std::memset(op, dcval, 8);
-            continue;
-        }
-        int64_t z2 = wp[2], z3 = wp[6];
-        int64_t z1 = (z2 + z3) * FIX_0_541196100;
-        int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-        int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-        int64_t tmp0 = ((int64_t)wp[0] + wp[4]) * ((int64_t)1 << CONST_BITS);
-        int64_t tmp1 = ((int64_t)wp[0] - wp[4]) * ((int64_t)1 << CONST_BITS);
-        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-        int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-        tmp0 = wp[7];
-        tmp1 = wp[5];
-        tmp2 = wp[3];
-        tmp3 = wp[1];
-        z1 = tmp0 + tmp3;
-        z2 = tmp1 + tmp2;
-        z3 = tmp0 + tmp2;
-        int64_t z4 = tmp1 + tmp3;
-        int64_t z5 = (z3 + z4) * FIX_1_175875602;
-        tmp0 *= FIX_0_298631336;
-        tmp1 *= FIX_2_053119869;
-        tmp2 *= FIX_3_072711026;
-        tmp3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        tmp0 += z1 + z3;
-        tmp1 += z2 + z4;
-        tmp2 += z2 + z3;
-        tmp3 += z1 + z4;
-        const int sh = CONST_BITS + PASS1_BITS + 3;
-        op[0] = out8(descale(tmp10 + tmp3, sh));
-        op[7] = out8(descale(tmp10 - tmp3, sh));
-        op[1] = out8(descale(tmp11 + tmp2, sh));
-        op[6] = out8(descale(tmp11 - tmp2, sh));
-        op[2] = out8(descale(tmp12 + tmp1, sh));
-        op[5] = out8(descale(tmp12 - tmp1, sh));
-        op[3] = out8(descale(tmp13 + tmp0, sh));
-        op[4] = out8(descale(tmp13 - tmp0, sh));
+        for (int k = 0; k < 8; ++k)
+            op[k] = out8(sat16(descale(o[k], CONST_BITS + PASS1_BITS + 3)));
     }
 }
 
@@ -861,15 +984,255 @@ void upsample(const Component& c, const uint8_t* plane, int64_t ps, int hr,
     }
 }
 
+// jdcoefct.c smoothing_ok: every component's quantisation table latched,
+// its DC and first 9 AC quantisers nonzero and its DC at least partly
+// sent; useful when one of coefficients 1-9 of some component is unsent
+// or still owes bits
+const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+bool smoothing_ok(const Decoder& d) {
+    if (!d.progressive) return false;
+    bool useful = false;
+    for (const Component& c : d.comps) {
+        if (c.qlatched < 0) return false;
+        for (int p : kSmoothPos)
+            if (c.q[p] == 0) return false;
+        if (c.coef_bits[0] < 0) return false;
+        for (int k = 1; k < 10; ++k) useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
+}
+
+inline int16_t predict(int64_t q, int64_t num, int al, bool limit) {
+    int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+    if (limit && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return (int16_t)(num >= 0 ? pred : -pred);
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1+) over one
+// component: each block's unsent low coefficients estimated from the DC
+// values of its 5x5 neighbourhood, then the IDCT into plane
+void smooth_component(const Decoder& d, const Component& c, uint8_t* plane,
+                      int64_t ps) {
+    const int T = d.total_imcu_rows, v = c.v;
+    int cur[10], prev[10];
+    for (int k = 0; k < 10; ++k) {
+        cur[k] = c.coef_bits[k];
+        prev[k] = d.scans > 1 ? c.prev_coef_bits[k] : -1;
+    }
+    const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16],
+                  Q11 = c.q[9], Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10],
+                  Q21 = c.q[17], Q30 = c.q[24];
+    const int last_col = c.wblocks - 1;
+    auto dc = [&](int row, int col) {
+        row = std::max(0, std::min(row, c.bh - 1));
+        return (int)c.coef[((size_t)row * c.bw + col) * 64];
+    };
+    for (int r = 0; r < T; ++r) {
+        int block_rows = v;
+        if (r == T - 1 && c.hblocks % v) block_rows = c.hblocks % v;
+        const int image_block_rows = block_rows * T;
+        const int* bits = r > d.last_good_imcu_row ? prev : cur;
+        bool change_dc = true;
+        for (int k = 1; k < 10; ++k) change_dc &= bits[k] == -1;
+        for (int b = 0; b < block_rows; ++b) {
+            const int ibr = r * block_rows + b, row = r * v + b;
+            if (row >= c.hblocks) break;
+            const int r0 = ibr > 0 ? row - 1 : row;
+            const int rm = ibr > 1 ? row - 2 : r0;
+            const int r2 = ibr < image_block_rows - 1 ? row + 1 : row;
+            const int rp = ibr < image_block_rows - 2 ? row + 2 : r2;
+            int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10,
+                DC11, DC12, DC13, DC14, DC15, DC16, DC17, DC18, DC19, DC20,
+                DC21, DC22, DC23, DC24, DC25;
+            DC01 = DC02 = DC03 = DC04 = DC05 = dc(rm, 0);
+            DC06 = DC07 = DC08 = DC09 = DC10 = dc(r0, 0);
+            DC11 = DC12 = DC13 = DC14 = DC15 = dc(row, 0);
+            DC16 = DC17 = DC18 = DC19 = DC20 = dc(r2, 0);
+            DC21 = DC22 = DC23 = DC24 = DC25 = dc(rp, 0);
+            for (int bx = 0; bx <= last_col; ++bx) {
+                int16_t ws[64];
+                std::memcpy(ws, &c.coef[((size_t)row * c.bw + bx) * 64],
+                            sizeof(ws));
+                // the window's columns clamped to the row's blocks
+                if (bx == 0) {
+                    const int c1 = std::min(1, last_col);
+                    DC04 = dc(rm, c1);
+                    DC09 = dc(r0, c1);
+                    DC14 = dc(row, c1);
+                    DC19 = dc(r2, c1);
+                    DC24 = dc(rp, c1);
+                }
+                const int c2 = std::min(bx + 2, last_col);
+                DC05 = dc(rm, c2);
+                DC10 = dc(r0, c2);
+                DC15 = dc(row, c2);
+                DC20 = dc(r2, c2);
+                DC25 = dc(rp, c2);
+                int al;
+                if ((al = bits[1]) != 0 && ws[1] == 0)  // AC01
+                    ws[1] = predict(Q01, Q00 * (change_dc ?
+                        (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                         13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 -
+                         38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+                         13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25) :
+                        (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+                        al, true);
+                if ((al = bits[2]) != 0 && ws[8] == 0)  // AC10
+                    ws[8] = predict(Q10, Q00 * (change_dc ?
+                        (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 -
+                         DC06 + 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 +
+                         DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 +
+                         DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+                        (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+                        al, true);
+                if ((al = bits[3]) != 0 && ws[16] == 0)  // AC20
+                    ws[16] = predict(Q20, Q00 * (change_dc ?
+                        (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                         14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 +
+                         2 * DC19 + DC23) :
+                        (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                        al, true);
+                if ((al = bits[4]) != 0 && ws[9] == 0)  // AC11
+                    ws[9] = predict(Q11, Q00 * (change_dc ?
+                        (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                         9 * DC19 + DC21 - DC25) :
+                        (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 +
+                         DC22 - DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)),
+                        al, true);
+                if ((al = bits[5]) != 0 && ws[2] == 0)  // AC02
+                    ws[2] = predict(Q02, Q00 * (change_dc ?
+                        (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                         14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                         2 * DC19) :
+                        (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                        al, true);
+                if (change_dc) {
+                    if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+                        ws[3] = predict(Q03, Q00 * (DC07 - DC09 + 2 * DC12 -
+                                                    2 * DC14 + DC17 - DC19),
+                                        al, true);
+                    if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+                        ws[10] = predict(Q12, Q00 * (DC07 - 3 * DC08 + DC09 -
+                                                     DC17 + 3 * DC18 - DC19),
+                                         al, true);
+                    if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+                        ws[17] = predict(Q21, Q00 * (DC07 - DC09 - 3 * DC12 +
+                                                     3 * DC14 + DC17 - DC19),
+                                         al, true);
+                    if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+                        ws[24] = predict(Q30, Q00 * (DC07 + 2 * DC08 + DC09 -
+                                                     DC17 - 2 * DC18 - DC19),
+                                         al, true);
+                    ws[0] = predict(Q00, Q00 *
+                        (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 -
+                         2 * DC05 - 6 * DC06 + 6 * DC07 + 42 * DC08 +
+                         6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                         152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                         6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                         2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                         2 * DC25), 0, false);
+                }
+                idct_islow(ws, c.q, plane + (int64_t)row * 8 * ps + bx * 8,
+                           ps);
+                DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+                DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+                DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+                DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+                DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+            }
+        }
+    }
+}
+
+// Every component IDCT'd (smoothed where libjpeg smooths) and upsampled
+// to the full width x height, one plane each
+void render(Decoder& d, std::vector<std::vector<uint8_t>>& full) {
+    const int W = d.width, H = d.height, nc = (int)d.comps.size();
+    const bool smooth = smoothing_ok(d);
+    full.assign(nc, {});
+    for (int ci = 0; ci < nc; ++ci) {
+        Component& c = d.comps[ci];
+        if (c.qlatched < 0)  // never in a scan: jddctmgr.c's zero table
+            std::memset(c.q, 0, sizeof(c.q));
+        const int64_t ps = (int64_t)c.bw * 8;
+        std::vector<uint8_t> plane((size_t)ps * c.bh * 8);
+        const int bh = std::min(c.bh, (c.dh + 7) / 8 + 1);
+        for (int by = 0; by < bh; ++by)
+            for (int bx = 0; bx < c.bw; ++bx)
+                idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.q,
+                           plane.data() + (int64_t)by * 8 * ps + bx * 8, ps);
+        if (smooth) smooth_component(d, c, plane.data(), ps);
+        full[ci].resize((size_t)W * H);
+        if (nc == 1) {
+            for (int y = 0; y < H; ++y)
+                std::memcpy(full[ci].data() + (int64_t)y * W,
+                            plane.data() + (int64_t)y * ps, W);
+        } else {
+            upsample(c, plane.data(), ps, d.hmax / c.h, d.vmax / c.v, W, H,
+                     full[ci].data());
+        }
+    }
+}
+
+// jdcolor.c ycc_rgb_convert
+void ycc_to_rgb(const std::vector<std::vector<uint8_t>>& p, int64_t np,
+                uint8_t* out) {
+    const YccTables& t = kYcc;
+    const uint8_t* lim = kRange.clamp + 256;
+    for (int64_t i = 0; i < np; ++i) {
+        int y = p[0][i], cb = p[1][i], cr = p[2][i];
+        out[3 * i] = lim[y + t.cr_r[cr]];
+        out[3 * i + 1] = lim[y + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)];
+        out[3 * i + 2] = lim[y + t.cb_b[cb]];
+    }
+}
+
+// four components -> RGB: jdcolor.c ycck_cmyk_convert for YCCK, then
+// OpenCV's icvCvt_CMYK2BGR_8u_C4C3R (c' = k - ((255 - c) * k >> 8))
+void cmyk_to_rgb(const std::vector<std::vector<uint8_t>>& p, int64_t np,
+                 bool ycck, uint8_t* out) {
+    const YccTables& t = kYcc;
+    const uint8_t* lim = kRange.clamp + 256;
+    for (int64_t i = 0; i < np; ++i) {
+        int c = p[0][i], m = p[1][i], y = p[2][i];
+        const int k = p[3][i];
+        if (ycck) {
+            const int luma = c, cb = m, cr = y;
+            c = lim[255 - (luma + t.cr_r[cr])];
+            m = lim[255 - (luma + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16))];
+            y = lim[255 - (luma + t.cb_b[cb])];
+        }
+        out[3 * i] = (uint8_t)(k - ((255 - c) * k >> 8));
+        out[3 * i + 1] = (uint8_t)(k - ((255 - m) * k >> 8));
+        out[3 * i + 2] = (uint8_t)(k - ((255 - y) * k >> 8));
+    }
+}
+
+// The data followed by what libjpeg's data sources (jdatasrc.c, and
+// tif_jpeg.c's) hand it once the data has ended: fake EOI markers, one
+// after another. A marker segment cut short is read on into them, as
+// libjpeg reads it.
+std::vector<uint8_t> with_fake_eoi(const uint8_t* data, int64_t n) {
+    std::vector<uint8_t> buf((size_t)n + 65540);
+    std::memcpy(buf.data(), data, (size_t)n);
+    for (size_t i = (size_t)n; i + 1 < buf.size(); i += 2) {
+        buf[i] = 0xFF;
+        buf[i + 1] = 0xD9;
+    }
+    return buf;
+}
+
 }  // namespace
 
 // (width, height, components, progressive) of the first frame into
 // info[0..3]. Returns a JPEG_* code.
 extern "C" int ocr_jpeg_header(const uint8_t* data, int64_t n,
                                int32_t* info) {
+    const std::vector<uint8_t> buf = with_fake_eoi(data, n);
     Decoder d;
-    d.data = data;
-    d.n = n;
+    d.data = buf.data();
+    d.n = (int64_t)buf.size();
     int rc = d.parse(true);
     if (rc != JPEG_OK) return rc;
     if (!d.frame) return JPEG_CORRUPT;
@@ -883,66 +1246,125 @@ extern "C" int ocr_jpeg_header(const uint8_t* data, int64_t n,
 // Decode into out: height x width x 3 RGB (x 1 for a gray JPEG).
 extern "C" int ocr_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
                                int64_t out_size) {
+    const std::vector<uint8_t> buf = with_fake_eoi(data, n);
     Decoder d;
-    d.data = data;
-    d.n = n;
+    d.data = buf.data();
+    d.n = (int64_t)buf.size();
+    d.for_cv2_file = true;
     int rc = d.parse(false);
     if (rc != JPEG_OK) return rc;
-    const int W = d.width, H = d.height, nc = (int)d.comps.size();
-    if (out_size != (int64_t)W * H * (nc == 1 ? 1 : 3)) return JPEG_CORRUPT;
-    if (d.progressive) {
-        // jdcoefct.c smoothing_ok: libjpeg smooths the blocks when every
-        // component's DC is known and the DC or one of the first 9 AC
-        // coefficients of some component was not fully sent
-        bool ok = true, useful = false;
-        for (const Component& c : d.comps) {
-            if (c.qlatched < 0 || c.coef_bits[0] < 0) ok = false;
-            for (int k = 1; k < 10; ++k) useful |= c.coef_bits[k] != 0;
-        }
-        if (ok && useful) return JPEG_SMOOTHING;
+    const int nc = (int)d.comps.size();
+    const int64_t np = (int64_t)d.width * d.height;
+    if (out_size != np * (nc == 1 ? 1 : 3)) return JPEG_CORRUPT;
+    std::vector<std::vector<uint8_t>> full;
+    render(d, full);
+    if (nc == 1) {
+        std::memcpy(out, full[0].data(), np);
+    } else if (nc == 4) {
+        // jdapimin.c: Adobe transform 0 is CMYK, any other YCCK
+        cmyk_to_rgb(full, np, d.adobe && d.adobe_transform != 0, out);
+    } else if (d.is_rgb()) {
+        for (int64_t i = 0; i < np; ++i)
+            for (int k = 0; k < 3; ++k) out[3 * i + k] = full[k][i];
+    } else {
+        ycc_to_rgb(full, np, out);
     }
-    std::vector<std::vector<uint8_t>> full(nc);
-    for (int ci = 0; ci < nc; ++ci) {
-        Component& c = d.comps[ci];
-        if (c.qlatched < 0)  // never in a scan: jddctmgr.c's zero table
-            std::memset(c.q, 0, sizeof(c.q));
-        const int64_t ps = (int64_t)c.bw * 8;
-        std::vector<uint8_t> plane((size_t)ps * c.bh * 8);
-        const int bh = std::min(c.bh, (c.dh + 7) / 8 + 1);
-        for (int by = 0; by < bh; ++by)
-            for (int bx = 0; bx < c.bw; ++bx)
-                idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.q,
-                           plane.data() + (int64_t)by * 8 * ps + bx * 8, ps);
-        const int hr = d.hmax / c.h, vr = d.vmax / c.v;
-        if (nc == 1) {
-            for (int y = 0; y < H; ++y)
-                std::memcpy(out + (int64_t)y * W,
-                            plane.data() + (int64_t)y * ps, W);
-            return JPEG_OK;
+    return JPEG_OK;
+}
+
+// The Huffman and quantisation tables libtiff's one decompressor holds
+// from strip to strip of a page: the JPEGTables stream's, then whatever
+// each strip's own stream defines. NULL (and *rc set) for a bogus
+// JPEGTables field.
+struct TiffTables {
+    uint16_t qt[4][64];
+    bool qt_defined[4];
+    Huffman dc[4], ac[4];
+    void load(Decoder& d) const {
+        std::memcpy(d.qt, qt, sizeof(qt));
+        std::memcpy(d.qt_defined, qt_defined, sizeof(qt_defined));
+        for (int i = 0; i < 4; ++i) {
+            d.dc[i] = dc[i];
+            d.ac[i] = ac[i];
         }
-        full[ci].resize((size_t)W * H);
-        upsample(c, plane.data(), ps, hr, vr, W, H, full[ci].data());
     }
-    const uint8_t* p0 = full[0].data();
-    const uint8_t* p1 = full[1].data();
-    const uint8_t* p2 = full[2].data();
-    const int64_t np = (int64_t)W * H;
-    if (d.is_rgb()) {
-        for (int64_t i = 0; i < np; ++i) {
-            out[3 * i] = p0[i];
-            out[3 * i + 1] = p1[i];
-            out[3 * i + 2] = p2[i];
+    void keep(const Decoder& d) {
+        std::memcpy(qt, d.qt, sizeof(qt));
+        std::memcpy(qt_defined, d.qt_defined, sizeof(qt_defined));
+        for (int i = 0; i < 4; ++i) {
+            dc[i] = d.dc[i];
+            ac[i] = d.ac[i];
         }
+    }
+};
+
+extern "C" void* ocr_jpeg_tiff_open(const uint8_t* tables, int64_t nt,
+                                    int* rc) {
+    Decoder d;
+    *rc = JPEG_OK;
+    if (nt > 0) {
+        const std::vector<uint8_t> buf = with_fake_eoi(tables, nt);
+        d.data = buf.data();
+        d.n = (int64_t)buf.size();
+        *rc = d.parse_tables();
+        if (*rc != JPEG_OK) return nullptr;
+    }
+    TiffTables* t = new TiffTables();
+    t->keep(d);
+    return t;
+}
+
+extern "C" void ocr_jpeg_tiff_close(void* tables) {
+    delete static_cast<TiffTables*>(tables);
+}
+
+// One strip or tile of JPEG-in-TIFF (compression 7), as tif_jpeg.c has
+// libjpeg decode it: with the tables the page's decompressor holds
+// (ocr_jpeg_tiff_open; the strip's own definitions stay for the next
+// strip), its height cut to max_height when that is > 0. color 1: YCbCr
+// -> RGB (photometric YCbCr read through JPEGCOLORMODE RGB); color 0: the
+// components as decoded, whatever the stream's markers say
+// (JCS_UNKNOWN). With out == NULL only the header is read, into
+// info[0..5]: width, height, components, the first component's
+// horizontal and vertical sampling, and 1 when every other component
+// samples 1x1. Otherwise out gets height x width x components (x 3 under
+// color 1). Returns a JPEG_* code.
+extern "C" int ocr_jpeg_tiff(void* tables, const uint8_t* data, int64_t n,
+                             int color, int max_height, int32_t* info,
+                             uint8_t* out, int64_t out_size) {
+    TiffTables* t = static_cast<TiffTables*>(tables);
+    Decoder d;
+    d.max_height = max_height;
+    t->load(d);
+    const std::vector<uint8_t> buf = with_fake_eoi(data, n);
+    d.data = buf.data();
+    d.n = (int64_t)buf.size();
+    int rc = d.parse(out == nullptr);
+    t->keep(d);
+    if (rc != JPEG_OK) return rc;
+    if (!d.frame) return JPEG_CORRUPT;
+    const int nc = (int)d.comps.size();
+    if (out == nullptr) {
+        info[0] = d.width;
+        info[1] = d.height;
+        info[2] = nc;
+        info[3] = d.comps[0].h;
+        info[4] = d.comps[0].v;
+        info[5] = 1;
+        for (int ci = 1; ci < nc; ++ci)
+            if (d.comps[ci].h != 1 || d.comps[ci].v != 1) info[5] = 0;
         return JPEG_OK;
     }
-    // jdcolor.c ycc_rgb_convert
-    const YccTables& t = kYcc;
-    const uint8_t* lim = kRange.clamp + 256;
-    for (int64_t i = 0; i < np; ++i) {
-        int y = p0[i], cb = p1[i], cr = p2[i];
-        out[3 * i] = lim[y + t.cr_r[cr]];
-        out[3 * i + 1] = lim[y + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16)];
-        out[3 * i + 2] = lim[y + t.cb_b[cb]];
+    if (color == 1 && nc != 3) return JPEG_CORRUPT;
+    const int64_t np = (int64_t)d.width * d.height;
+    if (out_size != np * (color == 1 ? 3 : nc)) return JPEG_CORRUPT;
+    std::vector<std::vector<uint8_t>> full;
+    render(d, full);
+    if (color == 1) {
+        ycc_to_rgb(full, np, out);
+    } else {
+        for (int64_t i = 0; i < np; ++i)
+            for (int k = 0; k < nc; ++k) out[nc * i + k] = full[k][i];
     }
     return JPEG_OK;
 }

@@ -6,7 +6,8 @@
 // - PackBits (32773);
 // - CCITT modified Huffman (2), T.4 (3, 1-D or 2-D by Group3Options bit
 //   0) and T.6 / Group 4 (4), as tif_fax3.c: white runs first, black
-//   pixels as 1 bits in the packed output rows.
+//   pixels as 1 bits in the packed output rows;
+// - YCbCr -> RGB with tif_color.c's fixed-point tables.
 //
 // The IFD parse, Deflate (stdlib zlib), the predictor and the sample
 // mapping are io/images.py. Each function returns the bytes (or rows)
@@ -377,4 +378,23 @@ extern "C" int64_t ocr_tiff_fax(const uint8_t* in, int64_t n, uint8_t* out,
         ref.push_back(width);
     }
     return rows;
+}
+
+// tif_color.c TIFFYCbCrtoRGB over n pixels of (Y, Cb, Cr) into RGB, with
+// the tables io/images.py builds as TIFFYCbCrToRGBInit does: tabs holds
+// Y, Cr->R, Cb->B, Cr->G and Cb->G, 256 entries each.
+extern "C" void ocr_tiff_ycbcr(const uint8_t* ycc, int64_t n,
+                               const int32_t* tabs, uint8_t* out) {
+    const int32_t *y_tab = tabs, *cr_r = tabs + 256, *cb_b = tabs + 512,
+                  *cr_g = tabs + 768, *cb_g = tabs + 1024;
+    auto clamp = [](int32_t v) {
+        return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+    };
+    for (int64_t i = 0; i < n; ++i) {
+        const int32_t y = y_tab[ycc[3 * i]];
+        const int cb = ycc[3 * i + 1], cr = ycc[3 * i + 2];
+        out[3 * i] = clamp(y + cr_r[cr]);
+        out[3 * i + 1] = clamp(y + ((cb_g[cb] + cr_g[cr]) >> 16));
+        out[3 * i + 2] = clamp(y + cb_b[cb]);
+    }
 }

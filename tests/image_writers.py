@@ -54,6 +54,50 @@ def _difference(samples: np.ndarray) -> np.ndarray:
     return out
 
 
+def lzw(data: bytes) -> bytes:
+    """TIFF LZW (MSB first, the code width growing one code early), a clear
+    code first and whenever the table fills."""
+    out, acc, nbits = bytearray(), 0, 0
+    width = 9
+
+    def emit(code):
+        nonlocal acc, nbits
+        acc = (acc << width) | code
+        nbits += width
+        while nbits >= 8:
+            nbits -= 8
+            out.append((acc >> nbits) & 0xFF)
+
+    table = {bytes([i]): i for i in range(256)}
+    next_code = 258
+    emit(256)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        table[wc] = next_code
+        next_code += 1
+        if next_code == 1 << width:
+            width += 1
+        if next_code >= 4093:
+            emit(256)
+            table = {bytes([i]): i for i in range(256)}
+            next_code, width = 258, 9
+        w = bytes([c])
+    if w:
+        emit(table[w])
+        next_code += 1
+        if next_code == 1 << width:
+            width += 1
+    emit(257)
+    if nbits:
+        out.append((acc << (8 - nbits)) & 0xFF)
+    return bytes(out)
+
+
 def _compress(raw: bytes, compression: int) -> bytes:
     if compression == 1:
         return raw
@@ -61,13 +105,44 @@ def _compress(raw: bytes, compression: int) -> bytes:
         return zlib.compress(raw)
     if compression == 32773:
         return packbits(raw)
+    if compression == 5:
+        return lzw(raw)
     raise ValueError(compression)
 
 
+def _ycbcr_blocks(samples: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """(h, w, 3) Y, Cb, Cr samples -> the packed YCbCr layout: per block of
+    vs rows by hs columns (edge blocks padded by repeating the last row
+    and column), its hs * vs Y samples and then the Cb and Cr of its
+    top-left pixel; returns (block rows, blocks across * (hs*vs + 2))."""
+    h, w, _ = samples.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    rows = np.minimum(np.arange(bh * vs), h - 1)
+    cols = np.minimum(np.arange(bw * hs), w - 1)
+    full = samples[rows][:, cols]
+    y = full[..., 0].reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3)
+    chroma = full[::vs, ::hs, 1:]
+    blocks = np.concatenate([y.reshape(bh, bw, vs * hs), chroma], axis=2)
+    return blocks.reshape(bh, -1)
+
+
 def _page_chunks(samples, bits, compression, predictor, tile, rows_per_strip,
-                 order, fill_order):
+                 order, fill_order, planar=False, ycbcr=None):
     h, w, spp = samples.shape
+    if planar:
+        chunks = []
+        for s in range(spp):
+            chunks += _page_chunks(samples[..., s: s + 1], bits, compression,
+                                   predictor, tile, rows_per_strip, order,
+                                   fill_order)
+        return chunks
     diff = _difference if predictor == 2 else (lambda x: x)
+
+    def raw(block):
+        if ycbcr:
+            return _ycbcr_blocks(block, *ycbcr).astype(np.uint8)
+        return _raw_rows(diff(block), bits, order)
+
     chunks = []
     if tile:
         tw, th = tile
@@ -76,13 +151,10 @@ def _page_chunks(samples, bits, compression, predictor, tile, rows_per_strip,
         padded[:h, :w] = samples
         for y in range(0, ph, th):
             for x in range(0, pw, tw):
-                raw = _raw_rows(diff(padded[y: y + th, x: x + tw]), bits,
-                                order)
-                chunks.append(raw.tobytes())
+                chunks.append(raw(padded[y: y + th, x: x + tw]).tobytes())
     else:
         for y in range(0, h, rows_per_strip):
-            chunks.append(_raw_rows(diff(samples[y: y + rows_per_strip]),
-                                    bits, order).tobytes())
+            chunks.append(raw(samples[y: y + rows_per_strip]).tobytes())
     if fill_order == 2:
         rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                        np.uint8)
@@ -90,16 +162,32 @@ def _page_chunks(samples, bits, compression, predictor, tile, rows_per_strip,
     return [_compress(c, compression) for c in chunks]
 
 
-def write_tiff(path, pages, order: str = "<") -> None:
-    """Write a TIFF of one or more pages. Each page is a dict: ``samples``
-    (h, w, spp) integer array (bit values for 1-bit), ``bits``,
-    ``photometric``, and optionally ``compression`` (1, 8, 32946 or 32773),
-    ``predictor``, ``tile`` (tw, th), ``rows_per_strip``, ``orientation``,
-    ``colormap`` (3 * 2**bits 16-bit values), ``extra_samples``,
-    ``fill_order``, ``tags`` ({tag: value} SHORT tags set as given)."""
-    out = bytearray(b"II*\x00" if order == "<" else b"MM\x00*")
-    out += b"\x00\x00\x00\x00"
-    link = 4  # where the next IFD offset goes
+# TIFF field types -> struct codes (RATIONAL as two LONGs)
+_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 7: "B", 16: "Q"}
+
+
+def write_tiff(path, pages, order: str = "<", big: bool = False) -> None:
+    """Write a TIFF (a BigTIFF when ``big``) of one or more pages. Each
+    page is a dict: ``samples`` (h, w, spp) integer array (bit values for
+    1-bit), ``bits``, ``photometric``, and optionally ``compression`` (1,
+    5, 8, 32946 or 32773), ``predictor``, ``tile`` (tw, th),
+    ``rows_per_strip``, ``orientation``, ``colormap`` (3 * 2**bits 16-bit
+    values), ``extra_samples``, ``fill_order``, ``planar`` (True: one
+    plane of strips or tiles per sample, PlanarConfiguration 2),
+    ``ycbcr_subsampling`` ((hs, vs): samples are Y, Cb, Cr, written in
+    the packed block layout; the tag left out when ``subsampling_tag`` is
+    False), ``chunks`` (the strips' or tiles' bytes as
+    they are, e.g. JPEG streams, instead of samples encoded here) and
+    ``tags`` ({tag: value} set as a SHORT, or {tag: (type, values)} with
+    RATIONALs as (numerator, denominator) pairs and UNDEFINED as bytes)."""
+    head = b"II" if order == "<" else b"MM"
+    if big:
+        out = bytearray(head + struct.pack(order + "HHHQ", 43, 8, 0, 0))
+        link, off_code, off_type, entry_size = 8, "Q", 16, 20
+    else:
+        out = bytearray(head + struct.pack(order + "HI", 42, 0))
+        link, off_code, off_type, entry_size = 4, "I", 4, 12
+    field = 8 if big else 4
     for page in pages:
         samples = np.asarray(page["samples"])
         if samples.ndim == 2:
@@ -109,8 +197,10 @@ def write_tiff(path, pages, order: str = "<") -> None:
         comp = page.get("compression", 1)
         tile = page.get("tile")
         rps = page.get("rows_per_strip", h)
-        chunks = _page_chunks(samples, bits, comp, page.get("predictor", 1),
-                              tile, rps, order, page.get("fill_order", 1))
+        ycbcr = page.get("ycbcr_subsampling")
+        chunks = page.get("chunks") or _page_chunks(
+            samples, bits, comp, page.get("predictor", 1), tile, rps, order,
+            page.get("fill_order", 1), page.get("planar", False), ycbcr)
         offsets = []
         for c in chunks:
             offsets.append(len(out))
@@ -119,13 +209,15 @@ def write_tiff(path, pages, order: str = "<") -> None:
                 out += b"\x00"
         tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
                 259: (3, [comp]), 262: (3, [page["photometric"]]),
-                277: (3, [spp]), 284: (3, [1])}
+                277: (3, [spp]), 284: (3, [2 if page.get("planar") else 1])}
+        if ycbcr and page.get("subsampling_tag", True):
+            tags[530] = (3, list(ycbcr))
         if tile:
             tags.update({322: (3, [tile[0]]), 323: (3, [tile[1]]),
-                         324: (4, offsets),
+                         324: (off_type, offsets),
                          325: (4, [len(c) for c in chunks])})
         else:
-            tags.update({273: (4, offsets), 278: (4, [rps]),
+            tags.update({273: (off_type, offsets), 278: (4, [rps]),
                          279: (4, [len(c) for c in chunks])})
         for tag, key, typ in ((274, "orientation", 3), (317, "predictor", 3),
                               (338, "extra_samples", 3),
@@ -136,28 +228,33 @@ def write_tiff(path, pages, order: str = "<") -> None:
                                                              np.ndarray))
                              else [v])
         for tag, v in page.get("tags", {}).items():
-            tags[tag] = (3, [v])
+            tags[tag] = v if isinstance(v, tuple) else (3, [v])
         ifd_at = len(out)
-        struct.pack_into(order + "I", out, link, ifd_at)
+        struct.pack_into(order + off_code, out, link, ifd_at)
         entries, blobs = [], bytearray()
-        data_at = ifd_at + 2 + 12 * len(tags) + 4
+        data_at = ifd_at + (8 if big else 2) + entry_size * len(tags) + field
         for tag in sorted(tags):
             typ, vals = tags[tag]
-            code = {3: "H", 4: "I"}[typ]
-            blob = struct.pack(order + code * len(vals), *[int(v) for v in
-                                                           vals])
-            if len(blob) <= 4:
-                field = blob.ljust(4, b"\x00")
+            if typ == 7:
+                blob, count = bytes(vals), len(vals)
             else:
-                field = struct.pack(order + "I", data_at + len(blobs))
+                flat = [int(x) for v in vals for x in
+                        (v if isinstance(v, (tuple, list)) else (v,))]
+                blob = struct.pack(order + _TYPES[typ][0] * len(flat), *flat)
+                count = len(vals)
+            if len(blob) <= field:
+                value = blob.ljust(field, b"\x00")
+            else:
+                value = struct.pack(order + off_code, data_at + len(blobs))
                 blobs += blob
                 if len(blobs) % 2:
                     blobs += b"\x00"
-            entries.append(struct.pack(order + "HHI", tag, typ, len(vals))
-                           + field)
-        out += struct.pack(order + "H", len(tags)) + b"".join(entries)
+            entries.append(struct.pack(order + "HH" + off_code, tag, typ,
+                                       count) + value)
+        out += struct.pack(order + ("Q" if big else "H"), len(tags))
+        out += b"".join(entries)
         link = len(out)
-        out += b"\x00\x00\x00\x00"
+        out += b"\x00" * field
         out += blobs
     with open(path, "wb") as f:
         f.write(bytes(out))
@@ -214,3 +311,62 @@ def write_adam7_png(path, samples: np.ndarray, color: int, depth: int,
     body += _chunk(b"IDAT", zlib.compress(bytes(stream)))
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + body + _chunk(b"IEND", b""))
+
+
+def jpeg_scans(data: bytes) -> list[tuple[int, int, dict]]:
+    """(start, end, header) of each scan of a JPEG: from its SOS marker to
+    the next marker that is not a restart marker; header holds the scan's
+    component ids and Ss, Se, Ah, Al."""
+    scans, pos = [], 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF or data[pos + 1] in (0x00, 0xFF):
+            pos += 1
+            continue
+        marker = data[pos + 1]
+        if marker == 0xD9 or 0xD0 <= marker <= 0xD7:
+            pos += 2
+            continue
+        length = int.from_bytes(data[pos + 2: pos + 4], "big")
+        if marker != 0xDA:
+            pos += 2 + length
+            continue
+        ns = data[pos + 4]
+        at = pos + 5 + 2 * ns
+        header = {"components": [data[pos + 5 + 2 * i] for i in range(ns)],
+                  "ss": data[at], "se": data[at + 1],
+                  "ah": data[at + 2] >> 4, "al": data[at + 2] & 15}
+        end = pos + 2 + length
+        while end + 1 < len(data) and not (
+                data[end] == 0xFF and data[end + 1] not in (0x00, 0xFF)
+                and not 0xD0 <= data[end + 1] <= 0xD7):
+            end += 1
+        scans.append((pos, end, header))
+        pos = end
+    return scans
+
+
+def drop_scans(data: bytes, drop) -> bytes:
+    """A JPEG's bytes without the scans for which ``drop(index, header)``
+    is true: a complete file whose scans leave bits unsent."""
+    out, last = bytearray(), 0
+    for i, (start, end, header) in enumerate(jpeg_scans(data)):
+        if drop(i, header):
+            out += data[last:start]
+            last = end
+    return bytes(out + data[last:])
+
+
+def split_jpeg_tables(data: bytes) -> tuple[bytes, bytes]:
+    """A JPEG's bytes -> (a tables-only stream: SOI, its DQT and DHT
+    segments before the first scan, EOI; the abbreviated stream left
+    without them), as a TIFF's JPEGTables tag and strips hold them."""
+    tables, rest, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while pos + 4 <= len(data):
+        marker = data[pos + 1]
+        length = int.from_bytes(data[pos + 2: pos + 4], "big")
+        if marker == 0xDA:
+            break
+        segment = data[pos: pos + 2 + length]
+        (tables if marker in (0xC4, 0xDB) else rest).extend(segment)
+        pos += 2 + length
+    return bytes(tables + b"\xff\xd9"), bytes(rest + data[pos:])

@@ -23,7 +23,7 @@ from ocr_inference_tpu.pipeline.builder import build_pipeline as jax_build
 from ocr_inference_tpu_torch.cli import cli
 from ocr_inference_tpu_torch.io.artifacts import write_png
 from tests import make_refpipe_fixture as fx
-from tests.image_writers import arithmetic_jpeg
+from tests.image_writers import arithmetic_jpeg, write_tiff
 
 REPO = Path(__file__).resolve().parents[1]
 REFPIPE = REPO / "tests" / "data" / "refpipe"
@@ -204,6 +204,38 @@ def test_jpeg_and_tiff_pages_equal_jax_cli(job, tmp_path, monkeypatch,
         got = (tmp_path / "ours" / f"{stem}.txt").read_text(encoding="utf-8")
         want = (tmp_path / "jax" / f"{stem}.txt").read_text(encoding="utf-8")
         assert got == want and got.strip(), stem
+
+
+def test_pages_cv2_cannot_read_are_skipped_as_jax_cli(job, tmp_path,
+                                                     monkeypatch, capsys):
+    """A folder with a readable page, an LZMA TIFF and a float TIFF (cv2's
+    libtiff has no LZMA and cannot map float samples): the port's bocr
+    and the JAX bocr both exit 0, both print ``Failed to load image`` for
+    the two TIFFs, and read the same text from the page. The port used to
+    refuse the whole run for them."""
+    folder = tmp_path / "skip"
+    folder.mkdir()
+    (folder / "a.png").write_bytes((job / "pages" / "page0.png").read_bytes())
+    write_tiff(folder / "b.tif", [dict(samples=np.zeros((8, 8, 3)), bits=8,
+                                       photometric=2, tags={259: 34925})])
+    assert cv2.imwrite(str(folder / "c.tiff"),
+                       np.zeros((8, 8, 3), np.float32))
+    common = ["--model", str(job / "model"), "--folder", str(folder),
+              "--line-model", str(job / "lines")]
+    assert cli.main(common + ["--output", str(tmp_path / "ours"), "--device",
+                              "cpu", "--dtype", "float32"]) == 0
+    ours = capsys.readouterr().out
+    monkeypatch.setattr(jax_cli, "build_pipeline",
+                        functools.partial(jax_build, dtype=jnp.float32))
+    assert jax_cli.main(common + ["--output", str(tmp_path / "jax")]) == 0
+    theirs = capsys.readouterr().out
+    for printed in (ours, theirs):
+        for name in ("b.tif", "c.tiff"):
+            assert f"Failed to load image: {folder / name}" in printed
+        assert printed.count("Text output:") == 1
+    got = (tmp_path / "ours" / "a.txt").read_text(encoding="utf-8")
+    assert got == (tmp_path / "jax" / "a.txt").read_text(encoding="utf-8")
+    assert got.strip()
 
 
 def test_mesh_is_refused(job, tmp_path):

@@ -19,7 +19,9 @@ import pytest
 from PIL import Image
 
 from ocr_inference_tpu_torch.io.artifacts import write_png
-from ocr_inference_tpu_torch.io.images import image_format, read_image
+from ocr_inference_tpu_torch.io.images import (
+    image_format, read_image, unsupported,
+)
 from tests.image_writers import write_adam7_png
 from tests.make_torch_port_fixture import OUT
 
@@ -302,3 +304,113 @@ def test_committed_files_equal_the_cv2_record(rel):
     assert list(got.shape) == want["shape"]
     assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
     np.testing.assert_array_equal(got, _cv2_rgb(path))
+
+
+def _agreement_corpus(root):
+    """One file of each kind the reader tests write: every format and
+    variant read, given None or refused, and corrupt files, plus the
+    committed page files."""
+    from tests.image_writers import arithmetic_jpeg, split_jpeg_tables, \
+        write_tiff
+
+    rng = np.random.RandomState(21)
+    img = rng.randint(0, 256, (24, 32, 3)).astype(np.uint8)
+    files = [OUT / "images" / rel for rel in IMAGES["files"]]
+
+    def add(name, data=None):
+        path = root / name
+        if data is not None:
+            path.write_bytes(data)
+        files.append(path)
+        return path
+
+    cv2.imwrite(str(root / "p.png"), img)
+    add("p.png")
+    _adam7_png(root / "a7.png", img)
+    add("a7.png")
+    for name, params in (("b.jpg", []), ("p.jpg", [
+            cv2.IMWRITE_JPEG_PROGRESSIVE, 1]), ("r.jpg", [
+            cv2.IMWRITE_JPEG_RST_INTERVAL, 2])):
+        cv2.imwrite(str(root / name), img, params)
+        data = add(name).read_bytes()
+        for cut in (len(data) // 3, len(data) // 2, 200, 20):
+            add(f"cut{cut}_{name}", data[:cut])
+        flipped = bytearray(data)
+        flipped[len(data) // 2] ^= 0x5A
+        add(f"flip_{name}", bytes(flipped))
+    base = (root / "b.jpg").read_bytes()
+    add("arith.jpg", arithmetic_jpeg(base))
+    add("twelve.jpg", base.replace(b"\xff\xc0\x00\x11\x08",
+                                   b"\xff\xc0\x00\x11\x0c", 1))
+    lossless = bytearray(base.replace(b"\xff\xc0", b"\xff\xc3", 1))
+    add("lossless_bad_scan.jpg", bytes(lossless))
+    at = lossless.index(b"\xff\xda")
+    lossless[at + 11: at + 14] = b"\x01\x00\x00"
+    add("lossless.jpg", bytes(lossless))
+    Image.fromarray(img).convert("CMYK").save(root / "cmyk.jpg")
+    add("cmyk.jpg")
+    ycck = bytearray((root / "cmyk.jpg").read_bytes())
+    ycck[ycck.index(b"Adobe") + 11] = 2
+    add("ycck.jpg", bytes(ycck))
+    for mode, comp in (("RGB", "jpeg"), ("L", "jpeg"), ("CMYK", "tiff_lzw"),
+                       ("RGB", "tiff_lzw"), ("1", "group4")):
+        name = f"{mode}_{comp}.tif"
+        Image.fromarray(img).convert(mode).save(root / name, compression=comp)
+        add(name)
+    pages = {
+        "planar.tif": dict(samples=img, bits=8, photometric=2, planar=True,
+                           compression=5, predictor=2),
+        "ycc22.tif": dict(samples=img, bits=8, photometric=6, compression=8,
+                          ycbcr_subsampling=(2, 2)),
+        "ycc33.tif": dict(samples=img, bits=8, photometric=6,
+                          ycbcr_subsampling=(3, 3)),
+        "cmyk16.tif": dict(samples=rng.randint(0, 65536, (8, 8, 4)),
+                           bits=16, photometric=5),
+        "lab.tif": dict(samples=img, bits=8, photometric=8),
+        "float.tif": dict(samples=img, bits=16, photometric=2,
+                          tags={339: 3}),
+        "fpred.tif": dict(samples=img, bits=8, photometric=2, compression=8,
+                          predictor=3),
+        "oldlzw.tif": dict(samples=img, bits=8, photometric=2,
+                           compression=5, chunks=[b"\x00\x01" + bytes(40)]),
+        "g4unc.tif": dict(samples=img[..., :1] > 128, bits=1, photometric=0,
+                          compression=4, tags={293: 2}, chunks=[bytes(20)]),
+    }
+    for comp in (6, 32766, 32771, 32809, 32909, 34661, 34676, 34712, 34887,
+                 34925, 50000, 50001, 50002):
+        pages[f"c{comp}.tif"] = dict(samples=img, bits=8, photometric=2,
+                                     tags={259: comp})
+    ok, stream = cv2.imencode(".jpg", img)
+    tables, abbreviated = split_jpeg_tables(stream.tobytes())
+    pages["jpeg_ycc.tif"] = dict(samples=img, bits=8, photometric=6,
+                                 compression=7, chunks=[abbreviated],
+                                 tags={530: (3, [2, 2]), 347: (7, tables)})
+    pages["jpeg_arith.tif"] = dict(samples=img, bits=8, photometric=6,
+                                   compression=7, tags={530: (3, [2, 2])},
+                                   chunks=[arithmetic_jpeg(stream.tobytes())])
+    for name, page in pages.items():
+        write_tiff(root / name, [page])
+        add(name)
+    write_tiff(root / "big.tif", [pages["planar.tif"]], big=True)
+    add("big.tif")
+    for ext in (".bmp", ".webp"):
+        cv2.imwrite(str(root / f"x{ext}"), img)
+        add(f"x{ext}")
+    add("x.gif", b"GIF89a" + bytes(32))
+    add("missing.jpg")
+    return files
+
+
+def test_unsupported_agrees_with_read_image(tmp_path):
+    """unsupported() judges from the headers what read_image would refuse:
+    for every kind of file the reader tests make, a file it passes
+    (None) never makes read_image raise NotImplementedError, and a file it
+    names always does."""
+    for path in _agreement_corpus(tmp_path):
+        why = unsupported(path)
+        try:
+            read_image(path)
+            refused = False
+        except NotImplementedError:
+            refused = True
+        assert refused == (why is not None), (path.name, why)

@@ -2,8 +2,11 @@
 against ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` on files that
 cv2 and PIL write here: byte-equal at every sampling factor cv2.imwrite
 offers, baseline and progressive, with restart intervals, optimised
-Huffman tables, gray, EXIF orientations 1-8, odd sizes and truncated
-files; the variants it does not decode are refused by name."""
+Huffman tables, gray, CMYK and YCCK, EXIF orientations 1-8, odd sizes,
+truncated files (progressive ones smoothed as libjpeg smooths them),
+complete progressive files with scans left out, and corrupt data; the
+variants it does not decode (arithmetic, lossless, 12-bit) are refused by
+name."""
 
 import cv2
 import numpy as np
@@ -13,6 +16,7 @@ from hypothesis import strategies as st
 from PIL import Image
 
 from ocr_inference_tpu_torch.io.images import image_format, read_image
+from tests.image_writers import drop_scans, jpeg_scans
 
 # cv2.IMWRITE_JPEG_SAMPLING_FACTOR values: 4:1:1, 4:2:0, 4:2:2, 4:4:0, 4:4:4
 SAMPLING = {"411": 0x411111, "420": 0x221111, "422": 0x211111,
@@ -146,7 +150,8 @@ def test_truncated_and_unreadable_files(tmp_path):
     """cv2.imread decodes a JPEG cut inside its scan (the missing blocks
     mid-gray) and gives None for one cut inside its headers; so does the
     reader. A progressive file cut after its first scans, which libjpeg
-    smooths, is refused by name."""
+    smooths, decodes as cv2 decodes it (it was refused by name before the
+    reader smoothed)."""
     path = tmp_path / "t.jpg"
     for restart in (0, 2):
         data = _write(path, _page(64, 80), restart=restart).read_bytes()
@@ -164,9 +169,7 @@ def test_truncated_and_unreadable_files(tmp_path):
     assert _cv2_rgb(path) is None and read_image(path) is None
     data = _write(path, _page(64, 80), progressive=1).read_bytes()
     path.write_bytes(data[: len(data) // 2])
-    assert _cv2_rgb(path) is not None
-    with pytest.raises(NotImplementedError, match="progressive JPEG"):
-        read_image(path)
+    _assert_same_as_cv2(path)
 
 
 def _patched_sof(data: bytes, marker: int | None = None,
@@ -181,6 +184,16 @@ def _patched_sof(data: bytes, marker: int | None = None,
     return bytes(out)
 
 
+def _lossless_scan(data: bytes) -> bytes:
+    """A baseline JPEG's scan header made a lossless one's (predictor 1,
+    Se 0, no point transform), as libjpeg checks it for a lossless frame."""
+    out = bytearray(data)
+    at = data.index(b"\xff\xda")
+    ns = out[at + 4]
+    out[at + 5 + 2 * ns: at + 8 + 2 * ns] = b"\x01\x00\x00"
+    return bytes(out)
+
+
 @pytest.mark.parametrize("variant,name", [
     ({"marker": 0xC9}, "arithmetic-coded JPEG"),
     ({"marker": 0xCA}, "arithmetic-coded JPEG"),
@@ -188,17 +201,164 @@ def _patched_sof(data: bytes, marker: int | None = None,
     ({"precision": 12}, "12- or 16-bit"),
 ])
 def test_variants_refused_by_name(tmp_path, variant, name):
+    """A lossless frame is refused by name when its first scan header is a
+    lossless one; with a sequential scan header libjpeg fails on it, and
+    the reader gives None."""
     data = _write(tmp_path / "b.jpg", _page(16, 16)).read_bytes()
     path = tmp_path / "v.jpg"
-    path.write_bytes(_patched_sof(data, **variant))
+    patched = _patched_sof(data, **variant)
+    if variant.get("marker") == 0xC3:
+        path.write_bytes(patched)
+        assert _cv2_rgb(path) is None and read_image(path) is None
+        patched = _lossless_scan(patched)
+    path.write_bytes(patched)
     with pytest.raises(NotImplementedError, match=name):
         read_image(path)
 
 
 def test_cmyk_refused_by_name(tmp_path):
+    """Once refused by name, a CMYK JPEG (PIL writes Adobe's inverted
+    CMYK) now decodes as cv2 decodes it: libjpeg's CMYK, then OpenCV's
+    icvCvt_CMYK2BGR_8u_C4C3R. test_cmyk_and_ycck covers the layouts."""
     path = tmp_path / "cmyk.jpg"
     Image.fromarray(_page(16, 24)).convert("CMYK").save(path, "JPEG")
-    assert _cv2_rgb(path) is not None  # cv2 reads it
-    with pytest.raises(NotImplementedError, match="CMYK"):
-        read_image(path)
+    _assert_same_as_cv2(path)
+
+
+def _cmyk_file(path, img, ycck, **save):
+    """PIL's CMYK JPEG (Adobe transform 0); with ``ycck`` its transform
+    byte set to 2, which libjpeg decodes as YCCK (PIL cannot write YCCK)."""
+    Image.fromarray(img).convert("CMYK").save(path, "JPEG", **save)
+    if ycck:
+        data = bytearray(path.read_bytes())
+        data[data.index(b"Adobe") + 11] = 2
+        path.write_bytes(bytes(data))
+    return path
+
+
+@pytest.mark.parametrize("ycck", [False, True])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+@pytest.mark.parametrize("size", [(1, 1), (16, 24), (37, 53), (9, 200)])
+def test_cmyk_and_ycck(tmp_path, ycck, progressive, subsampling, size):
+    """Four components, the first sampled 1x1, 2x1 or 2x2 (PIL's
+    subsampling for CMYK)."""
+    img = _page(*size, seed=size[0])
+    for quality in (50, 95):
+        _assert_same_as_cv2(_cmyk_file(tmp_path / "c.jpg", img, ycck,
+                                       quality=quality,
+                                       subsampling=subsampling,
+                                       progressive=progressive))
+
+
+def test_cmyk_truncated(tmp_path):
+    img = _page(40, 56, seed=2)
+    for progressive in (False, True):
+        data = _cmyk_file(tmp_path / "c.jpg", img, False,
+                          progressive=progressive).read_bytes()
+        for cut in range(len(data) // 4, len(data), len(data) // 7):
+            path = tmp_path / "t.jpg"
+            path.write_bytes(data[:cut])
+            want, got = _cv2_rgb(path), read_image(path)
+            assert (want is None) == (got is None), cut
+            if want is not None:
+                np.testing.assert_array_equal(got, want)
+
+
+def _cuts(data: bytes) -> list[int]:
+    """Cut points across a progressive file: inside every scan (a third
+    and two thirds in), right after it, and inside each scan header."""
+    cuts = []
+    for start, end, _ in jpeg_scans(data):
+        cuts += [start + 3, start + (end - start) // 3,
+                 start + 2 * (end - start) // 3, end]
+    return sorted(set(c for c in cuts if c < len(data)))
+
+
+@pytest.mark.parametrize("encoder,sampling", [
+    ("cv2", "gray"), ("cv2", "444"), ("cv2", "420"), ("cv2", "422"),
+    ("cv2", "411"), ("cv2", "440"), ("pil", "gray"), ("pil", "444"),
+    ("pil", "420"), ("pil", "422")])
+@pytest.mark.parametrize("size", [(8, 16), (17, 9), (64, 80), (130, 90)])
+def test_smoothed_progressive_truncations(tmp_path, encoder, sampling, size):
+    """libjpeg-turbo 3.1 smooths a progressive file whose scans leave one
+    of the first 10 coefficients of a component unsent or short of bits
+    (jdcoefct.c decompress_smooth_data: the 5x5 DC neighbourhood, the
+    previous scan's coefficient bits past the last good iMCU row). Cut
+    after the DC scan, inside AC first scans and refinements, and inside
+    the scan headers (cv2 gives None there, and so does the reader);
+    narrow pictures of two block columns included."""
+    img = _page(*size, seed=size[1], gray=sampling == "gray")
+    path = tmp_path / "p.jpg"
+    if encoder == "cv2":
+        data = _write(path, img, sampling="420" if sampling == "gray"
+                      else sampling, progressive=1).read_bytes()
+    else:
+        Image.fromarray(img).save(path, "JPEG", quality=85, progressive=True,
+                                  subsampling={"gray": 0, "444": 0, "422": 1,
+                                               "420": 2}[sampling])
+        data = path.read_bytes()
+    for cut in _cuts(data):
+        path.write_bytes(data[:cut])
+        want, got = _cv2_rgb(path), read_image(path)
+        assert (want is None) == (got is None), cut
+        if want is not None:
+            np.testing.assert_array_equal(got, want, err_msg=str(cut))
+
+
+@pytest.mark.parametrize("sampling", ["gray", "444", "420", "440"])
+@pytest.mark.parametrize("restart", [0, 3])
+def test_smoothed_progressive_with_scans_left_out(tmp_path, sampling,
+                                                  restart):
+    """A complete progressive file whose scans leave bits unsent: each
+    scan left out in turn, and every refinement scan left out."""
+    img = _page(45, 70, seed=restart, gray=sampling == "gray")
+    data = _write(tmp_path / "p.jpg", img, sampling="420" if sampling ==
+                  "gray" else sampling, progressive=1,
+                  restart=restart).read_bytes()
+    path = tmp_path / "d.jpg"
+    variants = [drop_scans(data, lambda j, h, i=i: j == i)
+                for i in range(len(jpeg_scans(data)))]
+    variants.append(drop_scans(data, lambda j, h: h["ah"] > 0))
+    for blob in variants:
+        path.write_bytes(blob)
+        _assert_same_as_cv2(path)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_corrupt_data(tmp_path, seed):
+    """Bytes flipped anywhere and files cut short, baseline and
+    progressive, with and without restarts, gray, colour and CMYK: the
+    reader gives what cv2 gives, None included (bad Huffman codes, bogus
+    segment lengths and markers, tables a scan finds undefined). The
+    damage may make a frame arithmetic-coded or lossless by its headers,
+    and then libjpeg and the reader part: those cases are left out."""
+    rng = np.random.RandomState(seed)
+    path = tmp_path / "f.jpg"
+    for trial in range(150):
+        kind = trial % 6
+        img = _page(rng.randint(1, 60), rng.randint(1, 60), seed=trial,
+                    gray=kind == 5)
+        if kind == 4:
+            data = _cmyk_file(path, img, False, quality=80,
+                              progressive=bool(trial % 2)).read_bytes()
+        else:
+            data = _write(path, img, sampling=sorted(SAMPLING)[trial % 5],
+                          progressive=kind % 2,
+                          restart=(kind // 2) * 2).read_bytes()
+        data = bytearray(data)
+        for _ in range(rng.randint(1, 4)):
+            data[rng.randint(2, len(data))] = rng.randint(0, 256)
+        if rng.rand() < 0.3:
+            data = data[: rng.randint(2, len(data))]
+        path.write_bytes(bytes(data))
+        want = _cv2_rgb(path)
+        try:
+            got = read_image(path)
+        except NotImplementedError as e:
+            assert "arithmetic" in str(e) or "lossless" in str(e), trial
+            continue
+        assert (want is None) == (got is None), trial
+        if want is not None:
+            np.testing.assert_array_equal(got, want, err_msg=str(trial))
 

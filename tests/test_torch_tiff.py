@@ -1,19 +1,24 @@
-"""The port's TIFF reader (io/images.py read_image, native/tiff.cpp)
-against ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` on files that
-PIL and tests/image_writers.py write here: byte-equal for no compression,
-PackBits, LZW, Deflate and CCITT modified Huffman, T.4 and Group 4, with
-and without predictor 2, in strips and tiles, photometric 0-3 at 1, 8 and
-16 bits, both byte orders, extra samples, orientations and multi-page
-files (the first page); None where cv2 gives None; the variants it does
-not decode refused by name."""
+"""The port's TIFF reader (io/images.py read_image, native/tiff.cpp and
+jpeg.cpp) against ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` on
+files that PIL and tests/image_writers.py write here: byte-equal for no
+compression, PackBits, LZW, Deflate, CCITT modified Huffman, T.4 and Group
+4 and JPEG (compression 7), with and without predictor 2, in strips and
+tiles, contiguous and planar, photometric 0-3, 5 (CMYK) and 6 (YCbCr) at
+1, 8 and 16 bits, both byte orders, classic TIFF and BigTIFF, extra
+samples, orientations and multi-page files (the first page); None where
+cv2 gives None (LZMA, Zstd, WebP and the other codecs cv2's libtiff lacks,
+floating-point samples and predictor); the variants it does not decode
+refused by name."""
 
 import cv2
 import numpy as np
 import pytest
 from PIL import Image
 
-from ocr_inference_tpu_torch.io.images import image_format, read_image
-from tests.image_writers import write_tiff
+from ocr_inference_tpu_torch.io.images import (
+    image_format, read_image, unsupported,
+)
+from tests.image_writers import split_jpeg_tables, write_tiff
 
 # (photometric, bits, samples per pixel)
 KINDS = [(1, 8, 1), (0, 8, 1), (1, 1, 1), (0, 1, 1), (1, 16, 1),
@@ -222,6 +227,12 @@ def test_truncated_and_corrupt_files_give_none(tmp_path):
     ({"compression": 50000}, "Zstandard"),
 ])
 def test_variants_refused_by_name(tmp_path, save, name):
+    """These variants were refused by name; each now reads as cv2 reads
+    it, or gives None where cv2 does: a 24x32 RGB page saved as
+    JPEG-in-TIFF (PIL), planar, with the floating-point predictor on
+    uncompressed data (libtiff ignores the tag there), with float samples
+    (None), as CMYK and YCbCr (their defaults: InkSet 1, YCbCrSubsampling
+    2x2 read as packed blocks) and Zstandard (None)."""
     rng = np.random.RandomState(9)
     path = tmp_path / "v.tif"
     img = rng.randint(0, 256, (24, 32, 3)).astype(np.uint8)
@@ -234,15 +245,26 @@ def test_variants_refused_by_name(tmp_path, save, name):
         if "compression" in save:
             page["tags"] = {259: save["compression"]}
         write_tiff(path, [page])
-    with pytest.raises(NotImplementedError, match=name):
-        read_image(path)
+    want = _cv2_rgb(path)
+    if want is None:
+        assert read_image(path) is None, name
+        assert unsupported(path) is None, name
+    else:
+        _assert_same_as_cv2(path)
 
 
 def test_bigtiff_and_other_formats_refused_by_name(tmp_path):
+    """BigTIFF, once refused by name, reads as cv2 reads it (a header
+    with no IFD gives None, as in cv2); BMP, WebP, JPEG 2000 and GIF stay
+    refused by name."""
     path = tmp_path / "big.tif"
     path.write_bytes(b"II+\x00\x08\x00\x00\x00" + b"\x00" * 32)
-    with pytest.raises(NotImplementedError, match="BigTIFF"):
-        read_image(path)
+    assert _cv2_rgb(path) is None and read_image(path) is None
+    rng = np.random.RandomState(10)
+    write_tiff(path, [dict(samples=rng.randint(0, 256, (21, 30, 3)), bits=8,
+                           photometric=2, compression=8)], big=True)
+    assert image_format(path) == "TIFF"
+    _assert_same_as_cv2(path)
     img = np.zeros((8, 8, 3), np.uint8)
     for ext, name in ((".bmp", "BMP"), (".webp", "WebP")):
         path = tmp_path / f"x{ext}"
@@ -255,3 +277,415 @@ def test_bigtiff_and_other_formats_refused_by_name(tmp_path):
         path.write_bytes(head + b"\x00" * 32)
         with pytest.raises(NotImplementedError, match=name):
             read_image(path)
+
+
+# -- BigTIFF -----------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", [(2, 8, 3), (1, 16, 1), (3, 8, 1),
+                                  (0, 1, 1), (2, 8, 4)],
+                         ids=lambda k: "p%d-%db-%ds" % k)
+@pytest.mark.parametrize("order", ["<", ">"])
+@pytest.mark.parametrize("layout", ["strips", "tiles", "planar"])
+def test_bigtiff(tmp_path, kind, order, layout):
+    """BigTIFF (version 43: 8-byte counts and offsets, 20-byte entries,
+    strip and tile offsets as LONG8), both byte orders."""
+    phot, bits, spp = kind
+    rng = np.random.RandomState(bits + spp)
+    page = _kind_page(rng, phot, bits, spp, 29, 48,
+                      compression=32773 if bits == 1 else 8)
+    page.update({"strips": {"rows_per_strip": 4},
+                 "tiles": {"tile": (16, 16)},
+                 "planar": {"planar": True, "rows_per_strip": 7}}[layout])
+    path = tmp_path / "b.tif"
+    write_tiff(path, [page], order, big=True)
+    want = _cv2_rgb(path)
+    if want is None:  # planar palette and 1-bit: libtiff cannot
+        assert read_image(path) is None
+    else:
+        _assert_same_as_cv2(path)
+
+
+# -- planar (PlanarConfiguration 2) ------------------------------------------
+
+PLANAR_KINDS = [(2, 3, None), (2, 4, 2), (2, 4, 1), (2, 4, 0), (2, 4, None),
+                (1, 2, 2), (1, 2, 0), (0, 2, 2), (1, 3, None)]
+
+
+@pytest.mark.parametrize("kind", PLANAR_KINDS,
+                         ids=lambda k: "p%d-%ds-x%s" % k)
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773])
+def test_planar(tmp_path, kind, bits, compression):
+    """One plane of strips or tiles per sample, each through its codec
+    and predictor 2 on its own, mapped by libtiff's separate-plane
+    routines (putRGBseparate8bittile, ...16bittile and their alpha
+    variants): 16-bit samples rounded as the contiguous path rounds them;
+    gray planes are not inverted for min-is-white and take their alpha."""
+    phot, spp, extra = kind
+    rng = np.random.RandomState(bits * 7 + spp)
+    path = tmp_path / "p.tif"
+    for order in "<>":
+        for layout in ({"rows_per_strip": 5}, {"tile": (16, 16)}):
+            for predictor in (1, 2) if compression in (5, 8) else (1,):
+                w = 40 if "tile" in layout else 37
+                page = dict(samples=rng.randint(0, 1 << bits, (21, w, spp)),
+                            bits=bits, photometric=phot, planar=True,
+                            compression=compression, predictor=predictor,
+                            **layout)
+                if extra is not None:
+                    page["extra_samples"] = [extra]
+                write_tiff(path, [page], order)
+                _assert_same_as_cv2(path)
+
+
+# -- CMYK (photometric 5) ----------------------------------------------------
+
+@pytest.mark.parametrize("compression", [1, 5, 8, 32773])
+@pytest.mark.parametrize("planar", [False, True])
+def test_cmyk(tmp_path, compression, planar):
+    """8-bit CMYK, InkSet 1, contiguous and planar, strips and tiles:
+    tif_getimage.c's integer k = 255 - K; r = k * (255 - C) / 255."""
+    rng = np.random.RandomState(compression)
+    path = tmp_path / "c.tif"
+    for layout in ({}, {"rows_per_strip": 5}, {"tile": (16, 16)}):
+        for predictor in (1, 2) if compression in (5, 8) else (1,):
+            write_tiff(path, [dict(samples=rng.randint(0, 256, (21, 37, 4)),
+                                   bits=8, photometric=5, planar=planar,
+                                   compression=compression,
+                                   predictor=predictor, **layout)])
+            _assert_same_as_cv2(path)
+
+
+def test_cmyk_pil_and_the_variants_cv2_gives_none(tmp_path):
+    """PIL's CMYK TIFF (LZW); 16-bit CMYK, a fifth sample and other ink
+    sets give None, as in cv2."""
+    rng = np.random.RandomState(3)
+    path = tmp_path / "c.tif"
+    Image.fromarray(rng.randint(0, 256, (30, 40, 3)).astype(np.uint8)).convert(
+        "CMYK").save(path, compression="tiff_lzw")
+    _assert_same_as_cv2(path)
+    for page in (dict(bits=16, samples=rng.randint(0, 65536, (9, 11, 4))),
+                 dict(bits=8, samples=rng.randint(0, 256, (9, 11, 5))),
+                 dict(bits=8, samples=rng.randint(0, 256, (9, 11, 4)),
+                      tags={332: 2})):
+        for planar in (False, True):
+            write_tiff(path, [dict(page, photometric=5, planar=planar)])
+            assert _cv2_rgb(path) is None
+            assert read_image(path) is None
+
+
+# -- YCbCr (photometric 6) without JPEG --------------------------------------
+
+YCBCR_SAMPLING = [(1, 1), (2, 1), (2, 2), (4, 2), (4, 4), (1, 2), (4, 1)]
+
+
+@pytest.mark.parametrize("sampling", YCBCR_SAMPLING,
+                         ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("compression", [1, 5, 8])
+@pytest.mark.parametrize("size", [(21, 37), (16, 32), (1, 1), (7, 5),
+                                  (33, 45)])
+def test_ycbcr(tmp_path, sampling, compression, size):
+    """Packed YCbCr blocks of every subsampling libtiff's RGBA interface
+    puts (putcontig8bitYCbCr{11,12,21,22,41,42,44}tile: each block's
+    chroma repeated over its pixels), partial blocks at the right and
+    bottom edges, in one strip, in strips of two block rows and in 16x16
+    tiles (the 4x4 routine's skew over a clipped tile's blocks included)."""
+    rng = np.random.RandomState(sum(sampling) * 31 + compression)
+    path = tmp_path / "y.tif"
+    for layout in ({}, {"rows_per_strip": sampling[1] * 2},
+                   {"tile": (16, 16)}):
+        write_tiff(path, [dict(samples=rng.randint(0, 256, size + (3,)),
+                               bits=8, photometric=6, compression=compression,
+                               ycbcr_subsampling=sampling, **layout)])
+        _assert_same_as_cv2(path)
+
+
+def _rationals(values):
+    return (5, [(int(round(v * 1000)), 1000) for v in values])
+
+
+@pytest.mark.parametrize("rbw", [[0, 255, 128, 255, 128, 255],
+                                 [16, 235, 128, 240, 128, 240],
+                                 [15.5, 235.25, 128, 240, 127, 241],
+                                 [0, 0, 128, 128, 128, 128]])
+@pytest.mark.parametrize("luma", [[0.299, 0.587, 0.114],
+                                  [0.2126, 0.7152, 0.0722]])
+def test_ycbcr_reference_and_coefficients(tmp_path, rbw, luma):
+    """ReferenceBlackWhite and YCbCrCoefficients into tif_color.c's
+    fixed-point tables, built from float arithmetic as libtiff builds them;
+    absent tags (2x2 subsampling, the default references) and planar 1x1
+    YCbCr (putseparate8bitYCbCr11tile) too; planar 2x2 gives None."""
+    rng = np.random.RandomState(len(str(rbw)))
+    path = tmp_path / "y.tif"
+    tags = {532: _rationals(rbw), 529: _rationals(luma)}
+    for sampling in ((1, 1), (2, 2)):
+        write_tiff(path, [dict(samples=rng.randint(0, 256, (21, 37, 3)),
+                               bits=8, photometric=6, tags=tags,
+                               ycbcr_subsampling=sampling)])
+        _assert_same_as_cv2(path)
+    write_tiff(path, [dict(samples=rng.randint(0, 256, (21, 37, 3)), bits=8,
+                           photometric=6, planar=True,
+                           tags={**tags, 530: (3, [1, 1])})])
+    _assert_same_as_cv2(path)
+    write_tiff(path, [dict(samples=rng.randint(0, 256, (21, 37, 3)), bits=8,
+                           photometric=6, planar=True, tags=tags)])
+    assert _cv2_rgb(path) is None and read_image(path) is None
+    write_tiff(path, [dict(samples=rng.randint(0, 256, (21, 37, 3)), bits=8,
+                           photometric=6, ycbcr_subsampling=(2, 2),
+                           subsampling_tag=False)])
+    _assert_same_as_cv2(path)
+
+
+@pytest.mark.parametrize("rbw", [[0, 255, 128, 255, 128, 255],
+                                 [16, 235, 128, 240, 128, 240]])
+def test_ycbcr_every_code(tmp_path, rbw):
+    """Every (Y, Cb, Cr) of 256^3 at 4:4:4 against cv2, in four
+    2048x2048 pages."""
+    path = tmp_path / "all.tif"
+    for part in range(4):
+        v = np.arange(part << 22, (part + 1) << 22)
+        samples = np.stack([v >> 16, (v >> 8) & 255, v & 255], -1)
+        write_tiff(path, [dict(samples=samples.reshape(2048, 2048, 3), bits=8,
+                               photometric=6, ycbcr_subsampling=(1, 1),
+                               rows_per_strip=256,
+                               tags={532: _rationals(rbw)})])
+        _assert_same_as_cv2(path)
+
+
+# -- JPEG-in-TIFF (compression 7) --------------------------------------------
+
+SAMPLING_FACTORS = {(1, 1): 0x111111, (2, 1): 0x211111, (2, 2): 0x221111,
+                    (1, 2): 0x121111, (4, 1): 0x411111}
+
+
+def _smooth_page(rng, h, w, gray=False):
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([np.sin(x / 7.0) * 90 + 128, np.cos(y / 5.0) * 90 + 128,
+                    (x * 3 + y * 5) % 256], -1) + rng.randint(-40, 40,
+                                                              (h, w, 3))
+    img = img.clip(0, 255).astype(np.uint8)
+    return img[..., 0] if gray else img
+
+
+def _jpeg(img, sampling=(2, 2), progressive=0):
+    ok, data = cv2.imencode(".jpg", img[..., ::-1] if img.ndim == 3 else img,
+                            [cv2.IMWRITE_JPEG_QUALITY, 90,
+                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                             SAMPLING_FACTORS[sampling],
+                             cv2.IMWRITE_JPEG_PROGRESSIVE, progressive])
+    assert ok
+    return data.tobytes()
+
+
+def _jpeg_chunks(img, layout, **kw):
+    """One JPEG stream per strip (16 rows; "strip1": one strip) or 16x16
+    tile of img, and the write_tiff layout."""
+    h, w = img.shape[:2]
+    if layout == "tiles":
+        padded = np.zeros((-(-h // 16) * 16, -(-w // 16) * 16)
+                          + img.shape[2:], np.uint8)
+        padded[:h, :w] = img
+        return [_jpeg(padded[y: y + 16, x: x + 16], **kw)
+                for y in range(0, padded.shape[0], 16)
+                for x in range(0, padded.shape[1], 16)], {"tile": (16, 16)}
+    rps = h if layout == "strip1" else 16
+    return [_jpeg(img[y: y + rps], **kw) for y in range(0, h, rps)], \
+        {"rows_per_strip": rps}
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L", "CMYK", "YCbCr"])
+@pytest.mark.parametrize("size", [(61, 83), (300, 200)])
+def test_jpeg_in_tiff_pil(tmp_path, mode, size):
+    """PIL's JPEG-in-TIFF (libtiff's writer: JPEGTables and abbreviated
+    strips; RGB as photometric YCbCr, gray, CMYK)."""
+    rng = np.random.RandomState(size[0])
+    path = tmp_path / "j.tif"
+    im = Image.fromarray(_smooth_page(rng, *size)).convert(mode)
+    for quality in (50, 90):
+        im.save(path, compression="jpeg", quality=quality)
+        assert Image.open(path).tag_v2[259] == 7
+        _assert_same_as_cv2(path)
+
+
+@pytest.mark.parametrize("sampling", list(SAMPLING_FACTORS),
+                         ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("layout", ["strip1", "strips", "tiles"])
+@pytest.mark.parametrize("tables", [False, True])
+@pytest.mark.parametrize("progressive", [0, 1])
+def test_jpeg_in_tiff_ycbcr(tmp_path, sampling, layout, tables, progressive):
+    """The YCbCr layout scanners write: cv2-encoded JPEG streams wrapped
+    as strips or tiles with photometric 6 and their YCbCrSubsampling, the
+    tables in each stream or in tag 347 (each strip then keeps its own
+    later tables, and the page's decompressor carries them on). libtiff
+    has libjpeg turn YCbCr into RGB after its fancy upsampling; each strip
+    is its own stream. At 4:4:4 the same streams as photometric RGB are
+    read with no colour conversion at all."""
+    rng = np.random.RandomState(sampling[0] * 3 + sampling[1])
+    path = tmp_path / "j.tif"
+    for size in ((37, 45), (64, 80), (16, 16)):
+        img = _smooth_page(rng, *size)
+        chunks, lay = _jpeg_chunks(img, layout, sampling=sampling,
+                                   progressive=progressive)
+        tags = {530: (3, list(sampling))}
+        if tables:
+            parts = [split_jpeg_tables(c) for c in chunks]
+            tags[347] = (7, parts[0][0])
+            chunks = [p[1] for p in parts]
+        write_tiff(path, [dict(samples=img, bits=8, photometric=6,
+                               compression=7, chunks=chunks, tags=tags,
+                               **lay)])
+        _assert_same_as_cv2(path)
+        if sampling == (1, 1):
+            del tags[530]
+            write_tiff(path, [dict(samples=img, bits=8, photometric=2,
+                                   compression=7, chunks=chunks, tags=tags,
+                                   **lay)])
+            _assert_same_as_cv2(path)
+
+
+def test_jpeg_in_tiff_gray_subsampling_and_short_strips(tmp_path):
+    """Gray streams in strips and in tiles; YCbCrSubsampling absent (libtiff
+    takes the stream's), equal to the stream's, or not (None); a last strip
+    whose stream holds the full RowsPerStrip (libtiff cuts it)."""
+    rng = np.random.RandomState(12)
+    path = tmp_path / "j.tif"
+    gray = _smooth_page(rng, 37, 45, gray=True)
+    for layout in ("strips", "tiles"):
+        chunks, lay = _jpeg_chunks(gray, layout)
+        write_tiff(path, [dict(samples=gray, bits=8, photometric=1,
+                               compression=7, chunks=chunks, **lay)])
+        _assert_same_as_cv2(path)
+    img = _smooth_page(rng, 37, 45)
+    for tag in (None, (2, 2), (1, 1), (2, 1)):
+        tags = {} if tag is None else {530: (3, list(tag))}
+        write_tiff(path, [dict(samples=img, bits=8, photometric=6,
+                               compression=7, chunks=[_jpeg(img)],
+                               tags=tags)])
+        if tag in (None, (2, 2)):
+            _assert_same_as_cv2(path)
+        else:
+            assert _cv2_rgb(path) is None and read_image(path) is None
+    padded = np.zeros((48, 45, 3), np.uint8)
+    padded[:37] = img
+    write_tiff(path, [dict(samples=img, bits=8, photometric=6, compression=7,
+                           rows_per_strip=16, tags={530: (3, [2, 2])},
+                           chunks=[_jpeg(padded[y: y + 16])
+                                   for y in range(0, 48, 16)])])
+    _assert_same_as_cv2(path)
+
+
+@pytest.mark.parametrize("tables", [b"\xff\xd8\xff\xc0\x00\x11garbage", b"xx"])
+@pytest.mark.parametrize("tagged", [False, True])
+def test_jpeg_in_tiff_bogus_tables_give_none(tmp_path, tables, tagged):
+    """A JPEGTables field libjpeg cannot read as tables ("Bogus JPEGTables
+    field"): None, as cv2, with or without YCbCrSubsampling (without it
+    libtiff reads the first strip's sampling through those tables)."""
+    img = _smooth_page(np.random.RandomState(15), 16, 16)
+    tags = {347: (7, tables)}
+    if tagged:
+        tags[530] = (3, [2, 2])
+    path = tmp_path / "b.tif"
+    write_tiff(path, [dict(samples=img, bits=8, photometric=6, compression=7,
+                           chunks=[_jpeg(img)], tags=tags)])
+    assert _cv2_rgb(path) is None
+    assert read_image(path) is None and unsupported(path) is None
+
+
+# -- what cv2 gives None for, and what stays refused ------------------------
+
+@pytest.mark.parametrize("compression", [6, 32909, 34661, 34887, 34925,
+                                         50000, 50001])
+def test_codecs_cv2_lacks_give_none(tmp_path, compression):
+    """Old-style JPEG, PixarLog, JBIG, LERC, LZMA, Zstandard and WebP:
+    cv2's libtiff was built without them, so cv2.imread gives None; so
+    does the reader, and unsupported() lets the CLIs go on."""
+    rng = np.random.RandomState(compression)
+    path = tmp_path / "n.tif"
+    for spp, phot in ((3, 2), (1, 1)):
+        write_tiff(path, [dict(samples=rng.randint(0, 256, (9, 13, spp)),
+                               bits=8, photometric=phot,
+                               tags={259: compression})])
+        assert _cv2_rgb(path) is None
+        assert read_image(path) is None
+        assert unsupported(path) is None
+
+
+def test_float_samples_and_predictor_give_none(tmp_path):
+    """Float samples (cv2.imwrite's float32 and float64 TIFF, SampleFormat 3
+    at 16 bits, SampleFormat 4), 32-bit integers, and the floating-point
+    predictor under LZW or Deflate: None, as cv2; under no compression
+    libtiff ignores the predictor tag and the page reads."""
+    rng = np.random.RandomState(13)
+    path = tmp_path / "f.tif"
+    for dtype in (np.float32, np.float64, np.int32):
+        assert cv2.imwrite(str(path), (rng.rand(20, 30, 3) * 100).astype(dtype))
+        assert _cv2_rgb(path) is None
+        assert read_image(path) is None and unsupported(path) is None
+    img = rng.randint(0, 256, (9, 13, 3))
+    for bits, fmt in ((16, 3), (8, 4), (8, 3)):
+        write_tiff(path, [dict(samples=img, bits=bits, photometric=2,
+                               tags={339: fmt})])
+        assert _cv2_rgb(path) is None and read_image(path) is None
+    for compression in (5, 8):
+        for predictor in (3, 4):
+            write_tiff(path, [dict(samples=img, bits=8, photometric=2,
+                                   compression=compression,
+                                   predictor=predictor)])
+            assert _cv2_rgb(path) is None and read_image(path) is None
+    write_tiff(path, [dict(samples=img, bits=8, photometric=2, predictor=3)])
+    _assert_same_as_cv2(path)
+
+
+@pytest.mark.parametrize("photometric", [4, 7, 9, 10, 32844, 32845])
+def test_photometrics_libtiff_cannot_map_give_none(tmp_path, photometric):
+    """A transparency mask, ICC and ITU L*a*b*, and SGI LogL/LogLuv without
+    their SGILog compression: libtiff's RGBA interface cannot map them,
+    and cv2 gives None; so does the reader (CIE L*a*b*, which it maps, is
+    refused by name in test_other_refusals_by_name)."""
+    path = tmp_path / "p.tif"
+    write_tiff(path, [dict(samples=np.zeros((9, 13, 3)), bits=8,
+                           photometric=photometric)])
+    assert _cv2_rgb(path) is None
+    assert read_image(path) is None and unsupported(path) is None
+
+
+@pytest.mark.parametrize("compression,name", [
+    (32766, "NeXT"), (32771, "RLE-W"), (32809, "ThunderScan"),
+    (34676, "LogLuv"), (34712, "JPEG 2000"), (50002, "TIFF compression"),
+    (99, "TIFF compression 99"),
+])
+def test_codecs_still_refused_by_name(tmp_path, compression, name):
+    """libtiff's NeXT, ThunderScan, RLE-W and SGI Log codecs decode files
+    made for them, and for a compression it does not know (JPEG 2000 in
+    TIFF, JPEG XL, ...) cv2 gives an all-zero page: refused by name, in
+    read_image and unsupported() alike."""
+    path = tmp_path / "r.tif"
+    write_tiff(path, [dict(samples=np.zeros((9, 13, 3)), bits=8,
+                           photometric=2, tags={259: compression})])
+    with pytest.raises(NotImplementedError, match=name):
+        read_image(path)
+    assert name in unsupported(path)
+
+
+def test_other_refusals_by_name(tmp_path):
+    """CIE L*a*b* pages, old-style LZW and arithmetic-coded JPEG strips,
+    in read_image and unsupported() alike."""
+    rng = np.random.RandomState(14)
+    img = _smooth_page(rng, 16, 16)
+    stream = bytearray(_jpeg(img))
+    stream[stream.index(b"\xff\xc0") + 1] = 0xC9
+    cases = {
+        "L\\*a\\*b": dict(samples=rng.randint(0, 256, (9, 13, 3)), bits=8,
+                          photometric=8),
+        "old-style": dict(samples=rng.randint(0, 256, (9, 13, 3)), bits=8,
+                          photometric=2, compression=5,
+                          chunks=[b"\x00\x01" + bytes(30)]),
+        "arithmetic": dict(samples=img, bits=8, photometric=6, compression=7,
+                           chunks=[bytes(stream)], tags={530: (3, [2, 2])}),
+    }
+    path = tmp_path / "r.tif"
+    for name, page in cases.items():
+        write_tiff(path, [page])
+        with pytest.raises(NotImplementedError, match=name):
+            read_image(path)
+        assert unsupported(path) is not None
