@@ -6,7 +6,7 @@ them.
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
 geometry library, the ARPA scorer and the PNG, JPEG and TIFF decoders,
-all started together), then runs thirty phases and prints one JSON line
+all started together), then runs thirty-one phases and prints one JSON line
 for each:
 
 1. build        — seconds of each compiler; registers and spills of each
@@ -246,14 +246,30 @@ for each:
                   a trace_profile of one bf16 run_ocr of the page holding
                   both binarize kernels' device events: its ten device ops
                   with the most time and the card's busy share over the
-                  page's window.
+                  page's window;
+31. mesh        — more than one device: distributed_init into a
+                  world-size-1 nccl group on localhost and one all_reduce;
+                  float32 page OCR (TF32 off) of the fixture pages and a
+                  bench.py config 4 page on a mesh over every visible
+                  card, a 2x1 mesh and a 1x2 mesh (the recognizer head
+                  split over its model axis) that repeat cuda:0, texts
+                  and boxes equal to --mesh off, page ms of each; one
+                  full77f Easter2 float32 step (32 canvases of its
+                  recipe) on a 2x1 mesh against mesh=None: loss and
+                  statistics at the CPU tests' bars, each gradient leaf
+                  within a float32 limit that a planted fault (one
+                  group's gradient dropped) exceeds; bocr --mesh auto on
+                  the fixture pages as PNG (the CLI's mesh over every
+                  card, 1x1 on one card), texts equal to --mesh off; a
+                  --mesh of one card more than the machine has refused
+                  naming the count; the device count.
 
 Kernel launch and recheck counts are zeroed just before each OCR or
-training path is driven (phases 3-23, 26, 27, 29 and 30) and read just
+training path is driven (phases 3-23, 26, 27, 29, 30 and 31) and read just
 after it. Then a ``kernels`` JSON line (per kernel: launches over the main
 paths, phases 5, 6, 8, 11, 13, 14, 16, 17, 18, 19's bf16 bocr and
-bocr-lines, 20, 21, 23, 26, 27, 29 and 30's ops.binarize and examples,
-and by path,
+bocr-lines, 20, 21, 23, 26, 27, 29, 30's ops.binarize and examples, and
+31's mesh page OCR, mesh step and bocr --mesh auto, and by path,
 the shapes each path launched, rechecked pixels, time, plain time, bound
 and share of the bound at the largest shape the main paths launched), the
 card's name and power limit, and as the last line
@@ -271,6 +287,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -452,7 +469,7 @@ def full77f_config(input_width: int = 3000):
 def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000,
                      kenlm_config=None, line_config=None,
                      allow_random: bool = False, seed: int = 0,
-                     ocr_config=None):
+                     ocr_config=None, mesh=None):
     from ocr_inference_tpu_torch.core.data import LineDetectionConfig
     from ocr_inference_tpu_torch.pipeline import build_pipeline
 
@@ -462,7 +479,7 @@ def full77f_pipeline(dtype: torch.dtype, input_width: int = 3000,
     )
     return build_pipeline(ocr_config or full77f_config(input_width), line,
                           kenlm_config=kenlm_config, dtype=dtype,
-                          allow_random=allow_random, seed=seed)
+                          allow_random=allow_random, seed=seed, mesh=mesh)
 
 
 def run_page(pipe, img):
@@ -3702,6 +3719,254 @@ def public_api(results: dict):
             "gpu": gpu_name_and_limit()}
 
 
+# -- more than one device --
+
+# the card the 2x1 and 1x2 meshes repeat
+MESH_CARD = "cuda:0"
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def world_of_one() -> dict:
+    """distributed_init from the JAX cluster variables into a world-size-1
+    nccl group on localhost, one all_reduce of a CUDA tensor, the group
+    destroyed and the variables restored."""
+    import torch.distributed as dist
+
+    from ocr_inference_tpu_torch.parallel import distributed_init
+
+    env = {"JAX_COORDINATOR_ADDRESS": f"localhost:{free_port()}",
+           "JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        distributed_init("cuda")
+        x = torch.arange(4, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x)
+        out = {"backend": dist.get_backend(),
+               "world_size": dist.get_world_size(), "rank": dist.get_rank(),
+               "all_reduce": x.cpu().tolist()}
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["ok"] = (out["backend"] == "nccl" and out["world_size"] == 1
+                 and out["all_reduce"] == [0.0, 1.0, 2.0, 3.0])
+    return out
+
+
+def mesh_pages(pipe, pages) -> tuple[dict, float]:
+    """({page: (texts, boxes)}, median host ms a page, synchronised)."""
+    out, times = {}, []
+    for name, img, _ in pages:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts, lines, _ = run_page(pipe, img)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = (texts, [list(ln.bbox.as_tuple()) for ln in lines])
+    return out, _median(times)
+
+
+# the float32 gradient's largest distance per leaf from mesh=None's,
+# relative to the leaf's norm: sound 2x1 steps read 6.86e-5 on the card
+# (float64 CPU tests hold 1e-5), a step that drops one group's gradient
+# reads about 0.5
+GRAD_LEAF_LIMIT = 1e-3
+
+
+def mesh_train_step(results: dict) -> dict:
+    """One float32 Easter2 step of full77f on a batch of 32 canvases of
+    its recipe (training.json; learning rate 3e-4 without the warmup, so
+    that the step moves the weights) on a 2x1 mesh of this card against
+    mesh=None, at tests/test_torch_parallel.py's bars where float32 can
+    meet them: the loss within rel 1e-6, the running statistics within
+    rtol 1e-6 and atol 1e-6; the parameters' mean distance under 1e-3 of
+    what Adam's first step can move one (2 lr). Each gradient leaf within
+    GRAD_LEAF_LIMIT of its norm, a limit a planted fault (the gradient of
+    data group 1 dropped from the sum) must exceed."""
+    import copy
+
+    from ocr_inference_tpu_torch.eval.synthetic import (
+        WYLIE_CHARSET_FULL, GlyphSet, recognizer_batch,
+    )
+    from ocr_inference_tpu_torch.models.params import load_flax_weights
+    from ocr_inference_tpu_torch.models.recognition import build_recognizer
+    from ocr_inference_tpu_torch.parallel import make_mesh
+    from ocr_inference_tpu_torch.training import (
+        make_optimizer, make_train_step,
+    )
+    from ocr_inference_tpu_torch.training.train import (
+        MeshGradient, model_state, recognizer_loss, value_and_grad,
+    )
+
+    class DroppedGroup(MeshGradient):
+        """The planted fault: data group 1's gradient left out of the
+        sum over the groups."""
+
+        def _grad_of(self, rep, name, grads):
+            g = super()._grad_of(rep, name, grads)
+            return torch.zeros_like(g) if rep is self.replicas[1] else g
+
+    record = json.loads(TRAIN_RECORD.read_text())["rec"]
+    dev = torch.device(MESH_CARD)
+    model = build_recognizer("Easter2", len(WYLIE_CHARSET_FULL) + 1).to(dev)
+    load_flax_weights(model, WEIGHTS / "recognizer.msgpack")
+    recipe = dict(record["recipe"])
+    size = recipe.pop("batch")
+    glyphs = GlyphSet(charset=WYLIE_CHARSET_FULL, **FULL_GLYPHS)
+    mesh = make_mesh(devices=[dev] * 2)
+    lr = record["optimizer"]["learning_rate"]
+    runs = {}
+    with no_tf32(), counted_path(results, "mesh_train"):
+        batch = recognizer_batch(np.random.RandomState(record["seed"]),
+                                 glyphs, WYLIE_CHARSET_FULL, size,
+                                 device=dev, **recipe)
+        for name, m in (("off", None), ("2x1", mesh)):
+            tm = copy.deepcopy(model)
+            opt = make_optimizer(lr, record["optimizer"]["total_steps"], 0)
+            step = make_train_step(tm, opt, m)
+            _, loss = step(model_state(tm, opt).as_tuple(), batch)
+            runs[name] = {"loss": float(loss),
+                          "params": dict(tm.named_parameters()),
+                          "stats": dict(tm.named_buffers())}
+        _, g_off = value_and_grad(copy.deepcopy(model), recognizer_loss(),
+                                  batch)
+        _, g_mesh = MeshGradient(copy.deepcopy(model), mesh)(
+            recognizer_loss(), batch)
+        _, g_fault = DroppedGroup(copy.deepcopy(model), mesh)(
+            recognizer_loss(), batch)
+    off, on = runs["off"], runs["2x1"]
+    diffs = [(on["params"][k] - p).detach().abs()
+             for k, p in off["params"].items()]
+    moved = 2 * lr
+    mean_diff = float(sum(d.sum() for d in diffs)) / sum(
+        d.numel() for d in diffs)
+    stats_ok = all(torch.allclose(on["stats"][k], v, rtol=1e-6, atol=1e-6)
+                   for k, v in off["stats"].items())
+    stats_err = max(float(((on["stats"][k] - v).abs()
+                           / (v.abs() + 1e-6)).max())
+                    for k, v in off["stats"].items())
+    names = list(off["params"])
+
+    def leaf_errors(grads):
+        return {n: float((a - b).norm() / (b.norm() + 1e-30))
+                for n, a, b in zip(names, grads, g_off)}
+
+    sound, fault = leaf_errors(g_mesh), leaf_errors(g_fault)
+    grad_rel = max(sound.values())
+    loss_rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    return {"ok": loss_rel <= 1e-6 and mean_diff <= 1e-3 * moved
+            and stats_ok and grad_rel <= GRAD_LEAF_LIMIT
+            and max(fault.values()) > GRAD_LEAF_LIMIT,
+            "loss": on["loss"], "loss_off": off["loss"],
+            "loss_rel_err": loss_rel,
+            "param_max_diff": max(float(d.max()) for d in diffs),
+            "param_mean_diff": mean_diff, "adam_bound": moved,
+            "stats_within_rtol_1e-6": stats_ok,
+            "stats_max_rel_err": stats_err,
+            "grad_max_rel_err_per_leaf": grad_rel,
+            "grad_worst_leaf": max(sound, key=sound.get),
+            "grad_leaf_limit": GRAD_LEAF_LIMIT,
+            "planted_fault_grad_max_rel_err": max(fault.values()),
+            "planted_fault_grad_min_rel_err": min(fault.values())}
+
+
+@phase("mesh")
+def mesh_phase(results: dict):
+    """More than one device, on this card: a world-size-1 nccl group;
+    float32 page OCR (TF32 off) of the fixture pages and a bench page on a
+    mesh over every visible card, a 2x1 mesh and a 1x2 mesh (head split)
+    of cuda:0, each against --mesh off; one Easter2 step on a 2x1 mesh against mesh=None;
+    bocr --mesh auto against --mesh off, and a --mesh of more cards than
+    the machine has refused naming the count."""
+    from ocr_inference_tpu_torch.cli import cli
+    from ocr_inference_tpu_torch.io.artifacts import write_png
+    from ocr_inference_tpu_torch.parallel.mesh import local_devices, make_mesh
+    from ocr_inference_tpu_torch.parallel.replicas import SplitHead
+
+    checks = {}
+    group = world_of_one()
+    checks["nccl_world_of_one"] = group.pop("ok")
+    pages, _ = fixture()
+    cards = local_devices("cuda")
+    meshes = {"cards": make_mesh(devices=cards),
+              "2x1": make_mesh(devices=[MESH_CARD] * 2),
+              "1x2": make_mesh(devices=[MESH_CARD] * 2, model_parallel=2)}
+    # the fixture pages (3-4 tiles: one group detects), and a bench.py
+    # config 4 page (24 tiles and about 60 lines: every group of the 2x1
+    # mesh detects and reads)
+    pages = pages + [("bench_42", bench_page(42), None)]
+    with no_tf32():
+        off = full77f_pipeline(torch.float32)
+        mesh_pages(off, pages)  # warm-up: cuDNN plans, allocator
+        want, off_ms = mesh_pages(off, pages)
+        del off
+        page_ms = {"off": off_ms}
+        for name, mesh in meshes.items():
+            pipe = full77f_pipeline(torch.float32, mesh=mesh)
+            with counted_path(results, f"mesh_page/{name}"):
+                got, _ = mesh_pages(pipe, pages)
+            _, page_ms[name] = mesh_pages(pipe, pages)
+            checks[f"{name}_texts_and_boxes_equal_off"] = got == want
+            if name == "1x2":
+                checks["1x2_head_split"] = isinstance(
+                    pipe.ocr_inference._replicas[0].Conv_0, SplitHead)
+            del pipe
+    train = mesh_train_step(results)
+    checks["train_2x1_equal_off"] = train.pop("ok")
+
+    with tempfile.TemporaryDirectory() as tmp, no_tf32():
+        root = Path(tmp)
+        model, lines = write_model_dirs(root)
+        page_dir = root / "pages"
+        page_dir.mkdir()
+        for name, img, _ in pages[:3]:
+            write_png(page_dir / f"{name}.png", img[..., ::-1])
+
+        def args(out, spec):
+            return ["--model", str(model), "--folder", str(page_dir),
+                    "--output", str(root / out), "--line-model", str(lines),
+                    "--encoding", "wylie", "--dtype", "float32",
+                    "--mesh", spec]
+
+        rc_off = cli.main(args("off", "off"))
+        checks["bocr_mesh_auto_is_every_card"] = cli.build_mesh(
+            "auto", "cuda").shape == {"data": len(cards), "model": 1}
+        with counted_path(results, "mesh_cli"):
+            rc_auto = cli.main(args("auto", "auto"))
+        texts_equal = all(
+            (root / "auto" / f"{n}.txt").read_text(encoding="utf-8")
+            == (root / "off" / f"{n}.txt").read_text(encoding="utf-8")
+            for n, _, _ in pages[:3])
+        checks["bocr_mesh_auto_equal_off"] = (rc_off == 0 and rc_auto == 0
+                                              and texts_equal)
+        too_many = len(cards) + 1
+        try:
+            cli.main(args("many", str(too_many)))
+            refusal = "no exit"
+        except SystemExit as e:
+            refusal = str(e.code)
+        checks["too_many_cards_refused"] = (
+            f"this machine has {len(cards)}" in refusal
+            and not (root / "many").exists())
+    return {"_ok": all(checks.values()), "checks": checks,
+            "device_count": torch.cuda.device_count(),
+            "nccl": group, "page_ms": page_ms,
+            "mesh_shapes": {k: m.shape for k, m in meshes.items()},
+            "train": train, "refusal": refusal,
+            "launches": {p: results["launches"][p] for p in (
+                *(f"mesh_page/{k}" for k in meshes), "mesh_train",
+                "mesh_cli")},
+            "gpu": gpu_name_and_limit()}
+
+
 def onnx_phases(results: dict) -> None:
     """The five ONNX phases over one temporary directory of exports."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -3720,7 +3985,8 @@ MAIN_PATHS = ("page_ocr_bf16", "volume_bf16", "dewarp_volume_bf16",
               *(f"recognizers_bf16/{arch}" for arch in RECOGNIZERS),
               "bocr_formats", "bocr_lines", "train_rec_f32", "train_seg_f32",
               "selftrain", "onnx_page_f32", "onnx_volume", "onnx_cli",
-              "public_api", "examples")
+              "public_api", "examples", "mesh_page/cards",
+              "mesh_page/2x1", "mesh_page/1x2", "mesh_train", "mesh_cli")
 # the counted paths that run only some of the kernels: the eval CLI's
 # lines are binarized whole and recognized, no page is detected;
 # bocr-lines detects and reads no line; the recognizer's training batches
@@ -3732,6 +3998,7 @@ PATH_KERNELS = {"eval_cli": ("binarize_lines",),
                 "bocr_lines": ("binarize_tiles",),
                 "public_api": ("binarize_tiles",),
                 "train_rec_f32": ("binarize_lines",),
+                "mesh_train": ("binarize_lines",),
                 "train_seg_f32": ("binarize_tiles",)}
 
 
@@ -3840,6 +4107,7 @@ def main() -> int:
         train_rates(results)
         onnx_phases(results)
         public_api(results)
+        mesh_phase(results)
     if FAILED:
         print(f"chip_smoke: failed phases {FAILED}", file=sys.stderr)
         return 1

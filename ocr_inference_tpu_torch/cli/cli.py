@@ -15,8 +15,11 @@ Differences from the JAX CLI:
   cv2.imread reads them): a ``--image`` or ``--folder`` holding a format or
   variant it does not decode (BMP, WebP, an arithmetic-coded JPEG, ...)
   exits non-zero, naming the files and why, before any model is loaded;
-- ``--mesh`` other than ``off`` exits with an error: multi-card runs are
-  not ported yet (ROADMAP item 9);
+- ``--mesh`` builds the mesh from the devices of ``--device``'s type: a
+  count the cards cannot give exits naming it (the JAX CLI falls back to
+  a virtual CPU mesh, cli.py:177-182); on the CPU a mesh of N repeats the
+  one CPU device torch has. Across processes each builds its share of
+  the mesh from its own devices (``build_mesh``);
 - a CUDA error ends the run with a traceback and a non-zero exit instead
   of failing the page.
 
@@ -46,6 +49,13 @@ from ocr_inference_tpu_torch.core.data import ArtifactConfig, Encoding
 from ocr_inference_tpu_torch.io.artifacts import ArtifactManager, AuditLogger
 from ocr_inference_tpu_torch.io.exporter import TextExporter
 from ocr_inference_tpu_torch.io.images import read_image, unsupported
+from ocr_inference_tpu_torch.parallel.mesh import (
+    distributed_init,
+    host_shard,
+    local_devices,
+    make_mesh,
+    process_count,
+)
 from ocr_inference_tpu_torch.pipeline.builder import (
     build_pipeline,
     default_layout_config,
@@ -123,7 +133,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--mesh", default="off",
-        help="Device mesh; only 'off' (one card) is supported",
+        help="Device mesh: 'off' (single device), 'auto' (all devices), an "
+             "explicit device count, or 'DxM' (data x model, e.g. '4x2') "
+             "for tensor-parallel recognizer heads. Batches of tiles and "
+             "lines are sharded over the data axis; the recognizer's vocab "
+             "head over the model axis.",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -160,6 +174,50 @@ def _line_config(args):
     return read_layout_model_config(line_model)
 
 
+def build_mesh(spec: str, device: str):
+    """``--mesh`` -> this process's mesh, or None for ``off``
+    (cli.py:163-184): joins the process group the cluster variables name
+    (``distributed_init``), then takes devices of ``device``'s type. A
+    count (N, or D x M) counts the devices of every process, as
+    ``jax.devices()`` does: each of P processes takes N / P of its own (D
+    / P data groups of M); ``auto`` takes all of its own. On the CPU a
+    mesh of N repeats torch's one CPU device; a count of cards the
+    machine lacks exits naming it. The mesh is printed when it spans more
+    than one device, as the JAX CLI prints the mesh it builds."""
+    if spec == "off":
+        return None
+    kind = torch.device(device).type
+    distributed_init(device)
+    nproc = process_count()
+    mp = 1
+    if spec == "auto":
+        n = None
+    elif "x" in spec:
+        d, m = spec.lower().split("x", 1)
+        n, mp = int(d) * int(m), int(m)
+    else:
+        n = int(spec)
+    each = ""
+    if n is not None and nproc > 1:
+        if n % (nproc * mp):
+            sys.exit(f"--mesh {spec} does not split over {nproc} processes")
+        n //= nproc
+        each = f" in each of {nproc} processes"
+    if kind == "cpu":
+        devices = local_devices(kind) * (n or 1)
+    else:
+        devices = local_devices(kind)
+        if n is not None and len(devices) < n:
+            sys.exit(f"--mesh {spec} needs {n} {kind} devices{each}; this "
+                     f"machine has {len(devices)}")
+    mesh = make_mesh(n_devices=n, devices=devices, model_parallel=mp)
+    if mesh.devices.size * nproc > 1:
+        shape = dict(mesh.shape)
+        shape["data"] *= nproc
+        print(f"Device mesh: {shape}")
+    return mesh
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
@@ -167,9 +225,7 @@ def main(argv=None):
         sys.exit("--image and --folder cannot be used together.")
     if not args.image and not args.folder:
         sys.exit("You must specify either --image or --folder.")
-    if args.mesh != "off":
-        sys.exit(f"--mesh {args.mesh}: multi-card runs are not ported yet "
-                 "(ROADMAP item 9); run with --mesh off")
+    mesh = build_mesh(args.mesh, args.device)
 
     # Collect images (reference: cli.py:71-78) and refuse the formats the
     # port cannot read before any model is loaded
@@ -180,6 +236,9 @@ def main(argv=None):
             for ext in IMAGE_EXTENSIONS
             for p in glob.glob(os.path.join(args.folder, ext))
         )
+        if process_count() > 1:
+            # per-host input sharding across processes (cli.py:209-216)
+            image_paths = host_shard(image_paths)
     else:
         image_paths = [args.image]
     refused = [(p, why) for p in image_paths if (why := unsupported(p))]
@@ -207,6 +266,7 @@ def main(argv=None):
         device=args.device,
         allow_random=args.allow_random_weights,
         seed=args.seed,
+        mesh=mesh,
     )
     target_encoding = (
         Encoding.UNICODE if args.encoding == "unicode" else Encoding.WYLIE

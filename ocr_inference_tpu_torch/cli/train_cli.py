@@ -13,9 +13,10 @@ As in the JAX CLI, the canvases are gray scaled to ``/127.5 - 1`` and not
 binarized (inference binarizes them), the model trains in float32, and
 the batch indices come from ``np.random.default_rng(0)``. Differences:
 ``--device`` (default ``cuda``; without a card it raises unless ``cpu`` is
-given), images are read with io/images.py ``read_image``, the training
-runs on one device (no mesh), and a fresh model starts from the port's
-seeded weights (models/params.py ``init_recognizer``), not JAX's PRNG.
+given), images are read with io/images.py ``read_image``, the mesh is
+over the devices of ``--device``'s type (one CPU device: no mesh), and a
+fresh model starts from the port's seeded weights (models/params.py
+``init_recognizer``), not JAX's PRNG.
 """
 
 from __future__ import annotations
@@ -102,6 +103,7 @@ def main(argv=None):
 
     from ocr_inference_tpu_torch.core.assets import read_ocr_model_config
     from ocr_inference_tpu_torch.device import resolve_device
+    from ocr_inference_tpu_torch.parallel.mesh import local_devices, make_mesh
     from ocr_inference_tpu_torch.models.params import load_params, save_params
     from ocr_inference_tpu_torch.models.recognition import build_recognizer
     from ocr_inference_tpu_torch.training import (
@@ -131,8 +133,11 @@ def main(argv=None):
         load_params(model, weights_in)  # in place: the state's tensors
         print(f"resumed from {weights_in}")
 
-    step_fn = make_train_step(model, optimizer)
-    print(f"training on 1 device(s) ({device})")
+    n_dev = len(local_devices(device.type))
+    mesh = make_mesh(devices=local_devices(device.type)) if n_dev > 1 \
+        else None
+    step_fn = make_train_step(model, optimizer, mesh)
+    print(f"training on {n_dev} device(s) ({device.type})")
 
     images_dev = torch.from_numpy(images).to(device)
     labels_dev = torch.from_numpy(labels).to(device)

@@ -16,8 +16,9 @@ config says; the nets train in float32; no sidecar is written. A layout
 config's "background" class is the complement of the labelled masks.
 Differences: ``--device`` (default ``cuda``; without a card it raises
 unless ``cpu`` is given), pages and masks are read with io/images.py
-``read_image`` (a mask's gray as cv2's RGB2GRAY of it), one device (no
-mesh), and the port's seeded initial weights.
+``read_image`` (a mask's gray as cv2's RGB2GRAY of it), the mesh over
+the devices of ``--device``'s type (one CPU device: no mesh), and the
+port's seeded initial weights.
 """
 
 from __future__ import annotations
@@ -140,6 +141,7 @@ def main(argv=None):
         read_line_model_config,
     )
     from ocr_inference_tpu_torch.device import resolve_device
+    from ocr_inference_tpu_torch.parallel.mesh import local_devices, make_mesh
     from ocr_inference_tpu_torch.models.params import save_params
     from ocr_inference_tpu_torch.models.segmentation import (
         DeepLabV3Plus,
@@ -168,9 +170,12 @@ def main(argv=None):
 
     optimizer = make_optimizer(args.lr, total_steps=args.steps)
     state = init_seg_train_state(model, optimizer, config.patch_size)
-    step_fn = make_seg_train_step(model, optimizer,
+    n_dev = len(local_devices(device.type))
+    mesh = make_mesh(devices=local_devices(device.type)) if n_dev > 1 \
+        else None
+    step_fn = make_seg_train_step(model, optimizer, mesh,
                                   dice_weight=args.dice_weight)
-    print(f"training on 1 device(s) ({device})")
+    print(f"training on {n_dev} device(s) ({device.type})")
 
     tiles_dev = torch.from_numpy(tiles).to(device)
     targets_dev = torch.from_numpy(targets).to(device)

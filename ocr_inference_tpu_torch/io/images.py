@@ -461,12 +461,12 @@ def _tiff_first_page(data: bytes) -> tuple[str, dict]:
         # what libtiff's RGBA interface turns into RGB through XYZ
         raise NotImplementedError("CIE L*a*b* TIFF (photometric 8) is not "
                                   "supported")
-    if compression == 4 and tags.get(293, (0,))[0] & 2:
-        raise NotImplementedError("uncompressed mode in Group 4 TIFF is not "
-                                  "supported")
     if compression == 5:
         for off, _ in _tiff_chunks(tags):
-            if data[off: off + 2] == b"\x00\x01":
+            # libtiff's LZWPreDecode: byte 0 zero and bit 0 of byte 1 set
+            # (bits 1-7 hold the low bits of the first LSB-first code)
+            if data[off: off + 1] == b"\x00" and \
+                    data[off + 1: off + 2] and data[off + 1] & 1:
                 raise NotImplementedError("old-style (pre-TIFF 6) LZW is not "
                                           "supported")
     if compression == 7:

@@ -21,6 +21,7 @@ import os
 import subprocess
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -491,7 +492,8 @@ def _tiff_lib() -> ctypes.CDLL:
             "ocr_tiff_packbits": coder,
             "ocr_tiff_fax": (ctypes.c_int64, [
                 _U8P, ctypes.c_int64, _U8P, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int64)]),
             "ocr_tiff_ycbcr": (None, [_U8P, ctypes.c_int64, _I32P, _U8P]),
         })
     return _TIFF_LIB
@@ -527,12 +529,19 @@ def tiff_fax(data: bytes, width: int, rows: int, compression: int,
              g3opts: int, fill_order: int) -> np.ndarray:
     """CCITT-decode one strip or tile (compression 2, 3 or 4) into
     (rows, (width + 7) // 8) packed bits, 1 = black; data that ends early
-    or holds a bad code raises ValueError."""
+    or holds a bad code raises ValueError. A 2-D row that holds an
+    extension code (uncompressed mode, which libtiff does not decode)
+    ends there as libtiff ends it, with a warning naming the count."""
     src = np.frombuffer(data, np.uint8)
     out = np.zeros((rows, (width + 7) // 8), np.uint8)
+    ext = ctypes.c_int64(0)
     n = _tiff_lib().ocr_tiff_fax(src.ctypes.data_as(_U8P), src.size,
                                  out.ctypes.data_as(_U8P), width, rows,
-                                 compression, g3opts, fill_order)
+                                 compression, g3opts, fill_order,
+                                 ctypes.byref(ext))
+    if ext.value:
+        warnings.warn(f"CCITT data holds {ext.value} uncompressed-mode "
+                      "extension code(s), not decoded: each ends its row")
     if n != rows:
         raise ValueError(f"CCITT data ends at row {n} of {rows}")
     return out

@@ -186,9 +186,34 @@ bool row_1d(Bits& b, int width, std::vector<int>& ch) {
     return true;
 }
 
+enum Row { ROW_BAD, ROW_OK, ROW_EXT };
+
+// An extension code (uncompressed mode, T.4 4.2.2.1) ends the row as
+// tif_fax3.h EXPAND2D does at S_Ext, which tif_fax3.c reports and does
+// not decode: a run of the current colour of lastx - a0 from the last
+// change (a pass mode's pending run R left out of it), R as the next
+// run, then CLEANUP_RUNS's padding (a zero run to even the count, and
+// lastx - a0 more), every change clamped to the row as
+// _TIFFFax3fillruns clamps the runs it fills. The 7 code bits are
+// consumed, and the next row starts after them.
+void row_ext(int a0, int width, std::vector<int>& ch) {
+    a0 = std::max(a0, 0);
+    int pos = ch.empty() ? 0 : ch.back();
+    int pending = a0 - pos;
+    pos += width - a0;
+    ch.push_back(pos);
+    if (pending) {
+        pos += pending;
+        ch.push_back(pos);
+    }
+    if (ch.size() & 1) ch.push_back(pos);
+    ch.push_back(pos + width - a0);
+    for (int& c : ch) c = std::min(c, width);
+}
+
 // a 2-D coded row against the reference row's changing elements
-bool row_2d(Bits& b, int width, const std::vector<int>& ref,
-            std::vector<int>& ch) {
+Row row_2d(Bits& b, int width, const std::vector<int>& ref,
+           std::vector<int>& ch) {
     ch.clear();
     int a0 = -1;
     int color = 0;  // 0 white, 1 black
@@ -212,9 +237,9 @@ bool row_2d(Bits& b, int width, const std::vector<int>& ref,
         case H: {
             int start = a0 < 0 ? 0 : a0;
             int r1 = read_run(b, color == 1);
-            if (r1 < 0) return false;
+            if (r1 < 0) return ROW_BAD;
             int r2 = read_run(b, color == 0);
-            if (r2 < 0) return false;
+            if (r2 < 0) return ROW_BAD;
             int a1 = std::min(start + r1, width);
             int a2 = std::min(a1 + r2, width);
             ch.push_back(a1);
@@ -225,18 +250,22 @@ bool row_2d(Bits& b, int width, const std::vector<int>& ref,
         case V0: case VR1: case VR2: case VR3: case VL1: case VL2: case VL3: {
             static const int delta[] = {0, 0, 0, 1, 2, 3, -1, -2, -3};
             int a1 = b1 + delta[m];
-            if (a1 < 0 || a1 > width || a1 < a0) return false;
+            if (a1 < 0 || a1 > width || a1 < a0) return ROW_BAD;
             ch.push_back(a1);
             a0 = a1;
             color ^= 1;
             break;
         }
+        case EXT:
+            b.skip(7);
+            row_ext(a0, width, ch);
+            return ROW_EXT;
         default:
-            return false;
+            return ROW_BAD;
         }
     }
     if (ch.size() & 1) ch.push_back(width);
-    return true;
+    return ROW_OK;
 }
 
 // T.4 synchronisation: skip to the end of the next EOL (tif_fax3.h
@@ -348,17 +377,19 @@ extern "C" int64_t ocr_tiff_packbits(const uint8_t* in, int64_t n,
 // packed rows of (width + 7) / 8 bytes. compression 2 (modified Huffman,
 // rows byte-aligned), 3 (T.4; g3opts bit 0: 2-D) or 4 (T.6). Returns the
 // rows decoded; a short count means the data ended or held a bad code.
+// *ext counts the 2-D rows an extension code ended (row_ext).
 extern "C" int64_t ocr_tiff_fax(const uint8_t* in, int64_t n, uint8_t* out,
                                 int width, int rows, int compression,
-                                int g3opts, int fill_order) {
+                                int g3opts, int fill_order, int64_t* ext) {
     Bits b{in, n, 0, fill_order == 2};
     const int64_t rb = (width + 7) / 8;
     std::vector<int> ref{width, width}, cur;
     const bool two_d = compression == 3 && (g3opts & 1);
+    *ext = 0;
     for (int y = 0; y < rows; ++y) {
-        bool ok;
+        Row r;
         if (compression == 2) {
-            ok = row_1d(b, width, cur);
+            r = row_1d(b, width, cur) ? ROW_OK : ROW_BAD;
             b.pos = (b.pos + 7) & ~(int64_t)7;  // FAXMODE_BYTEALIGN
         } else if (compression == 3) {
             if (!sync_eol(b)) return y;
@@ -367,11 +398,13 @@ extern "C" int64_t ocr_tiff_fax(const uint8_t* in, int64_t n, uint8_t* out,
                 is1d = b.peek(1);
                 b.skip(1);
             }
-            ok = is1d ? row_1d(b, width, cur) : row_2d(b, width, ref, cur);
+            r = is1d ? (row_1d(b, width, cur) ? ROW_OK : ROW_BAD)
+                     : row_2d(b, width, ref, cur);
         } else {
-            ok = row_2d(b, width, ref, cur);
+            r = row_2d(b, width, ref, cur);
         }
-        if (!ok) return y;
+        if (r == ROW_BAD) return y;
+        *ext += r == ROW_EXT;
         fill_row(cur, width, out + y * rb);
         ref = cur;
         ref.push_back(width);

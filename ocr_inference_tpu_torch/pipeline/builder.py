@@ -20,9 +20,11 @@ A ``LayoutDetectionConfig``, or an architecture whose name starts with
 ``kenlm_config`` gives the recognizer its n-gram LM for eval mode.
 
 The builders take the JAX positional order (builder.py:76, :131, :197);
-the port's ``device`` and ``seed`` come after it. ``mesh`` is accepted
-for that order only: the port has no mesh, and a mesh other than None
-raises NotImplementedError.
+the port's ``device`` and ``seed`` come after it. A ``mesh``
+(parallel/mesh.py ``make_mesh``) goes to both engines, which then split
+their batches over its data axis, the recognizer's head over its model
+axis; the engines live on the mesh's first device, whose type must be
+``device``'s.
 """
 
 from __future__ import annotations
@@ -119,10 +121,17 @@ def _place(model: torch.nn.Module, head: str, dtype: torch.dtype,
     return model.eval()
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the port runs on one card; a device mesh "
-                                  "is not supported")
+def _engine_device(device, mesh) -> torch.device:
+    """``device`` resolved; with a mesh, the mesh's first device, which
+    must be of ``device``'s type."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return dev
+    first = mesh.first_device
+    if first.type != dev.type:
+        raise ValueError(f"a mesh of {first.type} devices for device "
+                         f"{dev}")
+    return resolve_device(first)
 
 
 def build_recognition_engine(
@@ -140,8 +149,7 @@ def build_recognition_engine(
     ``stem_features`` and ``hidden`` come from the weight sidecar's meta
     where it has them (builder.py:101-118); an unknown name raises
     ValueError."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    dev = _engine_device(device, mesh)
     weights = find_weights(config.model_file)
     vocab = len(config.charset) + (1 if config.add_blank else 0)
     if weights is None and _has_onnx(config.model_file):
@@ -150,7 +158,7 @@ def build_recognition_engine(
             config.output_layer, config.swap_hw, config.squeeze_channel,
             vocab, device=dev)
         return RecognitionEngine(module, config, dev, batch_cfg,
-                                 kenlm_config)
+                                 kenlm_config, mesh)
     meta = (load_meta(weights) or {}) if weights is not None else {}
     kwargs = {k: t(meta[k]) for k, t in (
         ("width_mult", float), ("stem_features", int), ("hidden", int))
@@ -160,7 +168,7 @@ def build_recognition_engine(
     _load(model, weights, config.model_file, allow_random, seed,
           f"recognizer ({config.architecture})")
     return RecognitionEngine(_place(model, model._head_name, dtype, dev),
-                             config, dev, batch_cfg, kenlm_config)
+                             config, dev, batch_cfg, kenlm_config, mesh)
 
 
 def build_detection_engine(
@@ -172,14 +180,14 @@ def build_detection_engine(
     seed: int = 0,
 ) -> SegmentationEngine:
     is_layout = isinstance(config, LayoutDetectionConfig)
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    dev = _engine_device(device, mesh)
     weights = find_weights(config.onnx_file)
     mode = "layout" if is_layout else "line"
     if weights is None and _has_onnx(config.onnx_file):
         return SegmentationEngine(
             load_onnx_module(config.onnx_file, "nchw", device=dev), dev,
-            mode=mode, patch_size=config.patch_size, classes=config.classes)
+            mode=mode, patch_size=config.patch_size, classes=config.classes,
+            mesh=mesh)
     arch = config.architecture.lower()
     if not (is_layout or arch.startswith(("unet", "deeplab"))):
         raise NotImplementedError(f"detector {config.architecture}")
@@ -199,7 +207,8 @@ def build_detection_engine(
     model = _place(model, model._head_name, dtype, dev)
     return SegmentationEngine(
         model, dev, mode=mode, patch_size=config.patch_size,
-        classes=config.classes, open_width_frac=0.02 if stem > 1 else 0.0)
+        classes=config.classes, open_width_frac=0.02 if stem > 1 else 0.0,
+        mesh=mesh)
 
 
 def build_pipeline(
@@ -220,7 +229,8 @@ def build_pipeline(
     ``cuda`` and raises without a card unless ``"cpu"`` is given.
     ``kenlm_config`` loads the n-gram LM that eval mode's fused beams and
     ``calibrate_lm`` use. ``allow_random`` gives a model without a weights
-    file the seeded weights of ``seed``."""
+    file the seeded weights of ``seed``. ``mesh`` runs both engines over a
+    device mesh."""
     rec = build_recognition_engine(ocr_config, kenlm_config, batch_cfg,
                                    allow_random, dtype, mesh, device, seed)
     det = build_detection_engine(line_config, allow_random, dtype, mesh,

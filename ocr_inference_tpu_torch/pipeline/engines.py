@@ -1,7 +1,7 @@
 """Device engines: tiled line segmentation and bucketed line recognition.
 
 Counterpart of ocr_inference_tpu/pipeline/engines.py (reference:
-BDRC/inference.py:121-429), without jit caches or mesh.
+BDRC/inference.py:121-429), without jit caches.
 Binarizing runs on the card through the hand-written kernel
 (ops/kernels.py) in both engines — the JAX default path does it on the
 host with cv2 and uploads packed bits; the kernel gives the same bytes.
@@ -29,6 +29,19 @@ Copies between host and card never wait for other work (device.py
 ``upload``, ``PendingHost``). The recognizer runs on its own CUDA stream,
 so a volume's recognition (flush thread) and detection (main thread)
 overlap on the card.
+
+Both engines run over a device mesh (parallel/mesh.py; without one, the
+1x1 mesh of their device) and split their batch over its data axis as
+the JAX engines' sharding constraints do (engines.py:234-245, :452-454,
+:810-829, :886-887, :1112-1115): a tile chunk or line batch rounds up to
+a multiple of the data-axis size and splits into one contiguous block per
+data group; each block goes to its group's first device, is binarized
+there by the kernel and runs on the group's replica
+(``parallel.replicas.group_replicas``; on the 1x1 mesh the model itself),
+and the logits come back to the engine's device for the stitch or the
+greedy decode. A model axis > 1 splits the recognizer's ``Conv_0`` head
+over the group's devices (the JAX engine's ``shard_params_tp``). The
+groups' launches follow one another with no host sync between them.
 """
 
 from __future__ import annotations
@@ -59,7 +72,17 @@ from ocr_inference_tpu_torch.decode.ctc import (
 )
 from ocr_inference_tpu_torch import ops_host
 from ocr_inference_tpu_torch.ops import kernels, packing, tiling
+from ocr_inference_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
+from ocr_inference_tpu_torch.parallel.replicas import group_replicas
 from ocr_inference_tpu_torch.ops.imaging import resize_bilinear, rgb_to_gray
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows after its own up to ``rows``."""
+    if x.shape[0] >= rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],)
+                                     + tuple(x.shape[1:]))])
 
 
 class SegmentationEngine:
@@ -87,11 +110,14 @@ class SegmentationEngine:
         patch_size: int = 512,
         classes: Optional[list[str]] = None,
         open_width_frac: float = 0.0,
+        mesh: Optional[Mesh] = None,
     ):
         if mode not in ("line", "layout"):
             raise ValueError(f"mode must be 'line' or 'layout', got {mode!r}")
         self.model = model
         self.device = device
+        self.mesh = mesh if mesh is not None else make_mesh(devices=[device])
+        self._replicas = group_replicas(self.mesh, model)
         self.mode = mode
         self.patch_size = patch_size
         self.classes = classes or ["line"]
@@ -107,29 +133,47 @@ class SegmentationEngine:
         return (LINE_CLASS_THRESHOLD if self.mode == "line"
                 else LAYOUT_CLASS_THRESHOLD)
 
-    def _run_tiles(self, bw: torch.Tensor) -> torch.Tensor:
-        """Forward binarized (N, p, p) uint8 tiles in chunks: the tile count
+    def _model_call(self, model, bw: torch.Tensor) -> torch.Tensor:
+        """(N, p, p) uint8 binarized tiles -> logits: the model sees each
+        tile as three equal channels in {0.0, 1.0}; one call, or in
+        layout mode calls of LAYOUT_MODEL_BATCH."""
+        x = (bw.to(torch.float32) / 255.0)[:, None].expand(-1, 3, -1, -1)
+        if self.mode == "layout":
+            return torch.cat([model(c)
+                              for c in x.split(self.LAYOUT_MODEL_BATCH)])
+        return model(x)
+
+    def _run_tiles(self, tiles: torch.Tensor) -> torch.Tensor:
+        """Forward the (N, p, p, 3) RGB tiles in chunks: the tile count
         rounded up to a multiple of 8, at most TILE_CHUNK tiles a chunk,
-        zero tiles after the real ones; one model call a chunk, or in
-        layout mode calls of LAYOUT_MODEL_BATCH, the last chunk padded to
-        a whole call only. The model sees each tile as three equal
-        channels in {0.0, 1.0}."""
-        n = bw.shape[0]
+        then to a multiple of the data axis (in layout mode the last
+        chunk to whole calls of every group only); zero tiles after the
+        real ones. Each data group binarizes its block of a chunk with the
+        tile kernel (the reference binarizes per tile,
+        inference.py:132-139) and runs it on its replica, in one model
+        call or in layout mode calls of LAYOUT_MODEL_BATCH; the logits
+        gather on this engine's device."""
+        n = tiles.shape[0]
+        dp = self.mesh.shape[DATA_AXIS]
         chunk = min(-(-n // 8) * 8, self.TILE_CHUNK)
-        per_call = self.LAYOUT_MODEL_BATCH
+        chunk = -(-chunk // dp) * dp
+        per_call = self.LAYOUT_MODEL_BATCH * dp
         outs = []
         for start in range(0, n, chunk):
-            block = bw[start: start + chunk]
+            block = tiles[start: start + chunk]
             real = block.shape[0]
             size = (chunk if self.mode == "line"
                     else -(-real // per_call) * per_call)
-            if real < size:
-                block = F.pad(block, (0, 0, 0, 0, 0, size - real))
-            x = (block.to(torch.float32) / 255.0)[:, None].expand(-1, 3, -1, -1)
-            if self.mode == "layout":
-                y = torch.cat([self.model(c) for c in x.split(per_call)])
-            else:
-                y = self.model(x)
+            # groups past the real tiles have nothing to compute
+            rows = size // dp
+            y = torch.cat([
+                self._model_call(rep, _pad_rows(kernels.binarize_tiles(
+                    block[d * rows: (d + 1) * rows].to(
+                        group[0], non_blocking=True)), rows)
+                ).to(self.device)
+                for d, (rep, group) in enumerate(zip(
+                    self._replicas, self.mesh.groups))
+                if d * rows < real])
             outs.append(y[:real])
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
@@ -144,15 +188,14 @@ class SegmentationEngine:
         return di[0] > 0.5
 
     def _queue_tiles(self, image: np.ndarray):
-        """Upload a page, resize and pad it per its plan, cut it into tiles
-        and binarize each with the tile kernel (the reference binarizes per
-        tile, inference.py:132-139) -> (plan, (N, p, p) uint8 tiles)."""
+        """Upload a page, resize and pad it per its plan and cut it into
+        tiles -> (plan, (N, p, p, 3) uint8 tiles); each data group
+        binarizes its own (``_run_tiles``)."""
         h, w = image.shape[:2]
         plan = tiling.plan_page(h, w, self.patch_size)
         page = upload(image, self.device)
-        tiles = tiling.tile_page(tiling.preprocess_page(page, plan),
-                                 self.patch_size)
-        return plan, kernels.binarize_tiles(tiles)
+        return plan, tiling.tile_page(tiling.preprocess_page(page, plan),
+                                      self.patch_size)
 
     def _post(self, logits: torch.Tensor, plan: tiling.PagePlan,
               threshold: float) -> PendingHost:
@@ -313,10 +356,16 @@ class RecognitionEngine:
         device: torch.device,
         batch_cfg: BatchConfig | None = None,
         kenlm_config: KenLMConfig | None = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.model = model
         self.config = config
         self.device = device
+        self.mesh = mesh if mesh is not None else make_mesh(devices=[device])
+        self._dp = self.mesh.shape[DATA_AXIS]
+        # per data group; a model axis > 1 splits the Conv_0 head over the
+        # group's devices (engines.py:711-718)
+        self._replicas = group_replicas(self.mesh, model, "Conv_0")
         self.batch_cfg = batch_cfg or BatchConfig()
         self.charset = list(config.charset)
         self.ctc_decoder = CTCDecoder(config.charset, config.add_blank)
@@ -332,12 +381,16 @@ class RecognitionEngine:
         # (bucket_width, real_lines, padded_batch) -> calls, over every
         # forward run_batch and the streaming path make (engines.py:733)
         self.occupancy: dict[tuple[int, int, int], int] = {}
-        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                        else None)
+        self._streams = [torch.cuda.Stream(d)
+                         for d in set(self.mesh.devices.flat)
+                         if d.type == "cuda"]
 
     def _on_stream(self):
-        return (torch.cuda.stream(self._stream) if self._stream is not None
-                else contextlib.nullcontext())
+        """The recognizer's own stream on each of its devices."""
+        ctx = contextlib.ExitStack()
+        for stream in self._streams:
+            ctx.enter_context(torch.cuda.stream(stream))
+        return ctx
 
     def _buckets(self) -> tuple[int, ...]:
         w = self.config.input_width
@@ -363,23 +416,36 @@ class RecognitionEngine:
             canvas = rgb_to_gray(canvas)
         return canvas.numpy()
 
-    def _rows(self, padded_b: int) -> int:
-        """Rows a batch of ``padded_b`` runs: a multiple of MODEL_BATCH."""
-        return -(-padded_b // self.MODEL_BATCH) * self.MODEL_BATCH
+    def _logits(self, host: torch.Tensor,
+                real: Optional[int] = None) -> torch.Tensor:
+        """Queue one (B, H, W) uint8 batch, B a multiple of the data axis:
+        each data group takes its contiguous block of B / dp rows (upload
+        to its first device, line binarize kernel, zero rows up to a
+        multiple of MODEL_BATCH, the recognizer in calls of MODEL_BATCH),
+        and the float32 logits gather on the engine's device: those of the
+        groups that hold any of the first ``real`` rows, the rest have
+        nothing to compute."""
+        rows = host.shape[0] // self._dp
+        real = host.shape[0] if real is None else real
+        outs = []
+        for d, (rep, group) in enumerate(zip(self._replicas,
+                                             self.mesh.groups)):
+            if d * rows >= real:
+                break
+            gray = host[d * rows: (d + 1) * rows].to(group[0],
+                                                     non_blocking=True)
+            bw = _pad_rows(kernels.binarize_lines(gray),
+                           -(-rows // self.MODEL_BATCH) * self.MODEL_BATCH)
+            x = bw.to(torch.float32) / 127.5 - 1.0
+            logits = torch.cat([rep(c) for c in x.split(self.MODEL_BATCH)])
+            outs.append(logits[:rows].to(self.device))
+        return torch.cat(outs)
 
-    def _logits(self, host: torch.Tensor) -> torch.Tensor:
-        """Queue one (B, H, W) uint8 batch, B a multiple of MODEL_BATCH:
-        upload, line binarize kernel, the recognizer in calls of MODEL_BATCH ->
-        (B, T, V) float32 logits on the device."""
-        gray = host.to(self.device, non_blocking=True)
-        bw = kernels.binarize_lines(gray)
-        x = bw.to(torch.float32) / 127.5 - 1.0
-        return torch.cat([self.model(c) for c in x.split(self.MODEL_BATCH)])
-
-    def _forward(self, host: torch.Tensor) -> PendingHost:
+    def _forward(self, host: torch.Tensor,
+                 real: Optional[int] = None) -> PendingHost:
         """``_logits``, greedy CTC, and the packed result's copy to the
         host."""
-        return PendingHost(greedy_decode_packed(self._logits(host)))
+        return PendingHost(greedy_decode_packed(self._logits(host, real)))
 
     def _dispatch(self, width: int, canvases: list[np.ndarray],
                   padded_b: int, want_logits: bool = False) -> PendingHost:
@@ -389,15 +455,16 @@ class RecognitionEngine:
         greedy ids (engines.py:789-815, ``logits[: len(idxs)]``)."""
         key = (width, len(canvases), padded_b)
         self.occupancy[key] = self.occupancy.get(key, 0) + 1
-        host = host_buffer((self._rows(padded_b), self.config.input_height,
-                            width), self.device)
+        host = host_buffer((padded_b, self.config.input_height, width),
+                           self.device)
         rows = host.numpy()
         for i, canvas in enumerate(canvases):
             rows[i] = canvas
         rows[len(canvases):] = 0
         if want_logits:
-            return PendingHost(self._logits(host)[: len(canvases)])
-        return self._forward(host)
+            return PendingHost(self._logits(host, len(canvases))
+                               [: len(canvases)])
+        return self._forward(host, len(canvases))
 
     def _texts(self, tokens, pending: PendingHost) -> dict:
         """Wait for one batch's packed ids -> {token: text}."""
@@ -426,7 +493,9 @@ class RecognitionEngine:
                         b *= 2
                 else:
                     b = -(-n // 8) * 8
-                yield (width, min(b, bmax), [idx for idx, _ in chunk],
+                # a batch splits evenly over the data axis
+                b = -(-min(b, bmax) // self._dp) * self._dp
+                yield (width, b, [idx for idx, _ in chunk],
                        [canvas for _, canvas in chunk])
 
     def _prepare_batches(self, line_images: Sequence[np.ndarray],
@@ -627,8 +696,9 @@ class RecognitionEngine:
                 self._dispatch(width, [c for _, c in chunk], padded_b))
 
     def _stream_quantum(self, quantum: Optional[int]) -> int:
-        q = quantum or self.STREAM_QUANTUM
-        return min(q, self.batch_cfg.max_lines_per_batch)
+        q = min(quantum or self.STREAM_QUANTUM,
+                self.batch_cfg.max_lines_per_batch)
+        return -(-q // self._dp) * self._dp  # batches split evenly
 
     @torch.inference_mode()
     def stream_run(
@@ -663,7 +733,8 @@ class RecognitionEngine:
                     b = 1
                     while b < len(chunk):
                         b *= 2
-                    pending.append(self._stream_chunk(width, chunk, min(b, q)))
+                    b = -(-min(b, q) // self._dp) * self._dp
+                    pending.append(self._stream_chunk(width, chunk, b))
         for w in [w for w, lst in state.by_width.items() if not lst]:
             del state.by_width[w]
         out: dict = {}
@@ -684,12 +755,12 @@ class RecognitionEngine:
         batches = {q}
         b = 1
         while b < q:
-            batches.add(b)
+            batches.add(-(-b // self._dp) * self._dp)
             b *= 2
         with self._on_stream():
             pending = [
                 self._forward(host_buffer(
-                    (self._rows(bb), self.config.input_height, width),
+                    (bb, self.config.input_height, width),
                     self.device).zero_())
                 for width in widths for bb in sorted(batches)
             ]

@@ -20,53 +20,68 @@ from ocr_inference_tpu_torch.models.params import (
 )
 from ocr_inference_tpu_torch.training.train import (
     AdamW,
+    Loss,
     TrainState,
-    _no_mesh,
     make_gradient_step,
     model_state,
 )
 
 
-def seg_loss_fn(logits: torch.Tensor, targets: torch.Tensor,
-                dice_weight: float = 1.0) -> torch.Tensor:
-    """(B, P, P, C) logits and targets -> BCE (C = 1; optax's
-    ``sigmoid_binary_cross_entropy``) or softmax cross-entropy (C > 1),
-    averaged per pixel, plus ``dice_weight`` times the soft-dice loss
-    (segmentation.py:25-48)."""
+def seg_loss_parts(logits: torch.Tensor, targets: torch.Tensor) -> list:
+    """(B, P, P, C) logits and targets -> the sums the loss is made of:
+    the per-pixel BCE (C = 1; optax's ``sigmoid_binary_cross_entropy``)
+    or softmax cross-entropy (C > 1) summed over the pixels, the pixel
+    count, and the soft dice's ``sum(probs * tgt)``, ``sum(probs)`` and
+    ``sum(tgt)``."""
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     if logits.shape[-1] == 1:
         x, tgt = logits[..., 0], targets[..., 0]
-        ce = (-tgt * F.logsigmoid(x) - (1.0 - tgt) * F.logsigmoid(-x)).mean()
+        ce = -tgt * F.logsigmoid(x) - (1.0 - tgt) * F.logsigmoid(-x)
         probs = torch.sigmoid(x)
     else:
         tgt = targets
-        ce = (-(tgt * F.log_softmax(logits, dim=-1)).sum(-1)).mean()
+        ce = -(tgt * F.log_softmax(logits, dim=-1)).sum(-1)
         probs = torch.softmax(logits, dim=-1)
-    inter = (probs * tgt).sum()
-    denom = probs.sum() + tgt.sum()
-    dice = 1.0 - (2.0 * inter + 1.0) / (denom + 1.0)
-    return ce + dice_weight * dice
+    return [ce.sum(), ce.new_full((), ce.numel()), (probs * tgt).sum(),
+            probs.sum(), tgt.sum()]
+
+
+def seg_loss_from_parts(parts, dice_weight: float = 1.0) -> torch.Tensor:
+    """The cross-entropy's mean per pixel plus ``dice_weight`` times the
+    soft-dice loss of ``seg_loss_parts`` (segmentation.py:25-48); the
+    dice's sums are the whole batch's."""
+    ce_sum, pixels, inter, probs, tgt = parts
+    dice = 1.0 - (2.0 * inter + 1.0) / (probs + tgt + 1.0)
+    return ce_sum / pixels + dice_weight * dice
+
+
+def seg_loss_fn(logits: torch.Tensor, targets: torch.Tensor,
+                dice_weight: float = 1.0) -> torch.Tensor:
+    """(B, P, P, C) logits and targets -> BCE (C = 1) or softmax
+    cross-entropy (C > 1), averaged per pixel, plus ``dice_weight`` times
+    the soft-dice loss (segmentation.py:25-48)."""
+    return seg_loss_from_parts(seg_loss_parts(logits, targets), dice_weight)
 
 
 def make_seg_train_step(model: torch.nn.Module, optimizer: AdamW, mesh=None,
                         dice_weight: float = 1.0, state_shardings=None,
                         dtype: torch.dtype = torch.float32):
     """step(state_tuple, batch) -> (state_tuple, loss) (segmentation.py:
-    51-100); one card only."""
-    _no_mesh(mesh, state_shardings)
+    51-100); with a ``mesh`` the batch splits over its data axis, and the
+    BatchNorm statistics, the cross-entropy's mean and the dice's sums
+    are the whole batch's."""
     return make_gradient_step(model, optimizer, segmentation_loss(dice_weight),
-                              dtype)
+                              dtype, mesh, state_shardings)
 
 
-def segmentation_loss(dice_weight: float = 1.0):
-    """loss_fn(model, batch) of the segmentation step: the NHWC batch to
-    NCHW for the net, its logits back to NHWC for ``seg_loss_fn``."""
-    def loss_fn(model, batch):
+def segmentation_loss(dice_weight: float = 1.0) -> Loss:
+    """The segmentation step's loss: the NHWC batch to NCHW for the net,
+    its logits back to NHWC for ``seg_loss_parts``."""
+    def parts(model, batch):
         logits = model(batch["images"].permute(0, 3, 1, 2))
-        return seg_loss_fn(logits.permute(0, 2, 3, 1), batch["targets"],
-                           dice_weight)
+        return seg_loss_parts(logits.permute(0, 2, 3, 1), batch["targets"])
 
-    return loss_fn
+    return Loss(parts, lambda p: seg_loss_from_parts(p, dice_weight))
 
 
 def init_seg_train_state(model: torch.nn.Module, optimizer: AdamW,

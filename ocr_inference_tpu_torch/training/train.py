@@ -28,13 +28,23 @@ ocr_inference_tpu/training/train.py.
   refused. ``dtype=torch.bfloat16`` runs the body under autocast over
   float32 parameters, as Flax's ``dtype=bf16`` modules do, with the
   float32 heads outside it.
-
-The port runs on one card: ``mesh`` and ``state_shardings`` must be None.
+- With a ``mesh`` (parallel/mesh.py) the step is the JAX pjit'd step: the
+  batch splits over the data axis, one contiguous block per data group,
+  each group runs a replica of the model on its first device (one thread
+  a group), the BatchNorm statistics and the loss's sums are those of the
+  whole batch (``parallel.replicas``), and the gradient is that of the
+  whole batch's loss, reduced over the groups and, under a process group,
+  across processes. ``state_shardings`` (``tp_shardings`` of the state)
+  splits the head's parameters over the model axis; the clip's global
+  norm reads the whole reduced gradient. Under a process group each
+  process passes its own rows of the global batch, and every process
+  gets the same loss and update.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from dataclasses import dataclass
 
@@ -43,6 +53,19 @@ import torch
 import torch.nn.functional as F
 
 from ocr_inference_tpu_torch.models.params import init_recognizer, load_flax_tree
+from ocr_inference_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    process_count,
+)
+from ocr_inference_tpu_torch.parallel.replicas import (
+    ShardReduction,
+    SplitHead,
+    group_replicas,
+    reduce_batch_norms,
+    run_data_groups,
+)
 
 
 def has_alignment(logit_lengths: torch.Tensor, labels: torch.Tensor,
@@ -92,10 +115,10 @@ def ctc_loss_log_epsilon(log_probs: torch.Tensor, logit_lengths: torch.Tensor,
     return -last.gather(1, label_lengths[:, None]).squeeze(1)
 
 
-def ctc_loss_fn(logits: torch.Tensor, logit_lengths: torch.Tensor,
-                labels: torch.Tensor, label_lengths: torch.Tensor,
-                blank_id: int = 0) -> torch.Tensor:
-    """Mean CTC loss of (B, T, V) logits; labels (B, L) padded with 0 (the
+def ctc_loss_per_seq(logits: torch.Tensor, logit_lengths: torch.Tensor,
+                     labels: torch.Tensor, label_lengths: torch.Tensor,
+                     blank_id: int = 0) -> torch.Tensor:
+    """(B,) CTC loss of (B, T, V) logits; labels (B, L) padded with 0 (the
     blank at index 0, charset ids + 1). Sequences with an alignment take
     ``F.ctc_loss``, those without ``ctc_loss_log_epsilon`` (optax's large
     finite loss), which runs only when the batch holds one."""
@@ -112,7 +135,15 @@ def ctc_loss_fn(logits: torch.Tensor, logit_lengths: torch.Tensor,
         per_seq = per_seq.index_put((rows,), ctc_loss_log_epsilon(
             log_probs[rows], logit_lengths[rows], labels[rows],
             label_lengths[rows], blank_id))
-    return per_seq.mean()
+    return per_seq
+
+
+def ctc_loss_fn(logits: torch.Tensor, logit_lengths: torch.Tensor,
+                labels: torch.Tensor, label_lengths: torch.Tensor,
+                blank_id: int = 0) -> torch.Tensor:
+    """Mean CTC loss of (B, T, V) logits (``ctc_loss_per_seq``)."""
+    return ctc_loss_per_seq(logits, logit_lengths, labels, label_lengths,
+                            blank_id).mean()
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -241,11 +272,19 @@ def model_state(model: torch.nn.Module, optimizer: AdamW) -> TrainState:
                       optimizer.init(list(params.values())), 0)
 
 
-def _no_mesh(mesh, state_shardings=None) -> None:
-    if mesh is not None or state_shardings is not None:
-        raise NotImplementedError("the port trains on one card; a device "
-                                  "mesh and state shardings are not "
-                                  "supported")
+class Loss:
+    """A step's loss as sums over the examples of a batch: ``parts(model,
+    batch)`` gives tensors whose sums over the blocks of a batch are the
+    whole batch's, and ``combine(parts)`` the loss from them. A mesh step
+    adds the parts over the data axis before combining, so a loss that is
+    not a mean of per-example terms (the soft dice) is still the whole
+    batch's. ``loss(model, batch)`` is the one-device loss."""
+
+    def __init__(self, parts, combine):
+        self.parts, self.combine = parts, combine
+
+    def __call__(self, model, batch):
+        return self.combine(self.parts(model, batch))
 
 
 def _gradient_masks(model: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -290,19 +329,140 @@ def value_and_grad(model: torch.nn.Module, loss_fn, batch: dict,
         loss = loss_fn(model, batch)
     names, leaves = zip(*model.named_parameters())
     grads = list(torch.autograd.grad(loss, leaves))
+    return loss.detach(), _masked(model, names, grads)
+
+
+def _masked(model: torch.nn.Module, names, grads: list) -> list:
     masks = _gradient_masks(model)
-    for i, n in enumerate(names):
-        if n in masks:
-            grads[i] = grads[i] * masks[n]
-    return loss.detach(), grads
+    return [g * masks[n] if n in masks else g for n, g in zip(names, grads)]
+
+
+def split_head(mesh: Mesh, state_shardings) -> str | None:
+    """The top-level module whose parameters ``state_shardings`` (a state
+    tuple's shardings, ``tp_shardings`` of its params first) split over
+    the model axis, or None. More than one raises ValueError."""
+    if state_shardings is None or mesh.shape[MODEL_AXIS] == 1:
+        return None
+    params = state_shardings[0]
+    if not isinstance(params, dict):
+        return None
+    tops = {name.split(".")[0] for name, s in params.items()
+            if MODEL_AXIS in getattr(s, "spec", ())}
+    if len(tops) > 1:
+        raise ValueError(f"the port splits one module over the model axis, "
+                         f"got {sorted(tops)}")
+    return tops.pop() if tops else None
+
+
+class MeshGradient:
+    """``value_and_grad`` over a mesh: replicas of ``model`` per data
+    group (their ``head`` split over the model axis when given), synced
+    from the model before each call; the forward of each group's block in
+    lockstep (``parallel.replicas.run_data_groups``); the loss of the
+    whole batch from the groups' summed parts; its gradient summed over
+    the groups and, under a process group, across processes."""
+
+    def __init__(self, model: torch.nn.Module, mesh: Mesh,
+                 head: str | None = None):
+        self.model, self.mesh, self.head = model, mesh, head
+        self.replicas = group_replicas(mesh, model, head, always_copy=True)
+        self._norms = [bn for d, rep in enumerate(self.replicas)
+                       for bn in reduce_batch_norms(rep, d)]
+        if head is not None and not isinstance(
+                getattr(self.replicas[0], head), SplitHead):
+            raise ValueError(f"{head} cannot be split over a model axis "
+                             f"of {mesh.shape[MODEL_AXIS]}")
+
+    def _sync(self) -> None:
+        with torch.no_grad():
+            for rep in self.replicas:
+                for name, p in self.model.named_parameters():
+                    if self.head is None or name.split(".")[0] != self.head:
+                        rep.get_parameter(name).copy_(p)
+                if self.head is not None:
+                    getattr(rep, self.head).load_from(
+                        getattr(self.model, self.head))
+                for name, b in self.model.named_buffers():
+                    rep.get_buffer(name).copy_(b)
+
+    def _blocks(self, batch: dict) -> list[dict]:
+        dp = self.mesh.shape[DATA_AXIS]
+        tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
+        n = next(iter(tensors.values())).shape[0]
+        if n % dp:
+            raise ValueError(f"a batch of {n} does not split over a data "
+                             f"axis of {dp}")
+        return [{k: v.chunk(dp)[d].to(group[0]) for k, v in tensors.items()}
+                for d, group in enumerate(self.mesh.groups)]
+
+    def _grad_of(self, rep, name: str, grads: dict) -> torch.Tensor:
+        top, _, leaf = name.partition(".")
+        if top == self.head:
+            n = len(getattr(rep, top).parts)
+            return torch.cat([grads[f"{top}.parts.{i}.{leaf}"]
+                              for i in range(n)])
+        return grads[name]
+
+    def __call__(self, loss: Loss, batch: dict,
+                 dtype: torch.dtype = torch.float32
+                 ) -> tuple[torch.Tensor, list]:
+        self._sync()
+        blocks = self._blocks(batch)
+        reduction = ShardReduction([g[0] for g in self.mesh.groups])
+        for bn in self._norms:
+            bn.reduction = reduction
+
+        def forward(d: int):
+            rep, dev = self.replicas[d], self.mesh.groups[d][0]
+            rep.train()
+            with autocast(dev, dtype):
+                return loss.parts(rep, blocks[d])
+
+        parts = run_data_groups(
+            [functools.partial(forward, d) for d in range(len(blocks))],
+            reduction)
+        value = reduction.tie(loss.combine(reduction.total(parts)))
+        named = [dict(rep.named_parameters()) for rep in self.replicas]
+        leaves = [p for params in named for p in params.values()]
+        flat = torch.autograd.grad(value / process_count(), leaves,
+                                   allow_unused=True)
+        it = iter(flat)
+        per_rep = [{name: (g if g is not None else torch.zeros_like(p))
+                    for (name, p), g in zip(params.items(), it)}
+                   for params in named]
+        names, grads = [], []
+        for name, p in self.model.named_parameters():
+            names.append(name)
+            grads.append(functools.reduce(torch.add, [
+                self._grad_of(rep, name, g).to(p.device)
+                for rep, g in zip(self.replicas, per_rep)]))
+        if process_count() > 1:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            torch.distributed.all_reduce(flat)
+            grads = [f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads]), grads)]
+        return value.detach().to(next(self.model.parameters()).device), \
+            _masked(self.model, names, grads)
+
+    def take_statistics(self) -> None:
+        """The model's BatchNorm running statistics from the first
+        replica's (every replica computed the same)."""
+        with torch.no_grad():
+            for name, b in self.model.named_buffers():
+                b.copy_(self.replicas[0].get_buffer(name))
 
 
 def make_gradient_step(model: torch.nn.Module, optimizer: AdamW, loss_fn,
-                       dtype: torch.dtype = torch.float32):
+                       dtype: torch.dtype = torch.float32, mesh=None,
+                       state_shardings=None):
     """step(state_tuple, batch) -> (state_tuple, loss) for
     ``loss_fn(model, batch)``: the model's parameters updated in place,
     the tuple's optimizer state and count advanced. A state whose params
-    are not the model's own tensors raises ValueError."""
+    are not the model's own tensors raises ValueError. With a ``mesh``,
+    ``loss_fn`` is a ``Loss`` and the step runs over the mesh
+    (``MeshGradient``)."""
+    grad = None if mesh is None else MeshGradient(
+        model, mesh, split_head(mesh, state_shardings))
 
     def step(state_tuple, batch):
         params, batch_stats, opt_state, step_no = state_tuple
@@ -313,7 +473,11 @@ def make_gradient_step(model: torch.nn.Module, optimizer: AdamW, loss_fn,
                     f"the train state does not hold the model's {name}; "
                     "model_state(model, optimizer) makes one that does")
             leaves.append(p)
-        loss, grads = value_and_grad(model, loss_fn, batch, dtype)
+        if grad is None:
+            loss, grads = value_and_grad(model, loss_fn, batch, dtype)
+        else:
+            loss, grads = grad(loss_fn, batch, dtype)
+            grad.take_statistics()
         updates, opt_state = optimizer.update(grads, opt_state, leaves)
         apply_updates(leaves, updates)
         return (params, batch_stats, opt_state, step_no + 1), loss
@@ -321,17 +485,19 @@ def make_gradient_step(model: torch.nn.Module, optimizer: AdamW, loss_fn,
     return step
 
 
-def recognizer_loss(time_stride: int = 4):
-    """loss_fn(model, batch) of the recognizer's step: CTC over logit
-    lengths ``min(width // time_stride, T)`` (train.py:90-110)."""
-    def loss_fn(model, batch):
+def recognizer_loss(time_stride: int = 4) -> Loss:
+    """The recognizer step's loss: the mean CTC over logit lengths
+    ``min(width // time_stride, T)`` (train.py:90-110), as the sum over
+    the sequences and their count."""
+    def parts(model, batch):
         logits = model(batch["images"])
         lengths = torch.clamp(
             batch["image_widths"].long() // time_stride, max=logits.shape[1])
-        return ctc_loss_fn(logits, lengths, batch["labels"],
-                           batch["label_lengths"])
+        per_seq = ctc_loss_per_seq(logits, lengths, batch["labels"],
+                                   batch["label_lengths"])
+        return [per_seq.sum(), per_seq.new_full((), per_seq.numel())]
 
-    return loss_fn
+    return Loss(parts, lambda p: p[0] / p[1])
 
 
 def make_train_step(model: torch.nn.Module, optimizer: AdamW, mesh=None,
@@ -339,10 +505,9 @@ def make_train_step(model: torch.nn.Module, optimizer: AdamW, mesh=None,
                     dtype: torch.dtype = torch.float32):
     """The recognizer's train step (train.py:76-134). batch: images (B, H,
     W) float in [-1, 1], image_widths (B,), labels (B, L), label_lengths
-    (B,)."""
-    _no_mesh(mesh, state_shardings)
+    (B,). With a ``mesh`` B must split over its data axis."""
     return make_gradient_step(model, optimizer, recognizer_loss(time_stride),
-                              dtype)
+                              dtype, mesh, state_shardings)
 
 
 def init_train_state(model: torch.nn.Module, optimizer: AdamW,

@@ -98,6 +98,113 @@ def lzw(data: bytes) -> bytes:
     return bytes(out)
 
 
+def old_style_lzw(data: bytes) -> bytes:
+    """Old-style (pre-TIFF 6) LZW as libtiff's LZWDecodeCompat reads it:
+    9-bit codes packed LSB first, a clear code, one literal a byte and the
+    end code (at most 253 bytes, so the codes stay 9 bits wide). Byte 0
+    is 0 and bit 0 of byte 1 is set; bits 1-7 of byte 1 hold the first
+    byte's low 7 bits."""
+    assert len(data) <= 253
+    acc = 0
+    codes = [256] + list(data) + [257]
+    for i, code in enumerate(codes):
+        acc |= code << (9 * i)
+    return acc.to_bytes(-(-9 * len(codes) // 8), "little")
+
+
+# ITU-T T.4 terminating codes (runs 0-63), white and black
+_FAX_WHITE = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 "
+    "01000 001000 000011 110100 110101 101010 101011 0100111 0001100 "
+    "0001000 0010111 0000011 0000100 0101000 0101011 0010011 0100100 "
+    "0011000 00000010 00000011 00011010 00011011 00010010 00010011 "
+    "00010100 00010101 00010110 00010111 00101000 00101001 00101010 "
+    "00101011 00101100 00101101 00000100 00000101 00001010 00001011 "
+    "01010010 01010011 01010100 01010101 00100100 00100101 01011000 "
+    "01011001 01011010 01011011 01001010 01001011 00110010 00110011 "
+    "00110100").split()
+_FAX_BLACK = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 "
+    "0000101 0000111 00000100 00000111 000011000 0000010111 0000011000 "
+    "0000001000 00001100111 00001101000 00001101100 00000110111 "
+    "00000101000 00000010111 00000011000 000011001010 000011001011 "
+    "000011001100 000011001101 000001101000 000001101001 000001101010 "
+    "000001101011 000011010010 000011010011 000011010100 000011010101 "
+    "000011010110 000011010111 000001101100 000001101101 000011011010 "
+    "000011011011 000001010100 000001010101 000001010110 000001010111 "
+    "000001100100 000001100101 000001010010 000001010011 000000100100 "
+    "000000110111 000000111000 000000100111 000000101000 000001011000 "
+    "000001011001 000000101011 000000101100 000001011010 000001100110 "
+    "000001100111").split()
+_FAX_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010",
+                 -2: "000010", -3: "0000010"}
+FAX_EXTENSION = "0000001"  # a 2-D extension code, uncompressed mode
+
+
+def _changes(row) -> list[int]:
+    """Changing elements of a row of bools (True = black), from white."""
+    out, colour = [], False
+    for x, v in enumerate(row):
+        if v != colour:
+            out.append(x)
+            colour = v
+    return out
+
+
+def ccitt_2d(ink: np.ndarray, compression: int, ext=None) -> bytes:
+    """A strip of (h, w) bools (True = black, w < 64) coded 2-D: T.6
+    (Group 4, ``compression`` 4) or T.4 with every row 2-D after its EOL
+    (Group 3, 3; T4Options bit 0). ``ext`` {row: k} writes an extension
+    code in place of that row's k-th mode code and drops the rest of the
+    row; the rows after it are coded against the row libtiff makes of it
+    (from the last change, a run of the current colour of w - a0, then a
+    pass mode's pending run in the other colour)."""
+    h, w = ink.shape
+    ext = ext or {}
+    ref = []
+    bits = []
+    for y in range(h):
+        cur = _changes(ink[y]) + [w, w]
+        refw = ref + [w, w]
+        a0, colour, codes, made = -1, 0, [], []
+        while a0 < w:
+            if ext.get(y) == len(codes):
+                codes.append(FAX_EXTENSION)
+                a0 = max(a0, 0)
+                last = made[-1] if made else 0
+                made += [last + w - a0] + ([w] if a0 > last else [])
+                break
+            a1 = next(v for v in cur if v > a0)
+            i1 = next(i for i, v in enumerate(refw)
+                      if v > a0 and i % 2 == colour)
+            b1 = refw[i1]
+            b2 = refw[i1 + 1] if i1 + 1 < len(refw) else w
+            if b2 < a1:
+                codes.append("0001")
+                a0 = b2
+            elif abs(a1 - b1) <= 3:
+                codes.append(_FAX_VERTICAL[a1 - b1])
+                made.append(a1)
+                a0, colour = a1, colour ^ 1
+            else:
+                a2 = next(v for v in cur if v > a1)
+                first, second = ((_FAX_WHITE, _FAX_BLACK) if colour == 0
+                                 else (_FAX_BLACK, _FAX_WHITE))
+                codes.append("001" + first[a1 - max(a0, 0)]
+                             + second[a2 - a1])
+                made += [a1, a2]
+                a0 = a2
+        ref = [min(v, w) for v in made]
+        if compression == 3:
+            bits.append("000000000001" + "0")
+        bits += codes
+    if compression == 3:
+        bits.append("000000000001")
+    s = "".join(bits)
+    s += "0" * (-len(s) % 8)
+    return bytes(int(s[i: i + 8], 2) for i in range(0, len(s), 8))
+
+
 def _compress(raw: bytes, compression: int) -> bytes:
     if compression == 1:
         return raw

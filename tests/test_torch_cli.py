@@ -2,13 +2,17 @@
 against the JAX ``bocr`` (ocr_inference_tpu/cli/cli.py) on the same pages
 and model directory, on the CPU in float32: line-mode texts on PNG pages
 and on the same pages as JPEG and TIFF, the artifact and resume flags; and
-its refusals: pages of a variant the port does not decode (an
-arithmetic-coded JPEG, a BMP), ``--mesh``, and the ``cuda`` default
-without a card."""
+``--mesh`` against ``--mesh off`` and the JAX ``bocr --mesh 2``; and its
+refusals: pages of a variant the port does not decode (an arithmetic-coded
+JPEG, a BMP), a ``--mesh`` of more cards than the machine has, and the
+``cuda`` default without a card."""
 
 import functools
 import json
 import os
+import socket
+import subprocess
+import sys
 from pathlib import Path
 
 import cv2
@@ -238,10 +242,105 @@ def test_pages_cv2_cannot_read_are_skipped_as_jax_cli(job, tmp_path,
     assert got.strip()
 
 
-def test_mesh_is_refused(job, tmp_path):
-    with pytest.raises(SystemExit) as exit_info:
-        _port(job, tmp_path / "o", "--mesh", "2")
-    assert "ROADMAP item 9" in str(exit_info.value.code)
+def test_mesh_is_refused(job, tmp_path, monkeypatch):
+    """--mesh asking for more cards than the machine has exits naming the
+    count, before anything runs on a card; nothing falls back to the CPU
+    (the card count stubbed to 2)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for spec in ("16", "4x4", "3"):
+        with pytest.raises(SystemExit) as exit_info:
+            cli.main(_args(job, tmp_path / "o", "--mesh", spec))
+        assert "this machine has 2" in str(exit_info.value.code)
+    assert not (tmp_path / "o").exists()
+
+
+@pytest.fixture(scope="module")
+def mesh_off(job, tmp_path_factory):
+    out = tmp_path_factory.mktemp("mesh_off")
+    assert _port(job, out) == 0
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_2(job, tmp_path_factory):
+    """The JAX bocr --mesh 2 (a 2x1 mesh of the suite's CPU devices)."""
+    out = tmp_path_factory.mktemp("jax_mesh")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_cli, "build_pipeline",
+                   functools.partial(jax_build, dtype=jnp.float32))
+        assert jax_cli.main(_args(job, out, "--mesh", "2")) == 0
+    return out
+
+
+@pytest.mark.parametrize("spec,shape", [
+    ("2", {"data": 2, "model": 1}), ("2x2", {"data": 2, "model": 2}),
+    ("auto", None)])
+def test_mesh_texts_equal_mesh_off_and_jax(job, tmp_path, capsys, mesh_off,
+                                           jax_mesh_2, spec, shape):
+    """bocr --mesh 2 and 2x2 --device cpu (meshes that repeat the CPU
+    device) read every page as --mesh off and as the JAX bocr --mesh 2;
+    --mesh auto on the CPU's one device runs on a 1x1 mesh and prints
+    none, as the JAX CLI builds none on one device."""
+    assert _port(job, tmp_path / "o", "--mesh", spec) == 0
+    printed = capsys.readouterr().out
+    if shape is None:
+        assert "Device mesh" not in printed
+    else:
+        assert f"Device mesh: {shape}" in printed
+    for i in range(2):
+        got = (tmp_path / "o" / f"page{i}.txt").read_text(encoding="utf-8")
+        assert got.strip()
+        assert got == (mesh_off / f"page{i}.txt").read_text(encoding="utf-8")
+        assert got == (jax_mesh_2 / f"page{i}.txt").read_text(
+            encoding="utf-8")
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def test_mesh_auto_splits_the_folder_across_processes(job, tmp_path,
+                                                      mesh_off):
+    """Two processes joined by a gloo group from the JAX cluster
+    variables, each with one CPU device: bocr --mesh auto counts the
+    devices of both, as jax.devices() does (a mesh of 2 is printed), and
+    each process reads its half of the folder (host_shard): the halves
+    are disjoint, cover every page, and read as --mesh off."""
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")}
+    env["PYTHONPATH"] = str(REPO) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ocr_inference_tpu_torch.cli.cli",
+         *_args(job, tmp_path / f"o{i}", "--device", "cpu", "--dtype",
+                "float32", "--mesh", "auto")],
+        env={**env, "JAX_COORDINATOR_ADDRESS": f"localhost:{port}",
+             "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(i)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=str(REPO))
+        for i in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("a bocr process timed out")
+        assert p.returncode == 0, err.decode(errors="replace")[-3000:]
+        outs.append(out.decode())
+    assert all("Device mesh: {'data': 2, 'model': 1}" in o for o in outs)
+    halves = [{f.name for f in (tmp_path / f"o{i}").glob("*.txt")}
+              for i in range(2)]
+    assert halves == [{"page0.txt"}, {"page1.txt"}]
+    for i, half in enumerate(halves):
+        for name in half:
+            assert (tmp_path / f"o{i}" / name).read_text(encoding="utf-8") \
+                == (mesh_off / name).read_text(encoding="utf-8")
 
 
 def test_cuda_is_the_default_device(job, tmp_path):

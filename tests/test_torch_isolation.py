@@ -39,6 +39,8 @@ def test_port_imports_no_jax_cv2_msgpack_or_jax_package():
         "for m in pkgutil.walk_packages(ocr_inference_tpu_torch.__path__,"
         " 'ocr_inference_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert {'ocr_inference_tpu_torch.parallel.mesh',\n"
+        "        'ocr_inference_tpu_torch.parallel.replicas'} <= set(sys.modules)\n"
     )
     assert _imported(imports) == "FORBIDDEN []"
 
@@ -114,6 +116,10 @@ def test_eval_probe_and_dewarp_import_nothing_forbidden():
         "get_line_image_from_mask\n"
     )
     assert _imported(imports) == "FORBIDDEN []"
+
+
+def test_ab_probe_imports_nothing_forbidden():
+    assert _imported("import probe_ab\n") == "FORBIDDEN []"
 
 
 def test_probe_eval_fails_without_cuda():

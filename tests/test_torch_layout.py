@@ -308,7 +308,7 @@ def test_model_call_sizes(mode, n, calls):
     model = _CallSizes(3 if mode == "layout" else 1)
     engine = SegmentationEngine(model, CPU, mode=mode,
                                 classes=["a", "b", "c"])
-    out = engine._run_tiles(torch.zeros((n, 64, 64), dtype=torch.uint8))
+    out = engine._run_tiles(torch.zeros((n, 64, 64, 3), dtype=torch.uint8))
     assert model.calls == calls and out.shape[0] == n
 
 

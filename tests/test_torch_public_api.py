@@ -19,8 +19,6 @@ JAX_PKG = REPO / "ocr_inference_tpu"
 
 # left out of the port, each with its reason in ROADMAP.md section 3
 NOT_PORTED_MODULES = {
-    "parallel": "more than one card: ROADMAP section 1, item 9",
-    "parallel.mesh": "more than one card: ROADMAP section 1, item 9",
     "ops.pallas_kernels": "its counterpart is ops/kernels.py; the rest "
                           "guards Mosaic compiles",
     "models.torch_twins": "the JAX package's PyTorch validation scaffold",
@@ -90,6 +88,21 @@ def test_every_public_name_resolves_in_the_port(module):
                if (module, n) not in NOT_PORTED_NAMES
                and not hasattr(port, n)]
     assert missing == []
+
+
+def test_parallel_offers_the_jax_mesh_runtime():
+    """The port's ``parallel`` offers every name the JAX
+    ``parallel/__init__.py`` imports, and ``parallel.mesh`` every public
+    name of the JAX ``mesh.py``."""
+    port = importlib.import_module("ocr_inference_tpu_torch.parallel")
+    mesh = importlib.import_module("ocr_inference_tpu_torch.parallel.mesh")
+    init_names = public_names("parallel")
+    mesh_names = public_names("parallel.mesh")
+    assert {"DataParallelRunner", "host_shard", "make_mesh",
+            "distributed_init", "tp_shardings"} <= set(init_names)
+    assert "shard_params_tp" in mesh_names
+    assert [n for n in init_names if not hasattr(port, n)] == []
+    assert [n for n in mesh_names if not hasattr(mesh, n)] == []
 
 
 @pytest.mark.parametrize("module, name", sorted(NOT_PORTED_NAMES))

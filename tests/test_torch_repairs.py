@@ -19,6 +19,7 @@ from ocr_inference_tpu_torch.core import data
 from ocr_inference_tpu_torch.eval import synthetic as S
 from ocr_inference_tpu_torch.geometry import backend as geo
 from ocr_inference_tpu_torch.geometry import lines
+from ocr_inference_tpu_torch.parallel import make_mesh
 from ocr_inference_tpu_torch.pipeline import builder
 from tests.make_torch_port_fixture import OUT, full77f_configs
 
@@ -167,6 +168,11 @@ def test_builder_positional_call_and_mesh_refusal():
     eng = builder.build_detection_engine(line_cfg, False, torch.float32, None,
                                          "cpu")
     assert next(eng.model.parameters()).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the mesh takes its JAX place; one of another device type is refused
+    mesh = make_mesh(devices=["cpu"] * 2)
+    eng = builder.build_detection_engine(line_cfg, False, torch.float32,
+                                         mesh, "cpu")
+    assert eng.mesh is mesh and eng.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="mesh of cuda devices"):
         builder.build_detection_engine(line_cfg, False, torch.float32,
-                                       object(), "cpu")
+                                       make_mesh(devices=["cuda:0"]), "cpu")

@@ -18,7 +18,9 @@ from PIL import Image
 from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
-from tests.image_writers import split_jpeg_tables, write_tiff
+from tests.image_writers import (
+    ccitt_2d, old_style_lzw, split_jpeg_tables, write_tiff,
+)
 
 # (photometric, bits, samples per pixel)
 KINDS = [(1, 8, 1), (0, 8, 1), (1, 1, 1), (0, 1, 1), (1, 16, 1),
@@ -689,3 +691,70 @@ def test_other_refusals_by_name(tmp_path):
         with pytest.raises(NotImplementedError, match=name):
             read_image(path)
         assert unsupported(path) is not None
+
+
+@pytest.mark.parametrize("first", [77, 3, 201, 254])
+def test_old_style_lzw_refused_by_name(tmp_path, first):
+    """An old-style LZW strip is told as libtiff's LZWPreDecode tells it
+    (byte 0 zero, bit 0 of byte 1 set), whatever the first code's low
+    bits put in byte 1 (first pixel 77: bytes 00 9b). cv2 reads the page;
+    the reader refuses it by name, in read_image and unsupported()
+    alike."""
+    rng = np.random.RandomState(first)
+    gray = rng.randint(0, 256, (8, 10)).astype(np.uint8)
+    gray[0, 0] = first
+    strip = old_style_lzw(gray.tobytes())
+    assert strip[0] == 0 and strip[1] & 1
+    path = tmp_path / "old.tif"
+    write_tiff(path, [dict(samples=gray[..., None], bits=8, photometric=1,
+                           compression=5, chunks=[strip])])
+    want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    np.testing.assert_array_equal(want, gray)
+    with pytest.raises(NotImplementedError, match="old-style"):
+        read_image(path)
+    assert "old-style" in unsupported(path)
+
+
+@pytest.mark.parametrize("size", [(40, 70), (64, 96)])
+def test_group4_that_allows_uncompressed_mode(tmp_path, size):
+    """T6Options bit 1 only allows uncompressed mode: PIL's Group 4 strip
+    of a random page, rewritten with tag 293 = 2 and no extension code in
+    it, reads as any Group 4 page, byte-equal with cv2."""
+    ink = np.random.RandomState(size[1]).rand(*size) < 0.3
+    pil = tmp_path / "pil.tif"
+    Image.fromarray((~ink).astype(np.uint8) * 255).convert("1").save(
+        pil, compression="group4")
+    tags = Image.open(pil).tag_v2
+    raw = pil.read_bytes()
+    strips = [raw[o: o + n] for o, n in zip(tags[273], tags[279])]
+    path = tmp_path / "g4.tif"
+    write_tiff(path, [dict(samples=np.zeros(size + (1,), np.uint8), bits=1,
+                           photometric=tags[262], compression=4,
+                           chunks=strips, rows_per_strip=tags[278],
+                           fill_order=tags.get(266, 1), tags={293: 2})])
+    assert unsupported(path) is None
+    _assert_same_as_cv2(path)
+    np.testing.assert_array_equal(read_image(path)[..., 0] == 0, ink)
+
+
+@pytest.mark.parametrize("compression", [3, 4])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ccitt_extension_code(tmp_path, compression, seed):
+    """A 2-D row that holds an extension code (uncompressed mode, which
+    libtiff reports and does not decode) ends there as libtiff's EXPAND2D
+    ends it, after vertical, horizontal and pass modes alike; the next
+    row follows the code's 7 bits (Group 4) or the next EOL (Group 3).
+    Equal to cv2, with a warning."""
+    rng = np.random.RandomState(seed)
+    h, w = 12, int(rng.randint(9, 40))
+    ink = rng.rand(h, w) < 0.35
+    ext = {int(y): int(rng.randint(0, 6))
+           for y in rng.choice(h, 3, replace=False)}
+    path = tmp_path / "ext.tif"
+    write_tiff(path, [dict(samples=np.zeros((h, w, 1), np.uint8), bits=1,
+                           photometric=0, compression=compression,
+                           chunks=[ccitt_2d(ink, compression, ext)],
+                           tags={292 if compression == 3 else 293:
+                                 1 if compression == 3 else 2})])
+    with pytest.warns(UserWarning, match="extension"):
+        _assert_same_as_cv2(path)

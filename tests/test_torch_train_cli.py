@@ -225,6 +225,48 @@ def test_bocr_train_seg_equals_the_jax_step_loop(tmp_path, capsys):
     assert engine.model.stem_stride == 1  # no sidecar: width 32, stem 1
 
 
+def test_training_clis_take_a_mesh_of_the_device_type(line_job, tmp_path,
+                                                      monkeypatch, capsys):
+    """With more than one device of ``--device``'s type (two CPU devices
+    here, stubbed: torch has one) bocr-train and bocr-train-seg train on a
+    2x1 mesh: the losses the mesh=None CLIs log; a batch that does not
+    split over the data axis fails as the JAX step fails."""
+    from ocr_inference_tpu_torch.cli import train_cli, train_seg_cli
+    from ocr_inference_tpu_torch.parallel import mesh as M
+
+    _, model, data = line_job
+    rec = ["--model", str(model), "--data", str(data), "--steps", "2",
+           "--width", "256", "--log-every", "1", "--device", "cpu"]
+    pages = tmp_path / "pages"
+    pages.mkdir()
+    _seg_pages(pages)
+    (pages / "config.json").write_text(json.dumps({
+        "checkpoint": "seg.ckpt", "onnx-model": "seg.onnx",
+        "architecture": "unet", "patch_size": 64, "classes": ["line"]}))
+    seg = ["--config", str(pages / "config.json"), "--data", str(pages),
+           "--steps", "2", "--log-every", "1", "--device", "cpu"]
+    runs = []
+    for cli, args, batch in ((train_cli, rec, 2), (train_seg_cli, seg, 4)):
+        for stub in (False, True):
+            if stub:
+                monkeypatch.setattr(M, "local_devices",
+                                    lambda kind: [torch.device(kind)] * 2)
+            out = tmp_path / f"{cli.__name__}{stub}.msgpack"
+            assert cli.main(args + ["--output", str(out), "--batch-size",
+                                    str(batch)]) == 0
+            printed = capsys.readouterr().out
+            assert f"training on {2 if stub else 1} device(s)" in printed
+            runs.append(_losses(printed))
+            monkeypatch.undo()
+    for off, on in (runs[:2], runs[2:]):
+        _close(on, off)
+    monkeypatch.setattr(M, "local_devices",
+                        lambda kind: [torch.device(kind)] * 2)
+    with pytest.raises(ValueError, match="does not split"):
+        train_cli.main(rec + ["--output", str(tmp_path / "x.msgpack"),
+                              "--batch-size", "3"])
+
+
 def test_load_tiles_derives_the_background_as_jax(tmp_path):
     from ocr_inference_tpu.cli.train_seg_cli import load_tiles as jax_tiles
     from ocr_inference_tpu_torch.cli.train_seg_cli import load_tiles

@@ -64,6 +64,7 @@ from ocr_inference_tpu.training import train as JT
 from ocr_inference_tpu_torch.models import params as P
 from ocr_inference_tpu_torch.models.recognition import build_recognizer
 from ocr_inference_tpu_torch.models.segmentation import DeepLabV3Plus, UNet
+from ocr_inference_tpu_torch.parallel import make_mesh, tp_shardings
 from ocr_inference_tpu_torch.training import segmentation as TS
 from ocr_inference_tpu_torch.training import train as T
 
@@ -615,8 +616,9 @@ def test_the_train_step_has_no_randomness():
 
 def test_train_state_holds_the_models_tensors():
     """The state's params are the model's tensors, which the step updates;
-    the state of another model (even a copy) is refused, as are a mesh and
-    state shardings."""
+    the state of another model (even a copy) is refused, on one device
+    and on a mesh, as are state shardings that split two modules over the
+    model axis."""
     tm, _, _ = _rec_pair("Easter2")
     opt = T.make_optimizer(LR, TOTAL, WARMUP)
     state = T.init_train_state(tm, opt, seed=3)
@@ -630,10 +632,15 @@ def test_train_state_holds_the_models_tensors():
     other = T.model_state(copy.deepcopy(tm), opt).as_tuple()
     with pytest.raises(ValueError, match="does not hold"):
         step(other, _rec_batch())
-    with pytest.raises(NotImplementedError):
-        T.make_train_step(tm, opt, mesh=object())
-    with pytest.raises(NotImplementedError):
-        TS.make_seg_train_step(tm, opt, state_shardings=object())
+    mesh = make_mesh(devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="does not hold"):
+        T.make_train_step(tm, opt, mesh)(other, _rec_batch(batch=2))
+    mesh = make_mesh(devices=["cpu"] * 2, model_parallel=2)
+    split = tp_shardings(mesh, dict(tm.named_parameters()))
+    split["ConvBN1D_3.Conv_0.weight"] = split["Conv_0.weight"]
+    with pytest.raises(ValueError, match="one module"):
+        TS.make_seg_train_step(tm, opt, mesh,
+                               state_shardings=(split, None, None, None))
 
 
 def test_synthetic_batches_equal_jax():
