@@ -126,8 +126,8 @@ for each:
                   count; each page's text equals bf16 run_ocr's), then as
                   a subprocess --resume (skips every page), --line-mode
                   layout --allow-random-weights (exits 0) and a folder
-                  holding an arithmetic-coded JPEG (exits non-zero, naming
-                  it);
+                  holding a JPEG 2000 TIFF named .jpg (exits non-zero,
+                  naming it);
 15. recognizers_f32 — Easter2-Attention, Easter2-Vit and CRNN at full
                   width with the seeded weights of tests/data/torch_port/
                   recognizers.json (build_pipeline's allow_random), float32,
@@ -145,7 +145,7 @@ for each:
                   the float32 texts (no bar);
 17. serve       — bocr-serve (python -m ocr_inference_tpu_torch.cli
                   .serve_cli) as a process with full77f: 8 bench pages as
-                  PNG, an arithmetic-coded JPEG, a malformed line, a blank
+                  PNG, a JPEG 2000 TIFF, a malformed line, a blank
                   line and a request after it; one response per image,
                   boxes equal and texts within 0.5% CER of a bf16
                   VolumeRunner's on the same files, the JPEG refused by
@@ -163,9 +163,12 @@ for each:
                   line's CER within 0.005 of the record's;
 19. image_formats — the committed JPEG, TIFF and Adam7 PNG files of
                   tests/data/torch_port/images through read_image: shape
-                  and sha256 equal to cv2's decode (images.json), decode
-                  ms of each, and a 4-thread pool's decode rate against
-                  one thread; bocr --folder over the page files in float32
+                  and sha256 equal to cv2's decode (images.json; None for
+                  the 12-bit JPEG and the NeXT page of images/none/), the
+                  decode ms of each (damaged CCITT and Deflate strips,
+                  old-style LZW, CIE L*a*b*, ThunderScan, RLE-W, SGI Log,
+                  arithmetic-coded and lossless JPEG among them), and a
+                  4-thread pool's decode rate against one thread; bocr --folder over the page files in float32
                   (TF32 off): texts within 0.5% CER of the JAX float32
                   record, the same line counts and boxes; bocr in bf16 over
                   them, and the per-page loop's pages/s on the files
@@ -1832,14 +1835,14 @@ def cli_phase(results: dict):
             for name, _, _ in pages)
 
         jpeg = page_dir / "scan.jpg"
-        jpeg.write_bytes(arithmetic_jpeg())
+        jpeg.write_bytes(jpeg2000_tiff())
         proc, s = script("--model", str(model), "--folder", str(page_dir),
                          "--output", str(root / "refused"))
         runs["jpeg"] = {"rc": proc.returncode, "s": s,
                         "stderr": proc.stderr[-400:]}
-        checks["arithmetic_jpeg_refused_by_name"] = (
+        checks["jpeg2000_tiff_refused_by_name"] = (
             proc.returncode != 0
-            and "scan.jpg (arithmetic-coded JPEG" in proc.stderr
+            and "scan.jpg (JPEG 2000 in TIFF" in proc.stderr
             and not (root / "refused").exists())
     return {"_ok": all(checks.values()), "checks": checks, "runs": runs,
             "texts_equal": same,
@@ -2120,7 +2123,7 @@ def serve_phase(results: dict):
             paths.append(str(root / f"page{i:02d}.png"))
             write_png(paths[-1], img[..., ::-1])
         jpeg = root / "scan.jpg"
-        jpeg.write_bytes(arithmetic_jpeg())
+        jpeg.write_bytes(jpeg2000_tiff())
         args = ["--model", str(model), "--line-model",
                 str(lines / "config.json"), "--encoding", "wylie"]
         requests = ([json.dumps({"image": p}) for p in paths[:4]]
@@ -2153,9 +2156,9 @@ def serve_phase(results: dict):
              if p in pages])
         checks["cer_vs_volume_runner_le_0.5pct"] = served_cer <= 0.005
         refused = [a for a in answers if a.get("image") == str(jpeg)]
-        checks["arithmetic_jpeg_refused_by_name"] = (
+        checks["jpeg2000_tiff_refused_by_name"] = (
             len(refused) == 1 and refused[0]["status"] == "failed"
-            and "arithmetic-coded JPEG" in refused[0]["error"])
+            and "JPEG 2000 in TIFF" in refused[0]["error"])
         checks["malformed_line_answered"] = any(
             "bad request" in a.get("error", "") for a in answers)
 
@@ -2246,14 +2249,39 @@ def eval_cli_phase(results: dict):
 # -- the image readers, bocr on JPEG/TIFF pages and bocr-lines --
 
 IMAGE_DIR = FIXTURE / "images"
+# the page files of damaged strips and of the TIFF and JPEG variants
+# once refused by name (tests/make_torch_port_fixture.py
+# damaged_and_variant_files)
+REPAIRED_AND_VARIANT_PAGES = (
+    "skew_2deg_g4_damaged.tif", "clean_a_g3_cut.tif",
+    "clean_b_deflate_badcheck.tif", "clean_a_oldlzw.tif",
+    "skew_2deg_lab.tif", "clean_a_arith_prog.jpg", "clean_b_lossless.jpg",
+    "clean_b_thunder.tif", "skew_2deg_rlew.tif", "clean_a_logl.tif",
+    "skew_2deg_logluv.tif")
 
 
-def arithmetic_jpeg() -> bytes:
-    """A fixture JPEG with its SOF0 marker turned into SOF9: by its header
-    an arithmetic-coded JPEG, which read_image refuses by name."""
-    data = bytearray((IMAGE_DIR / "pages" / "clean_a.jpg").read_bytes())
-    data[data.index(b"\xff\xc0") + 1] = 0xC9
-    return bytes(data)
+def tiny_tiff(compression: int) -> bytes:
+    """An 8x8 RGB TIFF of one 192-byte strip (zeros) at offset 122 under
+    the given compression; its IFD's 9 entries at 8: width, height, bits,
+    compression, photometric RGB, strip offset, samples, rows per strip,
+    byte count."""
+    import struct
+
+    entries = [(256, 3, 8), (257, 3, 8), (258, 3, 8), (259, 3, compression),
+               (262, 3, 2), (273, 4, 122), (277, 3, 3), (278, 3, 8),
+               (279, 4, 192)]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHI", tag, typ, 1) + struct.pack(
+            "<HH" if typ == 3 else "<I", *((value, 0) if typ == 3
+                                           else (value,)))
+        for tag, typ, value in entries) + struct.pack("<I", 0)
+    return b"II*\x00" + struct.pack("<I", 8) + ifd + bytes(192)
+
+
+def jpeg2000_tiff() -> bytes:
+    """A TIFF of compression 34712 (JPEG 2000, which libtiff does not
+    know; cv2 gives an all-zero page): read_image refuses it by name."""
+    return tiny_tiff(34712)
 
 
 def decode_ms(path: Path, repeats: int = 5) -> float:
@@ -2303,24 +2331,12 @@ def unreadable_page_skipped(cli, args: list[str], root: Path,
     (cv2's libtiff has no LZMA, so cv2.imread gives None): rc 0, ``Failed
     to load image`` printed for the TIFF, the page's text written."""
     import io
-    import struct
 
     folder = root / "lzma"
     folder.mkdir()
     (folder / page.name).write_bytes(page.read_bytes())
     lzma = folder / "unreadable_lzma.tif"
-    # an 8x8 RGB page in one strip of 192 bytes at offset 122, the IFD's
-    # 9 entries at 8: width, height, bits, compression LZMA (34925),
-    # photometric RGB, strip offset, samples, rows per strip, byte count
-    entries = [(256, 3, 8), (257, 3, 8), (258, 3, 8), (259, 3, 34925),
-               (262, 3, 2), (273, 4, 122), (277, 3, 3), (278, 3, 8),
-               (279, 4, 192)]
-    ifd = struct.pack("<H", len(entries)) + b"".join(
-        struct.pack("<HHI", tag, typ, 1) + struct.pack(
-            "<HH" if typ == 3 else "<I", *((value, 0) if typ == 3
-                                           else (value,)))
-        for tag, typ, value in entries) + struct.pack("<I", 0)
-    lzma.write_bytes(b"II*\x00" + struct.pack("<I", 8) + ifd + bytes(192))
+    lzma.write_bytes(tiny_tiff(34925))  # LZMA
     printed = io.StringIO()
     t0 = time.perf_counter()
     with no_tf32(), contextlib.redirect_stdout(printed):
@@ -2345,9 +2361,12 @@ def image_formats(results: dict):
     boxes); bocr in bf16 (counted), and the per-page loop's pages/s on the
     files against their PNG copies; bocr-lines in float32 (counted): its
     Parquet files, read back with read_result_parquet, equal the JAX
-    bocr-lines rows exactly. The files cover CMYK and smoothed progressive
-    JPEG, JPEG-in-TIFF, YCbCr, CMYK, planar and BigTIFF beside the PNG,
-    JPEG and TIFF of earlier slices. A folder holding an LZMA TIFF (cv2
+    bocr-lines rows exactly. The files cover damaged CCITT and Deflate
+    strips, old-style LZW, CIE L*a*b*, ThunderScan, RLE-W and SGI Log
+    TIFF, arithmetic-coded and lossless JPEG, CMYK and smoothed
+    progressive JPEG, JPEG-in-TIFF, YCbCr, CMYK, planar and BigTIFF beside
+    the PNG, JPEG and TIFF of earlier slices; the 12-bit JPEG and NeXT
+    page of images/none/ give None, as cv2. A folder holding an LZMA TIFF (cv2
     gives None) beside a readable page: bocr exits 0, prints ``Failed to
     load image`` for it and reads the page, as the JAX bocr does."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
@@ -2366,7 +2385,9 @@ def image_formats(results: dict):
         files[rel] = {
             "kind": want["kind"], "bytes": want["bytes"],
             "shape": want["shape"],
-            "equal_cv2": img is not None and list(img.shape) == want["shape"]
+            # images/none/: cv2 gives None
+            "equal_cv2": img is None if want["shape"] is None else
+            img is not None and list(img.shape) == want["shape"]
             and sha256(img) == want["sha256"],
             "decode_ms": decode_ms(IMAGE_DIR / rel)}
     checks["every_file_equals_cv2"] = all(f["equal_cv2"]
@@ -2429,10 +2450,22 @@ def image_formats(results: dict):
         for kind in ("files", "png_copies", "png_copies", "files"):
             runs_s[kind].append(page_loop_s(
                 bf16, page_paths if kind == "files" else png_paths))
-        del bf16
         loop = {f"{k}_s": v for k, v in runs_s.items()}
         loop.update({f"{k}_pages_per_s": len(page_paths) / min(v)
                      for k, v in runs_s.items()})
+        # the same over the pages of the variants and damaged strips read
+        # since the slice that decodes them
+        new = [p for p in page_paths if p.name in REPAIRED_AND_VARIANT_PAGES]
+        new_png = [png_dir / f"{p.name}.png" for p in new]
+        runs_s = {"files": [], "png_copies": []}
+        for kind in ("files", "png_copies", "png_copies", "files"):
+            runs_s[kind].append(page_loop_s(
+                bf16, new if kind == "files" else new_png))
+        del bf16
+        loop["repaired_and_variant_pages"] = {
+            "pages": len(new), **{f"{k}_s": v for k, v in runs_s.items()},
+            **{f"{k}_pages_per_s": len(new) / min(v)
+               for k, v in runs_s.items()}}
 
         t0 = time.perf_counter()
         with no_tf32(), counted_path(results, "bocr_lines"):

@@ -13,7 +13,7 @@ Differences from the JAX CLI:
   ``seeded_variables``);
 - pages are read with io/images.py ``read_image`` (PNG, JPEG, TIFF, as
   cv2.imread reads them): a ``--image`` or ``--folder`` holding a format or
-  variant it does not decode (BMP, WebP, an arithmetic-coded JPEG, ...)
+  variant it does not decode (BMP, WebP, a JPEG 2000 TIFF, ...)
   exits non-zero, naming the files and why, before any model is loaded;
 - ``--mesh`` builds the mesh from the devices of ``--device``'s type: a
   count the cards cannot give exits naming it (the JAX CLI falls back to

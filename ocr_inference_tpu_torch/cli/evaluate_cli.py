@@ -20,7 +20,7 @@ Differences from the JAX CLI:
   port's ``bocr`` has them; without a card the default device raises;
 - line images are read with io/images.py ``read_image`` (PNG, JPEG and
   TIFF, as cv2.imread reads them): a dataset holding a format or variant
-  it does not decode (BMP, WebP, an arithmetic-coded JPEG, ...) exits
+  it does not decode (BMP, WebP, a JPEG 2000 TIFF, ...) exits
   non-zero, naming the files and why, before any model is loaded;
 - the JAX CLI's persistent compilation cache has no counterpart.
 """

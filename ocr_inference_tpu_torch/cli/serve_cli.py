@@ -27,7 +27,7 @@ Differences from the JAX service:
   card the default device raises;
 - pages are read with io/images.py ``read_image`` (PNG, JPEG and TIFF, as
   cv2.imread reads them): a request for a format or variant it does not
-  decode (BMP, WebP, an arithmetic-coded JPEG, ...) is answered with a
+  decode (BMP, WebP, a JPEG 2000 TIFF, ...) is answered with a
   ``failed`` line that names it;
 - a CUDA error ends the session: its last line is a ``failed`` object
   naming the fault (``"fatal": true``) and the process exits 1. CUDA

@@ -12,23 +12,43 @@ here on stdlib ``zlib`` and numpy, with the pixel loops in native code
   gray and palette are expanded to three channels; alpha is dropped, not
   composited; 16-bit samples keep their high byte (libpng's
   ``png_set_strip_16``); gray below 8 bits is scaled to 0..255;
-- JPEG: baseline, extended and progressive Huffman coding, restart
-  intervals, 1, 3 or 4 components at every sampling factor, decoded as
-  libjpeg-turbo 3.1 decodes them for cv2 (native/jpeg.cpp): CMYK, and
-  YCCK turned into CMYK, then RGB as OpenCV converts CMYK; a progressive
-  file whose scans leave low coefficients unsent or short of bits (cut
-  short, or complete) smoothed as libjpeg smooths it; corrupt data as
-  libjpeg treats it;
-- TIFF and BigTIFF: the first page; no compression, PackBits, LZW,
-  Deflate (8 and 32946), CCITT modified Huffman, T.4 and T.6 (Group 4) and
-  JPEG (7: JPEGTables, strips and tiles, YCbCr turned into RGB by libjpeg
-  as libtiff asks it to); strips and tiles, contiguous and planar;
-  horizontal predictor 2; photometric 0-3 at 1, 2, 4, 8 and 16 bits, 5
-  (CMYK, 8-bit, InkSet 1) and 6 (YCbCr, 8-bit, every subsampling libtiff
-  puts, its ReferenceBlackWhite and YCbCrCoefficients), each sample mapped
-  as libtiff's RGBA interface maps it for cv2 (16-bit gray keeps its high
-  byte, 16-bit RGB rounds ``(v + 128) // 257``, unassociated alpha is
-  multiplied in, then alpha is dropped);
+- JPEG: baseline, extended and progressive, Huffman or arithmetic coding
+  (SOF9/SOF10, with DAC conditioning), restart intervals, 1, 3 or 4
+  components at every sampling factor, decoded as libjpeg-turbo 3.1
+  decodes them for cv2 (native/jpeg.cpp): CMYK, and YCCK turned into
+  CMYK, then RGB as OpenCV converts CMYK; a progressive file whose scans
+  leave low coefficients unsent or short of bits (cut short, or complete)
+  smoothed as libjpeg smooths it; corrupt data as libjpeg treats it.
+  Lossless JPEG (SOF3: predictors 1-7, point transform, restarts) of 2-8
+  bits decodes where libjpeg-turbo need not convert its colours for
+  OpenCV: RGB (no JFIF marker, Adobe transform 0 or none) and CMYK; gray,
+  YCbCr and YCCK lossless frames, lossless frames of 9-16 bits,
+  arithmetic-coded lossless (SOF11) and 12-bit DCT frames give None, as
+  OpenCV 5.0 reads only 8-bit samples;
+- TIFF and BigTIFF: the first page; no compression, PackBits, LZW (TIFF 6
+  and old-style codes), Deflate (8 and 32946), CCITT modified Huffman,
+  RLE-W, T.4 and T.6 (Group 4), ThunderScan, SGI LogL and LogLuv (32- and
+  24-bit, mapped as libtiff's RGBA interface asks tif_luv.c to: 8-bit gray
+  or RGB) and JPEG (7: JPEGTables, strips and tiles, YCbCr turned into RGB
+  by libjpeg as libtiff asks it to; the JPEG variants above); strips and
+  tiles, contiguous and planar; horizontal predictor 2; photometric 0-3
+  at 1, 2, 4, 8 and 16 bits, 5 (CMYK, 8-bit, InkSet 1), 6 (YCbCr, 8-bit,
+  every subsampling libtiff puts, its ReferenceBlackWhite and
+  YCbCrCoefficients) and 8 (CIE L*a*b*, 8- and 16-bit, through XYZ to
+  sRGB with tif_color.c's tables and the WhitePoint, D50 by default), each
+  sample mapped as libtiff's RGBA interface maps it for cv2 (16-bit gray
+  keeps its high byte, 16-bit RGB rounds ``(v + 128) // 257``,
+  unassociated alpha is multiplied in, then alpha is dropped);
+- a damaged or cut strip or tile is read as libtiff reads it for cv2's
+  RGBA reader, which reads on past a failed strip: the rows decoded before
+  the fault are kept, what the codec makes of the rest follows libtiff
+  (CCITT: tif_fax3.c's recovery row by row, its run arrays carried from
+  strip to strip, T.4 retried without EOLs from the strip's start; LZW and
+  Deflate: what was decoded before the bad code or check; JPEG: libjpeg's
+  corrupt-data handling), and the buffer past it stays zero (a predictor
+  is then not undone). A strip that is empty or runs past the end of the
+  file, or whose JPEG header libjpeg rejects, fails before any buffer is
+  made: cv2 gives None;
 - EXIF orientation 2-8 is applied as cv2 applies it, from a JPEG's first
   APP1 segment and from a PNG's ``eXIf`` chunk. A TIFF's orientation is
   applied as cv2 5.0 applies it: 4 flips top-bottom; 2 flips each strip or
@@ -36,19 +56,19 @@ here on stdlib ``zlib`` and numpy, with the pixel loops in native code
   top-bottom (so a tiled page's tiles stay in place); 5-8 give None, as
   imread does;
 - a file cv2 cannot read gives ``None``: missing, truncated inside its
-  headers, a bad CRC of a critical PNG chunk, bad zlib or LZW data, and
-  the TIFF variants cv2's libtiff cannot read or map (LZMA, Zstandard,
+  headers, a bad CRC of a critical PNG chunk or bad zlib data in a PNG,
+  and the TIFF variants cv2's libtiff cannot read or map (LZMA, Zstandard,
   WebP, old-style JPEG, PixarLog, JBIG and LERC compression, which it was
   built without; float samples, the floating-point predictor, 32-bit
-  samples, 16-bit CMYK). A JPEG truncated inside its entropy-coded data
-  decodes as libjpeg decodes it: the missing blocks are mid-gray.
+  samples, 16-bit CMYK; 2-bit pages, NeXT's among them, and 4-bit gray).
+  A JPEG truncated inside its entropy-coded data decodes as libjpeg
+  decodes it: the missing blocks are mid-gray.
 
 What cv2 reads and this does not raises ``NotImplementedError`` naming
-it, so that no page is skipped silently: arithmetic-coded, lossless and
-12-bit JPEG, the TIFF codecs NeXT, ThunderScan, CCITT RLE-W and SGI Log,
-a TIFF compression libtiff does not know (JPEG 2000 in TIFF 34712, ...;
-cv2 gives an all-zero page for those), CIE L*a*b* TIFF, old-style LZW,
-and every other format (BMP, WebP, JPEG 2000, GIF, ...).
+it, so that no page is skipped silently: a TIFF compression libtiff does
+not know (JPEG 2000 in TIFF 34712, JPEG XL 50002, any other number; cv2
+gives an all-zero page for those), lossless JPEG with subsampled
+components, and every other format (BMP, WebP, JPEG 2000, GIF, ...).
 ``unsupported(path)`` tells these from the headers, without decoding.
 """
 
@@ -90,29 +110,27 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 # jpeg.cpp's status codes for the variants it does not decode
-_JPEG_VARIANTS = {
-    2: "arithmetic-coded JPEG",
-    3: "lossless JPEG",
-    4: "JPEG with 12- or 16-bit samples",
-}
+_JPEG_VARIANTS = {3: "lossless JPEG with subsampled components"}
 
-# TIFF compressions decoded here
-_TIFF_CODECS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946)
+# TIFF compressions decoded here (NeXT: only at 2 bits, which cv2 5.0
+# does not read; its pages give None)
+_TIFF_CODECS = (1, 2, 3, 4, 5, 7, 8, 32766, 32771, 32773, 32809, 32946,
+                34676, 34677)
 # compressions cv2's libtiff was built without: cv2.imread gives None
 _TIFF_NOT_CONFIGURED = {6: "old-style JPEG", 32909: "PixarLog",
                         34661: "JBIG", 34887: "LERC", 34925: "LZMA",
                         50000: "Zstandard", 50001: "WebP"}
-# compressions cv2 reads that are not decoded here (libtiff's own NeXT,
-# ThunderScan, RLE-W and SGI Log codecs); for a compression libtiff does
-# not know (JPEG 2000 34712, JPEG XL 50002, ...) cv2 gives an all-zero page
+# compressions libtiff does not know (JPEG 2000 34712, JPEG XL 50002, any
+# other number): cv2 gives an all-zero page, and they are refused by name
 _TIFF_COMPRESSION_NAMES = {
-    32766: "NeXT 2-bit RLE TIFF (compression 32766)",
-    32771: "CCITT RLE-W TIFF (compression 32771)",
-    32809: "ThunderScan TIFF (compression 32809)",
-    34676: "SGI LogLuv TIFF (compression 34676)",
-    34677: "SGI LogLuv 24-bit TIFF (compression 34677)",
     34712: "JPEG 2000 in TIFF (compression 34712)",
 }
+# SGI Log photometrics: LogL and LogLuv
+_TIFF_LOGL, _TIFF_LOGLUV = 32844, 32845
+
+# TIFF field types -> bytes a value (TIFFDataWidth)
+_TIFF_WIDTHS = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
+                11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
 
 # TIFF field types -> struct codes (rationals as two LONGs; BigTIFF's
 # LONG8, SLONG8 and IFD8)
@@ -385,20 +403,27 @@ def _decode_jpeg(data: bytes) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _tiff_ifd(data: bytes, order: str, offset: int,
-              big: bool = False) -> dict[int, tuple]:
+              big: bool = False) -> dict:
     """The tags of the IFD at ``offset`` (a BigTIFF's when ``big``: 8-byte
     counts and offsets, 20-byte entries): tag -> tuple of values (bytes
-    for ASCII and UNDEFINED)."""
+    for ASCII and UNDEFINED); and under "space", (the bytes of the header,
+    the IFD and its values held outside the entries, the file's size),
+    which libtiff's byte-count estimate needs."""
     count_code, entry, field = ("Q", 20, 8) if big else ("H", 12, 4)
     count, = struct.unpack_from(order + count_code, data, offset)
     base = offset + struct.calcsize(count_code)
     if base + entry * count > len(data):
         raise _Corrupt("the IFD runs past the end of the file")
-    tags: dict[int, tuple] = {}
+    tags: dict = {}
+    # header, entry count, entries and next-IFD link, then the values
+    # kept outside the entries: what EstimateStripByteCounts leaves out
+    space = (16 + 8 + entry * count + 8) if big else (8 + 2 + 12 * count + 4)
     for i in range(count):
         at = base + entry * i
         tag, typ = struct.unpack_from(order + "HH", data, at)
         n, = struct.unpack_from(order + ("Q" if big else "I"), data, at + 4)
+        width = _TIFF_WIDTHS.get(typ, 0)
+        space += width * n if width * n > field else 0
         code = _TIFF_TYPES.get(typ)
         if code is None:
             continue
@@ -413,15 +438,83 @@ def _tiff_ifd(data: bytes, order: str, offset: int,
             tags[tag] = (data[where: where + n],)
         else:
             tags[tag] = struct.unpack_from(order + code * n, data, where)
+    tags["space"] = (space, len(data))
     return tags
 
 
 def _tiff_chunks(tags: dict) -> list[tuple[int, int]]:
     """(offset, byte count) of every strip or tile, planes one after
-    another."""
+    another, the counts as libtiff's TIFFReadDirectory leaves them: with
+    no byte counts (one strip or tile per plane only), or a single strip
+    whose count looks bad (ByteCountLooksBad), EstimateStripByteCounts
+    makes them up."""
     offsets = tags.get(324) or tags[273]
-    counts = tags.get(325) or tags.get(279) or (1 << 62,) * len(offsets)
+    counts = tags.get(325) or tags.get(279)
+    spp = tags.get(277, (1,))[0]
+    planar = tags.get(284, (1,))[0] == 2
+    if counts is None:
+        if len(offsets) != (spp if planar else 1):
+            raise _Corrupt("no StripByteCounts for several strips")
+    elif not (len(offsets) == 1 and 322 not in tags
+              and _byte_count_looks_bad(tags, offsets[0], counts[0])):
+        return list(zip(offsets, counts))
+    space, filesize = tags["space"]
+    if tags.get(259, (1,))[0] != 1:
+        est = max(filesize - space, 0) // (spp if planar else 1)
+        counts = [est] * len(offsets)
+        if offsets[-1] + est > filesize:
+            counts[-1] = max(filesize - offsets[-1], 0)
+    elif 322 in tags:
+        counts = [_tiff_tile_bytes(tags)] * len(offsets)
+    else:
+        h = tags[257][0]
+        rps = h // max(len(offsets) // (spp if planar else 1), 1)
+        counts = [_tiff_scanline(tags) * rps] * len(offsets)
     return list(zip(offsets, counts))
+
+
+def _tiff_scanline(tags: dict) -> int:
+    """TIFFScanlineSize: the bytes of one row of the image (of one plane
+    when planar)."""
+    spp = tags.get(277, (1,))[0]
+    planar = tags.get(284, (1,))[0] == 2
+    if _tiff_photometric(tags) == 6 and spp == 3 and not planar and \
+            tags.get(259, (1,))[0] != 7:
+        hs, vs = tags.get(530, (2, 2))[:2]
+        block_row = -(-tags[256][0] // hs) * (hs * vs + 2)
+        return (block_row * tags.get(258, (8,))[0] + 7) // 8 // max(vs, 1)
+    bits = tags.get(258, (1,))[0] * (1 if planar else spp)
+    return (tags[256][0] * bits + 7) // 8
+
+
+def _tiff_tile_bytes(tags: dict) -> int:
+    spp = tags.get(277, (1,))[0]
+    planar = tags.get(284, (1,))[0] == 2
+    bits = tags.get(258, (1,))[0] * (1 if planar else spp)
+    return (tags[322][0] * bits + 7) // 8 * tags[323][0]
+
+
+def _byte_count_looks_bad(tags: dict, offset: int, count: int) -> bool:
+    """tif_dirread.c ByteCountLooksBad for a single strip."""
+    if offset == 0:
+        return False
+    if count == 0:
+        return True
+    if tags.get(259, (1,))[0] != 1:
+        return False
+    filesize = tags["space"][1]
+    if offset <= filesize and count > filesize - offset:
+        return True
+    return count < _tiff_scanline(tags) * tags[257][0]
+
+
+def _tiff_chunk(data: bytes, offset: int, count: int) -> bytes:
+    """A strip or tile's bytes. One that is empty or runs past the end of
+    the file fails libtiff's TIFFFillStrip (the file is mapped), before any
+    buffer is made: TIFFReadRGBAStrip fails, and cv2 gives None."""
+    if count == 0 or count > len(data) or offset > len(data) - count:
+        raise _Corrupt("a strip or tile outside the file")
+    return data[offset: offset + count]
 
 
 def _tiff_photometric(tags: dict) -> int:
@@ -456,51 +549,54 @@ def _tiff_first_page(data: bytes) -> tuple[str, dict]:
             _TIFF_COMPRESSION_NAMES.get(
                 compression, f"TIFF compression {compression}")
             + " is not supported")
-    if _tiff_photometric(tags) == 8 and tags.get(277, (1,))[0] == 3 \
-            and tags.get(258, (1,))[0] in (8, 16):
-        # what libtiff's RGBA interface turns into RGB through XYZ
-        raise NotImplementedError("CIE L*a*b* TIFF (photometric 8) is not "
-                                  "supported")
-    if compression == 5:
-        for off, _ in _tiff_chunks(tags):
-            # libtiff's LZWPreDecode: byte 0 zero and bit 0 of byte 1 set
-            # (bits 1-7 hold the low bits of the first LSB-first code)
-            if data[off: off + 1] == b"\x00" and \
-                    data[off + 1: off + 2] and data[off + 1] & 1:
-                raise NotImplementedError("old-style (pre-TIFF 6) LZW is not "
-                                          "supported")
     if compression == 7:
+        rgb = int(_tiff_photometric(tags) == 6 and not (
+            tags.get(284, (1,))[0] == 2 and tags.get(277, (1,))[0] > 1))
         with native.JpegTiffTables(tags.get(347, (b"",))[0]) as tables:
             for off, cnt in _tiff_chunks(tags) if not tables.status else ():
-                rc = tables.header(data[off: off + cnt])[0]
-                if rc in (2, 3):
+                rc = tables.header(data[off: off + cnt], color=rgb)[0]
+                if rc in _JPEG_VARIANTS:
                     raise NotImplementedError(
                         f"{_JPEG_VARIANTS[rc]} in TIFF is not supported")
     return order, tags
 
 
 def _tiff_unpack(compression: int, chunk: bytes, size: int, width: int,
-                 rows: int, tags: dict, jpeg=None) -> np.ndarray:
-    """One strip or tile's bytes, decompressed to ``size`` bytes (zero
-    padded where the data is short, as libtiff leaves the buffer)."""
+                 rows: int, tags: dict, jpeg=None, lzw: str = "lzw",
+                 odd: bool = False, fax: dict | None = None
+                 ) -> tuple[np.ndarray, bool]:
+    """One strip or tile's bytes decompressed to the ``size`` bytes
+    libtiff leaves in its buffer, and whether its codec succeeded. Data
+    that ends early or goes bad keeps what was decoded before the fault,
+    as libtiff's RGBA interface keeps it for cv2 (it reads on past a
+    failed strip); the rest stays zero. ``lzw`` is "lzw-old" for the
+    pre-TIFF 6 codes; ``odd``, the data's file offset is odd (RLE-W);
+    ``fax``, the page's CCITT state (native.tiff_fax ``state``)."""
     if compression == 1:
-        out = np.frombuffer(chunk[:size], np.uint8)
-    elif compression in (8, 32946):
-        out = np.frombuffer(zlib.decompressobj().decompress(chunk, size),
-                            np.uint8)
-    elif compression == 5:
-        out = native.tiff_unpack("lzw", chunk, size)
-    elif compression == 32773:
-        out = native.tiff_unpack("packbits", chunk, size)
-    elif compression == 7:
-        return jpeg.decode(chunk, width, rows).reshape(-1)
-    else:  # CCITT 2, 3 or 4
-        opts = tags.get(292 if compression == 3 else 293, (0,))[0]
-        return native.tiff_fax(chunk, width, rows, compression, opts,
-                               tags.get(266, (1,))[0]).reshape(-1)
-    if out.size < size:
-        out = np.concatenate([out, np.zeros(size - out.size, np.uint8)])
-    return out
+        # DumpModeDecode copies nothing from a strip shorter than it needs
+        ok = len(chunk) >= size
+        out = np.frombuffer(chunk[:size], np.uint8) if ok \
+            else np.zeros(size, np.uint8)
+        return out, ok
+    if compression in (8, 32946):
+        return native.tiff_unpack("inflate", chunk, size)
+    if compression == 5:
+        return native.tiff_unpack(lzw, chunk, size)
+    if compression == 32773:
+        return native.tiff_unpack("packbits", chunk, size)
+    if compression == 7:
+        return jpeg.decode(chunk, width, rows).reshape(-1), True
+    if compression in (32809, 34676, 34677):
+        method = "thunder" if compression == 32809 else "logluv24" \
+            if compression == 34677 else "logluv" \
+            if _tiff_photometric(tags) == _TIFF_LOGLUV else "logl"
+        out, ok = native.tiff_rows(method, chunk, width, rows)
+        return out.reshape(-1), ok
+    # CCITT 2, 3, 4 or RLE-W
+    opts = tags.get(292 if compression == 3 else 293, (0,))[0]
+    return native.tiff_fax(chunk, width, rows, compression, opts,
+                           tags.get(266, (1,))[0], odd, fax).reshape(-1), \
+        True
 
 
 class _TiffJpeg:
@@ -508,7 +604,8 @@ class _TiffJpeg:
     JPEGTables stream first, YCbCr turned into RGB for a contiguous YCbCr
     page (JPEGCOLORMODE RGB) and the components kept as decoded otherwise,
     the stream's size and sampling checked against the strip's (a last
-    strip whose stream holds the full RowsPerStrip is cut)."""
+    strip whose stream holds the full RowsPerStrip is cut; a smaller
+    stream fills the start of the strip)."""
 
     def __init__(self, tables: native.JpegTiffTables, tags: dict, h: int,
                  components: int, rgb: bool, sampling: tuple[int, int]):
@@ -521,13 +618,14 @@ class _TiffJpeg:
     def decode(self, chunk: bytes, width: int, rows: int) -> np.ndarray:
         last = not self.tiled and self.y + rows >= self.h
         self.y += rows
-        rc, (sw, sh, nc, h0, v0, rest_1x1) = self.tables.header(chunk)
+        rc, (sw, sh, nc, h0, v0, rest_1x1) = self.tables.header(
+            chunk, color=int(self.rgb))
         if rc:
             raise _Corrupt("JPEG data libtiff cannot read")
         cut = 0
         if sw == width and sh > rows and last:
             cut = rows
-        elif sw != width or sh != rows:
+        elif sw > width or sh > rows:
             raise _Corrupt(f"a {sw}x{sh} JPEG stream in a {width}x{rows} "
                            "strip or tile")
         if nc != self.components or (h0, v0) != self.sampling \
@@ -537,6 +635,12 @@ class _TiffJpeg:
         rc, img = self.tables.decode(chunk, 1 if self.rgb else 0, cut)
         if rc:
             raise _Corrupt("JPEG data libtiff cannot read")
+        if img.shape[:2] != (rows, width):
+            # a smaller stream (JPEGPreDecode only warns): its rows fill
+            # the start of the strip's rows, the rest stays zero
+            out = np.zeros((rows, width, img.shape[2]), np.uint8)
+            out[: img.shape[0], : img.shape[1]] = img[:rows]
+            img = out
         return img
 
 
@@ -551,6 +655,18 @@ def _undo_predictor(block: np.ndarray, bits: int, spp: int,
     summed = np.cumsum(samples, axis=1, dtype=samples.dtype)
     return summed.astype(samples.dtype).reshape(block.shape[0], -1) \
         .view(np.uint8)
+
+
+def _lzw_method(data: bytes, tags: dict) -> str:
+    """tiff_unpack's LZW method for a page: libtiff's LZWPreDecode picks
+    the old-style decoder when the first strip decoded starts with a zero
+    byte and a byte whose bit 0 is set, and keeps it for every strip."""
+    off, cnt = _tiff_chunks(tags)[0]
+    head = data[off: off + min(cnt, 2)]
+    if tags.get(266, (1,))[0] == 2:  # libtiff reverses the bits first
+        head = bytes(_REVERSED_BITS[np.frombuffer(head, np.uint8)])
+    return "lzw-old" if len(head) == 2 and head[0] == 0 and head[1] & 1 \
+        else "lzw"
 
 
 def _tiff_raw(data: bytes, tags: dict, w: int, h: int, bits: int, spp: int,
@@ -569,20 +685,21 @@ def _tiff_raw(data: bytes, tags: dict, w: int, h: int, bits: int, spp: int,
     if predictor not in (1, 2):
         raise _Corrupt(f"predictor {predictor} on integer samples")
 
-    def unpack(chunk, size, width, rows, stride):
-        block = _tiff_unpack(compression, chunk, size, width, rows, tags,
-                             jpeg)
-        block = block.reshape(rows, stride)
-        return _undo_predictor(block, bits, spp, order) \
-            if predictor == 2 else block
-
     bits_rev = tags.get(266, (1,))[0] == 2 and \
-        compression not in (2, 3, 4, 7)
+        compression not in (2, 3, 4, 7, 32771)
+    lzw = _lzw_method(data, tags)
+    fax: dict = {}
 
-    def chunk(offset, count):
-        blob = data[offset: offset + count]
-        return _REVERSED_BITS[np.frombuffer(blob, np.uint8)].tobytes() \
-            if bits_rev else blob
+    def unpack(offset, count, size, width, rows, stride):
+        blob = _tiff_chunk(data, offset, count)
+        if bits_rev:
+            blob = _REVERSED_BITS[np.frombuffer(blob, np.uint8)].tobytes()
+        block, ok = _tiff_unpack(compression, blob, size, width, rows, tags,
+                                 jpeg, lzw, offset & 1, fax)
+        block = block.reshape(rows, stride)
+        # PredictorDecodeTile undoes the predictor only after a good decode
+        return _undo_predictor(block, bits, spp, order) \
+            if predictor == 2 and ok else block
 
     chunks = _tiff_chunks(tags)
     raw = np.zeros((h, row_bytes), np.uint8)
@@ -596,7 +713,7 @@ def _tiff_raw(data: bytes, tags: dict, w: int, h: int, bits: int, spp: int,
         for i, (off, cnt) in enumerate(
                 chunks[plane * per_plane: (plane + 1) * per_plane]):
             ty, tx = divmod(i, across)
-            tile = unpack(chunk(off, cnt), th * tile_row, tw, th, tile_row)
+            tile = unpack(off, cnt, th * tile_row, tw, th, tile_row)
             y0, x0 = ty * th, tx * tile_row
             rows, cols = min(th, h - y0), min(tile_row, row_bytes - x0)
             raw[y0: y0 + rows, x0: x0 + cols] = tile[:rows, :cols]
@@ -607,8 +724,8 @@ def _tiff_raw(data: bytes, tags: dict, w: int, h: int, bits: int, spp: int,
             chunks[plane * per_plane: (plane + 1) * per_plane]):
         y0 = i * rps
         rows = min(rps, h - y0)
-        raw[y0: y0 + rows] = unpack(chunk(off, cnt), rows * row_bytes, w,
-                                    rows, row_bytes)
+        raw[y0: y0 + rows] = unpack(off, cnt, rows * row_bytes, w, rows,
+                                    row_bytes)
     return raw
 
 
@@ -622,12 +739,13 @@ def _tiff_ycbcr_blocks(data: bytes, tags: dict, w: int, h: int,
     over vs, rounded down); the bytes past that stay zero."""
     block = hs * vs + 2
     out = np.zeros((h, w, 3), np.uint8)
+    lzw = _lzw_method(data, tags)
 
     def put(chunk, y0, x0, rows, cols, span, take):
         across, down = -(-span // hs), -(-rows // vs)
         size = down * across * block
         raw = _tiff_unpack(compression, chunk, min(size, take), span, rows,
-                           tags)[:size]
+                           tags, lzw=lzw)[0][:size]
         raw = np.concatenate([raw, np.zeros(size - raw.size, np.uint8)])
         used = -(-cols // hs)
         if (hs, vs) == (4, 4) and cols < span:
@@ -651,7 +769,7 @@ def _tiff_ycbcr_blocks(data: bytes, tags: dict, w: int, h: int,
         for i, (off, cnt) in enumerate(chunks[: across * -(-h // th)]):
             ty, tx = divmod(i, across)
             y0, x0 = ty * th, tx * tw
-            put(data[off: off + cnt], y0, x0, min(th, h - y0),
+            put(_tiff_chunk(data, off, cnt), y0, x0, min(th, h - y0),
                 min(tw, w - x0), tw, 1 << 62)
         return out
     rps = min(tags.get(278, (h,))[0], h)
@@ -659,7 +777,7 @@ def _tiff_ycbcr_blocks(data: bytes, tags: dict, w: int, h: int,
     for i, (off, cnt) in enumerate(chunks[: -(-h // rps)]):
         y0 = i * rps
         rows = min(rps, h - y0)
-        put(data[off: off + cnt], y0, 0, rows, w, w,
+        put(_tiff_chunk(data, off, cnt), y0, 0, rows, w, w,
             -(-rows // vs) * vs * scanline)
     return out
 
@@ -707,6 +825,24 @@ def _ycbcr_tables(tags: dict) -> tuple[np.ndarray, ...]:
             (d3 * cb + one_half) >> 16, d2 * cr, d4 * cb + one_half)
 
 
+def _lab_white(tags: dict) -> tuple[float, float, float]:
+    """tif_getimage.c initCIELabConversion: the reference white's X0, Y0,
+    Z0 (Y0 100) from the WhitePoint chromaticity (tag 318, read into
+    floats; CIE D50 when absent), in float32 as libtiff computes them."""
+    f32 = np.float32
+    v = tags.get(318)
+    if v is not None and len(v) >= 4:
+        wx, wy = (f32(0.0) if d == 0 else f32(n) / f32(d)
+                  for n, d in ((v[0], v[1]), (v[2], v[3])))
+    else:
+        d50 = f32(96.4250) + f32(100.0) + f32(82.4680)
+        wx, wy = f32(96.4250) / d50, f32(100.0) / d50
+    if wy == 0:
+        raise _Corrupt("invalid WhitePoint")
+    return (float(wx / wy * f32(100.0)), 100.0,
+            float((f32(1.0) - wx - wy) / wy * f32(100.0)))
+
+
 def _ycbcr_to_rgb(ycc: np.ndarray, tags: dict) -> np.ndarray:
     """tif_color.c TIFFYCbCrtoRGB over (h, w, 3) Y, Cb, Cr samples."""
     return native.tiff_ycbcr(ycc, np.stack(_ycbcr_tables(tags)))
@@ -745,11 +881,26 @@ def _decode_tiff_page(data: bytes, order: str, tags: dict,
         raise _Corrupt(f"{bits}-bit samples, {spp} samples per pixel")
     if spp < (3 if photometric == 2 else 1):
         raise _Corrupt("too few samples per pixel")
-    if compression in (2, 3, 4) and (bits != 1 or spp != 1):
+    if compression in (2, 3, 4, 32771) and (bits != 1 or spp != 1):
         raise _Corrupt("CCITT data of more than one bit a pixel")
     orientation = tags.get(274, (1,))[0]
     if orientation in (5, 6, 7, 8):
         return None  # cv2 5.0's imread fails on these
+    if compression == 32766:
+        raise _Corrupt("NeXT data is 2-bit, which cv2 5.0 does not read")
+    if compression == 32809 and bits != 4:
+        raise _Corrupt("ThunderScan data of other than 4 bits")
+    if compression in (34676, 34677):
+        # the RGBA interface has tif_luv.c give 8-bit samples: gray for
+        # LogL (its own codec only), RGB for LogLuv
+        if photometric == _TIFF_LOGL and compression == 34676 \
+                and spp == 1:
+            photometric, bits = 1, 8
+        elif photometric == _TIFF_LOGLUV and spp == 3 and not planar \
+                and not extra:
+            photometric, bits = 2, 8
+        else:
+            raise _Corrupt("SGI Log data libtiff cannot map")
     sampling = (1, 1)
     jpeg = None
     if compression == 7:
@@ -774,6 +925,8 @@ def _decode_tiff_page(data: bytes, order: str, tags: dict,
         if bits not in (8, 16) or spp - len(extra) < 3:
             raise _Corrupt("RGB layout libtiff cannot handle")
     elif photometric == 3:
+        if bits == 2:
+            return None  # nor on 2-bit palette pages
         if bits == 16 or planar or (bits < 8 and spp > 1):
             raise _Corrupt("palette layout libtiff cannot handle")
     elif photometric == 5:
@@ -784,6 +937,9 @@ def _decode_tiff_page(data: bytes, order: str, tags: dict,
         if bits != 8 or spp != 3 or sampling not in _YCBCR_SAMPLING \
                 or (planar and sampling != (1, 1)):
             raise _Corrupt("YCbCr layout libtiff cannot handle")
+    elif photometric == 8:
+        if bits not in (8, 16) or spp != 3 or extra or planar:
+            raise _Corrupt("CIE L*a*b* layout libtiff cannot handle")
     else:
         raise _Corrupt(f"photometric {photometric}")
 
@@ -831,6 +987,8 @@ def _decode_tiff_page(data: bytes, order: str, tags: dict,
             .astype(np.uint8)
     elif photometric == 6:
         img = _ycbcr_to_rgb(samples[..., :3], tags)
+    elif photometric == 8:  # putcontig8bitCIELab8/16
+        img = native.tiff_cielab(samples, _lab_white(tags))
     else:  # RGB, and gray in separate planes (r = g = b, not inverted)
         rgb = samples[..., :3] if photometric == 2 else \
             np.repeat(samples[..., :1], 3, axis=2)

@@ -6,8 +6,9 @@ geometry library, the ARPA LM scorer, and the image decoders' pixel loops
 ``ocr_fill_contour`` (the filled-contour rasterizer that replaces
 cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer;
 ``png.cpp`` undoes PNG's scanline filters, ``jpeg.cpp`` decodes JPEG and
-``tiff.cpp`` holds the TIFF LZW, PackBits and CCITT decoders and the
-YCbCr -> RGB conversion, for the
+``tiff.cpp`` holds the TIFF codecs (LZW, Deflate, PackBits, CCITT,
+ThunderScan, SGI Log) and the YCbCr and CIE L*a*b* -> RGB conversions, for
+the
 port's image reader (io/images.py), which replaces cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
 (named by the source's hash) and loads through ctypes. There is no
@@ -29,6 +30,9 @@ import numpy as np
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+# per source: tiff.cpp's float conversions (SGI Log, CIE L*a*b*) round as
+# libtiff's do only without fused multiply-adds
+SOURCE_FLAGS = {"tiff.cpp": ["-ffp-contract=off"]}
 
 _LIB: ctypes.CDLL | None = None
 _ARPA_LIB: ctypes.CDLL | None = None
@@ -50,7 +54,8 @@ def build_library(source: str = "geometry.cpp") -> Path:
     path; raises if g++ fails. ``BUILD_SECONDS[source]`` records the
     compile time of a build this process made."""
     src = _DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
+    flags = GXX_FLAGS + SOURCE_FLAGS.get(source, [])
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     so_path = BUILD_DIR / f"libocr_{src.stem}-{digest.hexdigest()[:16]}.so"
     if so_path.is_file():
         return so_path
@@ -59,7 +64,7 @@ def build_library(source: str = "geometry.cpp") -> Path:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        ["g++", *GXX_FLAGS, str(src), "-o", tmp], capture_output=True,
+        ["g++", *flags, str(src), "-o", tmp], capture_output=True,
         text=True,
     )
     if proc.returncode != 0:
@@ -450,18 +455,19 @@ class JpegTiffTables:
     def __exit__(self, *exc):
         self.close()
 
-    def header(self, data: bytes, max_height: int = 0
+    def header(self, data: bytes, max_height: int = 0, color: int = 0
                ) -> tuple[int, tuple[int, ...]]:
         """(status, (width, height, components, first component's
         horizontal and vertical sampling, 1 when the others sample 1x1))
-        of one strip or tile; a bogus JPEGTables stream's status."""
+        of one strip or tile, read for ``decode``'s ``color``; a bogus
+        JPEGTables stream's status."""
         if not self._handle:
             return self.status or 1, (0,) * 6
         buf = np.frombuffer(data, np.uint8)
         info = np.zeros(6, np.int32)
         rc = _jpeg_lib().ocr_jpeg_tiff(
-            self._handle, buf.ctypes.data_as(_U8P), buf.size, 0, max_height,
-            info.ctypes.data_as(_I32P), None, 0)
+            self._handle, buf.ctypes.data_as(_U8P), buf.size, color,
+            max_height, info.ctypes.data_as(_I32P), None, 0)
         return rc, tuple(int(v) for v in info)
 
     def decode(self, data: bytes, color: int, max_height: int = 0
@@ -470,7 +476,7 @@ class JpegTiffTables:
         (h, w, channels) uint8) or (status, None). ``color`` 1 turns
         YCbCr into RGB; 0 keeps the components as decoded. ``max_height``
         > 0 cuts a taller stream to that many rows."""
-        rc, (w, h, nc, *_) = self.header(data, max_height)
+        rc, (w, h, nc, *_) = self.header(data, max_height, color)
         if rc:
             return rc, None
         buf = np.frombuffer(data, np.uint8)
@@ -488,28 +494,91 @@ def _tiff_lib() -> ctypes.CDLL:
     if _TIFF_LIB is None:
         coder = (ctypes.c_int64, [_U8P, ctypes.c_int64, _U8P, ctypes.c_int64])
         _TIFF_LIB = _load("tiff.cpp", {
-            "ocr_tiff_lzw": coder,
+            "ocr_tiff_lzw": (ctypes.c_int64, [
+                _U8P, ctypes.c_int64, _U8P, ctypes.c_int64, ctypes.c_int]),
             "ocr_tiff_packbits": coder,
+            "ocr_tiff_inflate": (ctypes.c_int64, [
+                _U8P, ctypes.c_int64, _U8P, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int)]),
             "ocr_tiff_fax": (ctypes.c_int64, [
                 _U8P, ctypes.c_int64, _U8P, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int64)]),
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                _I32P, ctypes.POINTER(ctypes.c_uint32), _I64P]),
             "ocr_tiff_ycbcr": (None, [_U8P, ctypes.c_int64, _I32P, _U8P]),
+            "ocr_tiff_thunder": (ctypes.c_int64, [
+                _U8P, ctypes.c_int64, _U8P, ctypes.c_int, ctypes.c_int]),
+            "ocr_tiff_sgilog": (ctypes.c_int64, [
+                _U8P, ctypes.c_int64, _U8P, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int]),
+            "ocr_tiff_cielab": (None, [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_float), _U8P]),
         })
     return _TIFF_LIB
 
 
-def tiff_unpack(method: str, data: bytes, size: int) -> np.ndarray:
-    """Decompress one TIFF strip or tile with tiff.cpp: ``method`` "lzw" or
-    "packbits", ``size`` the bytes expected. Returns the bytes decoded (at
-    most ``size``); bad LZW codes raise ValueError."""
-    fn = getattr(_tiff_lib(), f"ocr_tiff_{method}")
+def tiff_unpack(method: str, data: bytes, size: int
+                ) -> tuple[np.ndarray, bool]:
+    """Decompress one TIFF strip or tile with tiff.cpp as libtiff does:
+    ``method`` "lzw", "lzw-old" (pre-TIFF 6 codes), "packbits" or
+    "inflate" (Deflate), ``size`` the bytes expected. Returns the ``size``
+    bytes libtiff leaves in its buffer (what was decoded before the data
+    ended or went bad, zeros after it) and whether libtiff's codec
+    succeeds (it undoes a predictor only then)."""
     src = np.frombuffer(data, np.uint8)
     out = np.zeros(size, np.uint8)
-    n = fn(src.ctypes.data_as(_U8P), src.size, out.ctypes.data_as(_U8P), size)
-    if n < 0:
-        raise ValueError(f"bad {method} data")
-    return out[:n]
+    args = (src.ctypes.data_as(_U8P), src.size, out.ctypes.data_as(_U8P),
+            size)
+    lib = _tiff_lib()
+    if method == "inflate":
+        ok = ctypes.c_int(0)
+        lib.ocr_tiff_inflate(*args, ctypes.byref(ok))
+        return out, bool(ok.value)
+    if method in ("lzw", "lzw-old"):
+        n = lib.ocr_tiff_lzw(*args, int(method == "lzw-old"))
+    else:
+        n = lib.ocr_tiff_packbits(*args)
+    return out, n == size
+
+
+def tiff_rows(method: str, data: bytes, width: int, rows: int
+              ) -> tuple[np.ndarray, bool]:
+    """Decode one strip of a row-at-a-time TIFF codec with tiff.cpp, as
+    libtiff decodes it for its RGBA interface: ``method`` "thunder"
+    (ThunderScan 4-bit: (rows, (width + 1) // 2) packed pixels), "logl"
+    (SGI LogL: (rows, width) gray bytes), "logluv" or "logluv24" (SGI
+    LogLuv 32- or 24-bit: (rows, width * 3) RGB bytes). Rows past a fault
+    stay zero; the flag says whether every row decoded."""
+    src = np.frombuffer(data, np.uint8)
+    per = (width + 1) // 2 if method == "thunder" else \
+        width if method == "logl" else 3 * width
+    out = np.zeros((rows, per), np.uint8)
+    args = (src.ctypes.data_as(_U8P), src.size, out.ctypes.data_as(_U8P),
+            width, rows)
+    lib = _tiff_lib()
+    if method == "thunder":
+        n = lib.ocr_tiff_thunder(*args)
+    else:
+        n = lib.ocr_tiff_sgilog(*args, ("logl", "logluv",
+                                        "logluv24").index(method))
+    return out, n == rows
+
+
+def tiff_cielab(lab: np.ndarray, white: tuple[float, float, float]
+                ) -> np.ndarray:
+    """(..., 3) uint8 or uint16 CIE L*a*b* samples (a and b signed) -> RGB
+    as libtiff's RGBA interface maps them (tif_color.c, the sRGB display),
+    with the reference white's X0, Y0, Z0."""
+    lab = np.ascontiguousarray(lab)
+    bits = 8 if lab.dtype == np.uint8 else 16
+    lab = lab.astype(np.uint8 if bits == 8 else np.uint16, copy=False)
+    w = np.asarray(white, np.float32)
+    out = np.empty(lab.shape, np.uint8)
+    _tiff_lib().ocr_tiff_cielab(lab.ctypes.data, lab.size // 3, bits,
+                                w.ctypes.data_as(ctypes.POINTER(
+                                    ctypes.c_float)),
+                                out.ctypes.data_as(_U8P))
+    return out
 
 
 def tiff_ycbcr(ycc: np.ndarray, tables: np.ndarray) -> np.ndarray:
@@ -526,22 +595,40 @@ def tiff_ycbcr(ycc: np.ndarray, tables: np.ndarray) -> np.ndarray:
 
 
 def tiff_fax(data: bytes, width: int, rows: int, compression: int,
-             g3opts: int, fill_order: int) -> np.ndarray:
-    """CCITT-decode one strip or tile (compression 2, 3 or 4) into
-    (rows, (width + 7) // 8) packed bits, 1 = black; data that ends early
-    or holds a bad code raises ValueError. A 2-D row that holds an
-    extension code (uncompressed mode, which libtiff does not decode)
-    ends there as libtiff ends it, with a warning naming the count."""
+             g3opts: int, fill_order: int, odd: bool = False,
+             state: dict | None = None) -> np.ndarray:
+    """CCITT-decode one strip or tile (compression 2, 3, 4 or 32771, RLE-W;
+    ``odd``: the data starts at an odd file offset, which moves RLE-W's
+    16-bit row alignment) into (rows, (width + 7) // 8) packed bits, 1 =
+    black, as libtiff decodes it. ``state`` (a dict shared by a page's
+    strips and tiles, empty at first) carries what libtiff's codec keeps
+    from one to the next: its run arrays and the FAXMODE_NOEOL flag that
+    T.4 data ending inside an EOL sets. Damaged or short data does not
+    raise: the
+    rows before the fault are kept, the rest are what libtiff makes of
+    them (zeros past the end), with a warning naming the count. A 2-D row
+    that holds an extension code (uncompressed mode, which libtiff does
+    not decode) ends there as libtiff ends it, with a warning too."""
     src = np.frombuffer(data, np.uint8)
     out = np.zeros((rows, (width + 7) // 8), np.uint8)
-    ext = ctypes.c_int64(0)
-    n = _tiff_lib().ocr_tiff_fax(src.ctypes.data_as(_U8P), src.size,
-                                 out.ctypes.data_as(_U8P), width, rows,
-                                 compression, g3opts, fill_order,
-                                 ctypes.byref(ext))
-    if ext.value:
-        warnings.warn(f"CCITT data holds {ext.value} uncompressed-mode "
+    counts = np.zeros(2, np.int64)
+    state = {} if state is None else state
+    two_d = compression == 4 or (compression == 3 and g3opts & 1)
+    nruns = (width + 32) // 32 * 32 * (2 if two_d else 1)
+    if state.get("nruns") != nruns:
+        state.update(nruns=nruns, noeol=np.zeros(1, np.int32),
+                     runs=np.zeros(2 * nruns + 2, np.uint32))
+    n = _tiff_lib().ocr_tiff_fax(
+        src.ctypes.data_as(_U8P), src.size, out.ctypes.data_as(_U8P), width,
+        rows, compression, g3opts, fill_order, int(odd),
+        state["noeol"].ctypes.data_as(_I32P),
+        state["runs"].ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        counts.ctypes.data_as(_I64P))
+    if counts[0]:
+        warnings.warn(f"CCITT data holds {counts[0]} uncompressed-mode "
                       "extension code(s), not decoded: each ends its row")
-    if n != rows:
-        raise ValueError(f"CCITT data ends at row {n} of {rows}")
+    if n != rows or counts[1]:
+        warnings.warn(f"CCITT data damaged or cut short ({counts[1]} "
+                      f"warning(s) from libtiff's decoder); {n} of {rows} "
+                      "rows read, the rest as libtiff leaves them")
     return out

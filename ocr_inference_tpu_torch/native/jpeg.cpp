@@ -1,8 +1,11 @@
 // JPEG decoding for the port's image reader (io/images.py), byte-equal
 // with what libjpeg-turbo 3.1 gives cv2.imread at its defaults:
 //
-// - baseline, extended (8-bit) and progressive Huffman coding, restart
-//   intervals, 1, 3 or 4 components, any integral sampling factors;
+// - baseline, extended (8-bit) and progressive, Huffman or arithmetic
+//   coding (jdarith.c, DAC conditioning), restart intervals, 1, 3 or 4
+//   components, any integral sampling factors;
+// - lossless frames (SOF3: jdlossls.c, jddiffct.c, jdlhuff.c; predictors
+//   1-7, point transform, restarts), every component sampled 1x1;
 // - progressive block smoothing (jdcoefct.c decompress_smooth_data, the
 //   5x5 DC window of libjpeg-turbo 2.1+) when the scans leave one of the
 //   first 10 coefficients of a component unsent or short of bits;
@@ -26,8 +29,10 @@
 //   data sources insert them; libjpeg's segment checks, and the standard
 //   Huffman tables for a sequential scan's slots no DHT defined.
 //
-// EXIF orientation is applied by the caller. The return codes name what
-// is not decoded here: see JPEG_* below.
+// 12-bit DCT and arithmetic lossless frames are JPEG_CORRUPT, as they are
+// to OpenCV 5.0 and to an 8-bit TIFF page. EXIF orientation is applied by
+// the caller. The return codes name what is not decoded here: see JPEG_*
+// below.
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
@@ -38,9 +43,7 @@ namespace {
 enum {
     JPEG_OK = 0,
     JPEG_CORRUPT = 1,         // cv2.imread gives None
-    JPEG_ARITHMETIC = 2,
-    JPEG_LOSSLESS = 3,
-    JPEG_PRECISION = 4,       // 12- or 16-bit samples
+    JPEG_LOSSLESS_SUBSAMPLED = 3,  // lossless, a component not 1x1
 };
 
 // zigzag index -> natural index, with libjpeg's 16 safety entries
@@ -59,7 +62,9 @@ struct Huffman {
     int32_t maxcode[18];
     int32_t valoffset[17];
     uint16_t look[512];  // 9-bit lookahead: (length << 8) | symbol, 0 = miss
-    bool build(bool dc) {
+    // dc: symbols are magnitude categories, at most 15 (16 in a
+    // lossless frame: jpeg_make_d_derived_tbl)
+    bool build(bool dc, int max_category = 15) {
         int huffsize[257], huffcode[257];
         int p = 0;
         for (int l = 1; l <= 16; ++l) {
@@ -102,7 +107,7 @@ struct Huffman {
         }
         if (dc)
             for (int i = 0; i < numsymbols; ++i)
-                if (symbols[i] > 15) return false;
+                if (symbols[i] > max_category) return false;
         return true;
     }
 };
@@ -274,6 +279,129 @@ struct Reader {
     }
 };
 
+// jaricom.c jpeg_aritab (T.81 Table D.2): Qe << 16 | Next_Index_MPS << 8
+// | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+#define V(qe, lps, mps, sw) \
+    (((uint32_t)(qe) << 16) | ((uint32_t)(mps) << 8) | ((sw) << 7) | (lps))
+const uint32_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),    V(0x2586, 14, 2, 0),   V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0),   V(0x03d8, 20, 5, 0),   V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0),   V(0x006f, 28, 8, 0),   V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0),  V(0x000d, 35, 11, 0),  V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),  V(0x0001, 12, 13, 0),  V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0),  V(0x2cf2, 38, 17, 0),  V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0),  V(0x1182, 42, 20, 0),  V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0),  V(0x072f, 46, 23, 0),  V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),  V(0x0303, 51, 26, 0),  V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0),  V(0x0144, 56, 29, 0),  V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0),  V(0x008a, 60, 32, 0),  V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0),  V(0x003b, 32, 35, 0),  V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),  V(0x484c, 64, 38, 0),  V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0),  V(0x261f, 68, 41, 0),  V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0),  V(0x1518, 72, 44, 0),  V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0),  V(0x0bfb, 75, 47, 0),  V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),  V(0x0706, 79, 50, 0),  V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0),  V(0x040f, 50, 53, 0),  V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0),  V(0x025c, 53, 56, 0),  V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0),  V(0x0160, 56, 59, 0),  V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),  V(0x00cb, 59, 62, 0),  V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0),  V(0x5b12, 65, 65, 1),  V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0),  V(0x37d8, 82, 68, 0),  V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0),  V(0x2379, 86, 71, 0),  V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),  V(0x174e, 72, 74, 0),  V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0),  V(0x0f6b, 74, 77, 0),  V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0),  V(0x0a40, 77, 48, 0),  V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0),  V(0x438e, 89, 83, 0),  V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),  V(0x2eae, 92, 86, 0),  V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0),  V(0x5570, 88, 89, 1),  V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0),  V(0x3e22, 97, 92, 0),  V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0),  V(0x2e17, 93, 86, 0),  V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0), V(0x47e5, 102, 98, 0), V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0), V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+// jdarith.c's decoder (T.81 Annex D): the C register holds the interval
+// base and the bits not yet used, their count in ct (-16 before the first
+// two bytes, -1 after an error). A marker met inside the data is left
+// unread, and zeros are fed from then on, as libjpeg does.
+struct Arith {
+    const uint8_t* data;
+    int64_t n, pos;
+    bool marker_hit = false;
+    int marker = 0;
+    bool insufficient = false;  // never set: arithmetic data runs on
+    int64_t c = 0, a = 0;
+    int ct = -16;
+
+    void reset_bits() {
+        c = a = 0;
+        ct = -16;
+    }
+    // the next byte; -1 past the data (which ends in fake EOIs anyway)
+    int get_byte() { return pos < n ? data[pos++] : -1; }
+    int decode(uint8_t* st) {
+        while (a < 0x8000) {
+            if (--ct < 0) {
+                int d = 0;
+                if (!marker_hit) {
+                    d = get_byte();
+                    if (d == 0xFF) {
+                        do d = get_byte();
+                        while (d == 0xFF);
+                        if (d == 0) {
+                            d = 0xFF;  // a stuffed zero
+                        } else {  // a marker: zeros from now on
+                            marker_hit = true;
+                            marker = d < 0 ? 0xD9 : d;
+                            d = 0;
+                        }
+                    } else if (d < 0) {
+                        marker_hit = true;
+                        marker = 0xD9;
+                        d = 0;
+                    }
+                }
+                c = (c << 8) | d;
+                if ((ct += 8) < 0)
+                    if (++ct == 0) a = 0x8000;
+            }
+            a <<= 1;
+        }
+        int sv = *st;
+        int64_t qe = kAritab[sv & 0x7F];
+        const uint8_t nl = qe & 0xFF;
+        qe >>= 8;
+        const uint8_t nm = qe & 0xFF;
+        qe >>= 8;
+        int64_t temp = a - qe;
+        a = temp;
+        temp <<= ct;
+        if (c >= temp) {
+            c -= temp;
+            if (a < qe) {
+                a = qe;
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            } else {
+                a = qe;
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+        } else if (a < 0x8000) {
+            if (a < qe) {
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+};
+
 inline int extend(int r, int s) {
     return r < (1 << (s - 1)) ? r + (int)(((unsigned)-1 << s) + 1) : r;
 }
@@ -297,8 +425,20 @@ struct Decoder {
     int total_imcu_rows = 0;
     int last_good_imcu_row = 0;  // of the last scan, before data ran out
     int max_height = 0;    // > 0: the frame's height cut to this (TIFF)
-    bool for_cv2_file = false;  // a .jpg file as OpenCV decodes it
     int lossless_precision = 0;     // > 0: a lossless frame
+    int sample_precision = 8;
+    bool headers_only = false;      // parse(true): scans are not decoded
+    // a lossless frame's samples, one plane a component (1x1 sampling)
+    std::vector<std::vector<uint16_t>> planes;
+    bool arith = false;             // arithmetic coding (SOF9-11)
+    // DAC conditioning, reset at SOI: DC L and U, AC Kx per table
+    uint8_t dac_L[16], dac_U[16], dac_K[16];
+    uint8_t dc_stats[16][64], ac_stats[16][256];
+    Decoder() {
+        std::memset(dac_L, 0, 16);
+        std::memset(dac_U, 1, 16);
+        std::memset(dac_K, 5, 16);
+    }
 
     int u16(int64_t at) const { return (data[at] << 8) | data[at + 1]; }
 
@@ -328,26 +468,39 @@ struct Decoder {
         width = u16(at + 3);
         int nc = data[at + 5];
         if (len != 6 + 3 * nc || nc == 0) return JPEG_CORRUPT;
-        if (marker == 0xC3 || marker == 0xCB) {
+        sample_precision = precision;
+        if (marker == 0xCB) return JPEG_CORRUPT;  // JERR_ARITH_NOTIMPL
+        if (marker == 0xC3) {
             // lossless: its first scan tells whether libjpeg takes it
             if (precision < 2 || precision > 16) return JPEG_CORRUPT;
+            if (width == 0 || height == 0) return JPEG_CORRUPT;
+            if (max_height > 0 && height > max_height) height = max_height;
             lossless_precision = precision;
             for (int i = 0; i < nc; ++i) {
                 comps.emplace_back();
-                comps.back().id = data[at + 6 + 3 * i];
+                Component& c = comps.back();
+                c.id = data[at + 6 + 3 * i];
+                c.h = data[at + 7 + 3 * i] >> 4;
+                c.v = data[at + 7 + 3 * i] & 15;
+                if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
+                    return JPEG_CORRUPT;
             }
             frame = true;
             return JPEG_OK;
         }
-        if (marker >= 0xC9) return JPEG_ARITHMETIC;
-        if (marker >= 0xC5) return JPEG_CORRUPT;  // hierarchical
-        // libjpeg-turbo 3 takes 8 and 12 bits for DCT-based JPEG
-        if (precision != 8) return precision == 12 ? JPEG_PRECISION
-                                                   : JPEG_CORRUPT;
+        // hierarchical (SOF5-7, SOF13-15): JERR_SOF_UNSUPPORTED
+        if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD)
+            return JPEG_CORRUPT;
+        arith = marker >= 0xC9;
+        // libjpeg-turbo 3 takes 8 and 12 bits for DCT-based JPEG; 12-bit
+        // samples need jpeg12_read_scanlines, which OpenCV 5.0 does not
+        // call (and libtiff takes only the precision of the page's
+        // samples): the frame gives None
+        if (precision != 8) return JPEG_CORRUPT;
         if (nc != 1 && nc != 3 && nc != 4) return JPEG_CORRUPT;
         if (width == 0 || height == 0) return JPEG_CORRUPT;
         if (max_height > 0 && height > max_height) height = max_height;
-        progressive = marker == 0xC2;
+        progressive = marker == 0xC2 || marker == 0xCA;
         comps.resize(nc);
         for (int i = 0; i < nc; ++i) {
             Component& c = comps[i];
@@ -395,6 +548,23 @@ struct Decoder {
         return JPEG_OK;
     }
 
+    // jdmarker.c get_dac: arithmetic conditioning (DC L and U, AC Kx)
+    int parse_dac(int64_t at, int len) {
+        if (len & 1) return JPEG_CORRUPT;
+        for (int64_t end = at + len; at < end; at += 2) {
+            const int index = data[at], val = data[at + 1];
+            if (index >= 32) return JPEG_CORRUPT;
+            if (index >= 16) {
+                dac_K[index - 16] = (uint8_t)val;
+            } else {
+                dac_L[index] = (uint8_t)(val & 15);
+                dac_U[index] = (uint8_t)(val >> 4);
+                if (dac_L[index] > dac_U[index]) return JPEG_CORRUPT;
+            }
+        }
+        return JPEG_OK;
+    }
+
     int parse_dht(int64_t at, int len) {
         int64_t end = at + len;
         while (at < end) {
@@ -420,7 +590,8 @@ struct Decoder {
 
     // jdhuff.c process_restart / jdmarker.c read_restart_marker and
     // jpeg_resync_to_restart
-    void restart(Reader& r, int& next_rst) {
+    template <class R>
+    void restart(R& r, int& next_rst) {
         r.reset_bits();
         int m;
         if (r.marker_hit) {
@@ -488,11 +659,8 @@ struct Decoder {
         }
         int ss = data[at + 1 + 2 * ns], se = data[at + 2 + 2 * ns];
         int ah = data[at + 3 + 2 * ns] >> 4, al = data[at + 3 + 2 * ns] & 15;
-        if (lossless_precision)  // jdlossls.c start_input_pass's checks
-            return ss >= 1 && ss <= 7 && se == 0 && ah == 0 &&
-                           al < lossless_precision
-                       ? JPEG_LOSSLESS
-                       : JPEG_CORRUPT;
+        if (lossless_precision)
+            return lossless_scan(at + len, ns, sc, td, ss, se, ah, al);
         if (!progressive) {
             ss = 0;
             se = 63;
@@ -504,7 +672,7 @@ struct Decoder {
             if ((ah != 0 && al != ah - 1) || al > 13) return JPEG_CORRUPT;
         }
         ++scans;
-        if (scans == 1 && !progressive) {
+        if (scans == 1 && !progressive && !arith) {
             // jdhuff.c jinit_huff_decoder: slots 0 and 1 still empty at
             // the first scan get the standard tables (Motion JPEG)
             for (int t = 0; t < 2; ++t) {
@@ -521,12 +689,14 @@ struct Decoder {
                 std::memcpy(c.q, qt[c.tq], sizeof(c.q));
                 c.qlatched = c.tq;
             }
-            // the tables a scan uses (jdhuff.c / jdphuff.c start_pass)
-            if (ss == 0 && ah == 0 && (td[i] > 3 || !dc[td[i]].defined ||
+            // the tables a scan uses (jdhuff.c / jdphuff.c start_pass;
+            // jdarith.c takes any of its 16, defined or not)
+            if (!arith && ss == 0 && ah == 0 &&
+                (td[i] > 3 || !dc[td[i]].defined ||
                                        !dc[td[i]].build(true)))
                 return JPEG_CORRUPT;
-            if (se > 0 && (ta[i] > 3 || !ac[ta[i]].defined ||
-                           !ac[ta[i]].build(false)))
+            if (!arith && se > 0 &&
+                (ta[i] > 3 || !ac[ta[i]].defined || !ac[ta[i]].build(false)))
                 return JPEG_CORRUPT;
             // jdphuff.c start_pass_phuff_decoder: the state before this scan
             for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
@@ -536,11 +706,143 @@ struct Decoder {
         if (blocks_in_mcu > 10) return JPEG_CORRUPT;  // D_MAX_BLOCKS_IN_MCU
 
         Reader r{data, n, at + len};
+        Arith ar{data, n, at + len};
         int last_dc[4] = {0, 0, 0, 0};
+        int dc_context[4] = {0, 0, 0, 0};
+        uint8_t fixed_bin = 113;  // jdarith.c's fixed 0.5 estimate
         int eobrun = 0;
         int next_rst = 0;
         int restarts_to_go = restart_interval;
         const int p1 = 1 << al, m1 = (int)((unsigned)-1 << al);
+        // jdarith.c start_pass / process_restart: the statistics a scan
+        // codes with start from zero
+        auto reset_stats = [&]() {
+            for (int i = 0; i < ns; ++i) {
+                if (!progressive || (ss == 0 && ah == 0)) {
+                    std::memset(dc_stats[td[i]], 0, 64);
+                    last_dc[i] = dc_context[i] = 0;
+                }
+                if (!progressive || ss)
+                    std::memset(ac_stats[ta[i]], 0, 256);
+            }
+            ar.reset_bits();
+        };
+        if (arith) reset_stats();
+
+        // jdarith.c decode_mcu (sequential) and decode_mcu_DC_first,
+        // _AC_first, _DC_refine, _AC_refine over one block. A magnitude or
+        // spectral overflow (JWRN_ARITH_BAD_CODE) sets ct to -1, and the
+        // blocks after it are left alone up to the next restart (a DC
+        // refinement reads on regardless).
+        auto decode_arith = [&](int16_t* blk, int ci, int tdi, int tai) {
+            const bool dc_refine = progressive && ss == 0 && ah != 0;
+            if (ar.ct == -1 && !dc_refine) return;
+            if (dc_refine) {
+                if (ar.decode(&fixed_bin)) blk[0] = (int16_t)(blk[0] | p1);
+                return;
+            }
+            if (!progressive || ss == 0) {  // DC, first or sequential
+                uint8_t* st = dc_stats[tdi] + dc_context[ci];
+                if (ar.decode(st) == 0) {
+                    dc_context[ci] = 0;
+                } else {
+                    const int sign = ar.decode(st + 1);
+                    st += 2 + sign;
+                    int m = ar.decode(st);
+                    if (m != 0) {
+                        st = dc_stats[tdi] + 20;
+                        while (ar.decode(st)) {
+                            if ((m <<= 1) == 0x8000) {
+                                ar.ct = -1;
+                                return;
+                            }
+                            st += 1;
+                        }
+                    }
+                    if (m < (int)((1L << dac_L[tdi]) >> 1))
+                        dc_context[ci] = 0;
+                    else if (m > (int)((1L << dac_U[tdi]) >> 1))
+                        dc_context[ci] = 12 + sign * 4;
+                    else
+                        dc_context[ci] = 4 + sign * 4;
+                    int v = m;
+                    st += 14;
+                    while (m >>= 1)
+                        if (ar.decode(st)) v |= m;
+                    v += 1;
+                    if (sign) v = -v;
+                    last_dc[ci] = (last_dc[ci] + v) & 0xffff;
+                }
+                blk[0] = (int16_t)(progressive
+                                       ? (int)((unsigned)last_dc[ci] << al)
+                                       : last_dc[ci]);
+                if (progressive) return;
+            }
+            if (!progressive || ah == 0) {  // AC, first or sequential
+                const int k0 = progressive ? ss : 1, ke = progressive ? se : 63;
+                for (int k = k0; k <= ke; ++k) {
+                    uint8_t* st = ac_stats[tai] + 3 * (k - 1);
+                    if (ar.decode(st)) break;  // EOB
+                    while (ar.decode(st + 1) == 0) {
+                        st += 3;
+                        if (++k > ke) {
+                            ar.ct = -1;
+                            return;
+                        }
+                    }
+                    const int sign = ar.decode(&fixed_bin);
+                    st += 2;
+                    int m = ar.decode(st);
+                    if (m != 0 && ar.decode(st)) {
+                        m <<= 1;
+                        st = ac_stats[tai] + (k <= dac_K[tai] ? 189 : 217);
+                        while (ar.decode(st)) {
+                            if ((m <<= 1) == 0x8000) {
+                                ar.ct = -1;
+                                return;
+                            }
+                            st += 1;
+                        }
+                    }
+                    int v = m;
+                    st += 14;
+                    while (m >>= 1)
+                        if (ar.decode(st)) v |= m;
+                    v += 1;
+                    if (sign) v = -v;
+                    blk[kNatural[k]] = (int16_t)(progressive
+                                                     ? (int)((unsigned)v << al)
+                                                     : v);
+                }
+                return;
+            }
+            // AC refinement: EOBx is the last coefficient already nonzero
+            int kex = se;
+            for (; kex > 0; --kex)
+                if (blk[kNatural[kex]]) break;
+            for (int k = ss; k <= se; ++k) {
+                uint8_t* st = ac_stats[tai] + 3 * (k - 1);
+                if (k > kex && ar.decode(st)) break;  // EOB
+                for (;;) {
+                    int16_t* coef = &blk[kNatural[k]];
+                    if (*coef) {
+                        if (ar.decode(st + 2))
+                            *coef = (int16_t)(*coef < 0 ? *coef + m1
+                                                        : *coef + p1);
+                        break;
+                    }
+                    if (ar.decode(st + 1)) {
+                        *coef = (int16_t)(ar.decode(&fixed_bin) ? m1 : p1);
+                        break;
+                    }
+                    st += 3;
+                    if (++k > se) {
+                        ar.ct = -1;
+                        return;
+                    }
+                }
+            }
+        };
 
         auto decode_block = [&](int16_t* blk, int ci, int tdi, int tai) {
             if (!progressive) {
@@ -639,9 +941,14 @@ struct Decoder {
         auto one_mcu = [&](int imcu_row, auto&& body) {
             if (restart_interval) {
                 if (restarts_to_go == 0) {
-                    restart(r, next_rst);
-                    for (int& d : last_dc) d = 0;
-                    eobrun = 0;
+                    if (arith) {
+                        restart(ar, next_rst);
+                        reset_stats();
+                    } else {
+                        restart(r, next_rst);
+                        for (int& d : last_dc) d = 0;
+                        eobrun = 0;
+                    }
                     restarts_to_go = restart_interval;
                 }
                 --restarts_to_go;
@@ -654,13 +961,17 @@ struct Decoder {
                 body();
         };
 
+        auto block = [&](int16_t* blk, int ci, int tdi, int tai) {
+            if (arith) decode_arith(blk, ci, tdi, tai);
+            else decode_block(blk, ci, tdi, tai);
+        };
         if (ns == 1) {
             Component& c = comps[sc[0]];
             for (int by = 0; by < c.hblocks; ++by)
                 for (int bx = 0; bx < c.wblocks; ++bx)
                     one_mcu(by / c.v, [&] {
-                        decode_block(&c.coef[((size_t)by * c.bw + bx) * 64],
-                                     0, td[0], ta[0]);
+                        block(&c.coef[((size_t)by * c.bw + bx) * 64], 0,
+                              td[0], ta[0]);
                     });
         } else {
             for (int my = 0; my < mcuy; ++my)
@@ -672,18 +983,138 @@ struct Decoder {
                                 for (int h = 0; h < c.h; ++h) {
                                     size_t bi = (size_t)(my * c.v + v) * c.bw +
                                                 mx * c.h + h;
-                                    decode_block(&c.coef[bi * 64], i, td[i],
-                                                 ta[i]);
+                                    block(&c.coef[bi * 64], i, td[i],
+                                          ta[i]);
                                 }
                         }
                     });
         }
+        pos = arith ? ar.pos : r.pos;
+        if (arith ? ar.marker_hit : r.marker_hit)
+            next_marker = arith ? ar.marker : r.marker;
+        return JPEG_OK;
+    }
+
+    // jdlossls.c, jddiffct.c and jdlhuff.c over one lossless scan: each
+    // MCU row's Huffman-coded differences (category 16: 32768), then each
+    // component's row undifferenced with predictor psv (the first row of
+    // the scan and of each restart interval from the left, its first
+    // sample from 2^(P - Pt - 1)), modulo 2^16. A row begun after the data
+    // ran out is all differences 0 from a first row: 2^(P - Pt - 1).
+    int lossless_scan(int64_t start, int ns, const int* sc, const int* td,
+                      int psv, int se, int ah, int pt) {
+        // jdlossls.c start_pass_lossless
+        if (psv < 1 || psv > 7 || se != 0 || ah != 0 ||
+            pt >= lossless_precision)
+            return JPEG_CORRUPT;
+        if (lossless_refused()) return JPEG_CORRUPT;
+        for (int i = 0; i < ns; ++i)
+            if (comps[sc[i]].h != 1 || comps[sc[i]].v != 1)
+                return JPEG_LOSSLESS_SUBSAMPLED;
+        for (int i = 0; i < ns; ++i)
+            if (td[i] > 3 || !dc[td[i]].defined ||
+                !dc[td[i]].build(true, 16))
+                return JPEG_CORRUPT;
+        const int W = width, H = height;
+        // jddiffct.c start_input_pass: restarts fall on MCU rows
+        if (restart_interval % W) return JPEG_CORRUPT;
+        ++scans;
+        if (headers_only) return JPEG_OK;
+        if (planes.size() != comps.size())
+            planes.assign(comps.size(), std::vector<uint16_t>());
+        for (int i = 0; i < ns; ++i)
+            planes[sc[i]].assign((size_t)W * H, 0);
+        Reader r{data, n, start};
+        std::vector<int> diff((size_t)ns * W);
+        const int initial = 1 << (lossless_precision - pt - 1);
+        int rows_to_go = restart_interval / W, next_rst = 0;
+        bool first = true;
+        for (int y = 0; y < H; ++y) {
+            if (restart_interval && rows_to_go == 0) {
+                restart(r, next_rst);
+                first = true;
+                rows_to_go = restart_interval / W;
+            }
+            if (r.insufficient) {
+                std::fill(diff.begin(), diff.end(), 0);
+                first = true;
+            } else {
+                for (int x = 0; x < W; ++x)
+                    for (int i = 0; i < ns; ++i) {
+                        int v = r.decode(dc[td[i]]);
+                        if (v == 16) v = 32768;
+                        else if (v) v = extend(r.get_bits(v), v);
+                        diff[(size_t)i * W + x] = v;
+                    }
+            }
+            if (restart_interval) --rows_to_go;
+            for (int i = 0; i < ns; ++i) {
+                const int* d = &diff[(size_t)i * W];
+                uint16_t* row = planes[sc[i]].data() + (size_t)y * W;
+                int Ra;
+                if (first) {
+                    Ra = (d[0] + initial) & 0xFFFF;
+                    row[0] = (uint16_t)Ra;
+                    for (int x = 1; x < W; ++x) {
+                        Ra = (d[x] + Ra) & 0xFFFF;
+                        row[x] = (uint16_t)Ra;
+                    }
+                    continue;
+                }
+                const uint16_t* prev = row - W;
+                int Rb = prev[0], Rc;
+                Ra = (d[0] + Rb) & 0xFFFF;
+                row[0] = (uint16_t)Ra;
+                for (int x = 1; x < W; ++x) {
+                    Rc = Rb;
+                    Rb = prev[x];
+                    int p;
+                    switch (psv) {
+                    case 1: p = Ra; break;
+                    case 2: p = Rb; break;
+                    case 3: p = Rc; break;
+                    case 4: p = Ra + Rb - Rc; break;
+                    case 5: p = Ra + ((Rb - Rc) >> 1); break;
+                    case 6: p = Rb + ((Ra - Rc) >> 1); break;
+                    default: p = (Ra + Rb) >> 1; break;
+                    }
+                    Ra = (d[x] + p) & 0xFFFF;
+                    row[x] = (uint16_t)Ra;
+                }
+            }
+            first = false;
+        }
+        point_transform = pt;
         pos = r.pos;
         if (r.marker_hit) next_marker = r.marker;
         return JPEG_OK;
     }
 
+    int point_transform = 0;
+    int tiff_color = -1;  // a TIFF strip's colour request; -1: a file
+
+    // a lossless frame libjpeg-turbo 3 will not give the caller: it
+    // converts no colours in lossless mode. OpenCV asks for BGR (or CMYK)
+    // and reads 8 bits, so a file decodes only as RGB (no JFIF marker,
+    // Adobe transform 0 or none) or CMYK (Adobe transform 0 or none) of 8
+    // bits or fewer; libtiff wants its page's 8 bits, and RGB of a YCbCr
+    // page
+    bool lossless_refused() const {
+        const int nc = (int)comps.size();
+        if (tiff_color >= 0) return lossless_precision != 8 || tiff_color == 1;
+        return lossless_precision > 8 || (nc != 3 && nc != 4) ||
+               (nc == 3 && jfif) || (adobe && adobe_transform != 0);
+    }
+
+    // a lossless frame's component ci as 8-bit samples (simple_upscale:
+    // shifted by the point transform, cut to the low byte)
+    uint8_t lossless_sample(int ci, int64_t i) const {
+        if (planes[ci].empty()) return 0;
+        return (uint8_t)(planes[ci][i] << point_transform);
+    }
+
     int parse(bool header_only) {
+        headers_only = header_only;
         if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) return JPEG_CORRUPT;
         pos = 2;
         bool seen_scan = false;
@@ -717,7 +1148,7 @@ struct Decoder {
             } else if (m == 0xC4) {
                 rc = parse_dht(at, plen);
             } else if (m == 0xCC) {
-                if (!frame) return JPEG_ARITHMETIC;
+                rc = parse_dac(at, plen);
             } else if (m == 0xDB) {
                 rc = parse_dqt(at, plen);
             } else if (m == 0xDD) {
@@ -729,9 +1160,9 @@ struct Decoder {
                 rc = scan(at, plen);
                 seen_scan = true;
                 // a single-scan sequential JPEG is out once its scan is:
-                // OpenCV keeps it whatever jpeg_finish_decompress meets
-                // after (libtiff's strips do not: they count the errors)
-                if (rc == JPEG_OK && for_cv2_file && !progressive &&
+                // OpenCV, and libtiff for a strip, keep it whatever
+                // jpeg_finish_decompress meets after
+                if (rc == JPEG_OK && !progressive &&
                     data[at] == (int)comps.size() && scans == 1)
                     return JPEG_OK;
             } else if (m == 0xE0) {
@@ -764,7 +1195,7 @@ struct Decoder {
             int rc = JPEG_OK;
             if (m == 0xC4) rc = parse_dht(at, len - 2);
             else if (m == 0xDB) rc = parse_dqt(at, len - 2);
-            else if (m == 0xCC) rc = JPEG_ARITHMETIC;
+            else if (m == 0xCC) rc = parse_dac(at, len - 2);
             else if ((m >= 0xC0 && m <= 0xCF) || m == 0xDA) rc = JPEG_CORRUPT;
             if (rc != JPEG_OK) return rc;
         }
@@ -1209,6 +1640,14 @@ void cmyk_to_rgb(const std::vector<std::vector<uint8_t>>& p, int64_t np,
     }
 }
 
+// a lossless frame's components as 8-bit planes
+void lossless_planes(const Decoder& d, std::vector<std::vector<uint8_t>>& full) {
+    const int64_t np = (int64_t)d.width * d.height;
+    full.assign(d.comps.size(), std::vector<uint8_t>(np));
+    for (size_t ci = 0; ci < d.comps.size(); ++ci)
+        for (int64_t i = 0; i < np; ++i) full[ci][i] = d.lossless_sample((int)ci, i);
+}
+
 // The data followed by what libjpeg's data sources (jdatasrc.c, and
 // tif_jpeg.c's) hand it once the data has ended: fake EOI markers, one
 // after another. A marker segment cut short is read on into them, as
@@ -1250,13 +1689,20 @@ extern "C" int ocr_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
     Decoder d;
     d.data = buf.data();
     d.n = (int64_t)buf.size();
-    d.for_cv2_file = true;
     int rc = d.parse(false);
     if (rc != JPEG_OK) return rc;
     const int nc = (int)d.comps.size();
     const int64_t np = (int64_t)d.width * d.height;
     if (out_size != np * (nc == 1 ? 1 : 3)) return JPEG_CORRUPT;
     std::vector<std::vector<uint8_t>> full;
+    if (d.lossless_precision) {
+        lossless_planes(d, full);
+        if (nc == 4) cmyk_to_rgb(full, np, false, out);
+        else
+            for (int64_t i = 0; i < np; ++i)
+                for (int k = 0; k < 3; ++k) out[3 * i + k] = full[k][i];
+        return JPEG_OK;
+    }
     render(d, full);
     if (nc == 1) {
         std::memcpy(out, full[0].data(), np);
@@ -1335,6 +1781,7 @@ extern "C" int ocr_jpeg_tiff(void* tables, const uint8_t* data, int64_t n,
     TiffTables* t = static_cast<TiffTables*>(tables);
     Decoder d;
     d.max_height = max_height;
+    d.tiff_color = color;
     t->load(d);
     const std::vector<uint8_t> buf = with_fake_eoi(data, n);
     d.data = buf.data();
@@ -1359,6 +1806,12 @@ extern "C" int ocr_jpeg_tiff(void* tables, const uint8_t* data, int64_t n,
     const int64_t np = (int64_t)d.width * d.height;
     if (out_size != np * (color == 1 ? 3 : nc)) return JPEG_CORRUPT;
     std::vector<std::vector<uint8_t>> full;
+    if (d.lossless_precision) {
+        lossless_planes(d, full);
+        for (int64_t i = 0; i < np; ++i)
+            for (int k = 0; k < nc; ++k) out[nc * i + k] = full[k][i];
+        return JPEG_OK;
+    }
     render(d, full);
     if (color == 1) {
         ycc_to_rgb(full, np, out);

@@ -9,8 +9,8 @@ class's contours are unioned into one bbox and written as
 
 Pages are read with io/images.py ``read_image`` (PNG and JPEG by the JAX
 runner's glob, as cv2.imread reads them). A directory holding a page of
-a format or variant it does not decode (an arithmetic-coded JPEG, a BMP
-named .jpg, ...) raises NotImplementedError naming it before any page is
+a format or variant it does not decode (a JPEG 2000 TIFF, a BMP named
+.jpg, ...) raises NotImplementedError naming it before any page is
 run.
 """
 

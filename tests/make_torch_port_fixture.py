@@ -1037,6 +1037,137 @@ def variant_files(folder, flat) -> dict[str, str]:
         predictor=2, rows_per_strip=64)], order=">", big=True)
     kinds["clean_b_big.tif"] = "BigTIFF, big-endian, Deflate, predictor 2, " \
         "RGB"
+    kinds.update(damaged_and_variant_files(folder, flat))
+    return kinds
+
+
+def damaged_and_variant_files(folder, flat) -> dict[str, str]:
+    """Pages cv2 reads that the port once gave None for or refused by
+    name: damaged and cut strips, libtiff's other codecs, CIE L*a*b*,
+    arithmetic-coded and lossless JPEG; and, in images/none/, a 12-bit
+    JPEG and a NeXT page, which cv2 gives None for. Returns {file:
+    kind}."""
+    import io
+
+    from PIL import Image
+
+    from tests.image_writers import (
+        _page_chunks, jpeg_arith, jpeg_dct, jpeg_lossless, modified_huffman,
+        next_2bit, old_style_lzw, sgilog, thunderscan, write_tiff,
+    )
+
+    kinds = {}
+    none = IMAGES / "none"
+    none.mkdir(parents=True, exist_ok=True)
+    for old in none.iterdir():
+        old.unlink()
+
+    def pil_strips(img, **save):
+        buf = io.BytesIO()
+        img.save(buf, "TIFF", **save)
+        tags = dict(Image.open(buf).tag_v2)
+        raw = buf.getvalue()
+        return [raw[o: o + n] for o, n in zip(tags[273], tags[279])], tags
+
+    def bitonal(name):
+        return flat[name][..., 0] < 128  # True: ink
+
+    def ccitt_page(ink, comp, chunks, tags, **kw):
+        return dict(samples=np.zeros(ink.shape + (1,), np.uint8), bits=1,
+                    photometric=tags[262], compression=comp, chunks=chunks,
+                    rows_per_strip=tags[278], **kw)
+
+    ink = bitonal("skew_2deg")
+    chunks, tags = pil_strips(Image.fromarray(~ink).convert("1"),
+                              compression="group4", tiffinfo={278: 64})
+    bad = bytearray(chunks[3])
+    bad[len(bad) // 2] ^= 0x5A
+    chunks[3] = bytes(bad)
+    write_tiff(folder / "skew_2deg_g4_damaged.tif",
+               [ccitt_page(ink, 4, chunks, tags)])
+    kinds["skew_2deg_g4_damaged.tif"] = "TIFF CCITT Group 4, strips of 64 " \
+        "rows, one byte of strip 3 changed"
+    ink = bitonal("clean_a")
+    chunks, tags = pil_strips(Image.fromarray(~ink).convert("1"),
+                              compression="group3", tiffinfo={278: 64})
+    chunks[4] = chunks[4][: len(chunks[4]) // 2]
+    write_tiff(folder / "clean_a_g3_cut.tif",
+               [ccitt_page(ink, 3, chunks, tags)])
+    kinds["clean_a_g3_cut.tif"] = "TIFF CCITT T.4 1-D, strips of 64 rows, " \
+        "strip 4 cut to half"
+    page = flat["clean_b"]
+    chunks = _page_chunks(page, 8, 8, 2, None, 64, "<", 1)
+    chunks[2] = chunks[2][:-1] + bytes([chunks[2][-1] ^ 0xFF])
+    write_tiff(folder / "clean_b_deflate_badcheck.tif", [dict(
+        samples=page, bits=8, photometric=2, compression=8, predictor=2,
+        rows_per_strip=64, chunks=chunks)])
+    kinds["clean_b_deflate_badcheck.tif"] = "TIFF Deflate, predictor 2, " \
+        "RGB, strip 2's Adler-32 check wrong (its predictor not undone)"
+    gray = flat["clean_a"][..., 0]
+    write_tiff(folder / "clean_a_oldlzw.tif", [dict(
+        samples=gray[..., None], bits=8, photometric=1, compression=5,
+        rows_per_strip=64,
+        chunks=[old_style_lzw(gray[y: y + 64].tobytes())
+                for y in range(0, gray.shape[0], 64)])])
+    kinds["clean_a_oldlzw.tif"] = "TIFF old-style (pre-TIFF 6) LZW, gray"
+    Image.fromarray(flat["skew_2deg"]).convert("LAB").save(
+        folder / "skew_2deg_lab.tif", compression="tiff_lzw")
+    kinds["skew_2deg_lab.tif"] = "TIFF CIE L*a*b* 8-bit, LZW (PIL)"
+    rgb = flat["clean_a"].astype(np.float64)
+    ycc = np.stack([
+        rgb @ [0.299, 0.587, 0.114],
+        rgb @ [-0.168736, -0.331264, 0.5] + 128,
+        rgb @ [0.5, -0.418688, -0.081312] + 128], -1)
+    h, w = ycc.shape[:2]
+    chroma = [ycc[..., c].reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+              for c in (1, 2)]
+    (folder / "clean_a_arith_prog.jpg").write_bytes(jpeg_arith(
+        [ycc[..., 0]] + chroma, [(2, 2), (1, 1), (1, 1)], progressive=True,
+        restart=64, size=(h, w)))
+    kinds["clean_a_arith_prog.jpg"] = "JPEG arithmetic-coded progressive " \
+        "(SOF10), 4:2:0, restart interval 64"
+    (folder / "clean_b_lossless.jpg").write_bytes(jpeg_lossless(
+        flat["clean_b"], 8, 1, restart_rows=8))
+    kinds["clean_b_lossless.jpg"] = "JPEG lossless (SOF3), RGB, predictor " \
+        "1, restarts every 8 rows"
+    levels = flat["clean_b"][..., 0] >> 4
+    write_tiff(folder / "clean_b_thunder.tif", [dict(
+        samples=levels[..., None], bits=4, photometric=3, compression=32809,
+        rows_per_strip=64, colormap=np.tile(np.arange(16) * 0x1111, 3),
+        chunks=[thunderscan(levels[y: y + 64])
+                for y in range(0, levels.shape[0], 64)])])
+    kinds["clean_b_thunder.tif"] = "TIFF ThunderScan 4-bit, palette"
+    ink = bitonal("skew_2deg")
+    write_tiff(folder / "skew_2deg_rlew.tif", [dict(
+        samples=ink[..., None].astype(np.uint8), bits=1, photometric=0,
+        compression=32771, rows_per_strip=1,
+        chunks=[modified_huffman(row[None], 16) for row in ink])])
+    kinds["skew_2deg_rlew.tif"] = "TIFF CCITT RLE-W, one row a strip"
+    lum = ((flat["clean_a"][..., 0].astype(np.float64) + 0.5) / 256) ** 2
+    rows = sgilog(lum, False)
+    write_tiff(folder / "clean_a_logl.tif", [dict(
+        samples=np.zeros(lum.shape + (1,)), bits=16, photometric=32844,
+        compression=34676, rows_per_strip=64,
+        chunks=[b"".join(rows[y: y + 64]) for y in range(0, len(rows), 64)])])
+    kinds["clean_a_logl.tif"] = "TIFF SGI LogL (34676)"
+    lum = ((flat["skew_2deg"][..., 0].astype(np.float64) + 0.5) / 256) ** 2
+    rows = sgilog(np.repeat(lum[..., None], 3, axis=2), True)
+    write_tiff(folder / "skew_2deg_logluv.tif", [dict(
+        samples=np.zeros(lum.shape + (3,)), bits=16, photometric=32845,
+        compression=34676, rows_per_strip=64,
+        chunks=[b"".join(rows[y: y + 64]) for y in range(0, len(rows), 64)])])
+    kinds["skew_2deg_logluv.tif"] = "TIFF SGI LogLuv 32-bit (34676)"
+
+    gray = flat["skew_2deg"][..., 0].astype(np.float64)
+    (none / "skew_2deg_12bit.jpg").write_bytes(jpeg_dct([gray * 16], 12,
+                                                        qscale=2.0))
+    kinds["skew_2deg_12bit.jpg"] = "JPEG 12-bit DCT (SOF1), gray: cv2 " \
+        "gives None"
+    levels = flat["clean_b"][..., 0] >> 6
+    write_tiff(none / "clean_b_next.tif", [dict(
+        samples=levels[..., None], bits=2, photometric=1, compression=32766,
+        chunks=[next_2bit(levels)])])
+    kinds["clean_b_next.tif"] = "TIFF NeXT 2-bit RLE, gray: cv2 gives None"
     return kinds
 
 
@@ -1065,20 +1196,27 @@ def images() -> int:
 
     pages = fixture_pages(OUT / "pages.npz")
     kinds = write_image_files(pages)
-    files = sorted((IMAGES / "pages").iterdir()) + [IMAGES / "bench_cfg4.jpg"]
+    files = sorted((IMAGES / "pages").iterdir()) + [
+        IMAGES / "bench_cfg4.jpg"] + sorted((IMAGES / "none").iterdir())
     total = sum(p.stat().st_size for p in files)
-    assert total < 1200 * 1024, f"{total} bytes of image files"
+    assert total < 1800 * 1024, f"{total} bytes of image files"
     record = {"bench_jpeg_quality": BENCH_JPEG_QUALITY, "files": {},
               "bocr": {}, "bocr_lines": {}}
     for path in files:
         rel = str(path.relative_to(IMAGES))
-        img = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
-        assert np.array_equal(read_image(path), img), rel
-        record["files"][rel] = {
-            "kind": kinds[path.name], "bytes": path.stat().st_size,
-            "file_sha256": hashlib.sha256(path.read_bytes()).hexdigest(),
-            "shape": list(img.shape), "sha256": sha256(img)}
-        print(rel, img.shape, path.stat().st_size, file=sys.stderr)
+        img = cv2.imread(str(path))
+        entry = {"kind": kinds[path.name], "bytes": path.stat().st_size,
+                 "file_sha256": hashlib.sha256(path.read_bytes()).hexdigest(),
+                 "shape": None, "sha256": None}
+        if img is None:  # images/none/: cv2 gives None
+            assert read_image(path) is None, rel
+        else:
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+            assert np.array_equal(read_image(path), img), rel
+            entry.update(shape=list(img.shape), sha256=sha256(img))
+        record["files"][rel] = entry
+        shape = None if img is None else img.shape
+        print(rel, shape, path.stat().st_size, file=sys.stderr)
 
     ocr_cfg, line_cfg = full77f_configs(OCRModelConfig, LineDetectionConfig,
                                         CharsetEncoder.WYLIE)

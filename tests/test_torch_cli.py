@@ -3,8 +3,8 @@ against the JAX ``bocr`` (ocr_inference_tpu/cli/cli.py) on the same pages
 and model directory, on the CPU in float32: line-mode texts on PNG pages
 and on the same pages as JPEG and TIFF, the artifact and resume flags; and
 ``--mesh`` against ``--mesh off`` and the JAX ``bocr --mesh 2``; and its
-refusals: pages of a variant the port does not decode (an arithmetic-coded
-JPEG, a BMP), a ``--mesh`` of more cards than the machine has, and the
+refusals: pages of a variant the port does not decode (a JPEG 2000 TIFF,
+a BMP), a ``--mesh`` of more cards than the machine has, and the
 ``cuda`` default without a card."""
 
 import functools
@@ -27,7 +27,7 @@ from ocr_inference_tpu.pipeline.builder import build_pipeline as jax_build
 from ocr_inference_tpu_torch.cli import cli
 from ocr_inference_tpu_torch.io.artifacts import write_png
 from tests import make_refpipe_fixture as fx
-from tests.image_writers import arithmetic_jpeg, write_tiff
+from tests.image_writers import jpeg2000_tiff, write_tiff
 
 REPO = Path(__file__).resolve().parents[1]
 REFPIPE = REPO / "tests" / "data" / "refpipe"
@@ -150,15 +150,14 @@ def test_layout_mode_with_seeded_weights(job, tmp_path):
 
 def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
                                                        capsys):
-    """A JPEG of a variant the port does not decode (arithmetic-coded) and
+    """A page of a variant the port does not decode (a JPEG 2000 TIFF named
+    .jpg) and
     a BMP page are refused by name before any model loads; baseline JPEG
     pages are read (test_jpeg_and_tiff_pages_equal_jax_cli)."""
     folder = tmp_path / "mixed"
     folder.mkdir()
     (folder / "a.png").write_bytes((job / "pages" / "page0.png").read_bytes())
-    cv2.imwrite(str(folder / "b.jpg"), np.zeros((8, 8, 3), np.uint8))
-    (folder / "b.jpg").write_bytes(arithmetic_jpeg(
-        (folder / "b.jpg").read_bytes()))
+    (folder / "b.jpg").write_bytes(jpeg2000_tiff())
     cv2.imwrite(str(folder / "c.bmp"), np.zeros((8, 8, 3), np.uint8))
     args = ["--model", str(tmp_path / "no_model"), "--output",
             str(tmp_path / "out"), "--device", "cpu"]
@@ -169,7 +168,7 @@ def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
             cli.main(args + where)
         message = str(exit_info.value.code)
         assert f"{name} (" in message
-        assert ("arithmetic-coded JPEG" if name == "b.jpg"
+        assert ("JPEG 2000 in TIFF" if name == "b.jpg"
                 else "BMP images are not supported") in message
     assert not (tmp_path / "out").exists()
 

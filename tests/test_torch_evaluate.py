@@ -36,7 +36,7 @@ from ocr_inference_tpu_torch.eval.synthetic import (
     write_line_dataset,
 )
 from ocr_inference_tpu_torch.io.artifacts import write_png
-from tests.image_writers import arithmetic_jpeg
+from tests.image_writers import jpeg2000_tiff
 from tests.make_torch_port_fixture import OUT, WEIGHTS
 
 REPO = Path(__file__).resolve().parents[1]
@@ -212,18 +212,13 @@ def test_eval_cli_score_files_match_jax(job, tmp_path):
 
 
 def test_eval_cli_refuses_non_png_lines_by_name(tmp_path):
-    """A line image of a variant the port does not decode (here an
-    arithmetic-coded JPEG) is refused by name before any model is loaded:
+    """A line image of a variant the port does not decode (here a JPEG 2000
+    TIFF named .jpg) is refused by name before any model is loaded:
     the model directory here has no config at all."""
-    import cv2
-
     folder = tmp_path / "data" / "dist"
     folder.mkdir(parents=True)
     write_png(folder / "ok.png", np.full((40, 60, 3), 230, np.uint8))
-    cv2.imwrite(str(folder / "scan.jpg"), np.full((40, 60, 3), 230,
-                                                  np.uint8))
-    (folder / "scan.jpg").write_bytes(arithmetic_jpeg(
-        (folder / "scan.jpg").read_bytes()))
+    (folder / "scan.jpg").write_bytes(jpeg2000_tiff(40, 60))
     for stem in ("ok", "scan"):
         (folder / f"{stem}.txt").write_text("ka\n")
     with pytest.raises(SystemExit) as exc:
@@ -231,7 +226,7 @@ def test_eval_cli_refuses_non_png_lines_by_name(tmp_path):
                            "--dataset", str(tmp_path / "data"),
                            "--output", str(tmp_path / "out"),
                            "--device", "cpu"])
-    assert "scan.jpg (arithmetic-coded JPEG" in str(exc.value)
+    assert "scan.jpg (JPEG 2000 in TIFF" in str(exc.value)
     assert not (tmp_path / "out").exists()
 
 

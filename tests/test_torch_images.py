@@ -295,12 +295,16 @@ def test_png_exif_orientation(tmp_path, orientation, where):
 def test_committed_files_equal_the_cv2_record(rel):
     """The encoded pages chip_smoke.py reads on the card (the card machine
     has no cv2): each file unchanged, and read_image gives cv2's decode,
-    equal to the shape and sha256 images.json records."""
+    equal to the shape and sha256 images.json records (None for the files
+    of images/none/, as cv2)."""
     want = IMAGES["files"][rel]
     path = OUT / "images" / rel
     assert hashlib.sha256(path.read_bytes()).hexdigest() == \
         want["file_sha256"]
     got = read_image(path)
+    if want["shape"] is None:  # images/none/: cv2 gives None
+        assert got is None and _cv2_rgb(path) is None
+        return
     assert list(got.shape) == want["shape"]
     assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
     np.testing.assert_array_equal(got, _cv2_rgb(path))
@@ -310,8 +314,11 @@ def _agreement_corpus(root):
     """One file of each kind the reader tests write: every format and
     variant read, given None or refused, and corrupt files, plus the
     committed page files."""
-    from tests.image_writers import arithmetic_jpeg, split_jpeg_tables, \
-        write_tiff
+    from tests.image_writers import (
+        jpeg2000_tiff, jpeg_arith, jpeg_dct, jpeg_lossless, modified_huffman,
+        old_style_lzw, sgilog, split_jpeg_tables, thunderscan,
+        write_tiff,
+    )
 
     rng = np.random.RandomState(21)
     img = rng.randint(0, 256, (24, 32, 3)).astype(np.uint8)
@@ -339,7 +346,14 @@ def _agreement_corpus(root):
         flipped[len(data) // 2] ^= 0x5A
         add(f"flip_{name}", bytes(flipped))
     base = (root / "b.jpg").read_bytes()
-    add("arith.jpg", arithmetic_jpeg(base))
+    planes = [img[..., c].astype(float) for c in range(3)]
+    add("arith.jpg", jpeg_arith(planes))
+    add("arith_prog.jpg", jpeg_arith(planes, progressive=True, restart=3))
+    add("lossless_rgb.jpg", jpeg_lossless(img, 8, 4))
+    add("lossless_gray.jpg", jpeg_lossless(img[..., 0], 8, 1))
+    add("lossless_16.jpg", jpeg_lossless(img.astype(int) * 250, 16, 7))
+    add("dct12.jpg", jpeg_dct([p * 16 for p in planes], 12))
+    add("j2k.jpg", jpeg2000_tiff())
     add("twelve.jpg", base.replace(b"\xff\xc0\x00\x11\x08",
                                    b"\xff\xc0\x00\x11\x0c", 1))
     lossless = bytearray(base.replace(b"\xff\xc0", b"\xff\xc3", 1))
@@ -373,6 +387,19 @@ def _agreement_corpus(root):
                           predictor=3),
         "oldlzw.tif": dict(samples=img, bits=8, photometric=2,
                            compression=5, chunks=[b"\x00\x01" + bytes(40)]),
+        "oldlzw_real.tif": dict(samples=img, bits=8, photometric=2,
+                                compression=5,
+                                chunks=[old_style_lzw(img.tobytes())]),
+        "rlew.tif": dict(samples=img[..., :1] > 128, bits=1, photometric=0,
+                         compression=32771,
+                         chunks=[modified_huffman(img[..., 0] > 128, 16)]),
+        "thunder.tif": dict(samples=img[..., :1] >> 4, bits=4, photometric=3,
+                            compression=32809,
+                            colormap=rng.randint(0, 65536, 48),
+                            chunks=[thunderscan(img[..., 0] >> 4)]),
+        "logl.tif": dict(samples=img[..., :1], bits=16, photometric=32844,
+                         compression=34676, rows_per_strip=1,
+                         chunks=sgilog(img[..., 0] / 255.0, False)),
         "g4unc.tif": dict(samples=img[..., :1] > 128, bits=1, photometric=0,
                           compression=4, tags={293: 2}, chunks=[bytes(20)]),
     }
@@ -385,9 +412,13 @@ def _agreement_corpus(root):
     pages["jpeg_ycc.tif"] = dict(samples=img, bits=8, photometric=6,
                                  compression=7, chunks=[abbreviated],
                                  tags={530: (3, [2, 2]), 347: (7, tables)})
-    pages["jpeg_arith.tif"] = dict(samples=img, bits=8, photometric=6,
-                                   compression=7, tags={530: (3, [2, 2])},
-                                   chunks=[arithmetic_jpeg(stream.tobytes())])
+    pages["jpeg_arith.tif"] = dict(samples=img, bits=8, photometric=2,
+                                   compression=7,
+                                   chunks=[jpeg_arith(planes, ids=[82, 71,
+                                                                   66])])
+    pages["jpeg_lossless.tif"] = dict(samples=img, bits=8, photometric=2,
+                                      compression=7,
+                                      chunks=[jpeg_lossless(img, 8, 5)])
     for name, page in pages.items():
         write_tiff(root / name, [page])
         add(name)

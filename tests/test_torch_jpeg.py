@@ -4,9 +4,9 @@ cv2 and PIL write here: byte-equal at every sampling factor cv2.imwrite
 offers, baseline and progressive, with restart intervals, optimised
 Huffman tables, gray, CMYK and YCCK, EXIF orientations 1-8, odd sizes,
 truncated files (progressive ones smoothed as libjpeg smooths them),
-complete progressive files with scans left out, and corrupt data; the
-variants it does not decode (arithmetic, lossless, 12-bit) are refused by
-name."""
+complete progressive files with scans left out, and corrupt data; headers
+once refused by name (arithmetic, lossless, 12-bit) now read as cv2 reads
+them (test_torch_jpeg_variants.py: real files of each)."""
 
 import cv2
 import numpy as np
@@ -15,7 +15,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image
 
-from ocr_inference_tpu_torch.io.images import image_format, read_image
+from ocr_inference_tpu_torch.io.images import (
+    image_format, read_image, unsupported,
+)
 from tests.image_writers import drop_scans, jpeg_scans
 
 # cv2.IMWRITE_JPEG_SAMPLING_FACTOR values: 4:1:1, 4:2:0, 4:2:2, 4:4:0, 4:4:4
@@ -200,10 +202,15 @@ def _lossless_scan(data: bytes) -> bytes:
     ({"marker": 0xC3}, "lossless JPEG"),
     ({"precision": 12}, "12- or 16-bit"),
 ])
-def test_variants_refused_by_name(tmp_path, variant, name):
-    """A lossless frame is refused by name when its first scan header is a
-    lossless one; with a sequential scan header libjpeg fails on it, and
-    the reader gives None."""
+def test_variants_once_refused_by_name(tmp_path, variant, name):
+    """These headers were refused by name. A baseline file's SOF made SOF9
+    or SOF10 now decodes its Huffman data as arithmetic-coded data, as
+    libjpeg does; made lossless it gives None with a sequential scan
+    header (libjpeg fails on it) and with a lossless one (a JFIF YCbCr
+    frame, which libjpeg-turbo does not convert in lossless mode); at 12
+    bits it gives None (OpenCV reads 8 bits). Equal to cv2 each time, and
+    unsupported() names none of them (test_torch_jpeg_variants.py has
+    real files of each)."""
     data = _write(tmp_path / "b.jpg", _page(16, 16)).read_bytes()
     path = tmp_path / "v.jpg"
     patched = _patched_sof(data, **variant)
@@ -212,8 +219,12 @@ def test_variants_refused_by_name(tmp_path, variant, name):
         assert _cv2_rgb(path) is None and read_image(path) is None
         patched = _lossless_scan(patched)
     path.write_bytes(patched)
-    with pytest.raises(NotImplementedError, match=name):
-        read_image(path)
+    want, got = _cv2_rgb(path), read_image(path)
+    if want is None:
+        assert got is None, name
+    else:
+        np.testing.assert_array_equal(got, want)
+    assert unsupported(path) is None
 
 
 def test_cmyk_refused_by_name(tmp_path):

@@ -61,7 +61,7 @@ from ocr_inference_tpu_torch.pipeline.engines import SegmentationEngine
 from ocr_inference_tpu_torch.pipeline.modern_layout import (
     ModernBookFormatLayoutDetection,
 )
-from tests.image_writers import arithmetic_jpeg
+from tests.image_writers import jpeg2000_tiff
 from tests.make_torch_port_fixture import (
     LAYOUT_CLASSES,
     full77f_configs,
@@ -434,11 +434,9 @@ def test_modern_layout_json_matches_jax(tmp_path):
                 (tmp_path / "jax" / f"{name}.json").read_text()
     with pytest.raises(ValueError, match="not part of the model's classes"):
         ours.run(str(pages), str(tmp_path / "x"), filter_classes=["sidebar"])
-    cv2.imwrite(str(pages / "scan.jpg"), np.zeros((8, 8, 3), np.uint8))
-    (pages / "scan.jpg").write_bytes(arithmetic_jpeg(
-        (pages / "scan.jpg").read_bytes()))
+    (pages / "scan.jpg").write_bytes(jpeg2000_tiff())
     with pytest.raises(NotImplementedError,
-                       match="scan.jpg .arithmetic-coded JPEG"):
+                       match="scan.jpg .JPEG 2000 in TIFF"):
         ours.run(str(pages), str(tmp_path / "y"))
     assert not (tmp_path / "y").exists()
 

@@ -30,7 +30,7 @@ from ocr_inference_tpu_torch.core.config import (
 )
 from ocr_inference_tpu_torch.io import parquet
 from ocr_inference_tpu_torch.io.dataset import ImageInferenceDataset
-from tests.image_writers import arithmetic_jpeg
+from tests.image_writers import jpeg2000_tiff
 from tests.make_torch_port_fixture import OUT, REPO, WEIGHTS
 
 LINES = REPO / "tests" / "data" / "refpipe" / "lines.msgpack"
@@ -234,13 +234,11 @@ def test_bocr_lines_refusals(folder, tmp_path):
     with pytest.raises(SystemExit) as exit_info:
         cli.main(["-i", str(empty), "-c", str(LINES), "--device", "cpu"])
     assert exit_info.value.code == 1
-    arith = tmp_path / "arith"
-    arith.mkdir()
-    cv2.imwrite(str(arith / "x.jpg"), np.full((64, 64, 3), 200, np.uint8))
-    (arith / "x.jpg").write_bytes(arithmetic_jpeg(
-        (arith / "x.jpg").read_bytes()))
-    with pytest.raises(NotImplementedError, match="arithmetic-coded"):
-        cli.main(["-i", str(arith), "-o", str(tmp_path / "a"),
+    refused = tmp_path / "refused"
+    refused.mkdir()
+    (refused / "x.jpg").write_bytes(jpeg2000_tiff(64, 64))
+    with pytest.raises(NotImplementedError, match="JPEG 2000 in TIFF"):
+        cli.main(["-i", str(refused), "-o", str(tmp_path / "a"),
                   "-c", str(LINES), "--device", "cpu"])
 
 

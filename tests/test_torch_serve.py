@@ -3,8 +3,8 @@ ocr_inference_tpu_torch.cli.serve_cli``), on the CPU: the cases of
 tests/test_serve_cli.py (dynamic batching over an os.pipe, overload
 shedding, the JSONL protocol); the fixture pages served in float32 give the
 JAX package's recorded float32 texts and boxes, as PNG and as the JPEG and
-TIFF files of tests/data/torch_port/images; an arithmetic-coded JPEG
-request fails by name; a device fault ends the session."""
+TIFF files of tests/data/torch_port/images; a JPEG 2000 TIFF request
+fails by name; a device fault ends the session."""
 
 import io
 import json
@@ -19,7 +19,7 @@ from ocr_inference_tpu_torch.cli.serve_cli import _LineReader, main, serve_loop
 from ocr_inference_tpu_torch.device import DeviceFault
 from ocr_inference_tpu_torch.eval.synthetic import fixture_pages
 from ocr_inference_tpu_torch.io.artifacts import write_png
-from tests.image_writers import arithmetic_jpeg
+from tests.image_writers import jpeg2000_tiff
 from tests.make_torch_port_fixture import OUT, WEIGHTS
 
 
@@ -125,8 +125,8 @@ def _serve(monkeypatch, capsys, requests: list[str], *args) -> tuple:
 def test_serve_jsonl_protocol(tmp_path, monkeypatch, capsys):
     """Per-request responses with error isolation: a page, a bad JSON line,
     a request without an image, a batch with a missing file, a JPEG cut
-    inside its headers (unreadable, as cv2 finds it) and an
-    arithmetic-coded JPEG that fails naming its variant; a blank line ends
+    inside its headers (unreadable, as cv2 finds it) and a JPEG 2000 TIFF
+    named .jpg that fails naming its variant; a blank line ends
     the session."""
     model_dir = _model_dir(tmp_path)
     page = tmp_path / "page.png"
@@ -134,8 +134,7 @@ def test_serve_jsonl_protocol(tmp_path, monkeypatch, capsys):
     cut = tmp_path / "cut.jpg"
     cut.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00")
     jpeg = tmp_path / "scan.jpg"
-    jpeg.write_bytes(arithmetic_jpeg(
-        (OUT / "images" / "pages" / "clean_a.jpg").read_bytes()))
+    jpeg.write_bytes(jpeg2000_tiff())
     rc, out = _serve(monkeypatch, capsys, [
         json.dumps({"image": str(page)}),
         "not json",
@@ -161,7 +160,8 @@ def test_serve_jsonl_protocol(tmp_path, monkeypatch, capsys):
     assert statuses[str(cut)]["status"] == "failed"
     refused = statuses[str(jpeg)]
     assert refused["status"] == "failed"
-    assert "arithmetic-coded JPEG is not supported" in refused["error"]
+    assert "JPEG 2000 in TIFF (compression 34712) is not supported" in \
+        refused["error"]
 
 
 def test_served_fixture_pages_give_the_jax_float32_record(tmp_path,

@@ -7,8 +7,10 @@ tiles, contiguous and planar, photometric 0-3, 5 (CMYK) and 6 (YCbCr) at
 1, 8 and 16 bits, both byte orders, classic TIFF and BigTIFF, extra
 samples, orientations and multi-page files (the first page); None where
 cv2 gives None (LZMA, Zstd, WebP and the other codecs cv2's libtiff lacks,
-floating-point samples and predictor); the variants it does not decode
-refused by name."""
+floating-point samples and predictor); the compressions libtiff does not
+know refused by name (test_torch_tiff_variants.py and
+test_torch_tiff_damage.py: libtiff's other codecs, L*a*b*, damaged
+strips)."""
 
 import cv2
 import numpy as np
@@ -19,7 +21,7 @@ from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
 from tests.image_writers import (
-    ccitt_2d, old_style_lzw, split_jpeg_tables, write_tiff,
+    ccitt_2d, jpeg_arith, old_style_lzw, split_jpeg_tables, write_tiff,
 )
 
 # (photometric, bits, samples per pixel)
@@ -643,7 +645,7 @@ def test_photometrics_libtiff_cannot_map_give_none(tmp_path, photometric):
     """A transparency mask, ICC and ITU L*a*b*, and SGI LogL/LogLuv without
     their SGILog compression: libtiff's RGBA interface cannot map them,
     and cv2 gives None; so does the reader (CIE L*a*b*, which it maps, is
-    refused by name in test_other_refusals_by_name)."""
+    read in test_other_once_refused_variants)."""
     path = tmp_path / "p.tif"
     write_tiff(path, [dict(samples=np.zeros((9, 13, 3)), bits=8,
                            photometric=photometric)])
@@ -656,50 +658,60 @@ def test_photometrics_libtiff_cannot_map_give_none(tmp_path, photometric):
     (34676, "LogLuv"), (34712, "JPEG 2000"), (50002, "TIFF compression"),
     (99, "TIFF compression 99"),
 ])
-def test_codecs_still_refused_by_name(tmp_path, compression, name):
-    """libtiff's NeXT, ThunderScan, RLE-W and SGI Log codecs decode files
-    made for them, and for a compression it does not know (JPEG 2000 in
-    TIFF, JPEG XL, ...) cv2 gives an all-zero page: refused by name, in
-    read_image and unsupported() alike."""
+def test_codecs_once_or_still_refused_by_name(tmp_path, compression, name):
+    """libtiff's NeXT, RLE-W, ThunderScan and SGI Log codecs were refused
+    by name: on an 8-bit RGB page, which none of them can code, cv2 gives
+    None and so does the reader (test_torch_tiff_variants.py has pages
+    made for each). A compression libtiff does not know (JPEG 2000 in
+    TIFF, JPEG XL, ...) gives cv2 an all-zero page: still refused by
+    name, in read_image and unsupported() alike."""
     path = tmp_path / "r.tif"
     write_tiff(path, [dict(samples=np.zeros((9, 13, 3)), bits=8,
                            photometric=2, tags={259: compression})])
+    if compression in (32766, 32771, 32809, 34676):
+        assert _cv2_rgb(path) is None
+        assert read_image(path) is None and unsupported(path) is None
+        return
     with pytest.raises(NotImplementedError, match=name):
         read_image(path)
     assert name in unsupported(path)
 
 
-def test_other_refusals_by_name(tmp_path):
+def test_other_once_refused_variants(tmp_path):
     """CIE L*a*b* pages, old-style LZW and arithmetic-coded JPEG strips,
-    in read_image and unsupported() alike."""
+    once refused by name, read as cv2 reads them; unsupported() names
+    none of them."""
     rng = np.random.RandomState(14)
     img = _smooth_page(rng, 16, 16)
-    stream = bytearray(_jpeg(img))
-    stream[stream.index(b"\xff\xc0") + 1] = 0xC9
+    planes = [img[..., c].astype(float) for c in range(3)]
+    gray = rng.randint(0, 256, (9, 13)).astype(np.uint8)
     cases = {
-        "L\\*a\\*b": dict(samples=rng.randint(0, 256, (9, 13, 3)), bits=8,
-                          photometric=8),
-        "old-style": dict(samples=rng.randint(0, 256, (9, 13, 3)), bits=8,
-                          photometric=2, compression=5,
-                          chunks=[b"\x00\x01" + bytes(30)]),
+        "L*a*b*": dict(samples=rng.randint(0, 256, (9, 13, 3)), bits=8,
+                       photometric=8),
+        "old-style": dict(samples=gray[..., None], bits=8, photometric=1,
+                          compression=5,
+                          chunks=[old_style_lzw(gray.tobytes())]),
         "arithmetic": dict(samples=img, bits=8, photometric=6, compression=7,
-                           chunks=[bytes(stream)], tags={530: (3, [2, 2])}),
+                           chunks=[jpeg_arith(
+                               [planes[0], planes[1][::2, ::2],
+                                planes[2][::2, ::2]],
+                               [(2, 2), (1, 1), (1, 1)])],
+                           tags={530: (3, [2, 2])}),
     }
     path = tmp_path / "r.tif"
     for name, page in cases.items():
         write_tiff(path, [page])
-        with pytest.raises(NotImplementedError, match=name):
-            read_image(path)
-        assert unsupported(path) is not None
+        _assert_same_as_cv2(path)
+        assert unsupported(path) is None, name
 
 
 @pytest.mark.parametrize("first", [77, 3, 201, 254])
-def test_old_style_lzw_refused_by_name(tmp_path, first):
+def test_old_style_lzw(tmp_path, first):
     """An old-style LZW strip is told as libtiff's LZWPreDecode tells it
     (byte 0 zero, bit 0 of byte 1 set), whatever the first code's low
-    bits put in byte 1 (first pixel 77: bytes 00 9b). cv2 reads the page;
-    the reader refuses it by name, in read_image and unsupported()
-    alike."""
+    bits put in byte 1 (first pixel 77: bytes 00 9b), and decoded as
+    LZWDecodeCompat decodes it, byte-equal with cv2; a page past 512
+    codes crosses the width steps."""
     rng = np.random.RandomState(first)
     gray = rng.randint(0, 256, (8, 10)).astype(np.uint8)
     gray[0, 0] = first
@@ -710,9 +722,15 @@ def test_old_style_lzw_refused_by_name(tmp_path, first):
                            compression=5, chunks=[strip])])
     want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
     np.testing.assert_array_equal(want, gray)
-    with pytest.raises(NotImplementedError, match="old-style"):
-        read_image(path)
-    assert "old-style" in unsupported(path)
+    _assert_same_as_cv2(path)
+    assert unsupported(path) is None
+    big = (np.add.outer(np.arange(90), np.arange(120)) * first % 256
+           ^ rng.randint(0, 2, (90, 120))).astype(np.uint8)
+    write_tiff(path, [dict(samples=big[..., None], bits=8, photometric=1,
+                           compression=5,
+                           chunks=[old_style_lzw(big.tobytes())])])
+    np.testing.assert_array_equal(read_image(path)[..., 0], big)
+    _assert_same_as_cv2(path)
 
 
 @pytest.mark.parametrize("size", [(40, 70), (64, 96)])
