@@ -512,7 +512,9 @@ def build():
               lambda: native.build_library("arpa_lm.cpp"),
               lambda: native.build_library("png.cpp"),
               lambda: native.build_library("jpeg.cpp"),
-              lambda: native.build_library("tiff.cpp"))
+              lambda: native.build_library("tiff.cpp"),
+              lambda: native.build_library("jp2.cpp"),
+              lambda: native.build_library("bmp.cpp"))
     threads = [threading.Thread(target=guarded, args=(f,)) for f in builds]
     for t in threads:
         t.start()
@@ -2258,6 +2260,9 @@ REPAIRED_AND_VARIANT_PAGES = (
     "skew_2deg_lab.tif", "clean_a_arith_prog.jpg", "clean_b_lossless.jpg",
     "clean_b_thunder.tif", "skew_2deg_rlew.tif", "clean_a_logl.tif",
     "skew_2deg_logluv.tif")
+# the extensions bocr --folder globs (cli.py IMAGE_EXTENSIONS); the JPEG
+# 2000, BMP, PNM and PAM page files go through bocr --image one at a time
+FOLDER_EXTENSIONS = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
 
 
 def tiny_tiff(compression: int) -> bytes:
@@ -2365,10 +2370,17 @@ def image_formats(results: dict):
     strips, old-style LZW, CIE L*a*b*, ThunderScan, RLE-W and SGI Log
     TIFF, arithmetic-coded and lossless JPEG, CMYK and smoothed
     progressive JPEG, JPEG-in-TIFF, YCbCr, CMYK, planar and BigTIFF beside
-    the PNG, JPEG and TIFF of earlier slices; the 12-bit JPEG and NeXT
-    page of images/none/ give None, as cv2. A folder holding an LZMA TIFF (cv2
-    gives None) beside a readable page: bocr exits 0, prints ``Failed to
-    load image`` for it and reads the page, as the JAX bocr does."""
+    the PNG, JPEG and TIFF of earlier slices, and JPEG 2000 (JP2 and raw
+    J2K: 9/7 and 5/3, gray, sYCC, SOP/EPH with tile-parts, BYPASS|RESET|
+    TERMALL code-blocks), BMP (RLE8, 24-bit), PGM, 16-bit PPM and PAM,
+    which bocr --folder does not glob: each goes through bocr --image, in
+    float32 and in bf16 (counted). The files of images/none/ (a 12-bit
+    JPEG, a NeXT page, a sYCC 4:2:0 JP2, a cut JP2, a BMP of 4-4-4 masks,
+    a cut PGM, a PAM of a mismatched tuple type) give None, as cv2. A
+    folder holding an LZMA TIFF (cv2 gives None) beside a readable page:
+    bocr exits 0, prints ``Failed to load image`` for it and reads the
+    page, as the JAX bocr does. The bench-size JP2's decode ms, and the
+    per-page loop's pages/s on the new formats against PNG copies."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2379,6 +2391,8 @@ def image_formats(results: dict):
     record = json.loads((FIXTURE / "images.json").read_text(encoding="utf-8"))
     pages_dir = IMAGE_DIR / "pages"
     page_paths = sorted(pages_dir.iterdir())
+    image_pages = [p for p in page_paths
+                   if p.suffix.lower() not in FOLDER_EXTENSIONS]
     checks, files = {}, {}
     for rel, want in record["files"].items():
         img = read_image(IMAGE_DIR / rel)
@@ -2408,8 +2422,17 @@ def image_formats(results: dict):
             rc = cli.main(args + ["--folder", str(pages_dir), "--output",
                                   str(root / "f32"), "--dtype", "float32"])
         runs["bocr_f32"] = {"rc": rc, "s": time.perf_counter() - t0}
-        f32 = full77f_pipeline(torch.float32)
         ok = rc == 0
+        t0 = time.perf_counter()
+        with no_tf32():
+            for path in image_pages:
+                rc = cli.main(args + ["--image", str(path), "--output",
+                                      str(root / "f32"), "--dtype",
+                                      "float32"])
+                ok &= rc == 0
+        runs["bocr_image_f32"] = {"files": len(image_pages), "ok": ok,
+                                  "s": time.perf_counter() - t0}
+        f32 = full77f_pipeline(torch.float32)
         with no_tf32():
             for path in page_paths:
                 want = record["bocr"][path.name]
@@ -2436,6 +2459,9 @@ def image_formats(results: dict):
         with counted_path(results, "bocr_formats"):
             rc = cli.main(args + ["--folder", str(pages_dir), "--output",
                                   str(root / "bf16")])
+            for path in image_pages:
+                rc = rc or cli.main(args + ["--image", str(path),
+                                            "--output", str(root / "bf16")])
         runs["bocr_bf16"] = {"rc": rc, "s": time.perf_counter() - t0}
         checks["bocr_bf16_runs"] = rc == 0 and all(
             (root / "bf16" / f"{p.stem}.txt").is_file() for p in page_paths)
@@ -2461,16 +2487,38 @@ def image_formats(results: dict):
         for kind in ("files", "png_copies", "png_copies", "files"):
             runs_s[kind].append(page_loop_s(
                 bf16, new if kind == "files" else new_png))
-        del bf16
         loop["repaired_and_variant_pages"] = {
             "pages": len(new), **{f"{k}_s": v for k, v in runs_s.items()},
             **{f"{k}_pages_per_s": len(new) / min(v)
                for k, v in runs_s.items()}}
+        # and over the JPEG 2000, BMP, PNM and PAM pages
+        new_png = [png_dir / f"{p.name}.png" for p in image_pages]
+        runs_s = {"files": [], "png_copies": []}
+        for kind in ("files", "png_copies", "png_copies", "files"):
+            runs_s[kind].append(page_loop_s(
+                bf16, image_pages if kind == "files" else new_png))
+        del bf16
+        loop["jpeg2000_bmp_pnm_pages"] = {
+            "pages": len(image_pages),
+            **{f"{k}_s": v for k, v in runs_s.items()},
+            **{f"{k}_pages_per_s": len(image_pages) / min(v)
+               for k, v in runs_s.items()}}
 
+        # bocr-lines globs bocr's five extensions: the other page files go
+        # through it under a name it globs (tests/make_torch_port_fixture.py
+        # renamed_page), as in the JAX record
+        renamed = root / "renamed"
+        renamed.mkdir()
+        for path in image_pages:
+            stem, ext = path.name.rsplit(".", 1)
+            (renamed / f"{stem}_{ext}.png").write_bytes(path.read_bytes())
         t0 = time.perf_counter()
         with no_tf32(), counted_path(results, "bocr_lines"):
             rc = infer_lines_cli.main([
                 "-i", str(pages_dir), "-o", str(root / "parquet"), "-c",
+                str(WEIGHTS / "lines.msgpack"), "--dtype", "float32"])
+            rc = rc or infer_lines_cli.main([
+                "-i", str(renamed), "-o", str(root / "parquet"), "-c",
                 str(WEIGHTS / "lines.msgpack"), "--dtype", "float32"])
         runs["bocr_lines_f32"] = {"rc": rc, "s": time.perf_counter() - t0}
         rows = {}
@@ -2498,7 +2546,9 @@ def image_formats(results: dict):
         skip = unreadable_page_skipped(cli, args, root, page_paths[0])
         runs["bocr_lzma_folder"] = skip
         checks["bocr_skips_lzma_tiff"] = skip["ok"]
+    bench_jp2 = files.get("bench_cfg4.jp2", {})
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
+            "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
             "pool_decode": pool, "pages": per_page, "runs": runs,
             "page_loop_bf16": loop, "bocr_lines": rows,
             "launches": {p: results["launches"][p]

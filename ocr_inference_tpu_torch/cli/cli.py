@@ -11,9 +11,10 @@ Differences from the JAX CLI:
   without a card the default raises; ``--seed`` picks the seeded weights
   that ``--allow-random-weights`` makes (pipeline/builder.py
   ``seeded_variables``);
-- pages are read with io/images.py ``read_image`` (PNG, JPEG, TIFF, as
-  cv2.imread reads them): a ``--image`` or ``--folder`` holding a format or
-  variant it does not decode (BMP, WebP, a JPEG 2000 TIFF, ...)
+- pages are read with io/images.py ``read_image`` (PNG, JPEG, TIFF, JPEG
+  2000, BMP, PNM and PAM, as cv2.imread reads them; ``--folder`` globs
+  the JAX CLI's five extensions): a ``--image`` or ``--folder`` holding a
+  format or variant it does not decode (WebP, GIF, a JPEG 2000 TIFF, ...)
   exits non-zero, naming the files and why, before any model is loaded;
 - ``--mesh`` builds the mesh from the devices of ``--device``'s type: a
   count the cards cannot give exits naming it (the JAX CLI falls back to

@@ -18,9 +18,10 @@ Differences from the JAX CLI:
 - ``--device`` (default ``cuda``), ``--dtype`` (default ``bfloat16``) and
   ``--seed`` (of the weights ``--allow-random-weights`` makes), as the
   port's ``bocr`` has them; without a card the default device raises;
-- line images are read with io/images.py ``read_image`` (PNG, JPEG and
-  TIFF, as cv2.imread reads them): a dataset holding a format or variant
-  it does not decode (BMP, WebP, a JPEG 2000 TIFF, ...) exits
+- line images are read with io/images.py ``read_image`` (PNG, JPEG, TIFF,
+  JPEG 2000, BMP, PNM and PAM, as cv2.imread reads them; the dataset globs
+  the JAX CLI's extensions): a dataset holding a format or variant it does
+  not decode (WebP, GIF, a JPEG 2000 TIFF, ...) exits
   non-zero, naming the files and why, before any model is loaded;
 - the JAX CLI's persistent compilation cache has no counterpart.
 """

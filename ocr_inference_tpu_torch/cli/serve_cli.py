@@ -25,10 +25,10 @@ Differences from the JAX service:
 - ``--device`` (default ``cuda``), ``--dtype`` (default ``bfloat16``) and
   ``--seed`` (of the weights ``--allow-random-weights`` makes); without a
   card the default device raises;
-- pages are read with io/images.py ``read_image`` (PNG, JPEG and TIFF, as
-  cv2.imread reads them): a request for a format or variant it does not
-  decode (BMP, WebP, a JPEG 2000 TIFF, ...) is answered with a
-  ``failed`` line that names it;
+- pages are read with io/images.py ``read_image`` (PNG, JPEG, TIFF, JPEG
+  2000, BMP, PNM and PAM, as cv2.imread reads them): a request for a
+  format or variant it does not decode (WebP, GIF, a JPEG 2000 TIFF, ...)
+  is answered with a ``failed`` line that names it;
 - a CUDA error ends the session: its last line is a ``failed`` object
   naming the fault (``"fatal": true``) and the process exits 1. CUDA
   errors are sticky, so no later request could be served;

@@ -1,11 +1,13 @@
 """Page images from files: the port's counterpart of
-``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` for PNG, JPEG and
-TIFF, byte for byte.
+``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` for PNG, JPEG, TIFF,
+JPEG 2000, BMP, PNM and PAM, byte for byte.
 
 The card machine has neither OpenCV nor PIL, so the formats are decoded
 here on stdlib ``zlib`` and numpy, with the pixel loops in native code
-(native/png.cpp, jpeg.cpp, tiff.cpp). What ``cv2.imread(path)``
-(``IMREAD_COLOR``) gives, this gives in RGB order:
+(native/png.cpp, jpeg.cpp, tiff.cpp, jp2.cpp, bmp.cpp). A file's format is
+told from its leading bytes as cv2 5.0's findDecoder tells it (its name
+plays no part). What ``cv2.imread(path)`` (``IMREAD_COLOR``) gives, this
+gives in RGB order:
 
 - PNG: colour types 0 (gray), 2 (RGB), 3 (palette), 4 (gray + alpha) and
   6 (RGBA) at every bit depth the type allows, plain or Adam7-interlaced;
@@ -49,6 +51,35 @@ here on stdlib ``zlib`` and numpy, with the pixel loops in native code
   is then not undone). A strip that is empty or runs past the end of the
   file, or whose JPEG header libjpeg rejects, fails before any buffer is
   made: cv2 gives None;
+- JPEG 2000: JP2 files (their boxes as OpenJPEG's jp2.c reads them: the
+  signature and ftyp boxes, jp2h with ihdr, the first colr, pclr/cmap
+  palettes and cdef channel definitions, then jp2c, XL and zero box
+  lengths, other boxes skipped) and raw J2K codestreams, decoded as
+  OpenJPEG 2.5.3 decodes them for cv2 in its strict mode (native/jp2.cpp:
+  every Part 1 progression, POC, tile-part, code-block style, precinct,
+  ROI and packed-header layout, 5/3 and 9/7, RCT and ICT), then mapped as
+  cv2's Jpeg2KOpjDecoder maps them: every component shifted right by the
+  codestream's largest precision less 8 and cast to 8 bits, greyscale
+  (colr 17) from component 0, sYCC (18) through cvtColor's YUV -> BGR,
+  sRGB and every other space (no colr, an ICC profile, a raw codestream)
+  from components 0-2. cv2 gives None, and so does this, for components
+  of under 8 bits, signed, subsampled or offset on the reference grid
+  (sYCC 4:2:0 among them), fewer than 3 components outside greyscale,
+  CMYK and e-sYCC, and a codestream cut or broken (OpenJPEG's strict
+  mode fails on a cut tile-part);
+- BMP ("BM"): the core, info, V4, V5 and OS/2 2.x headers, 1, 4 and 8
+  bits through the palette, RLE8 and RLE4 (native/bmp.cpp, escapes as
+  OpenCV decodes them), 16 bits as 5-5-5 or 5-6-5 (BI_BITFIELDS), 24 and
+  32 bits, top-down rows, as OpenCV's grfmt_bmp.cpp reads them; a file cut
+  short gives None;
+- PNM (P1-P6, ASCII and binary, with comments) and PAM (P7, tuple types
+  BLACKANDWHITE, GRAYSCALE, GRAYSCALE_ALPHA, RGB, RGB_ALPHA of depths
+  1-4), as grfmt_pxm.cpp and grfmt_pam.cpp read them: binary 8-bit
+  samples are not scaled by the maxval, ASCII ones are; 16-bit samples
+  keep their high byte; a PAM's three channels are copied as they lie (an
+  RGB PAM comes out with red and blue swapped, as cv2 reads it), and of
+  two or four only the first ceil(width / depth) pixels of a row are
+  written (the rest of cv2's image is its fresh memory: zero here);
 - EXIF orientation 2-8 is applied as cv2 applies it, from a JPEG's first
   APP1 segment and from a PNG's ``eXIf`` chunk. A TIFF's orientation is
   applied as cv2 5.0 applies it: 4 flips top-bottom; 2 flips each strip or
@@ -57,18 +88,23 @@ here on stdlib ``zlib`` and numpy, with the pixel loops in native code
   imread does;
 - a file cv2 cannot read gives ``None``: missing, truncated inside its
   headers, a bad CRC of a critical PNG chunk or bad zlib data in a PNG,
-  and the TIFF variants cv2's libtiff cannot read or map (LZMA, Zstandard,
+  the TIFF variants cv2's libtiff cannot read or map (LZMA, Zstandard,
   WebP, old-style JPEG, PixarLog, JBIG and LERC compression, which it was
   built without; float samples, the floating-point predictor, 32-bit
-  samples, 16-bit CMYK; 2-bit pages, NeXT's among them, and 4-bit gray).
-  A JPEG truncated inside its entropy-coded data decodes as libjpeg
-  decodes it: the missing blocks are mid-gray.
+  samples, 16-bit CMYK; 2-bit pages, NeXT's among them, and 4-bit gray),
+  a gray PFM ("Pf", which trips imread's own check), OpenEXR (this cv2 is
+  built without it) and OS/2 bitmaps (BA, CI, CP, IC, PT: no decoder of
+  cv2's takes them). A JPEG truncated inside its entropy-coded data
+  decodes as libjpeg decodes it: the missing blocks are mid-gray.
 
 What cv2 reads and this does not raises ``NotImplementedError`` naming
 it, so that no page is skipped silently: a TIFF compression libtiff does
 not know (JPEG 2000 in TIFF 34712, JPEG XL 50002, any other number; cv2
 gives an all-zero page for those), lossless JPEG with subsampled
-components, and every other format (BMP, WebP, JPEG 2000, GIF, ...).
+components, HTJ2K codestreams (Part 15, a CAP marker) and the JPEG 2000
+Part 2 multi-component transforms (MCT, MCC, MCO markers), both of which
+OpenJPEG 2.5 decodes, and every other format: GIF, WebP, AVIF, Sun raster,
+colour PFM and Radiance HDR (``#?RADIANCE`` or ``#?RGBE``).
 ``unsupported(path)`` tells these from the headers, without decoding.
 """
 
@@ -83,21 +119,26 @@ import numpy as np
 from ocr_inference_tpu_torch import native
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+J2K_SIGNATURE = b"\xffO\xffQ"
+_SPACE = b" \t\n\v\f\r"  # C's isspace
 
-# leading bytes of the formats cv2.imread reads besides PNG
+# leading bytes of the formats cv2.imread reads besides PNG and those
+# image_format tests by rule (cv2 5.0's signatures; this cv2 is built
+# without OpenEXR, and reads BMP only under "BM", not OS/2's BA, CI, CP, IC
+# or PT)
 _MAGIC = (
+    (b"BM", "BMP"),
     (b"\xff\xd8\xff", "JPEG"),
+    (b"\x59\xa6\x6a\x95", "Sun raster"),
     (b"II*\x00", "TIFF"),
     (b"MM\x00*", "TIFF"),
     (b"II+\x00", "TIFF"),
     (b"MM\x00+", "TIFF"),
-    (b"BM", "BMP"),
-    (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"),
-    (b"\xffO\xffQ", "JPEG 2000"),
-    (b"GIF8", "GIF"),
-    (b"v/1\x01", "OpenEXR"),
-    (b"#?RADIANCE", "Radiance HDR"),
-    (b"\x59\xa6\x6a\x95", "Sun raster"),
+    (JP2_SIGNATURE, "JPEG 2000"),
+    (J2K_SIGNATURE, "JPEG 2000"),
+    (b"GIF87a", "GIF"),
+    (b"GIF89a", "GIF"),
 )
 
 # channels of each PNG colour type, and the bit depths it allows
@@ -146,10 +187,21 @@ class _Corrupt(ValueError):
     """The file cannot be decoded; cv2.imread gives None for it."""
 
 
+def _check_size(width: int, height: int) -> None:
+    """imread's validateInputImageSize: at most 2**20 a side and 2**30
+    pixels; a larger header gives None (before anything is allocated)."""
+    if not (0 < width <= 1 << 20 and 0 < height <= 1 << 20
+            and width * height <= 1 << 30):
+        raise _Corrupt(f"a {width}x{height} image: cv2 refuses its size")
+
+
 def image_format(path: str | Path) -> str | None:
-    """The image format of a file by its leading bytes: "PNG", "JPEG",
-    "TIFF", another format's name, or None for a file that is missing or of
-    no known format."""
+    """The image format of a file by its leading bytes, as cv2 5.0's
+    findDecoder picks its decoder: "PNG", "JPEG", "TIFF", "JPEG 2000",
+    "BMP", "PNM" (P1-P6), "PAM" (P7), another format's name, or None for a
+    file that is missing, that no decoder of cv2's takes, or that cv2
+    gives None for by its signature alone (a gray PFM, "Pf", which trips
+    imread's own check)."""
     try:
         with open(path, "rb") as f:
             head = f.read(16)
@@ -161,8 +213,18 @@ def image_format(path: str | Path) -> str | None:
         return "WebP"
     if head[4:12] in (b"ftypavif", b"ftypavis"):
         return "AVIF"
-    if len(head) > 1 and head[:1] == b"P" and head[1:2] in b"1234567f":
-        return "PNM"
+    # HdrDecoder compares at least as many bytes as "#?RADIANCE" holds
+    if len(head) >= 10 and (head.startswith(b"#?RADIANCE")
+                            or head.startswith(b"#?RGBE")):
+        return "Radiance HDR"
+    if len(head) >= 3 and head[:1] == b"P" and head[2] in _SPACE:
+        kind = head[1:2]
+        if b"1" <= kind <= b"6":
+            return "PNM"
+        if kind == b"7":
+            return "PAM"
+        if kind == b"F":
+            return "PFM"
     for magic, name in _MAGIC:
         if head.startswith(magic):
             return name
@@ -184,8 +246,10 @@ def unsupported(path: str | Path) -> str | None:
             rc = native.jpeg_header(data)[0]
             if rc > 1:
                 return f"{_JPEG_VARIANTS[rc]} is not supported"
-        else:
+        elif fmt == "TIFF":
             _tiff_first_page(data)
+        elif fmt == "JPEG 2000":
+            _jp2_header(data)
     except NotImplementedError as e:
         return str(e)
     except (OSError, KeyError, struct.error, ValueError, IndexError,
@@ -195,17 +259,18 @@ def unsupported(path: str | Path) -> str | None:
 
 
 def read_image(path: str | Path) -> np.ndarray | None:
-    """A PNG, JPEG or TIFF file -> (H, W, 3) uint8 RGB, or None when it
-    cannot be read (see the module doc). Other formats and the variants
-    the module doc names raise NotImplementedError."""
+    """A PNG, JPEG, TIFF, JPEG 2000, BMP, PNM or PAM file -> (H, W, 3)
+    uint8 RGB, or None when it cannot be read (see the module doc). Other
+    formats and the variants the module doc names raise
+    NotImplementedError."""
     fmt = image_format(path)
     if fmt is None:
         return None
     decode = _DECODERS.get(fmt)
     if decode is None:
         raise NotImplementedError(
-            f"{path}: {fmt} images are not supported; PNG, JPEG and TIFF "
-            "are read")
+            f"{path}: {fmt} images are not supported; PNG, JPEG, TIFF, "
+            "JPEG 2000, BMP, PNM and PAM are read")
     try:
         return decode(Path(path).read_bytes())
     except NotImplementedError as e:
@@ -1011,4 +1076,625 @@ def _decode_tiff_page(data: bytes, order: str, tags: dict,
     return np.ascontiguousarray(img)
 
 
-_DECODERS = {"PNG": _decode_png, "JPEG": _decode_jpeg, "TIFF": _decode_tiff}
+# ---------------------------------------------------------------------------
+# JPEG 2000
+# ---------------------------------------------------------------------------
+
+# colr box EnumCS values OpenJPEG maps to a colour space cv2 handles:
+# sRGB, greyscale, sYCC; CMYK (12) and e-sYCC (24) cv2 refuses (None);
+# every other value, an ICC profile or no colr box is "unknown", which
+# cv2 reads as sRGB
+_JP2_SRGB, _JP2_GRAY, _JP2_SYCC = 16, 17, 18
+_JP2_REFUSED_SPACES = (12, 24)
+_J2K_VARIANTS = {
+    native.J2K_HTJ2K: "HTJ2K (High-Throughput JPEG 2000, Part 15) "
+                      "codestreams are not supported",
+    native.J2K_PART2: "JPEG 2000 Part 2 multi-component transforms (MCT, "
+                      "MCC, MCO markers) are not supported",
+}
+
+
+def _jp2_boxes(data: bytes) -> dict:
+    """A JP2 file's boxes as OpenJPEG's jp2.c reads them: the signature
+    box, then ftyp, then (in any order with other boxes, which are skipped)
+    jp2h with ihdr first among what it needs, colr (the first only: method
+    1 an EnumCS, method 2 an ICC profile), pclr, cmap, cdef; then jp2c,
+    whose codestream runs to the end of the file."""
+    out: dict = {"enumcs": None, "pclr": None, "cmap": None, "cdef": None}
+    pos, n, state = 0, len(data), 0
+    while True:
+        if pos + 8 > n:
+            raise _Corrupt("no jp2c box")
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if length == 1:
+            if pos + 16 > n:
+                raise _Corrupt("cut XL box length")
+            length, = struct.unpack_from(">Q", data, pos + 8)
+            head = 16
+        elif length == 0:
+            length = n - pos
+        if length < head:
+            raise _Corrupt("box length is inconsistent")
+        if kind == b"jp2c":
+            if not state & 4:
+                raise _Corrupt("badly placed codestream")
+            out["codestream"] = data[pos + head:]
+            return out
+        if pos + length > n:
+            raise _Corrupt("a box runs past the end of the file")
+        body = data[pos + head: pos + length]
+        if state == 0:
+            if kind != b"jP  " or length != 12 or body != b"\r\n\x87\n":
+                raise _Corrupt("first box must be the signature box")
+            state = 1
+        elif state == 1:
+            if kind != b"ftyp" or len(body) < 8 or len(body) % 4:
+                raise _Corrupt("second box must be the file type box")
+            state = 3
+        elif kind == b"jp2h":
+            _jp2_header_box(body, out)
+            state |= 4
+        pos += length
+
+
+def _jp2_header_box(body: bytes, out: dict) -> None:
+    """The jp2h superbox's boxes into ``out`` (opj_jp2_read_jp2h)."""
+    pos, has_ihdr = 0, False
+    while pos < len(body):
+        if pos + 8 > len(body):
+            raise _Corrupt("cut box in jp2h")
+        length, kind = struct.unpack_from(">I4s", body, pos)
+        head = 8
+        if length == 1:
+            length, = struct.unpack_from(">Q", body, pos + 8)
+            head = 16
+        elif length == 0:
+            length = len(body) - pos
+        if length < head or pos + length > len(body):
+            raise _Corrupt("box length is inconsistent")
+        box = body[pos + head: pos + length]
+        if not has_ihdr and kind != b"ihdr":
+            raise _Corrupt("ihdr must be the first box of jp2h")
+        if kind == b"ihdr":
+            if not has_ihdr:
+                if len(box) != 14:
+                    raise _Corrupt("bad ihdr box")
+                h, w, nc = struct.unpack_from(">IIH", box)
+                if not (h and w and nc):
+                    raise _Corrupt("empty image in ihdr")
+            has_ihdr = True
+        elif kind == b"colr" and "colr" not in out:
+            if len(box) < 3:
+                raise _Corrupt("bad colr box")
+            if box[0] == 1:
+                if len(box) < 7:
+                    raise _Corrupt("bad colr box")
+                out["enumcs"], = struct.unpack_from(">I", box, 3)
+                out["colr"] = True
+            elif box[0] == 2:
+                out["colr"] = True
+            # other methods: the box is ignored
+        elif kind == b"pclr":
+            if out["pclr"] is not None or len(box) < 3:
+                raise _Corrupt("bad pclr box")
+            ne, npc = struct.unpack_from(">HB", box)
+            if not 1 <= ne <= 1024 or npc == 0 or len(box) < 3 + npc:
+                raise _Corrupt("bad pclr box")
+            sizes = box[3: 3 + npc]
+            entries = np.zeros((ne, npc), np.int64)
+            at = 3 + npc
+            for e in range(ne):
+                for c, b in enumerate(sizes):
+                    nb = min(((b & 0x7F) + 1 + 7) >> 3, 4)
+                    if at + nb > len(box):
+                        raise _Corrupt("cut pclr box")
+                    entries[e, c] = int.from_bytes(box[at: at + nb], "big")
+                    at += nb
+            out["pclr"] = entries
+        elif kind == b"cmap":
+            if out["pclr"] is None or out["cmap"] is not None:
+                raise _Corrupt("cmap without pclr, or a second cmap")
+            npc = out["pclr"].shape[1]
+            if len(box) < 4 * npc:
+                raise _Corrupt("bad cmap box")
+            out["cmap"] = [struct.unpack_from(">HBB", box, 4 * i)
+                           for i in range(npc)]
+        elif kind == b"cdef":
+            if out["cdef"] is not None or len(box) < 2:
+                raise _Corrupt("bad cdef box")
+            count, = struct.unpack_from(">H", box)
+            if count == 0 or len(box) < 2 + 6 * count:
+                raise _Corrupt("bad cdef box")
+            out["cdef"] = [list(struct.unpack_from(">HHH", box, 2 + 6 * i))
+                           for i in range(count)]
+        pos += length
+    if not has_ihdr:
+        raise _Corrupt("no ihdr box")
+
+
+def _jp2_check_color(comps: int, boxes: dict) -> None:
+    """opj_jp2_check_color: cdef indices in range and complete, each cmap
+    channel mapped once from an existing component; a broken one fails
+    the decode (None)."""
+    pclr, cmap, cdef = boxes["pclr"], boxes["cmap"], boxes["cdef"]
+    if cdef is not None:
+        channels = len(cmap) if pclr is not None and cmap is not None \
+            else comps
+        for cn, _, asoc in cdef:
+            if cn >= channels or (asoc not in (0, 65535)
+                                  and asoc - 1 >= channels):
+                raise _Corrupt("invalid cdef box")
+        if not {cn for cn, _, _ in cdef} >= set(range(channels)):
+            raise _Corrupt("incomplete channel definitions")
+    if pclr is not None and cmap is not None:
+        used = [False] * len(cmap)
+        sane = True
+        for i, (cmp, mtyp, pcol) in enumerate(cmap):
+            if cmp >= comps:
+                sane = False
+            if mtyp not in (0, 1) or pcol >= len(cmap) \
+                    or (used[pcol] and mtyp == 1) \
+                    or (mtyp == 0 and pcol != 0) or (mtyp == 1 and pcol != i):
+                sane = False
+            else:
+                used[pcol] = True
+        if any(not used[i] and cmap[i][1] != 0 for i in range(len(cmap))):
+            sane = False
+        if sane and comps == 1 and not all(used):
+            # "Component mapping seems wrong. Trying to correct."
+            cmap[:] = [(cmp, 1, i) for i, (cmp, _, _) in enumerate(cmap)]
+        if not sane:
+            raise _Corrupt("invalid cmap box")
+
+
+def _jp2_header(data: bytes) -> tuple[bytes, dict, dict]:
+    """(codestream, boxes, main header) of a JP2 file or raw J2K
+    codestream, judged as cv2's Jpeg2K decoder judges them before it
+    decodes: what it gives None for raises _Corrupt (signed components,
+    no component of 8 bits or more, components that are subsampled or
+    offset, colour spaces it refuses, fewer than 3 components outside
+    greyscale); HTJ2K and the Part 2 transforms, which it reads, raise
+    NotImplementedError."""
+    if data.startswith(J2K_SIGNATURE):
+        boxes = {"enumcs": None, "pclr": None, "cmap": None, "cdef": None,
+                 "codestream": data}
+    else:
+        boxes = _jp2_boxes(data)
+    cs = boxes["codestream"]
+    rc, hdr = native.j2k_header(cs)
+    if rc == native.J2K_FAIL:
+        raise _Corrupt("JPEG 2000 codestream OpenJPEG cannot read")
+    comps = hdr["comps"]
+    if any(sgnd for _, _, _, sgnd in comps):
+        raise _Corrupt("signed components: cv2 refuses them")
+    if max(prec for _, _, prec, _ in comps) < 8:
+        raise _Corrupt("precision under 8 bits: cv2 refuses it")
+    if hdr["x0"] or hdr["y0"] or any((dx, dy) != (1, 1)
+                                     for dx, dy, _, _ in comps):
+        raise _Corrupt("subsampled or offset components: cv2 refuses them")
+    _check_size(hdr["x1"], hdr["y1"])
+    space = boxes["enumcs"]
+    channels = len(boxes["cmap"]) if boxes["pclr"] is not None \
+        and boxes["cmap"] is not None else len(comps)
+    if space in _JP2_REFUSED_SPACES or (space != _JP2_GRAY and channels < 3):
+        raise _Corrupt("a colour space or component count cv2 refuses")
+    if rc in _J2K_VARIANTS:
+        raise NotImplementedError(_J2K_VARIANTS[rc])
+    return cs, boxes, hdr
+
+
+def _decode_jp2(data: bytes) -> np.ndarray:
+    """OpenJPEG's decode (native/jp2.cpp), its pclr/cmap and cdef steps,
+    then cv2's Jpeg2KOpjDecoder: every component shifted right by the
+    largest precision less 8 and saturated to 8 bits; greyscale from
+    component 0, sYCC from components 0-2 through cvtColor's YUV -> BGR,
+    everything else (sRGB, unknown) from components 0-2 as RGB."""
+    cs, boxes, hdr = _jp2_header(data)
+    rc, planes = native.j2k_decode(cs)
+    if rc:
+        raise _Corrupt("JPEG 2000 data OpenJPEG cannot decode")
+    comps = len(planes)
+    pclr, cmap, cdef = boxes["pclr"], boxes["cmap"], boxes["cdef"]
+    _jp2_check_color(comps, boxes)
+    if pclr is not None and cmap is not None:  # opj_jp2_apply_pclr
+        entries = pclr
+        mapped = []
+        for i, (cmp, mtyp, pcol) in enumerate(cmap):
+            if mtyp == 0:
+                mapped.append(planes[cmp])
+            else:
+                index = np.clip(planes[cmp], 0, len(entries) - 1)
+                mapped.append(entries[index, pcol].astype(np.int32))
+        planes = mapped
+    if cdef is not None:  # opj_jp2_apply_cdef: swap colour channels
+        cdef = [list(c) for c in cdef]
+        for i, (cn, typ, asoc) in enumerate(cdef):
+            if cn >= len(planes) or asoc in (0, 65535):
+                continue
+            acn = asoc - 1
+            if acn >= len(planes):
+                continue
+            if cn != acn and typ == 0:
+                planes[cn], planes[acn] = planes[acn], planes[cn]
+                for later in cdef[i + 1:]:
+                    if later[0] == cn:
+                        later[0] = acn
+                    elif later[0] == acn:
+                        later[0] = cn
+    shift = max(max(prec for _, _, prec, _ in hdr["comps"]) - 8, 0)
+
+    def eight(plane):  # a C cast keeps the low 8 bits (a palette entry
+        # may be wider than 8 bits)
+        return (plane >> shift if shift else plane).astype(np.uint8)
+
+    space = boxes["enumcs"]
+    if space == _JP2_GRAY:
+        return np.repeat(eight(planes[0])[..., None], 3, axis=2)
+    if len(planes) < 3:
+        raise _Corrupt("fewer than 3 components for an RGB image")
+    rgb = np.stack([eight(p) for p in planes[:3]], axis=-1)
+    if space == _JP2_SYCC:
+        return _yuv_to_rgb(rgb)
+    return rgb
+
+
+def _yuv_to_rgb(yuv: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(COLOR_YUV2BGR) on 8-bit samples, in RGB order: its
+    14-bit fixed-point coefficients, each term rounded."""
+    y = yuv[..., 0].astype(np.int32)
+    u = yuv[..., 1].astype(np.int32) - 128
+    v = yuv[..., 2].astype(np.int32) - 128
+
+    def descale(x):
+        return (x + (1 << 13)) >> 14
+
+    r = y + descale(v * 18678)
+    g = y + descale(u * -6472 + v * -9519)
+    b = y + descale(u * 33292)
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# BMP
+# ---------------------------------------------------------------------------
+
+_BMP_RGB, _BMP_RLE8, _BMP_RLE4, _BMP_BITFIELDS = 0, 1, 2, 3
+
+
+def _decode_bmp(data: bytes) -> np.ndarray:
+    """OpenCV's grfmt_bmp.cpp: the core (12-byte), info, V4, V5 and OS/2
+    2.x headers; 1, 4 and 8 bits through the palette read just after the
+    header (entries past its count are black), RLE4 and RLE8
+    (native/bmp.cpp), 16 bits as 5-5-5 or, with BI_BITFIELDS masks read
+    after the header, 5-6-5 (the low bits zero, not replicated), 24 bits,
+    and 32 bits as the first three bytes of each pixel whatever the masks
+    say; rows bottom-up unless the height is negative. A file that ends
+    before its last row gives None, as cv2's stream throws."""
+    if len(data) < 18:
+        raise _Corrupt("BMP header cut short")
+    offset, size = struct.unpack_from("<Ii", data, 10)
+    if size <= 0:
+        raise _Corrupt("bad BMP header size")
+    palette = np.zeros((256, 3), np.uint8)  # BGR
+    if size >= 36:
+        if len(data) < 50:
+            raise _Corrupt("BMP header cut short")
+        width, height, planes_bpp, rle = struct.unpack_from("<iiIi", data,
+                                                            18)
+        bpp = planes_bpp >> 16
+        clrused, = struct.unpack_from("<i", data, 46)
+        if not 0 <= rle <= _BMP_BITFIELDS:
+            raise _Corrupt("BMP compression cv2 does not read")
+        at = 14 + size
+        if not (width > 0 and height != 0 and (
+                (bpp in (1, 4, 8, 24, 32) and rle == _BMP_RGB)
+                or (bpp in (16, 32) and rle in (_BMP_RGB, _BMP_BITFIELDS))
+                or (bpp == 4 and rle == _BMP_RLE4)
+                or (bpp == 8 and rle == _BMP_RLE8))):
+            raise _Corrupt("BMP layout cv2 does not read")
+        if bpp <= 8:
+            if not 0 <= clrused <= 256:
+                raise _Corrupt("bad BMP palette size")
+            count = clrused or 1 << bpp
+            if at + 4 * count > len(data):
+                raise _Corrupt("BMP palette cut short")
+            entries = np.frombuffer(data, np.uint8, 4 * count, at)
+            palette[:count] = entries.reshape(count, 4)[:, :3]
+        elif bpp == 16 and rle == _BMP_BITFIELDS:
+            if at + 12 > len(data):
+                raise _Corrupt("BMP masks cut short")
+            masks = struct.unpack_from("<iii", data, at)  # red, green, blue
+            if masks == (0x7C00, 0x3E0, 0x1F):
+                bpp = 15
+            elif masks != (0xF800, 0x7E0, 0x1F):
+                raise _Corrupt("16-bit BMP masks cv2 does not read")
+        elif bpp == 16:
+            bpp = 15
+    elif size == 12:
+        if len(data) < 26:
+            raise _Corrupt("BMP header cut short")
+        width, height, planes_bpp = struct.unpack_from("<HHI", data, 18)
+        bpp, rle = planes_bpp >> 16, _BMP_RGB
+        if not (width > 0 and height != 0 and bpp in (1, 4, 8, 24, 32)):
+            raise _Corrupt("BMP layout cv2 does not read")
+        if bpp <= 8:
+            count = 1 << bpp
+            if 26 + 3 * count > len(data):
+                raise _Corrupt("BMP palette cut short")
+            palette[:count] = np.frombuffer(data, np.uint8, 3 * count,
+                                            26).reshape(count, 3)
+    else:
+        raise _Corrupt(f"BMP header of {size} bytes")
+    bottom_up = height > 0
+    height = abs(height)
+    _check_size(width, height)
+    if height * width * 3 >= 1 << 30 or offset >= 1 << 31:
+        raise _Corrupt("BMP too large for cv2's reader")
+    if rle in (_BMP_RLE4, _BMP_RLE8):
+        img = native.bmp_rle(data, offset, width, height, bpp, palette,
+                             bottom_up)
+        if img is None:
+            raise _Corrupt("bad BMP RLE data")
+        return np.ascontiguousarray(img[..., ::-1])
+    pitch = ((width * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & -4
+    if offset + height * pitch > len(data):
+        raise _Corrupt("BMP pixel data cut short")
+    rows = np.frombuffer(data, np.uint8, height * pitch, offset) \
+        .reshape(height, pitch)
+    if bpp <= 8:
+        index = rows if bpp == 8 else _unpack_bits(rows, bpp)
+        bgr = palette[index[:, :width]]
+    elif bpp in (15, 16):
+        t = rows[:, : 2 * width].copy().view("<u2").astype(np.int32)
+        if bpp == 15:
+            bgr = np.stack([(t << 3) & 0xF8, (t >> 2) & 0xF8,
+                            (t >> 7) & 0xF8], axis=-1)
+        else:
+            bgr = np.stack([(t << 3) & 0xF8, (t >> 3) & 0xFC,
+                            (t >> 8) & 0xF8], axis=-1)
+    else:
+        step = bpp // 8
+        bgr = rows[:, : step * width].reshape(height, width, step)[..., :3]
+    if bottom_up:
+        bgr = bgr[::-1]
+    return np.ascontiguousarray(bgr[..., ::-1], dtype=np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# PNM (P1-P6) and PAM (P7)
+# ---------------------------------------------------------------------------
+
+class _ByteStream:
+    """cv2's RLByteStream over a file's bytes: a read past the end throws
+    (cv2 gives None)."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.pos = data, pos
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise _Corrupt("unexpected end of the file")
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise _Corrupt("unexpected end of the file")
+        self.pos += n
+        return self.data[self.pos - n: self.pos]
+
+
+def _isspace(c: int) -> bool:
+    return c in (32, 9, 10, 11, 12, 13)
+
+
+def _isdigit(c: int) -> bool:
+    return 48 <= c <= 57
+
+
+def _pnm_number(s: _ByteStream, maxdigits: int = 0) -> int:
+    """grfmt_pxm.cpp ReadNumber: whitespace and # comments skipped, any
+    other non-digit an error; the byte after the digits is consumed."""
+    code = s.byte()
+    while not _isdigit(code):
+        if code == ord("#"):
+            while code not in (10, 13):
+                code = s.byte()
+            code = s.byte()
+        elif _isspace(code):
+            while _isspace(code):
+                code = s.byte()
+        else:
+            raise _Corrupt(f"unexpected byte {code:#x} in a PNM number")
+    val = digits = 0
+    while True:
+        val = val * 10 + code - 48
+        if val > 0x7FFFFFFF:
+            raise _Corrupt("PNM number too large")
+        digits += 1
+        if maxdigits and digits >= maxdigits:
+            break
+        code = s.byte()
+        if not _isdigit(code):
+            break
+    return val
+
+
+def _decode_pnm(data: bytes) -> np.ndarray:
+    """OpenCV's grfmt_pxm.cpp (P1-P6, ASCII and binary, # comments): the
+    binary samples of 8 bits are kept as they are (not scaled by the
+    maxval), the ASCII ones scaled as ``v * 255 // maxval``; above a maxval
+    of 255 the samples are 16-bit and keep their high byte; P1 and P4's 1
+    is black."""
+    s = _ByteStream(data)
+    if s.byte() != ord("P"):
+        raise _Corrupt("not a PNM file")
+    kind = s.byte() - 48
+    if not 1 <= kind <= 6:
+        raise _Corrupt("not a PNM file")
+    bpp = (1, 8, 24)[(kind - 1) % 3]
+    binary = kind >= 4
+    width = _pnm_number(s)
+    height = _pnm_number(s)
+    maxval = _pnm_number(s) if bpp > 1 else 1
+    if maxval > 65535 or not (width > 0 and height > 0 and maxval > 0):
+        raise _Corrupt("bad PNM header")
+    _check_size(width, height)
+    nch = 3 if bpp == 24 else 1
+    if bpp == 1:
+        if binary:
+            rows = np.frombuffer(s.take(height * ((width + 7) // 8)),
+                                 np.uint8).reshape(height, -1)
+            bits = _unpack_bits(rows, 1)[:, :width]
+        else:
+            bits = np.array([[_pnm_number(s, 1) != 0 for _ in range(width)]
+                             for _ in range(height)], np.uint8)
+        gray = np.where(bits.astype(bool), 0, 255).astype(np.uint8)
+        return np.repeat(gray[..., None], 3, axis=2)
+    wide = maxval > 255
+    if binary:
+        raw = s.take(height * width * nch * (2 if wide else 1))
+        samples = np.frombuffer(raw, ">u2" if wide else np.uint8)
+        samples = (samples >> 8).astype(np.uint8) if wide else samples
+    else:
+        codes = np.array([min(_pnm_number(s), maxval)
+                          for _ in range(height * width * nch)], np.int64)
+        samples = (codes >> 8 if wide else codes * 255 // maxval) \
+            .astype(np.uint8)
+    samples = samples.reshape(height, width, nch)
+    return np.ascontiguousarray(np.repeat(samples, 3, axis=2)
+                                if nch == 1 else samples)
+
+
+_PAM_FIELDS = ("ENDHDR", "HEIGHT", "WIDTH", "DEPTH", "MAXVAL", "TUPLTYPE")
+# the tuple types cv2 knows, each with the depth it must have
+_PAM_TUPLTYPES_DEPTH = {"BLACKANDWHITE": 1, "GRAYSCALE": 1,
+                        "GRAYSCALE_ALPHA": 2, "RGB": 3, "RGB_ALPHA": 4}
+
+
+def _pam_line(s: _ByteStream) -> tuple[str | None, bytes]:
+    """grfmt_pam.cpp ReadPAMHeaderLine: (field, value); field None for a
+    comment; an unknown or overlong identifier, or an overlong value, is a
+    bad header."""
+    code = s.byte()
+    while _isspace(code):
+        code = s.byte()
+    if code == ord("#"):
+        while code not in (10, 13):
+            code = s.byte()
+        return None, b""
+    ident = bytearray()
+    while len(ident) < 8 and not _isspace(code):
+        ident.append(code)
+        code = s.byte()
+    if not _isspace(code) or ident.decode("latin-1") not in _PAM_FIELDS:
+        raise _Corrupt("bad PAM header line")
+    field = ident.decode("latin-1")
+    if code in (10, 13):
+        return field, b""
+    code = s.byte()
+    while _isspace(code):
+        code = s.byte()
+    value = bytearray()
+    while len(value) < 255 and code not in (10, 13):
+        value.append(code)
+        code = s.byte()
+    if code not in (10, 13):
+        raise _Corrupt("PAM header value too long")
+    return field, bytes(value).rstrip(_SPACE)
+
+
+def _pam_int(value: bytes) -> int:
+    """grfmt_pam.cpp ParseInt: an optional minus, digits, nothing after."""
+    text = value.split(b"\0")[0]
+    neg = text.startswith(b"-")
+    digits = text[1:] if neg else text
+    if neg and not digits[:1].isdigit():
+        raise _Corrupt("bad PAM number")
+    n = 0
+    for c in digits:
+        if not _isdigit(c):
+            raise _Corrupt("bad PAM number")
+        n = n * 10 + c - 48
+        if n >= 0x7FFFFFFF:
+            raise _Corrupt("PAM number too large")
+    return -n if neg else n
+
+
+def _decode_pam(data: bytes) -> np.ndarray:
+    """OpenCV's grfmt_pam.cpp, as cv2.imread(IMREAD_COLOR) reads it: three
+    channels of 8-bit samples are copied as they lie in the file (into
+    cv2's BGR order: an RGB PAM comes out with red and blue swapped, as
+    cv2 writes it); 16-bit samples keep their high byte; one channel is
+    repeated; with two or four (gray or RGB with alpha) only a row's first
+    ceil(width / depth) pixels are converted; a maxval of 1 reads the
+    rows' first bytes as packed bits (1 white). A tuple type that does not
+    match the depth gives None."""
+    s = _ByteStream(data)
+    if s.take(2) != b"P7" or s.byte() not in (10, 13):
+        raise _Corrupt("not a PAM file")
+    seen: dict = {}
+    tupltype = None
+    while True:
+        field, value = _pam_line(s)
+        if field is None:
+            continue
+        if field == "ENDHDR":
+            break
+        if field == "TUPLTYPE":
+            name = value.decode("latin-1")
+            if name not in _PAM_TUPLTYPES_DEPTH:
+                raise _Corrupt(f"PAM tuple type {name!r}")
+            tupltype = name
+            continue
+        if field in seen:
+            raise _Corrupt(f"PAM field {field} twice")
+        seen[field] = _pam_int(value)
+        if field == "MAXVAL" and seen[field] > 65535:
+            raise _Corrupt("PAM maxval above 65535")
+    if len(seen) != 4:
+        raise _Corrupt("PAM header without every field")
+    width, height = seen["WIDTH"], seen["HEIGHT"]
+    depth, maxval = seen["DEPTH"], seen["MAXVAL"]
+    if tupltype is not None:
+        if depth != _PAM_TUPLTYPES_DEPTH[tupltype]:
+            raise _Corrupt(f"PAM {tupltype} of depth {depth}")
+    else:
+        if depth == 1 and maxval == 1:
+            tupltype = "BLACKANDWHITE"
+        elif depth == 1 and maxval < 256:
+            tupltype = "GRAYSCALE"
+        elif depth == 3 and maxval < 256:
+            tupltype = "RGB"
+        else:
+            raise _Corrupt("PAM tuple type cv2 cannot determine")
+    _check_size(width, height)
+    size = 2 if maxval > 255 else 1
+    stride = width * depth * size
+    rows = np.frombuffer(s.take(height * stride), np.uint8) \
+        .reshape(height, stride)
+    if maxval == 1:
+        bits = _unpack_bits(rows[:, : (width + 7) // 8], 1)[:, :width]
+        gray = (bits * np.uint8(255)).astype(np.uint8)
+        return np.repeat(gray[..., None], 3, axis=2)
+    if size == 2:
+        rows = (rows.view(">u2") >> 8).astype(np.uint8)
+    px = rows.reshape(height, width, depth)
+    if depth == 3:  # copied as they lie: the file's first sample is blue
+        return np.ascontiguousarray(px[..., ::-1])
+    if depth == 1:
+        return np.ascontiguousarray(np.repeat(px, 3, axis=2))
+    # grfmt_pam.cpp basic_conversion stops after ``width`` samples, not
+    # pixels: only the first ceil(width / depth) pixels of a row are
+    # written; the rest stay as cv2's fresh Mat holds them (zero)
+    out = np.zeros((height, width, 3), np.uint8)
+    done = -(-width // depth)
+    out[:, :done] = np.repeat(px[:, :done, :1], 3, axis=2) if depth == 2 \
+        else px[:, :done, :3]
+    return out
+
+
+_DECODERS = {"PNG": _decode_png, "JPEG": _decode_jpeg, "TIFF": _decode_tiff,
+             "JPEG 2000": _decode_jp2, "BMP": _decode_bmp, "PNM": _decode_pnm,
+             "PAM": _decode_pam}

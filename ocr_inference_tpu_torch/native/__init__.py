@@ -1,15 +1,17 @@
 """Native (C++) libraries, counterpart of ocr_inference_tpu/native: the
 geometry library, the ARPA LM scorer, and the image decoders' pixel loops
-(the PNG unfilter, JPEG, the TIFF codecs).
+(the PNG unfilter, JPEG, the TIFF codecs, JPEG 2000, BMP's RLE).
 
 ``geometry.cpp`` is the port's own copy of the JAX package's library plus
 ``ocr_fill_contour`` (the filled-contour rasterizer that replaces
 cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer;
 ``png.cpp`` undoes PNG's scanline filters, ``jpeg.cpp`` decodes JPEG and
 ``tiff.cpp`` holds the TIFF codecs (LZW, Deflate, PackBits, CCITT,
-ThunderScan, SGI Log) and the YCbCr and CIE L*a*b* -> RGB conversions, for
-the
-port's image reader (io/images.py), which replaces cv2.imread.
+ThunderScan, SGI Log) and the YCbCr and CIE L*a*b* -> RGB conversions,
+``jp2.cpp`` decodes JPEG 2000 codestreams (Part 1; HTJ2K and the Part 2
+multi-component transforms are reported, not decoded) and ``bmp.cpp``
+BMP's RLE8 and RLE4 bitmaps, for the port's image reader (io/images.py),
+which replaces cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
 (named by the source's hash) and loads through ctypes. There is no
 fallback: if a build fails, this raises."""
@@ -30,15 +32,19 @@ import numpy as np
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
-# per source: tiff.cpp's float conversions (SGI Log, CIE L*a*b*) round as
-# libtiff's do only without fused multiply-adds
-SOURCE_FLAGS = {"tiff.cpp": ["-ffp-contract=off"]}
+# per source: tiff.cpp's float conversions (SGI Log, CIE L*a*b*) and
+# jp2.cpp's 9/7 wavelet and ICT round as libtiff's and OpenJPEG's do only
+# without fused multiply-adds
+SOURCE_FLAGS = {"tiff.cpp": ["-ffp-contract=off"],
+                "jp2.cpp": ["-ffp-contract=off", "-pthread"]}
 
 _LIB: ctypes.CDLL | None = None
 _ARPA_LIB: ctypes.CDLL | None = None
 _PNG_LIB: ctypes.CDLL | None = None
 _JPEG_LIB: ctypes.CDLL | None = None
 _TIFF_LIB: ctypes.CDLL | None = None
+_JP2_LIB: ctypes.CDLL | None = None
+_BMP_LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: dict[str, float] = {}
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -632,3 +638,87 @@ def tiff_fax(data: bytes, width: int, rows: int, compression: int,
                       f"warning(s) from libtiff's decoder); {n} of {rows} "
                       "rows read, the rest as libtiff leaves them")
     return out
+
+
+def _jp2_lib() -> ctypes.CDLL:
+    global _JP2_LIB
+    if _JP2_LIB is None:
+        _JP2_LIB = _load("jp2.cpp", {
+            "ocr_j2k_header": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, _I32P, ctypes.c_int64]),
+            "ocr_j2k_decode": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, _I32P, ctypes.c_int64, ctypes.c_int]),
+        })
+    return _JP2_LIB
+
+
+# jp2.cpp's status codes
+J2K_OK, J2K_FAIL, J2K_HTJ2K, J2K_PART2 = 0, 1, 2, 3
+
+
+def j2k_header(codestream: bytes) -> tuple[int, dict]:
+    """(status, header) of a JPEG 2000 codestream's main header: status
+    J2K_OK, J2K_FAIL (OpenJPEG cannot read it; header empty), J2K_HTJ2K or
+    J2K_PART2; header: the image's ``x0, y0, x1, y1`` and per component
+    ``comps`` of (dx, dy, precision, signed)."""
+    buf = np.frombuffer(codestream, np.uint8)
+    info = np.zeros(5 + 4 * 16384, np.int32)
+    rc = _jp2_lib().ocr_j2k_header(buf.ctypes.data_as(_U8P), buf.size,
+                                   info.ctypes.data_as(_I32P), info.size)
+    if rc == J2K_FAIL:
+        return rc, {}
+    x0, y0, x1, y1, nc = (int(v) for v in info[:5])
+    comps = [tuple(int(v) for v in info[5 + 4 * i: 9 + 4 * i])
+             for i in range(nc)]
+    return rc, {"x0": x0, "y0": y0, "x1": x1, "y1": y1, "comps": comps}
+
+
+def j2k_decode(codestream: bytes, threads: int | None = None
+               ) -> tuple[int, list[np.ndarray] | None]:
+    """Decode a JPEG 2000 codestream with jp2.cpp as OpenJPEG 2.5 decodes
+    it (strict mode): (J2K_OK, each component's (h, w) int32 samples, after
+    the DC level shift and clipping) or (status, None) as ``j2k_header``
+    gives it. ``threads``: tier-1 workers (default: the CPU count, at most
+    8). ctypes releases the GIL for the call."""
+    rc, hdr = j2k_header(codestream)
+    if rc:
+        return rc, None
+    shapes = []
+    for dx, dy, _, _ in hdr["comps"]:
+        w = -(-hdr["x1"] // dx) - -(-hdr["x0"] // dx)
+        h = -(-hdr["y1"] // dy) - -(-hdr["y0"] // dy)
+        shapes.append((h, w))
+    out = np.zeros(sum(h * w for h, w in shapes), np.int32)
+    buf = np.frombuffer(codestream, np.uint8)
+    if threads is None:
+        threads = min(os.cpu_count() or 1, 8)
+    rc = _jp2_lib().ocr_j2k_decode(buf.ctypes.data_as(_U8P), buf.size,
+                                   out.ctypes.data_as(_I32P), out.size,
+                                   threads)
+    if rc:
+        return rc, None
+    planes, at = [], 0
+    for h, w in shapes:
+        planes.append(out[at: at + h * w].reshape(h, w))
+        at += h * w
+    return 0, planes
+
+
+def bmp_rle(data: bytes, offset: int, width: int, height: int, bits: int,
+            palette: np.ndarray, bottom_up: bool) -> np.ndarray | None:
+    """A BMP's RLE8 (``bits`` 8) or RLE4 (4) bitmap from ``offset`` of the
+    file, decoded with bmp.cpp as OpenCV's BMP decoder decodes it, into
+    (height, width, 3) BGR with the (256, 3) BGR ``palette``; None where
+    cv2.imread gives None (a run past its row, data that ends early)."""
+    global _BMP_LIB
+    if _BMP_LIB is None:
+        _BMP_LIB = _load("bmp.cpp", {"ocr_bmp_rle": (ctypes.c_int, [
+            _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _U8P, ctypes.c_int, _U8P])})
+    src = np.frombuffer(data, np.uint8)
+    pal = np.ascontiguousarray(palette, dtype=np.uint8)
+    out = np.zeros((height, width, 3), np.uint8)
+    rc = _BMP_LIB.ocr_bmp_rle(src.ctypes.data_as(_U8P), src.size, offset,
+                              width, height, bits, pal.ctypes.data_as(_U8P),
+                              int(bottom_up), out.ctypes.data_as(_U8P))
+    return None if rc else out

@@ -1,13 +1,16 @@
 """Small image encoders for the reader tests and the fixture: TIFF files
 with the layouts cv2 and PIL do not write (tiles, 16-bit samples, palette,
-orientation, fill order, both byte orders) and Adam7-interlaced PNG. cv2
-reads every file written here, so cv2 stays the oracle."""
+orientation, fill order, both byte orders), Adam7-interlaced PNG, JPEG
+2000 (JP2 boxes around a codestream, OpenJPEG's own encoder driven through
+ctypes for the options Pillow does not reach, packed packet headers), BMP
+(every header, RLE8) and PNM/PAM. cv2 stays the oracle."""
 
 from __future__ import annotations
 
 import io
 import struct
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -1406,3 +1409,341 @@ def jpeg_arith(planes, sampling=None, progressive: bool = False,
                     ss, se = 0, 63
         out += q.finish()
     return bytes(out + b"\xff\xd9")
+
+
+# ---------------------------------------------------------------------------
+# JPEG 2000: JP2 boxes, and OpenJPEG's encoder through ctypes
+# ---------------------------------------------------------------------------
+
+JP2_SIGNATURE_BOX = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+
+
+def jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(payload), kind) + payload
+
+
+def jp2_file(codestream: bytes, h: int, w: int, nc: int, colr=("enum", 16),
+             pclr=None, cmap=None, cdef=None, bpc: int = 7) -> bytes:
+    """A JP2 file around ``codestream``: the signature and ftyp boxes, jp2h
+    (ihdr; colr as ("enum", EnumCS) or ("icc", profile), or none; pclr as
+    (entries (n, channels), [B_i bytes]); cmap as [(cmp, mtyp, pcol)]; cdef
+    as [(cn, typ, asoc)]) and jp2c."""
+    body = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+    if colr is not None:
+        body += jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, colr[1])
+                        if colr[0] == "enum" else
+                        struct.pack(">BBB", 2, 0, 0) + colr[1])
+    if pclr is not None:
+        entries, sizes = pclr
+        payload = struct.pack(">HB", *entries.shape) + bytes(sizes)
+        for row in entries:
+            for v, s in zip(row, sizes):
+                payload += int(v).to_bytes(((s & 0x7F) + 8) // 8, "big")
+        body += jp2_box(b"pclr", payload)
+    if cmap is not None:
+        body += jp2_box(b"cmap", b"".join(struct.pack(">HBB", *e)
+                                          for e in cmap))
+    if cdef is not None:
+        body += jp2_box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
+            struct.pack(">HHH", *e) for e in cdef))
+    return (JP2_SIGNATURE_BOX + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + jp2_box(b"jp2h", body) + jp2_box(b"jp2c", codestream))
+
+
+def _openjpeg():
+    """Pillow's bundled libopenjp2 with the encoder's structs declared
+    (openjpeg.h 2.5: opj_cparameters_t, opj_image_t); the layout is checked
+    against opj_set_default_encoder_parameters' defaults here and by a
+    lossless round trip through cv2 in the tests."""
+    import ctypes
+    import glob
+    import os
+
+    import PIL
+
+    libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(
+        PIL.__file__)), "pillow.libs", "libopenjp2-*.so*"))
+    lib = ctypes.CDLL(libs[0])
+    i32, u32 = ctypes.c_int, ctypes.c_uint32
+
+    class Poc(ctypes.Structure):
+        _fields_ = [(n, u32) for n in (
+            "resno0", "compno0", "layno1", "resno1", "compno1", "layno0",
+            "precno0", "precno1")] + [
+            ("prg1", i32), ("prg", i32), ("progorder", ctypes.c_char * 5),
+            ("tile", u32), ("tx0", i32), ("tx1", i32), ("ty0", i32),
+            ("ty1", i32)] + [(n, u32) for n in (
+                "layS resS compS prcS layE resE compE prcE txS txE tyS tyE "
+                "dx dy lay_t res_t comp_t prc_t tx0_t ty0_t").split()]
+
+    class Params(ctypes.Structure):
+        _fields_ = [(n, i32) for n in (
+            "tile_size_on", "cp_tx0", "cp_ty0", "cp_tdx", "cp_tdy",
+            "cp_disto_alloc", "cp_fixed_alloc", "cp_fixed_quality")] + [
+            ("cp_matrice", ctypes.c_void_p), ("cp_comment", ctypes.c_char_p),
+            ("csty", i32), ("prog_order", i32), ("POC", Poc * 32),
+            ("numpocs", u32), ("tcp_numlayers", i32),
+            ("tcp_rates", ctypes.c_float * 100),
+            ("tcp_distoratio", ctypes.c_float * 100)] + [(n, i32) for n in (
+                "numresolution", "cblockw_init", "cblockh_init", "mode",
+                "irreversible", "roi_compno", "roi_shift", "res_spec")] + [
+            ("prcw_init", i32 * 33), ("prch_init", i32 * 33),
+            ("infile", ctypes.c_char * 4096),
+            ("outfile", ctypes.c_char * 4096), ("index_on", i32),
+            ("index", ctypes.c_char * 4096)] + [(n, i32) for n in (
+                "image_offset_x0", "image_offset_y0", "subsampling_dx",
+                "subsampling_dy", "decod_format", "cod_format",
+                "jpwl_epc_on", "jpwl_hprot_MH")] + [
+            ("jpwl_hprot_TPH_tileno", i32 * 16), ("jpwl_hprot_TPH", i32 * 16),
+            ("jpwl_pprot_tileno", i32 * 16), ("jpwl_pprot_packno", i32 * 16),
+            ("jpwl_pprot", i32 * 16)] + [(n, i32) for n in (
+                "jpwl_sens_size", "jpwl_sens_addr", "jpwl_sens_range",
+                "jpwl_sens_MH")] + [
+            ("jpwl_sens_TPH_tileno", i32 * 16), ("jpwl_sens_TPH", i32 * 16),
+            ("cp_cinema", i32), ("max_comp_size", i32), ("cp_rsiz", i32),
+            ("tp_on", ctypes.c_char), ("tp_flag", ctypes.c_char),
+            ("tcp_mct", ctypes.c_char), ("jpip_on", i32),
+            ("mct_data", ctypes.c_void_p), ("max_cs_size", i32),
+            ("rsiz", ctypes.c_uint16)]
+
+    class CompParm(ctypes.Structure):
+        _fields_ = [(n, u32) for n in "dx dy w h x0 y0 prec bpp sgnd".split()]
+
+    class Comp(ctypes.Structure):
+        _fields_ = [(n, u32) for n in (
+            "dx dy w h x0 y0 prec bpp sgnd resno_decoded factor".split())] + [
+            ("data", ctypes.POINTER(ctypes.c_int32)),
+            ("alpha", ctypes.c_uint16)]
+
+    class Image(ctypes.Structure):
+        _fields_ = [("x0", u32), ("y0", u32), ("x1", u32), ("y1", u32),
+                    ("numcomps", u32), ("color_space", i32),
+                    ("comps", ctypes.POINTER(Comp)),
+                    ("icc_profile_buf", ctypes.c_void_p),
+                    ("icc_profile_len", u32)]
+
+    lib.opj_image_create.restype = ctypes.POINTER(Image)
+    lib.opj_create_compress.restype = ctypes.c_void_p
+    lib.opj_stream_create_default_file_stream.restype = ctypes.c_void_p
+    defaults = Params()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(defaults))
+    assert (defaults.numresolution, defaults.cblockw_init,
+            defaults.cblockh_init, defaults.roi_compno,
+            defaults.subsampling_dx, defaults.decod_format,
+            defaults.cod_format) == (6, 64, 64, -1, 1, -1, -1), \
+        "opj_cparameters_t layout"
+    return lib, Params, CompParm, Image
+
+
+def openjpeg_encode(samples: np.ndarray, prec: int = 8, sgnd: bool = False,
+                    jp2: bool = False, color_space: int = 1,
+                    subsampling: int = 1, offset=(0, 0), extra=(),
+                    **params) -> bytes:
+    """Encode (h, w) or (h, w, c) integer samples with OpenJPEG's encoder
+    (Pillow's libopenjp2): a raw codestream, or a JP2 file when ``jp2``
+    (``color_space``: 1 sRGB, 2 gray, 3 sYCC). ``params`` set
+    opj_cparameters_t fields by name (``mode``: the code-block style bits,
+    ``csty``: 2 SOP, 4 EPH, ``tp_on``/``tp_flag``: tile-parts, ``roi_*``,
+    ...), plus ``rates`` (the layers' compression ratios; lossless: [0]),
+    ``tile`` (w, h), ``precincts`` [(log2 w, log2 h)] per resolution,
+    ``pocs`` [(tile, resno0, compno0, layno1, resno1, compno1, order)];
+    ``subsampling`` subsamples every component but the first; ``offset``
+    (x, y) moves the image on the reference grid; ``extra``:
+    opj_encoder_set_extra_options strings ("PLT=YES", "TLM=YES")."""
+    import ctypes
+    import os
+    import tempfile
+
+    lib, Params, CompParm, Image = _openjpeg()
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, c = samples.shape
+    parms = (CompParm * c)()
+    for i in range(c):
+        d = subsampling if i else 1
+        parms[i].dx = parms[i].dy = d
+        parms[i].w, parms[i].h = -(-w // d), -(-h // d)
+        parms[i].x0, parms[i].y0 = offset
+        parms[i].prec, parms[i].sgnd = prec, int(sgnd)
+    image = lib.opj_image_create(c, parms, color_space)
+    im = image.contents
+    im.x0, im.y0 = offset
+    im.x1, im.y1 = offset[0] + w, offset[1] + h
+    for i in range(c):
+        d = subsampling if i else 1
+        plane = np.ascontiguousarray(samples[::d, ::d, i], np.int32)
+        ctypes.memmove(im.comps[i].data, plane.ctypes.data, plane.nbytes)
+    p = Params()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    p.tcp_numlayers, p.cp_disto_alloc = 1, 1
+    p.tcp_mct = bytes([1 if c >= 3 and subsampling == 1 else 0])
+    for key, value in params.items():
+        if key == "rates":
+            p.tcp_numlayers = len(value)
+            for i, r in enumerate(value):
+                p.tcp_rates[i] = r
+        elif key == "tile":
+            p.tile_size_on = 1
+            p.cp_tdx, p.cp_tdy = value
+        elif key == "precincts":
+            p.res_spec = len(value)
+            p.csty |= 1
+            for i, (pw, ph) in enumerate(value):
+                p.prcw_init[i], p.prch_init[i] = 1 << pw, 1 << ph
+        elif key == "pocs":
+            for i, (t, r0, c0, l1, r1, c1, prg) in enumerate(value):
+                q = p.POC[i]
+                q.tile, q.resno0, q.compno0, q.layno1 = t, r0, c0, l1
+                q.resno1, q.compno1, q.prg1, q.prg = r1, c1, prg, prg
+            p.numpocs = len(value)
+        elif key in ("tp_on", "tp_flag", "tcp_mct"):
+            setattr(p, key, value if isinstance(value, bytes)
+                    else bytes([value]))
+        else:
+            setattr(p, key, value)
+    codec = ctypes.c_void_p(lib.opj_create_compress(2 if jp2 else 0))
+    fd, name = tempfile.mkstemp(suffix=".jp2" if jp2 else ".j2k")
+    os.close(fd)
+    try:
+        ok = lib.opj_setup_encoder(codec, ctypes.byref(p), image)
+        if ok and extra:
+            opts = (ctypes.c_char_p * (len(extra) + 1))(
+                *[e.encode() for e in extra], None)
+            ok = lib.opj_encoder_set_extra_options(codec, opts)
+        stream = ctypes.c_void_p(lib.opj_stream_create_default_file_stream(
+            name.encode(), 0))
+        ok = ok and lib.opj_start_compress(codec, image, stream) and \
+            lib.opj_encode(codec, stream) and \
+            lib.opj_end_compress(codec, stream)
+        lib.opj_stream_destroy(stream)
+        data = Path(name).read_bytes()
+    finally:
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(image)
+        os.unlink(name)
+    if not ok:
+        raise ValueError("OpenJPEG's encoder refused the parameters")
+    return data
+
+
+def j2k_packed_headers(codestream: bytes, where: str = "ppt") -> bytes:
+    """A single-tile-part codestream encoded with SOP and EPH markers, its
+    packet headers moved out of the packets: into PPT markers of the
+    tile-part header (``where`` "ppt") or PPM markers of the main header
+    ("ppm"). Each header ends at its EPH marker (moved with it); the SOP
+    markers and bodies stay in the tile's data."""
+    sot = codestream.index(b"\xff\x90")
+    psot, = struct.unpack_from(">I", codestream, sot + 6)
+    sod = codestream.index(b"\xff\x93", sot)
+    end = sot + psot if psot else len(codestream) - 2
+    data = codestream[sod + 2: end]
+    headers, bodies, pos = bytearray(), bytearray(), 0
+    while pos < len(data):
+        assert data[pos: pos + 2] == b"\xff\x91", "expected SOP"
+        eph = data.index(b"\xff\x92", pos + 6) + 2
+        nxt = data.find(b"\xff\x91", eph)
+        nxt = len(data) if nxt < 0 else nxt
+        headers += data[pos + 6: eph]
+        bodies += data[pos: pos + 6] + data[eph: nxt]
+        pos = nxt
+
+    def segments(marker: int, blob: bytes, prefix) -> bytes:
+        out, z = bytearray(), 0
+        for i in range(0, len(blob), 60000):
+            part = prefix(z) + blob[i: i + 60000]
+            out += struct.pack(">HH", marker, 2 + len(part)) + part
+            z += 1
+        return bytes(out)
+
+    tile_header = codestream[sot + 12: sod]
+    if where == "ppt":
+        tile_header += segments(0xFF61, bytes(headers), lambda z: bytes([z]))
+        main = codestream[:sot]
+    else:
+        ppm = struct.pack(">I", len(headers)) + bytes(headers)
+        main = codestream[:sot] + segments(0xFF60, ppm, lambda z: bytes([z]))
+    part = tile_header + b"\xff\x93" + bytes(bodies)
+    sot_seg = codestream[sot: sot + 6] + struct.pack(
+        ">I", 12 + len(part)) + codestream[sot + 10: sot + 12]
+    return main + sot_seg + part + b"\xff\xd9"
+
+
+# ---------------------------------------------------------------------------
+# BMP, PNM and PAM
+# ---------------------------------------------------------------------------
+
+def bmp_file(width: int, height: int, bpp: int, data: bytes,
+             compression: int = 0, header: int = 40, clrused: int = 0,
+             palette=None, masks=None) -> bytes:
+    """A BMP file: the 14-byte file header, a ``header``-byte info header
+    (12: BITMAPCOREHEADER, 40, 64: OS/2 2.x, 108: V4, 124: V5), the masks
+    after it (BI_BITFIELDS), the palette ((n, 4) BGRA, (n, 3) BGR for the
+    core header) and ``data``, the rows as stored (bottom-up for a positive
+    height)."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, width, height, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, width, height, 1, bpp,
+                           compression, len(data), 2835, 2835, clrused, 0)
+        info += bytes(header - 40)
+    extra = struct.pack("<III", *masks) if masks is not None else b""
+    if palette is not None:
+        extra += np.asarray(palette, np.uint8).tobytes()
+    offset = 14 + len(info) + len(extra)
+    return b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset) + \
+        info + extra + data
+
+
+def bmp_rows(index: np.ndarray, bpp: int) -> bytes:
+    """(h, w) palette indices or (h, w, 3) BGR, top row first -> the rows
+    of an uncompressed BMP, bottom-up, each padded to 4 bytes."""
+    rows = _raw_rows(index if index.ndim == 3 else index[..., None], bpp,
+                     "<") if bpp < 24 else index.reshape(index.shape[0], -1)
+    pad = (-rows.shape[1]) % 4
+    return np.pad(rows, ((0, 0), (0, pad)))[::-1].astype(np.uint8).tobytes()
+
+
+def bmp_rle8(index: np.ndarray) -> bytes:
+    """RLE8 of (h, w) palette indices, bottom row first: runs of equal
+    pixels up to 255, an end-of-line escape after each row, end of
+    bitmap."""
+    out = bytearray()
+    for row in index[::-1]:
+        x = 0
+        while x < len(row):
+            run = 1
+            while x + run < len(row) and row[x + run] == row[x] and run < 255:
+                run += 1
+            out += bytes([run, int(row[x])])
+            x += run
+        out += b"\x00\x00"
+    return bytes(out[:-2]) + b"\x00\x01"
+
+
+def pnm_file(samples: np.ndarray, maxval: int = 255, binary: bool = True,
+             comment: bytes = b"") -> bytes:
+    """A PGM (P2/P5) of (h, w) or PPM (P3/P6) of (h, w, 3) samples, 16-bit
+    big-endian above a maxval of 255; ``comment`` goes after the magic."""
+    samples = np.asarray(samples)
+    color = samples.ndim == 3
+    magic = (6 if color else 5) if binary else (3 if color else 2)
+    head = b"P%d\n" % magic + (b"# " + comment + b"\n" if comment else b"") \
+        + b"%d %d\n%d\n" % (samples.shape[1], samples.shape[0], maxval)
+    if not binary:
+        rows = samples.reshape(samples.shape[0], -1)
+        return head + b"\n".join(b" ".join(b"%d" % v for v in r)
+                                 for r in rows) + b"\n"
+    return head + samples.astype(">u2" if maxval > 255 else np.uint8) \
+        .tobytes()
+
+
+def pam_file(samples: np.ndarray, maxval: int = 255, tupltype=None) -> bytes:
+    """A PAM (P7) of (h, w, depth) samples."""
+    h, w, depth = samples.shape
+    head = b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\n" % (
+        w, h, depth, maxval)
+    if tupltype:
+        head += b"TUPLTYPE " + tupltype.encode() + b"\n"
+    return head + b"ENDHDR\n" + samples.astype(
+        ">u2" if maxval > 255 else np.uint8).tobytes()

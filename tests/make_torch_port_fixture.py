@@ -124,19 +124,37 @@ minutes):
         BigTIFF, Deflate). All but clean_a.jpg hold the page with its
         paper and ink flattened to 235 and 40 (``flat_page``): the paper
         noise of the synthetic pages would make the lossless files
-        megabytes. The files stay under 1.2 MB together;
-    tests/data/torch_port/images/bench_cfg4.jpg
+        megabytes. Then ``jpeg2000_bmp_pnm_files``: clean_a_97.jp2 (9/7,
+        layers, RPCL, tiles, precincts), clean_b_53.j2k (raw codestream,
+        5/3 lossless), skew_2deg_gray.jp2, clean_b_sycc.jp2 (sYCC 4:4:4),
+        skew_2deg_sop.jp2 (SOP/EPH, PLT/TLM, tile-parts),
+        clean_a_styles.jp2 (BYPASS|RESET|TERMALL code-blocks; the last
+        three through OpenJPEG's own encoder), clean_a_rle8.bmp, and the
+        top 128-144 rows of a page (a whole page would take megabytes)
+        as clean_b_24.bmp (24-bit), clean_a_top.pgm,
+        skew_2deg_16bit.ppm (16-bit) and clean_b_top.pam. All the image
+        files stay under 4.2 MB together;
+    tests/data/torch_port/images/none/
+        files cv2 gives None for: a 12-bit JPEG, a NeXT TIFF, a sYCC 4:2:0
+        JP2, a JP2 cut short, a BMP of 4-4-4 masks, a PGM cut short and a
+        PAM whose tuple type does not match its depth;
+    tests/data/torch_port/images/bench_cfg4.jpg, bench_cfg4.jp2
         bench.py config 4's first page (chip_smoke.bench_page, 1600x2640,
         seed 42) as a baseline 4:2:0 JPEG at the highest quality that
-        keeps it under 400 KB (``BENCH_JPEG_QUALITY``);
+        keeps it under 400 KB (``BENCH_JPEG_QUALITY``), and as a 9/7 JP2
+        at rate 60 (RPCL);
     tests/data/torch_port/images.json
         per file its size, sha256 and cv2's decode (``cvtColor(imread,
         BGR2RGB)``: shape and sha256); per page file the JAX float32 CPU
         ``bocr`` record: the texts of the JAX CLI (``--encoding wylie``,
-        full77f, float32) and the line boxes of ``run_ocr`` with the CLI's
-        options on cv2's decode; and the rows of the JAX ``bocr-lines``
+        full77f, float32; ``--folder`` for the extensions it globs,
+        ``--image`` for each other page file) and the line boxes of
+        ``run_ocr`` with the CLI's options on cv2's decode; and the rows
+        of the JAX ``bocr-lines``
         (float32, artifacts/full77f/lines.msgpack, threshold 0.85) over the
-        pages folder, as pyarrow reads its Parquet files.
+        pages folder, and over a folder of the page files of other
+        extensions under ``renamed_page`` names (it globs the same five),
+        as pyarrow reads its Parquet files.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py images
 
@@ -900,7 +918,10 @@ def flat_page(img):
 
 
 def write_image_files(pages) -> dict[str, str]:
-    """Write the page files and the bench JPEG; returns {file: kind}."""
+    """Write the page files and the bench JPEG and JP2; returns {file:
+    kind}."""
+    import io
+
     import cv2
     from PIL import Image
 
@@ -950,6 +971,7 @@ def write_image_files(pages) -> dict[str, str]:
     kinds["clean_a_adam7.png"] = "PNG Adam7, RGB"
     for name, kind in variant_files(folder, flat).items():
         kinds[name] = kind
+    kinds.update(jpeg2000_bmp_pnm_files(folder, by_name, flat))
 
     global BENCH_JPEG_QUALITY
     bench = chip_smoke.bench_page(42)[..., ::-1]
@@ -962,6 +984,13 @@ def write_image_files(pages) -> dict[str, str]:
     (IMAGES / "bench_cfg4.jpg").write_bytes(data.tobytes())
     kinds["bench_cfg4.jpg"] = f"JPEG q{quality} 4:2:0 baseline, " \
         "bench.py config 4 page"
+    buf = io.BytesIO()
+    Image.fromarray(bench[..., ::-1]).save(
+        buf, "JPEG2000", irreversible=True, quality_mode="rates",
+        quality_layers=[60], progression="RPCL")
+    (IMAGES / "bench_cfg4.jp2").write_bytes(buf.getvalue())
+    kinds["bench_cfg4.jp2"] = "JP2 9/7 at rate 60, RPCL (Pillow), bench.py " \
+        "config 4 page"
     return kinds
 
 
@@ -1171,6 +1200,142 @@ def damaged_and_variant_files(folder, flat) -> dict[str, str]:
     return kinds
 
 
+# the JAX bocr --folder globs these; the fixture's other page files go
+# through bocr --image one at a time (cv2 reads them by content)
+FOLDER_EXTENSIONS = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
+
+
+def renamed_page(name: str) -> str:
+    """The name a page file of a format bocr-lines does not glob takes in
+    the folder bocr-lines runs over: ``clean_a_97.jp2`` ->
+    ``clean_a_97_jp2.png`` (cv2, and the port, read it by content)."""
+    stem, ext = name.rsplit(".", 1)
+    return f"{stem}_{ext}.png"
+
+
+def top_rows(page, rows: int) -> np.ndarray:
+    """A page's top ``rows`` rows, its margin and first text lines: the
+    pages of the uncompressed formats (a whole page would take megabytes;
+    line detection needs about 128 rows of a fixture page to find a
+    line)."""
+    return np.ascontiguousarray(page[:rows])
+
+
+def jpeg2000_bmp_pnm_files(folder, by_name, flat) -> dict[str, str]:
+    """The JPEG 2000, BMP, PNM and PAM page files (the first slice that
+    reads them), one of each kind the tests cover most, and in
+    images/none/ one file of each that cv2 gives None for. Returns {file:
+    kind}; the bench-size JP2 is written by write_image_files."""
+    import io
+
+    from PIL import Image
+
+    from tests.image_writers import (
+        bmp_file, bmp_rle8, bmp_rows, jp2_file, openjpeg_encode, pam_file,
+        pnm_file,
+    )
+
+    kinds = {}
+    none = IMAGES / "none"
+
+    def pil_jp2(name, img, kind, **save):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG2000", **save)
+        (folder / name).write_bytes(buf.getvalue())
+        kinds[name] = kind
+
+    pil_jp2("clean_a_97.jp2", by_name["clean_a"],
+            "JP2 9/7 lossy, 3 quality layers, RPCL, 512x512 tiles, 128x128 "
+            "precincts, 32x32 code-blocks (Pillow)", irreversible=True,
+            quality_mode="rates", quality_layers=[80, 40, 20],
+            progression="RPCL", tile_size=(512, 512),
+            precinct_size=(128, 128), codeblock_size=(32, 32))
+    pil_jp2("clean_b_53.j2k", flat["clean_b"],
+            "J2K codestream 5/3 lossless, LRCP (Pillow)", no_jp2=True)
+    pil_jp2("skew_2deg_gray.jp2", flat["skew_2deg"][..., 0],
+            "JP2 gray, 9/7 at rate 20 (Pillow)", irreversible=True,
+            quality_mode="rates", quality_layers=[20])
+    rgb = flat["clean_b"].astype(np.float64)
+    ycc = np.rint(np.stack([
+        rgb @ [0.299, 0.587, 0.114],
+        rgb @ [-0.168736, -0.331264, 0.5] + 128,
+        rgb @ [0.5, -0.418688, -0.081312] + 128], -1)).clip(0, 255)
+    (folder / "clean_b_sycc.jp2").write_bytes(openjpeg_encode(
+        ycc.astype(np.int32), jp2=True, color_space=3, tcp_mct=0,
+        rates=[10]))
+    kinds["clean_b_sycc.jp2"] = "JP2 sYCC 4:4:4 (colr 18), 5/3 at rate 10 " \
+        "(OpenJPEG)"
+    (folder / "skew_2deg_sop.jp2").write_bytes(openjpeg_encode(
+        flat["skew_2deg"], jp2=True, csty=6, tp_on=1, tp_flag=b"R",
+        tile=(512, 512), rates=[20, 5], extra=("PLT=YES", "TLM=YES")))
+    kinds["skew_2deg_sop.jp2"] = "JP2 with SOP and EPH markers, PLT and " \
+        "TLM, tile-parts by resolution, 512x512 tiles, 2 layers (OpenJPEG)"
+    (folder / "clean_a_styles.jp2").write_bytes(openjpeg_encode(
+        flat["clean_a"], jp2=True, mode=1 | 2 | 4, irreversible=1,
+        rates=[30]))
+    kinds["clean_a_styles.jp2"] = "JP2 9/7, code-blocks BYPASS|RESET|" \
+        "TERMALL (OpenJPEG)"
+    gray = flat["clean_a"][..., 0]
+    index = (gray > 128).astype(np.uint8)
+    palette = np.zeros((2, 4), np.uint8)
+    palette[:, :3] = np.array([[40], [235]])
+    h, w = index.shape
+    (folder / "clean_a_rle8.bmp").write_bytes(bmp_file(
+        w, h, 8, bmp_rle8(index), compression=1, clrused=2,
+        palette=palette))
+    kinds["clean_a_rle8.bmp"] = "BMP RLE8, 2-entry palette"
+    band = top_rows(flat["clean_b"], 144)
+    (folder / "clean_b_24.bmp").write_bytes(bmp_file(
+        band.shape[1], band.shape[0], 24, bmp_rows(band[..., ::-1], 24)))
+    kinds["clean_b_24.bmp"] = "BMP 24-bit, the page's top 144 rows"
+    band = top_rows(flat["clean_a"], 144)[..., 0]
+    (folder / "clean_a_top.pgm").write_bytes(pnm_file(band))
+    kinds["clean_a_top.pgm"] = "PGM (P5) 8-bit, the page's top 144 rows"
+    band = top_rows(flat["skew_2deg"], 128).astype(np.int64) * 257
+    (folder / "skew_2deg_16bit.ppm").write_bytes(pnm_file(band, 65535))
+    kinds["skew_2deg_16bit.ppm"] = "PPM (P6) 16-bit, the page's top 128 " \
+        "rows"
+    band = top_rows(flat["clean_b"], 144)[..., :1]
+    (folder / "clean_b_top.pam").write_bytes(pam_file(band,
+                                                      tupltype="GRAYSCALE"))
+    kinds["clean_b_top.pam"] = "PAM (P7) GRAYSCALE 8-bit, the page's top " \
+        "144 rows"
+
+    # cv2 gives None for these
+    rgb = flat["clean_a"].astype(np.float64)
+    ycc = np.rint(np.stack([
+        rgb @ [0.299, 0.587, 0.114],
+        rgb @ [-0.168736, -0.331264, 0.5] + 128,
+        rgb @ [0.5, -0.418688, -0.081312] + 128], -1)).clip(0, 255)
+    (none / "clean_a_sycc420.jp2").write_bytes(openjpeg_encode(
+        ycc.astype(np.int32), jp2=True, color_space=3, subsampling=2,
+        rates=[10]))
+    kinds["clean_a_sycc420.jp2"] = "JP2 sYCC 4:2:0: cv2 gives None " \
+        "(subsampled components)"
+    buf = io.BytesIO()
+    Image.fromarray(flat["clean_b"]).save(buf, "JPEG2000", irreversible=True,
+                                          quality_mode="rates",
+                                          quality_layers=[40])
+    data = buf.getvalue()
+    (none / "clean_b_cut.jp2").write_bytes(data[: len(data) * 3 // 5])
+    kinds["clean_b_cut.jp2"] = "JP2 9/7 cut to 60%: cv2 gives None " \
+        "(OpenJPEG's strict mode)"
+    band = top_rows(flat["clean_a"], 16)[..., 0].astype(np.uint16)
+    (none / "clean_a_masks.bmp").write_bytes(bmp_file(
+        band.shape[1], band.shape[0], 16, band[::-1].astype("<u2").tobytes(),
+        compression=3, masks=(0xF00, 0xF0, 0xF)))
+    kinds["clean_a_masks.bmp"] = "BMP 16-bit with 4-4-4 BI_BITFIELDS " \
+        "masks: cv2 gives None"
+    data = pnm_file(top_rows(flat["skew_2deg"], 32)[..., 0])
+    (none / "skew_2deg_cut.pgm").write_bytes(data[: len(data) - 100])
+    kinds["skew_2deg_cut.pgm"] = "PGM (P5) cut short: cv2 gives None"
+    (none / "clean_b_tuple.pam").write_bytes(pam_file(
+        top_rows(flat["clean_b"], 32)[..., :1], tupltype="GRAYSCALE_ALPHA"))
+    kinds["clean_b_tuple.pam"] = "PAM GRAYSCALE_ALPHA of depth 1: cv2 " \
+        "gives None"
+    return kinds
+
+
 def images() -> int:
     """Write tests/data/torch_port/images/ and images.json (see the
     module doc)."""
@@ -1197,9 +1362,10 @@ def images() -> int:
     pages = fixture_pages(OUT / "pages.npz")
     kinds = write_image_files(pages)
     files = sorted((IMAGES / "pages").iterdir()) + [
-        IMAGES / "bench_cfg4.jpg"] + sorted((IMAGES / "none").iterdir())
+        IMAGES / "bench_cfg4.jpg", IMAGES / "bench_cfg4.jp2"] + sorted(
+        (IMAGES / "none").iterdir())
     total = sum(p.stat().st_size for p in files)
-    assert total < 1800 * 1024, f"{total} bytes of image files"
+    assert total < 4200 * 1024, f"{total} bytes of image files"
     record = {"bench_jpeg_quality": BENCH_JPEG_QUALITY, "files": {},
               "bocr": {}, "bocr_lines": {}}
     for path in files:
@@ -1233,6 +1399,13 @@ def images() -> int:
                            "--encoding", "wylie"])
         assert rc == 0, rc
         for path in sorted((IMAGES / "pages").iterdir()):
+            if path.suffix.lower() not in FOLDER_EXTENSIONS:
+                rc = jax_cli.main(["--model", str(model), "--image",
+                                   str(path), "--output", str(tmp / "out"),
+                                   "--line-model", str(lines),
+                                   "--encoding", "wylie"])
+                assert rc == 0, (path.name, rc)
+        for path in sorted((IMAGES / "pages").iterdir()):
             img = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
             status, payload = pipe.run_ocr(img, merge_lines=False,
                                            target_encoding=Encoding.WYLIE)
@@ -1250,6 +1423,19 @@ def images() -> int:
         jax_lines_cli.build_detection_engine = functools.partial(
             jax_builder.build_detection_engine, dtype=jnp.float32)
         rc = jax_lines_cli.main(["-i", str(IMAGES / "pages"), "-o",
+                                 str(tmp / "parquet"), "-c",
+                                 str(WEIGHTS / "lines.msgpack"),
+                                 "--device", "cpu"])
+        assert rc == 0, rc
+        # bocr-lines globs the same five extensions: the other page files
+        # go through it under a name it globs (cv2 reads by content)
+        renamed = tmp / "renamed"
+        renamed.mkdir()
+        for path in sorted((IMAGES / "pages").iterdir()):
+            if path.suffix.lower() not in FOLDER_EXTENSIONS:
+                (renamed / renamed_page(path.name)).write_bytes(
+                    path.read_bytes())
+        rc = jax_lines_cli.main(["-i", str(renamed), "-o",
                                  str(tmp / "parquet"), "-c",
                                  str(WEIGHTS / "lines.msgpack"),
                                  "--device", "cpu"])

@@ -4,7 +4,7 @@ and model directory, on the CPU in float32: line-mode texts on PNG pages
 and on the same pages as JPEG and TIFF, the artifact and resume flags; and
 ``--mesh`` against ``--mesh off`` and the JAX ``bocr --mesh 2``; and its
 refusals: pages of a variant the port does not decode (a JPEG 2000 TIFF,
-a BMP), a ``--mesh`` of more cards than the machine has, and the
+a WebP), a ``--mesh`` of more cards than the machine has, and the
 ``cuda`` default without a card."""
 
 import functools
@@ -26,6 +26,7 @@ from ocr_inference_tpu.eval.synthetic import WYLIE_CHARSET, GlyphSet, render_pag
 from ocr_inference_tpu.pipeline.builder import build_pipeline as jax_build
 from ocr_inference_tpu_torch.cli import cli
 from ocr_inference_tpu_torch.io.artifacts import write_png
+from ocr_inference_tpu_torch.io.images import unsupported
 from tests import make_refpipe_fixture as fx
 from tests.image_writers import jpeg2000_tiff, write_tiff
 
@@ -151,25 +152,27 @@ def test_layout_mode_with_seeded_weights(job, tmp_path):
 def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
                                                        capsys):
     """A page of a variant the port does not decode (a JPEG 2000 TIFF named
-    .jpg) and
-    a BMP page are refused by name before any model loads; baseline JPEG
-    pages are read (test_jpeg_and_tiff_pages_equal_jax_cli)."""
+    .jpg) and a WebP page are refused by name before any model loads;
+    baseline JPEG pages are read (test_jpeg_and_tiff_pages_equal_jax_cli),
+    and a BMP page, once refused here, is read as cv2 reads it."""
     folder = tmp_path / "mixed"
     folder.mkdir()
     (folder / "a.png").write_bytes((job / "pages" / "page0.png").read_bytes())
     (folder / "b.jpg").write_bytes(jpeg2000_tiff())
-    cv2.imwrite(str(folder / "c.bmp"), np.zeros((8, 8, 3), np.uint8))
+    cv2.imwrite(str(folder / "c.webp"), np.zeros((8, 8, 3), np.uint8))
+    cv2.imwrite(str(folder / "d.bmp"), np.zeros((8, 8, 3), np.uint8))
+    assert unsupported(folder / "d.bmp") is None
     args = ["--model", str(tmp_path / "no_model"), "--output",
             str(tmp_path / "out"), "--device", "cpu"]
     for where, name in ((["--folder", str(folder)], "b.jpg"),
                         (["--image", str(folder / "b.jpg")], "b.jpg"),
-                        (["--image", str(folder / "c.bmp")], "c.bmp")):
+                        (["--image", str(folder / "c.webp")], "c.webp")):
         with pytest.raises(SystemExit) as exit_info:
             cli.main(args + where)
         message = str(exit_info.value.code)
         assert f"{name} (" in message
         assert ("JPEG 2000 in TIFF" if name == "b.jpg"
-                else "BMP images are not supported") in message
+                else "WebP images are not supported") in message
     assert not (tmp_path / "out").exists()
 
 

@@ -22,7 +22,10 @@ from ocr_inference_tpu_torch.io.artifacts import write_png
 from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
-from tests.image_writers import write_adam7_png
+from tests.image_writers import (
+    bmp_file, bmp_rle8, jp2_file, openjpeg_encode, pam_file, pnm_file,
+    write_adam7_png,
+)
 from tests.make_torch_port_fixture import OUT
 
 IMAGES = json.loads((OUT / "images.json").read_text(encoding="utf-8"))
@@ -222,15 +225,15 @@ def test_unreadable_files_give_none(tmp_path):
 
 
 def test_other_formats_and_interlaced_png_raise(tmp_path):
-    """BMP is still refused by name; JPEG, TIFF and Adam7 PNG, once
+    """WebP is still refused by name; JPEG, TIFF, Adam7 PNG and BMP, once
     refused, now read as cv2 reads them."""
     img = np.random.default_rng(5).integers(0, 256, (16, 24, 3), np.uint8)
-    path = tmp_path / "page.bmp"
+    path = tmp_path / "page.webp"
     assert cv2.imwrite(str(path), img)
-    assert image_format(path) == "BMP"
-    with pytest.raises(NotImplementedError, match="BMP"):
+    assert image_format(path) == "WebP"
+    with pytest.raises(NotImplementedError, match="WebP"):
         read_image(path)
-    for ext, name in ((".jpg", "JPEG"), (".tiff", "TIFF")):
+    for ext, name in ((".jpg", "JPEG"), (".tiff", "TIFF"), (".bmp", "BMP")):
         path = tmp_path / f"page{ext}"
         assert cv2.imwrite(str(path), img)
         assert image_format(path) == name
@@ -424,10 +427,33 @@ def _agreement_corpus(root):
         add(name)
     write_tiff(root / "big.tif", [pages["planar.tif"]], big=True)
     add("big.tif")
-    for ext in (".bmp", ".webp"):
-        cv2.imwrite(str(root / f"x{ext}"), img)
+    for ext in (".bmp", ".webp", ".ppm", ".pgm", ".pam", ".pfm",
+                ".hdr", ".ras", ".avif"):
+        cv2.imwrite(str(root / f"x{ext}"), img.astype(np.float32) / 255
+                    if ext in (".pfm", ".hdr") else img)
         add(f"x{ext}")
     add("x.gif", b"GIF89a" + bytes(32))
+    add("gray.pfm", b"Pf\n2 2\n-1\n" + bytes(16))
+    add("rgbe.hdr", b"#?RGBE\n\n-Y 2 +X 2\n" + bytes(16))
+    add("x.exr", b"\x76\x2f\x31\x01" + bytes(32))
+    add("os2.bmp", b"BA" + bytes(40))
+    # the JPEG 2000, BMP, PNM and PAM writers' files
+    cs = openjpeg_encode(img, numresolution=2)
+    add("raw.j2k", cs)
+    add("gray.j2k", openjpeg_encode(img[..., 0], numresolution=2))
+    add("sycc420.jp2", openjpeg_encode(img, jp2=True, color_space=3,
+                                       subsampling=2, numresolution=2))
+    add("cmyk.jp2", jp2_file(cs, *img.shape, colr=("enum", 12)))
+    add("cut.jp2", jp2_file(cs, *img.shape)[:-40])
+    siz = 4 + struct.unpack_from(">H", cs, 4)[0]
+    add("htj2k.j2k", cs[:siz] + b"\xff\x50\x00\x06" + bytes(4) + cs[siz:])
+    add("part2.j2k", cs[:siz] + b"\xff\x74\x00\x06" + bytes(4) + cs[siz:])
+    add("rle8.bmp", bmp_file(24, 16, 8, bmp_rle8(img[..., 0] >> 6),
+                             compression=1, palette=np.zeros((256, 4))))
+    add("p2.pgm", pnm_file(img[..., 0], 255, binary=False))
+    add("p6_16.ppm", pnm_file(img.astype(np.int64) * 257, 65535))
+    add("rgba.pam", pam_file(np.dstack([img, img[..., :1]]), 255,
+                             "RGB_ALPHA"))
     add("missing.jpg")
     return files
 

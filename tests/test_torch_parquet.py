@@ -31,7 +31,9 @@ from ocr_inference_tpu_torch.core.config import (
 from ocr_inference_tpu_torch.io import parquet
 from ocr_inference_tpu_torch.io.dataset import ImageInferenceDataset
 from tests.image_writers import jpeg2000_tiff
-from tests.make_torch_port_fixture import OUT, REPO, WEIGHTS
+from tests.make_torch_port_fixture import (
+    FOLDER_EXTENSIONS, OUT, REPO, WEIGHTS, renamed_page,
+)
 
 LINES = REPO / "tests" / "data" / "refpipe" / "lines.msgpack"
 
@@ -246,15 +248,26 @@ def test_bocr_lines_over_the_committed_pages_equals_jax_record(tmp_path):
     """The encoded fixture pages (tests/data/torch_port/images/pages) with
     the full77f line model in float32: every row equal to the JAX
     bocr-lines row images.json records, as chip_smoke.py checks on the
-    card."""
+    card. bocr-lines globs the JAX CLI's five extensions, so the JPEG
+    2000, BMP, PNM and PAM pages go through it under the names the record
+    gives them (make_torch_port_fixture.renamed_page) in a folder of their
+    own."""
     record = json.loads((OUT / "images.json").read_text(encoding="utf-8"))
-    assert cli.main(["-i", str(OUT / "images" / "pages"), "-o",
-                     str(tmp_path), "-c", str(WEIGHTS / "lines.msgpack"),
-                     "--device", "cpu", "--dtype", "float32"]) == 0
-    assert sorted(p.name for p in tmp_path.iterdir()) == \
+    pages = OUT / "images" / "pages"
+    renamed = tmp_path / "renamed"
+    renamed.mkdir()
+    for path in pages.iterdir():
+        if path.suffix.lower() not in FOLDER_EXTENSIONS:
+            (renamed / renamed_page(path.name)).write_bytes(path.read_bytes())
+    out = tmp_path / "out"
+    for folder in (pages, renamed):
+        assert cli.main(["-i", str(folder), "-o", str(out), "-c",
+                         str(WEIGHTS / "lines.msgpack"), "--device", "cpu",
+                         "--dtype", "float32"]) == 0
+    assert sorted(p.name for p in out.iterdir()) == \
         sorted(record["bocr_lines"])
     for name, want in record["bocr_lines"].items():
-        got = parquet.read_result_parquet(tmp_path / name)
+        got = parquet.read_result_parquet(out / name)
         got["contours"] = [[list(p) for p in c] for c in got["contours"]]
         got["bboxes"] = [list(b) for b in got["bboxes"]]
         assert got == want, name
