@@ -2260,9 +2260,25 @@ REPAIRED_AND_VARIANT_PAGES = (
     "skew_2deg_lab.tif", "clean_a_arith_prog.jpg", "clean_b_lossless.jpg",
     "clean_b_thunder.tif", "skew_2deg_rlew.tif", "clean_a_logl.tif",
     "skew_2deg_logluv.tif")
-# the extensions bocr --folder globs (cli.py IMAGE_EXTENSIONS); the JPEG
-# 2000, BMP, PNM and PAM page files go through bocr --image one at a time
-FOLDER_EXTENSIONS = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
+
+
+def globbed_by_folder(path: Path) -> bool:
+    """Whether bocr --folder and bocr-lines pick a page file up by its name
+    (io/dataset.py ImageInferenceDataset.EXTENSIONS, the five of cli.py
+    IMAGE_EXTENSIONS); the JPEG 2000, BMP, PNM and PAM page files go
+    through bocr --image one at a time, and through bocr-lines under
+    ``renamed_page`` names."""
+    from ocr_inference_tpu_torch.io.dataset import ImageInferenceDataset
+
+    return path.name.lower().endswith(ImageInferenceDataset.EXTENSIONS)
+
+
+def renamed_page(name: str) -> str:
+    """The name a page file of a format bocr-lines does not glob takes in
+    the folder bocr-lines runs over: ``clean_a_97.jp2`` ->
+    ``clean_a_97_jp2.png`` (cv2, and the port, read it by content)."""
+    stem, ext = name.rsplit(".", 1)
+    return f"{stem}_{ext}.png"
 
 
 def tiny_tiff(compression: int) -> bytes:
@@ -2299,6 +2315,56 @@ def decode_ms(path: Path, repeats: int = 5) -> float:
         read_image(path)
         times.append((time.perf_counter() - t0) * 1e3)
     return _median(times)
+
+
+def full_page_copies(root: Path) -> dict:
+    """A committed page (pages/clean_a.jpg, 1024x576 once decoded) written
+    here in full as a 24-bit BMP, a binary PGM (P5) and PPM (P6), a 16-bit
+    PPM, a PAM (P7, GRAYSCALE and RGB) and an ASCII PPM (P3), whose
+    committed files are strips of 128-144 rows: each held against the
+    samples it holds (a gray file against channel 1 of the page, the RGB
+    PAM with red and blue swapped, as cv2 reads it), with its decode ms."""
+    import struct
+
+    from ocr_inference_tpu_torch.io.images import read_image
+
+    rgb = read_image(IMAGE_DIR / "pages" / "clean_a.jpg")
+    h, w, _ = rgb.shape
+    gray = rgb[..., 1]
+    gray3 = np.repeat(gray[..., None], 3, axis=2)
+    size = b"%d %d\n" % (w, h)
+    bgr_rows = rgb[::-1, :, ::-1].tobytes()  # bottom-up, w * 3 % 4 == 0
+    bmp = b"BM" + struct.pack("<IHHI", 54 + len(bgr_rows), 0, 0, 54) + \
+        struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(bgr_rows), 2835,
+                    2835, 0, 0) + bgr_rows
+
+    def pam(depth: int, tupltype: bytes, samples: np.ndarray) -> bytes:
+        return b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL 255\nTUPLTYPE " \
+            b"%s\nENDHDR\n" % (w, h, depth, tupltype) + samples.tobytes()
+
+    ascii_rows = b"\n".join(b" ".join(b"%d" % v for v in row)
+                            for row in rgb.reshape(h, -1).tolist())
+    copies = {
+        "bmp_24bit.bmp": (bmp, rgb),
+        "pgm_p5.pgm": (b"P5\n" + size + b"255\n" + gray.tobytes(), gray3),
+        "ppm_p6.ppm": (b"P6\n" + size + b"255\n" + rgb.tobytes(), rgb),
+        "ppm_p6_16bit.ppm": (b"P6\n" + size + b"65535\n" + (
+            rgb.astype(">u2") * 257).tobytes(), rgb),
+        "pam_gray.pam": (pam(1, b"GRAYSCALE", gray), gray3),
+        "pam_rgb.pam": (pam(3, b"RGB", rgb), rgb[..., ::-1]),
+        "ppm_p3_ascii.ppm": (b"P3\n" + size + b"255\n" + ascii_rows + b"\n",
+                             rgb),
+    }
+    out = {}
+    for name, (data, want) in copies.items():
+        path = root / name
+        path.write_bytes(data)
+        got = read_image(path)
+        out[name] = {"bytes": len(data), "shape": list(want.shape),
+                     "equal_source": got is not None
+                     and np.array_equal(got, want),
+                     "decode_ms": decode_ms(path, repeats=3)}
+    return out
 
 
 def pool_decode(paths: list[Path], workers: int) -> float:
@@ -2391,8 +2457,7 @@ def image_formats(results: dict):
     record = json.loads((FIXTURE / "images.json").read_text(encoding="utf-8"))
     pages_dir = IMAGE_DIR / "pages"
     page_paths = sorted(pages_dir.iterdir())
-    image_pages = [p for p in page_paths
-                   if p.suffix.lower() not in FOLDER_EXTENSIONS]
+    image_pages = [p for p in page_paths if not globbed_by_folder(p)]
     checks, files = {}, {}
     for rel, want in record["files"].items():
         img = read_image(IMAGE_DIR / rel)
@@ -2406,6 +2471,10 @@ def image_formats(results: dict):
             "decode_ms": decode_ms(IMAGE_DIR / rel)}
     checks["every_file_equals_cv2"] = all(f["equal_cv2"]
                                           for f in files.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        copies = full_page_copies(Path(tmp))
+    checks["full_page_copies_equal_source"] = all(
+        c["equal_source"] for c in copies.values())
     work = page_paths * 4
     pool = {f"workers_{n}_s": pool_decode(work, n) for n in (1, 4)}
     pool["speedup_4_over_1"] = pool["workers_1_s"] / pool["workers_4_s"]
@@ -2505,13 +2574,11 @@ def image_formats(results: dict):
                for k, v in runs_s.items()}}
 
         # bocr-lines globs bocr's five extensions: the other page files go
-        # through it under a name it globs (tests/make_torch_port_fixture.py
-        # renamed_page), as in the JAX record
+        # through it under a name it globs, as in the JAX record
         renamed = root / "renamed"
         renamed.mkdir()
         for path in image_pages:
-            stem, ext = path.name.rsplit(".", 1)
-            (renamed / f"{stem}_{ext}.png").write_bytes(path.read_bytes())
+            (renamed / renamed_page(path.name)).write_bytes(path.read_bytes())
         t0 = time.perf_counter()
         with no_tf32(), counted_path(results, "bocr_lines"):
             rc = infer_lines_cli.main([
@@ -2549,6 +2616,7 @@ def image_formats(results: dict):
     bench_jp2 = files.get("bench_cfg4.jp2", {})
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
+            "full_page_copies": copies,
             "pool_decode": pool, "pages": per_page, "runs": runs,
             "page_loop_bf16": loop, "bocr_lines": rows,
             "launches": {p: results["launches"][p]

@@ -66,7 +66,10 @@ gives in RGB order:
   of under 8 bits, signed, subsampled or offset on the reference grid
   (sYCC 4:2:0 among them), fewer than 3 components outside greyscale,
   CMYK and e-sYCC, and a codestream cut or broken (OpenJPEG's strict
-  mode fails on a cut tile-part);
+  mode fails on a cut tile-part). The Part 2 markers OpenJPEG reads act
+  as they act there: an MCO replaces the DC level shifts by its MCC's
+  offset array (zero without one), CBD the components' precision and
+  signedness; CAP and the other Part 2 markers are read past;
 - BMP ("BM"): the core, info, V4, V5 and OS/2 2.x headers, 1, 4 and 8
   bits through the palette, RLE8 and RLE4 (native/bmp.cpp, escapes as
   OpenCV decodes them), 16 bits as 5-5-5 or 5-6-5 (BI_BITFIELDS), 24 and
@@ -101,9 +104,9 @@ What cv2 reads and this does not raises ``NotImplementedError`` naming
 it, so that no page is skipped silently: a TIFF compression libtiff does
 not know (JPEG 2000 in TIFF 34712, JPEG XL 50002, any other number; cv2
 gives an all-zero page for those), lossless JPEG with subsampled
-components, HTJ2K codestreams (Part 15, a CAP marker) and the JPEG 2000
-Part 2 multi-component transforms (MCT, MCC, MCO markers), both of which
-OpenJPEG 2.5 decodes, and every other format: GIF, WebP, AVIF, Sun raster,
+components, JPEG 2000 with HT code-blocks (HTJ2K, Part 15: code-block
+style bit 6 in a COD or COC marker of the main or a tile-part header),
+which OpenJPEG 2.5 decodes, and every other format: GIF, WebP, AVIF, Sun raster,
 colour PFM and Radiance HDR (``#?RADIANCE`` or ``#?RGBE``).
 ``unsupported(path)`` tells these from the headers, without decoding.
 """
@@ -1086,12 +1089,8 @@ def _decode_tiff_page(data: bytes, order: str, tags: dict,
 # cv2 reads as sRGB
 _JP2_SRGB, _JP2_GRAY, _JP2_SYCC = 16, 17, 18
 _JP2_REFUSED_SPACES = (12, 24)
-_J2K_VARIANTS = {
-    native.J2K_HTJ2K: "HTJ2K (High-Throughput JPEG 2000, Part 15) "
-                      "codestreams are not supported",
-    native.J2K_PART2: "JPEG 2000 Part 2 multi-component transforms (MCT, "
-                      "MCC, MCO markers) are not supported",
-}
+_HTJ2K = ("HTJ2K (High-Throughput JPEG 2000, Part 15) code-blocks are "
+          "not supported")
 
 
 def _jp2_boxes(data: bytes) -> dict:
@@ -1254,7 +1253,7 @@ def _jp2_header(data: bytes) -> tuple[bytes, dict, dict]:
     decodes: what it gives None for raises _Corrupt (signed components,
     no component of 8 bits or more, components that are subsampled or
     offset, colour spaces it refuses, fewer than 3 components outside
-    greyscale); HTJ2K and the Part 2 transforms, which it reads, raise
+    greyscale); HT code-blocks, which it reads, raise
     NotImplementedError."""
     if data.startswith(J2K_SIGNATURE):
         boxes = {"enumcs": None, "pclr": None, "cmap": None, "cdef": None,
@@ -1279,8 +1278,8 @@ def _jp2_header(data: bytes) -> tuple[bytes, dict, dict]:
         and boxes["cmap"] is not None else len(comps)
     if space in _JP2_REFUSED_SPACES or (space != _JP2_GRAY and channels < 3):
         raise _Corrupt("a colour space or component count cv2 refuses")
-    if rc in _J2K_VARIANTS:
-        raise NotImplementedError(_J2K_VARIANTS[rc])
+    if rc == native.J2K_HTJ2K:
+        raise NotImplementedError(_HTJ2K)
     return cs, boxes, hdr
 
 
@@ -1292,6 +1291,8 @@ def _decode_jp2(data: bytes) -> np.ndarray:
     everything else (sRGB, unknown) from components 0-2 as RGB."""
     cs, boxes, hdr = _jp2_header(data)
     rc, planes = native.j2k_decode(cs)
+    if rc == native.J2K_HTJ2K:
+        raise NotImplementedError(_HTJ2K)
     if rc:
         raise _Corrupt("JPEG 2000 data OpenJPEG cannot decode")
     comps = len(planes)

@@ -8,8 +8,8 @@ cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer;
 ``png.cpp`` undoes PNG's scanline filters, ``jpeg.cpp`` decodes JPEG and
 ``tiff.cpp`` holds the TIFF codecs (LZW, Deflate, PackBits, CCITT,
 ThunderScan, SGI Log) and the YCbCr and CIE L*a*b* -> RGB conversions,
-``jp2.cpp`` decodes JPEG 2000 codestreams (Part 1; HTJ2K and the Part 2
-multi-component transforms are reported, not decoded) and ``bmp.cpp``
+``jp2.cpp`` decodes JPEG 2000 codestreams (Part 1, and the Part 2 markers
+OpenJPEG reads; HTJ2K code-blocks are reported, not decoded) and ``bmp.cpp``
 BMP's RLE8 and RLE4 bitmaps, for the port's image reader (io/images.py),
 which replaces cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
@@ -36,7 +36,7 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 # jp2.cpp's 9/7 wavelet and ICT round as libtiff's and OpenJPEG's do only
 # without fused multiply-adds
 SOURCE_FLAGS = {"tiff.cpp": ["-ffp-contract=off"],
-                "jp2.cpp": ["-ffp-contract=off", "-pthread"]}
+                "jp2.cpp": ["-ffp-contract=off"]}
 
 _LIB: ctypes.CDLL | None = None
 _ARPA_LIB: ctypes.CDLL | None = None
@@ -647,20 +647,22 @@ def _jp2_lib() -> ctypes.CDLL:
             "ocr_j2k_header": (ctypes.c_int, [
                 _U8P, ctypes.c_int64, _I32P, ctypes.c_int64]),
             "ocr_j2k_decode": (ctypes.c_int, [
-                _U8P, ctypes.c_int64, _I32P, ctypes.c_int64, ctypes.c_int]),
+                _U8P, ctypes.c_int64, _I32P, ctypes.c_int64]),
         })
     return _JP2_LIB
 
 
 # jp2.cpp's status codes
-J2K_OK, J2K_FAIL, J2K_HTJ2K, J2K_PART2 = 0, 1, 2, 3
+J2K_OK, J2K_FAIL, J2K_HTJ2K = 0, 1, 2
 
 
 def j2k_header(codestream: bytes) -> tuple[int, dict]:
-    """(status, header) of a JPEG 2000 codestream's main header: status
-    J2K_OK, J2K_FAIL (OpenJPEG cannot read it; header empty), J2K_HTJ2K or
-    J2K_PART2; header: the image's ``x0, y0, x1, y1`` and per component
-    ``comps`` of (dx, dy, precision, signed)."""
+    """(status, header) of a JPEG 2000 codestream, its main and tile-part
+    headers read as the decode reads them: status J2K_OK, J2K_FAIL
+    (OpenJPEG cannot read it; header empty) or J2K_HTJ2K (a tile's
+    code-blocks are HT); header: the image's ``x0, y0, x1, y1`` and per
+    component ``comps`` of (dx, dy, precision, signed), after a CBD
+    marker."""
     buf = np.frombuffer(codestream, np.uint8)
     info = np.zeros(5 + 4 * 16384, np.int32)
     rc = _jp2_lib().ocr_j2k_header(buf.ctypes.data_as(_U8P), buf.size,
@@ -673,13 +675,12 @@ def j2k_header(codestream: bytes) -> tuple[int, dict]:
     return rc, {"x0": x0, "y0": y0, "x1": x1, "y1": y1, "comps": comps}
 
 
-def j2k_decode(codestream: bytes, threads: int | None = None
-               ) -> tuple[int, list[np.ndarray] | None]:
+def j2k_decode(codestream: bytes) -> tuple[int, list[np.ndarray] | None]:
     """Decode a JPEG 2000 codestream with jp2.cpp as OpenJPEG 2.5 decodes
-    it (strict mode): (J2K_OK, each component's (h, w) int32 samples, after
-    the DC level shift and clipping) or (status, None) as ``j2k_header``
-    gives it. ``threads``: tier-1 workers (default: the CPU count, at most
-    8). ctypes releases the GIL for the call."""
+    it (strict mode), on one thread: (J2K_OK, each component's (h, w)
+    int32 samples, after the DC level shift and clipping) or (status,
+    None) as ``j2k_header`` gives it. ctypes releases the GIL for the
+    call, so pages decode in parallel on the callers' threads."""
     rc, hdr = j2k_header(codestream)
     if rc:
         return rc, None
@@ -690,11 +691,8 @@ def j2k_decode(codestream: bytes, threads: int | None = None
         shapes.append((h, w))
     out = np.zeros(sum(h * w for h, w in shapes), np.int32)
     buf = np.frombuffer(codestream, np.uint8)
-    if threads is None:
-        threads = min(os.cpu_count() or 1, 8)
     rc = _jp2_lib().ocr_j2k_decode(buf.ctypes.data_as(_U8P), buf.size,
-                                   out.ctypes.data_as(_I32P), out.size,
-                                   threads)
+                                   out.ctypes.data_as(_I32P), out.size)
     if rc:
         return rc, None
     planes, at = [], 0

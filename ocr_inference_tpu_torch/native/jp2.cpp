@@ -4,13 +4,18 @@
 // their tile-part, fails: cv2 gives None):
 //
 // - main and tile-part headers: SIZ, COD/COC, QCD/QCC, RGN, POC, PPM, PPT,
-//   TLM/PLM/PLT/CRG/COM (read past), several tile-parts per tile;
+//   TLM/PLM/PLT/CRG/COM, CAP and CPF (read past, after OpenJPEG's checks),
+//   several tile-parts per tile;
+//   the Part 2 markers OpenJPEG reads: MCT, MCC and MCO (an MCO replaces
+//   the DC level shifts by its MCC's offset array, zero without one) and
+//   CBD (the components' precision and signedness); the others (ADS, ATK,
+//   DCO, NLT) it reads past in the main header, as unknown markers;
 // - tier 2: tag trees, packet headers (inclusion, zero bit-planes, passes,
 //   Lblock), SOP and EPH markers, the five progression orders with POC
 //   changes, precincts, packed packet headers (PPM, PPT);
 // - tier 1: the MQ decoder and the three coding passes with every Part 1
 //   code-block style (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM), ROI
-//   maxshift; code-blocks are decoded on a pool of threads;
+//   maxshift;
 // - dequantisation, the 5/3 (integer) and 9/7 (float32, OpenJPEG's lifting
 //   order and constants; built without fused multiply-adds) inverse
 //   wavelets, RCT and ICT, the DC level shift with OpenJPEG's rounding and
@@ -18,19 +23,17 @@
 //
 // It returns each component's samples as int32; the JP2 boxes, palettes,
 // channel definitions and cv2's mapping to 8-bit BGR are io/images.py.
-// HTJ2K (the CAP marker) and the Part 2 multi-component transforms are
-// reported, not decoded.
+// HTJ2K code-blocks (code-block style bit 6 in a COD or COC of the main or
+// a tile-part header) are reported, not decoded.
 #include <algorithm>
-#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
-#include <thread>
 #include <vector>
 
 namespace {
 
-enum Status { kOk = 0, kFail = 1, kHTJ2K = 2, kPart2 = 3 };
+enum Status { kOk = 0, kFail = 1, kHTJ2K = 2 };
 
 struct Fail {
     int status;
@@ -65,10 +68,23 @@ struct Tccp {
     StepSize steps[97];
     int roishift = 0;
     int prcw[33] = {0}, prch[33] = {0};
+    int32_t dc_shift = 0;  // set from SIZ; an MCO marker replaces it
 };
 
 struct Poc {
     uint32_t resno0, compno0, layno1, resno1, compno1, prg;
+};
+
+// Part 2 records (OpenJPEG's opj_mct_data_t and
+// opj_simple_mcc_decorrelation_data_t)
+struct MctRecord {
+    uint32_t index = 0, etype = 0;
+    std::vector<uint8_t> data;
+};
+
+struct MccRecord {
+    uint32_t index = 0, ncomps = 0;
+    int deco = -1, offset = -1;  // MctRecord positions
 };
 
 struct Tcp {
@@ -78,6 +94,8 @@ struct Tcp {
     int mct = 0;
     std::vector<Tccp> tccps;
     std::vector<Poc> pocs;
+    std::vector<MctRecord> mcts;
+    std::vector<MccRecord> mccs;
     std::vector<uint8_t> data;  // the tile-parts' data, one after another
     std::vector<uint8_t> ppt;
     std::vector<std::pair<int, std::vector<uint8_t>>> ppt_parts;
@@ -96,7 +114,6 @@ struct Codestream {
     size_t len = 0;
     uint32_t x0 = 0, y0 = 0, x1 = 0, y1 = 0;
     uint32_t tx0 = 0, ty0 = 0, tdx = 0, tdy = 0, tw = 0, th = 0;
-    int rsiz = 0;
     std::vector<Comp> comps;
     Tcp deftcp;
     std::vector<Tcp> tcps;
@@ -105,7 +122,6 @@ struct Codestream {
     std::vector<uint8_t> ppm_data;
     size_t ppm_pos = 0;
     bool have_siz = false, have_cod = false, have_qcd = false;
-    bool htj2k = false, part2 = false;
 };
 
 struct Seg {
@@ -205,7 +221,7 @@ struct Seq {
 
 void read_siz(Codestream& cs, Seq s) {
     if (cs.have_siz) fail();
-    cs.rsiz = (int)s.get(2);
+    s.get(2);  // Rsiz: the profile, which OpenJPEG's decode does not read
     cs.x1 = s.get(4);
     cs.y1 = s.get(4);
     cs.x0 = s.get(4);
@@ -238,8 +254,10 @@ void read_siz(Codestream& cs, Seq s) {
     // more tiles than the index of an SOT marker can name
     if ((uint64_t)cs.tw * cs.th > 65535) fail();
     cs.deftcp.tccps.assign(nc, Tccp());
+    for (size_t c = 0; c < nc; ++c)
+        if (!cs.comps[c].sgnd)
+            cs.deftcp.tccps[c].dc_shift = (int32_t)1 << (cs.comps[c].prec - 1);
     cs.have_siz = true;
-    if (cs.rsiz & 0x4000) cs.htj2k = true;
 }
 
 void read_spcod(Seq& s, Tccp& t) {
@@ -264,7 +282,7 @@ void read_spcod(Seq& s, Tccp& t) {
     }
 }
 
-void read_cod(Codestream& cs, Tcp& tcp, Seq s) {
+void read_cod(Tcp& tcp, Seq s) {
     uint32_t scod = s.get(1);
     if (scod & ~7u) fail();
     tcp.csty = (int)scod;
@@ -278,7 +296,6 @@ void read_cod(Codestream& cs, Tcp& tcp, Seq s) {
     first.csty = (int)(scod & 1);
     read_spcod(s, first);
     if (s.left()) fail();
-    if (first.cblksty & 0x40) cs.htj2k = true;
     for (auto& t : tcp.tccps) {
         t.csty = first.csty;
         t.numres = first.numres;
@@ -302,7 +319,6 @@ void read_coc(Codestream& cs, Tcp& tcp, Seq s) {
     t.csty = (int)s.get(1);
     read_spcod(s, t);
     if (s.left()) fail();
-    if (t.cblksty & 0x40) cs.htj2k = true;
 }
 
 void read_sqcd(Seq& s, Tccp& t) {
@@ -397,10 +413,130 @@ void merge_ppm(Codestream& cs) {
     }
 }
 
-bool is_part2_marker(uint32_t m) {
-    // MCT, MCC, MCO, CBD, ADS, ATK, DCO, NLT
-    return m == 0xFF74 || m == 0xFF75 || m == 0xFF77 || m == 0xFF78 ||
-           m == 0xFF73 || m == 0xFF79 || m == 0xFF70 || m == 0xFF76;
+// Part 2: OpenJPEG's opj_j2k_read_mct, _read_mcc, _read_mco (with
+// opj_j2k_add_mct) and _read_cbd. Where OpenJPEG warns that it cannot take
+// a record in charge, the marker is read past; where it errs, fail.
+
+void read_mct(Tcp& tcp, Seq s) {
+    if (s.n < 2) fail();
+    if (s.get(2) != 0) return;  // Zmct: one of several MCT records
+    if (s.n <= 6) fail();
+    uint32_t imct = s.get(2);
+    uint32_t index = imct & 0xff;
+    auto it = std::find_if(tcp.mcts.begin(), tcp.mcts.end(),
+                           [&](auto& r) { return r.index == index; });
+    MctRecord& rec = it != tcp.mcts.end() ? *it : tcp.mcts.emplace_back();
+    rec.index = index;
+    rec.etype = (imct >> 10) & 3;
+    rec.data.clear();
+    if (s.get(2) != 0) return;  // Ymct: one of several MCT markers
+    rec.data.assign(s.p + s.pos, s.p + s.n);
+}
+
+int find_mct(const Tcp& tcp, uint32_t index) {
+    for (size_t i = 0; i < tcp.mcts.size(); ++i)
+        if (tcp.mcts[i].index == index) return (int)i;
+    fail();
+}
+
+void read_mcc(Tcp& tcp, Seq s) {
+    if (s.n < 2) fail();
+    if (s.get(2) != 0) return;  // Zmcc
+    if (s.n < 7) fail();
+    uint32_t index = s.get(1);
+    auto it = std::find_if(tcp.mccs.begin(), tcp.mccs.end(),
+                           [&](auto& r) { return r.index == index; });
+    MccRecord added;
+    MccRecord& rec = it != tcp.mccs.end() ? *it : added;
+    rec.index = index;
+    if (s.get(2) != 0) return;  // Ymcc
+    uint32_t collections = s.get(2);
+    if (collections > 1) return;
+    size_t size = s.n - 7;
+    for (uint32_t i = 0; i < collections; ++i) {
+        if (size < 3) fail();
+        if (s.get(1) != 1) return;  // not an array-based decorrelation
+        uint32_t n = s.get(2);
+        size -= 3;
+        int bytes = 1 + (int)(n >> 15);
+        rec.ncomps = n & 0x7fff;
+        if (size < (size_t)bytes * rec.ncomps + 2) fail();
+        size -= (size_t)bytes * rec.ncomps + 2;
+        for (uint32_t j = 0; j < rec.ncomps; ++j)
+            if (s.get(bytes) != j) return;  // shuffled components
+        n = s.get(2);
+        bytes = 1 + (int)(n >> 15);
+        if ((n & 0x7fff) != rec.ncomps) return;
+        if (size < (size_t)bytes * rec.ncomps + 3) fail();
+        size -= (size_t)bytes * rec.ncomps + 3;
+        for (uint32_t j = 0; j < rec.ncomps; ++j)
+            if (s.get(bytes) != j) return;
+        uint32_t t = s.get(3);
+        rec.deco = (t & 0xff) ? find_mct(tcp, t & 0xff) : -1;
+        rec.offset = ((t >> 8) & 0xff) ? find_mct(tcp, (t >> 8) & 0xff) : -1;
+    }
+    if (size != 0) fail();
+    if (it == tcp.mccs.end()) tcp.mccs.push_back(added);
+}
+
+// an MCT element as an int32: opj_j2k_read_int16_to_int32 (unsigned),
+// _int32_to_int32, _float32_to_int32 and _float64_to_int32 (a C cast,
+// which gives INT32_MIN out of range on x86)
+int32_t mct_element(const uint8_t* p, uint32_t etype) {
+    int n = etype == 0 ? 2 : etype == 3 ? 8 : 4;
+    uint64_t v = 0;
+    for (int i = 0; i < n; ++i) v = (v << 8) | p[i];
+    if (etype < 2) return (int32_t)(uint32_t)v;
+    double f;
+    if (etype == 2) {
+        uint32_t u = (uint32_t)v;
+        float g;
+        std::memcpy(&g, &u, 4);
+        f = g;
+    } else {
+        std::memcpy(&f, &v, 8);
+    }
+    if (!(f > -2147483649.0 && f < 2147483648.0)) return INT32_MIN;
+    return (int32_t)f;
+}
+
+void add_mct(const Codestream& cs, Tcp& tcp, uint32_t index) {
+    auto it = std::find_if(tcp.mccs.begin(), tcp.mccs.end(),
+                           [&](auto& r) { return r.index == index; });
+    size_t nc = cs.comps.size();
+    if (it == tcp.mccs.end() || it->ncomps != nc) return;  // discarded
+    static const size_t kSize[4] = {2, 4, 4, 8};
+    if (it->deco >= 0) {
+        const MctRecord& d = tcp.mcts[it->deco];
+        if (d.data.size() != kSize[d.etype] * nc * nc) fail();
+    }
+    if (it->offset >= 0) {
+        const MctRecord& o = tcp.mcts[it->offset];
+        if (o.data.size() != kSize[o.etype] * nc) fail();
+        for (size_t c = 0; c < nc; ++c)
+            tcp.tccps[c].dc_shift =
+                mct_element(o.data.data() + kSize[o.etype] * c, o.etype);
+    }
+}
+
+void read_mco(const Codestream& cs, Tcp& tcp, Seq s) {
+    if (s.n < 1) fail();
+    uint32_t stages = s.get(1);
+    if (stages > 1) return;
+    if (s.n != stages + 1) fail();
+    for (auto& t : tcp.tccps) t.dc_shift = 0;
+    for (uint32_t i = 0; i < stages; ++i) add_mct(cs, tcp, s.get(1));
+}
+
+void read_cbd(Codestream& cs, Seq s) {
+    if (s.n != cs.comps.size() + 2) fail();
+    if (s.get(2) != cs.comps.size()) fail();
+    for (auto& c : cs.comps) {
+        uint32_t d = s.get(1);
+        c.sgnd = (d >> 7) & 1;
+        c.prec = (d & 0x7f) + 1;
+        if (c.prec > 31) fail();
+    }
 }
 
 // main header, then every tile-part; throws Fail
@@ -426,7 +562,7 @@ void parse(Codestream& cs) {
         if (!cs.have_siz && m != 0xFF51) fail();
         switch (m) {
             case 0xFF51: read_siz(cs, s); break;
-            case 0xFF52: read_cod(cs, cs.deftcp, s); cs.have_cod = true; break;
+            case 0xFF52: read_cod(cs.deftcp, s); cs.have_cod = true; break;
             case 0xFF53:
                 if (!cs.have_cod) fail();
                 read_coc(cs, cs.deftcp, s);
@@ -443,15 +579,22 @@ void parse(Codestream& cs) {
                     z, std::vector<uint8_t>(s.p + 1, s.p + s.n));
                 break;
             }
-            case 0xFF50: cs.htj2k = true; break;  // CAP
-            default:
-                if (is_part2_marker(m)) cs.part2 = true;
-                break;  // TLM, PLM, CRG, COM and others: read past
+            case 0xFF74: read_mct(cs.deftcp, s); break;
+            case 0xFF75: read_mcc(cs.deftcp, s); break;
+            case 0xFF77: read_mco(cs, cs.deftcp, s); break;
+            case 0xFF78: read_cbd(cs, s); break;
+            // OpenJPEG's checks of what it otherwise reads past
+            case 0xFF55: if (s.n < 2) fail(); break;  // TLM
+            case 0xFF57: if (s.n < 1) fail(); break;  // PLM
+            case 0xFF63:  // CRG
+                if (s.n != 4 * cs.comps.size()) fail();
+                break;
+            case 0xFF58: case 0xFF61: case 0xFF91:  // PLT, PPT, SOP
+                fail();  // not in a main header
+            default: break;  // COM, CAP, CPF and unknown markers: read past
         }
         pos += 2 + l;
     }
-    if (cs.htj2k) fail(kHTJ2K);
-    if (cs.part2) fail(kPart2);
     if (!cs.have_cod || !cs.have_qcd) fail();
     if (cs.ppm) merge_ppm(cs);
     cs.tcps.assign((size_t)cs.tw * cs.th, cs.deftcp);
@@ -481,7 +624,7 @@ void parse(Codestream& cs) {
             if (l < 2 || pos + 2 + l > n) fail();
             Seq ms{p + pos + 4, l - 2};
             switch (mk) {
-                case 0xFF52: read_cod(cs, tcp, ms); break;
+                case 0xFF52: read_cod(tcp, ms); break;
                 case 0xFF53: read_coc(cs, tcp, ms); break;
                 case 0xFF5C: read_qcd(cs, tcp, ms); break;
                 case 0xFF5D: read_qcc(cs, tcp, ms); break;
@@ -496,13 +639,18 @@ void parse(Codestream& cs) {
                         z, std::vector<uint8_t>(ms.p + 1, ms.p + ms.n));
                     break;
                 }
-                case 0xFF58: case 0xFF64: break;  // PLT, COM
-                default:
-                    if (is_part2_marker(mk)) fail(kPart2);
-                    fail();
+                case 0xFF74: read_mct(tcp, ms); break;
+                case 0xFF75: read_mcc(tcp, ms); break;
+                case 0xFF77: read_mco(cs, tcp, ms); break;
+                case 0xFF58: if (ms.n < 1) fail(); break;  // PLT
+                case 0xFF64: break;  // COM
+                default: fail();
             }
             pos += 2 + l;
         }
+        // HT code-blocks: refused once a tile-part of the tile is read
+        for (auto& t : tcp.tccps)
+            if (t.cblksty & 0x40) fail(kHTJ2K);
         pos += 2;
         size_t end;
         if (psot == 0) {
@@ -516,9 +664,6 @@ void parse(Codestream& cs) {
         tcp.data.insert(tcp.data.end(), p + pos, p + end);
         tcp.order = order++;
         pos = end;
-        if (cs.htj2k) fail(kHTJ2K);
-        for (auto& t : tcp.tccps)
-            if (t.cblksty & 0x40) fail(kHTJ2K);
         // the next marker: SOT or EOC (two last bytes that are neither end
         // the stream with a warning)
         if (pos + 2 > n) fail();
@@ -1563,15 +1708,13 @@ void idwt(TileComp& tc, T* buf, F lift) {
 // one tile
 // ---------------------------------------------------------------------------
 
-struct Job {
-    TileComp* tc;
-    const Tccp* tccp;
-    const Band* band;
-    const Res* prev;
-    Cblk* cb;
-};
+// OpenJPEG's int32 sum of a 5/3 sample and its DC level shift, which
+// wraps (an MCO's offset may be anything); the 9/7 sum is int64
+inline int64_t wrap_add(int32_t a, int32_t b) {
+    return (int32_t)((uint32_t)a + (uint32_t)b);
+}
 
-void decode_tile(Codestream& cs, uint32_t tileno, int32_t* out, int threads) {
+void decode_tile(Codestream& cs, uint32_t tileno, int32_t* out) {
     Tcp& tcp = cs.tcps[tileno];
     std::vector<TileComp> tcs;
     uint32_t tx0, ty0, tx1, ty1;
@@ -1599,64 +1742,45 @@ void decode_tile(Codestream& cs, uint32_t tileno, int32_t* out, int threads) {
     }
     if (cs.ppm) cs.ppm_pos = cs.ppm_data.size() - hdr_left;
     // tier 1 into each tile-component's buffer
-    std::vector<Job> jobs;
+    T1 t1;
     for (size_t c = 0; c < tcs.size(); ++c) {
         TileComp& tc = tcs[c];
-        size_t size = (size_t)tc.width() * tc.height();
-        if (tcp.tccps[c].qmfbid == 1)
+        const Tccp& tccp = tcp.tccps[c];
+        uint32_t stride = tc.width();
+        size_t size = (size_t)stride * tc.height();
+        if (tccp.qmfbid == 1)
             tc.idata.assign(size, 0);
         else
             tc.fdata.assign(size, 0.0f);
-        for (int r = 0; r < tc.numres; ++r)
-            for (int b = 0; b < tc.res[r].numbands; ++b)
-                for (auto& prc : tc.res[r].bands[b].precs)
-                    for (auto& cb : prc.cblks)
-                        jobs.push_back({&tc, &tcp.tccps[c],
-                                        &tc.res[r].bands[b],
-                                        r ? &tc.res[r - 1] : nullptr, &cb});
-    }
-    std::atomic<size_t> next{0};
-    std::atomic<bool> bad{false};
-    auto worker = [&]() {
-        T1 t1;
-        for (;;) {
-            size_t i = next.fetch_add(1);
-            if (i >= jobs.size() || bad) return;
-            Job& j = jobs[i];
-            if (!t1.decode(*j.cb, j.band->orient, j.tccp->roishift,
-                           j.tccp->cblksty)) {
-                bad = true;
-                return;
-            }
-            uint32_t x = j.cb->x0 - j.band->x0, y = j.cb->y0 - j.band->y0;
-            if (j.band->orient & 1) x += j.prev->x1 - j.prev->x0;
-            if (j.band->orient & 2) y += j.prev->y1 - j.prev->y0;
-            uint32_t stride = j.tc->width();
-            if (j.tccp->qmfbid == 1) {
-                for (int yy = 0; yy < t1.h; ++yy) {
-                    int32_t* dst = j.tc->idata.data() + (size_t)(y + yy) * stride + x;
-                    const int32_t* s = t1.data.data() + (size_t)yy * t1.w;
-                    for (int xx = 0; xx < t1.w; ++xx) dst[xx] = s[xx] / 2;
-                }
-            } else {
-                float step = 0.5f * j.band->stepsize;
-                for (int yy = 0; yy < t1.h; ++yy) {
-                    float* dst = j.tc->fdata.data() + (size_t)(y + yy) * stride + x;
-                    const int32_t* s = t1.data.data() + (size_t)yy * t1.w;
-                    for (int xx = 0; xx < t1.w; ++xx) dst[xx] = (float)s[xx] * step;
+        for (int r = 0; r < tc.numres; ++r) {
+            for (int b = 0; b < tc.res[r].numbands; ++b) {
+                const Band& band = tc.res[r].bands[b];
+                for (auto& prc : band.precs) {
+                    for (auto& cb : prc.cblks) {
+                        if (!t1.decode(cb, band.orient, tccp.roishift,
+                                       tccp.cblksty))
+                            fail();
+                        uint32_t x = cb.x0 - band.x0, y = cb.y0 - band.y0;
+                        if (band.orient & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
+                        if (band.orient & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
+                        for (int yy = 0; yy < t1.h; ++yy) {
+                            size_t at = (size_t)(y + yy) * stride + x;
+                            const int32_t* s = t1.data.data() + (size_t)yy * t1.w;
+                            if (tccp.qmfbid == 1) {
+                                int32_t* dst = tc.idata.data() + at;
+                                for (int xx = 0; xx < t1.w; ++xx) dst[xx] = s[xx] / 2;
+                            } else {
+                                float step = 0.5f * band.stepsize;
+                                float* dst = tc.fdata.data() + at;
+                                for (int xx = 0; xx < t1.w; ++xx)
+                                    dst[xx] = (float)s[xx] * step;
+                            }
+                        }
+                    }
                 }
             }
         }
-    };
-    int nt = std::max(1, std::min<int>(threads, (int)(jobs.size() / 4 + 1)));
-    if (nt == 1) {
-        worker();
-    } else {
-        std::vector<std::thread> pool;
-        for (int i = 0; i < nt; ++i) pool.emplace_back(worker);
-        for (auto& t : pool) t.join();
     }
-    if (bad) fail();
     // inverse wavelets
     for (size_t c = 0; c < tcs.size(); ++c) {
         TileComp& tc = tcs[c];
@@ -1701,15 +1825,14 @@ void decode_tile(Codestream& cs, uint32_t tileno, int32_t* out, int threads) {
     for (size_t c = 0; c < tcs.size(); ++c) {
         TileComp& tc = tcs[c];
         const Comp& comp = cs.comps[c];
-        int64_t lo, hi, shift;
+        int64_t lo, hi;
+        int32_t shift = tcp.tccps[c].dc_shift;
         if (comp.sgnd) {
             lo = -((int64_t)1 << (comp.prec - 1));
             hi = ((int64_t)1 << (comp.prec - 1)) - 1;
-            shift = 0;
         } else {
             lo = 0;
             hi = ((int64_t)1 << comp.prec) - 1;
-            shift = (int64_t)1 << (comp.prec - 1);
         }
         uint32_t cw = ceildiv(cs.x1, comp.dx) - ceildiv(cs.x0, comp.dx);
         uint32_t ch = ceildiv(cs.y1, comp.dy) - ceildiv(cs.y0, comp.dy);
@@ -1728,14 +1851,14 @@ void decode_tile(Codestream& cs, uint32_t tileno, int32_t* out, int threads) {
             for (uint32_t x = 0; x < w; ++x) {
                 int64_t v;
                 if (tcp.tccps[c].qmfbid == 1) {
-                    v = (int64_t)tc.idata[(size_t)y * w + x] + shift;
+                    v = wrap_add(tc.idata[(size_t)y * w + x], shift);
                 } else {
                     float f = tc.fdata[(size_t)y * w + x];
                     if (f > (float)INT32_MAX)
                         v = hi;
                     else if (f < (float)INT32_MIN)
                         v = lo;
-                    else  // lrintf: to nearest, ties to even
+                    else  // lrintf: to nearest, ties to even; an int64 sum
                         v = (int64_t)std::nearbyintf(f) + shift;
                 }
                 dst[x] = (int32_t)std::min(std::max(v, lo), hi);
@@ -1748,49 +1871,25 @@ void decode_tile(Codestream& cs, uint32_t tileno, int32_t* out, int threads) {
 
 extern "C" {
 
-// The main header of a codestream: status (0 ok, 1 a file cv2 cannot
-// read, 2 HTJ2K, 3 a Part 2 multi-component transform) and, but for
-// status 1, in ``info`` the image's x0, y0, x1, y1, its component count,
-// then per component dx, dy, precision and signedness (at most
-// ``max_info`` values).
+// The headers of a codestream, main and tile-part, read as the decode
+// reads them: status (0 ok, 1 a file cv2 cannot read, 2 HTJ2K code-blocks)
+// and, but for status 1, in ``info`` the image's x0, y0, x1, y1, its
+// component count, then per component dx, dy, precision and signedness
+// (after a CBD marker; at most ``max_info`` values).
 int ocr_j2k_header(const uint8_t* data, int64_t len, int32_t* info,
                    int64_t max_info) {
     Codestream cs;
     cs.p = data;
     cs.len = (size_t)len;
+    int status = kOk;
     try {
-        // the main header alone: stop at the first SOT
-        const uint8_t* p = data;
-        size_t n = (size_t)len, pos = 2;
-        if (n < 4 || p[0] != 0xff || p[1] != 0x4f) return kFail;
-        for (;;) {
-            if (pos + 2 > n) return kFail;
-            uint32_t m = ((uint32_t)p[pos] << 8) | p[pos + 1];
-            if (m == 0xFF90) break;
-            if (m < 0xFF00 || m == 0xFFD9 || m == 0xFF93) return kFail;
-            if (pos + 4 > n) return kFail;
-            uint32_t l = ((uint32_t)p[pos + 2] << 8) | p[pos + 3];
-            if (l < 2 || pos + 2 + l > n) return kFail;
-            Seq s{p + pos + 4, l - 2};
-            if (!cs.have_siz && m != 0xFF51) return kFail;
-            if (m == 0xFF51) read_siz(cs, s);
-            else if (m == 0xFF52) {
-                read_cod(cs, cs.deftcp, s);
-                cs.have_cod = true;
-            } else if (m == 0xFF53) read_coc(cs, cs.deftcp, s);
-            else if (m == 0xFF5C) {
-                read_qcd(cs, cs.deftcp, s);
-                cs.have_qcd = true;
-            } else if (m == 0xFF5D) read_qcc(cs, cs.deftcp, s);
-            else if (m == 0xFF50) cs.htj2k = true;
-            else if (is_part2_marker(m)) cs.part2 = true;
-            pos += 2 + l;
-        }
-        if (!cs.have_cod || !cs.have_qcd) return kFail;
+        parse(cs);
     } catch (const Fail& f) {
-        return f.status;
+        status = f.status;
+    } catch (const std::bad_alloc&) {
+        status = kFail;
     }
-    int status = cs.htj2k ? kHTJ2K : cs.part2 ? kPart2 : kOk;
+    if (status == kFail) return kFail;
     int64_t k = 0;
     auto put = [&](int64_t v) {
         if (k < max_info) info[k] = (int32_t)v;
@@ -1812,9 +1911,9 @@ int ocr_j2k_header(const uint8_t* data, int64_t len, int32_t* info,
 
 // Decode a codestream into ``out``: each component's plane (its samples
 // on the reference grid's subsampled size), one after another, int32.
-// Returns the status as ocr_j2k_header does. ``threads``: tier-1 workers.
+// Returns the status as ocr_j2k_header does.
 int ocr_j2k_decode(const uint8_t* data, int64_t len, int32_t* out,
-                   int64_t out_len, int threads) {
+                   int64_t out_len) {
     Codestream cs;
     cs.p = data;
     cs.len = (size_t)len;
@@ -1833,7 +1932,7 @@ int ocr_j2k_decode(const uint8_t* data, int64_t len, int32_t* out,
             return cs.tcps[a].order < cs.tcps[b].order;
         });
         if (tiles.empty()) return kFail;
-        for (uint32_t t : tiles) decode_tile(cs, t, out, threads);
+        for (uint32_t t : tiles) decode_tile(cs, t, out);
     } catch (const Fail& f) {
         return f.status;
     } catch (const std::bad_alloc&) {

@@ -1669,6 +1669,48 @@ def j2k_packed_headers(codestream: bytes, where: str = "ppt") -> bytes:
     return main + sot_seg + part + b"\xff\xd9"
 
 
+def j2k_segment(marker: int, payload: bytes) -> bytes:
+    """A codestream marker segment: the marker, its length, the payload."""
+    return struct.pack(">HH", marker, 2 + len(payload)) + payload
+
+
+def j2k_mct(index: int, values, etype: int = 1, array: int = 2) -> bytes:
+    """A Part 2 MCT marker segment (one record, Zmct = Ymct = 0): array
+    ``array`` (1 decorrelation, 2 offset) of ``values`` as elements of type
+    ``etype`` (0 int16, 1 int32, 2 float32, 3 float64)."""
+    fmt = ">" + "hifd"[etype]
+    data = b"".join(struct.pack(fmt, v) for v in values)
+    return j2k_segment(0xFF74, struct.pack(
+        ">HHH", 0, (etype << 10) | (array << 8) | index, 0) + data)
+
+
+def j2k_mcc(index: int, comps: int, offset: int = 0, deco: int = 0
+            ) -> bytes:
+    """A Part 2 MCC marker segment: one array-based decorrelation
+    collection over components 0..comps-1, naming the MCT records
+    ``deco`` and ``offset`` (0: none), reversible."""
+    tmcc = (1 << 16) | (offset << 8) | deco
+    return j2k_segment(0xFF75, struct.pack(">HBHH", 0, index, 0, 1)
+                       + struct.pack(">BH", 1, comps) + bytes(range(comps))
+                       + struct.pack(">H", comps) + bytes(range(comps))
+                       + tmcc.to_bytes(3, "big"))
+
+
+def j2k_mco(*stages: int) -> bytes:
+    """A Part 2 MCO marker segment naming the MCC records ``stages``."""
+    return j2k_segment(0xFF77, bytes([len(stages), *stages]))
+
+
+def j2k_ht_flagged(codestream: bytes) -> bytes:
+    """The codestream with code-block style bit 6 (HT) set in its main
+    COD. Its code-blocks are still Part 1: only a codestream whose every
+    code-block is empty (a flat image, losslessly coded) is then a valid
+    HTJ2K codestream, which OpenJPEG decodes."""
+    at = codestream.index(b"\xff\x52") + 12
+    return codestream[:at] + bytes([codestream[at] | 0x40]) + \
+        codestream[at + 1:]
+
+
 # ---------------------------------------------------------------------------
 # BMP, PNM and PAM
 # ---------------------------------------------------------------------------

@@ -153,7 +153,8 @@ minutes):
         of the JAX ``bocr-lines``
         (float32, artifacts/full77f/lines.msgpack, threshold 0.85) over the
         pages folder, and over a folder of the page files of other
-        extensions under ``renamed_page`` names (it globs the same five),
+        extensions under ``chip_smoke.renamed_page`` names (it globs the
+        same five),
         as pyarrow reads its Parquet files.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py images
@@ -1200,19 +1201,6 @@ def damaged_and_variant_files(folder, flat) -> dict[str, str]:
     return kinds
 
 
-# the JAX bocr --folder globs these; the fixture's other page files go
-# through bocr --image one at a time (cv2 reads them by content)
-FOLDER_EXTENSIONS = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
-
-
-def renamed_page(name: str) -> str:
-    """The name a page file of a format bocr-lines does not glob takes in
-    the folder bocr-lines runs over: ``clean_a_97.jp2`` ->
-    ``clean_a_97_jp2.png`` (cv2, and the port, read it by content)."""
-    stem, ext = name.rsplit(".", 1)
-    return f"{stem}_{ext}.png"
-
-
 def top_rows(page, rows: int) -> np.ndarray:
     """A page's top ``rows`` rows, its margin and first text lines: the
     pages of the uncompressed formats (a whole page would take megabytes;
@@ -1348,6 +1336,7 @@ def images() -> int:
     import tempfile
 
     jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
+    from chip_smoke import globbed_by_folder, renamed_page
     from ocr_inference_tpu.cli import cli as jax_cli
     from ocr_inference_tpu.cli import infer_lines_cli as jax_lines_cli
     from ocr_inference_tpu.core.data import (
@@ -1399,7 +1388,7 @@ def images() -> int:
                            "--encoding", "wylie"])
         assert rc == 0, rc
         for path in sorted((IMAGES / "pages").iterdir()):
-            if path.suffix.lower() not in FOLDER_EXTENSIONS:
+            if not globbed_by_folder(path):
                 rc = jax_cli.main(["--model", str(model), "--image",
                                    str(path), "--output", str(tmp / "out"),
                                    "--line-model", str(lines),
@@ -1432,7 +1421,7 @@ def images() -> int:
         renamed = tmp / "renamed"
         renamed.mkdir()
         for path in sorted((IMAGES / "pages").iterdir()):
-            if path.suffix.lower() not in FOLDER_EXTENSIONS:
+            if not globbed_by_folder(path):
                 (renamed / renamed_page(path.name)).write_bytes(
                     path.read_bytes())
         rc = jax_lines_cli.main(["-i", str(renamed), "-o",

@@ -23,8 +23,8 @@ from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
 from tests.image_writers import (
-    bmp_file, bmp_rle8, jp2_file, openjpeg_encode, pam_file, pnm_file,
-    write_adam7_png,
+    bmp_file, bmp_rle8, j2k_ht_flagged, j2k_mcc, j2k_mco, j2k_mct, jp2_file,
+    openjpeg_encode, pam_file, pnm_file, write_adam7_png,
 )
 from tests.make_torch_port_fixture import OUT
 
@@ -446,8 +446,10 @@ def _agreement_corpus(root):
     add("cmyk.jp2", jp2_file(cs, *img.shape, colr=("enum", 12)))
     add("cut.jp2", jp2_file(cs, *img.shape)[:-40])
     siz = 4 + struct.unpack_from(">H", cs, 4)[0]
-    add("htj2k.j2k", cs[:siz] + b"\xff\x50\x00\x06" + bytes(4) + cs[siz:])
-    add("part2.j2k", cs[:siz] + b"\xff\x74\x00\x06" + bytes(4) + cs[siz:])
+    add("htj2k.j2k", j2k_ht_flagged(openjpeg_encode(
+        np.full((8, 8, 3), 128), numresolution=2, tcp_mct=0)))
+    add("part2.j2k", cs[:siz] + j2k_mct(1, [9, 99, 199]) + j2k_mcc(
+        1, 3, offset=1) + j2k_mco(1) + cs[siz:])
     add("rle8.bmp", bmp_file(24, 16, 8, bmp_rle8(img[..., 0] >> 6),
                              compression=1, palette=np.zeros((256, 4))))
     add("p2.pgm", pnm_file(img[..., 0], 255, binary=False))

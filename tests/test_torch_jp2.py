@@ -6,7 +6,8 @@ ctypes, for the code-block styles, SOP/EPH, POC, tile-parts, ROI and
 precisions Pillow does not reach), JP2 boxes written here around them
 (colour spaces, palettes, channel definitions), packed packet headers, and
 seeded truncations and corruptions, which give what cv2 gives: an image or
-None. HTJ2K and the Part 2 transforms are refused by name."""
+None; the Part 2 markers OpenJPEG reads. HT code-blocks are refused by
+name."""
 
 import struct
 
@@ -19,7 +20,8 @@ from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
 from tests.image_writers import (
-    j2k_packed_headers, jp2_file, openjpeg_encode,
+    j2k_ht_flagged, j2k_mcc, j2k_mco, j2k_mct, j2k_packed_headers,
+    j2k_segment, jp2_file, openjpeg_encode,
 )
 
 
@@ -311,24 +313,163 @@ def _with_marker(codestream: bytes, marker: int, payload: bytes) -> bytes:
 
 
 def test_htj2k_and_part2_refused_by_name(tmp_path):
-    """A codestream with a CAP marker (HTJ2K, which OpenJPEG 2.5 decodes)
-    or an MCT marker (Part 2) is refused by name, by unsupported() and
-    read_image alike, where cv2's checks before decoding pass; a gray raw
-    codestream with one is None, as cv2 gives None for any 1-component
-    raw codestream."""
-    img = np.random.default_rng(2).integers(0, 256, (16, 20, 3))
-    cs = openjpeg_encode(img, numresolution=2)
-    for marker, name in ((0xFF50, "HTJ2K"), (0xFF74, "Part 2")):
-        path = tmp_path / "x.j2k"
-        path.write_bytes(_with_marker(cs, marker, b"\0\0\0\0"))
+    """HT code-blocks (code-block style bit 6), which OpenJPEG 2.5 decodes,
+    are refused by name, by unsupported() and read_image alike, whether the
+    bit is set in a COD or COC of the main header or of a tile-part header.
+    Each file is a flat page coded losslessly, so that its code-blocks are
+    empty and it is a valid HTJ2K codestream: cv2 reads it. A tile-part COD
+    without the bit over a main COD with it is read. A gray raw codestream
+    so flagged is None, as cv2 gives None for any 1-component raw
+    codestream. Part 1 code-blocks flagged HT are refused by name too,
+    where cv2's HT decoder gives None: the port has no HT decoder to tell
+    them apart. The Part 2 markers are read as OpenJPEG reads them
+    (test_part2_markers)."""
+    cs = openjpeg_encode(np.full((16, 20, 3), 128), numresolution=2,
+                         tcp_mct=0)
+    c0, c1 = _segments(cs)[0xFF52]
+    cod_ht = j2k_ht_flagged(cs[c0:c1])
+    coc_ht = struct.pack(">HHBB", 0xFF53, 4 + (c1 - c0 - 9), 1,
+                         cs[c0 + 4] & 1) + cod_ht[9:]
+    cases = {
+        "main_cod": j2k_ht_flagged(cs),
+        "main_coc": cs[:c1] + coc_ht + cs[c1:],
+        "tile_cod": _in_tile_header(cs, cod_ht),
+        "tile_coc": _in_tile_header(cs, coc_ht),
+    }
+    for name, data in cases.items():
+        path = tmp_path / f"{name}.j2k"
+        path.write_bytes(data)
+        want = _cv2_rgb(path)
+        assert want is not None and (want == 128).all(), name
         assert image_format(path) == "JPEG 2000"
-        assert name in unsupported(path)
-        with pytest.raises(NotImplementedError, match=name):
+        assert "HTJ2K" in unsupported(path), name
+        with pytest.raises(NotImplementedError, match="HTJ2K"):
             read_image(path)
-    gray = openjpeg_encode(img[..., 0], numresolution=2)
-    path.write_bytes(_with_marker(gray, 0xFF50, b"\0\0\0\0"))
-    assert unsupported(path) is None and read_image(path) is None
-    assert _cv2_rgb(tmp_path / "missing.jp2") is None
+    got = _same(tmp_path / "tile_clears.j2k",
+                _in_tile_header(j2k_ht_flagged(cs), cs[c0:c1]))
+    assert (got == 128).all()
+    gray = openjpeg_encode(np.full((16, 20), 128), numresolution=2)
+    assert _same(tmp_path / "gray.j2k", j2k_ht_flagged(gray)) is None
+    path = tmp_path / "part1_flagged.j2k"
+    path.write_bytes(j2k_ht_flagged(openjpeg_encode(
+        np.random.default_rng(2).integers(0, 256, (16, 20, 3)),
+        numresolution=2)))
+    assert _cv2_rgb(path) is None
+    assert "HTJ2K" in unsupported(path)
+
+
+def _part2_cases() -> dict:
+    """Part 2 (and CAP) marker segments, by name: what each splices into a
+    codestream's main or first tile-part header."""
+    mcc = j2k_mcc(1, 3, offset=1)
+    return {
+        "cap": j2k_segment(0xFF50, struct.pack(">IH", 1 << 17, 0)),
+        "mct": j2k_mct(1, [0, 0, 0]),
+        "mct_later_record": j2k_segment(0xFF74, struct.pack(">HHH", 1, 1, 0)
+                                        + bytes(12)),
+        "mct_short": j2k_segment(0xFF74, bytes(4)),
+        "mct_mcc": j2k_mct(1, [0, 0, 0]) + mcc,
+        "mcc_names_no_mct": j2k_mcc(1, 3, offset=5),
+        "mcc_short": j2k_segment(0xFF75, bytes(4)),
+        "mco_offsets_0": j2k_mct(1, [0, 0, 0]) + mcc + j2k_mco(1),
+        "mco_offsets_128": j2k_mct(1, [128] * 3) + mcc + j2k_mco(1),
+        "mco_offsets_10_20_30": j2k_mct(1, [10, 20, 30]) + mcc + j2k_mco(1),
+        "mco_offsets_int16": j2k_mct(1, [-5, 300, 7], etype=0) + mcc
+        + j2k_mco(1),
+        "mco_offsets_float32": j2k_mct(1, [100.7, -3.2, 128.0], etype=2)
+        + mcc + j2k_mco(1),
+        "mco_offsets_float64": j2k_mct(1, [1e12, 50.9, 0.0], etype=3) + mcc
+        + j2k_mco(1),
+        "mco_offsets_wrong_size": j2k_mct(1, [1, 2]) + mcc + j2k_mco(1),
+        "mco_without_mcc": j2k_mco(1),
+        "mco_no_stage": j2k_mco(),
+        "mco_two_stages": j2k_mco(1, 2),
+        "mco_mcc_of_4_components": j2k_mct(1, [0] * 4) + j2k_mcc(
+            1, 4, offset=1) + j2k_mco(1),
+        "mco_decorrelation": j2k_mct(2, [1, 0, 0, 0, 1, 0, 0, 0, 1],
+                                     etype=2, array=1)
+        + j2k_mcc(1, 3, deco=2) + j2k_mco(1),
+        "mco_decorrelation_wrong_size": j2k_mct(2, [1] * 8, etype=2, array=1)
+        + j2k_mcc(1, 3, deco=2) + j2k_mco(1),
+        "cbd_as_siz": j2k_segment(0xFF78, struct.pack(">HBBB", 3, 7, 7, 7)),
+        "cbd_9_bits": j2k_segment(0xFF78, struct.pack(">HBBB", 3, 8, 8, 8)),
+        "cbd_mixed": j2k_segment(0xFF78, struct.pack(">HBBB", 3, 7, 6, 7)),
+        "cbd_12_bits": j2k_segment(0xFF78, struct.pack(">HBBB", 3, 11, 11,
+                                                       11)),
+        "cbd_signed": j2k_segment(0xFF78, struct.pack(">HBBB", 3, 0x87, 0x87,
+                                                      0x87)),
+        "cbd_7_bits": j2k_segment(0xFF78, struct.pack(">HBBB", 3, 6, 6, 6)),
+        "cbd_short": j2k_segment(0xFF78, struct.pack(">HBB", 2, 7, 7)),
+        "ads_atk_dco_nlt": b"".join(j2k_segment(m, bytes(4)) for m in (
+            0xFF73, 0xFF79, 0xFF70, 0xFF76)),
+    }
+
+
+@pytest.mark.parametrize("where", ["main", "tile"])
+@pytest.mark.parametrize("case", sorted(_part2_cases()))
+@pytest.mark.parametrize("irreversible", [0, 1], ids=["53", "97"])
+def test_part2_markers(tmp_path, case, where, irreversible):
+    """The Part 2 markers OpenJPEG reads, in the main header or a tile-part
+    header, each held against cv2: MCT and MCC records, an MCO that
+    replaces the DC level shifts by its MCC's offset array (elements of
+    each type, converted as OpenJPEG converts them) or by zero, CBD's
+    precision and signedness (main header only), malformed records (None),
+    and CAP and the markers OpenJPEG does not read (read past in the main
+    header, None in a tile-part header)."""
+    img = _page(np.random.default_rng(3), 24, 28)
+    cs = openjpeg_encode(img, numresolution=2, irreversible=irreversible)
+    segment = _part2_cases()[case]
+    if where == "main":
+        siz = 4 + struct.unpack_from(">H", cs, 4)[0]
+        data = cs[:siz] + segment + cs[siz:]
+    else:
+        data = _in_tile_header(cs, segment)
+    want = _same(tmp_path / "x.j2k", data)
+    if case == "mco_offsets_10_20_30":  # the offsets change the page
+        assert not np.array_equal(want, _same(tmp_path / "plain.j2k", cs))
+
+
+_PLACED_MARKERS = {
+    # (header, marker, payload): what OpenJPEG reads past after a check,
+    # or refuses where it stands
+    "main_tlm": ("main", 0xFF55, b"\0\x50" + bytes(5)),
+    "main_tlm_short": ("main", 0xFF55, b"\0"),
+    "main_plm": ("main", 0xFF57, b"\0"),
+    "main_plm_empty": ("main", 0xFF57, b""),
+    "main_crg": ("main", 0xFF63, bytes(12)),
+    "main_crg_short": ("main", 0xFF63, bytes(8)),
+    "main_com_empty": ("main", 0xFF64, b""),
+    "main_cpf": ("main", 0xFF59, b""),
+    "main_plt": ("main", 0xFF58, b"\0\x05"),
+    "main_ppt": ("main", 0xFF61, b"\0\x05"),
+    "main_sop": ("main", 0xFF91, bytes(4)),
+    "main_eph": ("main", 0xFF92, b""),
+    "main_unknown": ("main", 0xFF6A, bytes(4)),
+    "tile_plt": ("tile", 0xFF58, b"\0\x81\x05"),
+    "tile_plt_empty": ("tile", 0xFF58, b""),
+    "tile_com_empty": ("tile", 0xFF64, b""),
+    "tile_tlm": ("tile", 0xFF55, bytes(4)),
+    "tile_cap": ("tile", 0xFF50, bytes(4)),
+    "tile_unknown": ("tile", 0xFF6A, bytes(4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PLACED_MARKERS))
+def test_marker_placement_and_size_checks(tmp_path, case):
+    """Markers OpenJPEG reads past, after its own checks of their size,
+    and markers it refuses in a header where they do not belong (PLT, PPT
+    and SOP in the main header; TLM, CAP and unknown markers in a
+    tile-part header), each held against cv2."""
+    where, marker, payload = _PLACED_MARKERS[case]
+    cs = openjpeg_encode(_page(np.random.default_rng(8), 16, 20),
+                         numresolution=2)
+    segment = j2k_segment(marker, payload)
+    if where == "main":
+        siz = 4 + struct.unpack_from(">H", cs, 4)[0]
+        data = cs[:siz] + segment + cs[siz:]
+    else:
+        data = _in_tile_header(cs, segment)
+    _same(tmp_path / "x.j2k", data)
 
 
 def test_jp2_box_structure(tmp_path):

@@ -31,9 +31,8 @@ from ocr_inference_tpu_torch.core.config import (
 from ocr_inference_tpu_torch.io import parquet
 from ocr_inference_tpu_torch.io.dataset import ImageInferenceDataset
 from tests.image_writers import jpeg2000_tiff
-from tests.make_torch_port_fixture import (
-    FOLDER_EXTENSIONS, OUT, REPO, WEIGHTS, renamed_page,
-)
+from chip_smoke import globbed_by_folder, renamed_page
+from tests.make_torch_port_fixture import OUT, REPO, WEIGHTS
 
 LINES = REPO / "tests" / "data" / "refpipe" / "lines.msgpack"
 
@@ -250,14 +249,14 @@ def test_bocr_lines_over_the_committed_pages_equals_jax_record(tmp_path):
     bocr-lines row images.json records, as chip_smoke.py checks on the
     card. bocr-lines globs the JAX CLI's five extensions, so the JPEG
     2000, BMP, PNM and PAM pages go through it under the names the record
-    gives them (make_torch_port_fixture.renamed_page) in a folder of their
+    gives them (chip_smoke.renamed_page) in a folder of their
     own."""
     record = json.loads((OUT / "images.json").read_text(encoding="utf-8"))
     pages = OUT / "images" / "pages"
     renamed = tmp_path / "renamed"
     renamed.mkdir()
     for path in pages.iterdir():
-        if path.suffix.lower() not in FOLDER_EXTENSIONS:
+        if not globbed_by_folder(path):
             (renamed / renamed_page(path.name)).write_bytes(path.read_bytes())
     out = tmp_path / "out"
     for folder in (pages, renamed):
