@@ -175,7 +175,14 @@ for each:
                   against their PNG copies; bocr-lines (python -m
                   ocr_inference_tpu_torch.cli.infer_lines_cli) in float32:
                   every Parquet row read back equal to the JAX bocr-lines
-                  row (contours, boxes and counts exactly);
+                  row (contours, boxes and counts exactly). Since the GIF
+                  and WebP slice also GIF (interlaced with a local table,
+                  an animation with transparency), WebP (lossy, lossless,
+                  lossy with ALPH, an animation), Sun raster, colour PFM
+                  and Radiance HDR pages and a bench-size lossy WebP, with
+                  their decode ms; one file of each suffix bocr --folder
+                  does not glob goes through bocr --image, the rest
+                  through read_image and run_ocr in this process;
 20. train_rec_f32 — Easter2 from full77f, five float32 train steps (TF32
                   off) on recognizer_batch batches of full77f's recipe (32
                   canvases of 80x512, binarized on the card by
@@ -2260,6 +2267,8 @@ REPAIRED_AND_VARIANT_PAGES = (
     "skew_2deg_lab.tif", "clean_a_arith_prog.jpg", "clean_b_lossless.jpg",
     "clean_b_thunder.tif", "skew_2deg_rlew.tif", "clean_a_logl.tif",
     "skew_2deg_logluv.tif")
+# the formats of the GIF and WebP slice
+NEWEST_FORMATS = (".gif", ".webp", ".ras", ".pfm", ".hdr")
 
 
 def globbed_by_folder(path: Path) -> bool:
@@ -2446,7 +2455,16 @@ def image_formats(results: dict):
     folder holding an LZMA TIFF (cv2 gives None) beside a readable page:
     bocr exits 0, prints ``Failed to load image`` for it and reads the
     page, as the JAX bocr does. The bench-size JP2's decode ms, and the
-    per-page loop's pages/s on the new formats against PNG copies."""
+    per-page loop's pages/s on the new formats against PNG copies. The GIF
+    (interlaced with a local table; an animation with transparency), WebP
+    (lossy, lossless, lossy with a lossless ALPH chunk, an animation), Sun
+    raster, colour PFM and Radiance HDR pages and images/none/'s cut WebP,
+    broken GIF and RLE Sun raster; the bench-size lossy WebP's decode ms,
+    and the per-page loop's pages/s on those pages against PNG copies.
+    Since that slice one page file of each suffix --folder does not glob
+    goes through bocr --image (float32 and bf16), the others through
+    read_image and run_ocr in this process: each bocr --image loads the
+    model."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2458,6 +2476,13 @@ def image_formats(results: dict):
     pages_dir = IMAGE_DIR / "pages"
     page_paths = sorted(pages_dir.iterdir())
     image_pages = [p for p in page_paths if not globbed_by_folder(p)]
+    newest = [p for p in image_pages if p.suffix in NEWEST_FORMATS]
+    older_pages = [p for p in image_pages if p not in newest]
+    # one page file of each suffix through bocr --image (each run loads
+    # the model), the others through read_image -> run_ocr
+    cli_pages = [next(p for p in image_pages if p.suffix == ext)
+                 for ext in dict.fromkeys(p.suffix for p in image_pages)]
+    in_process = [p for p in image_pages if p not in cli_pages]
     checks, files = {}, {}
     for rel, want in record["files"].items():
         img = read_image(IMAGE_DIR / rel)
@@ -2494,22 +2519,25 @@ def image_formats(results: dict):
         ok = rc == 0
         t0 = time.perf_counter()
         with no_tf32():
-            for path in image_pages:
+            for path in cli_pages:
                 rc = cli.main(args + ["--image", str(path), "--output",
                                       str(root / "f32"), "--dtype",
                                       "float32"])
                 ok &= rc == 0
-        runs["bocr_image_f32"] = {"files": len(image_pages), "ok": ok,
+        runs["bocr_image_f32"] = {"files": len(cli_pages), "ok": ok,
                                   "s": time.perf_counter() - t0}
         f32 = full77f_pipeline(torch.float32)
         with no_tf32():
             for path in page_paths:
                 want = record["bocr"][path.name]
-                out = root / "f32" / f"{path.stem}.txt"
-                texts = out.read_text(encoding="utf-8").splitlines() \
-                    if out.is_file() else []
                 _, payload = f32.run_ocr(read_image(path), merge_lines=False,
                                          target_encoding=Encoding.WYLIE)
+                out = root / "f32" / f"{path.stem}.txt"
+                if path in in_process:  # read_image -> run_ocr
+                    texts = [ln.text for ln in payload[2]]
+                else:
+                    texts = out.read_text(encoding="utf-8").splitlines() \
+                        if out.is_file() else []
                 boxes = [list(ln.bbox.as_tuple()) for ln in payload[1]]
                 page_cer = cer([" ".join(texts)],
                                [" ".join(want["jax_f32_texts"])])
@@ -2517,6 +2545,8 @@ def image_formats(results: dict):
                         and boxes == want["jax_f32_boxes"])
                 ok &= same and page_cer <= 0.005
                 per_page[path.name] = {"lines": len(texts),
+                                       "via": "run_ocr" if path in in_process
+                                       else "bocr",
                                        "jax_lines": len(want["jax_f32_texts"]),
                                        "boxes_equal": boxes ==
                                        want["jax_f32_boxes"],
@@ -2525,21 +2555,28 @@ def image_formats(results: dict):
         checks["bocr_f32_equals_jax_record"] = ok
 
         t0 = time.perf_counter()
+        bf16 = full77f_pipeline(torch.bfloat16)
         with counted_path(results, "bocr_formats"):
             rc = cli.main(args + ["--folder", str(pages_dir), "--output",
                                   str(root / "bf16")])
-            for path in image_pages:
+            for path in cli_pages:
                 rc = rc or cli.main(args + ["--image", str(path),
                                             "--output", str(root / "bf16")])
-        runs["bocr_bf16"] = {"rc": rc, "s": time.perf_counter() - t0}
-        checks["bocr_bf16_runs"] = rc == 0 and all(
-            (root / "bf16" / f"{p.stem}.txt").is_file() for p in page_paths)
+            in_process_ok = all(
+                bf16.run_ocr(read_image(path), merge_lines=False,
+                             target_encoding=Encoding.WYLIE)[0].name
+                == "SUCCESS" for path in in_process)
+        runs["bocr_bf16"] = {"rc": rc, "s": time.perf_counter() - t0,
+                             "bocr_image_files": len(cli_pages),
+                             "run_ocr_files": len(in_process)}
+        checks["bocr_bf16_runs"] = rc == 0 and in_process_ok and all(
+            (root / "bf16" / f"{p.stem}.txt").is_file()
+            for p in page_paths if p not in in_process)
         png_dir = root / "png"
         png_dir.mkdir()
         for path in page_paths:
             write_png(png_dir / f"{path.name}.png",
                       read_image(path)[..., ::-1])
-        bf16 = full77f_pipeline(torch.bfloat16)
         png_paths = sorted(png_dir.iterdir())
         runs_s = {"files": [], "png_copies": []}
         for kind in ("files", "png_copies", "png_copies", "files"):
@@ -2560,18 +2597,21 @@ def image_formats(results: dict):
             "pages": len(new), **{f"{k}_s": v for k, v in runs_s.items()},
             **{f"{k}_pages_per_s": len(new) / min(v)
                for k, v in runs_s.items()}}
-        # and over the JPEG 2000, BMP, PNM and PAM pages
-        new_png = [png_dir / f"{p.name}.png" for p in image_pages]
-        runs_s = {"files": [], "png_copies": []}
-        for kind in ("files", "png_copies", "png_copies", "files"):
-            runs_s[kind].append(page_loop_s(
-                bf16, image_pages if kind == "files" else new_png))
+        # and over the JPEG 2000, BMP, PNM and PAM pages, and the GIF,
+        # WebP, Sun raster, PFM and HDR pages
+        for key, group in (("jpeg2000_bmp_pnm_pages", older_pages),
+                           ("gif_webp_ras_pfm_hdr_pages", newest)):
+            new_png = [png_dir / f"{p.name}.png" for p in group]
+            runs_s = {"files": [], "png_copies": []}
+            for kind in ("files", "png_copies", "png_copies", "files"):
+                runs_s[kind].append(page_loop_s(
+                    bf16, group if kind == "files" else new_png))
+            loop[key] = {
+                "pages": len(group),
+                **{f"{k}_s": v for k, v in runs_s.items()},
+                **{f"{k}_pages_per_s": len(group) / min(v)
+                   for k, v in runs_s.items()}}
         del bf16
-        loop["jpeg2000_bmp_pnm_pages"] = {
-            "pages": len(image_pages),
-            **{f"{k}_s": v for k, v in runs_s.items()},
-            **{f"{k}_pages_per_s": len(image_pages) / min(v)
-               for k, v in runs_s.items()}}
 
         # bocr-lines globs bocr's five extensions: the other page files go
         # through it under a name it globs, as in the JAX record
@@ -2614,8 +2654,10 @@ def image_formats(results: dict):
         runs["bocr_lzma_folder"] = skip
         checks["bocr_skips_lzma_tiff"] = skip["ok"]
     bench_jp2 = files.get("bench_cfg4.jp2", {})
+    bench_webp = files.get("bench_cfg4.webp", {})
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
+            "bench_webp_decode_ms": bench_webp.get("decode_ms"),
             "full_page_copies": copies,
             "pool_decode": pool, "pages": per_page, "runs": runs,
             "page_loop_bf16": loop, "bocr_lines": rows,

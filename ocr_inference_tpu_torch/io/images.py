@@ -1,10 +1,12 @@
 """Page images from files: the port's counterpart of
 ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` for PNG, JPEG, TIFF,
-JPEG 2000, BMP, PNM and PAM, byte for byte.
+JPEG 2000, BMP, PNM, PAM, GIF, WebP, Sun raster, colour PFM and Radiance
+HDR, byte for byte.
 
-The card machine has neither OpenCV nor PIL, so the formats are decoded
-here on stdlib ``zlib`` and numpy, with the pixel loops in native code
-(native/png.cpp, jpeg.cpp, tiff.cpp, jp2.cpp, bmp.cpp). A file's format is
+The card machine has neither OpenCV, PIL nor libwebp, so the formats are
+decoded here on stdlib ``zlib`` and numpy, with the pixel loops in native
+code (native/png.cpp, jpeg.cpp, tiff.cpp, jp2.cpp, bmp.cpp, gif.cpp,
+webp.cpp, hdr.cpp). A file's format is
 told from its leading bytes as cv2 5.0's findDecoder tells it (its name
 plays no part). What ``cv2.imread(path)`` (``IMREAD_COLOR``) gives, this
 gives in RGB order:
@@ -83,6 +85,26 @@ gives in RGB order:
   RGB PAM comes out with red and blue swapped, as cv2 reads it), and of
   two or four only the first ceil(width / depth) pixels of a row are
   written (the rest of cv2's image is its fresh memory: zero here);
+- GIF (87a and 89a): the first frame, as OpenCV 5.0's own GIF decoder
+  reads it (not giflib): global and local colour tables, the Graphic
+  Control Extension's transparency, interlaced rows, a frame smaller than
+  its screen on the background colour; its departures from the GIF89a
+  specification are listed at ``_decode_gif`` and native/gif.cpp;
+- WebP: lossless (VP8L) and lossy (VP8) still images, with or without an
+  ALPH chunk, and the first frame of an animation, decoded as the libwebp
+  cv2 bundles decodes them (native/webp.cpp): lossy frames through
+  libwebp's fancy upsampling and fixed-point YUV -> RGB; alpha is decoded
+  (a broken ALPH chunk gives None) and dropped, not composited; an
+  animation's first frame lies on a black canvas; a file under 32 bytes,
+  cut short or broken gives None;
+- Sun raster: the old and standard types at depths 1, 8, 24 and 32, with
+  or without an RGB colour map; byte-encoded (RLE) and RGB-type rasters
+  give None, as cv2 5.0 reads neither;
+- colour PFM ("PF"): floats divided by |scale|, then rounded to 8 bits
+  without a factor, as imread converts them (0.6 reads as 1, not 153);
+- Radiance HDR (``#?RADIANCE`` or ``#?RGBE``, FORMAT=32-bit_rle_rgbe, -Y
+  +X): run-length and flat scanlines as rgbe.cpp reads them, then times
+  255, rounded and saturated;
 - EXIF orientation 2-8 is applied as cv2 applies it, from a JPEG's first
   APP1 segment and from a PNG's ``eXIf`` chunk. A TIFF's orientation is
   applied as cv2 5.0 applies it: 4 flips top-bottom; 2 flips each strip or
@@ -106,13 +128,14 @@ not know (JPEG 2000 in TIFF 34712, JPEG XL 50002, any other number; cv2
 gives an all-zero page for those), lossless JPEG with subsampled
 components, JPEG 2000 with HT code-blocks (HTJ2K, Part 15: code-block
 style bit 6 in a COD or COC marker of the main or a tile-part header),
-which OpenJPEG 2.5 decodes, and every other format: GIF, WebP, AVIF, Sun raster,
-colour PFM and Radiance HDR (``#?RADIANCE`` or ``#?RGBE``).
-``unsupported(path)`` tells these from the headers, without decoding.
+which OpenJPEG 2.5 decodes, and AVIF (``ftypavif`` or ``ftypavis``), which
+cv2 reads through libavif. ``unsupported(path)`` tells these from the
+headers, without decoding.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from pathlib import Path
@@ -262,10 +285,9 @@ def unsupported(path: str | Path) -> str | None:
 
 
 def read_image(path: str | Path) -> np.ndarray | None:
-    """A PNG, JPEG, TIFF, JPEG 2000, BMP, PNM or PAM file -> (H, W, 3)
-    uint8 RGB, or None when it cannot be read (see the module doc). Other
-    formats and the variants the module doc names raise
-    NotImplementedError."""
+    """An image file of a format the module doc lists -> (H, W, 3) uint8
+    RGB, or None when cv2.imread gives None (see the module doc). AVIF and
+    the variants the module doc names raise NotImplementedError."""
     fmt = image_format(path)
     if fmt is None:
         return None
@@ -273,7 +295,8 @@ def read_image(path: str | Path) -> np.ndarray | None:
     if decode is None:
         raise NotImplementedError(
             f"{path}: {fmt} images are not supported; PNG, JPEG, TIFF, "
-            "JPEG 2000, BMP, PNM and PAM are read")
+            "JPEG 2000, BMP, PNM, PAM, GIF, WebP, Sun raster, colour PFM "
+            "and Radiance HDR are read")
     try:
         return decode(Path(path).read_bytes())
     except NotImplementedError as e:
@@ -1696,6 +1719,612 @@ def _decode_pam(data: bytes) -> np.ndarray:
     return out
 
 
+# ---------------------------------------------------------------------------
+# WebP (libwebp's webp_dec.c and demux.c; the codecs are native/webp.cpp)
+# ---------------------------------------------------------------------------
+
+_WEBP_MAX_PAYLOAD = 0xFFFFFFFF - 8 - 1
+_WEBP_ALPHA_FLAG, _WEBP_ANIMATION_FLAG = 0x10, 0x02
+
+
+def _le24(b: bytes, at: int) -> int:
+    return b[at] | (b[at + 1] << 8) | (b[at + 2] << 16)
+
+
+def _vp8_info(p: bytes, chunk_size: int) -> tuple[int, int]:
+    """VP8GetInfo: a key frame's width and height, checked as libwebp
+    checks them."""
+    if len(p) < 10 or p[3:6] != b"\x9d\x01\x2a":
+        raise _Corrupt("bad VP8 frame header")
+    bits = p[0] | (p[1] << 8) | (p[2] << 16)
+    w = ((p[7] << 8) | p[6]) & 0x3FFF
+    h = ((p[9] << 8) | p[8]) & 0x3FFF
+    if (bits & 1 or ((bits >> 1) & 7) > 3 or not (bits >> 4) & 1
+            or bits >> 5 >= chunk_size or not w or not h):
+        raise _Corrupt("bad VP8 frame header")
+    return w, h
+
+
+def _vp8l_info(p: bytes) -> tuple[int, int, bool]:
+    """VP8LGetInfo: (width, height, alpha bit) of a VP8L header."""
+    if len(p) < 5 or p[0] != 0x2F or p[4] >> 5:
+        raise _Corrupt("bad VP8L header")
+    bits = int.from_bytes(p[1:5], "little")
+    return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1, \
+        bool((bits >> 28) & 1)
+
+
+def _webp_headers(data: bytes, have_all: bool) -> dict:
+    """webp_dec.c ParseHeadersInternal. ``have_all`` False is
+    WebPGetFeatures (cv2 gives it the file's first 32 bytes): a VP8X
+    header is then enough. Raises _Corrupt where libwebp fails."""
+    n = len(data)
+    if n < 12:
+        raise _Corrupt("WebP header cut short")
+    pos, riff_size = 0, 0
+    if data[:4] == b"RIFF":
+        if data[8:12] != b"WEBP":
+            raise _Corrupt("not a WebP file")
+        size = struct.unpack_from("<I", data, 4)[0]
+        if size < 12 or size > _WEBP_MAX_PAYLOAD:
+            raise _Corrupt("bad RIFF size")
+        if have_all and size > n - 8:
+            raise _Corrupt("WebP file cut short")
+        riff_size, pos = size, 12
+    out = {"alpha": None, "animation": False, "has_alpha": False}
+    if n - pos < 8:
+        raise _Corrupt("WebP header cut short")
+    vp8x = data[pos:pos + 4] == b"VP8X"
+    if vp8x:
+        if struct.unpack_from("<I", data, pos + 4)[0] != 10:
+            raise _Corrupt("bad VP8X size")
+        if n - pos < 18:
+            raise _Corrupt("WebP header cut short")
+        flags = struct.unpack_from("<I", data, pos + 8)[0]
+        width = 1 + _le24(data, pos + 12)
+        height = 1 + _le24(data, pos + 15)
+        if width * height >= 1 << 32:
+            raise _Corrupt("WebP canvas too large")
+        if not riff_size:
+            raise _Corrupt("VP8X outside a RIFF container")
+        out.update(width=width, height=height, flags=flags,
+                   has_alpha=bool(flags & _WEBP_ALPHA_FLAG),
+                   animation=bool(flags & _WEBP_ANIMATION_FLAG))
+        pos += 18
+        if out["animation"] and not have_all:
+            return out
+
+    def vp8x_only(why: str) -> dict:
+        # NOT_ENOUGH_DATA after a VP8X header: WebPGetFeatures answers
+        # from the VP8X header alone
+        if vp8x and not have_all:
+            return out
+        raise _Corrupt(why)
+
+    if n - pos < 4:
+        return vp8x_only("WebP header cut short")
+    if (riff_size and vp8x) or (not riff_size and not vp8x
+                                and data[pos:pos + 4] == b"ALPH"):
+        total = 4 + 8 + 10
+        while True:
+            if n - pos < 8:
+                return vp8x_only("WebP chunk cut short")
+            size = struct.unpack_from("<I", data, pos + 4)[0]
+            if size > _WEBP_MAX_PAYLOAD:
+                raise _Corrupt("bad WebP chunk size")
+            disk = (8 + size + 1) & ~1
+            total += disk
+            if riff_size and total > riff_size:
+                raise _Corrupt("WebP chunk past the RIFF size")
+            if data[pos:pos + 4] in (b"VP8 ", b"VP8L"):
+                break
+            if n - pos < disk:
+                return vp8x_only("WebP chunk cut short")
+            if data[pos:pos + 4] == b"ALPH":
+                out["alpha"] = data[pos + 8:pos + 8 + size]
+            pos += disk
+    if n - pos < 8:
+        return vp8x_only("WebP chunk cut short")
+    tag = data[pos:pos + 4]
+    if tag in (b"VP8 ", b"VP8L"):
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        if riff_size >= 12 and size > riff_size - 12:
+            raise _Corrupt("VP8 chunk past the RIFF size")
+        if have_all and size > n - pos - 8:
+            raise _Corrupt("WebP file cut short")
+        lossless = tag == b"VP8L"
+        pos += 8
+    else:  # a raw bitstream
+        size = n - pos
+        lossless = data[pos] == 0x2F and n - pos >= 5 \
+            and not data[pos + 4] >> 5
+    if size > _WEBP_MAX_PAYLOAD:
+        raise _Corrupt("bad WebP chunk size")
+    payload = data[pos:]
+    if lossless:
+        if len(payload) < 5:
+            return vp8x_only("VP8L header cut short")
+        w, h, alpha = _vp8l_info(payload)
+        out["has_alpha"] = out["has_alpha"] or alpha
+    else:
+        if len(payload) < 10:
+            return vp8x_only("VP8 header cut short")
+        w, h = _vp8_info(payload, size)
+    if vp8x and (w, h) != (out["width"], out["height"]):
+        raise _Corrupt("VP8X canvas and frame sizes differ")
+    out.update(width=w, height=h, lossless=lossless, payload=payload)
+    out["has_alpha"] = out["has_alpha"] or out["alpha"] is not None
+    return out
+
+
+def _webp_alpha(alpha: bytes, width: int, height: int) -> None:
+    """ALPHInit and the decode of an ALPH chunk: its header byte (method,
+    pre-processing and reserved bits) and its raw or lossless data, as
+    libwebp checks them. The filter (none, horizontal, vertical, gradient)
+    cannot fail and acts on the alpha values only, which imread drops."""
+    if len(alpha) <= 1:
+        raise _Corrupt("ALPH chunk too short")
+    method, pre, reserved = alpha[0] & 3, (alpha[0] >> 4) & 3, alpha[0] >> 6
+    if method > 1 or pre > 1 or reserved:
+        raise _Corrupt("bad ALPH header")
+    if method == 0:
+        if len(alpha) - 1 < width * height:
+            raise _Corrupt("ALPH data cut short")
+    elif not native.webp_alpha_ok(alpha[1:], width, height):
+        raise _Corrupt("bad ALPH data")
+
+
+def _webp_frame(data: bytes) -> np.ndarray:
+    """WebPDecode of a still image or one frame (after its RIFF, VP8X and
+    optional chunks) -> (h, w, 3) RGB."""
+    hdr = _webp_headers(data, True)
+    if hdr["animation"]:
+        raise _Corrupt("an animated WebP where a still image is decoded")
+    w, h = hdr["width"], hdr["height"]
+    if hdr["lossless"]:
+        argb = native.webp_vp8l(hdr["payload"], w, h)
+        if argb is None:
+            raise _Corrupt("bad VP8L data")
+        rgb = np.empty((h, w, 3), np.uint8)
+        rgb[..., 0] = argb >> 16
+        rgb[..., 1] = argb >> 8
+        rgb[..., 2] = argb
+        return rgb
+    rgb = native.webp_vp8(hdr["payload"], w, h)
+    if rgb is None:
+        raise _Corrupt("bad VP8 data")
+    if hdr["alpha"] is not None:
+        _webp_alpha(hdr["alpha"], w, h)
+    return rgb
+
+
+def _webp_demux_frame(data: bytes, pos: int, riff_end: int, payload: int,
+                      frame: dict) -> int:
+    """demux.c StoreFrame: an ANMF frame's ALPH and VP8/VP8L chunks from
+    ``pos``, into ``frame``; returns where it stopped (an unknown chunk
+    there is read next as a chunk of the file's own)."""
+    if riff_end - pos < 8 or riff_end - pos < payload:
+        raise _Corrupt("WebP frame cut short")
+    while True:
+        start = pos
+        tag = data[pos:pos + 4]
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        pos += 8
+        if size > _WEBP_MAX_PAYLOAD:
+            raise _Corrupt("bad WebP chunk size")
+        padded = size + (size & 1)
+        if padded > riff_end - pos:
+            raise _Corrupt("WebP chunk past the RIFF size")
+        if tag == b"ALPH" and "alpha" not in frame:
+            frame["alpha"] = start
+        elif tag in (b"VP8 ", b"VP8L") and "image" not in frame:
+            if tag == b"VP8L" and "alpha" in frame:
+                raise _Corrupt("VP8L frame after an ALPH chunk")
+            feats = _webp_headers(data[start:start + 8 + padded], False)
+            frame.update(image=start, end=start + 8 + padded,
+                         width=feats["width"], height=feats["height"])
+        else:
+            return pos - 8
+        pos += padded
+        if pos == riff_end:
+            return pos
+        if riff_end - pos < 8:
+            raise _Corrupt("WebP chunk cut short")
+
+
+def _webp_first_frame(data: bytes, width: int, height: int) -> np.ndarray:
+    """cv2's animated path: WebPAnimDecoder's first frame. demux.c must
+    accept the whole file first (its chunks walked as it walks them, every
+    frame complete and inside the canvas); the first frame is decoded onto
+    a zero canvas at its offset, and imread drops alpha (the rest of the
+    canvas is black)."""
+    riff_size = struct.unpack_from("<I", data, 4)[0]
+    if riff_size < 8 or riff_size > _WEBP_MAX_PAYLOAD:
+        raise _Corrupt("bad RIFF size")
+    riff_end = riff_size + 8
+    if len(data) < riff_end:
+        raise _Corrupt("WebP file cut short")
+    vp8x = struct.unpack_from("<I", data, 16)[0]
+    if vp8x < 10 or vp8x > _WEBP_MAX_PAYLOAD:
+        raise _Corrupt("bad VP8X size")
+    vp8x += vp8x & 1
+    if vp8x > riff_end - 20:
+        raise _Corrupt("VP8X past the RIFF size")
+    flags = data[20]
+    canvas_w, canvas_h = 1 + _le24(data, 24), 1 + _le24(data, 27)
+    pos = 20 + vp8x
+    if riff_end - pos < 8:
+        raise _Corrupt("WebP file without chunks")
+    anim, frames = False, []
+    while True:
+        tag = data[pos:pos + 4]
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        pos += 8
+        if size > _WEBP_MAX_PAYLOAD:
+            raise _Corrupt("bad WebP chunk size")
+        padded = size + (size & 1)
+        if padded > riff_end - pos:
+            raise _Corrupt("WebP chunk past the RIFF size")
+        if tag in (b"VP8X", b"ALPH", b"VP8 ", b"VP8L"):
+            raise _Corrupt(f"a {tag!r} chunk outside the frames")
+        if tag == b"ANIM":
+            if padded < 6:
+                raise _Corrupt("bad ANIM chunk")
+            anim = True
+            pos += padded
+        elif tag == b"ANMF":
+            if not anim:
+                raise _Corrupt("ANMF before ANIM")
+            if padded < 16:
+                raise _Corrupt("bad ANMF chunk")
+            frame = {"x": 2 * _le24(data, pos), "y": 2 * _le24(data, pos + 3)}
+            pos = _webp_demux_frame(data, pos + 16, riff_end, padded - 16,
+                                    frame)
+            if len(frame) > 2:  # the frame has an ALPH or image chunk
+                if frames and "image" not in frames[-1]:
+                    raise _Corrupt("a WebP frame after an incomplete one")
+                frames.append(frame)
+        else:
+            pos += padded
+        if pos == riff_end:
+            break
+        if riff_end - pos < 8:
+            raise _Corrupt("WebP chunk cut short")
+    if flags & ~0x3E or not frames:
+        raise _Corrupt("bad VP8X flags, or no frames")
+    for f in frames:
+        if "image" not in f or f.get("alpha", 0) > f["image"]:
+            raise _Corrupt("WebP frame without its image chunk")
+        if (f["x"] + f["width"] > canvas_w
+                or f["y"] + f["height"] > canvas_h):
+            raise _Corrupt("WebP frame outside the canvas")
+    first = frames[0]
+    body = data[first.get("alpha", first["image"]):first["end"]]
+    img = _webp_frame(body)
+    canvas = np.zeros((height, width, 3), np.uint8)
+    x0, y0 = first["x"], first["y"]
+    canvas[y0:y0 + img.shape[0], x0:x0 + img.shape[1]] = img
+    return canvas
+
+
+def _decode_webp(data: bytes) -> np.ndarray:
+    """cv2's WebPDecoder over libwebp: the features from the file's first
+    32 bytes (a shorter file gives None), then WebPDecode of a still image
+    or, for an animated one, WebPAnimDecoder's first frame. Alpha, of a
+    VP8L image or an ALPH chunk, is decoded and dropped; colours under
+    alpha 0 stay as they were coded."""
+    if len(data) < 32:
+        raise _Corrupt("WebP file under 32 bytes")
+    feats = _webp_headers(data[:32], False)
+    width, height = feats["width"], feats["height"]
+    _check_size(width, height)
+    if feats["animation"]:
+        return _webp_first_frame(data, width, height)
+    return _webp_frame(data)
+
+
+# ---------------------------------------------------------------------------
+# GIF (OpenCV 5.0's grfmt_gif.cpp; the LZW codes are native/gif.cpp)
+# ---------------------------------------------------------------------------
+
+# the palette of a frame without any colour table: index i is gray i, but
+# index 1 is white
+_GIF_DEFAULT_PALETTE = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3,
+                                 axis=1)
+_GIF_DEFAULT_PALETTE[1] = 255
+
+
+def _gif_skip_blocks(s: _ByteStream) -> None:
+    """Skip data sub-blocks up to their terminator."""
+    n = s.byte()
+    while n:
+        s.take(n)
+        n = s.byte()
+
+
+def _decode_gif(data: bytes) -> np.ndarray:
+    """OpenCV 5.0's own GIF decoder, as cv2.imread reads the first frame,
+    which departs from the GIF89a specification in these places:
+
+    - the header walk reads every block up to the trailer (extensions and
+      images, their sub-blocks skipped): a file cut short, or a block that
+      is neither, gives None;
+    - a background index past the global colour table gives None; the
+      canvas outside the frame (and under its transparent pixels) is the
+      background colour, or black without a global table, whatever the
+      disposal method (4-7 give None); a Graphic Control Extension that
+      is not 4 bytes long gives None;
+    - an index past the local table takes the global table's colour, and
+      one past both gives None; without any table a frame uses gray i for
+      index i, white for 1;
+    - the LZW codes as native/gif.cpp decodes them (minimum code sizes
+      2-11, the frame's pixels exactly).
+
+    Only the first frame is decoded, and only its own extensions are read
+    (a later frame may be broken)."""
+    s = _ByteStream(data)
+    s.take(6)
+    width, height = struct.unpack("<HH", s.take(4))
+    flags, bg = s.byte(), s.byte()
+    s.byte()
+    gct = None
+    if flags & 0x80:
+        gct = np.frombuffer(s.take(3 << ((flags & 7) + 1)), np.uint8) \
+            .reshape(-1, 3)
+        if bg >= len(gct):
+            raise _Corrupt("GIF background index past its colour table")
+    body = s.pos
+    while True:
+        block = s.byte()
+        if block == 0x21:
+            s.byte()
+            _gif_skip_blocks(s)
+        elif block == 0x2C:
+            desc = s.take(9)
+            if desc[8] & 0x80:
+                s.take(3 << ((desc[8] & 7) + 1))
+            s.byte()
+            _gif_skip_blocks(s)
+        elif block == 0x3B:
+            break
+        else:
+            raise _Corrupt(f"GIF block {block:#x}")
+    _check_size(width, height)
+    # the first frame's extensions
+    s.pos = body
+    transparent = None
+    while s.byte() == 0x21:
+        if s.byte() == 0xF9:
+            if s.byte() != 4:
+                raise _Corrupt("GIF graphic control extension not 4 long")
+            gce_flags = s.byte()
+            s.take(2)
+            tindex = s.byte()
+            if (gce_flags >> 2) & 7 > 3:
+                raise _Corrupt("GIF disposal method past 3")
+            transparent = tindex if gce_flags & 1 else None
+        _gif_skip_blocks(s)
+    s.pos -= 1
+    if s.byte() != 0x2C:
+        raise _Corrupt("GIF without an image")
+    left, top, fw, fh, fflags = struct.unpack("<HHHHB", s.take(9))
+    if not (fw and fh and left + fw <= width and top + fh <= height):
+        raise _Corrupt("GIF frame outside its screen")
+    if gct is not None:
+        canvas = np.empty((height, width, 3), np.uint8)
+        canvas[:] = gct[bg]
+    else:
+        canvas = np.zeros((height, width, 3), np.uint8)
+    if fflags & 0x80:
+        lct = np.frombuffer(s.take(3 << ((fflags & 7) + 1)), np.uint8) \
+            .reshape(-1, 3)
+    else:
+        lct = gct if gct is not None else _GIF_DEFAULT_PALETTE
+    decoded = native.gif_lzw(data, s.pos, fw * fh)
+    if decoded is None:
+        raise _Corrupt("bad GIF LZW data")
+    index = decoded[0]
+    if fflags & 0x40:  # interlaced: rows 0::8, 4::8, 2::4, 1::2
+        order = np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                np.arange(2, fh, 4), np.arange(1, fh, 2)])
+        rows = np.empty((fh, fw), np.uint8)
+        rows[order] = index.reshape(fh, fw)
+        index = rows
+    index = index.reshape(fh, fw).astype(np.int64)
+    table = np.zeros((256, 3), np.uint8)
+    known = np.zeros(256, bool)
+    if gct is not None:
+        table[:len(gct)], known[:len(gct)] = gct, True
+    table[:len(lct)], known[:len(lct)] = lct, True
+    keep = np.ones((fh, fw), bool) if transparent is None \
+        else index != transparent
+    if not known[index[keep]].all():
+        raise _Corrupt("GIF index past its colour tables")
+    frame = canvas[top:top + fh, left:left + fw]
+    frame[keep] = table[index[keep]]
+    return canvas
+
+
+# ---------------------------------------------------------------------------
+# Sun raster, colour PFM and Radiance HDR
+# ---------------------------------------------------------------------------
+
+def _decode_sunras(data: bytes) -> np.ndarray:
+    """OpenCV's SunRasterDecoder (big-endian header): depths 1, 8, 24 and
+    32; the old (0) and standard (1) types, as cv2 5.0 reads them: a
+    byte-encoded (RLE, 2), RGB (3) or other type gives None, and so does a
+    colour map of another type than 1 (RGB planes, at most 2**depth
+    entries, depth 8 or less), a header map length without a map, or rows
+    cut short. Rows are padded to 16 bits. Without a map, depth 1 is black
+    (0) and white (1), depth 8 gray; 24-bit pixels are B, G, R and 32-bit
+    ones X, B, G, R."""
+    s = _ByteStream(data)
+    s.take(4)
+    width, height, depth = struct.unpack(">iii", s.take(12))
+    pal_size = (1 << depth) * 3 if 0 < depth <= 8 else 0
+    if width <= 0 or height <= 0 or depth not in (1, 8, 24, 32):
+        raise _Corrupt("bad Sun raster header")
+    s.take(4)
+    rtype, maptype, maplen = struct.unpack(">iii", s.take(12))
+    if not (0 <= rtype <= 1 and ((maptype == 0 and maplen == 0)
+                                 or (maptype == 1 and 0 < maplen <= pal_size
+                                     and depth <= 8))):
+        raise _Corrupt("a Sun raster type or colour map cv2 does not read")
+    _check_size(width, height)
+    palette = np.zeros((256, 3), np.uint8)
+    if maplen:
+        planes = s.take(maplen)
+        n = maplen // 3
+        palette[:n] = np.frombuffer(planes[:3 * n], np.uint8) \
+            .reshape(3, n).T
+    elif depth == 1:
+        palette[1] = 255
+    else:
+        palette[:] = np.arange(256, dtype=np.uint8)[:, None]
+    pitch = ((width * depth + 7) // 8 + 1) & ~1
+    rows = np.frombuffer(s.take(pitch * height), np.uint8) \
+        .reshape(height, pitch)
+    if depth == 1:
+        return palette[_unpack_bits(rows, 1)[:, :width]]
+    if depth == 8:
+        return palette[rows[:, :width]]
+    px = rows[:, :width * depth // 8].reshape(height, width, depth // 8)
+    return np.ascontiguousarray(px[..., ::-1][..., :3])
+
+
+def _float_to_u8(v: np.ndarray) -> np.ndarray:
+    """Mat::convertTo(CV_8U) of float32 values: rounded half to even and
+    saturated; NaN, infinities and values past the int range become 0
+    (cvRound's INT_MIN, saturated)."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        r = np.rint(v.astype(np.float32))
+        ok = np.isfinite(r) & (r < 2.0 ** 31) & (r >= -(2.0 ** 31))
+        return np.where(ok, np.clip(np.where(ok, r, 0), 0, 255), 0) \
+            .astype(np.uint8)
+
+
+_C_INT = re.compile(rb"[+-]?\d*")
+_C_FLOAT = re.compile(
+    rb"[+-]?(?:(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?|inf(?:inity)?|nan)",
+    re.IGNORECASE)
+
+
+def _atoi(token: bytes) -> int:
+    """C's atoi on a token without whitespace (0 where no digits lead)."""
+    text = _C_INT.match(token).group()
+    try:
+        n = int(text)
+    except ValueError:
+        return 0
+    return (n + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _atof(token: bytes) -> float:
+    """C's atof on a token without whitespace (0.0 where no number leads)."""
+    m = _C_FLOAT.match(token)
+    if m is None:
+        return 0.0
+    try:
+        return float(m.group())
+    except (ValueError, OverflowError):
+        return 0.0
+
+
+def _pfm_token(s: _ByteStream) -> bytes:
+    """grfmt_pfm.cpp read_number's text: up to 64 bytes, ended by the first
+    whitespace byte (which it takes), none skipped before; a byte past 127
+    fails its check."""
+    out = bytearray()
+    for _ in range(64):
+        c = s.byte()
+        if c > 127:
+            raise _Corrupt("PFM header byte past 127")
+        if c in _SPACE:
+            break
+        out.append(c)
+    return bytes(out)
+
+
+def _decode_pfm(data: bytes) -> np.ndarray:
+    """OpenCV's PFMDecoder for a colour PFM ("PF\\n", then width, height
+    and scale each ended by one whitespace byte, as atoi/atof read them):
+    float32 rows bottom to top, big-endian for a scale of 0 or more and
+    little-endian below; each value divided by |scale| (a scale of 0 or NaN
+    gives None), then converted to 8 bits without scaling, as imread's
+    convertTo does (rounded, saturated, non-finite values 0)."""
+    s = _ByteStream(data)
+    if s.take(3) != b"PF\n":
+        raise _Corrupt("not a colour PFM")
+    width = _atoi(_pfm_token(s))
+    height = _atoi(_pfm_token(s))
+    scale = _atof(_pfm_token(s))
+    _check_size(width, height)
+    rows = np.frombuffer(s.take(width * height * 12),
+                         ">f4" if scale >= 0 else "<f4")
+    if not abs(scale) > 0:
+        raise _Corrupt("PFM scale 0")
+    rgb = rows.reshape(height, width, 3)[::-1].astype(np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        rgb = rgb * np.float32(1.0 / abs(scale))
+    return _float_to_u8(rgb)
+
+
+def _hdr_line(s: _ByteStream) -> bytes:
+    """fgets into rgbe.cpp's 128-byte buffer: a line with its newline, at
+    most 127 bytes; the end of the file fails."""
+    out = bytearray()
+    while len(out) < 127:
+        if s.pos >= len(s.data):
+            if not out:
+                raise _Corrupt("Radiance HDR header cut short")
+            break
+        c = s.byte()
+        out.append(c)
+        if c == 10:
+            break
+    return bytes(out)
+
+
+def _hdr_size(line: bytes) -> tuple[int, int]:
+    """sscanf(line, "-Y %d +X %d"): (height, width)."""
+    m = re.match(rb"-Y\s*([+-]?\d+)\s*\+X\s*([+-]?\d+)", line)
+    if m is None:
+        raise _Corrupt("Radiance HDR without its image size")
+    return int(m.group(1)), int(m.group(2))
+
+
+def _decode_hdr(data: bytes) -> np.ndarray:
+    """OpenCV's HdrDecoder over rgbe.cpp: the header's lines up to
+    "FORMAT=32-bit_rle_rgbe", a blank line and "-Y <height> +X <width>"
+    (other lines skipped; a blank line before the format, another format
+    or another orientation gives None), the pixels as native/hdr.cpp reads
+    them, each RGBE quadruple as rgbe2float makes floats of it (exponent 0
+    is black), then imread's convertTo with a factor of 255 (float32
+    products, rounded, saturated)."""
+    s = _ByteStream(data)
+    line = _hdr_line(s)
+    if line[:2] == b"#?":
+        line = _hdr_line(s)
+    while line != b"FORMAT=32-bit_rle_rgbe\n":
+        if line[:1] in (b"", b"\0", b"\n"):
+            raise _Corrupt("Radiance HDR without its format")
+        line = _hdr_line(s)
+    if _hdr_line(s) != b"\n":
+        raise _Corrupt("Radiance HDR without the blank line")
+    height, width = _hdr_size(_hdr_line(s))
+    _check_size(width, height)
+    rgbe = native.hdr_pixels(data, s.pos, width, height)
+    if rgbe is None:
+        raise _Corrupt("bad Radiance HDR pixels")
+    e = rgbe[..., 3:].astype(np.int64)
+    f = np.where(e > 0, np.ldexp(np.float32(1), e - 136), 0) \
+        .astype(np.float32)
+    return _float_to_u8(rgbe[..., :3].astype(np.float32) * f
+                        * np.float32(255))
+
+
 _DECODERS = {"PNG": _decode_png, "JPEG": _decode_jpeg, "TIFF": _decode_tiff,
              "JPEG 2000": _decode_jp2, "BMP": _decode_bmp, "PNM": _decode_pnm,
-             "PAM": _decode_pam}
+             "PAM": _decode_pam, "WebP": _decode_webp,
+             "GIF": _decode_gif, "Sun raster": _decode_sunras,
+             "PFM": _decode_pfm, "Radiance HDR": _decode_hdr}

@@ -1,6 +1,7 @@
 """Native (C++) libraries, counterpart of ocr_inference_tpu/native: the
 geometry library, the ARPA LM scorer, and the image decoders' pixel loops
-(the PNG unfilter, JPEG, the TIFF codecs, JPEG 2000, BMP's RLE).
+(the PNG unfilter, JPEG, the TIFF codecs, JPEG 2000, BMP's RLE, GIF's
+LZW, WebP, Radiance HDR's scanlines).
 
 ``geometry.cpp`` is the port's own copy of the JAX package's library plus
 ``ocr_fill_contour`` (the filled-contour rasterizer that replaces
@@ -9,9 +10,12 @@ cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer;
 ``tiff.cpp`` holds the TIFF codecs (LZW, Deflate, PackBits, CCITT,
 ThunderScan, SGI Log) and the YCbCr and CIE L*a*b* -> RGB conversions,
 ``jp2.cpp`` decodes JPEG 2000 codestreams (Part 1, and the Part 2 markers
-OpenJPEG reads; HTJ2K code-blocks are reported, not decoded) and ``bmp.cpp``
-BMP's RLE8 and RLE4 bitmaps, for the port's image reader (io/images.py),
-which replaces cv2.imread.
+OpenJPEG reads; HTJ2K code-blocks are reported, not decoded), ``bmp.cpp``
+BMP's RLE8 and RLE4 bitmaps, ``gif.cpp`` GIF's LZW as OpenCV's own GIF
+decoder reads it, ``webp.cpp`` WebP (VP8L, VP8 with libwebp's fancy
+upsampling, the ALPH stream's check) and ``hdr.cpp`` Radiance HDR's
+scanlines, for the port's image reader (io/images.py), which replaces
+cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
 (named by the source's hash) and loads through ctypes. There is no
 fallback: if a build fails, this raises."""
@@ -45,6 +49,9 @@ _JPEG_LIB: ctypes.CDLL | None = None
 _TIFF_LIB: ctypes.CDLL | None = None
 _JP2_LIB: ctypes.CDLL | None = None
 _BMP_LIB: ctypes.CDLL | None = None
+_WEBP_LIB: ctypes.CDLL | None = None
+_GIF_LIB: ctypes.CDLL | None = None
+_HDR_LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: dict[str, float] = {}
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -719,4 +726,86 @@ def bmp_rle(data: bytes, offset: int, width: int, height: int, bits: int,
     rc = _BMP_LIB.ocr_bmp_rle(src.ctypes.data_as(_U8P), src.size, offset,
                               width, height, bits, pal.ctypes.data_as(_U8P),
                               int(bottom_up), out.ctypes.data_as(_U8P))
+    return None if rc else out
+
+
+def _webp_lib() -> ctypes.CDLL:
+    global _WEBP_LIB
+    if _WEBP_LIB is None:
+        _WEBP_LIB = _load("webp.cpp", {
+            "ocr_vp8_decode": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _U8P]),
+            "ocr_vp8l_decode": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_uint32)]),
+            "ocr_vp8l_alpha": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, ctypes.c_int, ctypes.c_int]),
+        })
+    return _WEBP_LIB
+
+
+def webp_vp8(data: bytes, width: int, height: int) -> np.ndarray | None:
+    """A VP8 key frame (a ``VP8 `` chunk's payload and what follows it in
+    the file, as libwebp is given it) -> (height, width, 3) RGB through
+    libwebp's fancy upsampling (webp.cpp); None where libwebp fails."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((height, width, 3), np.uint8)
+    rc = _webp_lib().ocr_vp8_decode(src.ctypes.data_as(_U8P), src.size,
+                                    width, height, out.ctypes.data_as(_U8P))
+    return None if rc else out
+
+
+def webp_vp8l(data: bytes, width: int, height: int) -> np.ndarray | None:
+    """A VP8L bitstream (from its 0x2f signature) -> (height, width) uint32
+    ARGB, decoded as libwebp decodes it (webp.cpp); None where it fails."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((height, width), np.uint32)
+    rc = _webp_lib().ocr_vp8l_decode(
+        src.ctypes.data_as(_U8P), src.size, width, height,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    return None if rc else out
+
+
+def webp_alpha_ok(data: bytes, width: int, height: int) -> bool:
+    """Whether libwebp decodes an ALPH chunk's lossless alpha stream (no
+    header; ``width`` x ``height`` of its VP8 frame) without failing."""
+    src = np.frombuffer(data, np.uint8)
+    return _webp_lib().ocr_vp8l_alpha(src.ctypes.data_as(_U8P), src.size,
+                                      width, height) == 0
+
+
+def gif_lzw(data: bytes, offset: int, npix: int
+            ) -> tuple[np.ndarray, int] | None:
+    """The LZW sub-blocks of a GIF frame of ``npix`` pixels, from its
+    minimum code size byte at ``offset`` of the file, decoded with gif.cpp
+    as OpenCV's GIF decoder decodes them -> (colour indices, offset after
+    the block terminator); None where cv2.imread gives None."""
+    global _GIF_LIB
+    if _GIF_LIB is None:
+        _GIF_LIB = _load("gif.cpp", {"ocr_gif_lzw": (ctypes.c_int, [
+            _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _U8P,
+            _I64P])})
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(npix, np.uint8)
+    end = ctypes.c_int64(0)
+    rc = _GIF_LIB.ocr_gif_lzw(src.ctypes.data_as(_U8P), src.size, offset,
+                              npix, out.ctypes.data_as(_U8P),
+                              ctypes.byref(end))
+    return None if rc else (out, end.value)
+
+
+def hdr_pixels(data: bytes, offset: int, width: int, height: int
+               ) -> np.ndarray | None:
+    """A Radiance HDR file's RGBE pixels from ``offset``, read with hdr.cpp
+    as OpenCV's RGBE_ReadPixels_RLE reads them -> (height, width, 4)
+    uint8; None where cv2.imread gives None (bad runs, a file cut short)."""
+    global _HDR_LIB
+    if _HDR_LIB is None:
+        _HDR_LIB = _load("hdr.cpp", {"ocr_hdr_pixels": (ctypes.c_int, [
+            _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            _U8P])})
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((height, width, 4), np.uint8)
+    rc = _HDR_LIB.ocr_hdr_pixels(src.ctypes.data_as(_U8P), src.size, offset,
+                                 width, height, out.ctypes.data_as(_U8P))
     return None if rc else out

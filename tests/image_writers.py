@@ -1789,3 +1789,322 @@ def pam_file(samples: np.ndarray, maxval: int = 255, tupltype=None) -> bytes:
         head += b"TUPLTYPE " + tupltype.encode() + b"\n"
     return head + b"ENDHDR\n" + samples.astype(
         ">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+# -- GIF ----------------------------------------------------------------------
+
+def gif_codes(codes, min_size: int) -> list[tuple[int, int]]:
+    """Each LZW code with the width a GIF decoder reads it at: min_size + 1
+    after a clear or end code, one more each time the table's next entry
+    reaches the width's limit (up to 12 bits)."""
+    clear = 1 << min_size
+    size, nxt, prev, out = min_size + 1, clear + 2, None, []
+    for c in codes:
+        out.append((c, size))
+        if c in (clear, clear + 1):
+            size, nxt, prev = min_size + 1, clear + 2, None
+            continue
+        if prev is not None and nxt < 4096:
+            nxt += 1
+            if nxt == 1 << size and size < 12:
+                size += 1
+        prev = c
+    return out
+
+
+def pack_lsb(codes) -> bytes:
+    """(value, width) codes packed least significant bit first."""
+    acc = n = 0
+    out = bytearray()
+    for v, b in codes:
+        acc |= v << n
+        n += b
+        while n >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            n -= 8
+    if n:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_blocks(data: bytes, size: int = 255, terminator: bool = True
+               ) -> bytes:
+    """Data sub-blocks of at most ``size`` bytes."""
+    out = bytearray()
+    for i in range(0, len(data), size):
+        out.append(len(data[i:i + size]))
+        out += data[i:i + size]
+    return bytes(out) + (b"\0" if terminator else b"")
+
+
+def gif_lzw(index: np.ndarray, min_size: int, clear_every: int = 0) -> bytes:
+    """Indices (< 2**min_size) LZW-coded as a GIF encoder codes them: a
+    clear code first, the table grown to 4096 entries (then a clear, or
+    another every ``clear_every`` codes), an end code last."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+
+    def fresh():
+        return {(i,): i for i in range(clear)}, clear + 2
+
+    table, nxt = fresh()
+    codes, s, since = [clear], (), 0
+    for v in index.ravel().tolist():
+        t = s + (v,)
+        if t in table:
+            s = t
+            continue
+        codes.append(table[s])
+        since += 1
+        if nxt < 4096 and not (clear_every and since >= clear_every):
+            table[t] = nxt
+            nxt += 1
+        else:
+            codes.append(clear)
+            table, nxt = fresh()
+            since = 0
+        s = (v,)
+    if s:
+        codes.append(table[s])
+    codes.append(eoi)
+    return pack_lsb(gif_codes(codes, min_size))
+
+
+def gif_file(width: int, height: int, lzw_data: bytes, min_size: int = 8,
+             gct=None, lct=None, background: int = 0, gce=None,
+             frame=None, interlace: bool = False, extensions: bytes = b"",
+             more: bytes = b"", trailer: bool = True,
+             version: bytes = b"89a") -> bytes:
+    """A GIF file with one image: ``gct``/``lct`` (n, 3) colour tables
+    (padded to a power of two), ``gce`` (disposal, transparent index or
+    None), ``frame`` (left, top, w, h; the whole screen by default),
+    ``more`` (blocks after the image, e.g. further frames)."""
+    def table(t):
+        t = np.asarray(t, np.uint8).reshape(-1, 3)
+        k = max(0, (len(t) - 1).bit_length() - 1)
+        pad = np.zeros(((2 << k) - len(t), 3), np.uint8)
+        return k, np.concatenate([t, pad]).tobytes()
+    out = bytearray(b"GIF" + version + struct.pack("<HH", width, height))
+    if gct is not None:
+        k, t = table(gct)
+        out += bytes([0x80 | k, background, 0]) + t
+    else:
+        out += bytes([0, background, 0])
+    out += extensions
+    if gce is not None:
+        disposal, transparent = gce
+        out += b"\x21\xf9\x04" + bytes([
+            (disposal << 2) | (transparent is not None)]) + b"\0\0" + \
+            bytes([transparent or 0]) + b"\0"
+    left, top, fw, fh = frame or (0, 0, width, height)
+    flags = 0x40 if interlace else 0
+    local = b""
+    if lct is not None:
+        k, local = table(lct)
+        flags |= 0x80 | k
+    out += b"\x2c" + struct.pack("<HHHHB", left, top, fw, fh, flags) + local
+    out += bytes([min_size]) + gif_blocks(lzw_data) + more
+    return bytes(out) + (b"\x3b" if trailer else b"")
+
+
+def gif_interlace(index: np.ndarray) -> np.ndarray:
+    """Rows in GIF's interlaced order (0::8, 4::8, 2::4, 1::2)."""
+    h = index.shape[0]
+    order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                            np.arange(2, h, 4), np.arange(1, h, 2)])
+    return index[order]
+
+
+# -- WebP (libwebp's own encoder through ctypes) ------------------------------
+
+def _libwebp():
+    """The system libwebp (libwebp.so.7; encode.h of encoder ABI 0x020f)
+    with WebPConfig, WebPPicture and WebPMemoryWriter declared."""
+    import ctypes
+    import ctypes.util
+
+    lib = ctypes.CDLL(ctypes.util.find_library("webp") or "libwebp.so.7")
+    i32, f32, vp = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+    class Config(ctypes.Structure):
+        _fields_ = [("lossless", i32), ("quality", f32), ("method", i32),
+                    ("image_hint", i32), ("target_size", i32),
+                    ("target_PSNR", f32)] + [(n, i32) for n in (
+                        "segments", "sns_strength", "filter_strength",
+                        "filter_sharpness", "filter_type", "autofilter",
+                        "alpha_compression", "alpha_filtering",
+                        "alpha_quality", "pass_", "show_compressed",
+                        "preprocessing", "partitions", "partition_limit",
+                        "emulate_jpeg_size", "thread_level", "low_memory",
+                        "near_lossless", "exact", "use_delta_palette",
+                        "use_sharp_yuv", "qmin", "qmax")]
+
+    class Picture(ctypes.Structure):
+        _fields_ = [("use_argb", i32), ("colorspace", i32), ("width", i32),
+                    ("height", i32), ("y", vp), ("u", vp), ("v", vp),
+                    ("y_stride", i32), ("uv_stride", i32), ("a", vp),
+                    ("a_stride", i32), ("pad1", ctypes.c_uint32 * 2),
+                    ("argb", vp), ("argb_stride", i32),
+                    ("pad2", ctypes.c_uint32 * 3), ("writer", vp),
+                    ("custom_ptr", vp), ("extra_info_type", i32),
+                    ("extra_info", vp), ("stats", vp), ("error_code", i32),
+                    ("progress_hook", vp), ("user_data", vp),
+                    ("pad3", ctypes.c_uint32 * 3), ("pad4", vp), ("pad5", vp),
+                    ("pad6", ctypes.c_uint32 * 8), ("memory_", vp),
+                    ("memory_argb_", vp), ("pad7", vp * 2)]
+
+    class Writer(ctypes.Structure):
+        _fields_ = [("mem", ctypes.POINTER(ctypes.c_uint8)),
+                    ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t),
+                    ("pad", ctypes.c_uint32)]
+
+    return lib, Config, Picture, Writer
+
+
+def webp_encode(pixels: np.ndarray, **options) -> bytes:
+    """A WebP file of (h, w, 3) RGB or (h, w, 4) RGBA ``pixels`` from
+    libwebp's WebPEncode with the WebPConfig fields in ``options`` (e.g.
+    lossless, quality, method, segments, sns_strength, filter_strength,
+    filter_sharpness, filter_type, partitions, near_lossless, exact,
+    alpha_compression, alpha_filtering, alpha_quality, use_sharp_yuv;
+    ``pass_`` for pass)."""
+    import ctypes
+
+    lib, Config, Picture, Writer = _libwebp()
+    abi = 0x020F
+    cfg = Config()
+    assert lib.WebPConfigInitInternal(ctypes.byref(cfg), 0,
+                                      ctypes.c_float(75.0), abi)
+    for name, value in options.items():
+        setattr(cfg, name, value)
+    assert lib.WebPValidateConfig(ctypes.byref(cfg)), options
+    pic = Picture()
+    assert lib.WebPPictureInitInternal(ctypes.byref(pic), abi)
+    h, w, nch = pixels.shape
+    pic.width, pic.height = w, h
+    pic.use_argb = int(bool(options.get("lossless")))
+    src = np.ascontiguousarray(pixels, np.uint8)
+    importer = lib.WebPPictureImportRGBA if nch == 4 \
+        else lib.WebPPictureImportRGB
+    assert importer(ctypes.byref(pic), src.ctypes.data_as(ctypes.c_void_p),
+                    w * nch)
+    writer = Writer()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value
+    pic.custom_ptr = ctypes.cast(ctypes.pointer(writer), ctypes.c_void_p) \
+        .value
+    try:
+        assert lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic)), \
+            pic.error_code
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+def riff_chunks(data: bytes) -> list[tuple[bytes, int, int]]:
+    """(tag, offset of the payload, payload size) of a RIFF file's chunks."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((data[pos:pos + 4], pos + 8, size))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def riff_file(chunks) -> bytes:
+    """A RIFF/WEBP file of (tag, payload) chunks (odd payloads padded)."""
+    body = b"".join(tag + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1)
+                    for tag, p in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+# -- Sun raster, PFM, Radiance HDR --------------------------------------------
+
+def sun_raster(width: int, height: int, depth: int, data: bytes,
+               rtype: int = 1, maptype: int = 0, colormap: bytes = b"",
+               maplength: int | None = None) -> bytes:
+    """A Sun raster file (big-endian header) of already padded rows."""
+    maplen = len(colormap) if maplength is None else maplength
+    return struct.pack(">8I", 0x59A66A95, width, height, depth, len(data),
+                       rtype, maptype, maplen) + colormap + data
+
+
+def sun_rows(pixels: np.ndarray, depth: int) -> bytes:
+    """(h, w) indices (depth 1 or 8) or (h, w, 3|4) bytes as Sun raster
+    rows padded to 16 bits."""
+    h = pixels.shape[0]
+    if depth == 1:
+        rows = np.packbits(pixels.astype(np.uint8), axis=1)
+    else:
+        rows = pixels.reshape(h, -1).astype(np.uint8)
+    pad = (-rows.shape[1]) % 2
+    return np.pad(rows, ((0, 0), (0, pad))).tobytes()
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's byte encoding: 0x80 n v repeats v n+1 times, 0x80 0 is a
+    literal 0x80."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and data[j] == data[i] and j - i < 256:
+            j += 1
+        if j - i >= 3:
+            out += bytes([0x80, j - i - 1, data[i]])
+            i = j
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            i += 1
+        else:
+            out.append(data[i])
+            i += 1
+    return bytes(out)
+
+
+def pfm_file(values: np.ndarray, scale: float = -1.0,
+             header: bytes | None = None) -> bytes:
+    """A colour PFM: rows bottom to top, little-endian for a negative
+    scale."""
+    h, w, _ = values.shape
+    head = header if header is not None else \
+        b"PF\n%d %d\n%s\n" % (w, h, repr(float(scale)).encode())
+    order = "<f4" if scale < 0 else ">f4"
+    return head + values[::-1].astype(order).tobytes()
+
+
+def hdr_header(width: int, height: int, magic: bytes = b"#?RADIANCE",
+               lines: bytes = b"") -> bytes:
+    return magic + b"\n" + lines + b"FORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" \
+        % (height, width)
+
+
+def hdr_rle_line(channel: bytes) -> bytes:
+    """One channel of a scanline in Radiance's runs (over 128: a repeat)."""
+    out, i, n = bytearray(), 0, len(channel)
+    while i < n:
+        j = i
+        while j < n and channel[j] == channel[i] and j - i < 127:
+            j += 1
+        if j - i >= 3:
+            out += bytes([128 + j - i, channel[i]])
+            i = j
+            continue
+        k = i
+        while k < n and k - i < 128 and not (
+                k + 2 < n and channel[k] == channel[k + 1] == channel[k + 2]):
+            k += 1
+        out += bytes([k - i]) + channel[i:k]
+        i = k
+    return bytes(out)
+
+
+def hdr_rle(rgbe: np.ndarray) -> bytes:
+    """(h, w, 4) RGBE quadruples as new-style run-length scanlines."""
+    h, w, _ = rgbe.shape
+    out = bytearray()
+    for y in range(h):
+        out += bytes([2, 2, w >> 8, w & 255])
+        for c in range(4):
+            out += hdr_rle_line(rgbe[y, :, c].astype(np.uint8).tobytes())
+    return bytes(out)

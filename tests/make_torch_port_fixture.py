@@ -973,6 +973,7 @@ def write_image_files(pages) -> dict[str, str]:
     for name, kind in variant_files(folder, flat).items():
         kinds[name] = kind
     kinds.update(jpeg2000_bmp_pnm_files(folder, by_name, flat))
+    kinds.update(gif_webp_ras_pfm_hdr_files(folder, by_name, flat))
 
     global BENCH_JPEG_QUALITY
     bench = chip_smoke.bench_page(42)[..., ::-1]
@@ -992,6 +993,9 @@ def write_image_files(pages) -> dict[str, str]:
     (IMAGES / "bench_cfg4.jp2").write_bytes(buf.getvalue())
     kinds["bench_cfg4.jp2"] = "JP2 9/7 at rate 60, RPCL (Pillow), bench.py " \
         "config 4 page"
+    ok, data = cv2.imencode(".webp", bench, [cv2.IMWRITE_WEBP_QUALITY, 75])
+    (IMAGES / "bench_cfg4.webp").write_bytes(data.tobytes())
+    kinds["bench_cfg4.webp"] = "WebP lossy q75 (cv2), bench.py config 4 page"
     return kinds
 
 
@@ -1324,6 +1328,112 @@ def jpeg2000_bmp_pnm_files(folder, by_name, flat) -> dict[str, str]:
     return kinds
 
 
+def gif_webp_ras_pfm_hdr_files(folder, by_name, flat) -> dict[str, str]:
+    """The GIF, WebP, Sun raster, colour PFM and Radiance HDR page files
+    (the slice that reads them), one of each kind the tests cover most, and
+    in images/none/ one file of each that cv2 gives None for. Returns
+    {file: kind}; the bench-size WebP is written by write_image_files."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    from tests.image_writers import (
+        gif_file, gif_interlace, gif_lzw, pfm_file, riff_chunks, sun_raster,
+        sun_rle, sun_rows, webp_encode,
+    )
+
+    kinds = {}
+    none = IMAGES / "none"
+    ink = {name: (page[..., 0] < 128).astype(np.uint8)
+           for name, page in flat.items()}
+
+    # GIF: interlaced, a local table over a global one of other colours
+    index = ink["clean_a"]
+    h, w = index.shape
+    (folder / "clean_a_interlaced.gif").write_bytes(gif_file(
+        w, h, gif_lzw(gif_interlace(index), 2), 2,
+        gct=[[255, 0, 0], [0, 0, 255]], lct=[[235] * 3, [40] * 3],
+        interlace=True))
+    kinds["clean_a_interlaced.gif"] = "GIF interlaced, a local colour " \
+        "table over a global one"
+    # an animation whose first frame has transparent marks (they keep the
+    # background colour, paper)
+    index = ink["clean_b"].copy()
+    index[100:110, 50:400] = 2
+    frames = []
+    for k in range(3):
+        f = Image.fromarray(np.roll(index, 7 * k, axis=1), "P")
+        f.putpalette([235, 235, 235, 40, 40, 40, 200, 30, 30])
+        frames.append(f)
+    buf = io.BytesIO()
+    frames[0].save(buf, "GIF", save_all=True, append_images=frames[1:],
+                   transparency=2, background=0, disposal=2, duration=80)
+    (folder / "clean_b_anim.gif").write_bytes(buf.getvalue())
+    kinds["clean_b_anim.gif"] = "GIF animation of 3 frames with a " \
+        "transparent index (Pillow)"
+
+    # WebP: lossy, lossless, lossy with alpha, animated
+    assert cv2.imwrite(str(folder / "clean_a_q80.webp"),
+                       by_name["clean_a"][..., ::-1],
+                       [cv2.IMWRITE_WEBP_QUALITY, 80])
+    kinds["clean_a_q80.webp"] = "WebP lossy q80 (cv2)"
+    assert cv2.imwrite(str(folder / "clean_b_lossless.webp"),
+                       flat["clean_b"], [cv2.IMWRITE_WEBP_QUALITY, 101])
+    kinds["clean_b_lossless.webp"] = "WebP lossless (cv2, quality 101)"
+    rgba = np.dstack([flat["skew_2deg"],
+                      np.where(ink["skew_2deg"], 255, 90).astype(np.uint8)])
+    (folder / "skew_2deg_alpha.webp").write_bytes(webp_encode(
+        rgba, quality=80, segments=4, filter_type=1, filter_sharpness=2,
+        alpha_filtering=2, partitions=2))
+    kinds["skew_2deg_alpha.webp"] = "WebP lossy q80 with a lossless ALPH " \
+        "chunk, gradient alpha filter, 4 token partitions (libwebp)"
+    buf = io.BytesIO()
+    pages = [Image.fromarray(flat["clean_a"]),
+             Image.fromarray(np.roll(flat["clean_a"], 9, axis=1))]
+    pages[0].save(buf, "WEBP", save_all=True, append_images=pages[1:],
+                  quality=80, duration=100)
+    (folder / "clean_a_anim.webp").write_bytes(buf.getvalue())
+    kinds["clean_a_anim.webp"] = "WebP animation of 2 lossy frames (Pillow)"
+
+    # Sun raster: standard type, 1 bit through a 2-entry colour map
+    band = top_rows(ink["clean_b"], 144)
+    (folder / "clean_b_top.ras").write_bytes(sun_raster(
+        band.shape[1], band.shape[0], 1, sun_rows(band, 1), 1, 1,
+        bytes([235, 40, 235, 40, 235, 40])))
+    kinds["clean_b_top.ras"] = "Sun raster standard type, 1-bit, 2-entry " \
+        "colour map, the page's top 144 rows"
+    # colour PFM: floats on the 0-255 scale, rounded by the reader
+    band = top_rows(flat["skew_2deg"], 128)[:, :384].astype(np.float32)
+    band += np.linspace(-0.4, 0.4, band.shape[1], dtype=np.float32)[:, None]
+    (folder / "skew_2deg_top.pfm").write_bytes(pfm_file(band, -1.0))
+    kinds["skew_2deg_top.pfm"] = "colour PFM, little-endian, the page's " \
+        "top-left 128x384"
+    # Radiance HDR: cv2 writes run-length scanlines
+    assert cv2.imwrite(str(folder / "clean_a_rle.hdr"),
+                       flat["clean_a"].astype(np.float32) / 255)
+    kinds["clean_a_rle.hdr"] = "Radiance HDR, run-length scanlines (cv2)"
+
+    # cv2 gives None for these
+    data = (folder / "clean_a_q80.webp").read_bytes()
+    tag, at, size = riff_chunks(data)[-1]
+    (none / "clean_a_cut.webp").write_bytes(data[:at + size // 2])
+    kinds["clean_a_cut.webp"] = "WebP lossy cut inside its VP8 data: cv2 " \
+        "gives None"
+    data = bytearray((folder / "clean_a_interlaced.gif").read_bytes())
+    start = data.index(b"\x2c") + 10 + 6 + 2
+    data[start + 40] = 0xFF  # codes past the table
+    (none / "clean_a_badlzw.gif").write_bytes(bytes(data))
+    kinds["clean_a_badlzw.gif"] = "GIF with a code past its LZW table: " \
+        "cv2 gives None"
+    band = top_rows(ink["clean_a"], 64)
+    (none / "clean_a_rle.ras").write_bytes(sun_raster(
+        band.shape[1], band.shape[0], 1, sun_rle(sun_rows(band, 1)), 2))
+    kinds["clean_a_rle.ras"] = "Sun raster byte-encoded (RLE): cv2 5.0 " \
+        "gives None"
+    return kinds
+
+
 def images() -> int:
     """Write tests/data/torch_port/images/ and images.json (see the
     module doc)."""
@@ -1351,10 +1461,13 @@ def images() -> int:
     pages = fixture_pages(OUT / "pages.npz")
     kinds = write_image_files(pages)
     files = sorted((IMAGES / "pages").iterdir()) + [
-        IMAGES / "bench_cfg4.jpg", IMAGES / "bench_cfg4.jp2"] + sorted(
-        (IMAGES / "none").iterdir())
+        IMAGES / "bench_cfg4.jpg", IMAGES / "bench_cfg4.jp2",
+        IMAGES / "bench_cfg4.webp"] + sorted((IMAGES / "none").iterdir())
     total = sum(p.stat().st_size for p in files)
-    assert total < 4200 * 1024, f"{total} bytes of image files"
+    assert total < 5700 * 1024, f"{total} bytes of image files"
+    newest = sum(p.stat().st_size for p in files if p.suffix in (
+        ".gif", ".webp", ".ras", ".pfm", ".hdr"))
+    assert newest < 1500 * 1024, f"{newest} bytes of the newest formats"
     record = {"bench_jpeg_quality": BENCH_JPEG_QUALITY, "files": {},
               "bocr": {}, "bocr_lines": {}}
     for path in files:

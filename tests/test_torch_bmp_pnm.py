@@ -5,8 +5,8 @@ grfmt_pam.cpp), byte for byte: every BMP header and bit depth, RLE8 and
 RLE4 streams of seeded escapes, bit fields, top-down rows, palettes short
 of their entries and files cut short; ASCII and binary PNM with comments,
 maxvals below 255 and 16-bit samples; PAM tuple types and depths. And the
-sniffing repairs: a colour PFM and an ``#?RGBE`` Radiance HDR are refused
-by name, a gray PFM gives None, as cv2."""
+sniffing repairs: a colour PFM and an ``#?RGBE`` Radiance HDR are read as
+cv2 reads them, a gray PFM gives None, as cv2."""
 
 import cv2
 import numpy as np
@@ -252,17 +252,15 @@ def test_pam_headers(tmp_path):
 
 def test_pfm_and_radiance_hdr_sniffed_as_cv2(tmp_path):
     """A colour PFM ("PF") and a Radiance HDR whose header is ``#?RGBE``
-    are read by cv2 and refused by name here (they once gave None: an
-    unknown format, skipped silently); a gray PFM ("Pf") gives None, as
-    imread's own check fails on it, where it was refused by name."""
+    are sniffed as cv2 sniffs them and read as it reads them (they were
+    refused by name before their decoders; earlier still they gave None);
+    a gray PFM ("Pf") gives None, as imread's own check fails on it."""
     img = np.random.default_rng(0).random((20, 30, 3)).astype(np.float32)
     pfm = tmp_path / "x.pfm"
     assert cv2.imwrite(str(pfm), img)
     assert pfm.read_bytes()[:3] == b"PF\n" and _cv2_rgb(pfm) is not None
     assert image_format(pfm) == "PFM"
-    assert "PFM" in unsupported(pfm)
-    with pytest.raises(NotImplementedError, match="PFM"):
-        read_image(pfm)
+    _same(pfm)
     gray = tmp_path / "g.pfm"
     assert cv2.imwrite(str(gray), img[..., 0])
     assert gray.read_bytes()[:3] == b"Pf\n" and _cv2_rgb(gray) is None
@@ -274,5 +272,4 @@ def test_pfm_and_radiance_hdr_sniffed_as_cv2(tmp_path):
     for path in (hdr, rgbe):
         assert _cv2_rgb(path) is not None
         assert image_format(path) == "Radiance HDR"
-        with pytest.raises(NotImplementedError, match="Radiance HDR"):
-            read_image(path)
+        _same(path)

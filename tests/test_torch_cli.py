@@ -152,27 +152,30 @@ def test_layout_mode_with_seeded_weights(job, tmp_path):
 def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
                                                        capsys):
     """A page of a variant the port does not decode (a JPEG 2000 TIFF named
-    .jpg) and a WebP page are refused by name before any model loads;
+    .jpg) and an AVIF page are refused by name before any model loads;
     baseline JPEG pages are read (test_jpeg_and_tiff_pages_equal_jax_cli),
-    and a BMP page, once refused here, is read as cv2 reads it."""
+    and BMP and WebP pages, once refused here, are read as cv2 reads
+    them."""
     folder = tmp_path / "mixed"
     folder.mkdir()
     (folder / "a.png").write_bytes((job / "pages" / "page0.png").read_bytes())
     (folder / "b.jpg").write_bytes(jpeg2000_tiff())
-    cv2.imwrite(str(folder / "c.webp"), np.zeros((8, 8, 3), np.uint8))
+    cv2.imwrite(str(folder / "c.avif"), np.zeros((8, 8, 3), np.uint8))
     cv2.imwrite(str(folder / "d.bmp"), np.zeros((8, 8, 3), np.uint8))
+    cv2.imwrite(str(folder / "e.webp"), np.zeros((8, 8, 3), np.uint8))
     assert unsupported(folder / "d.bmp") is None
+    assert unsupported(folder / "e.webp") is None
     args = ["--model", str(tmp_path / "no_model"), "--output",
             str(tmp_path / "out"), "--device", "cpu"]
     for where, name in ((["--folder", str(folder)], "b.jpg"),
                         (["--image", str(folder / "b.jpg")], "b.jpg"),
-                        (["--image", str(folder / "c.webp")], "c.webp")):
+                        (["--image", str(folder / "c.avif")], "c.avif")):
         with pytest.raises(SystemExit) as exit_info:
             cli.main(args + where)
         message = str(exit_info.value.code)
         assert f"{name} (" in message
         assert ("JPEG 2000 in TIFF" if name == "b.jpg"
-                else "WebP images are not supported") in message
+                else "AVIF images are not supported") in message
     assert not (tmp_path / "out").exists()
 
 

@@ -225,15 +225,16 @@ def test_unreadable_files_give_none(tmp_path):
 
 
 def test_other_formats_and_interlaced_png_raise(tmp_path):
-    """WebP is still refused by name; JPEG, TIFF, Adam7 PNG and BMP, once
-    refused, now read as cv2 reads them."""
+    """AVIF is still refused by name; JPEG, TIFF, Adam7 PNG, BMP, WebP and
+    GIF, once refused, now read as cv2 reads them."""
     img = np.random.default_rng(5).integers(0, 256, (16, 24, 3), np.uint8)
-    path = tmp_path / "page.webp"
+    path = tmp_path / "page.avif"
     assert cv2.imwrite(str(path), img)
-    assert image_format(path) == "WebP"
-    with pytest.raises(NotImplementedError, match="WebP"):
+    assert image_format(path) == "AVIF"
+    with pytest.raises(NotImplementedError, match="AVIF"):
         read_image(path)
-    for ext, name in ((".jpg", "JPEG"), (".tiff", "TIFF"), (".bmp", "BMP")):
+    for ext, name in ((".jpg", "JPEG"), (".tiff", "TIFF"), (".bmp", "BMP"),
+                      (".webp", "WebP"), (".gif", "GIF")):
         path = tmp_path / f"page{ext}"
         assert cv2.imwrite(str(path), img)
         assert image_format(path) == name

@@ -261,7 +261,9 @@ def test_bigtiff_and_other_formats_refused_by_name(tmp_path):
     """BigTIFF, once refused by name, reads as cv2 reads it (a header
     with no IFD gives None, as in cv2); BMP reads as cv2 reads it, and a
     JPEG 2000 signature box cut short gives None, as in cv2 (both were
-    refused by name before the slice that decodes them); WebP and GIF stay
+    refused by name before the slice that decodes them); WebP reads as cv2
+    reads it and a GIF header with no image gives None, as in cv2 (both
+    were refused by name before the GIF and WebP slice); AVIF stays
     refused by name."""
     path = tmp_path / "big.tif"
     path.write_bytes(b"II+\x00\x08\x00\x00\x00" + b"\x00" * 32)
@@ -278,14 +280,17 @@ def test_bigtiff_and_other_formats_refused_by_name(tmp_path):
     _assert_same_as_cv2(path)
     path = tmp_path / "x.webp"
     assert cv2.imwrite(str(path), img)
-    with pytest.raises(NotImplementedError, match="WebP"):
-        read_image(path)
+    assert image_format(path) == "WebP"
+    _assert_same_as_cv2(path)
     path = tmp_path / "x.jp2"
     path.write_bytes(b"\x00\x00\x00\x0cjP  \r\n" + b"\x00" * 32)
     assert _cv2_rgb(path) is None and read_image(path) is None
     path = tmp_path / "x.gif"
     path.write_bytes(b"GIF89a" + b"\x00" * 32)
-    with pytest.raises(NotImplementedError, match="GIF"):
+    assert _cv2_rgb(path) is None and read_image(path) is None
+    path = tmp_path / "x.avif"
+    assert cv2.imwrite(str(path), img)
+    with pytest.raises(NotImplementedError, match="AVIF"):
         read_image(path)
 
 
