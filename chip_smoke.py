@@ -5,9 +5,9 @@ them.
     python3 chip_smoke.py
 
 Builds the kernels from the checkout (nvcc for csrc/*.cu, g++ for the
-geometry library, the ARPA scorer and the PNG, JPEG and TIFF decoders,
-all started together), then runs thirty-one phases and prints one JSON line
-for each:
+geometry library, the ARPA scorer and the image decoders, the AV1 decoder
+of AVIF among them, all started together), then runs thirty-one phases
+and prints one JSON line for each:
 
 1. build        — seconds of each compiler; registers and spills of each
                   kernel as ptxas reports them;
@@ -182,7 +182,12 @@ for each:
                   and Radiance HDR pages and a bench-size lossy WebP, with
                   their decode ms; one file of each suffix bocr --folder
                   does not glob goes through bocr --image, the rest
-                  through read_image and run_ocr in this process;
+                  through read_image and run_ocr in this process. Since
+                  the AVIF slice also AVIF pages (cv2's default, lossless,
+                  monochrome, Pillow 4:4:4 in two tiles, with alpha; the
+                  AV1 decoder native/av1.cpp) and a bench-size AVIF with
+                  their decode ms; the AVIF page through bocr --image at
+                  0.0 CER with equal boxes against the JAX record;
 20. train_rec_f32 — Easter2 from full77f, five float32 train steps (TF32
                   off) on recognizer_batch batches of full77f's recipe (32
                   canvases of 80x512, binarized on the card by
@@ -521,7 +526,8 @@ def build():
               lambda: native.build_library("jpeg.cpp"),
               lambda: native.build_library("tiff.cpp"),
               lambda: native.build_library("jp2.cpp"),
-              lambda: native.build_library("bmp.cpp"))
+              lambda: native.build_library("bmp.cpp"),
+              lambda: native.build_library("av1.cpp"))
     threads = [threading.Thread(target=guarded, args=(f,)) for f in builds]
     for t in threads:
         t.start()
@@ -2269,6 +2275,8 @@ REPAIRED_AND_VARIANT_PAGES = (
     "skew_2deg_logluv.tif")
 # the formats of the GIF and WebP slice
 NEWEST_FORMATS = (".gif", ".webp", ".ras", ".pfm", ".hdr")
+# the format of the AVIF slice
+AVIF_FORMATS = (".avif",)
 
 
 def globbed_by_folder(path: Path) -> bool:
@@ -2464,7 +2472,12 @@ def image_formats(results: dict):
     Since that slice one page file of each suffix --folder does not glob
     goes through bocr --image (float32 and bf16), the others through
     read_image and run_ocr in this process: each bocr --image loads the
-    model."""
+    model. The AVIF pages (cv2's default, a lossless strip, monochrome, a
+    Pillow 4:4:4 page of 128x128 superblocks in two tiles, a page with an
+    alpha item) and images/none/'s cut AVIF against the record; the AVIF
+    page that goes through bocr --image reads at 0.0 CER with equal boxes
+    against the JAX float32 record; the bench-size AVIF's decode ms, and
+    the per-page loop's pages/s on the AVIF pages against PNG copies."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2477,7 +2490,9 @@ def image_formats(results: dict):
     page_paths = sorted(pages_dir.iterdir())
     image_pages = [p for p in page_paths if not globbed_by_folder(p)]
     newest = [p for p in image_pages if p.suffix in NEWEST_FORMATS]
-    older_pages = [p for p in image_pages if p not in newest]
+    avif_pages = [p for p in image_pages if p.suffix in AVIF_FORMATS]
+    older_pages = [p for p in image_pages
+                   if p not in newest and p not in avif_pages]
     # one page file of each suffix through bocr --image (each run loads
     # the model), the others through read_image -> run_ocr
     cli_pages = [next(p for p in image_pages if p.suffix == ext)
@@ -2553,6 +2568,11 @@ def image_formats(results: dict):
                                        "cer_vs_jax_f32": page_cer}
         del f32
         checks["bocr_f32_equals_jax_record"] = ok
+        # the AVIF page bocr --image read: the JAX record's lines exactly
+        avif_cli = [p.name for p in cli_pages if p.suffix in AVIF_FORMATS]
+        checks["avif_bocr_image_f32_cer_0_boxes_equal"] = bool(avif_cli) \
+            and all(per_page[n]["cer_vs_jax_f32"] == 0.0
+                    and per_page[n]["boxes_equal"] for n in avif_cli)
 
         t0 = time.perf_counter()
         bf16 = full77f_pipeline(torch.bfloat16)
@@ -2600,7 +2620,8 @@ def image_formats(results: dict):
         # and over the JPEG 2000, BMP, PNM and PAM pages, and the GIF,
         # WebP, Sun raster, PFM and HDR pages
         for key, group in (("jpeg2000_bmp_pnm_pages", older_pages),
-                           ("gif_webp_ras_pfm_hdr_pages", newest)):
+                           ("gif_webp_ras_pfm_hdr_pages", newest),
+                           ("avif_pages", avif_pages)):
             new_png = [png_dir / f"{p.name}.png" for p in group]
             runs_s = {"files": [], "png_copies": []}
             for kind in ("files", "png_copies", "png_copies", "files"):
@@ -2655,9 +2676,13 @@ def image_formats(results: dict):
         checks["bocr_skips_lzma_tiff"] = skip["ok"]
     bench_jp2 = files.get("bench_cfg4.jp2", {})
     bench_webp = files.get("bench_cfg4.webp", {})
+    bench_avif = files.get("bench_cfg4.avif", {})
+    checks["avif_files_in_record"] = sum(
+        rel.endswith(".avif") for rel in files) >= 7
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
             "bench_webp_decode_ms": bench_webp.get("decode_ms"),
+            "bench_avif_decode_ms": bench_avif.get("decode_ms"),
             "full_page_copies": copies,
             "pool_decode": pool, "pages": per_page, "runs": runs,
             "page_loop_bf16": loop, "bocr_lines": rows,

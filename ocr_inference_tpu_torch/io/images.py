@@ -1,12 +1,12 @@
 """Page images from files: the port's counterpart of
 ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` for PNG, JPEG, TIFF,
-JPEG 2000, BMP, PNM, PAM, GIF, WebP, Sun raster, colour PFM and Radiance
-HDR, byte for byte.
+JPEG 2000, BMP, PNM, PAM, GIF, WebP, Sun raster, colour PFM, Radiance HDR
+and AVIF, byte for byte.
 
-The card machine has neither OpenCV, PIL nor libwebp, so the formats are
-decoded here on stdlib ``zlib`` and numpy, with the pixel loops in native
-code (native/png.cpp, jpeg.cpp, tiff.cpp, jp2.cpp, bmp.cpp, gif.cpp,
-webp.cpp, hdr.cpp). A file's format is
+The card machine has neither OpenCV, PIL, libwebp nor libavif, so the
+formats are decoded here on stdlib ``zlib`` and numpy, with the pixel
+loops in native code (native/png.cpp, jpeg.cpp, tiff.cpp, jp2.cpp,
+bmp.cpp, gif.cpp, webp.cpp, hdr.cpp, av1.cpp). A file's format is
 told from its leading bytes as cv2 5.0's findDecoder tells it (its name
 plays no part). What ``cv2.imread(path)`` (``IMREAD_COLOR``) gives, this
 gives in RGB order:
@@ -105,6 +105,27 @@ gives in RGB order:
 - Radiance HDR (``#?RADIANCE`` or ``#?RGBE``, FORMAT=32-bit_rle_rgbe, -Y
   +X): run-length and flat scanlines as rgbe.cpp reads them, then times
   255, rounded and saturated;
+- AVIF (an ftyp box whose brands, major or compatible, include avif): the
+  primary item's container as libavif 1.4.2 reads it for cv2 (meta with
+  hdlr pict, pitm, iloc v0-2 with several extents and idat, iinf/infe
+  v2-3, iref, iprp/ipco/ipma and the properties ispe, pixi, av1C, colr,
+  auxC; an essential property libavif does not know skips the item) and
+  its AV1 key frame decoded as the specification decodes it, so as
+  libaom decodes it (native/av1.cpp: reduced or full sequence headers,
+  4:2:0, 4:4:4 and monochrome at 8 bits, 64x64 and 128x128 superblocks,
+  uniform and explicit tiles, every intra tool but palette and intra
+  block copy, quantiser matrices, segmentation, delta q and lf, the
+  deblocking filter and CDEF); then libavif's YUV -> RGB: libyuv's
+  fixed-point constants for BT.601, BT.709 and BT.2020 (unspecified as
+  BT.601) at full and limited range with bilinear 4:2:0 upsampling, the
+  identity matrix as G = Y, B = U, R = V, and a monochrome frame's Y on
+  all three channels, as cv2 copies it. An alpha item is decoded (a
+  failure there fails the read) and dropped; irot, imir and clap are not
+  applied, as cv2 does not apply them; an ispe smaller than the frame
+  crops it. A file cut short, a box libavif rejects (a child past its
+  parent, versions and reserved fields it checks, pixi depths other than
+  av1C's), a frame libaom fails on (a bad header, tile data that
+  overruns or leaves other than the trailing bits after it) gives None;
 - EXIF orientation 2-8 is applied as cv2 applies it, from a JPEG's first
   APP1 segment and from a PNG's ``eXIf`` chunk. A TIFF's orientation is
   applied as cv2 5.0 applies it: 4 flips top-bottom; 2 flips each strip or
@@ -128,9 +149,16 @@ not know (JPEG 2000 in TIFF 34712, JPEG XL 50002, any other number; cv2
 gives an all-zero page for those), lossless JPEG with subsampled
 components, JPEG 2000 with HT code-blocks (HTJ2K, Part 15: code-block
 style bit 6 in a COD or COC marker of the main or a tile-part header),
-which OpenJPEG 2.5 decodes, and AVIF (``ftypavif`` or ``ftypavis``), which
-cv2 reads through libavif. ``unsupported(path)`` tells these from the
-headers, without decoding.
+which OpenJPEG 2.5 decodes, and these AVIF variants, which cv2 reads
+through libavif and libaom: a frame with screen-content tools allowed
+(palette, intra block copy), loop restoration, superres or film grain,
+more than 8 bits, AV1 profile 2 (4:2:2, 12-bit), a grid (dimg) item, an
+image sequence (major brand avis, or a moov track), a layered item (lsel,
+a1lx, a1op, or more than one operating point), premultiplied alpha, an
+ispe larger than the frame (cv2 then reads libaom's buffer past it), and
+matrices libavif converts without libyuv (FCC, SMPTE 240, YCgCo; the
+identity matrix on limited range or subsampled chroma).
+``unsupported(path)`` tells these from the headers, without decoding.
 """
 
 from __future__ import annotations
@@ -237,7 +265,7 @@ def image_format(path: str | Path) -> str | None:
         return "PNG"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "WebP"
-    if head[4:12] in (b"ftypavif", b"ftypavis"):
+    if head[4:8] == b"ftyp" and _avif_brand(path):
         return "AVIF"
     # HdrDecoder compares at least as many bytes as "#?RADIANCE" holds
     if len(head) >= 10 and (head.startswith(b"#?RADIANCE")
@@ -255,6 +283,19 @@ def image_format(path: str | Path) -> str | None:
         if head.startswith(magic):
             return name
     return None
+
+
+def _avif_brand(path: str | Path) -> bool:
+    """Whether a file's leading ftyp box names the brand avif or avis,
+    major or compatible, as libavif's avifFileTypeIsCompatible asks (cv2
+    gives libavif the file's first 500 bytes to tell AVIF by)."""
+    with open(path, "rb") as f:
+        head = f.read(500)
+    size = int.from_bytes(head[:4], "big")
+    if size < 16 or size > len(head):
+        return False
+    brands = [head[8:12]] + [head[i:i + 4] for i in range(16, size - 3, 4)]
+    return b"avif" in brands or b"avis" in brands
 
 
 def unsupported(path: str | Path) -> str | None:
@@ -276,6 +317,8 @@ def unsupported(path: str | Path) -> str | None:
             _tiff_first_page(data)
         elif fmt == "JPEG 2000":
             _jp2_header(data)
+        elif fmt == "AVIF":
+            _avif_headers(data)
     except NotImplementedError as e:
         return str(e)
     except (OSError, KeyError, struct.error, ValueError, IndexError,
@@ -286,8 +329,8 @@ def unsupported(path: str | Path) -> str | None:
 
 def read_image(path: str | Path) -> np.ndarray | None:
     """An image file of a format the module doc lists -> (H, W, 3) uint8
-    RGB, or None when cv2.imread gives None (see the module doc). AVIF and
-    the variants the module doc names raise NotImplementedError."""
+    RGB, or None when cv2.imread gives None (see the module doc). The
+    variants the module doc names raise NotImplementedError."""
     fmt = image_format(path)
     if fmt is None:
         return None
@@ -295,8 +338,8 @@ def read_image(path: str | Path) -> np.ndarray | None:
     if decode is None:
         raise NotImplementedError(
             f"{path}: {fmt} images are not supported; PNG, JPEG, TIFF, "
-            "JPEG 2000, BMP, PNM, PAM, GIF, WebP, Sun raster, colour PFM "
-            "and Radiance HDR are read")
+            "JPEG 2000, BMP, PNM, PAM, GIF, WebP, Sun raster, colour PFM, "
+            "Radiance HDR and AVIF are read")
     try:
         return decode(Path(path).read_bytes())
     except NotImplementedError as e:
@@ -2323,8 +2366,428 @@ def _decode_hdr(data: bytes) -> np.ndarray:
                         * np.float32(255))
 
 
+# ---------------------------------------------------------------------------
+# AVIF (libavif 1.4.2's container as cv2 reads it; the AV1 frames are
+# native/av1.cpp, their YUV -> RGB libyuv's through libavif)
+# ---------------------------------------------------------------------------
+
+# the item properties libavif reads (an unknown essential one makes it
+# skip the item)
+_AVIF_PROPERTIES = {b"ispe", b"auxC", b"colr", b"av1C", b"av2C", b"pasp",
+                    b"clap", b"irot", b"imir", b"pixi", b"a1op", b"lsel",
+                    b"a1lx", b"clli", b"mdcv", b"cclv", b"amve"}
+_AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+                    b"urn:mpeg:hevc:2015:auxid:1")
+# av1.cpp's status codes for the variants it refuses
+_AV1_VARIANTS = {
+    1: "AVIF with screen-content tools (palette, intra block copy)",
+    2: "AVIF with loop restoration",
+    3: "AVIF with superres",
+    4: "AVIF with film grain",
+    5: "AVIF of more than 8 bits",
+    6: "AVIF in AV1 profile 2 (4:2:2 or 12-bit)",
+    7: "layered AVIF (more than one operating point)",
+}
+
+
+def _avif_boxes(data: bytes, start: int, end: int, top: bool = False):
+    """(type, body start, box end) of each ISOBMFF box in data[start:end]
+    (a size of 1 is a 64-bit size, 0 runs to ``end``); a box that runs past
+    its parent fails, except at the top level, where libavif skips what it
+    does not read."""
+    at = start
+    while at < end:
+        if end - at < 8:
+            raise _Corrupt("AVIF box header cut short")
+        size, kind = struct.unpack_from(">I4s", data, at)
+        head = 8
+        if size == 1:
+            if end - at < 16:
+                raise _Corrupt("AVIF box header cut short")
+            size = struct.unpack_from(">Q", data, at + 8)[0]
+            head = 16
+        elif size == 0:
+            size = end - at
+        if kind == b"uuid":
+            head += 16
+        if size < head:
+            raise _Corrupt("AVIF box smaller than its header")
+        if at + size > end and not top:
+            raise _Corrupt(f"AVIF {kind!r} box runs past its parent")
+        yield kind, at + head, at + size
+        at += size
+
+
+def _avif_children(data: bytes, start: int, end: int) -> dict:
+    """The first box of each type among data[start:end]'s boxes."""
+    out = {}
+    for kind, body, box_end in _avif_boxes(data, start, end):
+        out.setdefault(kind, (body, box_end))
+    return out
+
+
+class _AvifReader:
+    """Big-endian fields of one box; reading past the box fails."""
+
+    def __init__(self, data: bytes, start: int, end: int):
+        self.data, self.at, self.end = data, start, end
+
+    def uint(self, nbytes: int) -> int:
+        if nbytes == 0:
+            return 0
+        if self.at + nbytes > self.end:
+            raise _Corrupt("AVIF box cut short")
+        v = int.from_bytes(self.data[self.at:self.at + nbytes], "big")
+        self.at += nbytes
+        return v
+
+    def full_box(self) -> tuple[int, int]:
+        return self.uint(1), self.uint(3)
+
+
+def _avif_container(data: bytes) -> dict:
+    """The primary item of an AVIF file as libavif's avifDecoderParse
+    reads it: ftyp, then meta with hdlr ``pict``, pitm, iinf/infe (v2-3),
+    iloc (v0-2, several extents, construction methods 0 and 1 (idat)),
+    iref (auxl, dimg, prem) and iprp/ipco/ipma -> {"color": its AV1
+    payload, "alpha": its alpha item's or None, "props": its properties}.
+    Raises _Corrupt where libavif fails and NotImplementedError for what
+    is refused by name (grid items, sequences, layered items)."""
+    top = {}
+    for kind, body, end in _avif_boxes(data, 0, len(data), top=True):
+        # libavif reads ftyp, meta and moov whole and skips the rest
+        if kind in (b"ftyp", b"meta", b"moov") and end > len(data):
+            raise _Corrupt("AVIF file cut short")
+        top.setdefault(kind, (body, end))
+    if b"ftyp" not in top:
+        raise _Corrupt("AVIF without ftyp")
+    body, end = top[b"ftyp"]
+    if end - body < 8:
+        raise _Corrupt("AVIF ftyp cut short")
+    major = data[body:body + 4]
+    brands = {major} | {data[i:i + 4] for i in range(body + 8, end - 3, 4)}
+    if major == b"avis":
+        raise NotImplementedError(
+            "AVIF image sequences (major brand avis) are not supported")
+    if not brands & {b"avif", b"avis"}:
+        raise _Corrupt("not an AVIF image")
+    if b"meta" not in top:
+        raise _Corrupt("AVIF without meta")
+    r = _AvifReader(data, *top[b"meta"])
+    r.full_box()
+    meta = _avif_children(data, r.at, r.end)
+    if b"hdlr" not in meta:
+        raise _Corrupt("AVIF without hdlr")
+    body, end = meta[b"hdlr"]
+    if (end - body < 24 or data[body] != 0
+            or data[body + 4:body + 8] != bytes(4)
+            or data[body + 8:body + 12] != b"pict"
+            or b"\0" not in data[body + 24:end]):
+        raise _Corrupt("AVIF hdlr not version 0, pre_defined 0, pict, "
+                       "with a name")
+    if b"pitm" not in meta:
+        raise _Corrupt("AVIF without a primary item")
+    r = _AvifReader(data, *meta[b"pitm"])
+    version, _ = r.full_box()
+    primary = r.uint(2 if version == 0 else 4)
+
+    types = {}
+    if b"iinf" in meta:
+        r = _AvifReader(data, *meta[b"iinf"])
+        version, _ = r.full_box()
+        count = r.uint(2 if version == 0 else 4)
+        entries = _avif_boxes(data, r.at, meta[b"iinf"][1])
+        for _ in range(count):
+            kind, body, end = next(entries, (None, 0, 0))
+            if kind != b"infe":
+                raise _Corrupt("AVIF iinf entry that is not an infe box")
+            e = _AvifReader(data, body, end)
+            version, _ = e.full_box()
+            if version not in (2, 3):
+                raise _Corrupt("AVIF infe of a version other than 2 or 3")
+            item = e.uint(2 if version == 2 else 4)
+            if item == 0:
+                raise _Corrupt("AVIF infe of item 0")
+            e.uint(2)
+            types[item] = e.uint(4).to_bytes(4, "big")
+            if b"\0" not in data[e.at:end]:
+                raise _Corrupt("AVIF infe item_name without its terminator")
+
+    if b"iloc" not in meta:
+        raise _Corrupt("AVIF without iloc")
+    r = _AvifReader(data, *meta[b"iloc"])
+    version, _ = r.full_box()
+    if version > 2:
+        raise _Corrupt("AVIF iloc of an unknown version")
+    sizes = r.uint(2)
+    off_size, len_size = sizes >> 12, (sizes >> 8) & 15
+    base_size, index_size = (sizes >> 4) & 15, sizes & 15
+    locations = {}
+    for _ in range(r.uint(2 if version < 2 else 4)):
+        item = r.uint(2 if version < 2 else 4)
+        method = r.uint(2) & 15 if version in (1, 2) else 0
+        r.uint(2)
+        base = r.uint(base_size)
+        extents = []
+        for _ in range(r.uint(2)):
+            if version in (1, 2):
+                r.uint(index_size)
+            extents.append((base + r.uint(off_size), r.uint(len_size)))
+        locations[item] = (method, extents)
+
+    refs = []
+    if b"iref" in meta:
+        r = _AvifReader(data, *meta[b"iref"])
+        version, _ = r.full_box()
+        width = 2 if version == 0 else 4
+        for kind, body, end in _avif_boxes(data, r.at, meta[b"iref"][1]):
+            e = _AvifReader(data, body, end)
+            source = e.uint(width)
+            targets = [e.uint(width) for _ in range(e.uint(2))]
+            refs.append((kind, source, targets))
+
+    props, assoc = [], {}
+    if b"iprp" in meta:
+        iprp = _avif_children(data, *meta[b"iprp"])
+        if b"ipco" in iprp:
+            props = list(_avif_boxes(data, *iprp[b"ipco"]))
+        for kind, body, end in _avif_boxes(data, *meta[b"iprp"]):
+            if kind != b"ipma":
+                continue
+            r = _AvifReader(data, body, end)
+            version, flags = r.full_box()
+            for _ in range(r.uint(4)):
+                item = r.uint(2 if version < 1 else 4)
+                # the items iloc, iinf and iref name (libavif makes an
+                # item for each); ipma may not name another
+                known = (item in locations or item in types
+                         or any(item == s or item in t for _, s, t in refs))
+                if item in assoc or not known:
+                    raise _Corrupt("AVIF ipma entry of an unknown or "
+                                   "repeated item")
+                assoc[item] = []
+                for _ in range(r.uint(1)):
+                    v = r.uint(2) if flags & 1 else r.uint(1)
+                    bits = 15 if flags & 1 else 7
+                    index = v & ((1 << bits) - 1)
+                    if index > len(props):
+                        raise _Corrupt("AVIF property index out of range")
+                    if index:
+                        assoc[item].append((index, v >> bits))
+
+    def item_props(item: int) -> dict:
+        out = {}
+        for index, _ in assoc.get(item, []):
+            kind, body, end = props[index - 1]
+            out.setdefault(kind, (body, end))
+        return out
+
+    def skipped(item: int) -> bool:
+        # libavif skips an item without data, or with an essential property
+        # it does not know
+        if not sum(length for _, length in locations.get(item, (0, []))[1]):
+            return True
+        return any(ess and props[index - 1][0] not in _AVIF_PROPERTIES
+                   for index, ess in assoc.get(item, []))
+
+    def payload(item: int) -> bytes:
+        if item not in locations:
+            raise _Corrupt("AVIF item without a location")
+        method, extents = locations[item]
+        chunks = []
+        for offset, length in extents:
+            if method == 0:
+                start, limit = offset, len(data)
+            elif method == 1 and b"idat" in meta:
+                start, limit = meta[b"idat"][0] + offset, meta[b"idat"][1]
+            else:
+                raise _Corrupt("AVIF item construction method not read")
+            if start + length > limit:
+                raise _Corrupt("AVIF item extent past the end of the file")
+            chunks.append(data[start:start + length])
+        return b"".join(chunks)
+
+    if b"moov" in top and major != b"avif":
+        raise NotImplementedError(
+            "AVIF image sequences (a moov track) are not supported")
+    kind = types.get(primary)
+    if kind == b"grid" or any(k == b"dimg" and s == primary
+                               for k, s, _ in refs):
+        raise NotImplementedError("AVIF grid (dimg) items are not supported")
+    if kind != b"av01" or skipped(primary):
+        raise _Corrupt("AVIF primary item is not AV1 or not read")
+    color_props = item_props(primary)
+    if any(k in color_props for k in (b"lsel", b"a1lx", b"a1op")):
+        raise NotImplementedError(_AV1_VARIANTS[7] + " is not supported")
+    for k in (b"ispe", b"av1C"):
+        if k not in color_props:
+            raise _Corrupt(f"AVIF primary item without {k.decode()}")
+    config_mono = _avif_check_config(data, color_props)
+    alpha = None
+    for kind, source, targets in refs:
+        if kind != b"auxl" or primary not in targets:
+            continue
+        if types.get(source) != b"av01" or skipped(source):
+            continue
+        aux = item_props(source).get(b"auxC")
+        if aux is None:
+            continue
+        if data[aux[0]] != 0 or b"\0" not in data[aux[0] + 4:aux[1]]:
+            raise _Corrupt("AVIF auxC not version 0 with a terminated type")
+        urn = data[aux[0] + 4:aux[1]].split(b"\0")[0]
+        if urn in _AVIF_ALPHA_URNS:
+            alpha = source
+            if b"av1C" in item_props(source):
+                _avif_check_config(data, item_props(source))
+            break
+    if alpha is not None and any(k == b"prem" and s == primary
+                                 for k, s, _ in refs):
+        raise NotImplementedError(
+            "AVIF with premultiplied alpha (prem) is not supported")
+    body, end = color_props[b"ispe"]
+    r = _AvifReader(data, body, end)
+    if r.full_box()[0] != 0:
+        raise _Corrupt("AVIF ispe of version 1 or more")
+    ispe = (r.uint(4), r.uint(4))
+    # libavif's default image size limits
+    if (not ispe[0] or not ispe[1] or max(ispe) > 32768
+            or ispe[0] * ispe[1] > 16384 * 16384):
+        raise _Corrupt("AVIF ispe out of libavif's limits")
+    return {"color": payload(primary),
+            "alpha": None if alpha is None else payload(alpha),
+            "props": color_props, "ispe": ispe, "config_mono": config_mono}
+
+
+def _avif_check_config(data: bytes, props: dict) -> bool:
+    """libavif's checks of an item's av1C (marker and version 1) and pixi
+    (version 0, at most 4 planes, each of av1C's depth) -> av1C's
+    monochrome flag."""
+    body, end = props[b"av1C"]
+    if end - body < 4 or data[body] != 0x81:
+        raise _Corrupt("AVIF av1C without its marker and version 1")
+    mono = bool(data[body + 2] & 0x10)
+    depth = 12 if data[body + 2] & 0x20 else 10 if data[body + 2] & 0x40 else 8
+    if b"pixi" in props:
+        r = _AvifReader(data, *props[b"pixi"])
+        if r.full_box()[0] != 0:
+            raise _Corrupt("AVIF pixi of version 1 or more")
+        planes = r.uint(1)
+        if planes > 4 or any(r.uint(1) != depth for _ in range(planes)):
+            raise _Corrupt("AVIF pixi depth other than av1C's")
+    return mono
+
+
+def _avif_frame_info(c: dict) -> np.ndarray:
+    """The primary item's AV1 headers (_av1_frame_info); a colour frame
+    whose av1C says monochrome fails, as it does in libavif for cv2."""
+    info = _av1_frame_info(c["color"])
+    if c["config_mono"] and not info[3]:
+        raise _Corrupt("AVIF av1C monochrome over a colour frame")
+    return info
+
+
+def _av1_frame_info(obus: bytes) -> np.ndarray:
+    """native.av1_info, raising as read_image does for its status."""
+    rc, info = native.av1_info(obus)
+    if rc in _AV1_VARIANTS:
+        raise NotImplementedError(f"{_AV1_VARIANTS[rc]} is not supported")
+    if rc:
+        raise _Corrupt("AV1 stream libaom does not decode")
+    return info
+
+
+def _avif_cicp(data: bytes, props: dict, info: np.ndarray
+               ) -> tuple[int, int, bool]:
+    """(matrix coefficients, colour primaries, full range): a colr nclx
+    property's where the item has one, else the AV1 sequence header's."""
+    if b"colr" in props:
+        body, end = props[b"colr"]
+        if data[body:body + 4] == b"nclx":
+            if end - body < 11 or data[body + 10] & 0x7F:
+                raise _Corrupt("AVIF colr nclx cut short or reserved bits set")
+            cp, _, mc = struct.unpack_from(">HHH", data, body + 4)
+            return mc, cp, bool(data[body + 10] & 0x80)
+    return int(info[7]), int(info[8]), bool(info[6])
+
+
+def _avif_libyuv_kind(mc: int, cp: int, full: bool) -> int | None:
+    """libavif's libyuv constants for the matrix (reformat_libyuv.c):
+    av1.cpp's kind, or None where libavif converts on its own; a matrix
+    libavif does not convert at all (BT.2020 constant luminance, SMPTE
+    2085, chroma-derived constant luminance, ICtCp, reserved values) fails
+    as avifImageYUVToRGB fails."""
+    if mc in (3, 10, 11, 13, 14, 15) or mc > 17:
+        raise _Corrupt(f"libavif does not convert matrix coefficients {mc}")
+    if mc == 12:  # chroma-derived: by the primaries
+        mc = {1: 1, 2: 1, 5: 6, 6: 6, 9: 9}.get(cp, -1)
+    if mc == 1:
+        return 2 if full else 3
+    if mc in (2, 5, 6):
+        return 0 if full else 1
+    if mc == 9:
+        return 4 if full else 5
+    return None
+
+
+def _avif_headers(data: bytes) -> tuple:
+    """The container, the AV1 headers of the primary item (and of its
+    alpha item) and the colour conversion they ask for -> (container,
+    info, alpha info or None, matrix coefficients, libyuv kind). Raises
+    NotImplementedError naming a variant read_image refuses, from the
+    headers alone (unsupported() calls it too), and _Corrupt where cv2
+    gives None."""
+    c = _avif_container(data)
+    info = _avif_frame_info(c)
+    if c["ispe"][0] > info[0] or c["ispe"][1] > info[1]:
+        raise NotImplementedError(
+            "AVIF whose ispe property is larger than its AV1 frame is not "
+            "supported")
+    alpha_info = None if c["alpha"] is None else _av1_frame_info(c["alpha"])
+    mc, cp, full = _avif_cicp(data, c["props"], info)
+    kind = None
+    if not info[3]:  # cv2 copies a monochrome frame's Y plane as it is
+        kind = _avif_libyuv_kind(mc, cp, full)
+        if mc == 0 and (info[4] or not full):
+            raise NotImplementedError(
+                "AVIF with the identity matrix on limited range or "
+                "subsampled chroma is not supported")
+        if mc != 0 and kind is None:
+            raise NotImplementedError(
+                f"AVIF with matrix coefficients {mc} is not supported")
+    return c, info, alpha_info, mc, kind
+
+
+def _decode_avif(data: bytes) -> np.ndarray:
+    """cv2's AvifDecoder over libavif 1.4.2: the primary item's AV1 frame
+    (native/av1.cpp), its alpha item decoded too (a failure there fails
+    the read) and dropped; irot, imir and clap are not applied, as cv2
+    does not apply them; then avifImageYUVToRGB as libavif does it for an
+    8-bit frame: libyuv's fixed-point conversion with bilinear chroma
+    upsampling, the identity matrix as G = Y, B = U, R = V; a monochrome
+    frame is its Y plane on all three channels, as cv2 copies it."""
+    c, info, alpha_info, mc, kind = _avif_headers(data)
+    width, height = c["ispe"]
+    _check_size(width, height)
+    if alpha_info is not None and native.av1_decode(c["alpha"],
+                                                    alpha_info)[0]:
+        raise _Corrupt("AVIF alpha plane libaom does not decode")
+    rc, planes = native.av1_decode(c["color"], info)
+    if rc:
+        raise _Corrupt("AV1 frame libaom does not decode")
+    # libavif converts the ispe's width and height of the planes
+    sub = int(info[4])
+    planes = [planes[0][:height, :width]] + [
+        p[:(height + sub) >> sub, :(width + sub) >> sub] for p in planes[1:]]
+    if info[3]:
+        return np.repeat(planes[0][:, :, None], 3, axis=2)
+    if mc == 0:
+        return np.stack([planes[2], planes[0], planes[1]], axis=2)
+    return native.avif_yuv_to_rgb(*planes, bool(sub), kind)
+
+
 _DECODERS = {"PNG": _decode_png, "JPEG": _decode_jpeg, "TIFF": _decode_tiff,
              "JPEG 2000": _decode_jp2, "BMP": _decode_bmp, "PNM": _decode_pnm,
              "PAM": _decode_pam, "WebP": _decode_webp,
              "GIF": _decode_gif, "Sun raster": _decode_sunras,
-             "PFM": _decode_pfm, "Radiance HDR": _decode_hdr}
+             "PFM": _decode_pfm, "Radiance HDR": _decode_hdr,
+             "AVIF": _decode_avif}

@@ -1,7 +1,7 @@
 """Native (C++) libraries, counterpart of ocr_inference_tpu/native: the
 geometry library, the ARPA LM scorer, and the image decoders' pixel loops
 (the PNG unfilter, JPEG, the TIFF codecs, JPEG 2000, BMP's RLE, GIF's
-LZW, WebP, Radiance HDR's scanlines).
+LZW, WebP, Radiance HDR's scanlines, AVIF's AV1 frames).
 
 ``geometry.cpp`` is the port's own copy of the JAX package's library plus
 ``ocr_fill_contour`` (the filled-contour rasterizer that replaces
@@ -13,9 +13,10 @@ ThunderScan, SGI Log) and the YCbCr and CIE L*a*b* -> RGB conversions,
 OpenJPEG reads; HTJ2K code-blocks are reported, not decoded), ``bmp.cpp``
 BMP's RLE8 and RLE4 bitmaps, ``gif.cpp`` GIF's LZW as OpenCV's own GIF
 decoder reads it, ``webp.cpp`` WebP (VP8L, VP8 with libwebp's fancy
-upsampling, the ALPH stream's check) and ``hdr.cpp`` Radiance HDR's
-scanlines, for the port's image reader (io/images.py), which replaces
-cv2.imread.
+upsampling, the ALPH stream's check), ``hdr.cpp`` Radiance HDR's
+scanlines and ``av1.cpp`` the AV1 intra frames of AVIF images (and
+libavif's YUV -> RGB through libyuv), for the port's image reader
+(io/images.py), which replaces cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
 (named by the source's hash) and loads through ctypes. There is no
 fallback: if a build fails, this raises."""
@@ -52,6 +53,7 @@ _BMP_LIB: ctypes.CDLL | None = None
 _WEBP_LIB: ctypes.CDLL | None = None
 _GIF_LIB: ctypes.CDLL | None = None
 _HDR_LIB: ctypes.CDLL | None = None
+_AV1_LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: dict[str, float] = {}
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -809,3 +811,64 @@ def hdr_pixels(data: bytes, offset: int, width: int, height: int
     rc = _HDR_LIB.ocr_hdr_pixels(src.ctypes.data_as(_U8P), src.size, offset,
                                  width, height, out.ctypes.data_as(_U8P))
     return None if rc else out
+
+
+def _av1_lib() -> ctypes.CDLL:
+    global _AV1_LIB
+    if _AV1_LIB is None:
+        _AV1_LIB = _load("av1.cpp", {
+            "ocr_av1_info": (ctypes.c_int, [_U8P, ctypes.c_int64, _I32P]),
+            "ocr_av1_decode": (ctypes.c_int, [_U8P, ctypes.c_int64, _U8P,
+                                              _U8P, _U8P]),
+            "ocr_avif_yuv_to_rgb": (ctypes.c_int, [
+                _U8P, _U8P, _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, _U8P]),
+        })
+    return _AV1_LIB
+
+
+def av1_info(obus: bytes) -> tuple[int, np.ndarray]:
+    """The headers of the first frame of an AV1 OBU stream, read by
+    av1.cpp -> (status, info): status 0, -1 for a stream libaom fails on,
+    or the code of a variant av1.cpp refuses; info as ocr_av1_info lists
+    it (width, height, bit depth, monochrome, subsampling x and y, full
+    range, matrix coefficients, colour primaries, transfer
+    characteristics, coding tools, superblock size, tiles)."""
+    src = np.frombuffer(obus, np.uint8)
+    info = np.zeros(13, np.int32)
+    rc = _av1_lib().ocr_av1_info(src.ctypes.data_as(_U8P), src.size,
+                                 info.ctypes.data_as(_I32P))
+    return rc, info
+
+
+def av1_decode(obus: bytes, info: np.ndarray
+               ) -> tuple[int, list[np.ndarray]]:
+    """Decode the first frame of an AV1 OBU stream whose headers gave
+    ``info`` (av1_info) -> (status, [Y] or [Y, U, V] uint8 planes)."""
+    w, h, _, mono, sx, sy = (int(v) for v in info[:6])
+    cw, ch = (w + sx) >> sx, (h + sy) >> sy
+    planes = [np.zeros((h, w), np.uint8)] + [
+        np.zeros((ch, cw), np.uint8) for _ in range(2)]
+    src = np.frombuffer(obus, np.uint8)
+    rc = _av1_lib().ocr_av1_decode(
+        src.ctypes.data_as(_U8P), src.size,
+        *(p.ctypes.data_as(_U8P) for p in planes))
+    return rc, planes[:1] if mono else planes
+
+
+def avif_yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                    subsampled: bool, kind: int) -> np.ndarray:
+    """8-bit 4:4:4 or 4:2:0 planes -> (H, W, 3) RGB through libyuv's
+    fixed-point conversion with constants ``kind`` (av1.cpp's
+    ocr_avif_yuv_to_rgb: 0 BT.601 full range, 1 BT.601 limited, 2 BT.709
+    full, 3 BT.709 limited, 4 BT.2020 full, 5 BT.2020 limited), the chroma
+    upsampled bilinearly as libyuv's *MatrixFilter functions do."""
+    h, w = y.shape
+    out = np.empty((h, w, 3), np.uint8)
+    planes = [np.ascontiguousarray(p, dtype=np.uint8) for p in (y, u, v)]
+    rc = _av1_lib().ocr_avif_yuv_to_rgb(
+        *(p.ctypes.data_as(_U8P) for p in planes), w, h, int(subsampled),
+        kind, out.ctypes.data_as(_U8P))
+    if rc:
+        raise ValueError(f"no libyuv constants {kind}")
+    return out

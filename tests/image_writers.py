@@ -2108,3 +2108,14 @@ def hdr_rle(rgbe: np.ndarray) -> bytes:
         for c in range(4):
             out += hdr_rle_line(rgbe[y, :, c].astype(np.uint8).tobytes())
     return bytes(out)
+
+
+def screen_content_avif(path, seed: int = 0) -> None:
+    """A 64x64 AVIF of two colours in random dots as Pillow writes it at
+    its defaults: libaom turns screen-content tools (palette, intra block
+    copy) on for it, which the port's AVIF reader refuses by name."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    dots = np.where(rng.random((64, 64)) < 0.3, 40, 235).astype(np.uint8)
+    Image.fromarray(np.repeat(dots[..., None], 3, 2)).save(path, "AVIF")

@@ -974,6 +974,7 @@ def write_image_files(pages) -> dict[str, str]:
         kinds[name] = kind
     kinds.update(jpeg2000_bmp_pnm_files(folder, by_name, flat))
     kinds.update(gif_webp_ras_pfm_hdr_files(folder, by_name, flat))
+    kinds.update(avif_files(folder, by_name, flat))
 
     global BENCH_JPEG_QUALITY
     bench = chip_smoke.bench_page(42)[..., ::-1]
@@ -996,6 +997,9 @@ def write_image_files(pages) -> dict[str, str]:
     ok, data = cv2.imencode(".webp", bench, [cv2.IMWRITE_WEBP_QUALITY, 75])
     (IMAGES / "bench_cfg4.webp").write_bytes(data.tobytes())
     kinds["bench_cfg4.webp"] = "WebP lossy q75 (cv2), bench.py config 4 page"
+    ok, data = cv2.imencode(".avif", bench)
+    (IMAGES / "bench_cfg4.avif").write_bytes(data.tobytes())
+    kinds["bench_cfg4.avif"] = "AVIF cv2 default, bench.py config 4 page"
     return kinds
 
 
@@ -1434,6 +1438,50 @@ def gif_webp_ras_pfm_hdr_files(folder, by_name, flat) -> dict[str, str]:
     return kinds
 
 
+def avif_files(folder, by_name, flat) -> dict[str, str]:
+    """The AVIF page files (the slice that reads them): cv2's default
+    (speed 9, 4:2:0, CDEF), a lossless strip (quality 100: 4:4:4, the
+    identity matrix), a monochrome page, a Pillow 4:4:4 page of 128x128
+    superblocks in two tiles, a page with an alpha item, and in
+    images/none/ an AVIF cut inside its AV1 data. Returns {file: kind};
+    the bench-size AVIF is written by write_image_files."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    kinds = {}
+    assert cv2.imwrite(str(folder / "clean_a_speed9.avif"),
+                       by_name["clean_a"][..., ::-1])
+    kinds["clean_a_speed9.avif"] = "AVIF cv2 default (libaom speed 9, " \
+        "4:2:0, 64x64 superblocks, CDEF, BT.601 full range)"
+    assert cv2.imwrite(str(folder / "clean_b_top_q100.avif"),
+                       top_rows(flat["clean_b"], 144),
+                       [cv2.IMWRITE_AVIF_QUALITY, 100])
+    kinds["clean_b_top_q100.avif"] = "AVIF cv2 quality 100 (lossless: " \
+        "4:4:4, identity matrix, WHT), the page's top 144 rows"
+    gray = cv2.cvtColor(by_name["skew_2deg"], cv2.COLOR_RGB2GRAY)
+    assert cv2.imwrite(str(folder / "skew_2deg_mono.avif"), gray)
+    kinds["skew_2deg_mono.avif"] = "AVIF monochrome (cv2 from a gray page)"
+    buf = io.BytesIO()
+    Image.fromarray(by_name["skew_2deg"]).save(
+        buf, "AVIF", subsampling="4:4:4", quality=50, speed=8, tile_cols=1)
+    (folder / "skew_2deg_444.avif").write_bytes(buf.getvalue())
+    kinds["skew_2deg_444.avif"] = "AVIF Pillow 4:4:4 quality 50 speed 8, " \
+        "128x128 superblocks, two tile columns, matrix unspecified"
+    bgra = cv2.cvtColor(by_name["clean_b"][..., ::-1], cv2.COLOR_BGR2BGRA)
+    bgra[..., 3] = np.where(flat["clean_b"][..., 0] < 128, 255, 120)
+    assert cv2.imwrite(str(folder / "clean_b_alpha.avif"), bgra)
+    kinds["clean_b_alpha.avif"] = "AVIF with an alpha item (cv2 from " \
+        "BGRA), decoded and dropped"
+    data = (folder / "clean_a_speed9.avif").read_bytes()
+    (IMAGES / "none" / "clean_a_cut.avif").write_bytes(
+        data[:len(data) * 3 // 4])
+    kinds["clean_a_cut.avif"] = "AVIF cut inside its AV1 data: cv2 gives " \
+        "None"
+    return kinds
+
+
 def images() -> int:
     """Write tests/data/torch_port/images/ and images.json (see the
     module doc)."""
@@ -1462,12 +1510,15 @@ def images() -> int:
     kinds = write_image_files(pages)
     files = sorted((IMAGES / "pages").iterdir()) + [
         IMAGES / "bench_cfg4.jpg", IMAGES / "bench_cfg4.jp2",
-        IMAGES / "bench_cfg4.webp"] + sorted((IMAGES / "none").iterdir())
+        IMAGES / "bench_cfg4.webp", IMAGES / "bench_cfg4.avif"] + sorted(
+        (IMAGES / "none").iterdir())
     total = sum(p.stat().st_size for p in files)
     assert total < 5700 * 1024, f"{total} bytes of image files"
     newest = sum(p.stat().st_size for p in files if p.suffix in (
         ".gif", ".webp", ".ras", ".pfm", ".hdr"))
     assert newest < 1500 * 1024, f"{newest} bytes of the newest formats"
+    avif = sum(p.stat().st_size for p in files if p.suffix == ".avif")
+    assert avif < 600 * 1024, f"{avif} bytes of AVIF files"
     record = {"bench_jpeg_quality": BENCH_JPEG_QUALITY, "files": {},
               "bocr": {}, "bocr_lines": {}}
     for path in files:

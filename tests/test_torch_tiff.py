@@ -21,7 +21,8 @@ from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
 from tests.image_writers import (
-    ccitt_2d, jpeg_arith, old_style_lzw, split_jpeg_tables, write_tiff,
+    ccitt_2d, jpeg_arith, old_style_lzw, screen_content_avif,
+    split_jpeg_tables, write_tiff,
 )
 
 # (photometric, bits, samples per pixel)
@@ -263,7 +264,8 @@ def test_bigtiff_and_other_formats_refused_by_name(tmp_path):
     JPEG 2000 signature box cut short gives None, as in cv2 (both were
     refused by name before the slice that decodes them); WebP reads as cv2
     reads it and a GIF header with no image gives None, as in cv2 (both
-    were refused by name before the GIF and WebP slice); AVIF stays
+    were refused by name before the GIF and WebP slice); cv2's default
+    AVIF reads as cv2 reads it, and one with screen-content tools stays
     refused by name."""
     path = tmp_path / "big.tif"
     path.write_bytes(b"II+\x00\x08\x00\x00\x00" + b"\x00" * 32)
@@ -290,7 +292,11 @@ def test_bigtiff_and_other_formats_refused_by_name(tmp_path):
     assert _cv2_rgb(path) is None and read_image(path) is None
     path = tmp_path / "x.avif"
     assert cv2.imwrite(str(path), img)
-    with pytest.raises(NotImplementedError, match="AVIF"):
+    assert image_format(path) == "AVIF"
+    _assert_same_as_cv2(path)
+    path = tmp_path / "screen.avif"
+    screen_content_avif(path)
+    with pytest.raises(NotImplementedError, match="AVIF with screen-content"):
         read_image(path)
 
 

@@ -19,7 +19,9 @@ from PIL import Image
 from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
-from tests.image_writers import riff_chunks, riff_file, webp_encode
+from tests.image_writers import (
+    riff_chunks, riff_file, screen_content_avif, webp_encode,
+)
 
 
 def _cv2_rgb(path):
@@ -277,8 +279,9 @@ def test_webp_hand_built_containers(tmp_path):
 
 
 def test_webp_sniffing_and_refusals(tmp_path):
-    """RIFF/WEBP is sniffed by content under any name; AVIF stays refused
-    by name, before and after the WebP readers."""
+    """RIFF/WEBP is sniffed by content under any name; cv2's default AVIF
+    reads as cv2 reads it, and one with screen-content tools is refused by
+    name, before and after the WebP readers."""
     img = np.random.default_rng(9).integers(0, 256, (10, 12, 3), np.uint8)
     path = tmp_path / "page.png"
     assert cv2.imwrite(str(tmp_path / "w.webp"), img)
@@ -287,7 +290,11 @@ def test_webp_sniffing_and_refusals(tmp_path):
     _same(path)
     avif = tmp_path / "x.avif"
     assert cv2.imwrite(str(avif), img)
+    assert image_format(avif) == "AVIF" and unsupported(avif) is None
+    np.testing.assert_array_equal(read_image(avif), _cv2_rgb(avif))
+    avif = tmp_path / "screen.avif"
+    screen_content_avif(avif)
     assert image_format(avif) == "AVIF"
-    assert "AVIF" in unsupported(avif)
-    with pytest.raises(NotImplementedError, match="AVIF"):
+    assert "screen-content tools" in unsupported(avif)
+    with pytest.raises(NotImplementedError, match="screen-content tools"):
         read_image(avif)
