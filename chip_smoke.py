@@ -187,7 +187,13 @@ and prints one JSON line for each:
                   monochrome, Pillow 4:4:4 in two tiles, with alpha; the
                   AV1 decoder native/av1.cpp) and a bench-size AVIF with
                   their decode ms; the AVIF page through bocr --image at
-                  0.0 CER with equal boxes against the JAX record;
+                  0.0 CER with equal boxes against the JAX record. Since
+                  the slice of screen-content tools and loop restoration
+                  three more AVIF pages (the clean page at Pillow's
+                  default, the other at cv2 speed 6, the scanned page at
+                  Pillow speed 2) with av1.cpp's counts of the palettes,
+                  intra block copies and restoration units they use, the
+                  first of them through bocr --image;
 20. train_rec_f32 — Easter2 from full77f, five float32 train steps (TF32
                   off) on recognizer_batch batches of full77f's recipe (32
                   canvases of 80x512, binarized on the card by
@@ -2277,6 +2283,27 @@ REPAIRED_AND_VARIANT_PAGES = (
 NEWEST_FORMATS = (".gif", ".webp", ".ras", ".pfm", ".hdr")
 # the format of the AVIF slice
 AVIF_FORMATS = (".avif",)
+# the AVIF pages of the slice of screen-content tools and loop
+# restoration, and the tools av1.cpp's counts must show in each
+TOOL_AVIF_PAGES = {"clean_a_default.avif": ("palette_y", "intrabc"),
+                   "clean_b_speed6.avif": ("palette_y",),
+                   "skew_2deg_speed2.avif": ("self_guided",)}
+
+
+def av1_tool_counts(path: Path) -> dict:
+    """av1.cpp's counts of the tools an AVIF file's primary item uses
+    (palette Y and UV blocks, intra block copies, Wiener and self-guided
+    units; native.av1_decode_counts)."""
+    from ocr_inference_tpu_torch import native
+    from ocr_inference_tpu_torch.io.images import _avif_container
+
+    obus = _avif_container(path.read_bytes())["color"]
+    rc, info = native.av1_info(obus)
+    used = {}
+    if rc == 0:
+        rc, _, used = native.av1_decode_counts(obus, info)
+    return {"rc": int(rc), **{k: v for k, v in used.items()
+                              if isinstance(v, int)}}
 
 
 def globbed_by_folder(path: Path) -> bool:
@@ -2477,7 +2504,11 @@ def image_formats(results: dict):
     alpha item) and images/none/'s cut AVIF against the record; the AVIF
     page that goes through bocr --image reads at 0.0 CER with equal boxes
     against the JAX float32 record; the bench-size AVIF's decode ms, and
-    the per-page loop's pages/s on the AVIF pages against PNG copies."""
+    the per-page loop's pages/s on the AVIF pages against PNG copies.
+    Since the slice of screen-content tools and loop restoration the AVIF
+    pages of TOOL_AVIF_PAGES too, each with av1.cpp's counts of the tools
+    it uses (each must use the tools TOOL_AVIF_PAGES names), the first of
+    them through bocr --image."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2511,6 +2542,12 @@ def image_formats(results: dict):
             "decode_ms": decode_ms(IMAGE_DIR / rel)}
     checks["every_file_equals_cv2"] = all(f["equal_cv2"]
                                           for f in files.values())
+    for rel, f in files.items():
+        if rel.endswith(".avif") and f["shape"] is not None:
+            f["tools"] = av1_tool_counts(IMAGE_DIR / rel)
+    checks["tool_avif_pages_use_their_tools"] = all(
+        files.get(f"pages/{name}", {}).get("tools", {}).get(tool, 0) > 0
+        for name, tools in TOOL_AVIF_PAGES.items() for tool in tools)
     with tempfile.TemporaryDirectory() as tmp:
         copies = full_page_copies(Path(tmp))
     checks["full_page_copies_equal_source"] = all(
@@ -2573,6 +2610,8 @@ def image_formats(results: dict):
         checks["avif_bocr_image_f32_cer_0_boxes_equal"] = bool(avif_cli) \
             and all(per_page[n]["cer_vs_jax_f32"] == 0.0
                     and per_page[n]["boxes_equal"] for n in avif_cli)
+        checks["tool_avif_page_through_bocr_image"] = any(
+            n in TOOL_AVIF_PAGES for n in avif_cli)
 
         t0 = time.perf_counter()
         bf16 = full77f_pipeline(torch.bfloat16)
@@ -2678,7 +2717,7 @@ def image_formats(results: dict):
     bench_webp = files.get("bench_cfg4.webp", {})
     bench_avif = files.get("bench_cfg4.avif", {})
     checks["avif_files_in_record"] = sum(
-        rel.endswith(".avif") for rel in files) >= 7
+        rel.endswith(".avif") for rel in files) >= 10
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
             "bench_webp_decode_ms": bench_webp.get("decode_ms"),

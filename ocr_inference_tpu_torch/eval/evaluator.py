@@ -7,9 +7,11 @@ distribution through the bucketed recognition engine in device batches.
 
 Differences from the JAX evaluator:
 
-- line images are read with io/images.py ``read_image`` (PNG, JPEG and
-  TIFF, as cv2.imread reads them; other formats raise NotImplementedError
-  naming them);
+- line images are read as io/images.py ``read_image`` reads them (every
+  format cv2.imread reads, as it reads them; a variant it does not decode
+  raises NotImplementedError naming it); an image that cannot be read
+  raises FileNotFoundError naming it, where the JAX evaluator raises
+  cv2.error from cvtColor(None);
 - the whole-line binarize, which the JAX evaluator runs on the host with
   cv2 (``ops_host.binarize_host``), runs on the card: the port's cv2-exact
   ``rgb_to_gray``, then the line kernel (``kernels.binarize_lines``) on a

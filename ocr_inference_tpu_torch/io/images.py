@@ -113,16 +113,18 @@ gives in RGB order:
   its AV1 key frame decoded as the specification decodes it, so as
   libaom decodes it (native/av1.cpp: reduced or full sequence headers,
   4:2:0, 4:4:4 and monochrome at 8 bits, 64x64 and 128x128 superblocks,
-  uniform and explicit tiles, every intra tool but palette and intra
-  block copy, quantiser matrices, segmentation, delta q and lf, the
-  deblocking filter and CDEF); then libavif's YUV -> RGB: libyuv's
+  uniform and explicit tiles, every intra tool, the screen-content tools
+  palette and intra block copy, quantiser matrices, segmentation, delta q
+  and lf, the deblocking filter, CDEF and loop restoration, Wiener and
+  self-guided); then libavif's YUV -> RGB: libyuv's
   fixed-point constants for BT.601, BT.709 and BT.2020 (unspecified as
   BT.601) at full and limited range with bilinear 4:2:0 upsampling, the
   identity matrix as G = Y, B = U, R = V, and a monochrome frame's Y on
-  all three channels, as cv2 copies it. An alpha item is decoded (a
+  all three channels, as cv2 copies it (a colour frame too, where its
+  av1C says monochrome). An alpha item is decoded (a
   failure there fails the read) and dropped; irot, imir and clap are not
-  applied, as cv2 does not apply them; an ispe smaller than the frame
-  crops it. A file cut short, a box libavif rejects (a child past its
+  applied, as cv2 does not apply them. A file cut short, a box libavif
+  rejects (a child past its
   parent, versions and reserved fields it checks, pixi depths other than
   av1C's), a frame libaom fails on (a bad header, tile data that
   overruns or leaves other than the trailing bits after it) gives None;
@@ -150,12 +152,11 @@ gives an all-zero page for those), lossless JPEG with subsampled
 components, JPEG 2000 with HT code-blocks (HTJ2K, Part 15: code-block
 style bit 6 in a COD or COC marker of the main or a tile-part header),
 which OpenJPEG 2.5 decodes, and these AVIF variants, which cv2 reads
-through libavif and libaom: a frame with screen-content tools allowed
-(palette, intra block copy), loop restoration, superres or film grain,
-more than 8 bits, AV1 profile 2 (4:2:2, 12-bit), a grid (dimg) item, an
-image sequence (major brand avis, or a moov track), a layered item (lsel,
-a1lx, a1op, or more than one operating point), premultiplied alpha, an
-ispe larger than the frame (cv2 then reads libaom's buffer past it), and
+through libavif and libaom: a frame with superres or film grain, more
+than 8 bits, AV1 profile 2 (4:2:2, 12-bit), a grid (dimg) item, an image
+sequence (major brand avis, or a moov track), a layered item (lsel, a1lx,
+a1op, or more than one operating point), premultiplied alpha, an ispe
+other than the frame's size (libavif scales the frame to it), and
 matrices libavif converts without libyuv (FCC, SMPTE 240, YCgCo; the
 identity matrix on limited range or subsampled chroma).
 ``unsupported(path)`` tells these from the headers, without decoding.
@@ -2380,8 +2381,6 @@ _AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
                     b"urn:mpeg:hevc:2015:auxid:1")
 # av1.cpp's status codes for the variants it refuses
 _AV1_VARIANTS = {
-    1: "AVIF with screen-content tools (palette, intra block copy)",
-    2: "AVIF with loop restoration",
     3: "AVIF with superres",
     4: "AVIF with film grain",
     5: "AVIF of more than 8 bits",
@@ -2392,30 +2391,41 @@ _AV1_VARIANTS = {
 
 def _avif_boxes(data: bytes, start: int, end: int, top: bool = False):
     """(type, body start, box end) of each ISOBMFF box in data[start:end]
-    (a size of 1 is a 64-bit size, 0 runs to ``end``); a box that runs past
-    its parent fails, except at the top level, where libavif skips what it
-    does not read."""
+    (_avif_box_header); at the top level a box may run past ``end``, as
+    libavif skips what it does not read."""
     at = start
     while at < end:
-        if end - at < 8:
-            raise _Corrupt("AVIF box header cut short")
-        size, kind = struct.unpack_from(">I4s", data, at)
-        head = 8
-        if size == 1:
-            if end - at < 16:
-                raise _Corrupt("AVIF box header cut short")
-            size = struct.unpack_from(">Q", data, at + 8)[0]
-            head = 16
-        elif size == 0:
-            size = end - at
-        if kind == b"uuid":
-            head += 16
-        if size < head:
-            raise _Corrupt("AVIF box smaller than its header")
-        if at + size > end and not top:
-            raise _Corrupt(f"AVIF {kind!r} box runs past its parent")
+        kind, head, size = _avif_box_header(data, at, end, top)
         yield kind, at + head, at + size
         at += size
+
+
+def _avif_box_header(data: bytes, at: int, end: int, top: bool = False
+                     ) -> tuple[bytes, int, int]:
+    """(type, header length, size) of the box at ``at`` within a parent
+    ending at ``end``, as libavif reads a box header: a size of 1 is a
+    64-bit size; 0 runs to ``end`` and only a top-level box may have it;
+    a nested box that runs past its parent fails."""
+    if end - at < 8:
+        raise _Corrupt("AVIF box header cut short")
+    size, kind = struct.unpack_from(">I4s", data, at)
+    head = 8
+    if size == 1:
+        if end - at < 16:
+            raise _Corrupt("AVIF box header cut short")
+        size = struct.unpack_from(">Q", data, at + 8)[0]
+        head = 16
+    elif size == 0:
+        if not top:
+            raise _Corrupt(f"AVIF nested {kind!r} box of size 0")
+        size = end - at
+    if kind == b"uuid":
+        head += 16
+    if size < head:
+        raise _Corrupt("AVIF box smaller than its header")
+    if at + size > end and not top:
+        raise _Corrupt(f"AVIF {kind!r} box runs past its parent")
+    return kind, head, size
 
 
 def _avif_children(data: bytes, start: int, end: int) -> dict:
@@ -2453,19 +2463,26 @@ def _avif_container(data: bytes) -> dict:
     payload, "alpha": its alpha item's or None, "props": its properties}.
     Raises _Corrupt where libavif fails and NotImplementedError for what
     is refused by name (grid items, sequences, layered items)."""
-    top = {}
+    top, brands = {}, set()
     for kind, body, end in _avif_boxes(data, 0, len(data), top=True):
-        # libavif reads ftyp, meta and moov whole and skips the rest
+        # libavif reads ftyp, meta and moov whole and skips the rest, and
+        # stops once it has ftyp and the meta (brand avif) and moov (avis)
+        # the brands ask for
         if kind in (b"ftyp", b"meta", b"moov") and end > len(data):
             raise _Corrupt("AVIF file cut short")
+        if kind == b"ftyp" and kind not in top and end - body >= 8:
+            brands = {data[i:i + 4] for i in [body] + list(
+                range(body + 8, end - 3, 4))}
         top.setdefault(kind, (body, end))
+        if (b"ftyp" in top and (b"avif" not in brands or b"meta" in top)
+                and (b"avis" not in brands or b"moov" in top)):
+            break
     if b"ftyp" not in top:
         raise _Corrupt("AVIF without ftyp")
     body, end = top[b"ftyp"]
     if end - body < 8:
         raise _Corrupt("AVIF ftyp cut short")
     major = data[body:body + 4]
-    brands = {major} | {data[i:i + 4] for i in range(body + 8, end - 3, 4)}
     if major == b"avis":
         raise NotImplementedError(
             "AVIF image sequences (major brand avis) are not supported")
@@ -2474,7 +2491,8 @@ def _avif_container(data: bytes) -> dict:
     if b"meta" not in top:
         raise _Corrupt("AVIF without meta")
     r = _AvifReader(data, *top[b"meta"])
-    r.full_box()
+    if r.full_box()[0] != 0:
+        raise _Corrupt("AVIF meta of version 1 or more")
     meta = _avif_children(data, r.at, r.end)
     if b"hdlr" not in meta:
         raise _Corrupt("AVIF without hdlr")
@@ -2525,6 +2543,8 @@ def _avif_container(data: bytes) -> dict:
     locations = {}
     for _ in range(r.uint(2 if version < 2 else 4)):
         item = r.uint(2 if version < 2 else 4)
+        if item == 0 or item in locations:
+            raise _Corrupt("AVIF iloc entry of item 0 or of an item twice")
         method = r.uint(2) & 15 if version in (1, 2) else 0
         r.uint(2)
         base = r.uint(base_size)
@@ -2540,10 +2560,16 @@ def _avif_container(data: bytes) -> dict:
         r = _AvifReader(data, *meta[b"iref"])
         version, _ = r.full_box()
         width = 2 if version == 0 else 4
-        for kind, body, end in _avif_boxes(data, r.at, meta[b"iref"][1]):
-            e = _AvifReader(data, body, end)
-            source = e.uint(width)
-            targets = [e.uint(width) for _ in range(e.uint(2))]
+        # libavif skips an iref of a version past 1, and reads each
+        # reference's fields on from its box header, whatever the box's
+        # size says
+        while version <= 1 and r.at < r.end:
+            kind, head, _ = _avif_box_header(data, r.at, r.end)
+            r.at += head
+            source = r.uint(width)
+            targets = [r.uint(width) for _ in range(r.uint(2))]
+            if not source or not all(targets):
+                raise _Corrupt("AVIF iref reference from or to item 0")
             refs.append((kind, source, targets))
 
     props, assoc = [], {}
@@ -2570,8 +2596,9 @@ def _avif_container(data: bytes) -> dict:
                     v = r.uint(2) if flags & 1 else r.uint(1)
                     bits = 15 if flags & 1 else 7
                     index = v & ((1 << bits) - 1)
-                    if index > len(props):
-                        raise _Corrupt("AVIF property index out of range")
+                    if index > len(props) or (not index and v >> bits):
+                        raise _Corrupt("AVIF property index out of range, "
+                                       "or 0 and essential")
                     if index:
                         assoc[item].append((index, v >> bits))
 
@@ -2637,8 +2664,9 @@ def _avif_container(data: bytes) -> dict:
         urn = data[aux[0] + 4:aux[1]].split(b"\0")[0]
         if urn in _AVIF_ALPHA_URNS:
             alpha = source
-            if b"av1C" in item_props(source):
-                _avif_check_config(data, item_props(source))
+            if b"av1C" not in item_props(source):
+                raise _Corrupt("AVIF alpha item without av1C")
+            _avif_check_config(data, item_props(source))
             break
     if alpha is not None and any(k == b"prem" and s == primary
                                  for k, s, _ in refs):
@@ -2660,7 +2688,7 @@ def _avif_container(data: bytes) -> dict:
 
 def _avif_check_config(data: bytes, props: dict) -> bool:
     """libavif's checks of an item's av1C (marker and version 1) and pixi
-    (version 0, at most 4 planes, each of av1C's depth) -> av1C's
+    (version 0, 1 to 4 planes, each of av1C's depth) -> av1C's
     monochrome flag."""
     body, end = props[b"av1C"]
     if end - body < 4 or data[body] != 0x81:
@@ -2672,17 +2700,20 @@ def _avif_check_config(data: bytes, props: dict) -> bool:
         if r.full_box()[0] != 0:
             raise _Corrupt("AVIF pixi of version 1 or more")
         planes = r.uint(1)
-        if planes > 4 or any(r.uint(1) != depth for _ in range(planes)):
+        if not 1 <= planes <= 4 or any(r.uint(1) != depth
+                                        for _ in range(planes)):
             raise _Corrupt("AVIF pixi depth other than av1C's")
     return mono
 
 
 def _avif_frame_info(c: dict) -> np.ndarray:
-    """The primary item's AV1 headers (_av1_frame_info); a colour frame
-    whose av1C says monochrome fails, as it does in libavif for cv2."""
+    """The primary item's AV1 headers (_av1_frame_info). A colour frame
+    whose av1C says monochrome is read as monochrome (libavif takes av1C's
+    format, cv2 then copies the Y plane), and fails with an alpha item, as
+    in cv2."""
     info = _av1_frame_info(c["color"])
-    if c["config_mono"] and not info[3]:
-        raise _Corrupt("AVIF av1C monochrome over a colour frame")
+    if c["config_mono"] and not info[3] and c["alpha"] is not None:
+        raise _Corrupt("AVIF av1C monochrome over a colour frame with alpha")
     return info
 
 
@@ -2738,14 +2769,14 @@ def _avif_headers(data: bytes) -> tuple:
     gives None."""
     c = _avif_container(data)
     info = _avif_frame_info(c)
-    if c["ispe"][0] > info[0] or c["ispe"][1] > info[1]:
+    if c["ispe"][0] != info[0] or c["ispe"][1] != info[1]:
         raise NotImplementedError(
-            "AVIF whose ispe property is larger than its AV1 frame is not "
-            "supported")
+            "AVIF whose ispe property differs from its AV1 frame's size "
+            "(libavif scales the frame to it) is not supported")
     alpha_info = None if c["alpha"] is None else _av1_frame_info(c["alpha"])
     mc, cp, full = _avif_cicp(data, c["props"], info)
     kind = None
-    if not info[3]:  # cv2 copies a monochrome frame's Y plane as it is
+    if not _avif_mono(c, info):  # cv2 copies a monochrome Y plane as it is
         kind = _avif_libyuv_kind(mc, cp, full)
         if mc == 0 and (info[4] or not full):
             raise NotImplementedError(
@@ -2757,6 +2788,12 @@ def _avif_headers(data: bytes) -> tuple:
     return c, info, alpha_info, mc, kind
 
 
+def _avif_mono(c: dict, info: np.ndarray) -> bool:
+    """Whether libavif gives cv2 the frame as monochrome: the AV1 frame is,
+    or the item's av1C says so."""
+    return bool(info[3]) or c["config_mono"]
+
+
 def _decode_avif(data: bytes) -> np.ndarray:
     """cv2's AvifDecoder over libavif 1.4.2: the primary item's AV1 frame
     (native/av1.cpp), its alpha item decoded too (a failure there fails
@@ -2766,7 +2803,7 @@ def _decode_avif(data: bytes) -> np.ndarray:
     upsampling, the identity matrix as G = Y, B = U, R = V; a monochrome
     frame is its Y plane on all three channels, as cv2 copies it."""
     c, info, alpha_info, mc, kind = _avif_headers(data)
-    width, height = c["ispe"]
+    width, height = c["ispe"]  # the frame's size (_avif_headers)
     _check_size(width, height)
     if alpha_info is not None and native.av1_decode(c["alpha"],
                                                     alpha_info)[0]:
@@ -2774,11 +2811,8 @@ def _decode_avif(data: bytes) -> np.ndarray:
     rc, planes = native.av1_decode(c["color"], info)
     if rc:
         raise _Corrupt("AV1 frame libaom does not decode")
-    # libavif converts the ispe's width and height of the planes
     sub = int(info[4])
-    planes = [planes[0][:height, :width]] + [
-        p[:(height + sub) >> sub, :(width + sub) >> sub] for p in planes[1:]]
-    if info[3]:
+    if _avif_mono(c, info):
         return np.repeat(planes[0][:, :, None], 3, axis=2)
     if mc == 0:
         return np.stack([planes[2], planes[0], planes[1]], axis=2)

@@ -820,6 +820,8 @@ def _av1_lib() -> ctypes.CDLL:
             "ocr_av1_info": (ctypes.c_int, [_U8P, ctypes.c_int64, _I32P]),
             "ocr_av1_decode": (ctypes.c_int, [_U8P, ctypes.c_int64, _U8P,
                                               _U8P, _U8P]),
+            "ocr_av1_decode_counts": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, _U8P, _U8P, _U8P, _I32P]),
             "ocr_avif_yuv_to_rgb": (ctypes.c_int, [
                 _U8P, _U8P, _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, _U8P]),
@@ -841,19 +843,46 @@ def av1_info(obus: bytes) -> tuple[int, np.ndarray]:
     return rc, info
 
 
+def _av1_planes(info: np.ndarray) -> list[np.ndarray]:
+    w, h, _, _, sx, sy = (int(v) for v in info[:6])
+    cw, ch = (w + sx) >> sx, (h + sy) >> sy
+    return [np.zeros((h, w), np.uint8)] + [
+        np.zeros((ch, cw), np.uint8) for _ in range(2)]
+
+
 def av1_decode(obus: bytes, info: np.ndarray
                ) -> tuple[int, list[np.ndarray]]:
     """Decode the first frame of an AV1 OBU stream whose headers gave
     ``info`` (av1_info) -> (status, [Y] or [Y, U, V] uint8 planes)."""
-    w, h, _, mono, sx, sy = (int(v) for v in info[:6])
-    cw, ch = (w + sx) >> sx, (h + sy) >> sy
-    planes = [np.zeros((h, w), np.uint8)] + [
-        np.zeros((ch, cw), np.uint8) for _ in range(2)]
+    planes = _av1_planes(info)
     src = np.frombuffer(obus, np.uint8)
     rc = _av1_lib().ocr_av1_decode(
         src.ctypes.data_as(_U8P), src.size,
         *(p.ctypes.data_as(_U8P) for p in planes))
-    return rc, planes[:1] if mono else planes
+    return rc, planes[:1] if info[3] else planes
+
+
+def av1_decode_counts(obus: bytes, info: np.ndarray
+                      ) -> tuple[int, list[np.ndarray], dict[str, int]]:
+    """av1_decode, and how often the frame used each tool this decoder took
+    last (av1.cpp ocr_av1_decode_counts): blocks with a Y palette, with a
+    UV palette and intra block copies, Wiener and self-guided restoration
+    units, the Y and UV palettes by size (lists for sizes 2 to 8) and the
+    intra block copies narrower or shorter than 8 ("intrabc_sub8"). For
+    tests and the card check; read_image does not ask."""
+    planes = _av1_planes(info)
+    counts = np.zeros(20, np.int32)
+    src = np.frombuffer(obus, np.uint8)
+    rc = _av1_lib().ocr_av1_decode_counts(
+        src.ctypes.data_as(_U8P), src.size,
+        *(p.ctypes.data_as(_U8P) for p in planes),
+        counts.ctypes.data_as(_I32P))
+    names = ("palette_y", "palette_uv", "intrabc", "wiener", "self_guided")
+    used = dict(zip(names, (int(c) for c in counts[:5])))
+    used["palette_y_sizes"] = [int(c) for c in counts[5:12]]
+    used["palette_uv_sizes"] = [int(c) for c in counts[12:19]]
+    used["intrabc_sub8"] = int(counts[19])
+    return rc, planes[:1] if info[3] else planes, used
 
 
 def avif_yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray,

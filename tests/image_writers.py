@@ -2113,9 +2113,20 @@ def hdr_rle(rgbe: np.ndarray) -> bytes:
 def screen_content_avif(path, seed: int = 0) -> None:
     """A 64x64 AVIF of two colours in random dots as Pillow writes it at
     its defaults: libaom turns screen-content tools (palette, intra block
-    copy) on for it, which the port's AVIF reader refuses by name."""
+    copy) on for it."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     dots = np.where(rng.random((64, 64)) < 0.3, 40, 235).astype(np.uint8)
     Image.fromarray(np.repeat(dots[..., None], 3, 2)).save(path, "AVIF")
+
+
+def ten_bit_avif(path, seed: int = 0) -> None:
+    """A 64x64 AVIF of 10 bits (cv2 from uint16 random dots), a variant
+    the port's AVIF reader refuses by name."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    dots = np.where(rng.random((64, 64)) < 0.3, 160, 940).astype(np.uint16)
+    assert cv2.imwrite(str(path), np.repeat(dots[..., None], 3, 2),
+                       [cv2.IMWRITE_AVIF_DEPTH, 10])

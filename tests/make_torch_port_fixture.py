@@ -1439,12 +1439,15 @@ def gif_webp_ras_pfm_hdr_files(folder, by_name, flat) -> dict[str, str]:
 
 
 def avif_files(folder, by_name, flat) -> dict[str, str]:
-    """The AVIF page files (the slice that reads them): cv2's default
+    """The AVIF page files (the slices that read them): cv2's default
     (speed 9, 4:2:0, CDEF), a lossless strip (quality 100: 4:4:4, the
     identity matrix), a monochrome page, a Pillow 4:4:4 page of 128x128
-    superblocks in two tiles, a page with an alpha item, and in
-    images/none/ an AVIF cut inside its AV1 data. Returns {file: kind};
-    the bench-size AVIF is written by write_image_files."""
+    superblocks in two tiles, a page with an alpha item, the clean page at
+    Pillow's default and the other at cv2's speed 6 (screen-content tools:
+    palettes, intra block copies), the scanned page at Pillow's speed 2
+    (loop restoration), and in images/none/ an AVIF cut inside its AV1
+    data. Returns {file: kind}; the bench-size AVIF is written by
+    write_image_files."""
     import io
 
     import cv2
@@ -1474,6 +1477,22 @@ def avif_files(folder, by_name, flat) -> dict[str, str]:
     assert cv2.imwrite(str(folder / "clean_b_alpha.avif"), bgra)
     kinds["clean_b_alpha.avif"] = "AVIF with an alpha item (cv2 from " \
         "BGRA), decoded and dropped"
+    buf = io.BytesIO()
+    Image.fromarray(flat["clean_a"]).save(buf, "AVIF")
+    (folder / "clean_a_default.avif").write_bytes(buf.getvalue())
+    kinds["clean_a_default.avif"] = "AVIF Pillow default (speed 6, " \
+        "screen-content tools: palettes and intra block copies)"
+    assert cv2.imwrite(str(folder / "clean_b_speed6.avif"), flat["clean_b"],
+                       [cv2.IMWRITE_AVIF_SPEED, 6])
+    kinds["clean_b_speed6.avif"] = "AVIF cv2 speed 6 (screen-content " \
+        "tools: palettes)"
+    scan = cv2.cvtColor(cv2.imread(str(folder / "skew_2deg.jpg")),
+                        cv2.COLOR_BGR2RGB)
+    buf = io.BytesIO()
+    Image.fromarray(scan).save(buf, "AVIF", speed=2)
+    (folder / "skew_2deg_speed2.avif").write_bytes(buf.getvalue())
+    kinds["skew_2deg_speed2.avif"] = "AVIF Pillow speed 2 of the scanned " \
+        "JPEG page (loop restoration: self-guided units)"
     data = (folder / "clean_a_speed9.avif").read_bytes()
     (IMAGES / "none" / "clean_a_cut.avif").write_bytes(
         data[:len(data) * 3 // 4])

@@ -1,12 +1,16 @@
 """The port's AVIF reader (io/images.py over native/av1.cpp) against
 ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` (cv2 5.0's
 AvifDecoder over libavif 1.4.2 and libaom 3.14.1), byte for byte and None
-for None: the committed files, cv2's files at every quality and speed
-that keeps screen-content tools off, sizes that are not multiples of 8,
-monochrome and alpha, Pillow's 4:4:4 and 4:2:0 files in several tiles and
-at limited range, seeded noise, libaom's coding tools switched on one at a
-time (quantiser matrices, segmentation, delta q and lf, ...), and seeded
-cuts and corruptions. The variants the reader refuses are made by the
+for None: the committed files, cv2's and Pillow's files at every quality
+and speed on the clean and scanned pages (screen-content tools, palette
+and intra block copy, below speed 9 on clean pages; loop restoration,
+Wiener and self-guided, at the slowest speeds on scanned ones), seeded
+pages of few colours, sizes that are not multiples of 8, monochrome and
+alpha, Pillow's 4:4:4 and 4:2:0 files in several tiles and at limited
+range, seeded noise, libaom's coding tools switched on one at a time
+(quantiser matrices, segmentation, delta q and lf, ...), and seeded cuts
+and corruptions. av1.cpp's counts (native.av1_decode_counts) show the
+files reach each tool. The variants the reader refuses are made by the
 tools that write them and raise NotImplementedError naming them, with
 unsupported() saying the same."""
 
@@ -50,8 +54,44 @@ def _same(path, data=None):
 
 def _scan():
     """The scanned fixture page (RGB): cv2 keeps screen-content tools off
-    on it at every speed."""
+    on it at every speed; libaom restores loops on it at the slowest."""
     return _cv2_rgb(IMAGES / "pages" / "skew_2deg.jpg")
+
+
+def _clean(name="clean_b_24.bmp"):
+    """A clean fixture page (RGB), bilevel text: libaom turns
+    screen-content tools on for it below speed 9."""
+    return _cv2_rgb(IMAGES / "pages" / name)
+
+
+def _counts(data: bytes) -> dict:
+    """How often the primary item's frame used each tool av1.cpp counts
+    (palette Y and UV blocks by size, intra block copies, Wiener and
+    self-guided units)."""
+    obus = _avif_container(data)["color"]
+    rc, info = native.av1_info(obus)
+    assert rc == 0
+    rc, _, used = native.av1_decode_counts(obus, info)
+    assert rc == 0
+    return used
+
+
+def _few_colours(k: int, mono: bool = False) -> np.ndarray:
+    """A seeded page of few colours: 128 rows of the clean page's text
+    (which turns screen-content tools on) over 64 rows of repeated 32x32
+    tiles of k colours with evenly spaced luma, each pixel's colour drawn
+    at random."""
+    rng = np.random.default_rng(k)
+    levels = np.linspace(16, 240, k).astype(np.uint8)
+    tiles = [rng.integers(0, k, (32, 32)) for _ in range(3)]
+    index = np.block([[tiles[int(rng.integers(0, 3))] for _ in range(4)]
+                      for _ in range(2)])
+    text = _clean()[:128, 300:428]
+    if mono:
+        return np.concatenate([text[..., 0], levels[index]])
+    chroma = rng.integers(96, 160, (k, 2), np.uint8)
+    ycc = np.stack([levels[index], chroma[index, 0], chroma[index, 1]], -1)
+    return np.concatenate([text, cv2.cvtColor(ycc, cv2.COLOR_YCrCb2RGB)])
 
 
 def _cv2_avif(img, *params):
@@ -113,13 +153,122 @@ def test_cv2_qualities(tmp_path, quality):
                         quality))
 
 
-@pytest.mark.parametrize("speed", [5, 6, 7, 8, 9, 10])
+@pytest.mark.parametrize("speed", range(11))
 def test_cv2_speeds(tmp_path, speed):
-    """cv2's encoder speeds 5-10 (other partitions, transform sets and
-    intra tools) on a strip of the scanned page."""
+    """cv2's encoder speeds 0-10 (other partitions, transform sets and
+    intra tools; loop restoration at 0) on a strip of the scanned page,
+    and on a crop of the clean page (palettes and intra block copies below
+    9)."""
     _same(tmp_path / "x.avif", _cv2_avif(
         _scan()[:160, :448], cv2.IMWRITE_AVIF_QUALITY, 60,
         cv2.IMWRITE_AVIF_SPEED, speed))
+    data = _cv2_avif(_clean()[:, 300:556], cv2.IMWRITE_AVIF_SPEED, speed)
+    _same(tmp_path / "x.avif", data)
+    if speed < 9:
+        assert _counts(data)["palette_y"] > 0
+
+
+@pytest.mark.parametrize("speed", ["default"] + [str(s) for s in range(11)])
+def test_pillow_speeds(tmp_path, speed):
+    """Pillow's default and its speeds 0-10 on crops of the two clean
+    pages (palettes, and intra block copies of repeated glyphs) and of the
+    scanned page (loop restoration at the slowest speeds)."""
+    save = {} if speed == "default" else {"speed": int(speed)}
+    used = []
+    for img in (_clean()[:, 300:556], _clean("clean_a_adam7.png")[:192, :512],
+                _scan()[200:456, 300:556]):
+        data = _pil_avif(img, **save)
+        _same(tmp_path / "x.avif", data)
+        used.append(_counts(data))
+    if speed not in ("9", "10"):
+        assert used[0]["palette_y"] and used[1]["palette_y"], used
+    if speed not in ("8", "9", "10"):
+        assert used[1]["intrabc"], used
+    if speed in ("0", "1", "2"):
+        assert used[2]["self_guided"] + used[2]["wiener"], used
+
+
+@pytest.mark.parametrize("subsampling", ["4:2:0", "4:4:4", "mono"])
+def test_palettes_of_every_size(tmp_path, subsampling):
+    """Seeded pages of 2 to 8 colours: Y palettes of every size 2-8, UV
+    palettes (of every size in 4:4:4; V's colours delta coded or not), the
+    colour cache from the neighbours, and the colour map past a block's
+    edge."""
+    save = {} if subsampling == "mono" else {"subsampling": subsampling}
+    y_sizes, uv_sizes = np.zeros(7, int), np.zeros(7, int)
+    for k in range(2, 9):
+        data = _pil_avif(_few_colours(k, subsampling == "mono"),
+                         quality=95, **save)
+        _same(tmp_path / "x.avif", data)
+        used = _counts(data)
+        y_sizes += used["palette_y_sizes"]
+        uv_sizes += used["palette_uv_sizes"]
+    assert y_sizes.all(), y_sizes
+    if subsampling == "4:4:4":
+        assert uv_sizes.all(), uv_sizes
+    else:
+        assert uv_sizes.any() == (subsampling == "4:2:0"), uv_sizes
+
+
+@pytest.mark.parametrize("subsampling", ["4:2:0", "4:4:4", "mono"])
+def test_intra_block_copy(tmp_path, subsampling):
+    """Clean pages of repeated glyphs: intra block copies (whole-pixel DVs
+    from the neighbours' candidates or the default one superblock up,
+    bilinear half pixels of 4:2:0 chroma, blocks below 8x8, transform
+    trees of inter transform sizes and types), beside palettes, at
+    Pillow's default and cv2's speed 0-8 settings."""
+    page = _clean("clean_a_adam7.png")
+    if subsampling == "mono":
+        page = page[..., 0]
+    save = {} if subsampling == "mono" else {"subsampling": subsampling}
+    used = {"intrabc": 0, "intrabc_sub8": 0}
+    for img in (page[:256, :512], page[320:576, 512:]):
+        for data in (_pil_avif(img, **save), _pil_avif(img, speed=2, **save)):
+            _same(tmp_path / "x.avif", data)
+            for k in used:
+                used[k] += _counts(data)[k]
+    assert used["intrabc"] >= 20 and used["intrabc_sub8"] >= 1, used
+
+
+@pytest.mark.parametrize("speed", [0, 1, 2])
+def test_loop_restoration(tmp_path, speed):
+    """Scanned crops at Pillow's slowest speeds (self-guided units, the
+    r = 0 parameter sets among them) and blurred noise (Wiener units), in
+    4:2:0, 4:4:4 and monochrome: stripes of 64 rows with the deblocked
+    rows past them, units of 64 to 256 samples and the last unit's
+    remainder."""
+    page = _scan()
+    rng = np.random.default_rng(speed)
+    blurred = cv2.GaussianBlur(rng.integers(0, 256, (96, 136, 3), np.uint8),
+                               (0, 0), 1.5)
+    used = {"wiener": 0, "self_guided": 0}
+    for img, save in ((page[:200, :256], {}),
+                      (page[100:300, 500:756], {"subsampling": "4:4:4"}),
+                      (page[200:456, 0:200, 0], {}),
+                      (blurred, {}), (blurred, {"subsampling": "4:4:4"})):
+        data = _pil_avif(img, speed=speed, quality=50, **save)
+        _same(tmp_path / "x.avif", data)
+        for k in used:
+            used[k] += _counts(data)[k]
+    assert used["wiener"] and used["self_guided"], used
+
+
+def test_the_files_reach_every_tool(tmp_path):
+    """One file of each kind above: their counts show a Y palette, a UV
+    palette, an intra block copy, a Wiener and a self-guided unit."""
+    files = [_pil_avif(_few_colours(5), quality=95, subsampling="4:4:4"),
+             _pil_avif(_clean("clean_a_adam7.png")[:192, :512]),
+             _pil_avif(_scan()[:200, :256], speed=0),
+             _pil_avif(cv2.GaussianBlur(np.random.default_rng(0).integers(
+                 0, 256, (96, 96, 3), np.uint8), (0, 0), 1.5), speed=2)]
+    total = {}
+    for data in files:
+        _same(tmp_path / "x.avif", data)
+        for k, v in _counts(data).items():
+            if isinstance(v, int):
+                total[k] = total.get(k, 0) + v
+    for k in ("palette_y", "palette_uv", "intrabc", "wiener", "self_guided"):
+        assert total[k] >= 1, total
 
 
 @pytest.mark.parametrize("kind", ["mono_cv2", "mono_pillow", "alpha_cv2",
@@ -216,13 +365,15 @@ def test_libaom_coding_tools(tmp_path, options, bit):
         _same(tmp_path / "x.avif", data)
 
 
-@pytest.mark.parametrize("kind", ["cv2", "pillow_tiles", "alpha", "mono"])
+@pytest.mark.parametrize("kind", ["cv2", "pillow_tiles", "alpha", "mono",
+                                  "palette", "intra_block_copy",
+                                  "loop_restoration"])
 def test_avif_cuts_and_corruptions(tmp_path, kind):
     """Seeded cuts and byte corruptions of each kind of file: each equals
     cv2, or gives None where cv2 gives None. A corruption that makes the
-    AV1 headers declare a refused variant (screen-content tools, more than
-    8 bits, ...), or an ispe larger than the frame (cv2 then reads past the
-    frame into libaom's buffer), raises NotImplementedError naming it."""
+    AV1 headers declare a refused variant (more than 8 bits, film grain,
+    ...), or an ispe other than the frame's size (libavif scales the frame
+    to it), raises NotImplementedError naming it."""
     page = _scan()
     base = {
         "cv2": lambda: _cv2_avif(page[:120, :300]),
@@ -233,6 +384,11 @@ def test_avif_cuts_and_corruptions(tmp_path, kind):
             [page[:120, :200], np.full((120, 200), 200, np.uint8)])),
         "mono": lambda: _cv2_avif(cv2.cvtColor(page[:100, :200],
                                                cv2.COLOR_RGB2GRAY)),
+        "palette": lambda: _pil_avif(_few_colours(6), quality=95,
+                                     subsampling="4:4:4"),
+        "intra_block_copy": lambda: _pil_avif(
+            _clean("clean_a_adam7.png")[:192, :512]),
+        "loop_restoration": lambda: _pil_avif(page[:200, :256], speed=0),
     }[kind]()
     rng = np.random.default_rng(sum(map(ord, kind)))
     path = tmp_path / "x.avif"
@@ -264,6 +420,98 @@ def test_avif_cuts_and_corruptions(tmp_path, kind):
     assert outcomes["none"] >= 20, outcomes
 
 
+def test_reduced_header_of_a_video_gives_none(tmp_path):
+    """A reduced sequence header whose still_picture bit is 0 (a corruption
+    a seeded fuzz of byte flips against cv2 found): libaom fails it, so
+    cv2 gives None, and so does the port, where it used to decode the
+    frame."""
+    data = _pil_avif(_scan()[:64, :96], speed=9)
+    at = data.index(_avif_container(data)["color"])
+    assert data[at:at + 3] == b"\x12\x00\x0a"  # delimiter, sequence header
+    assert data[at + 4] & 0x18 == 0x18  # still_picture, reduced header
+    path = tmp_path / "x.avif"
+    _same(path, data)
+    assert _same(path, data[:at + 4] + bytes([data[at + 4] ^ 0x10])
+                 + data[at + 5:]) is None
+
+
+def _edit(data: bytes, box: bytes, offset: int, fn) -> bytes:
+    """``data`` with the byte ``offset`` bytes after box type ``box``'s
+    name replaced by fn(byte)."""
+    at = data.index(box) + 4 + offset
+    return data[:at] + bytes([fn(data[at])]) + data[at + 1:]
+
+
+# Container and header cases a seeded fuzz of byte flips against cv2
+# found, each with cv2's result: None, or the image (equal to the port's),
+# or "gray" (the Y plane on all three channels). libavif fails a meta box
+# of a version other than 0, a nested box of size 0, a pixi of no planes,
+# an iloc entry of item 0 or of an item twice, an iref reference from or
+# to item 0, an ipma association of index 0 marked essential and an alpha
+# item without av1C; it skips an iref of a version past 1 (the alpha item
+# is then not linked) and reads a reference's fields on from its box
+# header whatever the box's size says; it stops at the meta box, so a
+# wrong mdat size does not matter; it takes a colour frame whose av1C says
+# monochrome as monochrome (None with alpha). libaom fails an OBU header
+# without a size field (its reserved bit it ignores), a tile list OBU, a
+# metadata OBU without a type (the temporal delimiter's header turned into
+# these), and a sequence header of an undefined level (here 2.2: the byte
+# after mdat's name + 5 is the second of the sequence header, whose top
+# bits end the level).
+CONTAINER_CASES = {
+    "mdat_size_short": ("plain", b"mdat", -1, lambda b: b - 2, "image"),
+    "iloc_item_0": ("alpha", b"iloc", 23, lambda b: 0, None),
+    "iloc_item_twice": ("alpha", b"iloc", 23, lambda b: 1, None),
+    "level_2_2": ("plain", b"mdat", 5, lambda b: b | 0x80, None),
+    "obu_reserved_bit": ("plain", b"mdat", 0, lambda b: b | 1, "image"),
+    "obu_tile_list": ("plain", b"mdat", 0, lambda b: 0x42, None),
+    "obu_empty_metadata": ("plain", b"mdat", 0, lambda b: 0x2a, None),
+    "obu_without_size": ("plain", b"mdat", 0, lambda b: b & ~2, None),
+    "ipma_essential_index_0": ("plain", b"ipma", 14, lambda b: 0x80, None),
+    "iref_from_0": ("alpha", b"auxl", 1, lambda b: 0, None),
+    "iref_to_0": ("alpha", b"auxl", 5, lambda b: 0, None),
+    "iref_to_unknown_item": ("alpha", b"auxl", 5, lambda b: 3, "image"),
+    "alpha_without_av1c": ("alpha", b"ipma", 20, lambda b: 0x04, None),
+    "meta_version_1": ("plain", b"meta", 0, lambda b: 1, None),
+    "meta_version_2": ("plain", b"meta", 0, lambda b: 2, None),
+    "ipma_size_0": ("alpha", b"ipma", -1, lambda b: 0, None),
+    "pixi_no_planes": ("plain", b"pixi", 4, lambda b: 0, None),
+    "iref_version_8": ("alpha", b"iref", 0, lambda b: 8, "image"),
+    "iref_reference_box_short": ("alpha", b"auxl", -1, lambda b: b - 2,
+                                 "image"),
+    "av1c_mono_420": ("plain", b"av1C", 2, lambda b: b | 0x10, "gray"),
+    "av1c_mono_limited": ("limited", b"av1C", 2, lambda b: b | 0x10, "gray"),
+    "av1c_mono_444": ("444", b"av1C", 2, lambda b: b | 0x10, "gray"),
+    "av1c_mono_alpha": ("alpha", b"av1C", 2, lambda b: b | 0x10, None),
+}
+
+
+@pytest.mark.parametrize("case", CONTAINER_CASES)
+def test_container_cases_the_fuzz_found(tmp_path, case):
+    """Each container case of CONTAINER_CASES (a meta version, a nested
+    box of size 0, a pixi of no planes, an iref libavif skips or reads
+    past its reference box's size, av1C's monochrome flag over a colour
+    frame) reads as cv2 reads it, where the port read it otherwise."""
+    kind, box, offset, fn, want = CONTAINER_CASES[case]
+    page = (_scan()[:64, :96] * [1.0, 0.8, 0.6]).astype(np.uint8)  # tinted
+    base = {
+        "plain": lambda: _pil_avif(page, speed=9),
+        "limited": lambda: _pil_avif(page, speed=9, range="limited"),
+        "444": lambda: _pil_avif(page, speed=9, subsampling="4:4:4"),
+        "alpha": lambda: _cv2_avif(np.dstack(
+            [page, np.full(page.shape[:2], 200, np.uint8)])),
+    }[kind]()
+    if case == "level_2_2":  # the sequence header, of level 2.0, first
+        at = base.index(b"mdat") + 4
+        assert base[at:at + 3] == b"\x12\x00\x0a" and base[at + 5] < 0x40
+    got = _same(tmp_path / "x.avif", _edit(base, box, offset, fn))
+    if want is None:
+        assert got is None
+    else:
+        assert got is not None
+        assert (got == got[..., :1]).all() == (want == "gray")
+
+
 def _refusal(path, data, words):
     path.write_bytes(data)
     with pytest.raises(NotImplementedError, match=words) as e:
@@ -280,17 +528,20 @@ def _rename_box(data: bytes, old: bytes, new: bytes, nth: int = 0) -> bytes:
 
 
 def test_refused_variants(tmp_path):
-    """Each refused variant made by a tool that writes it: Pillow's default
-    on the clean bitmap page sets screen-content tools; Pillow at speed 2
-    on the scanned page restores loops (a restoration type other than
-    NONE); Pillow's 4:2:2 is AV1 profile 2; cv2 writes 10 bits from
-    uint16; libaom's film-grain test vector adds grain; a grid item, an
-    image sequence and a layered item are made by editing cv2's file."""
+    """Each refused variant made by a tool that writes it: Pillow's 4:2:2
+    is AV1 profile 2; cv2 writes 10 bits from uint16; libaom's film-grain
+    test vector adds grain; a grid item, an image sequence, a layered item
+    and an ispe other than the frame's size are made by editing cv2's
+    file. The variants read since (Pillow's default on the clean bitmap
+    page sets screen-content tools; Pillow at speed 2 on the scanned page
+    restores loops) read equal to cv2."""
     path = tmp_path / "x.avif"
     clean = _cv2_rgb(IMAGES / "pages" / "clean_b_24.bmp")
-    _refusal(path, _pil_avif(clean), "screen-content tools")
+    assert _same(path, _pil_avif(clean)) is not None
     page = _scan()
-    _refusal(path, _pil_avif(page[:200, :300], speed=2), "loop restoration")
+    data = _pil_avif(page[:200, :300], speed=2)
+    assert _same(path, data) is not None
+    assert _counts(data)["self_guided"] + _counts(data)["wiener"] > 0
     _refusal(path, _pil_avif(page[:64, :96], subsampling="4:2:2", speed=9),
              "profile 2")
     _refusal(path, _cv2_avif(page[:64, :96].astype(np.uint16) * 4,
@@ -302,6 +553,10 @@ def test_refused_variants(tmp_path):
     _refusal(path, _rename_box(base, b"av01", b"grid"), "grid")
     _refusal(path, base[:8] + b"avis" + base[12:], "sequences")
     _refusal(path, _rename_box(base, b"colr", b"lsel"), "layered")
+    at = base.index(b"ispe") + 12  # its height
+    for height in (63, 65):
+        _refusal(path, base[:at] + height.to_bytes(4, "big") + base[at + 4:],
+                 "ispe property differs")
 
 
 def test_avif_sniffing(tmp_path):

@@ -1,0 +1,12 @@
+"""bocr-lines over the committed JPEG 2000, BMP, PNM/PAM, Sun raster, PFM
+and Radiance HDR pages against the JAX record
+(tests/torch_committed_pages.py)."""
+
+from tests.torch_committed_pages import check_group
+
+
+def test_bocr_lines_over_the_committed_pages_equals_jax_record(tmp_path):
+    """Every JPEG 2000, BMP, PNM/PAM, Sun raster, PFM and Radiance HDR
+    page's Parquet rows equal the JAX bocr-lines rows images.json
+    records."""
+    check_group("jp2_bmp_pnm_raster", tmp_path)

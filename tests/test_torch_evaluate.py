@@ -193,6 +193,32 @@ def test_evaluate_one_line_matches_jax(job, monkeypatch):
             str(path), str(lbl)), ext
 
 
+def test_an_unreadable_line_raises_file_not_found_where_jax_raises_cv2_error(
+        job, tmp_path, monkeypatch):
+    """A line image that cannot be read (missing, or cut inside its
+    headers): the port's evaluate raises FileNotFoundError naming it, the
+    JAX evaluator cv2.error from cvtColor(None). The port has no cv2, so it
+    cannot raise cv2's type (ROADMAP §3, deliberate differences)."""
+    import cv2
+
+    label = job / "data" / "clean" / "line01.txt"
+    cut = tmp_path / "cut.png"
+    cut.write_bytes((job / "data" / "clean" / "line01.png").read_bytes()[:20])
+    ours = OCREvaluator(str(job / "model" / "model_config.json"),
+                        device="cpu", dtype=torch.float32)
+    monkeypatch.setattr(jax_evaluator, "build_recognition_engine",
+                        functools.partial(
+                            jax_evaluator.build_recognition_engine,
+                            dtype=jnp.float32))
+    theirs = jax_evaluator.OCREvaluator(
+        str(job / "model" / "model_config.json"))
+    for path in (tmp_path / "missing.png", cut):
+        with pytest.raises(FileNotFoundError, match=path.name):
+            ours.evaluate(str(path), str(label))
+        with pytest.raises(cv2.error):
+            theirs.evaluate(str(path), str(label))
+
+
 def test_eval_cli_score_files_match_jax(job, tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "ocr_inference_tpu_torch.cli.evaluate_cli",

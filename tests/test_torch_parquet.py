@@ -6,7 +6,6 @@ Parquet schema and rows (pyarrow reads the port's files), the same items,
 and the refusals."""
 
 import functools
-import json
 import os
 
 import cv2
@@ -31,8 +30,7 @@ from ocr_inference_tpu_torch.core.config import (
 from ocr_inference_tpu_torch.io import parquet
 from ocr_inference_tpu_torch.io.dataset import ImageInferenceDataset
 from tests.image_writers import jpeg2000_tiff
-from chip_smoke import globbed_by_folder, renamed_page
-from tests.make_torch_port_fixture import OUT, REPO, WEIGHTS
+from tests.make_torch_port_fixture import REPO
 
 LINES = REPO / "tests" / "data" / "refpipe" / "lines.msgpack"
 
@@ -241,32 +239,3 @@ def test_bocr_lines_refusals(folder, tmp_path):
     with pytest.raises(NotImplementedError, match="JPEG 2000 in TIFF"):
         cli.main(["-i", str(refused), "-o", str(tmp_path / "a"),
                   "-c", str(LINES), "--device", "cpu"])
-
-
-def test_bocr_lines_over_the_committed_pages_equals_jax_record(tmp_path):
-    """The encoded fixture pages (tests/data/torch_port/images/pages) with
-    the full77f line model in float32: every row equal to the JAX
-    bocr-lines row images.json records, as chip_smoke.py checks on the
-    card. bocr-lines globs the JAX CLI's five extensions, so the JPEG
-    2000, BMP, PNM and PAM pages go through it under the names the record
-    gives them (chip_smoke.renamed_page) in a folder of their
-    own."""
-    record = json.loads((OUT / "images.json").read_text(encoding="utf-8"))
-    pages = OUT / "images" / "pages"
-    renamed = tmp_path / "renamed"
-    renamed.mkdir()
-    for path in pages.iterdir():
-        if not globbed_by_folder(path):
-            (renamed / renamed_page(path.name)).write_bytes(path.read_bytes())
-    out = tmp_path / "out"
-    for folder in (pages, renamed):
-        assert cli.main(["-i", str(folder), "-o", str(out), "-c",
-                         str(WEIGHTS / "lines.msgpack"), "--device", "cpu",
-                         "--dtype", "float32"]) == 0
-    assert sorted(p.name for p in out.iterdir()) == \
-        sorted(record["bocr_lines"])
-    for name, want in record["bocr_lines"].items():
-        got = parquet.read_result_parquet(out / name)
-        got["contours"] = [[list(p) for p in c] for c in got["contours"]]
-        got["bboxes"] = [list(b) for b in got["bboxes"]]
-        assert got == want, name
