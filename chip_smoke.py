@@ -2288,12 +2288,22 @@ AVIF_FORMATS = (".avif",)
 TOOL_AVIF_PAGES = {"clean_a_default.avif": ("palette_y", "intrabc"),
                    "clean_b_speed6.avif": ("palette_y",),
                    "skew_2deg_speed2.avif": ("self_guided",)}
+# the AVIF pages of the slice of 10 and 12 bits, 4:2:2 and film grain:
+# (bit depth, subsampling, grain applied) each must show; the first and
+# the last go through bocr --image
+DEPTH_AVIF_PAGES = {"clean_a_10bit.avif": (10, "4:2:0", 0),
+                    "skew_2deg_12bit.avif": (12, "4:2:0", 0),
+                    "clean_b_422.avif": (8, "4:2:2", 0),
+                    "skew_2deg_grain.avif": (8, "4:2:0", 1)}
+BOCR_IMAGE_DEPTH_AVIF_PAGES = ("clean_a_10bit.avif", "skew_2deg_grain.avif")
 
 
 def av1_tool_counts(path: Path) -> dict:
     """av1.cpp's counts of the tools an AVIF file's primary item uses
     (palette Y and UV blocks, intra block copies, Wiener and self-guided
-    units; native.av1_decode_counts)."""
+    units, the film grain applied: its Y, Cb and Cr scaling points, chroma
+    from luma, overlap, clip, AR lag; native.av1_decode_counts), with the
+    frame's bit depth and subsampling."""
     from ocr_inference_tpu_torch import native
     from ocr_inference_tpu_torch.io.images import _avif_container
 
@@ -2302,8 +2312,14 @@ def av1_tool_counts(path: Path) -> dict:
     used = {}
     if rc == 0:
         rc, _, used = native.av1_decode_counts(obus, info)
+        used["depth"] = int(info[2])
+        used["subsampling"] = "4:0:0" if info[3] else {
+            (1, 1): "4:2:0", (1, 0): "4:2:2", (0, 0): "4:4:4"}[
+            (int(info[4]), int(info[5]))]
+        for k, n in zip(("y", "cb", "cr"), used.pop("grain_points")):
+            used[f"grain_{k}_points"] = n
     return {"rc": int(rc), **{k: v for k, v in used.items()
-                              if isinstance(v, int)}}
+                              if isinstance(v, (int, str))}}
 
 
 def globbed_by_folder(path: Path) -> bool:
@@ -2508,7 +2524,12 @@ def image_formats(results: dict):
     Since the slice of screen-content tools and loop restoration the AVIF
     pages of TOOL_AVIF_PAGES too, each with av1.cpp's counts of the tools
     it uses (each must use the tools TOOL_AVIF_PAGES names), the first of
-    them through bocr --image."""
+    them through bocr --image. Since the slice of 10 and 12 bits, 4:2:2
+    and film grain the pages of DEPTH_AVIF_PAGES, each with its decode ms,
+    bit depth, subsampling and film grain counts (each must show the depth,
+    subsampling and grain DEPTH_AVIF_PAGES names), those of
+    BOCR_IMAGE_DEPTH_AVIF_PAGES through bocr --image at 0.0 CER with equal
+    boxes, and the bench-size 10-bit AVIF's decode ms."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2528,6 +2549,11 @@ def image_formats(results: dict):
     # the model), the others through read_image -> run_ocr
     cli_pages = [next(p for p in image_pages if p.suffix == ext)
                  for ext in dict.fromkeys(p.suffix for p in image_pages)]
+    # and the first page of TOOL_AVIF_PAGES and those of
+    # BOCR_IMAGE_DEPTH_AVIF_PAGES
+    cli_pages += [pages_dir / n for n in (next(iter(TOOL_AVIF_PAGES)),
+                                          *BOCR_IMAGE_DEPTH_AVIF_PAGES)
+                  if pages_dir / n not in cli_pages]
     in_process = [p for p in image_pages if p not in cli_pages]
     checks, files = {}, {}
     for rel, want in record["files"].items():
@@ -2548,6 +2574,19 @@ def image_formats(results: dict):
     checks["tool_avif_pages_use_their_tools"] = all(
         files.get(f"pages/{name}", {}).get("tools", {}).get(tool, 0) > 0
         for name, tools in TOOL_AVIF_PAGES.items() for tool in tools)
+    depth_pages = {}
+    for name, (depth, sub, grain) in DEPTH_AVIF_PAGES.items():
+        f = files.get(f"pages/{name}", {})
+        tools = f.get("tools", {})
+        depth_pages[name] = {
+            "decode_ms": f.get("decode_ms"), "equal_cv2": f.get("equal_cv2"),
+            **{k: v for k, v in tools.items()
+               if k in ("depth", "subsampling") or k.startswith("grain")}}
+        depth_pages[name]["as_expected"] = (
+            tools.get("depth"), tools.get("subsampling"),
+            tools.get("grain")) == (depth, sub, grain)
+    checks["depth_avif_pages_as_expected"] = all(
+        p["as_expected"] and p["equal_cv2"] for p in depth_pages.values())
     with tempfile.TemporaryDirectory() as tmp:
         copies = full_page_copies(Path(tmp))
     checks["full_page_copies_equal_source"] = all(
@@ -2612,6 +2651,10 @@ def image_formats(results: dict):
                     and per_page[n]["boxes_equal"] for n in avif_cli)
         checks["tool_avif_page_through_bocr_image"] = any(
             n in TOOL_AVIF_PAGES for n in avif_cli)
+        checks["depth_avif_pages_through_bocr_image"] = all(
+            n in avif_cli for n in BOCR_IMAGE_DEPTH_AVIF_PAGES)
+        for n in BOCR_IMAGE_DEPTH_AVIF_PAGES:
+            depth_pages[n]["bocr_image_f32"] = per_page.get(n)
 
         t0 = time.perf_counter()
         bf16 = full77f_pipeline(torch.bfloat16)
@@ -2716,12 +2759,15 @@ def image_formats(results: dict):
     bench_jp2 = files.get("bench_cfg4.jp2", {})
     bench_webp = files.get("bench_cfg4.webp", {})
     bench_avif = files.get("bench_cfg4.avif", {})
+    bench_avif10 = files.get("bench_cfg4_10bit.avif", {})
     checks["avif_files_in_record"] = sum(
-        rel.endswith(".avif") for rel in files) >= 10
+        rel.endswith(".avif") for rel in files) >= 15
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
             "bench_webp_decode_ms": bench_webp.get("decode_ms"),
             "bench_avif_decode_ms": bench_avif.get("decode_ms"),
+            "bench_avif_10bit_decode_ms": bench_avif10.get("decode_ms"),
+            "depth_avif_pages": depth_pages,
             "full_page_copies": copies,
             "pool_decode": pool, "pages": per_page, "runs": runs,
             "page_loop_bf16": loop, "bocr_lines": rows,

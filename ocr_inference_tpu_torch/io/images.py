@@ -112,16 +112,20 @@ gives in RGB order:
   auxC; an essential property libavif does not know skips the item) and
   its AV1 key frame decoded as the specification decodes it, so as
   libaom decodes it (native/av1.cpp: reduced or full sequence headers,
-  4:2:0, 4:4:4 and monochrome at 8 bits, 64x64 and 128x128 superblocks,
-  uniform and explicit tiles, every intra tool, the screen-content tools
-  palette and intra block copy, quantiser matrices, segmentation, delta q
-  and lf, the deblocking filter, CDEF and loop restoration, Wiener and
-  self-guided); then libavif's YUV -> RGB: libyuv's
-  fixed-point constants for BT.601, BT.709 and BT.2020 (unspecified as
-  BT.601) at full and limited range with bilinear 4:2:0 upsampling, the
-  identity matrix as G = Y, B = U, R = V, and a monochrome frame's Y on
-  all three channels, as cv2 copies it (a colour frame too, where its
-  av1C says monochrome). An alpha item is decoded (a
+  4:2:0, 4:2:2 (AV1 profile 2), 4:4:4 and monochrome at 8, 10 and 12
+  bits, 64x64 and 128x128 superblocks, uniform and explicit tiles, every
+  intra tool, the screen-content tools palette and intra block copy,
+  quantiser matrices, segmentation, delta q and lf, the deblocking
+  filter, CDEF, loop restoration, Wiener and self-guided, and film grain
+  synthesised as libaom adds it); then libavif's YUV -> RGB: 10 and 12
+  bits shifted down to 8, then libyuv's fixed-point constants for
+  BT.601, BT.709 and BT.2020 (unspecified as BT.601) at full and limited
+  range with bilinear 4:2:0 and linear 4:2:2 upsampling, the identity
+  matrix as G = Y, B = U, R = V (above 8 bits libavif's float unorm),
+  and a monochrome frame's Y on all three channels, as cv2 copies it (a
+  colour frame too, where its av1C says monochrome; above 8 bits scaled
+  to 8 and rounded half to even, as Mat::convertTo). An alpha item is
+  decoded (a
   failure there fails the read) and dropped; irot, imir and clap are not
   applied, as cv2 does not apply them. A file cut short, a box libavif
   rejects (a child past its
@@ -152,8 +156,8 @@ gives an all-zero page for those), lossless JPEG with subsampled
 components, JPEG 2000 with HT code-blocks (HTJ2K, Part 15: code-block
 style bit 6 in a COD or COC marker of the main or a tile-part header),
 which OpenJPEG 2.5 decodes, and these AVIF variants, which cv2 reads
-through libavif and libaom: a frame with superres or film grain, more
-than 8 bits, AV1 profile 2 (4:2:2, 12-bit), a grid (dimg) item, an image
+through libavif and libaom: a frame with superres (no tool at hand writes
+one to test against), a grid (dimg) item, an image
 sequence (major brand avis, or a moov track), a layered item (lsel, a1lx,
 a1op, or more than one operating point), premultiplied alpha, an ispe
 other than the frame's size (libavif scales the frame to it), and
@@ -2379,12 +2383,10 @@ _AVIF_PROPERTIES = {b"ispe", b"auxC", b"colr", b"av1C", b"av2C", b"pasp",
                     b"a1lx", b"clli", b"mdcv", b"cclv", b"amve"}
 _AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
                     b"urn:mpeg:hevc:2015:auxid:1")
-# av1.cpp's status codes for the variants it refuses
+# av1.cpp's status codes for the variants it refuses (superres: no tool at
+# hand writes it, so no decode of it could be held against cv2's)
 _AV1_VARIANTS = {
     3: "AVIF with superres",
-    4: "AVIF with film grain",
-    5: "AVIF of more than 8 bits",
-    6: "AVIF in AV1 profile 2 (4:2:2 or 12-bit)",
     7: "layered AVIF (more than one operating point)",
 }
 
@@ -2709,11 +2711,12 @@ def _avif_check_config(data: bytes, props: dict) -> bool:
 def _avif_frame_info(c: dict) -> np.ndarray:
     """The primary item's AV1 headers (_av1_frame_info). A colour frame
     whose av1C says monochrome is read as monochrome (libavif takes av1C's
-    format, cv2 then copies the Y plane), and fails with an alpha item, as
-    in cv2."""
+    format, cv2 then copies the Y plane); a monochrome frame with an alpha
+    item fails, as in cv2 (its CopyToMat takes gray with alpha for 4
+    channels)."""
     info = _av1_frame_info(c["color"])
-    if c["config_mono"] and not info[3] and c["alpha"] is not None:
-        raise _Corrupt("AVIF av1C monochrome over a colour frame with alpha")
+    if (c["config_mono"] or info[3]) and c["alpha"] is not None:
+        raise _Corrupt("AVIF monochrome with alpha")
     return info
 
 
@@ -2796,12 +2799,16 @@ def _avif_mono(c: dict, info: np.ndarray) -> bool:
 
 def _decode_avif(data: bytes) -> np.ndarray:
     """cv2's AvifDecoder over libavif 1.4.2: the primary item's AV1 frame
-    (native/av1.cpp), its alpha item decoded too (a failure there fails
-    the read) and dropped; irot, imir and clap are not applied, as cv2
-    does not apply them; then avifImageYUVToRGB as libavif does it for an
-    8-bit frame: libyuv's fixed-point conversion with bilinear chroma
-    upsampling, the identity matrix as G = Y, B = U, R = V; a monochrome
-    frame is its Y plane on all three channels, as cv2 copies it."""
+    (native/av1.cpp, film grain applied as libaom applies it), its alpha
+    item decoded too (a failure there fails the read) and dropped; irot,
+    imir and clap are not applied, as cv2 does not apply them; then
+    avifImageYUVToRGB into 8-bit RGB as libavif does it: 10 and 12 bits
+    shifted down to 8, then libyuv's fixed-point conversion with bilinear
+    (4:2:0) or linear (4:2:2) chroma upsampling; the identity matrix as
+    G = Y, B = U, R = V, above 8 bits through libavif's float unorm
+    (0.5 + v / max * 255, truncated); a monochrome frame is its Y plane on
+    all three channels, as cv2 copies it, above 8 bits scaled by
+    convertTo (v / 2 ** (depth - 8), rounded half to even)."""
     c, info, alpha_info, mc, kind = _avif_headers(data)
     width, height = c["ispe"]  # the frame's size (_avif_headers)
     _check_size(width, height)
@@ -2811,12 +2818,28 @@ def _decode_avif(data: bytes) -> np.ndarray:
     rc, planes = native.av1_decode(c["color"], info)
     if rc:
         raise _Corrupt("AV1 frame libaom does not decode")
-    sub = int(info[4])
+    depth = int(info[2])
     if _avif_mono(c, info):
-        return np.repeat(planes[0][:, :, None], 3, axis=2)
+        y = planes[0]
+        if depth > 8:  # Mat::convertTo with scale 2 ** (8 - depth)
+            y = np.minimum(np.rint(y / float(1 << (depth - 8))), 255)
+        return np.repeat(y.astype(np.uint8)[:, :, None], 3, axis=2)
+    sub = 0 if not info[4] else 1 if info[5] else 2
+    if depth > 8:
+        if mc == 0:  # avifImageYUVAnyToRGBAnySlow's float unorm
+            top = np.float32((1 << depth) - 1)
+            planes = [(np.float32(0.5) + p.astype(np.float32) / top
+                       * np.float32(255)).astype(np.uint8) for p in planes]
+        elif alpha_info is not None and (depth == 10 or sub == 1):
+            # with alpha libavif takes libyuv's I010/I210/I410 and
+            # I012 (its 4:2:0 by the nearest sample) at the depth
+            return native.avif_yuv_to_rgb(*planes, 3 if depth == 12 else sub,
+                                          kind, depth)
+        else:  # avifImageDownshiftTo8bpc, then libyuv at 8 bits
+            planes = [p >> (depth - 8) for p in planes]
     if mc == 0:
         return np.stack([planes[2], planes[0], planes[1]], axis=2)
-    return native.avif_yuv_to_rgb(*planes, bool(sub), kind)
+    return native.avif_yuv_to_rgb(*planes, sub, kind)
 
 
 _DECODERS = {"PNG": _decode_png, "JPEG": _decode_jpeg, "TIFF": _decode_tiff,

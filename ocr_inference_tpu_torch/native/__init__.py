@@ -57,6 +57,7 @@ _AV1_LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: dict[str, float] = {}
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
 _U64P = ctypes.POINTER(ctypes.c_uint64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -818,13 +819,13 @@ def _av1_lib() -> ctypes.CDLL:
     if _AV1_LIB is None:
         _AV1_LIB = _load("av1.cpp", {
             "ocr_av1_info": (ctypes.c_int, [_U8P, ctypes.c_int64, _I32P]),
-            "ocr_av1_decode": (ctypes.c_int, [_U8P, ctypes.c_int64, _U8P,
-                                              _U8P, _U8P]),
+            "ocr_av1_decode": (ctypes.c_int, [_U8P, ctypes.c_int64, _U16P,
+                                              _U16P, _U16P]),
             "ocr_av1_decode_counts": (ctypes.c_int, [
-                _U8P, ctypes.c_int64, _U8P, _U8P, _U8P, _I32P]),
+                _U8P, ctypes.c_int64, _U16P, _U16P, _U16P, _I32P]),
             "ocr_avif_yuv_to_rgb": (ctypes.c_int, [
-                _U8P, _U8P, _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, _U8P]),
+                _U16P, _U16P, _U16P, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]),
         })
     return _AV1_LIB
 
@@ -846,20 +847,27 @@ def av1_info(obus: bytes) -> tuple[int, np.ndarray]:
 def _av1_planes(info: np.ndarray) -> list[np.ndarray]:
     w, h, _, _, sx, sy = (int(v) for v in info[:6])
     cw, ch = (w + sx) >> sx, (h + sy) >> sy
-    return [np.zeros((h, w), np.uint8)] + [
-        np.zeros((ch, cw), np.uint8) for _ in range(2)]
+    return [np.zeros((h, w), np.uint16)] + [
+        np.zeros((ch, cw), np.uint16) for _ in range(2)]
+
+
+def _av1_out(planes: list[np.ndarray], info: np.ndarray) -> list[np.ndarray]:
+    """The decoded planes: [Y] of a monochrome frame, uint8 at 8 bits."""
+    planes = planes[:1] if info[3] else planes
+    return [p.astype(np.uint8) for p in planes] if info[2] == 8 else planes
 
 
 def av1_decode(obus: bytes, info: np.ndarray
                ) -> tuple[int, list[np.ndarray]]:
     """Decode the first frame of an AV1 OBU stream whose headers gave
-    ``info`` (av1_info) -> (status, [Y] or [Y, U, V] uint8 planes)."""
+    ``info`` (av1_info) -> (status, [Y] or [Y, U, V] planes): uint8 at
+    8 bits, uint16 samples of 10 or 12 bits above, film grain applied."""
     planes = _av1_planes(info)
     src = np.frombuffer(obus, np.uint8)
     rc = _av1_lib().ocr_av1_decode(
         src.ctypes.data_as(_U8P), src.size,
-        *(p.ctypes.data_as(_U8P) for p in planes))
-    return rc, planes[:1] if info[3] else planes
+        *(p.ctypes.data_as(_U16P) for p in planes))
+    return rc, _av1_out(planes, info)
 
 
 def av1_decode_counts(obus: bytes, info: np.ndarray
@@ -868,36 +876,47 @@ def av1_decode_counts(obus: bytes, info: np.ndarray
     last (av1.cpp ocr_av1_decode_counts): blocks with a Y palette, with a
     UV palette and intra block copies, Wiener and self-guided restoration
     units, the Y and UV palettes by size (lists for sizes 2 to 8) and the
-    intra block copies narrower or shorter than 8 ("intrabc_sub8"). For
-    tests and the card check; read_image does not ask."""
+    intra block copies narrower or shorter than 8 ("intrabc_sub8"), and
+    the film grain it applied: "grain" 1 where it did, the number of Y, Cb
+    and Cr scaling points ("grain_points"), "grain_from_luma"
+    (chroma_scaling_from_luma), "grain_overlap", "grain_clip"
+    (clip_to_restricted_range) and "grain_ar_lag". For tests and the card
+    check; read_image does not ask."""
     planes = _av1_planes(info)
-    counts = np.zeros(20, np.int32)
+    counts = np.zeros(28, np.int32)
     src = np.frombuffer(obus, np.uint8)
     rc = _av1_lib().ocr_av1_decode_counts(
         src.ctypes.data_as(_U8P), src.size,
-        *(p.ctypes.data_as(_U8P) for p in planes),
+        *(p.ctypes.data_as(_U16P) for p in planes),
         counts.ctypes.data_as(_I32P))
     names = ("palette_y", "palette_uv", "intrabc", "wiener", "self_guided")
     used = dict(zip(names, (int(c) for c in counts[:5])))
     used["palette_y_sizes"] = [int(c) for c in counts[5:12]]
     used["palette_uv_sizes"] = [int(c) for c in counts[12:19]]
     used["intrabc_sub8"] = int(counts[19])
-    return rc, planes[:1] if info[3] else planes, used
+    used["grain"] = int(counts[20])
+    used["grain_points"] = [int(c) for c in counts[21:24]]
+    for name, c in zip(("grain_from_luma", "grain_overlap", "grain_clip",
+                        "grain_ar_lag"), counts[24:28]):
+        used[name] = int(c)
+    return rc, _av1_out(planes, info), used
 
 
 def avif_yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray,
-                    subsampled: bool, kind: int) -> np.ndarray:
-    """8-bit 4:4:4 or 4:2:0 planes -> (H, W, 3) RGB through libyuv's
-    fixed-point conversion with constants ``kind`` (av1.cpp's
-    ocr_avif_yuv_to_rgb: 0 BT.601 full range, 1 BT.601 limited, 2 BT.709
-    full, 3 BT.709 limited, 4 BT.2020 full, 5 BT.2020 limited), the chroma
-    upsampled bilinearly as libyuv's *MatrixFilter functions do."""
+                    sub: int, kind: int, depth: int = 8) -> np.ndarray:
+    """Planes of ``depth`` 8, 10 or 12 bits, 4:4:4 (``sub`` 0), 4:2:0 (1),
+    4:2:2 (2) or 4:2:0 upsampled by the nearest sample (3) -> (H, W, 3)
+    RGB through libyuv's fixed-point conversion with constants ``kind``
+    (av1.cpp's ocr_avif_yuv_to_rgb: 0 BT.601 full range, 1 BT.601 limited,
+    2 BT.709 full, 3 BT.709 limited, 4 BT.2020 full, 5 BT.2020 limited),
+    the chroma upsampled as libyuv's *MatrixFilter functions do: bilinearly
+    at 4:2:0, linearly along each row at 4:2:2."""
     h, w = y.shape
     out = np.empty((h, w, 3), np.uint8)
-    planes = [np.ascontiguousarray(p, dtype=np.uint8) for p in (y, u, v)]
+    planes = [np.ascontiguousarray(p, dtype=np.uint16) for p in (y, u, v)]
     rc = _av1_lib().ocr_avif_yuv_to_rgb(
-        *(p.ctypes.data_as(_U8P) for p in planes), w, h, int(subsampled),
-        kind, out.ctypes.data_as(_U8P))
+        *(p.ctypes.data_as(_U16P) for p in planes), w, h, sub,
+        kind, depth, out.ctypes.data_as(_U8P))
     if rc:
         raise ValueError(f"no libyuv constants {kind}")
     return out

@@ -2122,11 +2122,116 @@ def screen_content_avif(path, seed: int = 0) -> None:
 
 
 def ten_bit_avif(path, seed: int = 0) -> None:
-    """A 64x64 AVIF of 10 bits (cv2 from uint16 random dots), a variant
-    the port's AVIF reader refuses by name."""
+    """A 64x64 AVIF of 10 bits (cv2 from uint16 random dots)."""
     import cv2
 
     rng = np.random.default_rng(seed)
     dots = np.where(rng.random((64, 64)) < 0.3, 160, 940).astype(np.uint16)
     assert cv2.imwrite(str(path), np.repeat(dots[..., None], 3, 2),
                        [cv2.IMWRITE_AVIF_DEPTH, 10])
+
+
+def sequence_avif(path, seed: int = 0) -> None:
+    """A 64x64 AVIF image sequence of three frames of random dots as
+    Pillow writes it (save_all, major brand avis), a variant the port's
+    AVIF reader refuses by name."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    frames = [Image.fromarray(np.where(rng.random((64, 64, 3)) < 0.3, 40,
+                                       235).astype(np.uint8))
+              for _ in range(3)]
+    frames[0].save(path, "AVIF", save_all=True, append_images=frames[1:])
+
+
+def _libavif():
+    """The libavif (1.4) bundled with cv2 (opencv_python.libs), whose
+    encoder is libaom's, with the functions libavif_encode calls
+    declared."""
+    import ctypes
+
+    import cv2
+
+    libs = Path(cv2.__file__).parent.parent / "opencv_python.libs"
+    lib = ctypes.CDLL(str(sorted(libs.glob("libavif-*.so*"))[0]))
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    for name, res, args in (
+            ("avifImageCreate", vp, [u32, u32, u32, ctypes.c_int]),
+            ("avifImageAllocatePlanes", ctypes.c_int, [vp, ctypes.c_int]),
+            ("avifImageDestroy", None, [vp]),
+            ("avifEncoderCreate", vp, []),
+            ("avifEncoderSetCodecSpecificOption", ctypes.c_int,
+             [vp, ctypes.c_char_p, ctypes.c_char_p]),
+            ("avifEncoderWrite", ctypes.c_int, [vp, vp, vp]),
+            ("avifEncoderDestroy", None, [vp]),
+            ("avifRWDataFree", None, [vp])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def libavif_encode(planes: list[np.ndarray], depth: int, layout: str,
+                   full_range: bool = True, matrix: int = 2, speed: int = 6,
+                   quality: int = 60, alpha: np.ndarray | None = None,
+                   options: dict | None = None) -> bytes:
+    """An AVIF of YUV planes as libavif's encoder (libaom) writes it: Y, U
+    and V (or Y alone for ``layout`` "400"; "420", "422" or "444" else)
+    of ``depth`` 8, 10 or 12 bits, the range and matrix coefficients set
+    in the image (and so in its colr box), an alpha plane of the same
+    depth where given, and libaom's codec-specific ``options`` (e.g.
+    film-grain-test, denoise-noise-level). Reaches what cv2 and Pillow do
+    not write: 4:2:2 and 4:4:4 above 8 bits, and film grain above 8 bits.
+    Fields of libavif 1.4's avifImage and avifEncoder are set by offset."""
+    import ctypes
+
+    lib = _libavif()
+    h, w = planes[0].shape
+    image = lib.avifImageCreate(w, h, depth, {"444": 1, "422": 2, "420": 3,
+                                              "400": 4}[layout])
+    ctypes.c_uint32.from_address(image + 16).value = int(full_range)
+    ctypes.c_uint16.from_address(image + 108).value = matrix
+    lib.avifImageAllocatePlanes(image, 1 if alpha is None else 3)
+    dtype = np.uint16 if depth > 8 else np.uint8
+    rows = [(ctypes.c_void_p.from_address(image + 24 + 8 * p).value,
+             ctypes.c_uint32.from_address(image + 48 + 4 * p).value, plane)
+            for p, plane in enumerate(planes)]
+    if alpha is not None:
+        rows.append((ctypes.c_void_p.from_address(image + 64).value,
+                     ctypes.c_uint32.from_address(image + 72).value, alpha))
+    for at, row_bytes, plane in rows:
+        plane = np.ascontiguousarray(plane, dtype=dtype)
+        for r in range(plane.shape[0]):
+            ctypes.memmove(at + r * row_bytes, plane[r].ctypes.data,
+                           plane[r].nbytes)
+    encoder = lib.avifEncoderCreate()
+    ctypes.c_int32.from_address(encoder + 8).value = speed
+    ctypes.c_int32.from_address(encoder + 32).value = quality
+    for key, value in (options or {}).items():
+        assert lib.avifEncoderSetCodecSpecificOption(
+            encoder, key.encode(), str(value).encode()) == 0, key
+    out = (ctypes.c_uint8 * 16)()  # avifRWData: data, size
+    try:
+        assert lib.avifEncoderWrite(encoder, image, ctypes.addressof(out)) == 0
+        at = ctypes.c_void_p.from_address(ctypes.addressof(out)).value
+        size = ctypes.c_size_t.from_address(ctypes.addressof(out) + 8).value
+        return ctypes.string_at(at, size)
+    finally:
+        lib.avifRWDataFree(ctypes.addressof(out))
+        lib.avifEncoderDestroy(encoder)
+        lib.avifImageDestroy(image)
+
+
+def ycbcr_planes(rgb: np.ndarray, layout: str, depth: int
+                 ) -> list[np.ndarray]:
+    """An RGB image's BT.601 full-range Y, Cb and Cr (cv2's YCrCb),
+    subsampled by taking every other sample for ``layout`` "420" or
+    "422", and widened to ``depth`` bits (Y alone for "400")."""
+    import cv2
+
+    ycc = cv2.cvtColor(rgb, cv2.COLOR_RGB2YCrCb).astype(np.uint16)
+    ycc <<= depth - 8
+    y, cb, cr = ycc[..., 0], ycc[..., 2], ycc[..., 1]
+    if layout == "400":
+        return [y]
+    step = {"444": (1, 1), "422": (1, 2), "420": (2, 2)}[layout]
+    return [y, cb[::step[0], ::step[1]], cr[::step[0], ::step[1]]]

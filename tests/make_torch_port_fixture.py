@@ -912,6 +912,13 @@ IMAGES = OUT / "images"
 BENCH_JPEG_QUALITY = 0  # set by images(): the quality bench_cfg4.jpg has
 
 
+def widen(img, depth):
+    """An 8-bit image as uint16 of ``depth`` bits, its low bits repeating
+    its high ones (as a scan of that depth would not leave them zero)."""
+    wide = img.astype(np.uint16)
+    return (wide << (depth - 8)) | (wide >> (16 - depth))
+
+
 def flat_page(img):
     """A fixture page as a clean scan: paper 235, ink 40."""
     ink = img.astype(np.int32).mean(axis=2) <= 128
@@ -1000,6 +1007,11 @@ def write_image_files(pages) -> dict[str, str]:
     ok, data = cv2.imencode(".avif", bench)
     (IMAGES / "bench_cfg4.avif").write_bytes(data.tobytes())
     kinds["bench_cfg4.avif"] = "AVIF cv2 default, bench.py config 4 page"
+    ok, data = cv2.imencode(".avif", widen(bench, 10),
+                            [cv2.IMWRITE_AVIF_DEPTH, 10])
+    (IMAGES / "bench_cfg4_10bit.avif").write_bytes(data.tobytes())
+    kinds["bench_cfg4_10bit.avif"] = "AVIF of 10 bits (cv2 from uint16), " \
+        "bench.py config 4 page"
     return kinds
 
 
@@ -1445,9 +1457,12 @@ def avif_files(folder, by_name, flat) -> dict[str, str]:
     superblocks in two tiles, a page with an alpha item, the clean page at
     Pillow's default and the other at cv2's speed 6 (screen-content tools:
     palettes, intra block copies), the scanned page at Pillow's speed 2
-    (loop restoration), and in images/none/ an AVIF cut inside its AV1
-    data. Returns {file: kind}; the bench-size AVIF is written by
-    write_image_files."""
+    (loop restoration), a clean page of 10 bits and the scanned page of
+    12 bits (cv2 from uint16; 12 bits is AV1 profile 2), the other clean
+    page in Pillow's 4:2:2 (profile 2), the scanned page with the film
+    grain libaom's denoiser estimates, and in images/none/ an AVIF cut
+    inside its AV1 data. Returns {file: kind}; the bench-size AVIFs are
+    written by write_image_files."""
     import io
 
     import cv2
@@ -1493,6 +1508,27 @@ def avif_files(folder, by_name, flat) -> dict[str, str]:
     (folder / "skew_2deg_speed2.avif").write_bytes(buf.getvalue())
     kinds["skew_2deg_speed2.avif"] = "AVIF Pillow speed 2 of the scanned " \
         "JPEG page (loop restoration: self-guided units)"
+    assert cv2.imwrite(str(folder / "clean_a_10bit.avif"),
+                       widen(by_name["clean_a"][..., ::-1], 10),
+                       [cv2.IMWRITE_AVIF_DEPTH, 10])
+    kinds["clean_a_10bit.avif"] = "AVIF of 10 bits (cv2 from uint16, " \
+        "4:2:0, profile 0)"
+    assert cv2.imwrite(str(folder / "skew_2deg_12bit.avif"),
+                       widen(scan[..., ::-1], 12),
+                       [cv2.IMWRITE_AVIF_DEPTH, 12])
+    kinds["skew_2deg_12bit.avif"] = "AVIF of 12 bits of the scanned JPEG " \
+        "page (cv2 from uint16, 4:2:0, profile 2)"
+    buf = io.BytesIO()
+    Image.fromarray(flat["clean_b"]).save(buf, "AVIF", subsampling="4:2:2")
+    (folder / "clean_b_422.avif").write_bytes(buf.getvalue())
+    kinds["clean_b_422.avif"] = "AVIF Pillow 4:2:2 (profile 2, 8 bits; " \
+        "palettes and intra block copies)"
+    buf = io.BytesIO()
+    Image.fromarray(scan).save(buf, "AVIF",
+                               advanced={"denoise-noise-level": "25"})
+    (folder / "skew_2deg_grain.avif").write_bytes(buf.getvalue())
+    kinds["skew_2deg_grain.avif"] = "AVIF Pillow of the scanned JPEG page " \
+        "denoised by libaom, with the film grain it estimates"
     data = (folder / "clean_a_speed9.avif").read_bytes()
     (IMAGES / "none" / "clean_a_cut.avif").write_bytes(
         data[:len(data) * 3 // 4])
@@ -1529,15 +1565,16 @@ def images() -> int:
     kinds = write_image_files(pages)
     files = sorted((IMAGES / "pages").iterdir()) + [
         IMAGES / "bench_cfg4.jpg", IMAGES / "bench_cfg4.jp2",
-        IMAGES / "bench_cfg4.webp", IMAGES / "bench_cfg4.avif"] + sorted(
+        IMAGES / "bench_cfg4.webp", IMAGES / "bench_cfg4.avif",
+        IMAGES / "bench_cfg4_10bit.avif"] + sorted(
         (IMAGES / "none").iterdir())
     total = sum(p.stat().st_size for p in files)
-    assert total < 5700 * 1024, f"{total} bytes of image files"
+    assert total < 6000 * 1024, f"{total} bytes of image files"
     newest = sum(p.stat().st_size for p in files if p.suffix in (
         ".gif", ".webp", ".ras", ".pfm", ".hdr"))
     assert newest < 1500 * 1024, f"{newest} bytes of the newest formats"
     avif = sum(p.stat().st_size for p in files if p.suffix == ".avif")
-    assert avif < 600 * 1024, f"{avif} bytes of AVIF files"
+    assert avif < 900 * 1024, f"{avif} bytes of AVIF files"
     record = {"bench_jpeg_quality": BENCH_JPEG_QUALITY, "files": {},
               "bocr": {}, "bocr_lines": {}}
     for path in files:

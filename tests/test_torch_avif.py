@@ -528,13 +528,13 @@ def _rename_box(data: bytes, old: bytes, new: bytes, nth: int = 0) -> bytes:
 
 
 def test_refused_variants(tmp_path):
-    """Each refused variant made by a tool that writes it: Pillow's 4:2:2
-    is AV1 profile 2; cv2 writes 10 bits from uint16; libaom's film-grain
-    test vector adds grain; a grid item, an image sequence, a layered item
-    and an ispe other than the frame's size are made by editing cv2's
-    file. The variants read since (Pillow's default on the clean bitmap
-    page sets screen-content tools; Pillow at speed 2 on the scanned page
-    restores loops) read equal to cv2."""
+    """Each refused variant made by editing cv2's file: a grid item, an
+    image sequence, a layered item and an ispe other than the frame's
+    size. The variants read since read equal to cv2: Pillow's default on
+    the clean bitmap page sets screen-content tools; Pillow at speed 2 on
+    the scanned page restores loops; Pillow's 4:2:2 is AV1 profile 2; cv2
+    writes 10 bits from uint16; libaom's film-grain test vector adds
+    grain."""
     path = tmp_path / "x.avif"
     clean = _cv2_rgb(IMAGES / "pages" / "clean_b_24.bmp")
     assert _same(path, _pil_avif(clean)) is not None
@@ -542,12 +542,18 @@ def test_refused_variants(tmp_path):
     data = _pil_avif(page[:200, :300], speed=2)
     assert _same(path, data) is not None
     assert _counts(data)["self_guided"] + _counts(data)["wiener"] > 0
-    _refusal(path, _pil_avif(page[:64, :96], subsampling="4:2:2", speed=9),
-             "profile 2")
-    _refusal(path, _cv2_avif(page[:64, :96].astype(np.uint16) * 4,
-                             cv2.IMWRITE_AVIF_DEPTH, 10), "more than 8 bits")
-    _refusal(path, _pil_avif(page[:64, :96], speed=9,
-                             advanced={"film-grain-test": "1"}), "film grain")
+    data = _pil_avif(page[:64, :96], subsampling="4:2:2", speed=9)
+    assert native.av1_info(_avif_container(data)["color"])[1][4:6].tolist() \
+        == [1, 0]
+    assert _same(path, data) is not None
+    data = _cv2_avif(page[:64, :96].astype(np.uint16) * 4,
+                     cv2.IMWRITE_AVIF_DEPTH, 10)
+    assert native.av1_info(_avif_container(data)["color"])[1][2] == 10
+    assert _same(path, data) is not None
+    data = _pil_avif(page[:64, :96], speed=9,
+                     advanced={"film-grain-test": "1"})
+    assert _counts(data)["grain"] == 1
+    assert _same(path, data) is not None
     base = _cv2_avif(page[:64, :96])
     assert _same(tmp_path / "ok.avif", base) is not None
     _refusal(path, _rename_box(base, b"av01", b"grid"), "grid")

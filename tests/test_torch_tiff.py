@@ -22,7 +22,7 @@ from ocr_inference_tpu_torch.io.images import (
 )
 from tests.image_writers import (
     ccitt_2d, jpeg_arith, old_style_lzw, screen_content_avif,
-    split_jpeg_tables, ten_bit_avif, write_tiff,
+    sequence_avif, split_jpeg_tables, ten_bit_avif, write_tiff,
 )
 
 # (photometric, bits, samples per pixel)
@@ -299,7 +299,10 @@ def test_bigtiff_and_other_formats_refused_by_name(tmp_path):
     _assert_same_as_cv2(path)
     path = tmp_path / "ten.avif"
     ten_bit_avif(path)
-    with pytest.raises(NotImplementedError, match="AVIF of more than 8 bits"):
+    _assert_same_as_cv2(path)
+    path = tmp_path / "frames.avif"
+    sequence_avif(path)
+    with pytest.raises(NotImplementedError, match="AVIF image sequences"):
         read_image(path)
 
 
