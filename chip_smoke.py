@@ -64,7 +64,7 @@ and prints one JSON line for each:
                   values more than one gray level apart (a flipped mask
                   pixel moves a strip pixel between ink and blank);
 8. dewarp_volume_bf16 — the main path of the dewarp: bench.py config 2's
-                  shape, 24 curved pages through VolumeRunner
+                  shape, 12 curved pages through VolumeRunner
                   (geometry_workers=2, use_tps=True) at its defaults, warmed
                   on 4 pages and warm_shapes(), exports in the timed run;
                   the same pages through a run_ocr(use_tps=True) loop;
@@ -193,7 +193,12 @@ and prints one JSON line for each:
                   default, the other at cv2 speed 6, the scanned page at
                   Pillow speed 2) with av1.cpp's counts of the palettes,
                   intra block copies and restoration units they use, the
-                  first of them through bocr --image;
+                  first of them through bocr --image; since the slice of
+                  depths and grain four pages of 10 and 12 bits, 4:2:2
+                  and film grain; since the slice of grids and sequences
+                  a 2x2 grid page and a sequence's first frame (each
+                  through bocr --image, with its cells or frames and
+                  source) and a lossless JPEG with subsampled components;
 20. train_rec_f32 — Easter2 from full77f, five float32 train steps (TF32
                   off) on recognizer_batch batches of full77f's recipe (32
                   canvases of 80x512, binarized on the card by
@@ -1158,7 +1163,9 @@ def warp_device_ms(inputs) -> dict:
         }
 
 
-DEWARP_PAGES = 24
+# the curved volume's pages: few enough to keep the script well inside its
+# time limit
+DEWARP_PAGES = 12
 
 
 @phase("dewarp_volume_bf16")
@@ -2296,6 +2303,28 @@ DEPTH_AVIF_PAGES = {"clean_a_10bit.avif": (10, "4:2:0", 0),
                     "clean_b_422.avif": (8, "4:2:2", 0),
                     "skew_2deg_grain.avif": (8, "4:2:0", 1)}
 BOCR_IMAGE_DEPTH_AVIF_PAGES = ("clean_a_10bit.avif", "skew_2deg_grain.avif")
+# the pages of the slice of AVIF grids and sequences, each through bocr
+# --image: (source, colour cells or frames, output width and height, alpha)
+GRID_SEQUENCE_AVIF_PAGES = {"clean_a_grid.avif": ("item", 4, (1024, 576),
+                                                  False),
+                            "skew_2deg_seq.avif": ("track", 3, (1024, 528),
+                                                   True)}
+# and its lossless JPEG page with subsampled components (bocr --folder)
+LOSSLESS_SUBSAMPLED_PAGE = "clean_a_lossless_h2v2.jpg"
+
+
+def avif_structure(path: Path) -> dict:
+    """What libavif reads of an AVIF file, as io/images.py finds it: the
+    source (primary item or track), the colour cells (a grid's) or the
+    track's frames, the output size and whether an alpha image is
+    decoded."""
+    from ocr_inference_tpu_torch.io.images import _avif_container
+
+    c = _avif_container(path.read_bytes())
+    return {"source": c["source"],
+            "cells": len(c["cells"]), "frames": c["frames"],
+            "grid": None if c["grid"] is None else list(c["grid"]),
+            "output": list(c["ispe"]), "alpha": c["alpha"] is not None}
 
 
 def av1_tool_counts(path: Path) -> dict:
@@ -2307,7 +2336,7 @@ def av1_tool_counts(path: Path) -> dict:
     from ocr_inference_tpu_torch import native
     from ocr_inference_tpu_torch.io.images import _avif_container
 
-    obus = _avif_container(path.read_bytes())["color"]
+    obus = _avif_container(path.read_bytes())["cells"][0]
     rc, info = native.av1_info(obus)
     used = {}
     if rc == 0:
@@ -2529,7 +2558,14 @@ def image_formats(results: dict):
     bit depth, subsampling and film grain counts (each must show the depth,
     subsampling and grain DEPTH_AVIF_PAGES names), those of
     BOCR_IMAGE_DEPTH_AVIF_PAGES through bocr --image at 0.0 CER with equal
-    boxes, and the bench-size 10-bit AVIF's decode ms."""
+    boxes, and the bench-size 10-bit AVIF's decode ms. Since the slice of
+    grids and sequences the pages of GRID_SEQUENCE_AVIF_PAGES (a 2x2 grid
+    whose output cuts its last row and column of cells; the first frame of
+    a three-frame sequence with an alpha track), each with its decode ms
+    and structure (avif_structure: the source, cells or frames, output
+    size, alpha), each as GRID_SEQUENCE_AVIF_PAGES says and through bocr
+    --image at 0.0 CER with equal boxes; and LOSSLESS_SUBSAMPLED_PAGE, a
+    lossless JPEG whose G and B are sampled 2x2, with its decode ms."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2552,7 +2588,8 @@ def image_formats(results: dict):
     # and the first page of TOOL_AVIF_PAGES and those of
     # BOCR_IMAGE_DEPTH_AVIF_PAGES
     cli_pages += [pages_dir / n for n in (next(iter(TOOL_AVIF_PAGES)),
-                                          *BOCR_IMAGE_DEPTH_AVIF_PAGES)
+                                          *BOCR_IMAGE_DEPTH_AVIF_PAGES,
+                                          *GRID_SEQUENCE_AVIF_PAGES)
                   if pages_dir / n not in cli_pages]
     in_process = [p for p in image_pages if p not in cli_pages]
     checks, files = {}, {}
@@ -2587,6 +2624,23 @@ def image_formats(results: dict):
             tools.get("grain")) == (depth, sub, grain)
     checks["depth_avif_pages_as_expected"] = all(
         p["as_expected"] and p["equal_cv2"] for p in depth_pages.values())
+    grid_pages = {}
+    for name, (source, count, size, alpha) in \
+            GRID_SEQUENCE_AVIF_PAGES.items():
+        f = files.get(f"pages/{name}", {})
+        got = avif_structure(pages_dir / name) if f else {}
+        grid_pages[name] = {"decode_ms": f.get("decode_ms"),
+                            "equal_cv2": f.get("equal_cv2"), **got}
+        grid_pages[name]["as_expected"] = bool(got) and (
+            got["source"], got["cells"] if source == "item"
+            else got["frames"], tuple(got["output"]), got["alpha"]) == (
+            source, count, size, alpha)
+        print(f"{name}: {grid_pages[name]}", flush=True)
+    checks["grid_sequence_avif_pages_as_expected"] = all(
+        p["as_expected"] and p["equal_cv2"] for p in grid_pages.values())
+    lossless = files.get(f"pages/{LOSSLESS_SUBSAMPLED_PAGE}", {})
+    checks["lossless_subsampled_jpeg_equals_cv2"] = bool(
+        lossless.get("equal_cv2"))
     with tempfile.TemporaryDirectory() as tmp:
         copies = full_page_copies(Path(tmp))
     checks["full_page_copies_equal_source"] = all(
@@ -2655,6 +2709,11 @@ def image_formats(results: dict):
             n in avif_cli for n in BOCR_IMAGE_DEPTH_AVIF_PAGES)
         for n in BOCR_IMAGE_DEPTH_AVIF_PAGES:
             depth_pages[n]["bocr_image_f32"] = per_page.get(n)
+        checks["grid_sequence_avif_pages_through_bocr_image"] = all(
+            n in avif_cli for n in GRID_SEQUENCE_AVIF_PAGES)
+        for n in GRID_SEQUENCE_AVIF_PAGES:
+            grid_pages[n]["bocr_image_f32"] = per_page.get(n)
+        lossless["bocr_f32"] = per_page.get(LOSSLESS_SUBSAMPLED_PAGE)
 
         t0 = time.perf_counter()
         bf16 = full77f_pipeline(torch.bfloat16)
@@ -2761,13 +2820,15 @@ def image_formats(results: dict):
     bench_avif = files.get("bench_cfg4.avif", {})
     bench_avif10 = files.get("bench_cfg4_10bit.avif", {})
     checks["avif_files_in_record"] = sum(
-        rel.endswith(".avif") for rel in files) >= 15
+        rel.endswith(".avif") for rel in files) >= 17
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
             "bench_webp_decode_ms": bench_webp.get("decode_ms"),
             "bench_avif_decode_ms": bench_avif.get("decode_ms"),
             "bench_avif_10bit_decode_ms": bench_avif10.get("decode_ms"),
             "depth_avif_pages": depth_pages,
+            "grid_sequence_avif_pages": grid_pages,
+            "lossless_subsampled_jpeg": lossless,
             "full_page_copies": copies,
             "pool_decode": pool, "pages": per_page, "runs": runs,
             "page_loop_bf16": loop, "bocr_lines": rows,

@@ -23,9 +23,12 @@ gives in RGB order:
   CMYK, then RGB as OpenCV converts CMYK; a progressive file whose scans
   leave low coefficients unsent or short of bits (cut short, or complete)
   smoothed as libjpeg smooths it; corrupt data as libjpeg treats it.
-  Lossless JPEG (SOF3: predictors 1-7, point transform, restarts) of 2-8
-  bits decodes where libjpeg-turbo need not convert its colours for
-  OpenCV: RGB (no JFIF marker, Adobe transform 0 or none) and CMYK; gray,
+  Lossless JPEG (SOF3: predictors 1-7, point transform, restarts, any
+  integral sampling factors, in one interleaved scan or one scan a
+  component, subsampled components replicated as libjpeg-turbo's lossless
+  mode upsamples them) of 2-8 bits decodes where libjpeg-turbo need not
+  convert its colours for OpenCV: RGB (no JFIF marker, Adobe transform 0
+  or none) and CMYK; a component no scan reached gives None; gray,
   YCbCr and YCCK lossless frames, lossless frames of 9-16 bits,
   arithmetic-coded lossless (SOF11) and 12-bit DCT frames give None, as
   OpenCV 5.0 reads only 8-bit samples;
@@ -105,13 +108,20 @@ gives in RGB order:
 - Radiance HDR (``#?RADIANCE`` or ``#?RGBE``, FORMAT=32-bit_rle_rgbe, -Y
   +X): run-length and flat scanlines as rgbe.cpp reads them, then times
   255, rounded and saturated;
-- AVIF (an ftyp box whose brands, major or compatible, include avif): the
-  primary item's container as libavif 1.4.2 reads it for cv2 (meta with
+- AVIF (an ftyp box whose brands, major or compatible, include avif or
+  avis): the image libavif 1.4.2 reads for cv2, from the source its
+  AVIF_DECODER_SOURCE_AUTO picks (major brand avis, or another than avif
+  where a moov was read: the colour track of the moov, its first sample,
+  with the track that is its alpha; else meta's primary item: meta with
   hdlr pict, pitm, iloc v0-2 with several extents and idat, iinf/infe
-  v2-3, iref, iprp/ipco/ipma and the properties ispe, pixi, av1C, colr,
-  auxC; an essential property libavif does not know skips the item) and
-  its AV1 key frame decoded as the specification decodes it, so as
-  libaom decodes it (native/av1.cpp: reduced or full sequence headers,
+  v2-3, iref, iprp/ipco/ipma, every property parsed as libavif parses it
+  and an essential one it does not know skipping the item; an av01 item
+  or a grid item of av01 cells, stitched and cut to its output size, with
+  an alpha item or grid), cv2's signature check (libavif's parse of the
+  first 500 bytes; a read past them gives None), and each AV1 frame
+  decoded as the specification decodes it, so as libaom decodes it (what
+  follows it read as libaom reads it) (native/av1.cpp: reduced or full
+  sequence headers,
   4:2:0, 4:2:2 (AV1 profile 2), 4:4:4 and monochrome at 8, 10 and 12
   bits, 64x64 and 128x128 superblocks, uniform and explicit tiles, every
   intra tool, the screen-content tools palette and intra block copy,
@@ -120,18 +130,23 @@ gives in RGB order:
   synthesised as libaom adds it); then libavif's YUV -> RGB: 10 and 12
   bits shifted down to 8, then libyuv's fixed-point constants for
   BT.601, BT.709 and BT.2020 (unspecified as BT.601) at full and limited
-  range with bilinear 4:2:0 and linear 4:2:2 upsampling, the identity
-  matrix as G = Y, B = U, R = V (above 8 bits libavif's float unorm),
-  and a monochrome frame's Y on all three channels, as cv2 copies it (a
-  colour frame too, where its av1C says monochrome; above 8 bits scaled
-  to 8 and rounded half to even, as Mat::convertTo). An alpha item is
-  decoded (a
-  failure there fails the read) and dropped; irot, imir and clap are not
-  applied, as cv2 does not apply them. A file cut short, a box libavif
-  rejects (a child past its
-  parent, versions and reserved fields it checks, pixi depths other than
-  av1C's), a frame libaom fails on (a bad header, tile data that
-  overruns or leaves other than the trailing bits after it) gives None;
+  range with bilinear 4:2:0 and linear 4:2:2 upsampling; libavif's own
+  float conversion for FCC, SMPTE 240, YCgCo, YCgCo-Re (10 bits to 8),
+  the chroma-derived matrix of other primaries and the identity matrix
+  above 8 bits or on limited range (at 8 bits of full range G = Y, B = U,
+  R = V); colour premultiplied by its alpha divided by it (libyuv's
+  ARGBUnattenuate, or in libavif's float conversion); a monochrome
+  frame's Y on all three channels, as cv2 copies it (a colour frame too,
+  where its av1C says monochrome; above 8 bits scaled to 8 and rounded
+  half to even, as Mat::convertTo). An alpha item, grid or track is
+  decoded (a failure there fails the read) and dropped; irot, imir and
+  clap are not applied, as cv2 does not apply them. A file cut short, a
+  box libavif rejects (a child past its parent, versions and reserved
+  fields it checks, pixi depths other than av1C's, a grid's cells that do
+  not match or cover it), a conversion libavif fails on (the identity
+  matrix with subsampled chroma, YCgCo on limited range), a frame libaom
+  fails on (a bad header, tile data that overruns or leaves other than
+  the trailing bits after it) gives None;
 - EXIF orientation 2-8 is applied as cv2 applies it, from a JPEG's first
   APP1 segment and from a PNG's ``eXIf`` chunk. A TIFF's orientation is
   applied as cv2 5.0 applies it: 4 flips top-bottom; 2 flips each strip or
@@ -152,18 +167,17 @@ gives in RGB order:
 What cv2 reads and this does not raises ``NotImplementedError`` naming
 it, so that no page is skipped silently: a TIFF compression libtiff does
 not know (JPEG 2000 in TIFF 34712, JPEG XL 50002, any other number; cv2
-gives an all-zero page for those), lossless JPEG with subsampled
-components, JPEG 2000 with HT code-blocks (HTJ2K, Part 15: code-block
-style bit 6 in a COD or COC marker of the main or a tile-part header),
-which OpenJPEG 2.5 decodes, and these AVIF variants, which cv2 reads
-through libavif and libaom: a frame with superres (no tool at hand writes
-one to test against), a grid (dimg) item, an image
-sequence (major brand avis, or a moov track), a layered item (lsel, a1lx,
-a1op, or more than one operating point), premultiplied alpha, an ispe
-other than the frame's size (libavif scales the frame to it), and
-matrices libavif converts without libyuv (FCC, SMPTE 240, YCgCo; the
-identity matrix on limited range or subsampled chroma).
-``unsupported(path)`` tells these from the headers, without decoding.
+gives an all-zero page for those), JPEG 2000 with HT code-blocks (HTJ2K,
+Part 15: code-block style bit 6 in a COD or COC marker of the main or a
+tile-part header), which OpenJPEG 2.5 decodes, and these AVIF variants,
+which cv2 reads through libavif and libaom: a frame with superres (no
+tool at hand writes one to test against), a layered item (lsel, a1lx,
+a1op, or more than one operating point: its layers after the first are
+AV1 inter frames), a grid of such cells, an ispe (or a track's size)
+other than the frame's (libavif scales the frame to it), premultiplied
+alpha at 12 bits 4:2:0 through libyuv, or of another size than the
+colour. ``unsupported(path)`` tells these from the headers, without
+decoding.
 """
 
 from __future__ import annotations
@@ -208,9 +222,6 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-
-# jpeg.cpp's status codes for the variants it does not decode
-_JPEG_VARIANTS = {3: "lossless JPEG with subsampled components"}
 
 # TIFF compressions decoded here (NeXT: only at 2 bits, which cv2 5.0
 # does not read; its pages give None)
@@ -314,11 +325,7 @@ def unsupported(path: str | Path) -> str | None:
         return f"{fmt} images are not supported"
     try:
         data = Path(path).read_bytes()
-        if fmt == "JPEG":
-            rc = native.jpeg_header(data)[0]
-            if rc > 1:
-                return f"{_JPEG_VARIANTS[rc]} is not supported"
-        elif fmt == "TIFF":
+        if fmt == "TIFF":
             _tiff_first_page(data)
         elif fmt == "JPEG 2000":
             _jp2_header(data)
@@ -528,10 +535,8 @@ def _jpeg_app1(data: bytes) -> bytes:
 
 def _decode_jpeg(data: bytes) -> np.ndarray:
     rc, img = native.jpeg_decode(data)
-    if rc == 1:
-        raise _Corrupt("JPEG data cv2 cannot read")
     if rc:
-        raise NotImplementedError(f"{_JPEG_VARIANTS[rc]} is not supported")
+        raise _Corrupt("JPEG data cv2 cannot read")
     if img.shape[2] == 1:
         img = np.repeat(img, 3, axis=2)
     return _apply_orientation(img, _exif_orientation(_jpeg_app1(data)))
@@ -688,15 +693,6 @@ def _tiff_first_page(data: bytes) -> tuple[str, dict]:
             _TIFF_COMPRESSION_NAMES.get(
                 compression, f"TIFF compression {compression}")
             + " is not supported")
-    if compression == 7:
-        rgb = int(_tiff_photometric(tags) == 6 and not (
-            tags.get(284, (1,))[0] == 2 and tags.get(277, (1,))[0] > 1))
-        with native.JpegTiffTables(tags.get(347, (b"",))[0]) as tables:
-            for off, cnt in _tiff_chunks(tags) if not tables.status else ():
-                rc = tables.header(data[off: off + cnt], color=rgb)[0]
-                if rc in _JPEG_VARIANTS:
-                    raise NotImplementedError(
-                        f"{_JPEG_VARIANTS[rc]} in TIFF is not supported")
     return order, tags
 
 
@@ -2385,9 +2381,12 @@ _AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
                     b"urn:mpeg:hevc:2015:auxid:1")
 # av1.cpp's status codes for the variants it refuses (superres: no tool at
 # hand writes it, so no decode of it could be held against cv2's)
+_AV1_NO_FRAME = 9  # av1.cpp: OBUs libaom reads that hold no frame
 _AV1_VARIANTS = {
     3: "AVIF with superres",
-    7: "layered AVIF (more than one operating point)",
+    7: "layered AVIF (more than one operating point; its layers after "
+       "the first are AV1 inter frames, which this intra decoder does not "
+       "decode)",
 }
 
 
@@ -2457,25 +2456,66 @@ class _AvifReader:
         return self.uint(1), self.uint(3)
 
 
-def _avif_container(data: bytes) -> dict:
-    """The primary item of an AVIF file as libavif's avifDecoderParse
-    reads it: ftyp, then meta with hdlr ``pict``, pitm, iinf/infe (v2-3),
-    iloc (v0-2, several extents, construction methods 0 and 1 (idat)),
-    iref (auxl, dimg, prem) and iprp/ipco/ipma -> {"color": its AV1
-    payload, "alpha": its alpha item's or None, "props": its properties}.
-    Raises _Corrupt where libavif fails and NotImplementedError for what
-    is refused by name (grid items, sequences, layered items)."""
-    top, brands = {}, set()
+# cv2's AvifDecoder::checkSignature runs avifDecoderParse over the file's
+# first 500 bytes (the size hint set far past them): it takes the file where
+# that gives OK or AVIF_RESULT_TRUNCATED_DATA, so a read that starts past
+# them (AVIF_RESULT_IO_ERROR) makes cv2 give None for a file it could read
+_AVIF_SIGNATURE = 500
+
+
+def _avif_signature_cut(boxes: list) -> bool:
+    """Whether checkSignature's parse stops within the top-level boxes
+    (kind, start, body, end) the parse of the whole file read, taking the
+    file: at the end of the signature bytes, or at a box it reads whole
+    (ftyp, meta, moov) that runs past them. A header that starts past
+    them, or that they cut, fails it (_Corrupt). False where the parse
+    reads all it needs within them and goes on to avifDecoderReset."""
+    for kind, at, body, end in boxes:
+        if at >= _AVIF_SIGNATURE:
+            if at > _AVIF_SIGNATURE:
+                raise _Corrupt("AVIF box past cv2's signature bytes")
+            return True
+        if body > _AVIF_SIGNATURE:
+            raise _Corrupt("AVIF box header cut by cv2's signature bytes")
+        if kind in (b"ftyp", b"meta", b"moov") and end > _AVIF_SIGNATURE:
+            return True
+    return False
+
+
+def _avif_signature_reads(reads: list) -> None:
+    """The reads avifDecoderReset makes in checkSignature's parse (a grid's
+    ImageGrid payload, the first colour sample's leading bytes for its
+    sequence header where no colr nclx gives the CICP), in order, each a
+    list of file extents and the bytes it needs: one that starts past the
+    signature bytes fails; one they cut stops the parse, taking the
+    file."""
+    for extents, need in reads:
+        for offset, length in extents:
+            if not need:
+                break
+            if offset > _AVIF_SIGNATURE:
+                raise _Corrupt("AVIF read past cv2's signature bytes")
+            take = min(length, need)
+            if offset + take > _AVIF_SIGNATURE:
+                return
+            need -= take
+
+
+def _avif_top(data: bytes) -> tuple[dict, bytes, list]:
+    """The top-level boxes libavif's avifParse reads: ftyp, meta and moov
+    whole, the rest skipped, until it has ftyp and the meta (brand avif)
+    and moov (brand avis) the brands ask for -> ({type: (body, end)}, the
+    major brand, (type, start, body, end) of each box it went through)."""
+    top, brands, boxes, at = {}, set(), [], 0
     for kind, body, end in _avif_boxes(data, 0, len(data), top=True):
-        # libavif reads ftyp, meta and moov whole and skips the rest, and
-        # stops once it has ftyp and the meta (brand avif) and moov (avis)
-        # the brands ask for
         if kind in (b"ftyp", b"meta", b"moov") and end > len(data):
             raise _Corrupt("AVIF file cut short")
         if kind == b"ftyp" and kind not in top and end - body >= 8:
             brands = {data[i:i + 4] for i in [body] + list(
                 range(body + 8, end - 3, 4))}
         top.setdefault(kind, (body, end))
+        boxes.append((kind, at, body, end))
+        at = end
         if (b"ftyp" in top and (b"avif" not in brands or b"meta" in top)
                 and (b"avis" not in brands or b"moov" in top)):
             break
@@ -2484,39 +2524,70 @@ def _avif_container(data: bytes) -> dict:
     body, end = top[b"ftyp"]
     if end - body < 8:
         raise _Corrupt("AVIF ftyp cut short")
-    major = data[body:body + 4]
-    if major == b"avis":
-        raise NotImplementedError(
-            "AVIF image sequences (major brand avis) are not supported")
     if not brands & {b"avif", b"avis"}:
         raise _Corrupt("not an AVIF image")
-    if b"meta" not in top:
-        raise _Corrupt("AVIF without meta")
-    r = _AvifReader(data, *top[b"meta"])
-    if r.full_box()[0] != 0:
-        raise _Corrupt("AVIF meta of version 1 or more")
-    meta = _avif_children(data, r.at, r.end)
-    if b"hdlr" not in meta:
-        raise _Corrupt("AVIF without hdlr")
-    body, end = meta[b"hdlr"]
-    if (end - body < 24 or data[body] != 0
-            or data[body + 4:body + 8] != bytes(4)
-            or data[body + 8:body + 12] != b"pict"
-            or b"\0" not in data[body + 24:end]):
-        raise _Corrupt("AVIF hdlr not version 0, pre_defined 0, pict, "
-                       "with a name")
-    if b"pitm" not in meta:
-        raise _Corrupt("AVIF without a primary item")
-    r = _AvifReader(data, *meta[b"pitm"])
-    version, _ = r.full_box()
-    primary = r.uint(2 if version == 0 else 4)
+    if b"avif" in brands and b"meta" not in top:
+        raise _Corrupt("AVIF of brand avif without meta")
+    if b"avis" in brands and b"moov" not in top:
+        raise _Corrupt("AVIF of brand avis without moov")
+    return top, data[body:body + 4], boxes
 
-    types = {}
-    if b"iinf" in meta:
-        r = _AvifReader(data, *meta[b"iinf"])
+
+class _AvifMeta:
+    """A meta box's items as libavif's avifParseMetaBox reads them: hdlr
+    ``pict``, pitm, iinf/infe (v2-3), iloc (v0-2, several extents,
+    construction methods 0 and 1 (idat)), iref and iprp/ipco/ipma."""
+
+    def __init__(self, data: bytes, start: int, end: int):
+        self.data = data
+        r = _AvifReader(data, start, end)
+        if r.full_box()[0] != 0:
+            raise _Corrupt("AVIF meta of version 1 or more")
+        meta = _avif_children(data, r.at, r.end)
+        self.idat = meta.get(b"idat")
+        if b"hdlr" not in meta:
+            raise _Corrupt("AVIF without hdlr")
+        body, end = meta[b"hdlr"]
+        if (end - body < 24 or data[body] != 0
+                or data[body + 4:body + 8] != bytes(4)
+                or data[body + 8:body + 12] != b"pict"
+                or b"\0" not in data[body + 24:end]):
+            raise _Corrupt("AVIF hdlr not version 0, pre_defined 0, pict, "
+                           "with a name")
+        self.primary = 0
+        if b"pitm" in meta:
+            r = _AvifReader(data, *meta[b"pitm"])
+            version, _ = r.full_box()
+            self.primary = r.uint(2 if version == 0 else 4)
+        self.types = self._item_types(meta.get(b"iinf"))
+        self.locations = self._locations(meta.get(b"iloc"))
+        self.refs = self._references(meta.get(b"iref"))
+        self.props, self.assoc = self._properties(meta.get(b"iprp"))
+        # each item's last auxl and prem target, and the grid (and index
+        # in its reference) each dimg target is a cell of, as libavif keeps
+        # them
+        self.aux_for, self.prem_by, self.dimg_for = {}, {}, {}
+        for kind, source, targets in self.refs:
+            for index, target in enumerate(targets):
+                if kind == b"auxl":
+                    self.aux_for[source] = target
+                elif kind == b"prem":
+                    self.prem_by[source] = target
+                elif kind == b"dimg":
+                    # ISO/IEC 14496-12 8.11.12.1: each target once
+                    if self.dimg_for.get(target, (0,))[0] == source:
+                        raise _Corrupt("AVIF dimg reference naming an item "
+                                       "twice")
+                    self.dimg_for[target] = (source, index)
+
+    def _item_types(self, box) -> dict:
+        data, types = self.data, {}
+        if box is None:
+            return types
+        r = _AvifReader(data, *box)
         version, _ = r.full_box()
         count = r.uint(2 if version == 0 else 4)
-        entries = _avif_boxes(data, r.at, meta[b"iinf"][1])
+        entries = _avif_boxes(data, r.at, box[1])
         for _ in range(count):
             kind, body, end = next(entries, (None, 0, 0))
             if kind != b"infe":
@@ -2532,54 +2603,65 @@ def _avif_container(data: bytes) -> dict:
             types[item] = e.uint(4).to_bytes(4, "big")
             if b"\0" not in data[e.at:end]:
                 raise _Corrupt("AVIF infe item_name without its terminator")
+        return types
 
-    if b"iloc" not in meta:
-        raise _Corrupt("AVIF without iloc")
-    r = _AvifReader(data, *meta[b"iloc"])
-    version, _ = r.full_box()
-    if version > 2:
-        raise _Corrupt("AVIF iloc of an unknown version")
-    sizes = r.uint(2)
-    off_size, len_size = sizes >> 12, (sizes >> 8) & 15
-    base_size, index_size = (sizes >> 4) & 15, sizes & 15
-    locations = {}
-    for _ in range(r.uint(2 if version < 2 else 4)):
-        item = r.uint(2 if version < 2 else 4)
-        if item == 0 or item in locations:
-            raise _Corrupt("AVIF iloc entry of item 0 or of an item twice")
-        method = r.uint(2) & 15 if version in (1, 2) else 0
-        r.uint(2)
-        base = r.uint(base_size)
-        extents = []
-        for _ in range(r.uint(2)):
-            if version in (1, 2):
-                r.uint(index_size)
-            extents.append((base + r.uint(off_size), r.uint(len_size)))
-        locations[item] = (method, extents)
+    def _locations(self, box) -> dict:
+        locations = {}
+        if box is None:
+            return locations
+        r = _AvifReader(self.data, *box)
+        version, _ = r.full_box()
+        if version > 2:
+            raise _Corrupt("AVIF iloc of an unknown version")
+        sizes = r.uint(2)
+        off_size, len_size = sizes >> 12, (sizes >> 8) & 15
+        base_size, index_size = (sizes >> 4) & 15, sizes & 15
+        for _ in range(r.uint(2 if version < 2 else 4)):
+            item = r.uint(2 if version < 2 else 4)
+            if item == 0 or item in locations:
+                raise _Corrupt("AVIF iloc entry of item 0 or of an item "
+                               "twice")
+            method = r.uint(2) & 15 if version in (1, 2) else 0
+            r.uint(2)
+            base = r.uint(base_size)
+            extents = []
+            for _ in range(r.uint(2)):
+                if version in (1, 2):
+                    r.uint(index_size)
+                extents.append((base + r.uint(off_size), r.uint(len_size)))
+            locations[item] = (method, extents)
+        return locations
 
-    refs = []
-    if b"iref" in meta:
-        r = _AvifReader(data, *meta[b"iref"])
+    def _references(self, box) -> list:
+        refs = []
+        if box is None:
+            return refs
+        r = _AvifReader(self.data, *box)
         version, _ = r.full_box()
         width = 2 if version == 0 else 4
         # libavif skips an iref of a version past 1, and reads each
         # reference's fields on from its box header, whatever the box's
         # size says
         while version <= 1 and r.at < r.end:
-            kind, head, _ = _avif_box_header(data, r.at, r.end)
+            kind, head, _ = _avif_box_header(self.data, r.at, r.end)
             r.at += head
             source = r.uint(width)
             targets = [r.uint(width) for _ in range(r.uint(2))]
             if not source or not all(targets):
                 raise _Corrupt("AVIF iref reference from or to item 0")
             refs.append((kind, source, targets))
+        return refs
 
-    props, assoc = [], {}
-    if b"iprp" in meta:
-        iprp = _avif_children(data, *meta[b"iprp"])
+    def _properties(self, box) -> tuple[list, dict]:
+        data, props, assoc = self.data, [], {}
+        if box is None:
+            return props, assoc
+        iprp = _avif_children(data, *box)
         if b"ipco" in iprp:
             props = list(_avif_boxes(data, *iprp[b"ipco"]))
-        for kind, body, end in _avif_boxes(data, *meta[b"iprp"]):
+            for prop in props:
+                _avif_check_property(data, *prop)
+        for kind, body, end in _avif_boxes(data, *box):
             if kind != b"ipma":
                 continue
             r = _AvifReader(data, body, end)
@@ -2588,8 +2670,9 @@ def _avif_container(data: bytes) -> dict:
                 item = r.uint(2 if version < 1 else 4)
                 # the items iloc, iinf and iref name (libavif makes an
                 # item for each); ipma may not name another
-                known = (item in locations or item in types
-                         or any(item == s or item in t for _, s, t in refs))
+                known = (item in self.locations or item in self.types
+                         or any(item == s or item in t
+                                for _, s, t in self.refs))
                 if item in assoc or not known:
                     raise _Corrupt("AVIF ipma entry of an unknown or "
                                    "repeated item")
@@ -2603,89 +2686,518 @@ def _avif_container(data: bytes) -> dict:
                                        "or 0 and essential")
                     if index:
                         assoc[item].append((index, v >> bits))
+        return props, assoc
 
-    def item_props(item: int) -> dict:
+    def items(self) -> set[int]:
+        """The items libavif makes: those iloc, iinf, iref and ipma name."""
+        return (set(self.locations) | set(self.types) | set(self.assoc)
+                | {i for _, s, t in self.refs for i in [s, *t]})
+
+    def item_boxes(self, item: int, kind: bytes) -> list:
+        """(body, end) of each of an item's properties of a type."""
+        return [self.props[i - 1][1:] for i, _ in self.assoc.get(item, [])
+                if self.props[i - 1][0] == kind]
+
+    def item_props(self, item: int) -> dict:
         out = {}
-        for index, _ in assoc.get(item, []):
-            kind, body, end = props[index - 1]
+        for index, _ in self.assoc.get(item, []):
+            kind, body, end = self.props[index - 1]
             out.setdefault(kind, (body, end))
         return out
 
-    def skipped(item: int) -> bool:
-        # libavif skips an item without data, or with an essential property
-        # it does not know
-        if not sum(length for _, length in locations.get(item, (0, []))[1]):
-            return True
-        return any(ess and props[index - 1][0] not in _AVIF_PROPERTIES
-                   for index, ess in assoc.get(item, []))
+    def unknown_essential(self, item: int) -> bool:
+        return any(ess and self.props[index - 1][0] not in _AVIF_PROPERTIES
+                   for index, ess in self.assoc.get(item, []))
 
-    def payload(item: int) -> bytes:
-        if item not in locations:
+    def skipped(self, item: int) -> bool:
+        """libavif skips an item without data, or with an essential
+        property it does not know."""
+        if not sum(n for _, n in self.locations.get(item, (0, []))[1]):
+            return True
+        return self.unknown_essential(item)
+
+    def payload(self, item: int) -> bytes:
+        if item not in self.locations:
             raise _Corrupt("AVIF item without a location")
-        method, extents = locations[item]
+        method, extents = self.locations[item]
         chunks = []
         for offset, length in extents:
             if method == 0:
-                start, limit = offset, len(data)
-            elif method == 1 and b"idat" in meta:
-                start, limit = meta[b"idat"][0] + offset, meta[b"idat"][1]
+                start, limit = offset, len(self.data)
+            elif method == 1 and self.idat is not None:
+                start, limit = self.idat[0] + offset, self.idat[1]
             else:
                 raise _Corrupt("AVIF item construction method not read")
             if start + length > limit:
                 raise _Corrupt("AVIF item extent past the end of the file")
-            chunks.append(data[start:start + length])
+            chunks.append(self.data[start:start + length])
         return b"".join(chunks)
 
-    if b"moov" in top and major != b"avif":
-        raise NotImplementedError(
-            "AVIF image sequences (a moov track) are not supported")
-    kind = types.get(primary)
-    if kind == b"grid" or any(k == b"dimg" and s == primary
-                               for k, s, _ in refs):
-        raise NotImplementedError("AVIF grid (dimg) items are not supported")
-    if kind != b"av01" or skipped(primary):
-        raise _Corrupt("AVIF primary item is not AV1 or not read")
-    color_props = item_props(primary)
-    if any(k in color_props for k in (b"lsel", b"a1lx", b"a1op")):
+    def ispe(self, item: int) -> tuple[int, int] | None:
+        """An item's ispe (version 0) within libavif's default size
+        limits, or None where it has none."""
+        props = self.item_props(item)
+        if b"ispe" not in props:
+            return None
+        r = _AvifReader(self.data, *props[b"ispe"])
+        if r.full_box()[0] != 0:
+            raise _Corrupt("AVIF ispe of version 1 or more")
+        ispe = (r.uint(4), r.uint(4))
+        _avif_check_dimensions(*ispe)
+        return ispe
+
+    def cells(self, item: int) -> list[int]:
+        """The items a grid's dimg reference names, by their index in it
+        (libavif's avifFillDimgIdxToItemIdxArray: each index once)."""
+        cells = [(index, cell) for cell, (source, index)
+                 in self.dimg_for.items() if source == item]
+        if sorted(i for i, _ in cells) != list(range(len(cells))):
+            raise _Corrupt("AVIF grid whose dimg reference does not name "
+                           "its cells once each")
+        return [cell for _, cell in sorted(cells)]
+
+    def file_extents(self, item: int) -> tuple[list, int]:
+        """An item's extents in the file (none where it lies in idat) and
+        its size."""
+        method, extents = self.locations.get(item, (0, []))
+        return ([] if method else extents), sum(n for _, n in extents)
+
+    def image(self, item: int) -> dict:
+        """An av01 or grid item -> {"cells": the AV1 payloads (one, or the
+        grid's cells in the order of its dimg reference), "grid": (rows,
+        columns, output width, output height) or None, a grid's
+        "cell_ispes" (each cell's, or None), "config_mono": the monochrome
+        flag of the av1C libavif takes (a grid's own, else its first
+        cell's)}, with libavif's checks of a grid
+        (avifDecoderItemReadAndParse, avifDecoderGenerateImageTiles,
+        avifDecoderItemValidateProperties)."""
+        props = self.item_props(item)
+        _avif_refuse_layered(props)
+        if self.types.get(item) != b"grid":
+            if b"av1C" not in props:
+                raise _Corrupt("AVIF item without av1C")
+            return {"cells": [self.payload(item)], "grid": None,
+                    "config_mono": _avif_check_config(self.data, props)}
+        grid = _avif_image_grid(self.payload(item))
+        cells = self.cells(item)
+        if len(cells) != grid[0] * grid[1]:
+            raise _Corrupt("AVIF grid of another number of dimg cells")
+        for cell in cells:
+            if self.types.get(cell) != b"av01" or self.skipped(cell):
+                raise _Corrupt("AVIF grid cell not AV1, empty or not read")
+            if b"av1C" not in self.item_props(cell):
+                raise _Corrupt("AVIF grid cell without av1C")
+            _avif_refuse_layered(self.item_props(cell))
+        config = props.get(b"av1C", self.item_props(cells[0])[b"av1C"])
+        config_mono = _avif_check_config(self.data, {**props,
+                                                     b"av1C": config})
+        for cell in cells:
+            body, _ = self.item_props(cell)[b"av1C"]
+            _avif_check_config(self.data, {b"av1C": (body, body + 4)})
+            # MIAF 7.3.11.4.1: every cell of one decoder configuration
+            if self.data[body + 1:body + 3] != \
+                    self.data[config[0] + 1:config[0] + 3]:
+                raise _Corrupt("AVIF grid cells of different av1C")
+        return {"cells": [self.payload(c) for c in cells], "grid": grid,
+                "cell_ispes": [self.ispe(c) for c in cells],
+                "config_mono": config_mono}
+
+
+def _avif_check_dimensions(width: int, height: int) -> None:
+    """libavif's default image size limits (avifDimensionsTooLarge)."""
+    if (not width or not height or max(width, height) > 32768
+            or width * height > 16384 * 16384):
+        raise _Corrupt("AVIF size out of libavif's limits")
+
+
+def _avif_refuse_layered(props: dict) -> None:
+    if any(k in props for k in (b"lsel", b"a1lx", b"a1op")):
         raise NotImplementedError(_AV1_VARIANTS[7] + " is not supported")
-    for k in (b"ispe", b"av1C"):
-        if k not in color_props:
-            raise _Corrupt(f"AVIF primary item without {k.decode()}")
-    config_mono = _avif_check_config(data, color_props)
-    alpha = None
-    for kind, source, targets in refs:
-        if kind != b"auxl" or primary not in targets:
+
+
+def _avif_image_grid(payload: bytes) -> tuple[int, int, int, int]:
+    """An ImageGrid payload as libavif's avifParseImageGridBox reads it:
+    version 0, flags (bit 0: 32-bit output sizes), rows - 1, columns - 1,
+    output width and height (not zero, within libavif's limits, and
+    nothing after them) -> (rows, columns, width, height)."""
+    if len(payload) < 4 or payload[0] != 0:
+        raise _Corrupt("AVIF ImageGrid cut short or not version 0")
+    field = 4 if payload[1] & 1 else 2
+    if len(payload) != 4 + 2 * field:
+        raise _Corrupt("AVIF ImageGrid of another length")
+    width = int.from_bytes(payload[4:4 + field], "big")
+    height = int.from_bytes(payload[4 + field:], "big")
+    _avif_check_dimensions(width, height)
+    return payload[2] + 1, payload[3] + 1, width, height
+
+
+def _avif_item_source(data: bytes, m: _AvifMeta) -> dict:
+    """meta's primary item (av01 or grid) and its alpha item, as libavif's
+    avifDecoderReset takes them for the primary item source."""
+    if m.types.get(m.primary) not in (b"av01", b"grid") \
+            or m.skipped(m.primary):
+        raise _Corrupt("AVIF primary item is not AV1 or a grid, or not read")
+    # every image item libavif reads has an ispe, unless it is alpha
+    for item in m.items():
+        if (m.types.get(item) in (b"av01", b"grid") and not m.skipped(item)
+                and m.ispe(item) is None and _avif_aux_type(
+                    data, m.item_props(item)) not in _AVIF_ALPHA_URNS):
+            raise _Corrupt(f"AVIF item {item} without ispe")
+    color = m.image(m.primary)
+    ispe = m.ispe(m.primary)
+    if ispe is None:
+        raise _Corrupt("AVIF primary item without ispe")
+    if color["grid"] is not None and ispe != color["grid"][2:]:
+        raise _Corrupt("AVIF grid whose ispe is not its output size")
+    alpha = alpha_item = None
+    for kind, source, targets in m.refs:
+        if kind != b"auxl" or m.aux_for.get(source) != m.primary:
             continue
-        if types.get(source) != b"av01" or skipped(source):
+        if m.types.get(source) not in (b"av01", b"grid") or m.skipped(source):
             continue
-        aux = item_props(source).get(b"auxC")
-        if aux is None:
-            continue
-        if data[aux[0]] != 0 or b"\0" not in data[aux[0] + 4:aux[1]]:
-            raise _Corrupt("AVIF auxC not version 0 with a terminated type")
-        urn = data[aux[0] + 4:aux[1]].split(b"\0")[0]
-        if urn in _AVIF_ALPHA_URNS:
-            alpha = source
-            if b"av1C" not in item_props(source):
-                raise _Corrupt("AVIF alpha item without av1C")
-            _avif_check_config(data, item_props(source))
+        if _avif_aux_type(data, m.item_props(source)) in _AVIF_ALPHA_URNS:
+            alpha, alpha_item = m.image(source), source
+            alpha["ispe"] = m.ispe(source) or ispe
             break
-    if alpha is not None and any(k == b"prem" and s == primary
-                                 for k, s, _ in refs):
-        raise NotImplementedError(
-            "AVIF with premultiplied alpha (prem) is not supported")
-    body, end = color_props[b"ispe"]
-    r = _AvifReader(data, body, end)
-    if r.full_box()[0] != 0:
-        raise _Corrupt("AVIF ispe of version 1 or more")
-    ispe = (r.uint(4), r.uint(4))
-    # libavif's default image size limits
-    if (not ispe[0] or not ispe[1] or max(ispe) > 32768
-            or ispe[0] * ispe[1] > 16384 * 16384):
-        raise _Corrupt("AVIF ispe out of libavif's limits")
-    return {"color": payload(primary),
-            "alpha": None if alpha is None else payload(alpha),
-            "props": color_props, "ispe": ispe, "config_mono": config_mono}
+    # the reads avifDecoderReset makes: the ImageGrid payloads, then the
+    # first cell's sequence header where no colr nclx sets the CICP
+    nclx = _avif_nclx(data, m.item_boxes(m.primary, b"colr"))
+    reads = [m.file_extents(item) for item in (m.primary, alpha_item)
+             if m.types.get(item) == b"grid"]
+    if nclx is None:
+        cell = m.cells(m.primary)[0] if color["grid"] else m.primary
+        reads.append((m.file_extents(cell)[0], 64))
+    return {**color, "alpha": alpha, "nclx": nclx, "ispe": ispe,
+            "premultiplied": alpha is not None
+            and m.prem_by.get(m.primary) == alpha_item,
+            "source": "item", "frames": 1, "signature_reads": reads}
+
+
+_AVIF_IMAGE_COUNT_LIMIT = 12 * 3600 * 60  # libavif's default
+
+
+def _avif_string(data: bytes, at: int, end: int) -> None:
+    if b"\0" not in data[at:end]:
+        raise _Corrupt("AVIF string without its terminator")
+
+
+def _avif_tracks(data: bytes, start: int, end: int) -> list[dict]:
+    """A moov box's tracks as libavif's avifParseMovieBox reads them."""
+    tracks = [_avif_track(data, body, box_end)
+              for kind, body, box_end in _avif_boxes(data, start, end)
+              if kind == b"trak"]
+    if not tracks:
+        raise _Corrupt("AVIF moov without a track")
+    return tracks
+
+
+def _avif_once(seen: set, kind: bytes) -> None:
+    if kind in seen:
+        raise _Corrupt(f"AVIF box {kind!r} twice")
+    seen.add(kind)
+
+
+def _avif_track(data: bytes, start: int, end: int) -> dict:
+    """One trak: tkhd (its id and size), tref (auxl, prem), edts/elst and
+    mdia (mdhd, hdlr, minf/stbl), with libavif's checks."""
+    track = {"id": 0, "aux_for": 0, "prem_by": 0, "stbl": None}
+    seen = set()
+    repeating, segment, duration = False, 0, 0
+    for kind, body, box_end in _avif_boxes(data, start, end):
+        r = _AvifReader(data, body, box_end)
+        if kind == b"tkhd":
+            _avif_once(seen, kind)
+            version, _ = r.full_box()
+            if version > 1:
+                raise _Corrupt("AVIF tkhd of an unknown version")
+            wide = 8 if version == 1 else 4
+            r.uint(2 * wide)  # creation and modification times
+            track_id = r.uint(4)
+            r.uint(4)
+            duration = r.uint(wide)
+            if duration == (1 << 8 * wide) - 1:
+                duration = None  # indefinite
+            r.uint(52)
+            width, height = r.uint(4) >> 16, r.uint(4) >> 16
+            _avif_check_dimensions(width, height)
+            track.update(id=track_id, size=(width, height))
+        elif kind == b"meta":
+            _AvifMeta(data, body, box_end)
+        elif kind == b"mdia":
+            _avif_media(data, body, box_end, track)
+        elif kind == b"tref":
+            while r.at < r.end:
+                ref, head, size = _avif_box_header(data, r.at, r.end)
+                at = r.at + head
+                r.at += size
+                if ref in (b"auxl", b"prem"):
+                    if size - head < 4:
+                        raise _Corrupt("AVIF tref reference cut short")
+                    first = int.from_bytes(data[at:at + 4], "big")
+                    track["aux_for" if ref == b"auxl" else "prem_by"] = first
+        elif kind == b"edts":
+            _avif_once(seen, kind)
+            elst = [(b, e) for k, b, e in _avif_boxes(data, body, box_end)
+                    if k == b"elst"]
+            if len(elst) != 1:
+                raise _Corrupt("AVIF edts without one elst")
+            e = _AvifReader(data, *elst[0])
+            version, flags = e.full_box()
+            repeating = bool(flags & 1)
+            if repeating:
+                if e.uint(4) != 1:
+                    raise _Corrupt("AVIF elst of other than one entry")
+                if version > 1:
+                    raise _Corrupt("AVIF elst of an unknown version")
+                segment = e.uint(8 if version == 1 else 4)
+    if b"tkhd" not in seen:
+        raise _Corrupt("AVIF trak without tkhd")
+    if repeating and segment == 0:
+        raise _Corrupt("AVIF repeating elst of segment duration 0")
+    return track
+
+
+def _avif_media(data: bytes, start: int, end: int, track: dict) -> None:
+    """mdia: mdhd, hdlr and minf, each once; minf's stbl."""
+    seen = set()
+    for kind, body, box_end in _avif_boxes(data, start, end):
+        r = _AvifReader(data, body, box_end)
+        if kind == b"mdhd":
+            _avif_once(seen, kind)
+            version, _ = r.full_box()
+            if version > 1:
+                raise _Corrupt("AVIF mdhd of an unknown version")
+            r.uint(20 if version == 1 else 12)
+            r.uint(8 if version == 1 else 4)
+        elif kind == b"hdlr":
+            _avif_once(seen, kind)
+            if r.full_box()[0] != 0 or r.uint(4) != 0:
+                raise _Corrupt("AVIF hdlr not version 0, pre_defined 0")
+            r.uint(16)  # handler_type, reserved
+            _avif_string(data, r.at, box_end)
+        elif kind == b"minf":
+            stbls = [(b, e) for k, b, e in _avif_boxes(data, body, box_end)
+                     if k == b"stbl"]
+            for stbl in stbls:
+                if track["stbl"] is not None:
+                    raise _Corrupt("AVIF track of two stbl boxes")
+                track["stbl"] = _avif_sample_table(data, *stbl)
+
+
+def _avif_sample_table(data: bytes, start: int, end: int) -> dict:
+    """stbl as libavif's avifParseSampleTableBox reads it: chunk offsets
+    (stco and co64 alike), sample-to-chunk runs (from chunk 1, strictly
+    increasing), sample sizes (one for all, or each), sync samples, time
+    to sample, and the sample descriptions (an av01 entry's properties
+    after its 78-byte VisualSampleEntry)."""
+    t = {"chunks": [], "stsc": [], "size": 0, "sizes": [],
+         "descriptions": []}
+    for kind, body, box_end in _avif_boxes(data, start, end):
+        r = _AvifReader(data, body, box_end)
+        if kind not in (b"stco", b"co64", b"stsc", b"stsz", b"stss",
+                        b"stts", b"stsd"):
+            continue
+        # stsd may be of version 1 (ISO/IEC 14496-12 8.5.2)
+        if r.full_box()[0] > (kind == b"stsd"):
+            raise _Corrupt(f"AVIF {kind!r} of an unknown version")
+        if kind == b"stsz":
+            size, count = r.uint(4), r.uint(4)
+            if size:
+                t["size"] = size
+            else:
+                t["sizes"] += [r.uint(4) for _ in range(count)]
+            continue
+        count = r.uint(4)
+        if kind == b"stsd":
+            entries = _avif_boxes(data, r.at, box_end)
+            for _ in range(count):
+                fmt, entry, entry_end = next(entries, (None, 0, 0))
+                if fmt is None:
+                    raise _Corrupt("AVIF stsd cut short")
+                if fmt == b"av01":
+                    if entry_end - entry < 78:
+                        raise _Corrupt("AVIF VisualSampleEntry cut short")
+                    for prop in _avif_boxes(data, entry + 78, entry_end):
+                        _avif_check_property(data, *prop)
+                t["descriptions"].append((fmt, entry + 78, entry_end))
+            continue
+        for _ in range(count):
+            if kind == b"stco":
+                t["chunks"].append(r.uint(4))
+            elif kind == b"co64":
+                t["chunks"].append(r.uint(8))
+            elif kind == b"stsc":
+                first, per_chunk = r.uint(4), r.uint(4)
+                r.uint(4)
+                previous = t["stsc"][-1][0] if t["stsc"] else 0
+                if (first != 1) if not t["stsc"] else first <= previous:
+                    raise _Corrupt("AVIF stsc not from chunk 1 and "
+                                   "increasing")
+                t["stsc"].append((first, per_chunk))
+            else:
+                r.uint(4 if kind == b"stss" else 8)
+    return t
+
+
+# the bytes libavif's parse of a property reads (a1lx: with 16-bit sizes)
+_AVIF_PROPERTY_BYTES = {b"pasp": 8, b"clap": 32, b"clli": 4, b"a1op": 1,
+                        b"lsel": 2, b"a1lx": 7, b"irot": 1, b"imir": 1}
+
+
+def _avif_check_property(data: bytes, kind: bytes, body: int, end: int
+                         ) -> None:
+    """libavif's parse of a property, which it makes of every property in
+    ipco (and in a sample entry), used or not: one it cannot read fails
+    the file (a box cut short, a version other than 0 where it asks for
+    one, reserved bits of irot and imir, a pixi of other than 1 to 4
+    planes of 1 to 16 bits, an ICC profile of no bytes, an auxC or auxi
+    without its terminator)."""
+    size = end - body
+    if kind in (b"auxi", b"auxC"):
+        _avif_aux_type(data, {kind: (body, end)}, kind)
+    elif kind == b"av1C":
+        _avif_check_config(data, {kind: (body, end)})
+    elif kind == b"colr":
+        colour = data[body:body + 4]
+        if size < 4 or (size == 4 and colour in (b"rICC", b"prof")) or (
+                colour == b"nclx" and (size < 11 or data[body + 10] & 0x7F)):
+            raise _Corrupt("AVIF colr cut short, or nclx with reserved bits")
+    elif kind == b"ispe":
+        r = _AvifReader(data, body, end)
+        if r.full_box()[0] != 0:
+            raise _Corrupt("AVIF ispe of version 1 or more")
+        r.uint(8)
+    elif kind == b"pixi":
+        r = _AvifReader(data, body, end)
+        version, _ = r.full_box()
+        planes = r.uint(1)
+        if version != 0 or not 1 <= planes <= 4 or not all(
+                1 <= r.uint(1) <= 16 for _ in range(planes)):
+            raise _Corrupt("AVIF pixi not version 0, or not of 1 to 4 "
+                           "planes of 1 to 16 bits")
+    elif kind in _AVIF_PROPERTY_BYTES:
+        need = _AVIF_PROPERTY_BYTES[kind]
+        if kind == b"a1lx" and size and data[body] & 1:
+            need = 13  # 32-bit sizes
+        if size < need or (kind == b"irot" and data[body] & 0xFC) or (
+                kind == b"imir" and data[body] & 0xFE):
+            raise _Corrupt(f"AVIF {kind!r} cut short or with reserved bits")
+
+
+def _avif_aux_type(data: bytes, props: dict, kind: bytes = b"auxC"
+                   ) -> bytes | None:
+    """The URN of an auxC (or a sample entry's auxi) property, or None
+    where there is none; one not of version 0 or without its terminator
+    fails."""
+    if kind not in props:
+        return None
+    body, end = props[kind]
+    if end - body < 4 or data[body] != 0 or b"\0" not in data[body + 4:end]:
+        raise _Corrupt("AVIF auxC not version 0 with a terminated type")
+    return data[body + 4:end].split(b"\0")[0]
+
+
+def _avif_samples(data: bytes, t: dict) -> list[tuple[int, int]]:
+    """(offset, size) of each sample of a sample table, as libavif's
+    avifCodecDecodeInputFillFromSampleTable lists them; a chunk of no
+    samples, more samples than libavif's image count limit, a sample past
+    the end of the file or of no bytes fail."""
+    counts = []
+    for chunk in range(len(t["chunks"])):
+        runs = [n for first, n in t["stsc"] if first <= chunk + 1]
+        counts.append(runs[-1] if runs else 0)
+        if not counts[-1]:
+            raise _Corrupt("AVIF chunk of no samples")
+    if sum(counts) > _AVIF_IMAGE_COUNT_LIMIT:
+        raise _Corrupt("AVIF of more samples than libavif takes")
+    samples = []
+    for offset, count in zip(t["chunks"], counts):
+        for _ in range(count):
+            size = t["size"]
+            if not size:
+                if len(samples) >= len(t["sizes"]):
+                    raise _Corrupt("AVIF sample table cut short")
+                size = t["sizes"][len(samples)]
+            if not size or offset + size > len(data):
+                raise _Corrupt("AVIF sample empty or past the end")
+            samples.append((offset, size))
+            offset += size
+    return samples
+
+
+def _avif_track_source(data: bytes, tracks: list) -> dict:
+    """The colour track (the first with an id, chunks and an av01 sample
+    entry that is no other's auxiliary; its handler is not looked at) and
+    the track that is its alpha, as libavif's avifDecoderReset takes them
+    for the track source; the first sample of each is decoded."""
+
+    def av1(track):  # where the first av01 sample entry's properties lie
+        t = track["stbl"]
+        if t is None or not track["id"] or not t["chunks"]:
+            return None
+        return next(((start, end) for fmt, start, end in t["descriptions"]
+                     if fmt == b"av01"), None)
+
+    color = next((tr for tr in tracks if av1(tr) is not None
+                  and not tr["aux_for"]), None)
+    if color is None:
+        raise _Corrupt("AVIF without an AV1 colour track")
+    props = _avif_children(data, *av1(color))
+    if b"av1C" not in props:
+        raise _Corrupt("AVIF colour track without av1C")
+    _avif_refuse_layered(props)
+    # the auxiliary track of the colour track whose auxi, where it has
+    # one, names alpha
+    alpha = next((tr for tr in tracks if av1(tr) is not None
+                  and tr["aux_for"] == color["id"]
+                  and _avif_aux_type(data, _avif_children(data, *av1(tr)),
+                                     b"auxi")
+                  in (None,) + _AVIF_ALPHA_URNS), None)
+    samples = _avif_samples(data, color["stbl"])
+    first = samples[0]
+    nclx = _avif_nclx(data, [(b, e) for k, b, e in _avif_boxes(
+        data, *av1(color)) if k == b"colr"])
+    out = {"cells": [data[first[0]:first[0] + first[1]]], "grid": None,
+           "config_mono": _avif_check_config(data, props), "alpha": None,
+           "nclx": nclx, "ispe": color["size"], "source": "track",
+           "premultiplied": alpha is not None
+           and color["prem_by"] == alpha["id"],
+           "frames": len(samples),
+           "signature_reads": [] if nclx else [([first], 64)]}
+    if alpha is not None:
+        first = _avif_samples(data, alpha["stbl"])[0]
+        out["alpha"] = {"cells": [data[first[0]:first[0] + first[1]]],
+                        "grid": None, "ispe": alpha["size"]}
+    return out
+
+
+def _avif_container(data: bytes) -> dict:
+    """The image an AVIF file holds, as libavif 1.4's avifDecoderParse and
+    avifDecoderReset find it for cv2: the source libavif's
+    AVIF_DECODER_SOURCE_AUTO picks (the moov's track where the major brand
+    is avis, or where it is not avif and a moov was read; else meta's
+    primary item) -> {"cells": the colour AV1 payloads (one, or a grid's
+    cells), "grid": (rows, columns, output width, output height) or None,
+    a grid's "cell_ispes", "config_mono" (_AvifMeta.image), "alpha": the
+    alpha image (its "cells", "grid", a grid's "cell_ispes" and "ispe") or
+    None, "premultiplied": whether the colour is premultiplied by that
+    alpha (prem), "nclx": the colour image's colr nclx (_avif_nclx),
+    "ispe": the image's size (a track's tkhd size), "source": "item" or
+    "track", "frames": the track's samples (1 for an item)}. Raises
+    _Corrupt where libavif fails and NotImplementedError for what is
+    refused by name (layered items)."""
+    top, major, boxes = _avif_top(data)
+    meta = _AvifMeta(data, *top[b"meta"]) if b"meta" in top else None
+    tracks = _avif_tracks(data, *top[b"moov"]) if b"moov" in top else []
+    if major == b"avis" or (major != b"avif" and tracks):
+        c = _avif_track_source(data, tracks)
+    elif meta is None:
+        raise _Corrupt("AVIF without meta")
+    else:
+        c = _avif_item_source(data, meta)
+    if not _avif_signature_cut(boxes):
+        _avif_signature_reads(c.pop("signature_reads"))
+    return c
 
 
 def _avif_check_config(data: bytes, props: dict) -> bool:
@@ -2708,21 +3220,120 @@ def _avif_check_config(data: bytes, props: dict) -> bool:
     return mono
 
 
-def _avif_frame_info(c: dict) -> np.ndarray:
-    """The primary item's AV1 headers (_av1_frame_info). A colour frame
-    whose av1C says monochrome is read as monochrome (libavif takes av1C's
-    format, cv2 then copies the Y plane); a monochrome frame with an alpha
-    item fails, as in cv2 (its CopyToMat takes gray with alpha for 4
-    channels)."""
-    info = _av1_frame_info(c["color"])
-    if (c["config_mono"] or info[3]) and c["alpha"] is not None:
-        raise _Corrupt("AVIF monochrome with alpha")
-    return info
+def _avif_image_infos(image: dict, alpha: bool = False,
+                      previous: np.ndarray | None = None
+                      ) -> list[np.ndarray]:
+    """Each cell's AV1 headers (_av1_frame_info), and the checks libavif
+    makes of a grid's cells once each is decoded and scaled to its ispe
+    (avifDecoderDataFillImageGrid): one size and depth, and for colour one
+    format, range and CICP; cells that cover the output size, with the
+    last row and column reaching into it; cells of at least 64x64, and
+    even output and cell sizes where the chroma is subsampled across them.
+    A cell without ispe fails (libavif scales it to 0x0); a colour cell
+    whose ispe differs from its frame is refused by name (libavif scales
+    the frame to it), an alpha cell is scaled and dropped. Where one libaom
+    decoder reads every cell (``previous``: the last colour cell's
+    headers), an alpha cell that holds no frame takes the frame decoded
+    before it, as libavif's aom codec reuses it (its headers stand in the
+    list, its index in ``image["reused"]``; _avif_check_alpha does not
+    decode it)."""
+    infos, image["reused"] = [], set()
+    for k, cell in enumerate(image["cells"]):
+        rc, info = native.av1_info(cell)
+        if rc == _AV1_NO_FRAME and alpha and previous is not None:
+            info = previous
+            image["reused"].add(k)
+        else:
+            info = _av1_frame_info(cell, rc, info)
+        infos.append(info)
+        previous = info
+    if image["grid"] is None:
+        return infos
+    sizes = image["cell_ispes"]
+    first = infos[0]
+    same = slice(2, 3) if alpha else slice(2, 10)
+    if None in sizes or any(s != sizes[0] or (i[same] != first[same]).any()
+                            for i, s in zip(infos, sizes)):
+        raise _Corrupt("AVIF grid cells without ispe or that do not match")
+    rows, cols, width, height = image["grid"]
+    cw, ch = sizes[0]
+    if (cw * cols < width or ch * rows < height or cw * (cols - 1) >= width
+            or ch * (rows - 1) >= height):
+        raise _Corrupt("AVIF grid cells that do not cover its output")
+    sx, sy = (0, 0) if alpha or first[3] else (first[4], first[5])
+    if (cw < 64 or ch < 64 or (sx and (width % 2 or cw % 2))
+            or (sy and (height % 2 or ch % 2))):
+        raise _Corrupt("AVIF grid cells under 64 samples, or odd where "
+                       "the chroma is subsampled")
+    if not alpha and any(s != (int(i[0]), int(i[1]))
+                         for i, s in zip(infos, sizes)):
+        raise NotImplementedError(
+            "AVIF whose ispe property differs from its AV1 frame's size "
+            "(libavif scales the frame to it) is not supported")
+    return infos
 
 
-def _av1_frame_info(obus: bytes) -> np.ndarray:
-    """native.av1_info, raising as read_image does for its status."""
-    rc, info = native.av1_info(obus)
+def _avif_planes(image: dict, infos: list, previous: list | None = None,
+                 count: int = 3) -> tuple[list[np.ndarray], list]:
+    """An image's decoded planes (native.av1_decode; film grain is each
+    cell's, as libaom adds it frame by frame): its one frame, or a grid's
+    cells stitched at the stream's depth and cut to the output size, as
+    avifDecoderDataFillImageGrid copies them; the first ``count`` planes
+    (alpha: 1). A cell libaom fails on fails the read; an alpha cell of no
+    frame takes the planes decoded before it (``previous``: the last
+    colour cell's; _avif_image_infos). -> (planes, the last cell's
+    planes)."""
+    decoded = []
+    for k, (cell, info) in enumerate(zip(image["cells"], infos)):
+        if k in image["reused"]:
+            decoded.append(previous)
+            continue
+        rc, previous = native.av1_decode(cell, info)
+        if rc:
+            raise _Corrupt("AV1 frame libaom does not decode")
+        decoded.append(previous)
+    if image["grid"] is None:
+        return decoded[0][:count], previous
+    rows, cols, width, height = image["grid"]
+    sx, sy = int(infos[0][4]), int(infos[0][5])
+    out = []
+    for p in range(min(count, len(decoded[0]))):
+        whole = np.block([[decoded[r * cols + c][p] for c in range(cols)]
+                          for r in range(rows)])
+        shift_x, shift_y = (sx, sy) if p else (0, 0)
+        out.append(whole[:(height + shift_y) >> shift_y,
+                         :(width + shift_x) >> shift_x])
+    return out, previous
+
+
+def _avif_check_alpha(image: dict) -> None:
+    """Decode each alpha cell, but those of no frame (_avif_image_infos):
+    a cell libaom fails on fails the read; the planes are dropped."""
+    for k, cell in enumerate(image["cells"]):
+        if k not in image["reused"] and native.av1_check(cell):
+            raise _Corrupt("AVIF alpha plane libaom does not decode")
+
+
+def _avif_unpremultiply(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+    """libavif's avifRGBImageUnpremultiplyAlpha of 8-bit BGRA, which is
+    libyuv's ARGBUnattenuate (its AVX2 rows): each channel times 257 times
+    the 16-bit reciprocal 65536 // a (65535 at a = 1, 256 at 255, 0 at 0),
+    the high 16 bits packed to 8 with signed saturation (so 32768 and more
+    give 0)."""
+    a = alpha.astype(np.int64)[:, :, None]
+    inverse = np.where(a == 1, 0xFFFF, np.where(
+        a == 255, 0x100, 0x10000 // np.maximum(a, 1)))
+    inverse[a == 0] = 0
+    v = (rgb.astype(np.int64) * 257 * inverse) >> 16
+    return np.where(v >= 32768, 0, np.minimum(v, 255)).astype(np.uint8)
+
+
+def _av1_frame_info(obus: bytes, rc: int | None = None,
+                    info: np.ndarray | None = None) -> np.ndarray:
+    """native.av1_info (or its status and info where given), raising as
+    read_image does for its status."""
+    if rc is None:
+        rc, info = native.av1_info(obus)
     if rc in _AV1_VARIANTS:
         raise NotImplementedError(f"{_AV1_VARIANTS[rc]} is not supported")
     if rc:
@@ -2730,17 +3341,24 @@ def _av1_frame_info(obus: bytes) -> np.ndarray:
     return info
 
 
-def _avif_cicp(data: bytes, props: dict, info: np.ndarray
+def _avif_nclx(data: bytes, colrs: list) -> tuple[int, int] | None:
+    """The colr nclx among the colour image's colr properties (libavif's
+    avifReadColorProperties: it gives the CICP and range), or None; two of
+    nclx, or two ICC profiles, fail."""
+    kinds = [data[body:body + 4] for body, _ in colrs]
+    if kinds.count(b"nclx") > 1 or \
+            kinds.count(b"rICC") + kinds.count(b"prof") > 1:
+        raise _Corrupt("AVIF of two colr nclx or two ICC profiles")
+    return next((c for c, k in zip(colrs, kinds) if k == b"nclx"), None)
+
+
+def _avif_cicp(data: bytes, nclx: tuple[int, int] | None, info: np.ndarray
                ) -> tuple[int, int, bool]:
-    """(matrix coefficients, colour primaries, full range): a colr nclx
-    property's where the item has one, else the AV1 sequence header's."""
-    if b"colr" in props:
-        body, end = props[b"colr"]
-        if data[body:body + 4] == b"nclx":
-            if end - body < 11 or data[body + 10] & 0x7F:
-                raise _Corrupt("AVIF colr nclx cut short or reserved bits set")
-            cp, _, mc = struct.unpack_from(">HHH", data, body + 4)
-            return mc, cp, bool(data[body + 10] & 0x80)
+    """(matrix coefficients, colour primaries, full range): the colr nclx
+    property's where the image has one, else the AV1 sequence header's."""
+    if nclx is not None:
+        cp, _, mc = struct.unpack_from(">HHH", data, nclx[0] + 4)
+        return mc, cp, bool(data[nclx[0] + 10] & 0x80)
     return int(info[7]), int(info[8]), bool(info[6])
 
 
@@ -2763,32 +3381,178 @@ def _avif_libyuv_kind(mc: int, cp: int, full: bool) -> int | None:
     return None
 
 
+# libavif's kr and kb of the matrices it converts itself
+# (avifCalcYUVCoefficients)
+_AVIF_KR_KB = {4: (0.30, 0.11), 7: (0.212, 0.087)}
+# colour primaries (red, green, blue and white x, y) as libavif's
+# avifColorPrimariesGetValues gives them (BT.709's for other values)
+_AVIF_PRIMARIES = {
+    1: (0.64, 0.33, 0.3, 0.6, 0.15, 0.06, 0.3127, 0.329),
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+    5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    6: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    7: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+    9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.3290),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.314, 0.351),
+    12: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.3290),
+    22: (0.630, 0.340, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.3290),
+}
+
+
+def _avif_kr_kb(mc: int, cp: int) -> tuple[np.float32, np.float32]:
+    """kr and kb of a matrix libavif converts itself: its table's, or for
+    chroma-derived non-constant luminance (12) from the primaries
+    (avifColorPrimariesComputeYCoeffs, ITU-T H.273 eq. 32-37), in float32
+    as libavif computes them."""
+    if mc != 12:
+        kr, kb = _AVIF_KR_KB[mc]
+        return np.float32(kr), np.float32(kb)
+    one = np.float32(1)
+    rx, ry, gx, gy, bx, by, wx, wy = (np.float32(v) for v in
+                                      _AVIF_PRIMARIES.get(cp,
+                                                          _AVIF_PRIMARIES[1]))
+    rz, gz, bz, wz = (one - (rx + ry), one - (gx + gy), one - (bx + by),
+                      one - (wx + wy))
+    den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz)
+                + bx * (ry * gz - gy * rz))
+    kr = (ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz)
+                + wz * (gx * by - bx * gy))) / den
+    kb = (by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz)
+                + wz * (rx * gy - gx * ry))) / den
+    return kr, kb
+
+
+def _avif_bilinear(c: np.ndarray, sx: int, sy: int, h: int, w: int
+                   ) -> np.ndarray:
+    """A chroma plane upsampled to h x w as libavif's own conversion does
+    it (avifImageYUVAnyToRGBAnySlow): 9/16, 3/16, 3/16 and 1/16 of the
+    nearest sample and its neighbours across and down toward the pixel
+    (none at the first pixel, or at the last where it is odd; at 4:2:2 the
+    row's own)."""
+    jj, ii = np.arange(h)[:, None], np.arange(w)[None, :]
+    cj, ci = jj >> sy, ii >> sx
+    if not sx and not sy:
+        return c[cj, ci]
+
+    def toward(k, n, sub):
+        edge = (k == 0) | ((k == n - 1) & (k % 2 == 1))
+        return np.where(edge | (not sub), 0, np.where(k % 2 == 1, 1, -1))
+
+    dj, di = toward(jj, h, sy), toward(ii, w, sx)
+    f32 = np.float32
+    return (c[cj, ci] * f32(9 / 16) + c[cj, ci + di] * f32(3 / 16)
+            + c[cj + dj, ci] * f32(3 / 16) + c[cj + dj, ci + di] * f32(1 / 16))
+
+
+def _avif_rgb_float(planes: list, depth: int, full: bool, mc: int, cp: int,
+                    sx: int, sy: int, alpha: np.ndarray | None = None
+                    ) -> np.ndarray:
+    """libavif's own YUV -> 8-bit RGB (avifImageYUVAnyToRGBAnySlow), for
+    the matrices libyuv does not take: each sample to float through
+    libavif's unorm tables at the stream's depth, the chroma upsampled
+    bilinearly (_avif_bilinear), then kr/kb's equations (FCC, SMPTE 240,
+    chroma-derived by other primaries), YCgCo, or YCgCo-Re (H.273 eq.
+    58-61 on the chroma rounded back to integers, half up; RGB of depth -
+    2 bits),
+    clamped to [0, 1], divided by a premultiplied ``alpha`` (a / its
+    largest value; 0 where it is 0, at most 1) and scaled: 0.5 + v * 255,
+    truncated. The identity matrix is G = Y, B = U, R = V, each by Y's
+    bias and range."""
+    f32 = np.float32
+    y, u, v = planes
+    h, w = y.shape
+    top = (1 << depth) - 1
+    bias_y, range_y, range_uv = (0, top, top) if full else (
+        16 << (depth - 8), 219 << (depth - 8), 224 << (depth - 8))
+    table = np.arange(top + 1, dtype=f32)
+    luma = ((table - f32(bias_y)) / f32(range_y))[y]
+    if mc == 0:
+        chroma = (table - f32(bias_y)) / f32(range_y)
+    else:
+        chroma = (table - f32(1 << (depth - 1))) / f32(range_uv)
+    cb, cr = (_avif_bilinear(chroma[p], sx, sy, h, w) for p in (u, v))
+    if mc == 16:  # YCgCo-Re: integers, RGB already at 8 bits
+        cg, co = (np.floor(x * f32(range_uv) + f32(0.5)).astype(np.int64)
+                  for x in (cb, cr))
+        t = y.astype(np.int64) - (cg >> 1)
+        b = np.clip(t - (co >> 1), 0, 255)
+        rgb = [np.clip(b + co, 0, 255), np.clip(t + cg, 0, 255), b]
+        rgb = [x.astype(f32) / f32(255) for x in rgb]
+    elif mc == 0:
+        rgb = [cr, luma, cb]
+    elif mc == 8:
+        t = luma - cb
+        rgb = [t + cr, luma + cb, t - cr]
+    else:
+        one, two = f32(1), f32(2)
+        kr, kb = _avif_kr_kb(mc, cp)
+        kg = one - kr - kb
+        rgb = [luma + (two * (one - kr)) * cr,
+               luma - ((two * ((kr * (one - kr) * cr)
+                               + (kb * (one - kb) * cb))) / kg),
+               luma + (two * (one - kb)) * cb]
+    rgb = [np.clip(x, f32(0), f32(1)) for x in rgb]
+    if alpha is not None:
+        a = alpha.astype(f32) / f32(top)
+        rgb = [np.where(a == 0, f32(0), np.where(
+            a < 1, np.minimum(x / np.maximum(a, f32(1e-30)), f32(1)), x))
+            for x in rgb]
+    return np.stack([(f32(0.5) + x * f32(255)).astype(np.uint8)
+                     for x in rgb], axis=2)
+
+
 def _avif_headers(data: bytes) -> tuple:
-    """The container, the AV1 headers of the primary item (and of its
-    alpha item) and the colour conversion they ask for -> (container,
-    info, alpha info or None, matrix coefficients, libyuv kind). Raises
+    """The container, the AV1 headers of its colour cells (and of its alpha
+    cells) and the colour conversion they ask for -> (container, infos,
+    alpha infos or None, matrix coefficients, colour primaries, full
+    range, libyuv kind or None where libavif converts itself). Raises
     NotImplementedError naming a variant read_image refuses, from the
     headers alone (unsupported() calls it too), and _Corrupt where cv2
-    gives None."""
+    gives None. A colour frame whose av1C says monochrome is read as
+    monochrome (libavif takes av1C's format, cv2 then copies the Y plane);
+    a monochrome frame with alpha fails, as in cv2 (its CopyToMat takes
+    gray with alpha for 4 channels)."""
     c = _avif_container(data)
-    info = _avif_frame_info(c)
-    if c["ispe"][0] != info[0] or c["ispe"][1] != info[1]:
+    infos = _avif_image_infos(c)
+    info = infos[0]
+    if c["grid"] is None and c["ispe"] != (int(info[0]), int(info[1])):
+        what = "ispe property" if c["source"] == "item" else "track size"
         raise NotImplementedError(
-            "AVIF whose ispe property differs from its AV1 frame's size "
+            f"AVIF whose {what} differs from its AV1 frame's size "
             "(libavif scales the frame to it) is not supported")
-    alpha_info = None if c["alpha"] is None else _av1_frame_info(c["alpha"])
-    mc, cp, full = _avif_cicp(data, c["props"], info)
+    alpha_infos = None
+    if c["alpha"] is not None:
+        a = c["alpha"]
+        # libavif decodes every cell with one libaom decoder where colour
+        # and alpha are both grids of more than one cell
+        # (avifTilesCanBeDecodedWithSameCodecInstance)
+        shared = len(c["cells"]) > 1 and len(a["cells"]) > 1
+        alpha_infos = _avif_image_infos(a, alpha=True,
+                                        previous=infos[-1] if shared else None)
+        size = a["grid"][2:] if a["grid"] is not None else a["ispe"]
+        if size != c["ispe"] or alpha_infos[0][2] != info[2]:
+            raise _Corrupt("AVIF alpha of another size or depth")
+        if c["config_mono"] or info[3]:
+            raise _Corrupt("AVIF monochrome with alpha")
+    mc, cp, full = _avif_cicp(data, c["nclx"], info)
     kind = None
     if not _avif_mono(c, info):  # cv2 copies a monochrome Y plane as it is
         kind = _avif_libyuv_kind(mc, cp, full)
-        if mc == 0 and (info[4] or not full):
+        # what avifImageYUVToRGB fails on: the identity matrix with
+        # subsampled chroma, YCgCo on limited range, YCgCo-Re but from 10
+        # bits of full range (to 8), YCgCo-Ro (it needs 9 bits)
+        if ((mc == 0 and info[4]) or (mc == 8 and not full)
+                or (mc == 16 and (not full or info[2] != 10)) or mc == 17):
+            raise _Corrupt(f"libavif does not convert matrix coefficients "
+                           f"{mc} of this range, depth or chroma")
+        if (c["premultiplied"] and kind is not None and info[2] == 12
+                and info[4] and info[5]):
             raise NotImplementedError(
-                "AVIF with the identity matrix on limited range or "
-                "subsampled chroma is not supported")
-        if mc != 0 and kind is None:
-            raise NotImplementedError(
-                f"AVIF with matrix coefficients {mc} is not supported")
-    return c, info, alpha_info, mc, kind
+                "AVIF with premultiplied alpha at 12 bits 4:2:0 is not "
+                "supported")
+    return c, infos, alpha_infos, mc, cp, full, kind
 
 
 def _avif_mono(c: dict, info: np.ndarray) -> bool:
@@ -2809,15 +3573,38 @@ def _decode_avif(data: bytes) -> np.ndarray:
     (0.5 + v / max * 255, truncated); a monochrome frame is its Y plane on
     all three channels, as cv2 copies it, above 8 bits scaled by
     convertTo (v / 2 ** (depth - 8), rounded half to even)."""
-    c, info, alpha_info, mc, kind = _avif_headers(data)
-    width, height = c["ispe"]  # the frame's size (_avif_headers)
+    c, infos, alpha_infos, mc, cp, full, kind = _avif_headers(data)
+    width, height = c["ispe"]  # the frame's or grid's size (_avif_headers)
     _check_size(width, height)
-    if alpha_info is not None and native.av1_decode(c["alpha"],
-                                                    alpha_info)[0]:
-        raise _Corrupt("AVIF alpha plane libaom does not decode")
-    rc, planes = native.av1_decode(c["color"], info)
-    if rc:
-        raise _Corrupt("AV1 frame libaom does not decode")
+    planes, last = _avif_planes(c, infos)
+    info = infos[0]
+    depth = int(info[2])
+    alpha = None
+    if alpha_infos is not None and c["premultiplied"]:
+        alpha = _avif_planes(c["alpha"], alpha_infos, last, count=1)[0][0]
+        if alpha.shape != planes[0].shape:
+            raise NotImplementedError(
+                "AVIF with premultiplied alpha whose size differs from the "
+                "colour's (libavif scales it) is not supported")
+    elif alpha_infos is not None:
+        _avif_check_alpha(c["alpha"])
+    if kind is None and not _avif_mono(c, info) and (
+            mc != 0 or depth > 8 or not full):
+        # libavif's own float conversion, which divides by alpha itself
+        return _avif_rgb_float(planes, depth, full, mc, cp, int(info[4]),
+                               int(info[5]), alpha)
+    rgb = _avif_rgb(c, planes, info, mc, kind, alpha_infos is not None)
+    # libyuv's paths (and the identity's copy): alpha divided out after
+    return rgb if alpha is None else _avif_unpremultiply(
+        rgb, alpha >> (depth - 8))
+
+
+def _avif_rgb(c: dict, planes: list, info: np.ndarray, mc: int,
+              kind: int | None, with_alpha: bool) -> np.ndarray:
+    """The decoded planes to 8-bit RGB as cv2 gets them where libavif
+    does not convert in float (_decode_avif): a monochrome frame copied,
+    the identity matrix at 8 bits of full range copied, libyuv's
+    conversions."""
     depth = int(info[2])
     if _avif_mono(c, info):
         y = planes[0]
@@ -2826,17 +3613,13 @@ def _decode_avif(data: bytes) -> np.ndarray:
         return np.repeat(y.astype(np.uint8)[:, :, None], 3, axis=2)
     sub = 0 if not info[4] else 1 if info[5] else 2
     if depth > 8:
-        if mc == 0:  # avifImageYUVAnyToRGBAnySlow's float unorm
-            top = np.float32((1 << depth) - 1)
-            planes = [(np.float32(0.5) + p.astype(np.float32) / top
-                       * np.float32(255)).astype(np.uint8) for p in planes]
-        elif alpha_info is not None and (depth == 10 or sub == 1):
+        if with_alpha and (depth == 10 or sub == 1):
             # with alpha libavif takes libyuv's I010/I210/I410 and
             # I012 (its 4:2:0 by the nearest sample) at the depth
             return native.avif_yuv_to_rgb(*planes, 3 if depth == 12 else sub,
                                           kind, depth)
-        else:  # avifImageDownshiftTo8bpc, then libyuv at 8 bits
-            planes = [p >> (depth - 8) for p in planes]
+        # avifImageDownshiftTo8bpc, then libyuv at 8 bits
+        planes = [p >> (depth - 8) for p in planes]
     if mc == 0:
         return np.stack([planes[2], planes[0], planes[1]], axis=2)
     return native.avif_yuv_to_rgb(*planes, sub, kind)

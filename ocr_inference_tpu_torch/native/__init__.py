@@ -424,7 +424,7 @@ def _jpeg_lib() -> ctypes.CDLL:
 def jpeg_header(data: bytes) -> tuple[int, tuple[int, int, int]]:
     """(status, (width, height, components)) of a JPEG file's first frame
     from its headers; status is jpeg.cpp's JPEG_* code (0 ok, 1 a file
-    cv2.imread cannot read, 2 and up a variant not decoded here)."""
+    cv2.imread cannot read)."""
     buf = np.frombuffer(data, np.uint8)
     info = np.zeros(4, np.int32)
     rc = _jpeg_lib().ocr_jpeg_header(buf.ctypes.data_as(_U8P), buf.size,
@@ -868,6 +868,16 @@ def av1_decode(obus: bytes, info: np.ndarray
         src.ctypes.data_as(_U8P), src.size,
         *(p.ctypes.data_as(_U16P) for p in planes))
     return rc, _av1_out(planes, info)
+
+
+def av1_check(obus: bytes) -> int:
+    """Decode an AV1 OBU stream as av1_decode does, keeping no planes ->
+    its status: what an alpha item needs (it is decoded, then dropped), of
+    whatever size and format its last frame is."""
+    src = np.frombuffer(obus, np.uint8)
+    null = ctypes.cast(None, _U16P)
+    return _av1_lib().ocr_av1_decode(src.ctypes.data_as(_U8P), src.size,
+                                     null, null, null)
 
 
 def av1_decode_counts(obus: bytes, info: np.ndarray

@@ -5,7 +5,8 @@
 //   coding (jdarith.c, DAC conditioning), restart intervals, 1, 3 or 4
 //   components, any integral sampling factors;
 // - lossless frames (SOF3: jdlossls.c, jddiffct.c, jdlhuff.c; predictors
-//   1-7, point transform, restarts), every component sampled 1x1;
+//   1-7, point transform, restarts), at any integral sampling factors,
+//   interleaved or one component a scan, upsampled by replication;
 // - progressive block smoothing (jdcoefct.c decompress_smooth_data, the
 //   5x5 DC window of libjpeg-turbo 2.1+) when the scans leave one of the
 //   first 10 coefficients of a component unsent or short of bits;
@@ -43,7 +44,6 @@ namespace {
 enum {
     JPEG_OK = 0,
     JPEG_CORRUPT = 1,         // cv2.imread gives None
-    JPEG_LOSSLESS_SUBSAMPLED = 3,  // lossless, a component not 1x1
 };
 
 // zigzag index -> natural index, with libjpeg's 16 safety entries
@@ -428,7 +428,7 @@ struct Decoder {
     int lossless_precision = 0;     // > 0: a lossless frame
     int sample_precision = 8;
     bool headers_only = false;      // parse(true): scans are not decoded
-    // a lossless frame's samples, one plane a component (1x1 sampling)
+    // a lossless frame's samples, one plane a component at its own size
     std::vector<std::vector<uint16_t>> planes;
     bool arith = false;             // arithmetic coding (SOF9-11)
     // DAC conditioning, reset at SOI: DC L and U, AC Kx per table
@@ -484,6 +484,16 @@ struct Decoder {
                 c.v = data[at + 7 + 3 * i] & 15;
                 if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
                     return JPEG_CORRUPT;
+                hmax = std::max(hmax, c.h);
+                vmax = std::max(vmax, c.v);
+            }
+            // a data unit is one sample (jdinput.c with DCT size 1); the
+            // replicating upsampler (jdsample.c int_upsample) takes only
+            // integral ratios
+            for (Component& c : comps) {
+                if (hmax % c.h || vmax % c.v) return JPEG_CORRUPT;
+                c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
+                c.dh = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
             }
             frame = true;
             return JPEG_OK;
@@ -995,12 +1005,17 @@ struct Decoder {
         return JPEG_OK;
     }
 
-    // jdlossls.c, jddiffct.c and jdlhuff.c over one lossless scan: each
-    // MCU row's Huffman-coded differences (category 16: 32768), then each
-    // component's row undifferenced with predictor psv (the first row of
-    // the scan and of each restart interval from the left, its first
-    // sample from 2^(P - Pt - 1)), modulo 2^16. A row begun after the data
-    // ran out is all differences 0 from a first row: 2^(P - Pt - 1).
+    // jdlossls.c, jddiffct.c and jdlhuff.c over one lossless scan. An MCU
+    // is one sample of a single-component scan, and in an interleaved one
+    // each component's h x v samples (rows of h) of an hmax x vmax block;
+    // each MCU row's Huffman-coded differences (category 16: 32768) go to
+    // the components' rows, padded to whole MCUs. After each iMCU row (one
+    // MCU row interleaved; v MCU rows, its component's v sample rows, in a
+    // single-component scan) each component's rows are undifferenced with
+    // predictor psv, but for the first row after the scan's start, a
+    // restart or an MCU row begun after the data ran out (its differences
+    // 0), which is predicted from the left, its first sample from
+    // 2^(P - Pt - 1); all modulo 2^16.
     int lossless_scan(int64_t start, int ns, const int* sc, const int* td,
                       int psv, int se, int ah, int pt) {
         // jdlossls.c start_pass_lossless
@@ -1008,81 +1023,111 @@ struct Decoder {
             pt >= lossless_precision)
             return JPEG_CORRUPT;
         if (lossless_refused()) return JPEG_CORRUPT;
-        for (int i = 0; i < ns; ++i)
-            if (comps[sc[i]].h != 1 || comps[sc[i]].v != 1)
-                return JPEG_LOSSLESS_SUBSAMPLED;
-        for (int i = 0; i < ns; ++i)
+        int blocks_in_mcu = 0;
+        for (int i = 0; i < ns; ++i) {
             if (td[i] > 3 || !dc[td[i]].defined ||
                 !dc[td[i]].build(true, 16))
                 return JPEG_CORRUPT;
-        const int W = width, H = height;
+            blocks_in_mcu += ns == 1 ? 1 : comps[sc[i]].h * comps[sc[i]].v;
+        }
+        if (blocks_in_mcu > 10) return JPEG_CORRUPT;  // D_MAX_BLOCKS_IN_MCU
+        const int imcu_rows = (height + vmax - 1) / vmax;
+        const int mcus_per_row = ns > 1 ? (width + hmax - 1) / hmax
+                                        : comps[sc[0]].dw;
         // jddiffct.c start_input_pass: restarts fall on MCU rows
-        if (restart_interval % W) return JPEG_CORRUPT;
+        if (restart_interval % mcus_per_row) return JPEG_CORRUPT;
         ++scans;
         if (headers_only) return JPEG_OK;
         if (planes.size() != comps.size())
             planes.assign(comps.size(), std::vector<uint16_t>());
-        for (int i = 0; i < ns; ++i)
-            planes[sc[i]].assign((size_t)W * H, 0);
+        // per component of the scan: its (h, v) in an MCU, the padded row
+        // of differences, the rows of its last iMCU row
+        std::vector<int> mh(ns), mv(ns), pw(ns), last_rows(ns);
+        std::vector<std::vector<int>> diff(ns);
+        for (int i = 0; i < ns; ++i) {
+            const Component& c = comps[sc[i]];
+            mh[i] = ns > 1 ? c.h : 1;
+            mv[i] = ns > 1 ? c.v : 1;
+            pw[i] = mcus_per_row * mh[i];
+            last_rows[i] = c.dh % c.v ? c.dh % c.v : c.v;
+            diff[i].assign((size_t)pw[i] * c.v, 0);
+            planes[sc[i]].assign((size_t)c.dw * c.dh, 0);
+        }
         Reader r{data, n, start};
-        std::vector<int> diff((size_t)ns * W);
         const int initial = 1 << (lossless_precision - pt - 1);
-        int rows_to_go = restart_interval / W, next_rst = 0;
-        bool first = true;
-        for (int y = 0; y < H; ++y) {
-            if (restart_interval && rows_to_go == 0) {
-                restart(r, next_rst);
-                first = true;
-                rows_to_go = restart_interval / W;
+        int rows_to_go = restart_interval / mcus_per_row, next_rst = 0;
+        std::vector<char> first(ns, 1);
+        for (int iy = 0; iy < imcu_rows; ++iy) {
+            const bool last = iy == imcu_rows - 1;
+            const int mcu_rows = ns > 1 ? 1 : last ? last_rows[0]
+                                                   : comps[sc[0]].v;
+            for (int yoff = 0; yoff < mcu_rows; ++yoff) {
+                if (restart_interval && rows_to_go == 0) {
+                    restart(r, next_rst);
+                    std::fill(first.begin(), first.end(), 1);
+                    rows_to_go = restart_interval / mcus_per_row;
+                }
+                if (r.insufficient) {
+                    // jdlhuff.c decode_mcus: zeros, the undifferencer reset
+                    for (int i = 0; i < ns; ++i)
+                        std::fill(diff[i].begin() + (size_t)yoff * pw[i],
+                                  diff[i].begin() +
+                                      (size_t)(yoff + mv[i]) * pw[i], 0);
+                    std::fill(first.begin(), first.end(), 1);
+                } else {
+                    for (int mx = 0; mx < mcus_per_row; ++mx)
+                        for (int i = 0; i < ns; ++i)
+                            for (int y = 0; y < mv[i]; ++y)
+                                for (int x = 0; x < mh[i]; ++x) {
+                                    int v = r.decode(dc[td[i]]);
+                                    if (v == 16) v = 32768;
+                                    else if (v) v = extend(r.get_bits(v), v);
+                                    diff[i][(size_t)(yoff + y) * pw[i] +
+                                            mx * mh[i] + x] = v;
+                                }
+                }
+                if (restart_interval) --rows_to_go;
             }
-            if (r.insufficient) {
-                std::fill(diff.begin(), diff.end(), 0);
-                first = true;
-            } else {
-                for (int x = 0; x < W; ++x)
-                    for (int i = 0; i < ns; ++i) {
-                        int v = r.decode(dc[td[i]]);
-                        if (v == 16) v = 32768;
-                        else if (v) v = extend(r.get_bits(v), v);
-                        diff[(size_t)i * W + x] = v;
-                    }
-            }
-            if (restart_interval) --rows_to_go;
             for (int i = 0; i < ns; ++i) {
-                const int* d = &diff[(size_t)i * W];
-                uint16_t* row = planes[sc[i]].data() + (size_t)y * W;
-                int Ra;
-                if (first) {
-                    Ra = (d[0] + initial) & 0xFFFF;
-                    row[0] = (uint16_t)Ra;
+                const Component& c = comps[sc[i]];
+                const int W = c.dw;
+                for (int row = 0; row < (last ? last_rows[i] : c.v); ++row) {
+                    const int* d = &diff[i][(size_t)row * pw[i]];
+                    uint16_t* out = planes[sc[i]].data() +
+                                    (size_t)(iy * c.v + row) * W;
+                    int Ra;
+                    if (first[i]) {
+                        first[i] = 0;
+                        Ra = (d[0] + initial) & 0xFFFF;
+                        out[0] = (uint16_t)Ra;
+                        for (int x = 1; x < W; ++x) {
+                            Ra = (d[x] + Ra) & 0xFFFF;
+                            out[x] = (uint16_t)Ra;
+                        }
+                        continue;
+                    }
+                    const uint16_t* prev = out - W;
+                    int Rb = prev[0], Rc;
+                    Ra = (d[0] + Rb) & 0xFFFF;
+                    out[0] = (uint16_t)Ra;
                     for (int x = 1; x < W; ++x) {
-                        Ra = (d[x] + Ra) & 0xFFFF;
-                        row[x] = (uint16_t)Ra;
+                        Rc = Rb;
+                        Rb = prev[x];
+                        int p;
+                        switch (psv) {
+                        case 1: p = Ra; break;
+                        case 2: p = Rb; break;
+                        case 3: p = Rc; break;
+                        case 4: p = Ra + Rb - Rc; break;
+                        case 5: p = Ra + ((Rb - Rc) >> 1); break;
+                        case 6: p = Rb + ((Ra - Rc) >> 1); break;
+                        default: p = (Ra + Rb) >> 1; break;
+                        }
+                        Ra = (d[x] + p) & 0xFFFF;
+                        out[x] = (uint16_t)Ra;
                     }
-                    continue;
-                }
-                const uint16_t* prev = row - W;
-                int Rb = prev[0], Rc;
-                Ra = (d[0] + Rb) & 0xFFFF;
-                row[0] = (uint16_t)Ra;
-                for (int x = 1; x < W; ++x) {
-                    Rc = Rb;
-                    Rb = prev[x];
-                    int p;
-                    switch (psv) {
-                    case 1: p = Ra; break;
-                    case 2: p = Rb; break;
-                    case 3: p = Rc; break;
-                    case 4: p = Ra + Rb - Rc; break;
-                    case 5: p = Ra + ((Rb - Rc) >> 1); break;
-                    case 6: p = Rb + ((Ra - Rc) >> 1); break;
-                    default: p = (Ra + Rb) >> 1; break;
-                    }
-                    Ra = (d[x] + p) & 0xFFFF;
-                    row[x] = (uint16_t)Ra;
                 }
             }
-            first = false;
         }
         point_transform = pt;
         pos = r.pos;
@@ -1106,10 +1151,13 @@ struct Decoder {
                (nc == 3 && jfif) || (adobe && adobe_transform != 0);
     }
 
-    // a lossless frame's component ci as 8-bit samples (simple_upscale:
-    // shifted by the point transform, cut to the low byte)
-    uint8_t lossless_sample(int ci, int64_t i) const {
-        if (planes[ci].empty()) return 0;
+    // a lossless frame's component ci at pixel (x, y) as an 8-bit sample:
+    // replicated from its own samples (jdsample.c int_upsample; lossless
+    // mode has no fancy upsampling), shifted by the point transform
+    // (simple_upscale) and cut to the low byte
+    uint8_t lossless_sample(int ci, int x, int y) const {
+        const Component& c = comps[ci];
+        const int64_t i = (int64_t)(y / (vmax / c.v)) * c.dw + x / (hmax / c.h);
         return (uint8_t)(planes[ci][i] << point_transform);
     }
 
@@ -1640,12 +1688,22 @@ void cmyk_to_rgb(const std::vector<std::vector<uint8_t>>& p, int64_t np,
     }
 }
 
-// a lossless frame's components as 8-bit planes
-void lossless_planes(const Decoder& d, std::vector<std::vector<uint8_t>>& full) {
+// a lossless frame's components as 8-bit planes -> false where a
+// component had no scan: libjpeg's whole-image buffers of a lossless frame
+// in several scans are not zeroed first, and reading rows no scan wrote
+// fails (jmemmgr.c access_virt_sarray, JERR_BAD_VIRTUAL_ACCESS)
+bool lossless_planes(const Decoder& d, std::vector<std::vector<uint8_t>>& full) {
+    for (const auto& p : d.planes)
+        if (p.empty()) return false;
+    if (d.planes.size() != d.comps.size()) return false;
     const int64_t np = (int64_t)d.width * d.height;
     full.assign(d.comps.size(), std::vector<uint8_t>(np));
     for (size_t ci = 0; ci < d.comps.size(); ++ci)
-        for (int64_t i = 0; i < np; ++i) full[ci][i] = d.lossless_sample((int)ci, i);
+        for (int y = 0; y < d.height; ++y)
+            for (int x = 0; x < d.width; ++x)
+                full[ci][(int64_t)y * d.width + x] =
+                    d.lossless_sample((int)ci, x, y);
+    return true;
 }
 
 // The data followed by what libjpeg's data sources (jdatasrc.c, and
@@ -1696,7 +1754,7 @@ extern "C" int ocr_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
     if (out_size != np * (nc == 1 ? 1 : 3)) return JPEG_CORRUPT;
     std::vector<std::vector<uint8_t>> full;
     if (d.lossless_precision) {
-        lossless_planes(d, full);
+        if (!lossless_planes(d, full)) return JPEG_CORRUPT;
         if (nc == 4) cmyk_to_rgb(full, np, false, out);
         else
             for (int64_t i = 0; i < np; ++i)
@@ -1807,7 +1865,7 @@ extern "C" int ocr_jpeg_tiff(void* tables, const uint8_t* data, int64_t n,
     if (out_size != np * (color == 1 ? 3 : nc)) return JPEG_CORRUPT;
     std::vector<std::vector<uint8_t>> full;
     if (d.lossless_precision) {
-        lossless_planes(d, full);
+        if (!lossless_planes(d, full)) return JPEG_CORRUPT;
         for (int64_t i = 0; i < np; ++i)
             for (int k = 0; k < nc; ++k) out[nc * i + k] = full[k][i];
         return JPEG_OK;

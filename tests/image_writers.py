@@ -3,7 +3,9 @@ with the layouts cv2 and PIL do not write (tiles, 16-bit samples, palette,
 orientation, fill order, both byte orders), Adam7-interlaced PNG, JPEG
 2000 (JP2 boxes around a codestream, OpenJPEG's own encoder driven through
 ctypes for the options Pillow does not reach, packed packet headers), BMP
-(every header, RLE8) and PNM/PAM. cv2 stays the oracle."""
+(every header, RLE8), PNM/PAM, AVIF through the libavif cv2 bundles
+(grids, layers, the fields cv2 and Pillow do not set) and edits of AVIF
+boxes. cv2 stays the oracle."""
 
 from __future__ import annotations
 
@@ -602,50 +604,91 @@ def lossless_predict(rows: np.ndarray, predictor: int, precision: int,
     return pred
 
 
-def jpeg_lossless(samples: np.ndarray, precision: int = 8,
-                  predictor: int = 1, pt: int = 0, restart_rows: int = 0,
-                  marker: int = 0xC3) -> bytes:
+def jpeg_lossless(samples, precision: int = 8, predictor: int = 1,
+                  pt: int = 0, restart_rows: int = 0, marker: int = 0xC3,
+                  sampling=None, size=None, interleaved: bool = True
+                  ) -> bytes:
     """A lossless JPEG (SOF3, Huffman; T.81 Annex H) of (h, w) or (h, w,
     nc) samples below 2**precision, every component sampled 1x1 and all
     in one interleaved scan; ``restart_rows`` puts a restart marker every
-    that many rows."""
-    s = np.asarray(samples)
-    if s.ndim == 2:
-        s = s[..., None]
-    h, w, nc = s.shape
+    that many rows. With ``sampling`` [(h, v), ...], ``samples`` is a list
+    of component planes, each of its own size (ceil(W h / hmax) by
+    ceil(H v / vmax) for the image ``size`` (H, W)), coded in one
+    interleaved scan of hmax x vmax MCUs (``restart_rows`` counting MCU
+    rows; the samples an MCU holds past a plane's edge coded as 0) or,
+    without ``interleaved``, in one scan a component."""
+    if sampling is None:
+        s = np.asarray(samples)
+        if s.ndim == 2:
+            s = s[..., None]
+        size = s.shape[:2]
+        samples = [s[..., c] for c in range(s.shape[2])]
+        sampling = [(1, 1)] * s.shape[2]
+    h, w = size
+    nc = len(samples)
+    hmax = max(f[0] for f in sampling)
+    vmax = max(f[1] for f in sampling)
+    mcux, mcuy = -(-w // hmax), -(-h // vmax)
+    if not interleaved:
+        assert not restart_rows
     diffs = []
     for c in range(nc):
-        x = s[..., c].astype(np.int64) >> pt
-        d = (x - lossless_predict(x, predictor, precision, pt,
-                                  restart_rows)) & 0xFFFF
-        diffs.append(np.where(d >= 0x8000, d - 0x10000, d))
-    diff = np.stack(diffs, -1)
-    cats = np.vectorize(_category)(diff) if diff.size else diff
-    cats = np.where(diff == -0x8000, 16, cats)
-    freq = {int(k): int(v) for k, v in zip(*np.unique(cats,
-                                                      return_counts=True))}
+        x = np.asarray(samples[c]).astype(np.int64) >> pt
+        rows = restart_rows * sampling[c][1]
+        d = (x - lossless_predict(x, predictor, precision, pt, rows)) & 0xFFFF
+        d = np.where(d >= 0x8000, d - 0x10000, d)
+        if interleaved:  # padded to whole MCUs
+            pad = np.zeros((mcuy * sampling[c][1], mcux * sampling[c][0]),
+                           np.int64)
+            pad[:d.shape[0], :d.shape[1]] = d
+            d = pad
+        diffs.append(d)
+    cats = [np.where(d == -0x8000, 16, np.vectorize(_category)(d))
+            for d in diffs]
+    freq = {}
+    for k in cats:
+        for v, n in zip(*np.unique(k, return_counts=True)):
+            freq[int(v)] = freq.get(int(v), 0) + int(n)
     bits, vals = huffman_spec(freq)
     codes = _huffman_codes(bits, vals)
     sof = struct.pack(">BHHB", precision, h, w, nc) + b"".join(
-        bytes([c + 1, 0x11, 0]) for c in range(nc))
+        bytes([c + 1, (sampling[c][0] << 4) | sampling[c][1], 0])
+        for c in range(nc))
     out = bytearray(b"\xff\xd8" + _segment(marker, sof) + _dht(0, 0, bits,
                                                                vals))
     if restart_rows:
-        out += _segment(0xDD, struct.pack(">H", restart_rows * w))
-    out += _segment(0xDA, bytes([nc]) + b"".join(
-        bytes([c + 1, 0]) for c in range(nc)) + bytes([predictor, 0, pt]))
-    bw = _BitWriter()
-    for y in range(h):
-        if restart_rows and y and y % restart_rows == 0:
-            out += bw.flush() + bytes([0xFF, 0xD0 + (y // restart_rows - 1)
-                                       % 8])
-        for x in range(w):
-            for c in range(nc):
-                v, k = int(diff[y, x, c]), int(cats[y, x, c])
-                bw.put(*codes[k])
-                if 0 < k < 16:
-                    bw.put(_magnitude(v, k), k)
-    return bytes(out + bw.flush() + b"\xff\xd9")
+        out += _segment(0xDD, struct.pack(">H", restart_rows * mcux))
+
+    def put(bw, c, y, x):
+        v, k = int(diffs[c][y, x]), int(cats[c][y, x])
+        bw.put(*codes[k])
+        if 0 < k < 16:
+            bw.put(_magnitude(v, k), k)
+
+    for scan in ([list(range(nc))] if interleaved else
+                 [[c] for c in range(nc)]):
+        out += _segment(0xDA, bytes([len(scan)]) + b"".join(
+            bytes([c + 1, 0]) for c in scan) + bytes([predictor, 0, pt]))
+        bw = _BitWriter()
+        if not interleaved:
+            c = scan[0]
+            for y in range(diffs[c].shape[0]):
+                for x in range(diffs[c].shape[1]):
+                    put(bw, c, y, x)
+            out += bw.flush()
+            continue
+        for my in range(mcuy):
+            if restart_rows and my and my % restart_rows == 0:
+                out += bw.flush() + bytes([0xFF, 0xD0 + (my // restart_rows
+                                                         - 1) % 8])
+            for mx in range(mcux):
+                for c in scan:
+                    hc, vc = sampling[c]
+                    for y in range(vc):
+                        for x in range(hc):
+                            put(bw, c, my * vc + y, mx * hc + x)
+        out += bw.flush()
+    return bytes(out + b"\xff\xd9")
 
 
 def _sof_components(nc: int, ids, sampling) -> bytes:
@@ -2146,7 +2189,7 @@ def sequence_avif(path, seed: int = 0) -> None:
 
 def _libavif():
     """The libavif (1.4) bundled with cv2 (opencv_python.libs), whose
-    encoder is libaom's, with the functions libavif_encode calls
+    encoder is libaom's, with the functions the libavif writers call
     declared."""
     import ctypes
 
@@ -2154,15 +2197,18 @@ def _libavif():
 
     libs = Path(cv2.__file__).parent.parent / "opencv_python.libs"
     lib = ctypes.CDLL(str(sorted(libs.glob("libavif-*.so*"))[0]))
-    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    vp, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
     for name, res, args in (
-            ("avifImageCreate", vp, [u32, u32, u32, ctypes.c_int]),
-            ("avifImageAllocatePlanes", ctypes.c_int, [vp, ctypes.c_int]),
+            ("avifImageCreate", vp, [u32, u32, u32, i32]),
+            ("avifImageAllocatePlanes", i32, [vp, i32]),
             ("avifImageDestroy", None, [vp]),
             ("avifEncoderCreate", vp, []),
-            ("avifEncoderSetCodecSpecificOption", ctypes.c_int,
+            ("avifEncoderSetCodecSpecificOption", i32,
              [vp, ctypes.c_char_p, ctypes.c_char_p]),
-            ("avifEncoderWrite", ctypes.c_int, [vp, vp, vp]),
+            ("avifEncoderWrite", i32, [vp, vp, vp]),
+            ("avifEncoderAddImage", i32, [vp, vp, ctypes.c_uint64, i32]),
+            ("avifEncoderAddImageGrid", i32, [vp, u32, u32, vp, i32]),
+            ("avifEncoderFinish", i32, [vp, vp]),
             ("avifEncoderDestroy", None, [vp]),
             ("avifRWDataFree", None, [vp])):
         fn = getattr(lib, name)
@@ -2170,25 +2216,19 @@ def _libavif():
     return lib
 
 
-def libavif_encode(planes: list[np.ndarray], depth: int, layout: str,
-                   full_range: bool = True, matrix: int = 2, speed: int = 6,
-                   quality: int = 60, alpha: np.ndarray | None = None,
-                   options: dict | None = None) -> bytes:
-    """An AVIF of YUV planes as libavif's encoder (libaom) writes it: Y, U
-    and V (or Y alone for ``layout`` "400"; "420", "422" or "444" else)
-    of ``depth`` 8, 10 or 12 bits, the range and matrix coefficients set
-    in the image (and so in its colr box), an alpha plane of the same
-    depth where given, and libaom's codec-specific ``options`` (e.g.
-    film-grain-test, denoise-noise-level). Reaches what cv2 and Pillow do
-    not write: 4:2:2 and 4:4:4 above 8 bits, and film grain above 8 bits.
-    Fields of libavif 1.4's avifImage and avifEncoder are set by offset."""
+def _libavif_image(lib, planes: list[np.ndarray], depth: int, layout: str,
+                   full_range: bool, matrix: int,
+                   alpha: np.ndarray | None, primaries: int = 2,
+                   premultiplied: bool = False) -> int:
+    """An avifImage of the planes (avifImage's fields by offset)."""
     import ctypes
 
-    lib = _libavif()
     h, w = planes[0].shape
     image = lib.avifImageCreate(w, h, depth, {"444": 1, "422": 2, "420": 3,
                                               "400": 4}[layout])
     ctypes.c_uint32.from_address(image + 16).value = int(full_range)
+    ctypes.c_uint32.from_address(image + 80).value = int(premultiplied)
+    ctypes.c_uint16.from_address(image + 104).value = primaries
     ctypes.c_uint16.from_address(image + 108).value = matrix
     lib.avifImageAllocatePlanes(image, 1 if alpha is None else 3)
     dtype = np.uint16 if depth > 8 else np.uint8
@@ -2203,22 +2243,248 @@ def libavif_encode(planes: list[np.ndarray], depth: int, layout: str,
         for r in range(plane.shape[0]):
             ctypes.memmove(at + r * row_bytes, plane[r].ctypes.data,
                            plane[r].nbytes)
+    return image
+
+
+def _libavif_encoder(lib, speed: int, quality: int, options: dict | None
+                     ) -> int:
+    """An avifEncoder at a speed and quality (its fields by offset), with
+    libaom's codec-specific options."""
+    import ctypes
+
     encoder = lib.avifEncoderCreate()
     ctypes.c_int32.from_address(encoder + 8).value = speed
     ctypes.c_int32.from_address(encoder + 32).value = quality
     for key, value in (options or {}).items():
         assert lib.avifEncoderSetCodecSpecificOption(
             encoder, key.encode(), str(value).encode()) == 0, key
+    return encoder
+
+
+def _libavif_run(lib, encoder: int, images: list[int], write) -> bytes:
+    """``write(out)`` (an avifEncoderWrite or avifEncoderFinish into the
+    avifRWData ``out``) -> the file; the encoder and images destroyed."""
+    import ctypes
+
     out = (ctypes.c_uint8 * 16)()  # avifRWData: data, size
     try:
-        assert lib.avifEncoderWrite(encoder, image, ctypes.addressof(out)) == 0
+        assert write(ctypes.addressof(out)) == 0
         at = ctypes.c_void_p.from_address(ctypes.addressof(out)).value
         size = ctypes.c_size_t.from_address(ctypes.addressof(out) + 8).value
         return ctypes.string_at(at, size)
     finally:
         lib.avifRWDataFree(ctypes.addressof(out))
         lib.avifEncoderDestroy(encoder)
-        lib.avifImageDestroy(image)
+        for image in images:
+            lib.avifImageDestroy(image)
+
+
+def libavif_encode(planes: list[np.ndarray], depth: int, layout: str,
+                   full_range: bool = True, matrix: int = 2, speed: int = 6,
+                   quality: int = 60, alpha: np.ndarray | None = None,
+                   options: dict | None = None, primaries: int = 2,
+                   premultiplied: bool = False) -> bytes:
+    """An AVIF of YUV planes as libavif's encoder (libaom) writes it: Y, U
+    and V (or Y alone for ``layout`` "400"; "420", "422" or "444" else)
+    of ``depth`` 8, 10 or 12 bits, the range, colour primaries and matrix
+    coefficients set in the image (and so in its colr box), an alpha plane
+    of the same depth where given (``premultiplied``: the colour marked as
+    premultiplied by it, a prem reference), and libaom's codec-specific
+    ``options`` (e.g. film-grain-test, denoise-noise-level). Reaches what
+    cv2 and Pillow do not write: 4:2:2 and 4:4:4 above 8 bits, and film
+    grain above 8 bits. Fields of libavif 1.4's avifImage and avifEncoder
+    are set by offset."""
+    lib = _libavif()
+    image = _libavif_image(lib, planes, depth, layout, full_range, matrix,
+                           alpha, primaries, premultiplied)
+    encoder = _libavif_encoder(lib, speed, quality, options)
+    return _libavif_run(lib, encoder, [image],
+                        lambda out: lib.avifEncoderWrite(encoder, image, out))
+
+
+def libavif_encode_grid(cells: list[list[np.ndarray]], columns: int,
+                        rows: int, depth: int = 8, layout: str = "420",
+                        full_range: bool = True, matrix: int = 2,
+                        speed: int = 9, quality: int = 60,
+                        alphas: list[np.ndarray] | None = None,
+                        options: dict | None = None,
+                        layers: int = 1) -> bytes:
+    """An AVIF grid item as libavif's encoder writes it
+    (avifEncoderAddImageGrid): ``rows`` x ``columns`` cells, each a list of
+    planes as libavif_encode takes them, in row order, of one size (at
+    least 64x64, even where the chroma is subsampled); with ``alphas``,
+    an alpha grid of the cells' alpha planes. The grid's output size is
+    the cells' whole. With ``layers`` 2, each cell is layered (libavif's
+    extraLayerCount: a key frame at quality 10, then an inter frame at
+    ``quality``)."""
+    import ctypes
+
+    lib = _libavif()
+    images = [_libavif_image(lib, planes, depth, layout, full_range, matrix,
+                             None if alphas is None else alphas[k])
+              for k, planes in enumerate(cells)]
+    encoder = _libavif_encoder(lib, speed, quality, options)
+    ctypes.c_uint32.from_address(encoder + 28).value = layers - 1
+    pointers = (ctypes.c_void_p * len(images))(*images)
+
+    def write(out):
+        for q in [10] * (layers - 1) + [quality]:
+            ctypes.c_int32.from_address(encoder + 32).value = q
+            # AVIF_ADD_IMAGE_FLAG_SINGLE for a still image
+            rc = lib.avifEncoderAddImageGrid(encoder, columns, rows,
+                                             ctypes.addressof(pointers),
+                                             2 if layers == 1 else 0)
+            if rc:
+                return rc
+        return lib.avifEncoderFinish(encoder, out)
+
+    return _libavif_run(lib, encoder, images, write)
+
+
+def layered_avif(path, seed: int = 0) -> None:
+    """A 64x64 AVIF of two layers as libavif's encoder writes it
+    (extraLayerCount 1: a key frame at quality 10, then the second layer,
+    an inter frame, at quality 90; a1lx, lsel), a variant the port's AVIF
+    reader refuses by name: its layers after the first need AV1's inter
+    prediction."""
+    import ctypes
+
+    lib = _libavif()
+    rng = np.random.default_rng(seed)
+    dots = np.where(rng.random((64, 64)) < 0.3, 40, 235).astype(np.uint8)
+    image = _libavif_image(lib, [dots, np.full((32, 32), 128, np.uint8),
+                                 np.full((32, 32), 128, np.uint8)], 8,
+                           "420", True, 2, None)
+    encoder = _libavif_encoder(lib, 9, 10, None)
+    ctypes.c_uint32.from_address(encoder + 28).value = 1  # extraLayerCount
+
+    def write(out):
+        for quality in (10, 90):
+            ctypes.c_int32.from_address(encoder + 32).value = quality
+            rc = lib.avifEncoderAddImage(encoder, image, 1, 0)
+            if rc:
+                return rc
+        return lib.avifEncoderFinish(encoder, out)
+
+    Path(path).write_bytes(_libavif_run(lib, encoder, [image], write))
+
+
+def isobmff_boxes(data: bytes, start: int = 0, end: int | None = None,
+                  path: tuple = ()) -> list[tuple[tuple, int, int]]:
+    """Every box of an AVIF file, nested boxes too: (path of box types,
+    start, end). Full boxes (meta) and sample entries (stsd, av01) are
+    entered past their fields; a box of size 0 runs to ``end``."""
+    end = len(data) if end is None else end
+    out, at = [], start
+    while at + 8 <= end:
+        size, kind = struct.unpack_from(">I4s", data, at)
+        size = size or end - at
+        if size < 8:
+            break
+        here = path + (kind,)
+        out.append((here, at, at + size))
+        body = {b"meta": 12, b"stsd": 16}.get(kind, 8)
+        if kind == b"av01" and b"stsd" in path:
+            body = 8 + 78
+        if kind in (b"meta", b"iprp", b"ipco", b"moov", b"trak", b"mdia",
+                    b"minf", b"stbl", b"stsd", b"edts", b"tref", b"dinf",
+                    b"av01") and (kind != b"av01" or b"stsd" in path):
+            out += isobmff_boxes(data, at + body, at + size, here)
+        at += size
+    return out
+
+
+def iloc_fields(data: bytes) -> dict[int, dict]:
+    """Where each item's location lies in the (first) meta box's iloc:
+    {item: {"method", "base": (at, bytes), "extents": [((offset at,
+    bytes), (length at, bytes))]}}, for edits."""
+    at = next(a for p, a, _ in isobmff_boxes(data) if p == (b"meta", b"iloc"))
+    p = at + 8
+    version = data[p]
+    p += 4
+    sizes = int.from_bytes(data[p:p + 2], "big")
+    p += 2
+    off, length, base, index = (sizes >> 12, (sizes >> 8) & 15,
+                                (sizes >> 4) & 15, sizes & 15)
+    width = 2 if version < 2 else 4
+    count = int.from_bytes(data[p:p + width], "big")
+    p += width
+    out = {}
+    for _ in range(count):
+        item = int.from_bytes(data[p:p + width], "big")
+        p += width
+        method = 0
+        if version in (1, 2):
+            method = int.from_bytes(data[p:p + 2], "big") & 15
+            p += 2
+        p += 2
+        entry = {"method": method, "base": (p, base), "extents": []}
+        p += base
+        n = int.from_bytes(data[p:p + 2], "big")
+        p += 2
+        for _ in range(n):
+            if version in (1, 2):
+                p += index
+            entry["extents"].append(((p, off), (p + off, length)))
+            p += off + length
+        out[item] = entry
+    return out
+
+
+def put_uint(data: bytes, at: int, nbytes: int, value: int) -> bytes:
+    return data[:at] + value.to_bytes(nbytes, "big") + data[at + nbytes:]
+
+
+def avif_pad_meta(data: bytes, pad: int) -> bytes:
+    """An AVIF file with a free box of ``pad`` bytes (8 or more) at the end
+    of its meta box, the items' file offsets moved past it."""
+    (meta_at, meta_end), = [(a, e) for p, a, e in isobmff_boxes(data)
+                            if p == (b"meta",)]
+    fields = iloc_fields(data)
+    out = data[:meta_end] + struct.pack(">I4s", pad, b"free") + \
+        bytes(pad - 8) + data[meta_end:]
+    out = put_uint(out, meta_at, 4, meta_end - meta_at + pad)
+    for entry in fields.values():
+        if entry["method"]:
+            continue
+        (at, nbytes) = entry["base"]
+        value = int.from_bytes(data[at:at + nbytes], "big") if nbytes else 0
+        if nbytes and value >= meta_end:
+            out = put_uint(out, at, nbytes, value + pad)
+        for (at, nbytes), _ in entry["extents"]:
+            offset = int.from_bytes(data[at:at + nbytes], "big")
+            if value + offset >= meta_end and not (entry["base"][1] and
+                                                   value >= meta_end):
+                out = put_uint(out, at, nbytes, offset + pad)
+    return out
+
+
+def avif_crop_grid(data: bytes, width: int, height: int) -> bytes:
+    """libavif_encode_grid's file with the grid's output size (its
+    ImageGrid's 16-bit fields, and the grid item's ispe, the first in
+    ipco) set to width x height."""
+    (at, nbytes), _ = iloc_fields(data)[1]["extents"][0]
+    grid = int.from_bytes(data[at:at + nbytes], "big")
+    assert data[grid:grid + 2] == b"\x00\x00"  # version 0, 16-bit sizes
+    ispe = next(a for p, a, _ in isobmff_boxes(data)
+                if p == (b"meta", b"iprp", b"ipco", b"ispe")) + 12
+    for at, size in ((grid + 4, 2), (ispe, 4)):
+        data = put_uint(put_uint(data, at, size, width), at + size, size,
+                        height)
+    return data
+
+
+def avif_move_item(data: bytes, item: int, payload: bytes) -> bytes:
+    """An AVIF file with an item's data replaced by ``payload``, appended
+    at the end of the file (its iloc entry's one extent pointed there)."""
+    entry = iloc_fields(data)[item]
+    assert entry["method"] == 0 and len(entry["extents"]) == 1
+    (off_at, off_size), (len_at, len_size) = entry["extents"][0]
+    base = entry["base"]
+    base_value = int.from_bytes(data[base[0]:base[0] + base[1]], "big") \
+        if base[1] else 0
+    out = put_uint(data, off_at, off_size, len(data) - base_value)
+    return put_uint(out, len_at, len_size, len(payload)) + payload
 
 
 def ycbcr_planes(rgb: np.ndarray, layout: str, depth: int

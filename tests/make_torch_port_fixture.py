@@ -1094,7 +1094,8 @@ def variant_files(folder, flat) -> dict[str, str]:
 def damaged_and_variant_files(folder, flat) -> dict[str, str]:
     """Pages cv2 reads that the port once gave None for or refused by
     name: damaged and cut strips, libtiff's other codecs, CIE L*a*b*,
-    arithmetic-coded and lossless JPEG; and, in images/none/, a 12-bit
+    arithmetic-coded and lossless JPEG (with subsampled components too);
+    and, in images/none/, a 12-bit
     JPEG and a NeXT page, which cv2 gives None for. Returns {file:
     kind}."""
     import io
@@ -1180,6 +1181,14 @@ def damaged_and_variant_files(folder, flat) -> dict[str, str]:
         flat["clean_b"], 8, 1, restart_rows=8))
     kinds["clean_b_lossless.jpg"] = "JPEG lossless (SOF3), RGB, predictor " \
         "1, restarts every 8 rows"
+    page = flat["clean_a"].astype(np.int64)
+    half = page[..., 1:].reshape(h // 2, 2, w // 2, 2, 2).mean(axis=(1, 3))
+    (folder / "clean_a_lossless_h2v2.jpg").write_bytes(jpeg_lossless(
+        [page[..., 0], half[..., 0].astype(np.int64),
+         half[..., 1].astype(np.int64)], 8, 7, restart_rows=4,
+        sampling=[(2, 2), (1, 1), (1, 1)], size=(h, w)))
+    kinds["clean_a_lossless_h2v2.jpg"] = "JPEG lossless (SOF3), RGB with " \
+        "G and B sampled 2x2 below R, predictor 7, restarts every 4 MCU rows"
     levels = flat["clean_b"][..., 0] >> 4
     write_tiff(folder / "clean_b_thunder.tif", [dict(
         samples=levels[..., None], bits=4, photometric=3, compression=32809,
@@ -1460,13 +1469,19 @@ def avif_files(folder, by_name, flat) -> dict[str, str]:
     (loop restoration), a clean page of 10 bits and the scanned page of
     12 bits (cv2 from uint16; 12 bits is AV1 profile 2), the other clean
     page in Pillow's 4:2:2 (profile 2), the scanned page with the film
-    grain libaom's denoiser estimates, and in images/none/ an AVIF cut
-    inside its AV1 data. Returns {file: kind}; the bench-size AVIFs are
-    written by write_image_files."""
+    grain libaom's denoiser estimates, a grid item (libavif: 2x2 cells,
+    the output cutting the last row and column) and an image sequence
+    (Pillow, three RGBA frames), and in images/none/ an AVIF cut inside
+    its AV1 data. Returns {file: kind}; the bench-size AVIFs are written
+    by write_image_files."""
     import io
 
     import cv2
     from PIL import Image
+
+    from tests.image_writers import (
+        avif_crop_grid, libavif_encode_grid, ycbcr_planes,
+    )
 
     kinds = {}
     assert cv2.imwrite(str(folder / "clean_a_speed9.avif"),
@@ -1529,6 +1544,31 @@ def avif_files(folder, by_name, flat) -> dict[str, str]:
     (folder / "skew_2deg_grain.avif").write_bytes(buf.getvalue())
     kinds["skew_2deg_grain.avif"] = "AVIF Pillow of the scanned JPEG page " \
         "denoised by libaom, with the film grain it estimates"
+    # a grid: the page padded with paper to 2x2 cells of 576x320, the
+    # output cut back to the page (the last row and column of cells cut)
+    padded = np.full((640, 1152, 3), 235, np.uint8)
+    padded[:576, :1024] = flat["clean_a"]
+    cells = [ycbcr_planes(padded[r * 320:(r + 1) * 320,
+                                 c * 576:(c + 1) * 576], "420", 8)
+             for r in range(2) for c in range(2)]
+    (folder / "clean_a_grid.avif").write_bytes(avif_crop_grid(
+        libavif_encode_grid(cells, 2, 2, speed=6), 1024, 576))
+    kinds["clean_a_grid.avif"] = "AVIF grid item (libavif): 2x2 cells of " \
+        "576x320, its output 1024x576 cutting the last row and column"
+    # an image sequence: the scanned page first, then the clean ones
+    frames = []
+    for img in (scan, flat["clean_a"], flat["clean_b"]):
+        frame = np.full(scan.shape, 235, np.uint8)  # each on the scan's size
+        h, w = min(img.shape[0], scan.shape[0]), img.shape[1]
+        frame[:h, :w] = img[:h]
+        alpha = np.where(frame[..., 0] < 128, 255, 180).astype(np.uint8)
+        frames.append(Image.fromarray(np.dstack([frame, alpha])))
+    buf = io.BytesIO()
+    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:])
+    (folder / "skew_2deg_seq.avif").write_bytes(buf.getvalue())
+    kinds["skew_2deg_seq.avif"] = "AVIF image sequence (Pillow save_all, " \
+        "major brand avis) of three RGBA frames, the scanned JPEG page " \
+        "first: its colour and alpha tracks' first samples"
     data = (folder / "clean_a_speed9.avif").read_bytes()
     (IMAGES / "none" / "clean_a_cut.avif").write_bytes(
         data[:len(data) * 3 // 4])

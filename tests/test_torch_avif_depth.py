@@ -28,7 +28,7 @@ from tests.test_torch_avif import (
 
 
 def _info(data: bytes) -> np.ndarray:
-    rc, info = native.av1_info(_avif_container(data)["color"])
+    rc, info = native.av1_info(_avif_container(data)["cells"][0])
     assert rc == 0
     return info
 

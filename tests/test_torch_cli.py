@@ -29,8 +29,8 @@ from ocr_inference_tpu_torch.io.artifacts import write_png
 from ocr_inference_tpu_torch.io.images import read_image, unsupported
 from tests import make_refpipe_fixture as fx
 from tests.image_writers import (
-    jpeg2000_tiff, screen_content_avif, sequence_avif, ten_bit_avif,
-    write_tiff,
+    jpeg2000_tiff, layered_avif, screen_content_avif, sequence_avif,
+    ten_bit_avif, write_tiff,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -155,16 +155,17 @@ def test_layout_mode_with_seeded_weights(job, tmp_path):
 def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
                                                        capsys):
     """A page of a variant the port does not decode (a JPEG 2000 TIFF named
-    .jpg) and an AVIF image sequence are refused by name before any model
-    loads; baseline JPEG pages are read
-    (test_jpeg_and_tiff_pages_equal_jax_cli), and BMP, WebP, cv2's default
-    AVIF pages, AVIF pages with screen-content tools and AVIF pages of 10
-    bits, once refused here, are read as cv2 reads them."""
+    .jpg) and a layered AVIF are refused by name before any model loads;
+    baseline JPEG pages are read (test_jpeg_and_tiff_pages_equal_jax_cli),
+    and BMP, WebP, cv2's default AVIF pages, AVIF pages with
+    screen-content tools, AVIF pages of 10 bits and AVIF image sequences,
+    once refused here, are read as cv2 reads them."""
     folder = tmp_path / "mixed"
     folder.mkdir()
     (folder / "a.png").write_bytes((job / "pages" / "page0.png").read_bytes())
     (folder / "b.jpg").write_bytes(jpeg2000_tiff())
-    sequence_avif(folder / "c.avif")
+    layered_avif(folder / "c.avif")
+    sequence_avif(folder / "i.avif")
     ten_bit_avif(folder / "h.avif")
     cv2.imwrite(str(folder / "d.bmp"), np.zeros((8, 8, 3), np.uint8))
     cv2.imwrite(str(folder / "e.webp"), np.zeros((8, 8, 3), np.uint8))
@@ -175,9 +176,11 @@ def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
     assert unsupported(folder / "f.avif") is None
     assert unsupported(folder / "g.avif") is None
     assert unsupported(folder / "h.avif") is None
-    np.testing.assert_array_equal(
-        read_image(folder / "h.avif"),
-        cv2.cvtColor(cv2.imread(str(folder / "h.avif")), cv2.COLOR_BGR2RGB))
+    assert unsupported(folder / "i.avif") is None
+    for name in ("h.avif", "i.avif"):
+        np.testing.assert_array_equal(
+            read_image(folder / name),
+            cv2.cvtColor(cv2.imread(str(folder / name)), cv2.COLOR_BGR2RGB))
     args = ["--model", str(tmp_path / "no_model"), "--output",
             str(tmp_path / "out"), "--device", "cpu"]
     for where, name in ((["--folder", str(folder)], "b.jpg"),
@@ -188,7 +191,7 @@ def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
         message = str(exit_info.value.code)
         assert f"{name} (" in message
         assert ("JPEG 2000 in TIFF" if name == "b.jpg"
-                else "AVIF image sequences") in message
+                else "layered AVIF") in message
     assert not (tmp_path / "out").exists()
 
 

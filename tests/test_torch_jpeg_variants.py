@@ -4,7 +4,8 @@ cv2.COLOR_BGR2RGB)``, on files written by tests/image_writers.py's
 encoders (cv2 and PIL write none of them): arithmetic-coded sequential and
 progressive JPEG (T.81 Annex D, with restarts and DAC conditioning),
 lossless JPEG (Annex H: predictors 1-7, point transforms, precisions 2-16,
-restarts) and 12-bit DCT JPEG, in .jpg files and in JPEG-in-TIFF strips,
+restarts, subsampled components in one interleaved scan or one scan a
+component) and 12-bit DCT JPEG, in .jpg files and in JPEG-in-TIFF strips,
 intact, cut and corrupted: byte-equal with cv2, or None where cv2 gives
 None (12-bit frames, lossless frames libjpeg-turbo would have to convert
 or that are wider than 8 bits); unsupported() names none of them."""
@@ -167,7 +168,8 @@ def test_lossless_cut_corrupted_and_refused(tmp_path):
     after the data ran out is 2^(P-1), rows with bad codes are what
     libjpeg makes of them); arithmetic-coded lossless (SOF11) and a
     restart interval that is not whole rows give None, as cv2; a frame
-    with a subsampled component is refused by name."""
+    with a subsampled component, once refused by name, reads as cv2 reads
+    it."""
     rng = np.random.RandomState(7)
     samples = rng.randint(0, 256, (24, 30, 3))
     samples[:, 10:20] = 90
@@ -196,13 +198,100 @@ def test_lossless_cut_corrupted_and_refused(tmp_path):
     path.write_bytes(bytes(d))
     assert _cv2_rgb(path) is None and read_image(path) is None
     d = bytearray(data)
-    d[d.index(b"\xff\xc3") + 11] = 0x21
+    d[d.index(b"\xff\xc3") + 11] = 0x21  # the first component h2v1
     path.write_bytes(bytes(d))
     assert _cv2_rgb(path) is not None
-    with pytest.raises(NotImplementedError, match="lossless JPEG with "
-                       "subsampled components"):
-        read_image(path)
-    assert "subsampled" in unsupported(path)
+    assert _as_cv2(path) and unsupported(path) is None
+
+
+SUBSAMPLED = {"h2v1": [(2, 1), (1, 1), (1, 1)],
+              "h2v2": [(2, 2), (1, 1), (1, 1)],
+              "h1v2": [(1, 2), (1, 1), (1, 1)],
+              "mixed": [(2, 2), (1, 2), (2, 1)],
+              "h4v1": [(4, 1), (2, 1), (1, 1)],
+              "cmyk": [(2, 1), (1, 1), (1, 1), (2, 1)]}
+
+
+def _planes(sampling, size, precision, seed):
+    """Seeded noise over smooth ramps, each component at its own size."""
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    rng = np.random.RandomState(seed)
+    out = []
+    for c, (h, v) in enumerate(sampling):
+        ch, cw = -(-size[0] * v // vmax), -(-size[1] * h // hmax)
+        y, x = np.mgrid[0:ch, 0:cw]
+        ramp = (x * 7 + y * 5 + c * 40) % (1 << precision)
+        out.append((ramp + rng.randint(0, 1 << max(precision - 3, 1),
+                                       (ch, cw))) % (1 << precision))
+    return out
+
+
+@pytest.mark.parametrize("predictor", range(1, 8))
+@pytest.mark.parametrize("kind", list(SUBSAMPLED))
+def test_lossless_subsampled(tmp_path, kind, predictor):
+    """Lossless frames whose components are subsampled (h2v1, h2v2, h1v2,
+    mixed, h4v1, CMYK), at odd sizes: one interleaved scan of hmax x vmax
+    MCUs (with and without restarts, which fall on MCU rows) and one scan
+    a component; point transforms; upsampled by replication, as
+    libjpeg-turbo 3's lossless mode has no fancy upsampling."""
+    sampling = SUBSAMPLED[kind]
+    path = tmp_path / "s.jpg"
+    for size, pt, restart_rows, interleaved in (
+            ((23, 37), 0, 0, True), ((16, 32), 2, 0, True),
+            ((23, 37), 0, 3, True), ((17, 29), 1, 0, False)):
+        planes = _planes(sampling, size, 8, predictor)
+        path.write_bytes(jpeg_lossless(
+            planes, 8, predictor, pt, restart_rows, sampling=sampling,
+            size=size, interleaved=interleaved))
+        want = _cv2_rgb(path)
+        assert want is not None and want.shape == size + (3,)
+        assert _as_cv2(path) and unsupported(path) is None
+
+
+@pytest.mark.parametrize("interleaved,restart_rows", [(True, 2), (True, 0),
+                                                      (False, 0)])
+@pytest.mark.parametrize("kind", ["h2v1", "h2v2", "h1v2"])
+def test_lossless_subsampled_cut_and_corrupted(tmp_path, kind, interleaved,
+                                               restart_rows):
+    """100 seeded corruptions and cuts of a subsampled lossless file: an
+    MCU row begun after the data ran out restarts the predictors (each
+    component's rows of it from 2^(P-1)); a file in one scan a component
+    whose later scans are cut away gives None, as cv2 (libjpeg reads
+    buffer rows no scan wrote)."""
+    sampling = SUBSAMPLED[kind]
+    planes = _planes(sampling, (24, 30), 8, 11)
+    for p in planes:
+        p[:, 3:8] = 90
+    data = jpeg_lossless(planes, 8, 6, 0, restart_rows, sampling=sampling,
+                         size=(24, 30), interleaved=interleaved)
+    scan = data.index(b"\xff\xda")
+    rng = np.random.RandomState(len(kind) + restart_rows)
+    path = tmp_path / "c.jpg"
+    bad = []
+    for k in range(100):
+        d = bytearray(data)
+        if rng.rand() < 0.5:
+            for _ in range(rng.randint(1, 4)):
+                d[rng.randint(scan, len(d))] ^= int(rng.randint(1, 256))
+        if rng.rand() < 0.5:
+            d = d[: rng.randint(scan, len(d))]
+        path.write_bytes(bytes(d))
+        if not _as_cv2(path):
+            bad.append(k)
+    assert bad == []
+
+
+def test_lossless_sampling_libjpeg_refuses(tmp_path):
+    """Ratios the replicating upsampler cannot take (hmax 3 over h 2) and
+    MCUs of more than 10 samples give None, as cv2."""
+    path = tmp_path / "r.jpg"
+    for sampling in ([(3, 1), (2, 1), (1, 1)], [(2, 3), (1, 1), (1, 2)],
+                     [(4, 2), (2, 1), (1, 1)]):
+        planes = _planes(sampling, (16, 24), 8, 3)
+        path.write_bytes(jpeg_lossless(planes, 8, 1, sampling=sampling,
+                                       size=(16, 24)))
+        assert _cv2_rgb(path) is None and read_image(path) is None
 
 
 @pytest.mark.parametrize("nc", [1, 3])

@@ -20,8 +20,8 @@ from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
 from tests.image_writers import (
-    riff_chunks, riff_file, screen_content_avif, sequence_avif, ten_bit_avif,
-    webp_encode,
+    layered_avif, riff_chunks, riff_file, screen_content_avif,
+    sequence_avif, ten_bit_avif, webp_encode,
 )
 
 
@@ -303,7 +303,11 @@ def test_webp_sniffing_and_refusals(tmp_path):
     np.testing.assert_array_equal(read_image(avif), _cv2_rgb(avif))
     avif = tmp_path / "frames.avif"
     sequence_avif(avif)
+    assert image_format(avif) == "AVIF" and unsupported(avif) is None
+    np.testing.assert_array_equal(read_image(avif), _cv2_rgb(avif))
+    avif = tmp_path / "layered.avif"
+    layered_avif(avif)
     assert image_format(avif) == "AVIF"
-    assert "image sequences" in unsupported(avif)
-    with pytest.raises(NotImplementedError, match="image sequences"):
+    assert "layered AVIF" in unsupported(avif)
+    with pytest.raises(NotImplementedError, match="layered AVIF"):
         read_image(avif)
