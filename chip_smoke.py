@@ -2311,6 +2311,10 @@ GRID_SEQUENCE_AVIF_PAGES = {"clean_a_grid.avif": ("item", 4, (1024, 576),
                                                    True)}
 # and its lossless JPEG page with subsampled components (bocr --folder)
 LOSSLESS_SUBSAMPLED_PAGE = "clean_a_lossless_h2v2.jpg"
+# the HTJ2K pages (JPEG 2000 Part 15 HT code-blocks) of the slice that
+# reads them: a JPH file (5/3, cleanup passes) and a raw codestream (9/7,
+# SigProp and MagRef, tiles, two layers); each goes through bocr --image
+HT_PAGES = ("clean_a_ht53.jph", "skew_2deg_ht97.j2k")
 
 
 def avif_structure(path: Path) -> dict:
@@ -2565,7 +2569,11 @@ def image_formats(results: dict):
     and structure (avif_structure: the source, cells or frames, output
     size, alpha), each as GRID_SEQUENCE_AVIF_PAGES says and through bocr
     --image at 0.0 CER with equal boxes; and LOSSLESS_SUBSAMPLED_PAGE, a
-    lossless JPEG whose G and B are sampled 2x2, with its decode ms."""
+    lossless JPEG whose G and B are sampled 2x2, with its decode ms.
+    Since the slice of HTJ2K the pages of HT_PAGES, each with its decode
+    ms, through bocr --image at 0.0 CER with equal boxes, and the
+    bench-size HTJ2K file's decode ms (``bench_ht_decode_ms``) beside the
+    Part 1 JP2's."""
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2589,7 +2597,8 @@ def image_formats(results: dict):
     # BOCR_IMAGE_DEPTH_AVIF_PAGES
     cli_pages += [pages_dir / n for n in (next(iter(TOOL_AVIF_PAGES)),
                                           *BOCR_IMAGE_DEPTH_AVIF_PAGES,
-                                          *GRID_SEQUENCE_AVIF_PAGES)
+                                          *GRID_SEQUENCE_AVIF_PAGES,
+                                          *HT_PAGES)
                   if pages_dir / n not in cli_pages]
     in_process = [p for p in image_pages if p not in cli_pages]
     checks, files = {}, {}
@@ -2714,6 +2723,16 @@ def image_formats(results: dict):
         for n in GRID_SEQUENCE_AVIF_PAGES:
             grid_pages[n]["bocr_image_f32"] = per_page.get(n)
         lossless["bocr_f32"] = per_page.get(LOSSLESS_SUBSAMPLED_PAGE)
+        ht_pages = {n: {"decode_ms": files.get(f"pages/{n}", {}).get(
+            "decode_ms"), "equal_cv2": files.get(f"pages/{n}", {}).get(
+            "equal_cv2"), "bocr_image_f32": per_page.get(n)}
+            for n in HT_PAGES}
+        checks["ht_pages_bocr_image_f32_cer_0_boxes_equal"] = all(
+            p["equal_cv2"] and p["bocr_image_f32"] is not None
+            and p["bocr_image_f32"]["via"] == "bocr"
+            and p["bocr_image_f32"]["cer_vs_jax_f32"] == 0.0
+            and p["bocr_image_f32"]["boxes_equal"]
+            for p in ht_pages.values())
 
         t0 = time.perf_counter()
         bf16 = full77f_pipeline(torch.bfloat16)
@@ -2819,10 +2838,14 @@ def image_formats(results: dict):
     bench_webp = files.get("bench_cfg4.webp", {})
     bench_avif = files.get("bench_cfg4.avif", {})
     bench_avif10 = files.get("bench_cfg4_10bit.avif", {})
+    bench_ht = files.get("bench_cfg4_ht.j2k", {})
+    checks["bench_ht_equals_cv2"] = bool(bench_ht.get("equal_cv2"))
     checks["avif_files_in_record"] = sum(
         rel.endswith(".avif") for rel in files) >= 17
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
+            "bench_ht_decode_ms": bench_ht.get("decode_ms"),
+            "ht_pages": ht_pages,
             "bench_webp_decode_ms": bench_webp.get("decode_ms"),
             "bench_avif_decode_ms": bench_avif.get("decode_ms"),
             "bench_avif_10bit_decode_ms": bench_avif10.get("decode_ms"),

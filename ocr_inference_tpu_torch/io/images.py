@@ -62,7 +62,9 @@ gives in RGB order:
   lengths, other boxes skipped) and raw J2K codestreams, decoded as
   OpenJPEG 2.5.3 decodes them for cv2 in its strict mode (native/jp2.cpp:
   every Part 1 progression, POC, tile-part, code-block style, precinct,
-  ROI and packed-header layout, 5/3 and 9/7, RCT and ICT), then mapped as
+  ROI and packed-header layout, 5/3 and 9/7, RCT and ICT, and HTJ2K's HT
+  code-blocks of Part 15, in raw codestreams and JPH files, brand jph),
+  then mapped as
   cv2's Jpeg2KOpjDecoder maps them: every component shifted right by the
   codestream's largest precision less 8 and cast to 8 bits, greyscale
   (colr 17) from component 0, sYCC (18) through cvtColor's YUV -> BGR,
@@ -167,9 +169,7 @@ gives in RGB order:
 What cv2 reads and this does not raises ``NotImplementedError`` naming
 it, so that no page is skipped silently: a TIFF compression libtiff does
 not know (JPEG 2000 in TIFF 34712, JPEG XL 50002, any other number; cv2
-gives an all-zero page for those), JPEG 2000 with HT code-blocks (HTJ2K,
-Part 15: code-block style bit 6 in a COD or COC marker of the main or a
-tile-part header), which OpenJPEG 2.5 decodes, and these AVIF variants,
+gives an all-zero page for those), and these AVIF variants,
 which cv2 reads through libavif and libaom: a frame with superres (no
 tool at hand writes one to test against), a layered item (lsel, a1lx,
 a1op, or more than one operating point: its layers after the first are
@@ -1156,8 +1156,6 @@ def _decode_tiff_page(data: bytes, order: str, tags: dict,
 # cv2 reads as sRGB
 _JP2_SRGB, _JP2_GRAY, _JP2_SYCC = 16, 17, 18
 _JP2_REFUSED_SPACES = (12, 24)
-_HTJ2K = ("HTJ2K (High-Throughput JPEG 2000, Part 15) code-blocks are "
-          "not supported")
 
 
 def _jp2_boxes(data: bytes) -> dict:
@@ -1320,8 +1318,7 @@ def _jp2_header(data: bytes) -> tuple[bytes, dict, dict]:
     decodes: what it gives None for raises _Corrupt (signed components,
     no component of 8 bits or more, components that are subsampled or
     offset, colour spaces it refuses, fewer than 3 components outside
-    greyscale); HT code-blocks, which it reads, raise
-    NotImplementedError."""
+    greyscale)."""
     if data.startswith(J2K_SIGNATURE):
         boxes = {"enumcs": None, "pclr": None, "cmap": None, "cdef": None,
                  "codestream": data}
@@ -1345,8 +1342,6 @@ def _jp2_header(data: bytes) -> tuple[bytes, dict, dict]:
         and boxes["cmap"] is not None else len(comps)
     if space in _JP2_REFUSED_SPACES or (space != _JP2_GRAY and channels < 3):
         raise _Corrupt("a colour space or component count cv2 refuses")
-    if rc == native.J2K_HTJ2K:
-        raise NotImplementedError(_HTJ2K)
     return cs, boxes, hdr
 
 
@@ -1358,8 +1353,6 @@ def _decode_jp2(data: bytes) -> np.ndarray:
     everything else (sRGB, unknown) from components 0-2 as RGB."""
     cs, boxes, hdr = _jp2_header(data)
     rc, planes = native.j2k_decode(cs)
-    if rc == native.J2K_HTJ2K:
-        raise NotImplementedError(_HTJ2K)
     if rc:
         raise _Corrupt("JPEG 2000 data OpenJPEG cannot decode")
     comps = len(planes)

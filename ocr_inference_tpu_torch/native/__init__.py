@@ -9,8 +9,8 @@ cv2.drawContours); ``arpa_lm.cpp`` is a copy of the JAX package's scorer;
 ``png.cpp`` undoes PNG's scanline filters, ``jpeg.cpp`` decodes JPEG and
 ``tiff.cpp`` holds the TIFF codecs (LZW, Deflate, PackBits, CCITT,
 ThunderScan, SGI Log) and the YCbCr and CIE L*a*b* -> RGB conversions,
-``jp2.cpp`` decodes JPEG 2000 codestreams (Part 1, and the Part 2 markers
-OpenJPEG reads; HTJ2K code-blocks are reported, not decoded), ``bmp.cpp``
+``jp2.cpp`` decodes JPEG 2000 codestreams (Part 1, the Part 2 markers
+OpenJPEG reads, and Part 15's HT code-blocks), ``bmp.cpp``
 BMP's RLE8 and RLE4 bitmaps, ``gif.cpp`` GIF's LZW as OpenCV's own GIF
 decoder reads it, ``webp.cpp`` WebP (VP8L, VP8 with libwebp's fancy
 upsampling, the ALPH stream's check), ``hdr.cpp`` Radiance HDR's
@@ -663,14 +663,13 @@ def _jp2_lib() -> ctypes.CDLL:
 
 
 # jp2.cpp's status codes
-J2K_OK, J2K_FAIL, J2K_HTJ2K = 0, 1, 2
+J2K_OK, J2K_FAIL = 0, 1
 
 
 def j2k_header(codestream: bytes) -> tuple[int, dict]:
     """(status, header) of a JPEG 2000 codestream, its main and tile-part
-    headers read as the decode reads them: status J2K_OK, J2K_FAIL
-    (OpenJPEG cannot read it; header empty) or J2K_HTJ2K (a tile's
-    code-blocks are HT); header: the image's ``x0, y0, x1, y1`` and per
+    headers read as the decode reads them: status J2K_OK or J2K_FAIL
+    (OpenJPEG cannot read it; header empty); header: the image's ``x0, y0, x1, y1`` and per
     component ``comps`` of (dx, dy, precision, signed), after a CBD
     marker."""
     buf = np.frombuffer(codestream, np.uint8)

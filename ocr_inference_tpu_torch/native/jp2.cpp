@@ -23,8 +23,12 @@
 //
 // It returns each component's samples as int32; the JP2 boxes, palettes,
 // channel definitions and cv2's mapping to 8-bit BGR are io/images.py.
-// HTJ2K code-blocks (code-block style bit 6 in a COD or COC of the main or
-// a tile-part header) are reported, not decoded.
+// - HT code-blocks (Part 15, code-block style bit 6 in a COD or COC, per
+//   tile-component): the cleanup pass (MEL, VLC and UVLC, MagSgn) and the
+//   SigProp and MagRef passes of one HT set, with OpenJPEG 2.5's limits
+//   (at most three passes, no ROI shift, the Lcup/Scup and U_q checks) and
+//   its reading of packet headers that add passes to an included block;
+//   mixed code-blocks (style bit 7) fail, as OpenJPEG fails them.
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
@@ -33,7 +37,7 @@
 
 namespace {
 
-enum Status { kOk = 0, kFail = 1, kHTJ2K = 2 };
+enum Status { kOk = 0, kFail = 1 };
 
 struct Fail {
     int status;
@@ -648,9 +652,6 @@ void parse(Codestream& cs) {
             }
             pos += 2 + l;
         }
-        // HT code-blocks: refused once a tile-part of the tile is read
-        for (auto& t : tcp.tccps)
-            if (t.cblksty & 0x40) fail(kHTJ2K);
         pos += 2;
         size_t end;
         if (psot == 0) {
@@ -1164,10 +1165,16 @@ size_t decode_packet(const Tcp& tcp, std::vector<TileComp>& tcs,
                     }
                 }
                 int n = (int)cb.numnewpasses;
+                const bool ht = (tccp.cblksty & 0x40) != 0;
                 do {
                     Seg& seg = cb.segs[segno];
-                    seg.numnewpasses = (uint32_t)std::min<int>(
-                        (int)(seg.maxpasses - seg.numpasses), n);
+                    // an HT block's first segment takes one pass (the
+                    // cleanup), the next segment the rest, as OpenJPEG 2.5
+                    // reads every contribution, also a later layer's
+                    seg.numnewpasses =
+                        ht ? (segno == 0 ? 1u : (uint32_t)n)
+                           : (uint32_t)std::min<int>(
+                                 (int)(seg.maxpasses - seg.numpasses), n);
                     uint32_t nn = seg.numnewpasses, lg = 0;
                     while (nn >>= 1) ++lg;
                     uint32_t bits = cb.numlenbits + lg;
@@ -1591,6 +1598,683 @@ struct T1 {
 };
 
 // ---------------------------------------------------------------------------
+// HT code-blocks (JPEG 2000 Part 15, ITU-T T.814; OpenJPEG's ht_dec.c)
+// ---------------------------------------------------------------------------
+
+// The CxtVLC decoding tables of the cleanup pass (T.814 Annex C, its tables
+// of codewords per context), as OpenJPEG's vlc_tbl0 (the first line pair)
+// and vlc_tbl1 (the other lines) hold them: index (context << 7) | the next
+// 7 bits of the VLC stream; entry bits 0-2 the codeword's length, 3 u_off,
+// 4-7 rho (the quad's significance), 8-11 e_1, 12-15 e_k.
+const uint16_t kVlcTbl0[1024] = {
+    0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0xd8df,
+    0x0023, 0x10be, 0x0043, 0xf5ff, 0x0083, 0x207e, 0x0055, 0x515f,
+    0x0023, 0x0035, 0x0043, 0x444e, 0x0083, 0xc4ce, 0x0014, 0xcccf,
+    0x0023, 0xe2fe, 0x0043, 0x99ff, 0x0083, 0x0096, 0x00c5, 0x313f,
+    0x0023, 0x00a5, 0x0043, 0x445e, 0x0083, 0xc8ce, 0x0014, 0x11df,
+    0x0023, 0xf4fe, 0x0043, 0xfcff, 0x0083, 0x009e, 0x0055, 0x0077,
+    0x0023, 0x0035, 0x0043, 0xf1ff, 0x0083, 0x88ae, 0x0014, 0x00b7,
+    0x0023, 0xf8fe, 0x0043, 0xe4ef, 0x0083, 0x888e, 0x00c5, 0x111f,
+    0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0x54df,
+    0x0023, 0x10be, 0x0043, 0x22ef, 0x0083, 0x207e, 0x0055, 0x227f,
+    0x0023, 0x0035, 0x0043, 0x444e, 0x0083, 0xc4ce, 0x0014, 0x11bf,
+    0x0023, 0xe2fe, 0x0043, 0x00f7, 0x0083, 0x0096, 0x00c5, 0x223f,
+    0x0023, 0x00a5, 0x0043, 0x445e, 0x0083, 0xc8ce, 0x0014, 0x00d7,
+    0x0023, 0xf4fe, 0x0043, 0xbaff, 0x0083, 0x009e, 0x0055, 0x006f,
+    0x0023, 0x0035, 0x0043, 0xe6ff, 0x0083, 0x88ae, 0x0014, 0xa2af,
+    0x0023, 0xf8fe, 0x0043, 0x00e7, 0x0083, 0x888e, 0x00c5, 0x222f,
+    0x0002, 0x00c5, 0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0x00f7,
+    0x0002, 0xa2fe, 0x0044, 0x0056, 0x0002, 0x009e, 0x0014, 0x00d7,
+    0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x11df,
+    0x0002, 0xa8ee, 0x0044, 0x0036, 0x0002, 0x888e, 0x0014, 0x111f,
+    0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x88ff,
+    0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0x00b7,
+    0x0002, 0xe4fe, 0x0084, 0x445e, 0x0002, 0x00a6, 0x0024, 0x00e7,
+    0x0002, 0x54de, 0x0044, 0x222e, 0x0002, 0x003e, 0x0014, 0x0077,
+    0x0002, 0x00c5, 0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0xf1ff,
+    0x0002, 0xa2fe, 0x0044, 0x0056, 0x0002, 0x009e, 0x0014, 0x11bf,
+    0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x22ef,
+    0x0002, 0xa8ee, 0x0044, 0x0036, 0x0002, 0x888e, 0x0014, 0x227f,
+    0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0xe4ef,
+    0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0xa2af,
+    0x0002, 0xe4fe, 0x0084, 0x445e, 0x0002, 0x00a6, 0x0024, 0xd8df,
+    0x0002, 0x54de, 0x0044, 0x222e, 0x0002, 0x003e, 0x0014, 0x515f,
+    0x0002, 0x0055, 0x0084, 0x0066, 0x0002, 0x88de, 0x0024, 0x32ff,
+    0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x00b7,
+    0x0002, 0x317e, 0x0084, 0x515e, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e, 0x0014, 0x0077,
+    0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0x00e7,
+    0x0002, 0xf1fe, 0x0044, 0x0036, 0x0002, 0x00a6, 0x0014, 0x555f,
+    0x0002, 0x74fe, 0x0084, 0x113e, 0x0002, 0x20be, 0x0024, 0x747f,
+    0x0002, 0xc4de, 0x0044, 0xf8ff, 0x0002, 0x0096, 0x0014, 0x222f,
+    0x0002, 0x0055, 0x0084, 0x0066, 0x0002, 0x88de, 0x0024, 0x00f7,
+    0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x888f,
+    0x0002, 0x317e, 0x0084, 0x515e, 0x0002, 0x00c6, 0x0024, 0xc8cf,
+    0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e, 0x0014, 0x006f,
+    0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0xd1df,
+    0x0002, 0xf1fe, 0x0044, 0x0036, 0x0002, 0x00a6, 0x0014, 0x227f,
+    0x0002, 0x74fe, 0x0084, 0x113e, 0x0002, 0x20be, 0x0024, 0x22bf,
+    0x0002, 0xc4de, 0x0044, 0x22ef, 0x0002, 0x0096, 0x0014, 0x323f,
+    0x0003, 0xd4de, 0xf4fd, 0xfcff, 0x0014, 0x113e, 0x0055, 0x888f,
+    0x0003, 0x32be, 0x0085, 0x00e7, 0x0025, 0x515e, 0xaafe, 0x727f,
+    0x0003, 0x44ce, 0xf8fd, 0x44ef, 0x0014, 0x647e, 0x0045, 0xa2af,
+    0x0003, 0x00a6, 0x555d, 0x99df, 0xf1fd, 0x0036, 0xf5fe, 0x626f,
+    0x0003, 0xd1de, 0xf4fd, 0xe6ff, 0x0014, 0x717e, 0x0055, 0xb1bf,
+    0x0003, 0x88ae, 0x0085, 0xd5df, 0x0025, 0x444e, 0xf2fe, 0x667f,
+    0x0003, 0x00c6, 0xf8fd, 0xe2ef, 0x0014, 0x545e, 0x0045, 0x119f,
+    0x0003, 0x0096, 0x555d, 0xc8cf, 0xf1fd, 0x111e, 0xc8ee, 0x0067,
+    0x0003, 0xd4de, 0xf4fd, 0xf3ff, 0x0014, 0x113e, 0x0055, 0x11bf,
+    0x0003, 0x32be, 0x0085, 0xd8df, 0x0025, 0x515e, 0xaafe, 0x222f,
+    0x0003, 0x44ce, 0xf8fd, 0x00f7, 0x0014, 0x647e, 0x0045, 0x989f,
+    0x0003, 0x00a6, 0x555d, 0x00d7, 0xf1fd, 0x0036, 0xf5fe, 0x446f,
+    0x0003, 0xd1de, 0xf4fd, 0xb9ff, 0x0014, 0x717e, 0x0055, 0x00b7,
+    0x0003, 0x88ae, 0x0085, 0xdcdf, 0x0025, 0x444e, 0xf2fe, 0x0077,
+    0x0003, 0x00c6, 0xf8fd, 0xe4ef, 0x0014, 0x545e, 0x0045, 0x737f,
+    0x0003, 0x0096, 0x555d, 0xb8bf, 0xf1fd, 0x111e, 0xc8ee, 0x323f,
+    0x0002, 0x00a5, 0x0084, 0x407e, 0x0002, 0x10de, 0x0024, 0x11df,
+    0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae, 0x0014, 0xb2bf,
+    0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00e7,
+    0x0002, 0xc8ee, 0x0044, 0x222e, 0x0002, 0x888e, 0x0014, 0x0077,
+    0x0002, 0x00a5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x00f7,
+    0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0xaaaf,
+    0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be, 0x0024, 0xc4cf,
+    0x0002, 0x44ee, 0x0044, 0xf4ff, 0x0002, 0x223e, 0x0014, 0x111f,
+    0x0002, 0x00a5, 0x0084, 0x407e, 0x0002, 0x10de, 0x0024, 0x99ff,
+    0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae, 0x0014, 0x00b7,
+    0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0xc8ee, 0x0044, 0x222e, 0x0002, 0x888e, 0x0014, 0x444f,
+    0x0002, 0x00a5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0xe2ef,
+    0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0x447f,
+    0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be, 0x0024, 0x009f,
+    0x0002, 0x44ee, 0x0044, 0x76ff, 0x0002, 0x223e, 0x0014, 0x313f,
+    0x0003, 0x00c6, 0x0085, 0xd9ff, 0xf2fd, 0x647e, 0xf1fe, 0x99bf,
+    0x0003, 0xa2ae, 0x0025, 0x66ef, 0xf4fd, 0x0056, 0xe2ee, 0x737f,
+    0x0003, 0x98be, 0x0045, 0x00f7, 0xf8fd, 0x0066, 0x76fe, 0x889f,
+    0x0003, 0x888e, 0x0015, 0xd5df, 0x00a5, 0x222e, 0x98de, 0x444f,
+    0x0003, 0xb2be, 0x0085, 0xfcff, 0xf2fd, 0x226e, 0x0096, 0x00b7,
+    0x0003, 0xaaae, 0x0025, 0xd1df, 0xf4fd, 0x0036, 0xd4de, 0x646f,
+    0x0003, 0xa8ae, 0x0045, 0xeaef, 0xf8fd, 0x445e, 0xe8ee, 0x717f,
+    0x0003, 0x323e, 0x0015, 0xc4cf, 0x00a5, 0xfaff, 0x88ce, 0x313f,
+    0x0003, 0x00c6, 0x0085, 0x77ff, 0xf2fd, 0x647e, 0xf1fe, 0xb3bf,
+    0x0003, 0xa2ae, 0x0025, 0x00e7, 0xf4fd, 0x0056, 0xe2ee, 0x0077,
+    0x0003, 0x98be, 0x0045, 0xe4ef, 0xf8fd, 0x0066, 0x76fe, 0x667f,
+    0x0003, 0x888e, 0x0015, 0x00d7, 0x00a5, 0x222e, 0x98de, 0x333f,
+    0x0003, 0xb2be, 0x0085, 0x75ff, 0xf2fd, 0x226e, 0x0096, 0x919f,
+    0x0003, 0xaaae, 0x0025, 0x99df, 0xf4fd, 0x0036, 0xd4de, 0x515f,
+    0x0003, 0xa8ae, 0x0045, 0xecef, 0xf8fd, 0x445e, 0xe8ee, 0x727f,
+    0x0003, 0x323e, 0x0015, 0xb1bf, 0x00a5, 0xf3ff, 0x88ce, 0x111f,
+    0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0xcccf,
+    0x0003, 0x91be, 0x0045, 0x22ef, 0x0025, 0x222e, 0xf3fe, 0x888f,
+    0x0003, 0x00c6, 0x0085, 0x00f7, 0x0014, 0x115e, 0xfcfe, 0xa8af,
+    0x0003, 0x00a6, 0x0035, 0xc8df, 0xf1fd, 0x313e, 0x66fe, 0x646f,
+    0x0003, 0xc8ce, 0xf2fd, 0xf5ff, 0x0014, 0x0066, 0xf4fe, 0xbabf,
+    0x0003, 0x22ae, 0x0045, 0x00e7, 0x0025, 0x323e, 0xeafe, 0x737f,
+    0x0003, 0xb2be, 0x0085, 0x55df, 0x0014, 0x0056, 0x717e, 0x119f,
+    0x0003, 0x0096, 0x0035, 0xc4cf, 0xf1fd, 0x333e, 0xe8ee, 0x444f,
+    0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0x99bf,
+    0x0003, 0x91be, 0x0045, 0xe2ef, 0x0025, 0x222e, 0xf3fe, 0x667f,
+    0x0003, 0x00c6, 0x0085, 0xe4ef, 0x0014, 0x115e, 0xfcfe, 0x989f,
+    0x0003, 0x00a6, 0x0035, 0x00d7, 0xf1fd, 0x313e, 0x66fe, 0x226f,
+    0x0003, 0xc8ce, 0xf2fd, 0xb9ff, 0x0014, 0x0066, 0xf4fe, 0x00b7,
+    0x0003, 0x22ae, 0x0045, 0xd1df, 0x0025, 0x323e, 0xeafe, 0x0077,
+    0x0003, 0xb2be, 0x0085, 0xecef, 0x0014, 0x0056, 0x717e, 0x727f,
+    0x0003, 0x0096, 0x0035, 0xb8bf, 0xf1fd, 0x333e, 0xe8ee, 0x545f,
+    0xf1fc, 0xd1de, 0xfafd, 0x00d7, 0xf8fc, 0x0016, 0xfffd, 0x747f,
+    0xf4fc, 0x717e, 0xf3fd, 0xb3bf, 0xf2fc, 0xeaef, 0xe8ee, 0x444f,
+    0xf1fc, 0x22ae, 0x0005, 0xb8bf, 0xf8fc, 0x00f7, 0xfcfe, 0x0077,
+    0xf4fc, 0x115e, 0xf5fd, 0x757f, 0xf2fc, 0xd8df, 0xe2ee, 0x333f,
+    0xf1fc, 0xb2be, 0xfafd, 0x88cf, 0xf8fc, 0xfbff, 0xfffd, 0x737f,
+    0xf4fc, 0x006e, 0xf3fd, 0x00b7, 0xf2fc, 0x66ef, 0xf9fe, 0x313f,
+    0xf1fc, 0x009e, 0x0005, 0xbabf, 0xf8fc, 0xfdff, 0xf6fe, 0x0067,
+    0xf4fc, 0x0026, 0xf5fd, 0x888f, 0xf2fc, 0xdcdf, 0xd4de, 0x222f,
+    0xf1fc, 0xd1de, 0xfafd, 0xc4cf, 0xf8fc, 0x0016, 0xfffd, 0x727f,
+    0xf4fc, 0x717e, 0xf3fd, 0x99bf, 0xf2fc, 0xecef, 0xe8ee, 0x0047,
+    0xf1fc, 0x22ae, 0x0005, 0x00a7, 0xf8fc, 0xf7ff, 0xfcfe, 0x0057,
+    0xf4fc, 0x115e, 0xf5fd, 0x0097, 0xf2fc, 0xd5df, 0xe2ee, 0x0037,
+    0xf1fc, 0xb2be, 0xfafd, 0x00c7, 0xf8fc, 0xfeff, 0xfffd, 0x667f,
+    0xf4fc, 0x006e, 0xf3fd, 0xa8af, 0xf2fc, 0x00e7, 0xf9fe, 0x323f,
+    0xf1fc, 0x009e, 0x0005, 0xb1bf, 0xf8fc, 0xe4ef, 0xf6fe, 0x545f,
+    0xf4fc, 0x0026, 0xf5fd, 0x0087, 0xf2fc, 0x99df, 0xd4de, 0x111f,
+};
+
+const uint16_t kVlcTbl1[1024] = {
+    0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e,
+    0x0013, 0x00a5, 0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x00d7,
+    0x0013, 0x00c5, 0x0043, 0x009e, 0x0083, 0x0055, 0x0023, 0x222e,
+    0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x0077,
+    0x0013, 0x0065, 0x0043, 0x88ce, 0x0083, 0x888d, 0x0023, 0x111e,
+    0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035, 0x0023, 0x00e7,
+    0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x11ff,
+    0x0013, 0x0095, 0x0043, 0x003e, 0x0083, 0x40ee, 0x0023, 0xa2af,
+    0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e,
+    0x0013, 0x00a5, 0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x44ef,
+    0x0013, 0x00c5, 0x0043, 0x009e, 0x0083, 0x0055, 0x0023, 0x222e,
+    0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x00b7,
+    0x0013, 0x0065, 0x0043, 0x88ce, 0x0083, 0x888d, 0x0023, 0x111e,
+    0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035, 0x0023, 0xc4cf,
+    0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x00f7,
+    0x0013, 0x0095, 0x0043, 0x003e, 0x0083, 0x40ee, 0x0023, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00d7,
+    0x0001, 0x0024, 0x0001, 0x0096, 0x0001, 0x0045, 0x0001, 0x0077,
+    0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x888f,
+    0x0001, 0x0024, 0x0001, 0x00f7, 0x0001, 0x0035, 0x0001, 0x222f,
+    0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014, 0x0001, 0x00b7,
+    0x0001, 0x0024, 0x0001, 0x00bf, 0x0001, 0x0045, 0x0001, 0x0067,
+    0x0001, 0x0084, 0x0001, 0x00a6, 0x0001, 0x0014, 0x0001, 0x444f,
+    0x0001, 0x0024, 0x0001, 0x00e7, 0x0001, 0x0035, 0x0001, 0x113f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00cf,
+    0x0001, 0x0024, 0x0001, 0x0096, 0x0001, 0x0045, 0x0001, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x009f,
+    0x0001, 0x0024, 0x0001, 0x00ef, 0x0001, 0x0035, 0x0001, 0x323f,
+    0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014, 0x0001, 0x00af,
+    0x0001, 0x0024, 0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x005f,
+    0x0001, 0x0084, 0x0001, 0x00a6, 0x0001, 0x0014, 0x0001, 0x007f,
+    0x0001, 0x0024, 0x0001, 0x00df, 0x0001, 0x0035, 0x0001, 0x111f,
+    0x0001, 0x0024, 0x0001, 0x0056, 0x0001, 0x0085, 0x0001, 0x00bf,
+    0x0001, 0x0014, 0x0001, 0x00f7, 0x0001, 0x00c6, 0x0001, 0x0077,
+    0x0001, 0x0024, 0x0001, 0xf8ff, 0x0001, 0x0045, 0x0001, 0x007f,
+    0x0001, 0x0014, 0x0001, 0x00df, 0x0001, 0x00a6, 0x0001, 0x313f,
+    0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0x00b7,
+    0x0001, 0x0014, 0x0001, 0x44ef, 0x0001, 0xa2ae, 0x0001, 0x0067,
+    0x0001, 0x0024, 0x0001, 0x51ff, 0x0001, 0x0045, 0x0001, 0x0097,
+    0x0001, 0x0014, 0x0001, 0x00cf, 0x0001, 0x0036, 0x0001, 0x223f,
+    0x0001, 0x0024, 0x0001, 0x0056, 0x0001, 0x0085, 0x0001, 0xb2bf,
+    0x0001, 0x0014, 0x0001, 0x40ef, 0x0001, 0x00c6, 0x0001, 0x006f,
+    0x0001, 0x0024, 0x0001, 0x72ff, 0x0001, 0x0045, 0x0001, 0x009f,
+    0x0001, 0x0014, 0x0001, 0x00d7, 0x0001, 0x00a6, 0x0001, 0x444f,
+    0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0xa8af,
+    0x0001, 0x0014, 0x0001, 0x00e7, 0x0001, 0xa2ae, 0x0001, 0x005f,
+    0x0001, 0x0024, 0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x888f,
+    0x0001, 0x0014, 0x0001, 0xaaaf, 0x0001, 0x0036, 0x0001, 0x111f,
+    0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0x66ff,
+    0x0002, 0x00ce, 0x0014, 0x111e, 0x0002, 0x0096, 0x0035, 0xa8af,
+    0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6, 0x0045, 0xb3bf,
+    0x0002, 0xb2be, 0x0014, 0xf5ff, 0x0002, 0x0066, 0x517e, 0x545f,
+    0x0002, 0xf2fe, 0x0024, 0x222e, 0x0002, 0x22ae, 0x0085, 0x44ef,
+    0x0002, 0x00c6, 0x0014, 0xf4ff, 0x0002, 0x0076, 0x0035, 0x447f,
+    0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0x00d7,
+    0x0002, 0x88be, 0x0014, 0xfaff, 0x0002, 0x115e, 0xf1fe, 0x444f,
+    0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0xc8ef,
+    0x0002, 0x00ce, 0x0014, 0x111e, 0x0002, 0x0096, 0x0035, 0x888f,
+    0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6, 0x0045, 0x44df,
+    0x0002, 0xb2be, 0x0014, 0xa8ff, 0x0002, 0x0066, 0x517e, 0x006f,
+    0x0002, 0xf2fe, 0x0024, 0x222e, 0x0002, 0x22ae, 0x0085, 0x00e7,
+    0x0002, 0x00c6, 0x0014, 0xe2ef, 0x0002, 0x0076, 0x0035, 0x727f,
+    0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0xb1bf,
+    0x0002, 0x88be, 0x0014, 0x73ff, 0x0002, 0x115e, 0xf1fe, 0x333f,
+    0x0001, 0x0084, 0x0001, 0x20ee, 0x0001, 0x00c5, 0x0001, 0xc4cf,
+    0x0001, 0x0044, 0x0001, 0x32ff, 0x0001, 0x0015, 0x0001, 0x888f,
+    0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x00af,
+    0x0001, 0x0044, 0x0001, 0x22ef, 0x0001, 0x00a6, 0x0001, 0x005f,
+    0x0001, 0x0084, 0x0001, 0x444e, 0x0001, 0x00c5, 0x0001, 0xcccf,
+    0x0001, 0x0044, 0x0001, 0x00f7, 0x0001, 0x0015, 0x0001, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025, 0x0001, 0x009f,
+    0x0001, 0x0044, 0x0001, 0x00df, 0x0001, 0x30fe, 0x0001, 0x222f,
+    0x0001, 0x0084, 0x0001, 0x20ee, 0x0001, 0x00c5, 0x0001, 0xc8cf,
+    0x0001, 0x0044, 0x0001, 0x11ff, 0x0001, 0x0015, 0x0001, 0x0077,
+    0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x007f,
+    0x0001, 0x0044, 0x0001, 0x00e7, 0x0001, 0x00a6, 0x0001, 0x0037,
+    0x0001, 0x0084, 0x0001, 0x444e, 0x0001, 0x00c5, 0x0001, 0x00b7,
+    0x0001, 0x0044, 0x0001, 0x00bf, 0x0001, 0x0015, 0x0001, 0x003f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025, 0x0001, 0x0097,
+    0x0001, 0x0044, 0x0001, 0x00d7, 0x0001, 0x30fe, 0x0001, 0x111f,
+    0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6, 0x00c5, 0xf3ff,
+    0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0xd8df,
+    0x0002, 0xf8fe, 0x0044, 0x0066, 0x0002, 0x207e, 0x0085, 0x99ff,
+    0x0002, 0x00e6, 0x00f5, 0x0036, 0x0002, 0x00a6, 0x0015, 0x009f,
+    0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0x76ff,
+    0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae, 0x0055, 0xc8cf,
+    0x0002, 0xf4fe, 0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0xe4ef,
+    0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x222f,
+    0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6, 0x00c5, 0xfaff,
+    0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0x11bf,
+    0x0002, 0xf8fe, 0x0044, 0x0066, 0x0002, 0x207e, 0x0085, 0x22ef,
+    0x0002, 0x00e6, 0x00f5, 0x0036, 0x0002, 0x00a6, 0x0015, 0x227f,
+    0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0xd5ff,
+    0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae, 0x0055, 0x006f,
+    0x0002, 0xf4fe, 0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0x11df,
+    0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x515f,
+    0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xd4df,
+    0x0003, 0xa2ae, 0x0055, 0x76ff, 0x0024, 0x223e, 0x00b6, 0xaaaf,
+    0x0003, 0x00e6, 0x0014, 0xf5ff, 0x0044, 0x0066, 0x0085, 0xcccf,
+    0x0003, 0x009e, 0x00c5, 0x44ef, 0x0024, 0x0036, 0xf8fe, 0x317f,
+    0x0003, 0xe8ee, 0x0014, 0xf1ff, 0x0044, 0x0076, 0x00a5, 0xc4cf,
+    0x0003, 0x227e, 0x0055, 0xd1df, 0x0024, 0x444e, 0xf4fe, 0x515f,
+    0x0003, 0x00d6, 0x0014, 0xe2ef, 0x0044, 0x445e, 0x0085, 0x22bf,
+    0x0003, 0x0096, 0x00c5, 0xc8df, 0x0024, 0x222e, 0xf2fe, 0x226f,
+    0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xb1bf,
+    0x0003, 0xa2ae, 0x0055, 0x33ff, 0x0024, 0x223e, 0x00b6, 0xa8af,
+    0x0003, 0x00e6, 0x0014, 0xb9ff, 0x0044, 0x0066, 0x0085, 0xa8bf,
+    0x0003, 0x009e, 0x00c5, 0xe4ef, 0x0024, 0x0036, 0xf8fe, 0x646f,
+    0x0003, 0xe8ee, 0x0014, 0xfcff, 0x0044, 0x0076, 0x00a5, 0xc8cf,
+    0x0003, 0x227e, 0x0055, 0xeaef, 0x0024, 0x444e, 0xf4fe, 0x747f,
+    0x0003, 0x00d6, 0x0014, 0xfaff, 0x0044, 0x445e, 0x0085, 0xb2bf,
+    0x0003, 0x0096, 0x00c5, 0x44df, 0x0024, 0x222e, 0xf2fe, 0x313f,
+    0x00f3, 0xfafe, 0xf1fd, 0x0036, 0x0004, 0x32be, 0x0075, 0x11df,
+    0x00f3, 0x54de, 0xf2fd, 0xe4ef, 0x00d5, 0x717e, 0xfcfe, 0x737f,
+    0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0xb1bf,
+    0x00f3, 0x00ce, 0x00b5, 0xd8df, 0xf4fd, 0x0066, 0xb9fe, 0x545f,
+    0x00f3, 0x76fe, 0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x009f,
+    0x00f3, 0x00ae, 0xf2fd, 0xf7ff, 0x00d5, 0x0046, 0xf5fe, 0x747f,
+    0x00f3, 0x00e6, 0xf8fd, 0x0016, 0x0004, 0x0086, 0x0055, 0x888f,
+    0x00f3, 0x00c6, 0x00b5, 0xe2ef, 0xf4fd, 0x115e, 0xa8ee, 0x113f,
+    0x00f3, 0xfafe, 0xf1fd, 0x0036, 0x0004, 0x32be, 0x0075, 0xd1df,
+    0x00f3, 0x54de, 0xf2fd, 0xfbff, 0x00d5, 0x717e, 0xfcfe, 0x447f,
+    0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0x727f,
+    0x00f3, 0x00ce, 0x00b5, 0x22ef, 0xf4fd, 0x0066, 0xb9fe, 0x444f,
+    0x00f3, 0x76fe, 0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x11bf,
+    0x00f3, 0x00ae, 0xf2fd, 0xffff, 0x00d5, 0x0046, 0xf5fe, 0x323f,
+    0x00f3, 0x00e6, 0xf8fd, 0x0016, 0x0004, 0x0086, 0x0055, 0x006f,
+    0x00f3, 0x00c6, 0x00b5, 0xb8bf, 0xf4fd, 0x115e, 0xa8ee, 0x222f,
+};
+
+// The cleanup pass's three streams and the refinement passes' two, each
+// read a byte at a time into a 64-bit window as OpenJPEG's readers do (its
+// 32-bit reads give the same bits): a stuffed bit is not counted, and the
+// byte's top bit is ORed into the next byte's first, as there.
+
+// MEL: forward from Lcup - Scup, MSB first; the last of its Scup - 1 bytes
+// (it holds Scup's low nibble) with its low nibble set, then 0xFF; a byte
+// after 0xFF gives 7 bits
+struct MelReader {
+    const uint8_t* p;
+    int size;
+    uint64_t tmp = 0;
+    int bits = 0;
+    bool unstuff = false;
+    int k = 0;
+    void init(const uint8_t* data, int lcup, int scup) {
+        p = data + lcup - scup;
+        size = scup - 1;
+    }
+    void fill() {
+        while (bits <= 56) {
+            uint32_t d = size > 0 ? *p : 0xFF;
+            if (size == 1) d |= 0xF;
+            if (size > 0) ++p;
+            --size;
+            int n = 8 - (int)unstuff;
+            tmp |= (uint64_t)d << (64 - n - bits);
+            bits += n;
+            unstuff = d == 0xFF;
+        }
+    }
+    // mel_decode: one run, 2 x (0 events) + (ends in a 1 event)
+    int run() {
+        static const int kExp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+        if (bits < 6) fill();
+        int e = kExp[k];
+        int r;
+        if (tmp >> 63) {
+            r = ((1 << e) - 1) << 1;
+            k = std::min(k + 1, 12);
+            tmp <<= 1;
+            bits -= 1;
+        } else {
+            r = (int)((tmp >> (63 - e)) & ((1u << e) - 1));
+            k = std::max(k - 1, 0);
+            tmp <<= e + 1;
+            bits -= e + 1;
+            r = (r << 1) + 1;
+        }
+        return r;
+    }
+};
+
+// VLC and MagRef: backward, LSB first; after a byte above 0x8F, a byte
+// whose low 7 bits are set gives 7; zeros past the end
+struct RevReader {
+    const uint8_t* p;
+    int size;
+    uint64_t tmp = 0;
+    uint32_t bits = 0;
+    bool unstuff = false;
+    // the VLC: its first byte is the upper nibble of byte Lcup - 2
+    void init_vlc(const uint8_t* data, int lcup, int scup) {
+        p = data + lcup - 2;
+        size = scup - 2;
+        uint32_t d = *p--;
+        tmp = d >> 4;
+        bits = 4 - ((tmp & 7) == 7);
+        unstuff = (d | 0xF) > 0x8F;
+    }
+    void init_mrp(const uint8_t* data, int lcup, int len2) {
+        p = data + lcup + len2 - 1;
+        size = len2;
+        unstuff = true;
+    }
+    uint32_t fetch() {
+        while (bits <= 56) {
+            uint64_t d = size > 0 ? *p-- : 0;
+            --size;
+            uint32_t n = 8 - ((unstuff && (d & 0x7F) == 0x7F) ? 1 : 0);
+            tmp |= d << bits;
+            bits += n;
+            unstuff = d > 0x8F;
+        }
+        return (uint32_t)tmp;
+    }
+    uint32_t advance(uint32_t n) {
+        tmp >>= n;
+        bits -= n;
+        return (uint32_t)tmp;
+    }
+};
+
+// MagSgn and SigProp: forward, LSB first; a byte after 0xFF gives 7 bits;
+// past the end ``x`` (0xFF for MagSgn, 0 for SigProp)
+struct FwdReader {
+    const uint8_t* p;
+    int size;
+    uint32_t x;
+    uint64_t tmp = 0;
+    uint32_t bits = 0;
+    bool unstuff = false;
+    void init(const uint8_t* data, int n, uint32_t fill) {
+        p = data;
+        size = n;
+        x = fill;
+    }
+    uint32_t fetch() {
+        while (bits <= 56) {
+            uint64_t d = size > 0 ? *p++ : x;
+            --size;
+            tmp |= d << bits;
+            bits += 8 - (unstuff ? 1 : 0);
+            unstuff = (d & 0xFF) == 0xFF;
+        }
+        return (uint32_t)tmp;
+    }
+    void advance(uint32_t n) {
+        tmp >>= n;
+        bits -= n;
+    }
+};
+
+// the u of a quad pair from the UVLC (decode_init_uvlc, decode_noninit_uvlc):
+// its prefix table, per the next 3 bits: prefix length (bits 0-1), suffix
+// length (2-4), prefix value (5-7)
+const uint8_t kUvlcPrefix[8] = {
+    3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5), 2 | (0 << 2) | (2 << 5),
+    1 | (0 << 2) | (1 << 5), 3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5),
+    2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+
+uint32_t decode_uvlc(uint32_t vlc, uint32_t mode, bool initial, uint32_t* u) {
+    uint32_t consumed = 0;
+    auto prefix = [&](uint32_t& d) {
+        d = kUvlcPrefix[vlc & 7];
+        vlc >>= d & 3;
+        consumed += d & 3;
+    };
+    auto suffix = [&](uint32_t d) {
+        uint32_t n = (d >> 2) & 7;
+        consumed += n;
+        uint32_t v = (d >> 5) + (vlc & ((1u << n) - 1));
+        vlc >>= n;
+        return v;
+    };
+    if (mode == 0) {
+        u[0] = u[1] = 1;
+    } else if (mode <= 2) {
+        uint32_t d;
+        prefix(d);
+        d = suffix(d);
+        u[0] = mode == 1 ? d + 1 : 1;
+        u[1] = mode == 1 ? 1 : d + 1;
+    } else if (mode == 3 && initial) {
+        // both u_off set, MEL event 0: when the first prefix is "001" or
+        // "000", the second u is 1 + one bit
+        uint32_t d1;
+        prefix(d1);
+        if ((d1 & 3) > 2) {
+            u[1] = (vlc & 1) + 1 + 1;
+            ++consumed;
+            vlc >>= 1;
+            u[0] = suffix(d1) + 1;
+        } else {
+            uint32_t d2;
+            prefix(d2);
+            u[0] = suffix(d1) + 1;
+            u[1] = suffix(d2) + 1;
+        }
+    } else {
+        // both u_off set (mode 4 on the first line pair: MEL event 1, each
+        // u above 2)
+        uint32_t d1, d2;
+        prefix(d1);
+        prefix(d2);
+        uint32_t add = mode == 4 ? 3 : 1;
+        u[0] = suffix(d1) + add;
+        u[1] = suffix(d2) + add;
+    }
+    return consumed;
+}
+
+// One HT code-block (opj_t1_ht_decode_cblk) into ``out`` (w x h int32, in
+// the Part 1 decoder's convention: bit b of the magnitude at bit b + 1, the
+// bin centre below): false where OpenJPEG gives up on it. ``mb`` is the
+// band's Mb.
+bool decode_ht(const Cblk& cb, uint32_t mb, int roishift, int cblksty,
+               int w, int h, std::vector<int32_t>& out) {
+    out.assign((size_t)w * h, 0);
+    if (roishift != 0) return false;  // OpenJPEG has no ROI for HT blocks
+    if (cb.numsegs == 0) return true;
+    uint32_t zero_bplanes = (mb + 1) - cb.numbps;
+    uint32_t num_passes = cb.segs[0].numpasses;
+    if (cb.numsegs > 1) num_passes += cb.segs[1].numpasses;
+    uint32_t cblk_len = (uint32_t)cb.data.size();
+    uint32_t lengths1 = num_passes > 0 ? cb.segs[0].len : 0;
+    uint32_t lengths2 =
+        num_passes > 1 && cb.segs.size() > 1 ? cb.segs[1].len : 0;
+    if (num_passes > 1 && lengths2 == 0) num_passes = 1;
+    if (num_passes > 3) return false;
+    if (mb > 30) return false;
+    if (zero_bplanes > mb) return false;
+    if (zero_bplanes == mb && num_passes > 1) num_passes = 1;
+    const uint32_t p = cb.numbps;
+    const uint32_t zero_bplanes_p1 = zero_bplanes + 1;
+    if (lengths1 < 2 || lengths1 > cblk_len ||
+        (uint64_t)lengths1 + lengths2 > cblk_len)
+        return false;
+    const uint8_t* coded = cb.data.data();
+    int lcup = (int)lengths1;
+    int scup = ((int)coded[lcup - 1] << 4) + (coded[lcup - 2] & 0xF);
+    if (scup < 2 || scup > lcup || scup > 4079) return false;
+    MelReader mel;
+    mel.init(coded, lcup, scup);
+    RevReader vlc;
+    vlc.init_vlc(coded, lcup, scup);
+    FwdReader magsgn;
+    magsgn.init(coded, lcup - scup, 0xFF);
+
+    // sign-magnitude samples (bit 31 the sign), and the significance the
+    // cleanup finds (SigProp adds its own), with a border of one sample
+    std::vector<uint32_t> dec((size_t)w * h, 0);
+    const size_t kw = (size_t)w + 2;
+    std::vector<uint8_t> sig(kw * (h + 2), 0);
+    auto sig_at = [&](int x, int y) -> uint8_t& {
+        return sig[(size_t)(y + 1) * kw + x + 1];
+    };
+    // line state per pair of columns: bit 7 significance, the rest E
+    std::vector<uint8_t> line((size_t)w / 2 + 8, 0);
+    auto sample = [&](uint32_t q, int n, uint32_t u, int x, int y,
+                      uint32_t* e_out) -> bool {
+        // sample n of a quad (0 top left, 1 below it, 2 top right, 3)
+        if (!(q & (0x10u << n))) return false;
+        uint32_t ms = magsgn.fetch();
+        uint32_t m_n = u - ((q >> (12 + n)) & 1);
+        magsgn.advance(m_n);
+        uint32_t val = ms << 31;
+        uint32_t v_n = ms & ((1u << m_n) - 1);
+        v_n |= ((q >> (8 + n)) & 1) << m_n;
+        v_n |= 1;
+        dec[(size_t)y * w + x] = val | ((v_n + 2) << (p - 1));
+        sig_at(x, y) = 1;
+        if (e_out) *e_out = 32 - (uint32_t)__builtin_clz(v_n);
+        return true;
+    };
+    int run = mel.run();
+    for (int y = 0; y < h; y += 2) {
+        const bool initial = y == 0;
+        const uint16_t* table = initial ? kVlcTbl0 : kVlcTbl1;
+        uint8_t* lsp = line.data();
+        uint8_t ls0 = lsp[0];
+        lsp[0] = 0;
+        uint32_t c_q = 0;
+        for (int x = 0; x < w; x += 4) {
+            uint32_t qinf[2] = {0, 0}, u_q[2];
+            uint32_t vlc_val = vlc.fetch();
+            if (!initial) {
+                c_q |= ls0 >> 7;
+                c_q |= (lsp[1] >> 5) & 4;
+            }
+            qinf[0] = table[(c_q << 7) | (vlc_val & 0x7F)];
+            if (c_q == 0) {
+                run -= 2;
+                qinf[0] = run == -1 ? qinf[0] : 0;
+                if (run < 0) run = mel.run();
+            }
+            if (initial)
+                c_q = ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xE0) >> 5);
+            else
+                c_q = ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+            vlc_val = vlc.advance(qinf[0] & 7);
+            if (x + 2 < w) {
+                if (!initial) {
+                    c_q |= lsp[1] >> 7;
+                    c_q |= (lsp[2] >> 5) & 4;
+                }
+                qinf[1] = table[(c_q << 7) | (vlc_val & 0x7F)];
+                if (c_q == 0) {
+                    run -= 2;
+                    qinf[1] = run == -1 ? qinf[1] : 0;
+                    if (run < 0) run = mel.run();
+                }
+                if (initial)
+                    c_q = ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xE0) >> 5);
+                else
+                    c_q = ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+                vlc_val = vlc.advance(qinf[1] & 7);
+            }
+            uint32_t mode = ((qinf[0] & 8) >> 3) | ((qinf[1] & 8) >> 2);
+            if (initial && mode == 3) {
+                run -= 2;
+                mode += run == -1 ? 1 : 0;
+                if (run < 0) run = mel.run();
+            }
+            uint32_t consumed = decode_uvlc(vlc_val, mode, initial, u_q);
+            vlc_val = vlc.advance(consumed);
+            if (!initial) {
+                // kappa: E^max of the neighbours above, where the quad has
+                // more than one significant sample
+                if ((qinf[0] & 0xF0) & ((qinf[0] & 0xF0) - 1)) {
+                    uint32_t e = std::max<uint32_t>(ls0 & 0x7F, lsp[1] & 0x7F);
+                    u_q[0] += e > 2 ? e - 2 : 0;
+                }
+                if ((qinf[1] & 0xF0) & ((qinf[1] & 0xF0) - 1)) {
+                    uint32_t e = std::max<uint32_t>(lsp[1] & 0x7F,
+                                                    lsp[2] & 0x7F);
+                    u_q[1] += e > 2 ? e - 2 : 0;
+                }
+            }
+            if (u_q[0] > zero_bplanes_p1 || u_q[1] > zero_bplanes_p1)
+                return false;
+            if (!initial) {
+                ls0 = lsp[2];
+                lsp[1] = lsp[2] = 0;
+            }
+            uint32_t locs = 0xFF;
+            if (x + 4 > w) locs >>= (x + 4 - w) << 1;
+            if (y + 2 > h) locs &= 0x55;
+            if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs)
+                return false;
+            for (int qi = 0; qi < 2; ++qi) {
+                uint32_t q = qinf[qi], u = u_q[qi];
+                int cx = x + 2 * qi;
+                uint32_t e;
+                sample(q, 0, u, cx, y, nullptr);
+                if (sample(q, 1, u, cx, y + 1, &e)) {
+                    uint32_t t = lsp[0] & 0x7F;
+                    lsp[0] = (uint8_t)(0x80 | std::max(t, e));
+                }
+                ++lsp;
+                sample(q, 2, u, cx + 1, y, nullptr);
+                if (initial) lsp[0] = 0;
+                if (sample(q, 3, u, cx + 1, y + 1, &e))
+                    lsp[0] = (uint8_t)(0x80 | e);
+            }
+        }
+    }
+
+    if (num_passes > 2) {
+        // MagRef: bit p - 1 of each sample significant in the cleanup,
+        // stripe by stripe, column by column
+        RevReader mrp;
+        mrp.init_mrp(coded, lcup, (int)lengths2);
+        const uint32_t half = 1u << (p - 2);
+        for (int y0 = 0; y0 < h; y0 += 4)
+            for (int x = 0; x < w; ++x)
+                for (int y = y0; y < std::min(y0 + 4, h); ++y) {
+                    size_t i = (size_t)y * w + x;
+                    if (!sig_at(x, y)) continue;
+                    uint32_t sym = mrp.fetch() & 1;
+                    mrp.advance(1);
+                    dec[i] ^= (1 - sym) << (p - 1);
+                    dec[i] |= half;
+                }
+    }
+    if (num_passes > 1) {
+        // SigProp: each stripe, in groups of 4 columns, one bit for each
+        // insignificant sample with a significant neighbour (the cleanup's,
+        // or found earlier in this pass; the stripe below only through the
+        // cleanup, and not at all when stripe-causal), then the new samples'
+        // signs
+        FwdReader sp;
+        sp.init(coded + lengths1, (int)lengths2, 0);
+        const bool causal = (cblksty & 8) != 0;
+        const uint32_t val = 3u << (p - 2);
+        for (int y0 = 0; y0 < h; y0 += 4) {
+            int y1 = std::min(y0 + 4, h);
+            for (int g = 0; g < w; g += 4) {
+                int news[16][2], nnew = 0;
+                for (int x = g; x < std::min(g + 4, w); ++x)
+                    for (int y = y0; y < y1; ++y) {
+                        // each sample is visited once: its own flag is
+                        // still the cleanup's
+                        const uint8_t* k = &sig_at(x, y);
+                        if (*k) continue;
+                        const uint8_t* up = k - kw;
+                        const uint8_t* down = k + kw;
+                        uint8_t near = up[-1] | up[0] | up[1] | k[-1] | k[1];
+                        if (!(causal && y == y0 + 3))
+                            near |= down[-1] | down[0] | down[1];
+                        if (!near) continue;
+                        uint32_t bit = sp.fetch() & 1;
+                        sp.advance(1);
+                        if (bit) {
+                            sig_at(x, y) = 1;
+                            news[nnew][0] = y;
+                            news[nnew][1] = x;
+                            ++nnew;
+                        }
+                    }
+                for (int k = 0; k < nnew; ++k) {
+                    size_t i = (size_t)news[k][0] * w + news[k][1];
+                    uint32_t s = sp.fetch() & 1;
+                    sp.advance(1);
+                    dec[i] |= (s << 31) | val;
+                }
+            }
+        }
+    }
+    for (size_t i = 0; i < dec.size(); ++i) {
+        int32_t v = (int32_t)(dec[i] & 0x7FFFFFFF);
+        out[i] = (dec[i] & 0x80000000u) ? -v : v;
+    }
+    return true;
+}
+
+// ---------------------------------------------------------------------------
 // inverse wavelets (dwt.c)
 // ---------------------------------------------------------------------------
 
@@ -1757,9 +2441,18 @@ void decode_tile(Codestream& cs, uint32_t tileno, int32_t* out) {
                 const Band& band = tc.res[r].bands[b];
                 for (auto& prc : band.precs) {
                     for (auto& cb : prc.cblks) {
-                        if (!t1.decode(cb, band.orient, tccp.roishift,
-                                       tccp.cblksty))
-                            fail();
+                        bool ok;
+                        if (tccp.cblksty & 0x40) {
+                            t1.w = (int)(cb.x1 - cb.x0);
+                            t1.h = (int)(cb.y1 - cb.y0);
+                            ok = decode_ht(cb, (uint32_t)band.numbps,
+                                           tccp.roishift, tccp.cblksty, t1.w,
+                                           t1.h, t1.data);
+                        } else {
+                            ok = t1.decode(cb, band.orient, tccp.roishift,
+                                           tccp.cblksty);
+                        }
+                        if (!ok) fail();
                         uint32_t x = cb.x0 - band.x0, y = cb.y0 - band.y0;
                         if (band.orient & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
                         if (band.orient & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
@@ -1872,8 +2565,7 @@ void decode_tile(Codestream& cs, uint32_t tileno, int32_t* out) {
 extern "C" {
 
 // The headers of a codestream, main and tile-part, read as the decode
-// reads them: status (0 ok, 1 a file cv2 cannot read, 2 HTJ2K code-blocks)
-// and, but for status 1, in ``info`` the image's x0, y0, x1, y1, its
+// reads them: status (0 ok, 1 a file cv2 cannot read) and, for status 0, in ``info`` the image's x0, y0, x1, y1, its
 // component count, then per component dx, dy, precision and signedness
 // (after a CBD marker; at most ``max_info`` values).
 int ocr_j2k_header(const uint8_t* data, int64_t len, int32_t* info,

@@ -159,6 +159,18 @@ minutes):
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py images
 
+``images`` also writes the HTJ2K files of ``htj2k_files``
+(pages/clean_a_ht53.jph, pages/skew_2deg_ht97.j2k) and ``bench_htj2k``
+(bench_cfg4_ht.j2k) with tests/htj2k_writer.py. With ``--only`` and
+paths under tests/data/torch_port/images/, it writes all the files into a
+temporary folder but keeps only those, and rewrites only their
+images.json entries (cv2's decode, the JAX bocr and bocr-lines records),
+the rest as it is; a new format's files are added so:
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixture.py images \
+        --only pages/clean_a_ht53.jph pages/skew_2deg_ht97.j2k \
+        bench_cfg4_ht.j2k
+
 With the argument ``training`` it writes the JAX CPU record of two
 short training runs at full width, in float32 and in float64, which
 chip_smoke.py's ``train_rec_f32`` and ``train_seg_f32`` phases repeat on
@@ -282,16 +294,16 @@ def main(argv: list[str]) -> int:
         return layout()
     if argv == ["recognizers"]:
         return recognizers()
-    if argv == ["images"]:
-        return images()
+    if argv[:1] == ["images"] and argv[1:2] in ([], ["--only"]):
+        return images(argv[2:])
     if argv == ["training"]:
         return training()
     if argv == ["onnx"]:
         return onnx()
     if argv:
         raise SystemExit(f"unknown arguments {argv}; expected eval_suite, "
-                         "eval_mode, layout, recognizers, images, "
-                         "training or onnx")
+                         "eval_mode, layout, recognizers, images "
+                         "[--only FILE...], training or onnx")
     import jax
     import jax.numpy as jnp
 
@@ -982,6 +994,7 @@ def write_image_files(pages) -> dict[str, str]:
     kinds.update(jpeg2000_bmp_pnm_files(folder, by_name, flat))
     kinds.update(gif_webp_ras_pfm_hdr_files(folder, by_name, flat))
     kinds.update(avif_files(folder, by_name, flat))
+    kinds.update(htj2k_files(folder, flat))
 
     global BENCH_JPEG_QUALITY
     bench = chip_smoke.bench_page(42)[..., ::-1]
@@ -1012,7 +1025,47 @@ def write_image_files(pages) -> dict[str, str]:
     (IMAGES / "bench_cfg4_10bit.avif").write_bytes(data.tobytes())
     kinds["bench_cfg4_10bit.avif"] = "AVIF of 10 bits (cv2 from uint16), " \
         "bench.py config 4 page"
+    kinds.update(bench_htj2k(bench[..., ::-1]))
     return kinds
+
+
+HT_BENCH_STEP = 6.0  # the bench HTJ2K file's 9/7 quantiser step
+
+
+def htj2k_files(folder, flat) -> dict[str, str]:
+    """The HTJ2K page files (the slice that reads HT code-blocks), written
+    by tests/htj2k_writer.py: clean_a_ht53.jph (a JPH file, colr method 5,
+    5/3 lossless, cleanup passes only) and skew_2deg_ht97.j2k (a raw
+    codestream, 9/7 with SigProp and MagRef passes, 512x512 tiles, two
+    layers: half the code-blocks wait for the second, which also brings
+    the others' refinement passes). Returns {file: kind}."""
+    from tests.htj2k_writer import htj2k_encode, jph_file
+
+    page = flat["clean_a"]
+    h, w, _ = page.shape
+    (folder / "clean_a_ht53.jph").write_bytes(jph_file(
+        htj2k_encode(page), h, w, 3, colr=("cicp", 1, 13, 0, 1)))
+    (folder / "skew_2deg_ht97.j2k").write_bytes(htj2k_encode(
+        flat["skew_2deg"], reversible=False, passes=3, tile=(512, 512),
+        layers=2, split=True, cblk=(5, 5)))
+    return {
+        "clean_a_ht53.jph": "JPH (colr method 5), HTJ2K 5/3 lossless, "
+        "cleanup passes only (tests/htj2k_writer.py)",
+        "skew_2deg_ht97.j2k": "J2K codestream HTJ2K 9/7, SigProp and "
+        "MagRef passes, 512x512 tiles, 2 layers, 32x32 code-blocks "
+        "(tests/htj2k_writer.py)"}
+
+
+def bench_htj2k(bench) -> dict[str, str]:
+    """bench.py config 4's first page (RGB) as an HTJ2K codestream: 9/7
+    at step HT_BENCH_STEP, SigProp and MagRef passes, 64x64 code-blocks."""
+    from tests.htj2k_writer import htj2k_encode
+
+    (IMAGES / "bench_cfg4_ht.j2k").write_bytes(htj2k_encode(
+        bench, reversible=False, passes=3, step=HT_BENCH_STEP))
+    return {"bench_cfg4_ht.j2k": f"J2K codestream HTJ2K 9/7 at step "
+            f"{HT_BENCH_STEP}, SigProp and MagRef passes "
+            "(tests/htj2k_writer.py), bench.py config 4 page"}
 
 
 def variant_files(folder, flat) -> dict[str, str]:
@@ -1577,18 +1630,64 @@ def avif_files(folder, by_name, flat) -> dict[str, str]:
     return kinds
 
 
-def images() -> int:
+def images(only: list[str] = ()) -> int:
     """Write tests/data/torch_port/images/ and images.json (see the
-    module doc)."""
+    module doc); with ``only`` (paths relative to IMAGES) write every file
+    into a temporary folder, keep those and rewrite their entries, the
+    rest of images.json as it is."""
+    import shutil
+    import tempfile
+
+    import jax
+
+    global IMAGES
+    jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
+    from ocr_inference_tpu_torch.eval.synthetic import fixture_pages
+
+    pages = fixture_pages(OUT / "pages.npz")
+    if only:
+        images_dir = IMAGES
+        with tempfile.TemporaryDirectory() as tmp:
+            IMAGES = Path(tmp)
+            (IMAGES / "none").mkdir()
+            try:
+                kinds = write_image_files(pages)
+            finally:
+                IMAGES = images_dir
+            for rel in only:
+                shutil.copyfile(Path(tmp) / rel, IMAGES / rel)
+        record = json.loads((OUT / "images.json").read_text(
+            encoding="utf-8"))
+        return _record_images(record, [IMAGES / rel for rel in only], kinds)
+    kinds = write_image_files(pages)
+    files = sorted((IMAGES / "pages").iterdir()) + [
+        IMAGES / "bench_cfg4.jpg", IMAGES / "bench_cfg4.jp2",
+        IMAGES / "bench_cfg4.webp", IMAGES / "bench_cfg4.avif",
+        IMAGES / "bench_cfg4_10bit.avif", IMAGES / "bench_cfg4_ht.j2k"] + sorted(
+        (IMAGES / "none").iterdir())
+    total = sum(p.stat().st_size for p in files)
+    assert total < 6400 * 1024, f"{total} bytes of image files"
+    newest = sum(p.stat().st_size for p in files if p.suffix in (
+        ".gif", ".webp", ".ras", ".pfm", ".hdr"))
+    assert newest < 1500 * 1024, f"{newest} bytes of the newest formats"
+    avif = sum(p.stat().st_size for p in files if p.suffix == ".avif")
+    assert avif < 900 * 1024, f"{avif} bytes of AVIF files"
+    record = {"bench_jpeg_quality": BENCH_JPEG_QUALITY, "files": {},
+              "bocr": {}, "bocr_lines": {}}
+    return _record_images(record, files, kinds)
+
+
+def _record_images(record, files, kinds) -> int:
+    """images.json's entries of ``files`` (page files and others): cv2's
+    decode of each, the JAX bocr and bocr-lines records of the page files
+    among them."""
     import functools
 
     import cv2
-    import jax
     import jax.numpy as jnp
     import pyarrow.parquet as pq
     import tempfile
 
-    jax.config.update("jax_default_device", jax.local_devices(backend="cpu")[0])
     from chip_smoke import globbed_by_folder, renamed_page
     from ocr_inference_tpu.cli import cli as jax_cli
     from ocr_inference_tpu.cli import infer_lines_cli as jax_lines_cli
@@ -1597,26 +1696,10 @@ def images() -> int:
         OpStatus,
     )
     from ocr_inference_tpu.pipeline import builder as jax_builder
-    from ocr_inference_tpu_torch.eval.synthetic import fixture_pages
     from ocr_inference_tpu_torch.io.images import read_image
     import chip_smoke
 
-    pages = fixture_pages(OUT / "pages.npz")
-    kinds = write_image_files(pages)
-    files = sorted((IMAGES / "pages").iterdir()) + [
-        IMAGES / "bench_cfg4.jpg", IMAGES / "bench_cfg4.jp2",
-        IMAGES / "bench_cfg4.webp", IMAGES / "bench_cfg4.avif",
-        IMAGES / "bench_cfg4_10bit.avif"] + sorted(
-        (IMAGES / "none").iterdir())
-    total = sum(p.stat().st_size for p in files)
-    assert total < 6000 * 1024, f"{total} bytes of image files"
-    newest = sum(p.stat().st_size for p in files if p.suffix in (
-        ".gif", ".webp", ".ras", ".pfm", ".hdr"))
-    assert newest < 1500 * 1024, f"{newest} bytes of the newest formats"
-    avif = sum(p.stat().st_size for p in files if p.suffix == ".avif")
-    assert avif < 900 * 1024, f"{avif} bytes of AVIF files"
-    record = {"bench_jpeg_quality": BENCH_JPEG_QUALITY, "files": {},
-              "bocr": {}, "bocr_lines": {}}
+    page_files = [p for p in files if p.parent == IMAGES / "pages"]
     for path in files:
         rel = str(path.relative_to(IMAGES))
         img = cv2.imread(str(path))
@@ -1642,19 +1725,25 @@ def images() -> int:
         tmp = Path(tmp)
         model, lines = chip_smoke.write_model_dirs(tmp)
         jax_cli.build_pipeline = f32_build
-        rc = jax_cli.main(["--model", str(model), "--folder",
-                           str(IMAGES / "pages"), "--output",
-                           str(tmp / "out"), "--line-model", str(lines),
-                           "--encoding", "wylie"])
-        assert rc == 0, rc
-        for path in sorted((IMAGES / "pages").iterdir()):
+        globbed = tmp / "globbed"
+        globbed.mkdir()
+        for path in page_files:
+            if globbed_by_folder(path):
+                (globbed / path.name).write_bytes(path.read_bytes())
+        if any(globbed.iterdir()):
+            rc = jax_cli.main(["--model", str(model), "--folder",
+                               str(globbed), "--output", str(tmp / "out"),
+                               "--line-model", str(lines),
+                               "--encoding", "wylie"])
+            assert rc == 0, rc
+        for path in page_files:
             if not globbed_by_folder(path):
                 rc = jax_cli.main(["--model", str(model), "--image",
                                    str(path), "--output", str(tmp / "out"),
                                    "--line-model", str(lines),
                                    "--encoding", "wylie"])
                 assert rc == 0, (path.name, rc)
-        for path in sorted((IMAGES / "pages").iterdir()):
+        for path in page_files:
             img = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
             status, payload = pipe.run_ocr(img, merge_lines=False,
                                            target_encoding=Encoding.WYLIE)
@@ -1671,16 +1760,17 @@ def images() -> int:
             print(path.name, len(ocr_lines), "lines", file=sys.stderr)
         jax_lines_cli.build_detection_engine = functools.partial(
             jax_builder.build_detection_engine, dtype=jnp.float32)
-        rc = jax_lines_cli.main(["-i", str(IMAGES / "pages"), "-o",
-                                 str(tmp / "parquet"), "-c",
-                                 str(WEIGHTS / "lines.msgpack"),
-                                 "--device", "cpu"])
-        assert rc == 0, rc
+        if any(globbed.iterdir()):
+            rc = jax_lines_cli.main(["-i", str(globbed), "-o",
+                                     str(tmp / "parquet"), "-c",
+                                     str(WEIGHTS / "lines.msgpack"),
+                                     "--device", "cpu"])
+            assert rc == 0, rc
         # bocr-lines globs the same five extensions: the other page files
         # go through it under a name it globs (cv2 reads by content)
         renamed = tmp / "renamed"
         renamed.mkdir()
-        for path in sorted((IMAGES / "pages").iterdir()):
+        for path in page_files:
             if not globbed_by_folder(path):
                 (renamed / renamed_page(path.name)).write_bytes(
                     path.read_bytes())

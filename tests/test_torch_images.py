@@ -22,6 +22,7 @@ from ocr_inference_tpu_torch.io.artifacts import write_png
 from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
+from tests.htj2k_writer import htj2k_encode, jph_file
 from tests.image_writers import (
     bmp_file, bmp_rle8, j2k_ht_flagged, j2k_mcc, j2k_mco, j2k_mct, jp2_file,
     layered_avif, openjpeg_encode, pam_file, pnm_file, screen_content_avif,
@@ -465,6 +466,8 @@ def _agreement_corpus(root):
     siz = 4 + struct.unpack_from(">H", cs, 4)[0]
     add("htj2k.j2k", j2k_ht_flagged(openjpeg_encode(
         np.full((8, 8, 3), 128), numresolution=2, tcp_mct=0)))
+    add("ht97.j2k", htj2k_encode(img, reversible=False, passes=3))
+    add("ht.jph", jph_file(htj2k_encode(img), *img.shape))
     add("part2.j2k", cs[:siz] + j2k_mct(1, [9, 99, 199]) + j2k_mcc(
         1, 3, offset=1) + j2k_mco(1) + cs[siz:])
     add("rle8.bmp", bmp_file(24, 16, 8, bmp_rle8(img[..., 0] >> 6),

@@ -6,8 +6,9 @@ ctypes, for the code-block styles, SOP/EPH, POC, tile-parts, ROI and
 precisions Pillow does not reach), JP2 boxes written here around them
 (colour spaces, palettes, channel definitions), packed packet headers, and
 seeded truncations and corruptions, which give what cv2 gives: an image or
-None; the Part 2 markers OpenJPEG reads. HT code-blocks are refused by
-name."""
+None; the Part 2 markers OpenJPEG reads; the HT code-block style bit over
+empty and over Part 1 code-blocks (tests/test_torch_htj2k.py holds HT
+code-blocks from a writer of their own)."""
 
 import struct
 
@@ -312,18 +313,17 @@ def _with_marker(codestream: bytes, marker: int, payload: bytes) -> bytes:
         payload + codestream[at:]
 
 
-def test_htj2k_and_part2_refused_by_name(tmp_path):
+def test_ht_flagged_files_and_part2_as_cv2(tmp_path):
     """HT code-blocks (code-block style bit 6), which OpenJPEG 2.5 decodes,
-    are refused by name, by unsupported() and read_image alike, whether the
-    bit is set in a COD or COC of the main header or of a tile-part header.
-    Each file is a flat page coded losslessly, so that its code-blocks are
-    empty and it is a valid HTJ2K codestream: cv2 reads it. A tile-part COD
-    without the bit over a main COD with it is read. A gray raw codestream
-    so flagged is None, as cv2 gives None for any 1-component raw
-    codestream. Part 1 code-blocks flagged HT are refused by name too,
-    where cv2's HT decoder gives None: the port has no HT decoder to tell
-    them apart. The Part 2 markers are read as OpenJPEG reads them
-    (test_part2_markers)."""
+    are read as cv2 reads them, whether the bit is set in a COD or COC of
+    the main header or of a tile-part header, and unsupported() names
+    none of them. Each file is a flat page coded losslessly, so that its
+    code-blocks are empty and it is a valid HTJ2K codestream: cv2 reads it.
+    A tile-part COD without the bit over a main COD with it is read. A gray
+    raw codestream so flagged is None, as cv2 gives None for any
+    1-component raw codestream. Part 1 code-blocks flagged HT give None,
+    as cv2's HT decoder gives None for them. The Part 2 markers are read
+    as OpenJPEG reads them (test_part2_markers)."""
     cs = openjpeg_encode(np.full((16, 20, 3), 128), numresolution=2,
                          tcp_mct=0)
     c0, c1 = _segments(cs)[0xFF52]
@@ -338,24 +338,18 @@ def test_htj2k_and_part2_refused_by_name(tmp_path):
     }
     for name, data in cases.items():
         path = tmp_path / f"{name}.j2k"
-        path.write_bytes(data)
-        want = _cv2_rgb(path)
+        want = _same(path, data)
         assert want is not None and (want == 128).all(), name
         assert image_format(path) == "JPEG 2000"
-        assert "HTJ2K" in unsupported(path), name
-        with pytest.raises(NotImplementedError, match="HTJ2K"):
-            read_image(path)
     got = _same(tmp_path / "tile_clears.j2k",
                 _in_tile_header(j2k_ht_flagged(cs), cs[c0:c1]))
     assert (got == 128).all()
     gray = openjpeg_encode(np.full((16, 20), 128), numresolution=2)
     assert _same(tmp_path / "gray.j2k", j2k_ht_flagged(gray)) is None
     path = tmp_path / "part1_flagged.j2k"
-    path.write_bytes(j2k_ht_flagged(openjpeg_encode(
+    assert _same(path, j2k_ht_flagged(openjpeg_encode(
         np.random.default_rng(2).integers(0, 256, (16, 20, 3)),
-        numresolution=2)))
-    assert _cv2_rgb(path) is None
-    assert "HTJ2K" in unsupported(path)
+        numresolution=2))) is None
 
 
 def _part2_cases() -> dict:

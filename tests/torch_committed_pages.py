@@ -22,8 +22,8 @@ PAGES = OUT / "images" / "pages"
 GROUPS = {
     "jpeg_png_gif_webp": (".jpg", ".jpeg", ".png", ".gif", ".webp"),
     "tiff": (".tif", ".tiff"),
-    "jp2_bmp_pnm_raster": (".jp2", ".j2k", ".bmp", ".pgm", ".ppm", ".pam",
-                           ".ras", ".pfm", ".hdr"),
+    "jp2_bmp_pnm_raster": (".jp2", ".j2k", ".jph", ".bmp", ".pgm", ".ppm",
+                           ".pam", ".ras", ".pfm", ".hdr"),
     "avif": (".avif",),
 }
 
