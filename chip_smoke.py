@@ -2315,6 +2315,10 @@ LOSSLESS_SUBSAMPLED_PAGE = "clean_a_lossless_h2v2.jpg"
 # reads them: a JPH file (5/3, cleanup passes) and a raw codestream (9/7,
 # SigProp and MagRef, tiles, two layers); each goes through bocr --image
 HT_PAGES = ("clean_a_ht53.jph", "skew_2deg_ht97.j2k")
+# the layered AVIF page (a key frame, then two AV1 inter frames) and the
+# inter frames each layered file holds
+LAYERED_AVIF_PAGES = {"clean_a_layered.avif": 2}
+LAYERED_BENCH_AVIF = ("bench_cfg4_layered.avif", 1)
 
 
 def avif_structure(path: Path) -> dict:
@@ -2336,15 +2340,17 @@ def av1_tool_counts(path: Path) -> dict:
     (palette Y and UV blocks, intra block copies, Wiener and self-guided
     units, the film grain applied: its Y, Cb and Cr scaling points, chroma
     from luma, overlap, clip, AR lag; native.av1_decode_counts), with the
-    frame's bit depth and subsampling."""
+    frame's bit depth and subsampling; for a layered item the inter
+    tools of native.AV1_INTER_COUNTS too)."""
     from ocr_inference_tpu_torch import native
     from ocr_inference_tpu_torch.io.images import _avif_container
 
-    obus = _avif_container(path.read_bytes())["cells"][0]
-    rc, info = native.av1_info(obus)
+    c = _avif_container(path.read_bytes())
+    obus, layering = c["cells"][0], c["layering"][0]
+    rc, info = native.av1_info(obus, *layering)
     used = {}
     if rc == 0:
-        rc, _, used = native.av1_decode_counts(obus, info)
+        rc, _, used = native.av1_decode_counts(obus, info, *layering)
         used["depth"] = int(info[2])
         used["subsampling"] = "4:0:0" if info[3] else {
             (1, 1): "4:2:0", (1, 0): "4:2:2", (0, 0): "4:4:4"}[
@@ -2573,7 +2579,13 @@ def image_formats(results: dict):
     Since the slice of HTJ2K the pages of HT_PAGES, each with its decode
     ms, through bocr --image at 0.0 CER with equal boxes, and the
     bench-size HTJ2K file's decode ms (``bench_ht_decode_ms``) beside the
-    Part 1 JP2's."""
+    Part 1 JP2's. Since the slice of layered AVIF the layered page of
+    LAYERED_AVIF_PAGES (a key frame, then two AV1 inter frames) and the
+    bench-size layered file equal to the record, each with its inter
+    frames and av1.cpp's per-tool counts, the page through bocr --image at
+    0.0 CER with equal boxes, and the bench-size layered file's decode ms
+    (``bench_layered_decode_ms``) beside the intra AVIF's."""
+    from ocr_inference_tpu_torch import native
     from ocr_inference_tpu_torch.cli import cli, infer_lines_cli
     from ocr_inference_tpu_torch.core.data import Encoding
     from ocr_inference_tpu_torch.eval.cer import cer
@@ -2598,7 +2610,7 @@ def image_formats(results: dict):
     cli_pages += [pages_dir / n for n in (next(iter(TOOL_AVIF_PAGES)),
                                           *BOCR_IMAGE_DEPTH_AVIF_PAGES,
                                           *GRID_SEQUENCE_AVIF_PAGES,
-                                          *HT_PAGES)
+                                          *HT_PAGES, *LAYERED_AVIF_PAGES)
                   if pages_dir / n not in cli_pages]
     in_process = [p for p in image_pages if p not in cli_pages]
     checks, files = {}, {}
@@ -2647,6 +2659,22 @@ def image_formats(results: dict):
         print(f"{name}: {grid_pages[name]}", flush=True)
     checks["grid_sequence_avif_pages_as_expected"] = all(
         p["as_expected"] and p["equal_cv2"] for p in grid_pages.values())
+    # the layered files: equal to the record, each with its inter frames
+    # and av1.cpp's per-tool counts
+    layered = {}
+    for rel, frames in [(f"pages/{n}", k) for n, k in
+                        LAYERED_AVIF_PAGES.items()] + [LAYERED_BENCH_AVIF]:
+        f = files.get(rel, {})
+        tools = f.get("tools", {})
+        layered[rel] = {"decode_ms": f.get("decode_ms"),
+                        "equal_cv2": f.get("equal_cv2"),
+                        "tools": {k: v for k, v in tools.items() if v and (
+                            k in native.AV1_INTER_COUNTS or k == "rc")}}
+        layered[rel]["as_expected"] = bool(f.get("equal_cv2")) and \
+            tools.get("inter_frames") == frames and tools.get("rc") == 0
+        print(f"{rel}: {layered[rel]}", flush=True)
+    checks["layered_avif_files_equal_record_with_inter_frames"] = all(
+        v["as_expected"] for v in layered.values())
     lossless = files.get(f"pages/{LOSSLESS_SUBSAMPLED_PAGE}", {})
     checks["lossless_subsampled_jpeg_equals_cv2"] = bool(
         lossless.get("equal_cv2"))
@@ -2727,6 +2755,12 @@ def image_formats(results: dict):
             "decode_ms"), "equal_cv2": files.get(f"pages/{n}", {}).get(
             "equal_cv2"), "bocr_image_f32": per_page.get(n)}
             for n in HT_PAGES}
+        for n in LAYERED_AVIF_PAGES:
+            layered[f"pages/{n}"]["bocr_image_f32"] = per_page.get(n)
+        checks["layered_avif_pages_bocr_image_f32_cer_0_boxes_equal"] = all(
+            per_page.get(n, {}).get("via") == "bocr"
+            and per_page[n]["cer_vs_jax_f32"] == 0.0
+            and per_page[n]["boxes_equal"] for n in LAYERED_AVIF_PAGES)
         checks["ht_pages_bocr_image_f32_cer_0_boxes_equal"] = all(
             p["equal_cv2"] and p["bocr_image_f32"] is not None
             and p["bocr_image_f32"]["via"] == "bocr"
@@ -2841,7 +2875,8 @@ def image_formats(results: dict):
     bench_ht = files.get("bench_cfg4_ht.j2k", {})
     checks["bench_ht_equals_cv2"] = bool(bench_ht.get("equal_cv2"))
     checks["avif_files_in_record"] = sum(
-        rel.endswith(".avif") for rel in files) >= 17
+        rel.endswith(".avif") for rel in files) >= 19
+    bench_layered = files.get(LAYERED_BENCH_AVIF[0], {})
     return {"_ok": all(checks.values()), "checks": checks, "files": files,
             "bench_jp2_decode_ms": bench_jp2.get("decode_ms"),
             "bench_ht_decode_ms": bench_ht.get("decode_ms"),
@@ -2849,6 +2884,8 @@ def image_formats(results: dict):
             "bench_webp_decode_ms": bench_webp.get("decode_ms"),
             "bench_avif_decode_ms": bench_avif.get("decode_ms"),
             "bench_avif_10bit_decode_ms": bench_avif10.get("decode_ms"),
+            "bench_layered_decode_ms": bench_layered.get("decode_ms"),
+            "layered_avif": layered,
             "depth_avif_pages": depth_pages,
             "grid_sequence_avif_pages": grid_pages,
             "lossless_subsampled_jpeg": lossless,

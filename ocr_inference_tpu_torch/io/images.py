@@ -129,7 +129,11 @@ gives in RGB order:
   intra tool, the screen-content tools palette and intra block copy,
   quantiser matrices, segmentation, delta q and lf, the deblocking
   filter, CDEF, loop restoration, Wiener and self-guided, and film grain
-  synthesised as libaom adds it); then libavif's YUV -> RGB: 10 and 12
+  synthesised as libaom adds it; a layered item's AV1 inter frames too,
+  every inter tool, the frame libaom gives libavif: the last shown, or
+  the first shown of the spatial layer lsel names, with a1op's
+  operating point and a1lx's layer sizes as libavif takes them); then
+  libavif's YUV -> RGB: 10 and 12
   bits shifted down to 8, then libyuv's fixed-point constants for
   BT.601, BT.709 and BT.2020 (unspecified as BT.601) at full and limited
   range with bilinear 4:2:0 and linear 4:2:2 upsampling; libavif's own
@@ -171,10 +175,9 @@ it, so that no page is skipped silently: a TIFF compression libtiff does
 not know (JPEG 2000 in TIFF 34712, JPEG XL 50002, any other number; cv2
 gives an all-zero page for those), and these AVIF variants,
 which cv2 reads through libavif and libaom: a frame with superres (no
-tool at hand writes one to test against), a layered item (lsel, a1lx,
-a1op, or more than one operating point: its layers after the first are
-AV1 inter frames), a grid of such cells, an ispe (or a track's size)
-other than the frame's (libavif scales the frame to it), premultiplied
+tool at hand writes one to test against), an ispe (or a track's size)
+other than the frame's (libavif scales the frame to it: a layer lsel
+picks that was coded smaller too), premultiplied
 alpha at 12 bits 4:2:0 through libyuv, or of another size than the
 colour. ``unsupported(path)`` tells these from the headers, without
 decoding.
@@ -2372,14 +2375,11 @@ _AVIF_PROPERTIES = {b"ispe", b"auxC", b"colr", b"av1C", b"av2C", b"pasp",
                     b"a1lx", b"clli", b"mdcv", b"cclv", b"amve"}
 _AVIF_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
                     b"urn:mpeg:hevc:2015:auxid:1")
-# av1.cpp's status codes for the variants it refuses (superres: no tool at
-# hand writes it, so no decode of it could be held against cv2's)
+# av1.cpp's status codes for the variants it refuses
 _AV1_NO_FRAME = 9  # av1.cpp: OBUs libaom reads that hold no frame
 _AV1_VARIANTS = {
-    3: "AVIF with superres",
-    7: "layered AVIF (more than one operating point; its layers after "
-       "the first are AV1 inter frames, which this intra decoder does not "
-       "decode)",
+    3: "AVIF with superres (no tool at hand writes it, so no decode of it "
+       "could be held against cv2's)",
 }
 
 
@@ -2677,6 +2677,12 @@ class _AvifMeta:
                     if index > len(props) or (not index and v >> bits):
                         raise _Corrupt("AVIF property index out of range, "
                                        "or 0 and essential")
+                    # AV1-AVIF 2.3.2: a1op and lsel essential, a1lx not
+                    kind = props[index - 1][0] if index else None
+                    if (kind == b"a1lx" and v >> bits) or (
+                            kind in (b"a1op", b"lsel") and not v >> bits):
+                        raise _Corrupt(f"AVIF {kind!r} of the wrong "
+                                       "essential flag")
                     if index:
                         assoc[item].append((index, v >> bits))
         return props, assoc
@@ -2739,6 +2745,49 @@ class _AvifMeta:
         _avif_check_dimensions(*ispe)
         return ispe
 
+    def layering(self, item: int) -> tuple[int, int, int | None]:
+        """An AV1 item's operating point (a1op, else 0), the frame libavif
+        takes of it (lsel's layer: its first frame of that spatial id; -1
+        without lsel or with 0xFFFF: the last) and the bytes of the item
+        it hands the decoder (None: all), as libavif's
+        avifCodecDecodeInputFillFromDecoderItem reads a1lx: each layer
+        size given must be smaller than what is left of the item, and an
+        lsel layer within a1lx's layers takes those up to it alone."""
+        props = self.item_props(item)
+        op = self.data[props[b"a1op"][0]] if b"a1op" in props else 0
+        layer, keep, sizes = -1, None, []
+        if b"a1lx" in props:
+            body, _ = props[b"a1lx"]
+            width = 4 if self.data[body] & 1 else 2
+            left = self.file_extents(item)[1]
+            for i in range(3):
+                at = body + 1 + i * width
+                size = int.from_bytes(self.data[at:at + width], "big")
+                if not size:
+                    break
+                if size >= left:
+                    raise _Corrupt("AVIF a1lx layer past the item's size")
+                sizes.append(size)
+                left -= size
+            sizes.append(left)
+        if b"lsel" in props:
+            body, _ = props[b"lsel"]
+            layer = int.from_bytes(self.data[body:body + 2], "big")
+            if layer == 0xFFFF:
+                layer = -1
+            elif sizes:
+                if layer >= len(sizes):
+                    raise _Corrupt("AVIF lsel layer past a1lx's layers")
+                keep = sum(sizes[:layer + 1])
+        return op, layer, keep
+
+    def av1_item(self, item: int) -> tuple[bytes, tuple[int, int]]:
+        """An av01 item's payload as libavif hands it to libaom, and its
+        (operating point, layer) (layering)."""
+        op, layer, keep = self.layering(item)
+        payload = self.payload(item)
+        return payload if keep is None else payload[:keep], (op, layer)
+
     def cells(self, item: int) -> list[int]:
         """The items a grid's dimg reference names, by their index in it
         (libavif's avifFillDimgIdxToItemIdxArray: each index once)."""
@@ -2757,7 +2806,8 @@ class _AvifMeta:
 
     def image(self, item: int) -> dict:
         """An av01 or grid item -> {"cells": the AV1 payloads (one, or the
-        grid's cells in the order of its dimg reference), "grid": (rows,
+        grid's cells in the order of its dimg reference; av1_item),
+        "layering": each cell's (operating point, layer), "grid": (rows,
         columns, output width, output height) or None, a grid's
         "cell_ispes" (each cell's, or None), "config_mono": the monochrome
         flag of the av1C libavif takes (a grid's own, else its first
@@ -2765,11 +2815,11 @@ class _AvifMeta:
         (avifDecoderItemReadAndParse, avifDecoderGenerateImageTiles,
         avifDecoderItemValidateProperties)."""
         props = self.item_props(item)
-        _avif_refuse_layered(props)
         if self.types.get(item) != b"grid":
             if b"av1C" not in props:
                 raise _Corrupt("AVIF item without av1C")
-            return {"cells": [self.payload(item)], "grid": None,
+            payload, layering = self.av1_item(item)
+            return {"cells": [payload], "grid": None, "layering": [layering],
                     "config_mono": _avif_check_config(self.data, props)}
         grid = _avif_image_grid(self.payload(item))
         cells = self.cells(item)
@@ -2780,7 +2830,6 @@ class _AvifMeta:
                 raise _Corrupt("AVIF grid cell not AV1, empty or not read")
             if b"av1C" not in self.item_props(cell):
                 raise _Corrupt("AVIF grid cell without av1C")
-            _avif_refuse_layered(self.item_props(cell))
         config = props.get(b"av1C", self.item_props(cells[0])[b"av1C"])
         config_mono = _avif_check_config(self.data, {**props,
                                                      b"av1C": config})
@@ -2791,8 +2840,10 @@ class _AvifMeta:
             if self.data[body + 1:body + 3] != \
                     self.data[config[0] + 1:config[0] + 3]:
                 raise _Corrupt("AVIF grid cells of different av1C")
-        return {"cells": [self.payload(c) for c in cells], "grid": grid,
+        items = [self.av1_item(c) for c in cells]
+        return {"cells": [payload for payload, _ in items], "grid": grid,
                 "cell_ispes": [self.ispe(c) for c in cells],
+                "layering": [layering for _, layering in items],
                 "config_mono": config_mono}
 
 
@@ -2801,11 +2852,6 @@ def _avif_check_dimensions(width: int, height: int) -> None:
     if (not width or not height or max(width, height) > 32768
             or width * height > 16384 * 16384):
         raise _Corrupt("AVIF size out of libavif's limits")
-
-
-def _avif_refuse_layered(props: dict) -> None:
-    if any(k in props for k in (b"lsel", b"a1lx", b"a1op")):
-        raise NotImplementedError(_AV1_VARIANTS[7] + " is not supported")
 
 
 def _avif_image_grid(payload: bytes) -> tuple[int, int, int, int]:
@@ -3073,8 +3119,13 @@ def _avif_check_property(data: bytes, kind: bytes, body: int, end: int
         if kind == b"a1lx" and size and data[body] & 1:
             need = 13  # 32-bit sizes
         if size < need or (kind == b"irot" and data[body] & 0xFC) or (
-                kind == b"imir" and data[body] & 0xFE):
+                kind in (b"imir", b"a1lx") and data[body] & 0xFE):
             raise _Corrupt(f"AVIF {kind!r} cut short or with reserved bits")
+        layer = int.from_bytes(data[body:body + 2], "big")
+        if (kind == b"a1op" and data[body] > 31) or (
+                kind == b"lsel" and 4 <= layer < 0xFFFF):
+            raise _Corrupt(f"AVIF {kind!r} past AV1's operating points or "
+                           "layers")
 
 
 def _avif_aux_type(data: bytes, props: dict, kind: bytes = b"auxC"
@@ -3138,7 +3189,6 @@ def _avif_track_source(data: bytes, tracks: list) -> dict:
     props = _avif_children(data, *av1(color))
     if b"av1C" not in props:
         raise _Corrupt("AVIF colour track without av1C")
-    _avif_refuse_layered(props)
     # the auxiliary track of the colour track whose auxi, where it has
     # one, names alpha
     alpha = next((tr for tr in tracks if av1(tr) is not None
@@ -3151,6 +3201,7 @@ def _avif_track_source(data: bytes, tracks: list) -> dict:
     nclx = _avif_nclx(data, [(b, e) for k, b, e in _avif_boxes(
         data, *av1(color)) if k == b"colr"])
     out = {"cells": [data[first[0]:first[0] + first[1]]], "grid": None,
+           "layering": [(0, -1)],
            "config_mono": _avif_check_config(data, props), "alpha": None,
            "nclx": nclx, "ispe": color["size"], "source": "track",
            "premultiplied": alpha is not None
@@ -3160,7 +3211,8 @@ def _avif_track_source(data: bytes, tracks: list) -> dict:
     if alpha is not None:
         first = _avif_samples(data, alpha["stbl"])[0]
         out["alpha"] = {"cells": [data[first[0]:first[0] + first[1]]],
-                        "grid": None, "ispe": alpha["size"]}
+                        "grid": None, "layering": [(0, -1)],
+                        "ispe": alpha["size"]}
     return out
 
 
@@ -3170,15 +3222,18 @@ def _avif_container(data: bytes) -> dict:
     AVIF_DECODER_SOURCE_AUTO picks (the moov's track where the major brand
     is avis, or where it is not avif and a moov was read; else meta's
     primary item) -> {"cells": the colour AV1 payloads (one, or a grid's
-    cells), "grid": (rows, columns, output width, output height) or None,
-    a grid's "cell_ispes", "config_mono" (_AvifMeta.image), "alpha": the
-    alpha image (its "cells", "grid", a grid's "cell_ispes" and "ispe") or
+    cells), "layering" (each cell's operating point and layer), "grid":
+    (rows, columns, output width, output height) or None, a grid's
+    "cell_ispes", "config_mono" (_AvifMeta.image), "alpha": the alpha
+    image (its "cells", "layering", "grid", a grid's "cell_ispes" and
+    "ispe") or
     None, "premultiplied": whether the colour is premultiplied by that
     alpha (prem), "nclx": the colour image's colr nclx (_avif_nclx),
     "ispe": the image's size (a track's tkhd size), "source": "item" or
     "track", "frames": the track's samples (1 for an item)}. Raises
     _Corrupt where libavif fails and NotImplementedError for what is
-    refused by name (layered items)."""
+    refused by name (superres, a frame libavif scales, premultiplied
+    alpha it would convert through libyuv)."""
     top, major, boxes = _avif_top(data)
     meta = _AvifMeta(data, *top[b"meta"]) if b"meta" in top else None
     tracks = _avif_tracks(data, *top[b"moov"]) if b"moov" in top else []
@@ -3231,8 +3286,9 @@ def _avif_image_infos(image: dict, alpha: bool = False,
     list, its index in ``image["reused"]``; _avif_check_alpha does not
     decode it)."""
     infos, image["reused"] = [], set()
+    layering = image["layering"]
     for k, cell in enumerate(image["cells"]):
-        rc, info = native.av1_info(cell)
+        rc, info = native.av1_info(cell, *layering[k])
         if rc == _AV1_NO_FRAME and alpha and previous is not None:
             info = previous
             image["reused"].add(k)
@@ -3277,11 +3333,12 @@ def _avif_planes(image: dict, infos: list, previous: list | None = None,
     colour cell's; _avif_image_infos). -> (planes, the last cell's
     planes)."""
     decoded = []
+    layering = image["layering"]
     for k, (cell, info) in enumerate(zip(image["cells"], infos)):
         if k in image["reused"]:
             decoded.append(previous)
             continue
-        rc, previous = native.av1_decode(cell, info)
+        rc, previous = native.av1_decode(cell, info, *layering[k])
         if rc:
             raise _Corrupt("AV1 frame libaom does not decode")
         decoded.append(previous)
@@ -3302,8 +3359,9 @@ def _avif_planes(image: dict, infos: list, previous: list | None = None,
 def _avif_check_alpha(image: dict) -> None:
     """Decode each alpha cell, but those of no frame (_avif_image_infos):
     a cell libaom fails on fails the read; the planes are dropped."""
+    layering = image["layering"]
     for k, cell in enumerate(image["cells"]):
-        if k not in image["reused"] and native.av1_check(cell):
+        if k not in image["reused"] and native.av1_check(cell, *layering[k]):
             raise _Corrupt("AVIF alpha plane libaom does not decode")
 
 

@@ -14,7 +14,8 @@ OpenJPEG reads, and Part 15's HT code-blocks), ``bmp.cpp``
 BMP's RLE8 and RLE4 bitmaps, ``gif.cpp`` GIF's LZW as OpenCV's own GIF
 decoder reads it, ``webp.cpp`` WebP (VP8L, VP8 with libwebp's fancy
 upsampling, the ALPH stream's check), ``hdr.cpp`` Radiance HDR's
-scanlines and ``av1.cpp`` the AV1 intra frames of AVIF images (and
+scanlines and ``av1.cpp`` the AV1 frames (intra, and the inter frames of
+layered items) of AVIF images (and
 libavif's YUV -> RGB through libyuv), for the port's image reader
 (io/images.py), which replaces cv2.imread.
 Each builds with g++ at first use into ``ocr_inference_tpu_torch/_build/``
@@ -817,11 +818,11 @@ def _av1_lib() -> ctypes.CDLL:
     global _AV1_LIB
     if _AV1_LIB is None:
         _AV1_LIB = _load("av1.cpp", {
-            "ocr_av1_info": (ctypes.c_int, [_U8P, ctypes.c_int64, _I32P]),
-            "ocr_av1_decode": (ctypes.c_int, [_U8P, ctypes.c_int64, _U16P,
-                                              _U16P, _U16P]),
-            "ocr_av1_decode_counts": (ctypes.c_int, [
-                _U8P, ctypes.c_int64, _U16P, _U16P, _U16P, _I32P]),
+            "ocr_av1_info_layer": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _I32P]),
+            "ocr_av1_decode_layer": (ctypes.c_int, [
+                _U8P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _U16P,
+                _U16P, _U16P, _I32P]),
             "ocr_avif_yuv_to_rgb": (ctypes.c_int, [
                 _U16P, _U16P, _U16P, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]),
@@ -829,17 +830,22 @@ def _av1_lib() -> ctypes.CDLL:
     return _AV1_LIB
 
 
-def av1_info(obus: bytes) -> tuple[int, np.ndarray]:
-    """The headers of the first frame of an AV1 OBU stream, read by
-    av1.cpp -> (status, info): status 0, -1 for a stream libaom fails on,
-    or the code of a variant av1.cpp refuses; info as ocr_av1_info lists
-    it (width, height, bit depth, monochrome, subsampling x and y, full
-    range, matrix coefficients, colour primaries, transfer
-    characteristics, coding tools, superblock size, tiles)."""
+def av1_info(obus: bytes, op: int = 0, layer: int = -1
+             ) -> tuple[int, np.ndarray]:
+    """The headers of the frame an AV1 OBU stream gives, read by av1.cpp
+    (every frame's headers, the tiles skipped) -> (status, info): status
+    0, -1 for a stream libaom fails on, or the code of a variant av1.cpp
+    refuses; info as ocr_av1_info_layer lists it (width, height, bit
+    depth, monochrome, subsampling x and y, full range, matrix
+    coefficients, colour primaries, transfer characteristics, coding
+    tools, superblock size, tiles). ``op`` is the operating point
+    (OBUs of layers outside it are dropped) and ``layer`` the frame given:
+    -1 the last shown, as libaom gives libavif a whole item; else the
+    first shown of that spatial id, as libavif picks an lsel layer."""
     src = np.frombuffer(obus, np.uint8)
     info = np.zeros(13, np.int32)
-    rc = _av1_lib().ocr_av1_info(src.ctypes.data_as(_U8P), src.size,
-                                 info.ctypes.data_as(_I32P))
+    rc = _av1_lib().ocr_av1_info_layer(src.ctypes.data_as(_U8P), src.size,
+                                       op, layer, info.ctypes.data_as(_I32P))
     return rc, info
 
 
@@ -856,46 +862,62 @@ def _av1_out(planes: list[np.ndarray], info: np.ndarray) -> list[np.ndarray]:
     return [p.astype(np.uint8) for p in planes] if info[2] == 8 else planes
 
 
-def av1_decode(obus: bytes, info: np.ndarray
+def av1_decode(obus: bytes, info: np.ndarray, op: int = 0, layer: int = -1
                ) -> tuple[int, list[np.ndarray]]:
-    """Decode the first frame of an AV1 OBU stream whose headers gave
-    ``info`` (av1_info) -> (status, [Y] or [Y, U, V] planes): uint8 at
-    8 bits, uint16 samples of 10 or 12 bits above, film grain applied."""
-    planes = _av1_planes(info)
-    src = np.frombuffer(obus, np.uint8)
-    rc = _av1_lib().ocr_av1_decode(
-        src.ctypes.data_as(_U8P), src.size,
-        *(p.ctypes.data_as(_U16P) for p in planes))
-    return rc, _av1_out(planes, info)
+    """Decode the frame of an AV1 OBU stream whose headers gave ``info``
+    (av1_info, with the same ``op`` and ``layer``) -> (status, [Y] or
+    [Y, U, V] planes): uint8 at 8 bits, uint16 samples of 10 or 12 bits
+    above, film grain applied."""
+    rc, planes, _ = av1_decode_counts(obus, info, op, layer)
+    return rc, planes
 
 
-def av1_check(obus: bytes) -> int:
+def av1_check(obus: bytes, op: int = 0, layer: int = -1) -> int:
     """Decode an AV1 OBU stream as av1_decode does, keeping no planes ->
     its status: what an alpha item needs (it is decoded, then dropped), of
-    whatever size and format its last frame is."""
+    whatever size and format its frame is."""
     src = np.frombuffer(obus, np.uint8)
     null = ctypes.cast(None, _U16P)
-    return _av1_lib().ocr_av1_decode(src.ctypes.data_as(_U8P), src.size,
-                                     null, null, null)
+    return _av1_lib().ocr_av1_decode_layer(
+        src.ctypes.data_as(_U8P), src.size, op, layer, null, null, null,
+        ctypes.cast(None, _I32P))
 
 
-def av1_decode_counts(obus: bytes, info: np.ndarray
+# the inter tools av1.cpp counts (ocr_av1_decode_layer's counts[28..57])
+AV1_INTER_COUNTS = (
+    "frames", "shown_existing", "inter_blocks", "nearestmv", "nearmv",
+    "globalmv", "newmv", "nearest_nearestmv", "near_nearmv",
+    "nearest_newmv", "new_nearestmv", "near_newmv", "new_nearmv",
+    "global_globalmv", "new_newmv", "compound_wedge", "compound_diffwtd",
+    "compound_distance", "compound_average", "interintra_smooth",
+    "interintra_wedge", "obmc", "local_warp", "global_warp",
+    "dual_filter", "var_tx_splits", "skip_mode", "scaled_reference",
+    "intra_in_inter", "inter_frames")
+
+
+def av1_decode_counts(obus: bytes, info: np.ndarray, op: int = 0,
+                      layer: int = -1
                       ) -> tuple[int, list[np.ndarray], dict[str, int]]:
-    """av1_decode, and how often the frame used each tool this decoder took
-    last (av1.cpp ocr_av1_decode_counts): blocks with a Y palette, with a
-    UV palette and intra block copies, Wiener and self-guided restoration
-    units, the Y and UV palettes by size (lists for sizes 2 to 8) and the
-    intra block copies narrower or shorter than 8 ("intrabc_sub8"), and
-    the film grain it applied: "grain" 1 where it did, the number of Y, Cb
-    and Cr scaling points ("grain_points"), "grain_from_luma"
-    (chroma_scaling_from_luma), "grain_overlap", "grain_clip"
-    (clip_to_restricted_range) and "grain_ar_lag". For tests and the card
-    check; read_image does not ask."""
+    """av1_decode, and how often the stream's frames used each tool this
+    decoder took last (av1.cpp ocr_av1_decode_layer): blocks with a Y
+    palette, with a UV palette and intra block copies, Wiener and
+    self-guided restoration units, the Y and UV palettes by size (lists
+    for sizes 2 to 8) and the intra block copies narrower or shorter than
+    8 ("intrabc_sub8"), the film grain it applied: "grain" 1 where it did,
+    the number of Y, Cb and Cr scaling points ("grain_points"),
+    "grain_from_luma" (chroma_scaling_from_luma), "grain_overlap",
+    "grain_clip" (clip_to_restricted_range) and "grain_ar_lag"; and the
+    inter tools, AV1_INTER_COUNTS (frames decoded and shown again, inter
+    blocks and their modes, compound blocks by type, inter-intra blocks,
+    OBMC, local and global warp, blocks of two interpolation filters,
+    var-tx splits, skip mode, scaled references, intra blocks of inter
+    frames, inter frames). For tests and the card check; read_image does
+    not ask."""
     planes = _av1_planes(info)
-    counts = np.zeros(28, np.int32)
+    counts = np.zeros(64, np.int32)
     src = np.frombuffer(obus, np.uint8)
-    rc = _av1_lib().ocr_av1_decode_counts(
-        src.ctypes.data_as(_U8P), src.size,
+    rc = _av1_lib().ocr_av1_decode_layer(
+        src.ctypes.data_as(_U8P), src.size, op, layer,
         *(p.ctypes.data_as(_U16P) for p in planes),
         counts.ctypes.data_as(_I32P))
     names = ("palette_y", "palette_uv", "intrabc", "wiener", "self_guided")
@@ -907,6 +929,8 @@ def av1_decode_counts(obus: bytes, info: np.ndarray
     used["grain_points"] = [int(c) for c in counts[21:24]]
     for name, c in zip(("grain_from_luma", "grain_overlap", "grain_clip",
                         "grain_ar_lag"), counts[24:28]):
+        used[name] = int(c)
+    for name, c in zip(AV1_INTER_COUNTS, counts[28:58]):
         used[name] = int(c)
     return rc, _av1_out(planes, info), used
 

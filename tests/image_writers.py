@@ -2341,12 +2341,27 @@ def libavif_encode_grid(cells: list[list[np.ndarray]], columns: int,
     return _libavif_run(lib, encoder, images, write)
 
 
+def ispe_scaled_avif(path, seed: int = 0) -> None:
+    """A 64x64 AVIF as cv2 writes it with its ispe set to 64x63: libavif
+    scales the frame to the ispe, a variant the port's AVIF reader refuses
+    by name ("ispe property differs")."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    dots = np.where(rng.random((64, 64)) < 0.3, 40, 235).astype(np.uint8)
+    ok, buf = cv2.imencode(".avif", np.repeat(dots[..., None], 3, 2))
+    assert ok
+    data = buf.tobytes()
+    at = data.index(b"ispe") + 12  # its height
+    Path(path).write_bytes(data[:at] + (63).to_bytes(4, "big")
+                           + data[at + 4:])
+
+
 def layered_avif(path, seed: int = 0) -> None:
     """A 64x64 AVIF of two layers as libavif's encoder writes it
     (extraLayerCount 1: a key frame at quality 10, then the second layer,
-    an inter frame, at quality 90; a1lx, lsel), a variant the port's AVIF
-    reader refuses by name: its layers after the first need AV1's inter
-    prediction."""
+    an inter frame, at quality 90; a1lx): its second layer is an AV1 inter
+    frame."""
     import ctypes
 
     lib = _libavif()
@@ -2367,6 +2382,103 @@ def layered_avif(path, seed: int = 0) -> None:
         return lib.avifEncoderFinish(encoder, out)
 
     Path(path).write_bytes(_libavif_run(lib, encoder, [image], write))
+
+
+def layered_avif_bytes(layers: list[list[np.ndarray]], depth: int = 8,
+                       layout: str = "420", qualities: list[int] | None = None,
+                       speed: int = 6, options: dict | None = None,
+                       scaling: list[tuple[int, int]] | None = None,
+                       alpha: list[np.ndarray] | None = None) -> bytes:
+    """A layered AVIF as libavif's encoder writes it (extraLayerCount
+    len(layers) - 1): each layer's planes (as libavif_encode takes them)
+    added in turn at its quality (default 10 for all but the last, 90),
+    at libaom ``speed`` with its codec-specific ``options``; ``scaling``
+    gives each layer's scalingMode (n, d) (libaom codes that layer at n/d
+    of the size; a later layer then predicts from a scaled reference),
+    ``alpha`` each layer's alpha plane."""
+    import ctypes
+
+    lib = _libavif()
+    images = [_libavif_image(lib, planes, depth, layout, True, 2,
+                             None if alpha is None else alpha[k])
+              for k, planes in enumerate(layers)]
+    qualities = qualities or [10] * (len(layers) - 1) + [90]
+    encoder = _libavif_encoder(lib, speed, qualities[-1], options)
+    ctypes.c_uint32.from_address(encoder + 28).value = len(layers) - 1
+
+    def write(out):
+        for k, (image, quality) in enumerate(zip(images, qualities)):
+            ctypes.c_int32.from_address(encoder + 32).value = quality
+            ctypes.c_int32.from_address(encoder + 36).value = quality
+            if scaling is not None:  # avifEncoder.scalingMode, both axes
+                n, d = scaling[k]
+                for at, v in ((68, n), (72, d), (76, n), (80, d)):
+                    ctypes.c_int32.from_address(encoder + at).value = v
+            rc = lib.avifEncoderAddImage(encoder, image, 1, 0)
+            if rc:
+                return rc
+        return lib.avifEncoderFinish(encoder, out)
+
+    return _libavif_run(lib, encoder, images, write)
+
+
+def libavif_sequence_bytes(frames: list[list[np.ndarray]], speed: int = 6,
+                           quality: int = 60, options: dict | None = None
+                           ) -> bytes:
+    """An AVIF image sequence (avis) of 8-bit 4:2:0 frames as libavif's
+    encoder writes it: libaom with its lookahead, so alt-ref frames,
+    compound prediction and frames shown again."""
+    lib = _libavif()
+    images = [_libavif_image(lib, planes, 8, "420", True, 2, None)
+              for planes in frames]
+    encoder = _libavif_encoder(lib, speed, quality, options)
+
+    def write(out):
+        for image in images:
+            rc = lib.avifEncoderAddImage(encoder, image, 1, 0)
+            if rc:
+                return rc
+        return lib.avifEncoderFinish(encoder, out)
+
+    return _libavif_run(lib, encoder, images, write)
+
+
+def libavif_decode(data: bytes) -> list[np.ndarray] | None:
+    """libavif's own decode of an AVIF (avifDecoderReadMemory, its
+    defaults) -> its Y, U and V planes (Y alone for 4:0:0) at the stream's
+    depth (uint8 at 8 bits, uint16 above), or None where it fails."""
+    import ctypes
+
+    lib = _libavif()
+    vp = ctypes.c_void_p
+    for name, res, args in (
+            ("avifDecoderCreate", vp, []), ("avifImageCreateEmpty", vp, []),
+            ("avifDecoderReadMemory", ctypes.c_int,
+             [vp, vp, vp, ctypes.c_size_t]),
+            ("avifDecoderDestroy", None, [vp])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    decoder, image = lib.avifDecoderCreate(), lib.avifImageCreateEmpty()
+    buf = ctypes.create_string_buffer(data, len(data))
+    try:
+        if lib.avifDecoderReadMemory(decoder, image, buf, len(data)):
+            return None
+        w, h, depth, layout = (ctypes.c_uint32.from_address(image + at).value
+                               for at in (0, 4, 8, 12))
+        sx, sy = {1: (0, 0), 2: (1, 0), 3: (1, 1), 4: (1, 1)}[layout]
+        planes = []
+        for p in range(1 if layout == 4 else 3):
+            at = ctypes.c_void_p.from_address(image + 24 + 8 * p).value
+            row = ctypes.c_uint32.from_address(image + 48 + 4 * p).value
+            pw, ph = (w, h) if p == 0 else ((w + sx) >> sx, (h + sy) >> sy)
+            raw = np.frombuffer(ctypes.string_at(at, row * ph),
+                                np.uint8).reshape(ph, row)
+            planes.append(raw.view(np.uint16 if depth > 8 else np.uint8)
+                          [:, :pw].copy())
+        return planes
+    finally:
+        lib.avifDecoderDestroy(decoder)
+        lib.avifImageDestroy(image)
 
 
 def isobmff_boxes(data: bytes, start: int = 0, end: int | None = None,
@@ -2457,6 +2569,64 @@ def avif_pad_meta(data: bytes, pad: int) -> bytes:
                                                    value >= meta_end):
                 out = put_uint(out, at, nbytes, offset + pad)
     return out
+
+
+def avif_add_property(data: bytes, item: int, kind: bytes, body: bytes,
+                      essential: bool) -> bytes:
+    """An AVIF file with a property box (``kind``, ``body``) appended to
+    ipco and associated with ``item`` in ipma (after its others, marked
+    essential or not), the boxes around it and the items' file offsets
+    moved to fit."""
+    boxes = isobmff_boxes(data)
+    where = {p: (a, e) for p, a, e in boxes}
+    meta, iprp = where[(b"meta",)], where[(b"meta", b"iprp")]
+    ipco, ipma = where[(b"meta", b"iprp", b"ipco")], where[(b"meta", b"iprp",
+                                                           b"ipma")]
+    count = sum(1 for p, _, _ in boxes if len(p) == 4 and p[:3] == (
+        b"meta", b"iprp", b"ipco"))
+    prop = struct.pack(">I4s", 8 + len(body), kind) + body
+    # ipma: version, flags, entries of (item, count, associations)
+    at = ipma[0] + 8
+    version, flags = data[at], int.from_bytes(data[at + 1:at + 4], "big")
+    width, wide = (2 if version < 1 else 4), flags & 1
+    out, p = bytearray(data[ipma[0]:at + 4]), at + 4
+    entries = int.from_bytes(data[p:p + 4], "big")
+    out += data[p:p + 4]
+    p += 4
+    for _ in range(entries):
+        this = int.from_bytes(data[p:p + width], "big")
+        n = data[p + width]
+        size = n * (2 if wide else 1)
+        assoc = data[p + width + 1:p + width + 1 + size]
+        if this == item:
+            index = count + 1
+            assoc += ((index | (essential << 15)).to_bytes(2, "big") if wide
+                      else bytes([index | (essential << 7)]))
+            n += 1
+        out += data[p:p + width] + bytes([n]) + assoc
+        p += width + 1 + size
+    out = bytes(out)
+    out = struct.pack(">I", len(out)) + out[4:]
+    grow = len(prop) + len(out) - (ipma[1] - ipma[0])
+    new = (data[:ipco[1]] + prop + data[ipco[1]:ipma[0]] + out
+           + data[ipma[1]:])
+    new = put_uint(new, ipco[0], 4, ipco[1] - ipco[0] + len(prop))
+    new = put_uint(new, iprp[0], 4, iprp[1] - iprp[0] + grow)
+    new = put_uint(new, meta[0], 4, meta[1] - meta[0] + grow)
+    fields = iloc_fields(data)
+    for entry in fields.values():
+        if entry["method"]:
+            continue
+        (at, nbytes) = entry["base"]
+        value = int.from_bytes(data[at:at + nbytes], "big") if nbytes else 0
+        if nbytes and value >= meta[1]:
+            new = put_uint(new, at, nbytes, value + grow)
+        for (at, nbytes), _ in entry["extents"]:
+            offset = int.from_bytes(data[at:at + nbytes], "big")
+            if value + offset >= meta[1] and not (entry["base"][1] and
+                                                  value >= meta[1]):
+                new = put_uint(new, at, nbytes, offset + grow)
+    return new
 
 
 def avif_crop_grid(data: bytes, width: int, height: int) -> bytes:

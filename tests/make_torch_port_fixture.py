@@ -937,6 +937,14 @@ def flat_page(img):
     return np.where(ink[..., None], 40, 235).astype(np.uint8).repeat(3, 2)
 
 
+def shifted_page(img: np.ndarray, k: int) -> np.ndarray:
+    """A page moved k rows down and 2k columns right on paper (235)."""
+    out = np.full(img.shape, 235, np.uint8)
+    h, w = img.shape[:2]
+    out[k:, 2 * k:] = img[:h - k, :w - 2 * k]
+    return out
+
+
 def write_image_files(pages) -> dict[str, str]:
     """Write the page files and the bench JPEG and JP2; returns {file:
     kind}."""
@@ -1025,6 +1033,13 @@ def write_image_files(pages) -> dict[str, str]:
     (IMAGES / "bench_cfg4_10bit.avif").write_bytes(data.tobytes())
     kinds["bench_cfg4_10bit.avif"] = "AVIF of 10 bits (cv2 from uint16), " \
         "bench.py config 4 page"
+    from tests.image_writers import layered_avif_bytes, ycbcr_planes
+    (IMAGES / "bench_cfg4_layered.avif").write_bytes(layered_avif_bytes(
+        [ycbcr_planes(shifted_page(bench[..., ::-1], k), "420", 8)
+         for k in (1, 0)], qualities=[10, 40], speed=6))
+    kinds["bench_cfg4_layered.avif"] = "AVIF layered item (libavif " \
+        "extraLayerCount 1): bench.py config 4 page shifted, then as it " \
+        "is; an AV1 inter frame"
     kinds.update(bench_htj2k(bench[..., ::-1]))
     return kinds
 
@@ -1533,7 +1548,8 @@ def avif_files(folder, by_name, flat) -> dict[str, str]:
     from PIL import Image
 
     from tests.image_writers import (
-        avif_crop_grid, libavif_encode_grid, ycbcr_planes,
+        avif_crop_grid, layered_avif_bytes, libavif_encode_grid,
+        ycbcr_planes,
     )
 
     kinds = {}
@@ -1622,6 +1638,15 @@ def avif_files(folder, by_name, flat) -> dict[str, str]:
     kinds["skew_2deg_seq.avif"] = "AVIF image sequence (Pillow save_all, " \
         "major brand avis) of three RGBA frames, the scanned JPEG page " \
         "first: its colour and alpha tracks' first samples"
+    # a layered item (libavif extraLayerCount 2): the page shifted by (4, 2)
+    # and (2, 1) pixels, then as it is, at qualities 20, 40 and 80; its
+    # second and third layers are AV1 inter frames
+    (folder / "clean_a_layered.avif").write_bytes(layered_avif_bytes(
+        [ycbcr_planes(shifted_page(flat["clean_a"], k), "420", 8)
+         for k in (2, 1, 0)], qualities=[20, 40, 80], speed=6))
+    kinds["clean_a_layered.avif"] = "AVIF layered item (libavif " \
+        "extraLayerCount 2, a1lx): the page shifted, then as it is; two " \
+        "AV1 inter frames"
     data = (folder / "clean_a_speed9.avif").read_bytes()
     (IMAGES / "none" / "clean_a_cut.avif").write_bytes(
         data[:len(data) * 3 // 4])
@@ -1663,7 +1688,8 @@ def images(only: list[str] = ()) -> int:
     files = sorted((IMAGES / "pages").iterdir()) + [
         IMAGES / "bench_cfg4.jpg", IMAGES / "bench_cfg4.jp2",
         IMAGES / "bench_cfg4.webp", IMAGES / "bench_cfg4.avif",
-        IMAGES / "bench_cfg4_10bit.avif", IMAGES / "bench_cfg4_ht.j2k"] + sorted(
+        IMAGES / "bench_cfg4_10bit.avif", IMAGES / "bench_cfg4_layered.avif",
+        IMAGES / "bench_cfg4_ht.j2k"] + sorted(
         (IMAGES / "none").iterdir())
     total = sum(p.stat().st_size for p in files)
     assert total < 6400 * 1024, f"{total} bytes of image files"

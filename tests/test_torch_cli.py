@@ -29,8 +29,8 @@ from ocr_inference_tpu_torch.io.artifacts import write_png
 from ocr_inference_tpu_torch.io.images import read_image, unsupported
 from tests import make_refpipe_fixture as fx
 from tests.image_writers import (
-    jpeg2000_tiff, layered_avif, screen_content_avif, sequence_avif,
-    ten_bit_avif, write_tiff,
+    ispe_scaled_avif, jpeg2000_tiff, layered_avif, screen_content_avif,
+    sequence_avif, ten_bit_avif, write_tiff,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -155,16 +155,18 @@ def test_layout_mode_with_seeded_weights(job, tmp_path):
 def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
                                                        capsys):
     """A page of a variant the port does not decode (a JPEG 2000 TIFF named
-    .jpg) and a layered AVIF are refused by name before any model loads;
-    baseline JPEG pages are read (test_jpeg_and_tiff_pages_equal_jax_cli),
-    and BMP, WebP, cv2's default AVIF pages, AVIF pages with
-    screen-content tools, AVIF pages of 10 bits and AVIF image sequences,
-    once refused here, are read as cv2 reads them."""
+    .jpg) and an AVIF whose ispe differs from its frame (libavif scales
+    it) are refused by name before any model loads; baseline JPEG pages
+    are read (test_jpeg_and_tiff_pages_equal_jax_cli), and BMP, WebP,
+    cv2's default AVIF pages, AVIF pages with screen-content tools, AVIF
+    pages of 10 bits, AVIF image sequences and layered AVIF pages (AV1
+    inter frames), once refused here, are read as cv2 reads them."""
     folder = tmp_path / "mixed"
     folder.mkdir()
     (folder / "a.png").write_bytes((job / "pages" / "page0.png").read_bytes())
     (folder / "b.jpg").write_bytes(jpeg2000_tiff())
-    layered_avif(folder / "c.avif")
+    ispe_scaled_avif(folder / "c.avif")
+    layered_avif(folder / "l.avif")
     sequence_avif(folder / "i.avif")
     ten_bit_avif(folder / "h.avif")
     cv2.imwrite(str(folder / "d.bmp"), np.zeros((8, 8, 3), np.uint8))
@@ -177,7 +179,8 @@ def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
     assert unsupported(folder / "g.avif") is None
     assert unsupported(folder / "h.avif") is None
     assert unsupported(folder / "i.avif") is None
-    for name in ("h.avif", "i.avif"):
+    assert unsupported(folder / "l.avif") is None
+    for name in ("h.avif", "i.avif", "l.avif"):
         np.testing.assert_array_equal(
             read_image(folder / name),
             cv2.cvtColor(cv2.imread(str(folder / name)), cv2.COLOR_BGR2RGB))
@@ -191,7 +194,7 @@ def test_jpeg_pages_are_refused_before_any_model_loads(job, tmp_path,
         message = str(exit_info.value.code)
         assert f"{name} (" in message
         assert ("JPEG 2000 in TIFF" if name == "b.jpg"
-                else "layered AVIF") in message
+                else "ispe property differs") in message
     assert not (tmp_path / "out").exists()
 
 

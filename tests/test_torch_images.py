@@ -25,7 +25,8 @@ from ocr_inference_tpu_torch.io.images import (
 from tests.htj2k_writer import htj2k_encode, jph_file
 from tests.image_writers import (
     bmp_file, bmp_rle8, j2k_ht_flagged, j2k_mcc, j2k_mco, j2k_mct, jp2_file,
-    layered_avif, openjpeg_encode, pam_file, pnm_file, screen_content_avif,
+    ispe_scaled_avif, layered_avif, openjpeg_encode, pam_file, pnm_file,
+    screen_content_avif,
     sequence_avif, ten_bit_avif,
     write_adam7_png,
 )
@@ -228,16 +229,21 @@ def test_unreadable_files_give_none(tmp_path):
 
 
 def test_other_formats_and_interlaced_png_raise(tmp_path):
-    """A layered AVIF is refused by name; JPEG, TIFF, Adam7 PNG, BMP, WebP,
-    GIF, cv2's default AVIF, an AVIF with screen-content tools, one of 10
-    bits and an AVIF image sequence, once refused, now read as cv2 reads
+    """An AVIF whose ispe differs from its frame is refused by name; JPEG,
+    TIFF, Adam7 PNG, BMP, WebP, GIF, cv2's default AVIF, an AVIF with
+    screen-content tools, one of 10 bits, an AVIF image sequence and a
+    layered AVIF (AV1 inter frames), once refused, now read as cv2 reads
     them."""
     img = np.random.default_rng(5).integers(0, 256, (16, 24, 3), np.uint8)
+    path = tmp_path / "scaled.avif"
+    ispe_scaled_avif(path)
+    assert image_format(path) == "AVIF"
+    with pytest.raises(NotImplementedError, match="ispe property differs"):
+        read_image(path)
     path = tmp_path / "layered.avif"
     layered_avif(path)
     assert image_format(path) == "AVIF"
-    with pytest.raises(NotImplementedError, match="layered AVIF"):
-        read_image(path)
+    _assert_same_as_cv2(path)
     path = tmp_path / "frames.avif"
     sequence_avif(path)
     assert image_format(path) == "AVIF"

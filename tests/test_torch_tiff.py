@@ -21,7 +21,8 @@ from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
 from tests.image_writers import (
-    ccitt_2d, jpeg_arith, layered_avif, old_style_lzw, screen_content_avif,
+    ccitt_2d, ispe_scaled_avif, jpeg_arith, layered_avif, old_style_lzw,
+    screen_content_avif,
     sequence_avif, split_jpeg_tables, ten_bit_avif, write_tiff,
 )
 
@@ -305,7 +306,10 @@ def test_bigtiff_and_other_formats_refused_by_name(tmp_path):
     _assert_same_as_cv2(path)
     path = tmp_path / "layered.avif"
     layered_avif(path)
-    with pytest.raises(NotImplementedError, match="layered AVIF"):
+    _assert_same_as_cv2(path)
+    path = tmp_path / "scaled.avif"
+    ispe_scaled_avif(path)
+    with pytest.raises(NotImplementedError, match="ispe property differs"):
         read_image(path)
 
 

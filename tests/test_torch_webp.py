@@ -20,7 +20,8 @@ from ocr_inference_tpu_torch.io.images import (
     image_format, read_image, unsupported,
 )
 from tests.image_writers import (
-    layered_avif, riff_chunks, riff_file, screen_content_avif,
+    ispe_scaled_avif, layered_avif, riff_chunks, riff_file,
+    screen_content_avif,
     sequence_avif, ten_bit_avif, webp_encode,
 )
 
@@ -280,9 +281,11 @@ def test_webp_hand_built_containers(tmp_path):
 
 
 def test_webp_sniffing_and_refusals(tmp_path):
-    """RIFF/WEBP is sniffed by content under any name; cv2's default AVIF
-    reads as cv2 reads it, and one with screen-content tools is refused by
-    name, before and after the WebP readers."""
+    """RIFF/WEBP is sniffed by content under any name; cv2's default AVIF,
+    AVIFs with screen-content tools, of 10 bits, an image sequence and a
+    layered item read as cv2 reads them, and an AVIF whose ispe differs
+    from its frame is refused by name, before and after the WebP
+    readers."""
     img = np.random.default_rng(9).integers(0, 256, (10, 12, 3), np.uint8)
     path = tmp_path / "page.png"
     assert cv2.imwrite(str(tmp_path / "w.webp"), img)
@@ -307,7 +310,11 @@ def test_webp_sniffing_and_refusals(tmp_path):
     np.testing.assert_array_equal(read_image(avif), _cv2_rgb(avif))
     avif = tmp_path / "layered.avif"
     layered_avif(avif)
+    assert image_format(avif) == "AVIF" and unsupported(avif) is None
+    np.testing.assert_array_equal(read_image(avif), _cv2_rgb(avif))
+    avif = tmp_path / "scaled.avif"
+    ispe_scaled_avif(avif)
     assert image_format(avif) == "AVIF"
-    assert "layered AVIF" in unsupported(avif)
-    with pytest.raises(NotImplementedError, match="layered AVIF"):
+    assert "ispe property differs" in unsupported(avif)
+    with pytest.raises(NotImplementedError, match="ispe property differs"):
         read_image(avif)
